@@ -12,14 +12,25 @@ Phases, in order; any failure exits non-zero:
    prints the build time and ``-Xptxas -v``.
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the bench shape (B=64, T=1024, where bench.py times bigru), for layer
-   0 and the later layers in f32 and bf16, and times kernel, plain version
-   and a one-call PyTorch yardstick (nn.GRU) with CUDA events.
-4. slice: writes a seeded Breakfast-shaped dataset and a full-width bigru
-   checkpoint into a temporary directory, repeats phase 3 at the largest
-   forward batch the slice gives the kernel, runs the port's inference CLI
-   on the card (test CSV and dev accuracy, f32 and bf16), checks the launch
-   counts and the CSV, runs the CLI once on the CPU to compare labels, and
-   prints the forward's frames/s.
+   0 (W_in=400) and the later layers (256) in f32 and bf16: the forward in
+   its eval and train forms and the backward.  Times kernel, plain version
+   and a one-call PyTorch yardstick (nn.GRU on a packed sequence: its
+   forward, its forward with autograd on, and ``torch.autograd.grad``
+   through it) with CUDA events, beside each kernel's bound.
+4. slice: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
+   test videos) and a full-width bigru checkpoint into a temporary
+   directory, repeats phase 3's forward check at the largest forward batch
+   the slice gives the kernel, runs the port's inference CLI on the card
+   (test CSV and dev accuracy, f32 and bf16), checks the launch counts and
+   the CSV, runs the CLI once on the CPU to compare labels, and prints the
+   forward's frames/s.
+5. training: repeats phase 3's train-form and backward checks at the
+   largest train batch, runs the port's train CLI on the card (2 epochs,
+   batch 8, f32 and bf16), checks the launch counts (4 train-form forwards
+   and 4 backwards per step, 4 eval-form forwards per dev batch), that the
+   loss is finite and falls from epoch 1 to 2, and that the inference CLI
+   serves the checkpoint; holds one train step's gradients on the card
+   against the same step on the CPU; prints the train step's frames/s.
 
 Prints a ``kernels`` JSON line (headline numbers at the main path's shape,
 every checked shape under ``shapes``), the card's name and power limit, and
@@ -43,8 +54,11 @@ B_BENCH, T_BENCH = 64, 1024  # the shape bench.py times bigru at
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
-KERNEL_SRC = "pytorch_video_action_tpu_torch/csrc/gru_bidir_fwd.cu"
-KERNEL_REPLACES = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:1008"
+FWD_SRC = "pytorch_video_action_tpu_torch/csrc/gru_bidir_fwd.cu"
+BWD_SRC = "pytorch_video_action_tpu_torch/csrc/gru_bidir_bwd.cu"
+FWD_REPLACES = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:1008"
+BWD_REPLACES = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:1190"
+H = 128  # BiGRUConfig: hidden_dim_1 256 = 2 directions x 128
 
 
 def log(*a):
@@ -87,7 +101,7 @@ def phase_build():
 def layer_inputs(t_len, b, w_in, dt, lengths, gen):
     import torch
 
-    h = 128
+    h = H
     k = 1.0 / h ** 0.5
     shapes = [(w_in, 3 * h)] * 2 + [(3 * h,)] * 2 + [(h, 3 * h)] * 2 + [(3 * h,)] * 2
     ws = [((torch.rand(s, generator=gen) * 2 - 1) * k).to("cuda", dt)
@@ -96,11 +110,11 @@ def layer_inputs(t_len, b, w_in, dt, lengths, gen):
     return x, ws, torch.as_tensor(lengths, dtype=torch.int32).cuda()
 
 
-def cudnn_gru(x, ws, lengths):
-    """torch.nn.GRU(bidirectional=True) on a packed sequence with the same
-    weights: the one-call yardstick, timed here only."""
+def cudnn_module(x, ws):
+    """torch.nn.GRU(bidirectional=True) with the same weights, on the card
+    in x's dtype: the yardstick, timed here only, never called by the
+    port."""
     import torch
-    from torch.nn.utils.rnn import pack_padded_sequence
 
     w_in, h = x.shape[2], ws[4].shape[0]
     gru = torch.nn.GRU(w_in, h, bidirectional=True)
@@ -113,7 +127,14 @@ def cudnn_gru(x, ws, lengths):
             getattr(gru, "bias_ih_l0" + sfx).copy_(bi)
             getattr(gru, "bias_hh_l0" + sfx).copy_(bh)
     # moving the module lays its weights out as one cuDNN buffer
-    gru = gru.to("cuda", x.dtype).eval()
+    return gru.to("cuda", x.dtype)
+
+
+def cudnn_gru(x, ws, lengths):
+    """The forward on a packed sequence: one call."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    gru = cudnn_module(x, ws).eval()
     lengths_cpu = lengths.cpu()
 
     def run():
@@ -123,17 +144,64 @@ def cudnn_gru(x, ws, lengths):
     return run
 
 
-def bound(t_len, b, w_in, dt_name):
-    """Least time (ms) the card could take for one layer: each input read
-    once, each output written once, against the peak rates."""
-    h = 128
-    size = 4 if dt_name == "float32" else 2
-    weights = 2 * (w_in * 3 * h + h * 3 * h + 6 * h)
-    n_bytes = (t_len * b * w_in + weights + 2 * t_len * b * h) * size + 4 * b
-    flops = 2 * t_len * b * (w_in + h) * 3 * h * 2
+def cudnn_gru_train(x, ws, lengths, dys):
+    """The forward with autograd on (what training runs) and
+    ``torch.autograd.grad`` of the packed output against the same output
+    gradients (the VJP in one call)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    gru = cudnn_module(x, ws).train()
+    lengths_cpu = lengths.cpu()
+    xg = x.detach().requires_grad_(True)
+    inputs = [xg, *gru.parameters()]
+
+    def fwd():
+        packed = pack_padded_sequence(xg, lengths_cpu, enforce_sorted=False)
+        return gru(packed)[0]
+
+    out = fwd().data
+    dy = pack_padded_sequence(torch.cat(dys, dim=-1), lengths_cpu,
+                              enforce_sorted=False).data
+
+    def bwd():
+        return torch.autograd.grad(out, inputs, dy, retain_graph=True)
+
+    return fwd, bwd
+
+
+def _bound(n_bytes, flops, dt_name):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dt_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound(t_len, b, w_in, dt_name, train=False):
+    """Least time (ms) the card could take for one layer's forward: each
+    input read once, each output (ys, and the residuals in the train form)
+    written once, against the peak rates."""
+    h = H
+    size = 4 if dt_name == "float32" else 2
+    weights = 2 * (w_in * 3 * h + h * 3 * h + 6 * h)
+    outputs = 2 * t_len * b * h * (5 if train else 1)
+    n_bytes = (t_len * b * w_in + weights + outputs) * size + 4 * b
+    flops = 2 * t_len * b * (w_in + h) * 3 * h * 2
+    return _bound(n_bytes, flops, dt_name)
+
+
+def bound_bwd(t_len, b, w_in, dt_name):
+    """Least time (ms) for one layer's backward: x, the weights, ys, the
+    residuals and dy read once, dx and the gradients written once; FLOPs
+    4*T*B*3H*(2*W_in + 2H) (dwi, dx, dwh and the carry product, both
+    directions)."""
+    h = H
+    size = 4 if dt_name == "float32" else 2
+    weights = 2 * (w_in * 3 * h + h * 3 * h + 6 * h)
+    reads = t_len * b * w_in + weights + 2 * t_len * b * h * (1 + 4 + 1)
+    writes = t_len * b * w_in + weights
+    n_bytes = (reads + writes) * size + 4 * b
+    flops = 4 * t_len * b * 3 * h * (2 * w_in + 2 * h)
+    return _bound(n_bytes, flops, dt_name)
 
 
 def check_layer(where, lengths, t_len, w_in, dt_name, gen):
@@ -143,12 +211,12 @@ def check_layer(where, lengths, t_len, w_in, dt_name, gen):
     import torch
 
     from pytorch_video_action_tpu_torch.ops.rnn_fused import (
-        gru_bidir_layer, gru_bidir_layer_ref)
+        gru_bidir_fwd, gru_bidir_layer_ref)
 
     dt = getattr(torch, dt_name)
     b = len(lengths)
     x, ws, lengths = layer_inputs(t_len, b, w_in, dt, lengths, gen)
-    ysf, ysb = gru_bidir_layer(x, *ws, lengths)
+    ysf, ysb = gru_bidir_fwd(x, *ws, lengths)
     torch.cuda.synchronize()
     rf, rb = gru_bidir_layer_ref(x, *ws, lengths)
     err_f = (ysf.float() - rf.float()).abs().max().item()
@@ -156,7 +224,7 @@ def check_layer(where, lengths, t_len, w_in, dt_name, gen):
     pad = (torch.arange(t_len, device="cuda")[:, None]
            >= lengths[None, :].long())
     pad_b = ysb.float().abs()[pad].max().item() if pad.any() else 0.0
-    ms = cuda_ms(lambda: gru_bidir_layer(x, *ws, lengths), 10, 2)
+    ms = cuda_ms(lambda: gru_bidir_fwd(x, *ws, lengths), 10, 2)
     plain_ms = cuda_ms(lambda: gru_bidir_layer_ref(x, *ws, lengths), 2)
     lib_run = cudnn_gru(x, ws, lengths)
     with torch.no_grad():
@@ -186,13 +254,108 @@ def check_layers(where, lengths, t_len, gen):
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
 
 
+def grad_err(got, want):
+    """(max abs error, max error relative to the largest plain element, at
+    least 1) over the backward's nine outputs."""
+    abs_err = rel_err = 0.0
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs().max().item()
+        abs_err = max(abs_err, d)
+        rel_err = max(rel_err, d / max(1.0, w.float().abs().max().item()))
+    return abs_err, rel_err
+
+
+def check_train_layer(where, lengths, t_len, w_in, dt_name, gen):
+    """Hold the train-form forward and the backward against their plain
+    versions on one input, and time each beside its plain version, the
+    nn.GRU yardstick and its bound.  Raises when they disagree.  Returns
+    the rows ``(train_form, backward)`` for the ``kernels`` line."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops.rnn_fused import (
+        gru_bidir_bwd, gru_bidir_fwd, gru_bidir_layer_bwd_ref,
+        gru_bidir_layer_ref)
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    x, ws, lengths = layer_inputs(t_len, b, w_in, dt, lengths, gen)
+    dys = [torch.randn(t_len, b, H, generator=gen).to("cuda", dt)
+           for _ in range(2)]
+    head = f"{where} B={b} T={t_len} W_in={w_in} {dt_name}"
+    tol = TOL[dt_name]
+
+    fwd = gru_bidir_fwd(x, *ws, lengths, train=True)
+    torch.cuda.synchronize()
+    ref = gru_bidir_layer_ref(x, *ws, lengths, train=True)
+    err_fwd = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(fwd, ref))
+    ms = cuda_ms(lambda: gru_bidir_fwd(x, *ws, lengths, train=True), 10, 2)
+    plain_ms = cuda_ms(
+        lambda: gru_bidir_layer_ref(x, *ws, lengths, train=True), 1, 0)
+    lib_fwd, lib_bwd = cudnn_gru_train(x, ws, lengths, dys)
+    lib_ms = cuda_ms(lib_fwd, 10, 2)
+    bound_ms, bound_by = bound(t_len, b, w_in, dt_name, train=True)
+    fwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
+               "T": t_len, "max_abs_err": err_fwd, "tol": tol, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernel] gru_bidir_fwd train form {head}: max|ys,res-ref|="
+        f"{err_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, nn.GRU packed with autograd {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    if not err_fwd <= tol:
+        raise AssertionError(f"train form disagrees with its plain version: "
+                             f"{fwd_row}")
+
+    bargs = (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
+    got = gru_bidir_bwd(*bargs)
+    torch.cuda.synchronize()
+    want = gru_bidir_layer_bwd_ref(*bargs)
+    abs_err, rel_err = grad_err(got, want)
+    again = gru_bidir_bwd(*bargs)
+    identical = all(torch.equal(a, c) for a, c in zip(got, again))
+    ms = cuda_ms(lambda: gru_bidir_bwd(*bargs), 5, 1)
+    plain_ms = cuda_ms(lambda: gru_bidir_layer_bwd_ref(*bargs), 1, 0)
+    lib_ms = cuda_ms(lib_bwd, 5, 1)
+    bound_ms, bound_by = bound_bwd(t_len, b, w_in, dt_name)
+    bwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
+               "T": t_len, "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "tol": tol, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bit_identical_rerun": identical}
+    log(f"[kernel] gru_bidir_bwd {head}: max abs err {abs_err:.3g}, max "
+        f"err / max(1, max|plain|) {rel_err:.3g} (tol {tol}), rerun "
+        f"bit-identical {identical}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, autograd.grad through nn.GRU packed "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not rel_err <= tol:
+        raise AssertionError(f"backward disagrees with its plain version: "
+                             f"{bwd_row}")
+    if not identical:
+        raise AssertionError("two backward runs differ")
+    return fwd_row, bwd_row
+
+
+def check_train_layers(where, lengths, t_len, gen):
+    """``check_train_layer`` for W_in 400 and 256, f32 and bf16: lists of
+    train-form rows and of backward rows."""
+    rows = [check_train_layer(where, lengths, t_len, w_in, dt_name, gen)
+            for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
+    return [r[0] for r in rows], [r[1] for r in rows]
+
+
 def phase_kernels():
     import torch
 
     gen = torch.Generator().manual_seed(0)
     lengths = torch.randint(1, T_BENCH + 1, (B_BENCH,), generator=gen)
     lengths[0], lengths[1] = 1, T_BENCH
-    return check_layers("bench", lengths.tolist(), T_BENCH, gen)
+    lengths = lengths.tolist()
+    t0 = time.time()
+    rows = check_layers("bench", lengths, T_BENCH, gen)
+    train_rows, bwd_rows = check_train_layers("bench", lengths, T_BENCH, gen)
+    log(f"[kernel] bench-shape checks in {time.time() - t0:.1f} s")
+    return rows, train_rows, bwd_rows
 
 
 # ------------------------------------------------------------------ slice
@@ -200,9 +363,10 @@ def phase_kernels():
 N_CLASS = 48
 
 
-def write_dataset(root: str, seed: int = 0) -> None:
-    """Breakfast-shaped tree: 48 classes, 24 dev and 24 test videos of
-    500-2500 frames, gz text features, ground truth and segment.txt."""
+def write_dataset(root: str, seed: int = 0, train: bool = True) -> None:
+    """Breakfast-shaped tree: 48 classes, 24 dev and 24 test videos (and 48
+    train videos unless ``train`` is False) of 500-2500 frames, gz text
+    features, ground truth and segment.txt."""
     rng = np.random.default_rng(seed)
     names = ["SIL"] + [f"action_{i:02d}" for i in range(1, N_CLASS)]
     means = rng.normal(0.0, 1.0, size=(N_CLASS, 400)).astype(np.float32)
@@ -221,11 +385,17 @@ def write_dataset(root: str, seed: int = 0) -> None:
         feats = means[labels] + rng.normal(0, 0.5, (t_len, 400))
         return feats.astype(np.float32), labels
 
+    # (part, videos, file-name letter, bundle); train last, so that the dev
+    # and test videos do not depend on whether it is written
+    parts = [("dev", 24, "D", "splits/new_splits/dev.split0.bundle"),
+             ("test", 24, "T", "splits/splits/test.split1.bundle")]
+    if train:
+        parts.append(("train", 48, "P", "splits/new_splits/train.split0.bundle"))
     seg_lines = []
-    for part, count in (("dev", 24), ("test", 24)):
+    for part, count, letter, bundle in parts:
         files = []
         for i in range(count):
-            stem = f"{part[0].upper()}{i:02d}_cam01_{part[0].upper()}{i:02d}_cereals"
+            stem = f"{letter}{i:02d}_cam01_{letter}{i:02d}_cereals"
             feats, labels = video()
             with gzip.open(os.path.join(root, "data", f"{stem}.gz"), "wb",
                            compresslevel=1) as f:
@@ -240,8 +410,6 @@ def write_dataset(root: str, seed: int = 0) -> None:
                 bounds = [start] + [t for t in range(start + 1, end)
                                     if labels[t] != labels[t - 1]] + [end]
                 seg_lines.append(" ".join(map(str, bounds)))
-        bundle = ("splits/new_splits/dev.split0.bundle" if part == "dev"
-                  else "splits/splits/test.split1.bundle")
         with open(os.path.join(root, bundle), "w") as f:
             f.write("#bundle\n" + "".join(
                 f"./data/groundTruth/{s}.txt\n" for s in files))
@@ -264,7 +432,9 @@ def read_csv_labels(path: str) -> list[int]:
     return out
 
 
-def phase_slice(card: str):
+def phase_slice(card: str, root: str):
+    """The inference slice on the dataset under ``root`` (the cwd).
+    Returns the eval-form launches of its CLI runs and its kernel rows."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
@@ -275,94 +445,277 @@ def phase_slice(card: str):
         forward_batches, frame_predictions)
     from pytorch_video_action_tpu_torch.models import build_model
     from pytorch_video_action_tpu_torch.models.params import to_jax_params
-    from pytorch_video_action_tpu_torch.ops.rnn_fused import gru_bidir_layer
+    from pytorch_video_action_tpu_torch.ops.rnn_fused import gru_bidir_fwd
     from pytorch_video_action_tpu_torch.train.checkpoint import save_params
 
     launches = 0
-    with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
-        t0 = time.time()
-        write_dataset(root)
-        model = build_model("bigru", N_CLASS,
-                            generator=torch.Generator().manual_seed(0))
-        name = "bigru_00.00_dev"
-        save_params(os.path.join(root, "models", f"{name}.npz"),
-                    to_jax_params("bigru", model.state_dict()))
-        log(f"[slice] dataset and checkpoint written in {time.time() - t0:.1f} s")
-        base = ["--pretrained_model", name, "--prob", "big",
-                "--data_dir", os.path.join(root, "data"), "--annot_path", root]
-        n_segments = sum(len(s) - 1 for s in
-                         load_segment_file(os.path.join(root, "segment.txt")))
-        datasets = {
-            "test": VideoDataset(data_dir="data", annot_path=root, part="test",
-                                 split=1, mode=None, verbose=False),
-            "dev": VideoDataset(data_dir="data", annot_path=root, part="dev",
-                                split=0, mode="active", verbose=False)}
+    model = build_model("bigru", N_CLASS,
+                        generator=torch.Generator().manual_seed(0))
+    name = "bigru_00.00_dev"
+    save_params(os.path.join(root, "models", f"{name}.npz"),
+                to_jax_params("bigru", model.state_dict()))
+    base = ["--pretrained_model", name, "--prob", "big",
+            "--data_dir", os.path.join(root, "data"), "--annot_path", root]
+    n_segments = sum(len(s) - 1 for s in
+                     load_segment_file(os.path.join(root, "segment.txt")))
+    datasets = {
+        "test": VideoDataset(data_dir="data", annot_path=root, part="test",
+                             split=1, mode=None, verbose=False),
+        "dev": VideoDataset(data_dir="data", annot_path=root, part="dev",
+                            split=0, mode="active", verbose=False)}
 
-        # the kernel at the largest shape the slice gives it: the forward
-        # batch of the test part with the most frames, its own lengths
-        feats = datasets["test"].features
-        t_pad, chunk = max(forward_batches(feats),
-                           key=lambda tb: tb[0] * len(tb[1]))
-        rows = check_layers("main path", [len(feats[i]) for i in chunk],
-                            t_pad, torch.Generator().manual_seed(1))
+    # the kernel at the largest shape the slice gives it: the forward
+    # batch of the test part with the most frames, its own lengths
+    feats = datasets["test"].features
+    t_pad, chunk = max(forward_batches(feats),
+                       key=lambda tb: tb[0] * len(tb[1]))
+    rows = check_layers("main path", [len(feats[i]) for i in chunk],
+                        t_pad, torch.Generator().manual_seed(1))
 
-        csv = {}
-        for dt_name in ("float32", "bfloat16"):
-            for part in ("test", "dev"):
-                expect = 4 * len(forward_batches(datasets[part].features))
-                gru_bidir_layer.launches = 0
-                t0 = time.time()
-                out = inference_cli.main(base + ["--part", part, "--dtype",
-                                                 dt_name, "--device", "cuda"])
-                seconds = time.time() - t0
-                got = gru_bidir_layer.launches
-                launches += got
-                log(f"[slice] cuda {dt_name} --part {part}: "
-                    f"{'csv ' + out if part == 'test' else f'accuracy {out:.2f}'}"
-                    f" in {seconds:.1f} s, gru_bidir_fwd launches {got} "
-                    f"(expected {expect} = 4 per forward batch)")
-                if got != expect:
-                    raise AssertionError("launch count does not match the "
-                                         "forward batches")
-                if part == "test":
-                    labels = read_csv_labels(out)
-                    if len(labels) != n_segments:
-                        raise AssertionError(f"CSV has {len(labels)} rows, "
-                                             f"segment.txt {n_segments}")
-                    if not all(0 <= l < N_CLASS for l in labels):
-                        raise AssertionError("CSV label out of range")
-                    csv[dt_name] = labels
-                elif not 0.0 <= out <= 100.0:
-                    raise AssertionError(f"dev accuracy {out}")
+    csv = {}
+    for dt_name in ("float32", "bfloat16"):
+        for part in ("test", "dev"):
+            expect = 4 * len(forward_batches(datasets[part].features))
+            gru_bidir_fwd.launches = 0
+            t0 = time.time()
+            out = inference_cli.main(base + ["--part", part, "--dtype",
+                                             dt_name, "--device", "cuda"])
+            seconds = time.time() - t0
+            got = gru_bidir_fwd.launches
+            launches += got
+            log(f"[slice] cuda {dt_name} --part {part}: "
+                f"{'csv ' + out if part == 'test' else f'accuracy {out:.2f}'}"
+                f" in {seconds:.1f} s, gru_bidir_fwd launches {got} "
+                f"(expected {expect} = 4 per forward batch)")
+            if got != expect:
+                raise AssertionError("launch count does not match the "
+                                     "forward batches")
+            if part == "test":
+                labels = read_csv_labels(out)
+                if len(labels) != n_segments:
+                    raise AssertionError(f"CSV has {len(labels)} rows, "
+                                         f"segment.txt {n_segments}")
+                if not all(0 <= l < N_CLASS for l in labels):
+                    raise AssertionError("CSV label out of range")
+                csv[dt_name] = labels
+            elif not 0.0 <= out <= 100.0:
+                raise AssertionError(f"dev accuracy {out}")
 
-        t0 = time.time()
-        cpu_csv = read_csv_labels(inference_cli.main(
-            base + ["--part", "test", "--device", "cpu"]))
-        agree = float(np.mean(np.asarray(cpu_csv) == np.asarray(csv["float32"])))
-        agree16 = float(np.mean(np.asarray(csv["bfloat16"])
-                                == np.asarray(csv["float32"])))
-        log(f"[slice] cpu float32 --part test in {time.time() - t0:.1f} s; "
-            f"segment labels cuda f32 vs cpu f32 agree {agree:.4f}, "
-            f"cuda bf16 vs cuda f32 agree {agree16:.4f}")
-        if agree < 0.99:
-            raise AssertionError("GPU and CPU segment labels disagree")
+    t0 = time.time()
+    cpu_csv = read_csv_labels(inference_cli.main(
+        base + ["--part", "test", "--device", "cpu"]))
+    agree = float(np.mean(np.asarray(cpu_csv) == np.asarray(csv["float32"])))
+    agree16 = float(np.mean(np.asarray(csv["bfloat16"])
+                            == np.asarray(csv["float32"])))
+    log(f"[slice] cpu float32 --part test in {time.time() - t0:.1f} s; "
+        f"segment labels cuda f32 vs cpu f32 agree {agree:.4f}, "
+        f"cuda bf16 vs cuda f32 agree {agree16:.4f}")
+    if agree < 0.99:
+        raise AssertionError("GPU and CPU segment labels disagree")
 
-        # forward throughput: host time around synchronised work
-        n_frames = sum(len(f) for f in feats)
-        gpu_model = load_models([name], N_CLASS, models_dir="models",
-                                device="cuda")[name]
-        for dt_name in ("float32", "bfloat16"):
-            frame_predictions(gpu_model, feats, dtype=dt_name)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            frame_predictions(gpu_model, feats, dtype=dt_name)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            log(f"[slice] bigru forward {dt_name}: {n_frames} frames of "
-                f"{len(feats)} test videos in {seconds:.4f} s = "
-                f"{n_frames / seconds:.0f} frames/s (batch 8, bucket 128) "
-                f"on {card}")
+    # forward throughput: host time around synchronised work
+    n_frames = sum(len(f) for f in feats)
+    gpu_model = load_models([name], N_CLASS, models_dir="models",
+                            device="cuda")[name]
+    for dt_name in ("float32", "bfloat16"):
+        frame_predictions(gpu_model, feats, dtype=dt_name)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame_predictions(gpu_model, feats, dtype=dt_name)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        log(f"[slice] bigru forward {dt_name}: {n_frames} frames of "
+            f"{len(feats)} test videos in {seconds:.4f} s = "
+            f"{n_frames / seconds:.0f} frames/s (batch 8, bucket 128) "
+            f"on {card}")
     return launches, rows
+
+
+# ---------------------------------------------------------------- training
+
+TRAIN_EPOCHS, TRAIN_BATCH = 2, 8
+GRAD_TOL = 1e-3  # card against CPU, f32, relative to each tensor's max
+
+
+def train_feeds(root: str):
+    """The train CLI's feeds on the dataset under ``root``: the train feed
+    (frozen composition, seed 0) and the dev feed."""
+    from pytorch_video_action_tpu_torch.data import (
+        BatchFeed, BucketBatchSampler, VideoDataset)
+
+    kw = dict(data_dir="data", annot_path=root, split=0, mode="active",
+              verbose=False)
+    train_ds = VideoDataset(part="train", **kw)
+    dev_ds = VideoDataset(part="dev", **kw)
+    sampler = BucketBatchSampler(train_ds.features, TRAIN_BATCH, seed=0,
+                                 freeze_composition=True)
+    return (BatchFeed(train_ds, batch_sampler=sampler),
+            BatchFeed(dev_ds, batch_size=TRAIN_BATCH))
+
+
+def epoch_records(path: str) -> list[dict]:
+    """The ``epoch`` records of a ``--metrics_jsonl`` file."""
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    return [r for r in records if r["event"] == "epoch"]
+
+
+def check_grads_against_cpu(batch):
+    """One f32 train step on the card and on the CPU, from the same
+    parameters, batch and seeds; raises when a gradient differs by more
+    than ``GRAD_TOL`` of its tensor's largest element."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = build_model("bigru", N_CLASS,
+                        generator=torch.Generator().manual_seed(2)).state_dict()
+    grads, losses = {}, {}
+    for device in ("cuda", "cpu"):
+        model = build_model("bigru", N_CLASS)
+        model.load_state_dict(state)
+        trainer = Trainer(model, N_CLASS, seed=0, device=device)
+        ts = trainer.init_state()
+        losses[device] = trainer.train_step(ts, batch,
+                                            seeds=[11, 12, 13, 14]).item()
+        grads[device] = {k: p.grad.detach().cpu()
+                         for k, p in ts.model.named_parameters()}
+    worst = 0.0
+    for k, want in grads["cpu"].items():
+        err = ((grads["cuda"][k] - want).abs().max()
+               / want.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, err)
+    log(f"[train] one f32 step, B={batch[0].shape[0]} T={batch[0].shape[1]}: "
+        f"loss cuda {losses['cuda']:.6f} cpu {losses['cpu']:.6f}; worst "
+        f"gradient difference / max|cpu gradient| {worst:.3g} "
+        f"(tol {GRAD_TOL})")
+    if not worst <= GRAD_TOL or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+        raise AssertionError("card and CPU train steps disagree")
+
+
+def train_frames_per_sec(card, feed, dt_name):
+    """Host clock around one epoch of synchronised train steps on prepared
+    batches, after one warm-up step."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    model = build_model("bigru", N_CLASS,
+                        generator=torch.Generator().manual_seed(3))
+    trainer = Trainer(model, N_CLASS, seed=0, compute_dtype=dt_name)
+    ts = trainer.init_state()
+    batches = [trainer.prepare_batch(b) for b in feed]
+    frames = sum(int(b[1].sum()) for b in batches)
+    trainer.train_step(ts, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        trainer.train_step(ts, b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"[train] bigru train step {dt_name}: {frames} frames in "
+        f"{len(batches)} steps in {seconds:.4f} s = {frames / seconds:.0f} "
+        f"frames/s (batch {TRAIN_BATCH}, bucket 128) on {card}")
+
+
+def phase_train(card: str, root: str):
+    """The training slice on the dataset under ``root`` (the cwd).  Returns
+    the launches of its CLI runs by kernel (eval form, train form,
+    backward) and the train-form and backward kernel rows."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.cli import inference_cli, train_cli
+    from pytorch_video_action_tpu_torch.ops.rnn_fused import (gru_bidir_bwd,
+                                                              gru_bidir_fwd)
+
+    t0 = time.time()
+    train_feed, dev_feed = train_feeds(root)
+    log(f"[train] train and dev parts parsed in {time.time() - t0:.1f} s")
+    # the kernels at the largest shape training gives them: the train
+    # batch with the most padded frames, its own lengths
+    idxs = max(train_feed.index_batches(),
+               key=lambda ix: max(len(train_feed.dataset.features[i])
+                                  for i in ix))
+    lens = [len(train_feed.dataset.features[i]) for i in idxs]
+    t_pad = train_feed.collate(idxs)[0].shape[1]
+    train_rows, bwd_rows = check_train_layers(
+        "main path", lens, t_pad, torch.Generator().manual_seed(4))
+
+    steps = TRAIN_EPOCHS * len(train_feed)
+    dev_batches = TRAIN_EPOCHS * len(dev_feed)
+    launches = {"eval": 0, "train": 0, "bwd": 0}
+    for dt_name in ("float32", "bfloat16"):
+        metrics = os.path.join(root, f"train_{dt_name}.jsonl")
+        gru_bidir_fwd.launches = gru_bidir_fwd.train_launches = 0
+        gru_bidir_bwd.launches = 0
+        t0 = time.time()
+        best = train_cli.main([
+            "--model", "bigru", "--epoch", str(TRAIN_EPOCHS), "--batchsize",
+            str(TRAIN_BATCH), "--split", "0", "--data_dir",
+            os.path.join(root, "data"), "--annot_path", root, "--dtype",
+            dt_name, "--device", "cuda", "--metrics_jsonl", metrics])
+        seconds = time.time() - t0
+        got = {"eval": gru_bidir_fwd.launches,
+               "train": gru_bidir_fwd.train_launches,
+               "bwd": gru_bidir_bwd.launches}
+        expect = {"eval": 4 * dev_batches, "train": 4 * steps,
+                  "bwd": 4 * steps}
+        for k in launches:
+            launches[k] += got[k]
+        epochs = epoch_records(metrics)
+        loss = [r["train_loss"] for r in epochs]
+        log(f"[train] cuda {dt_name} train CLI: {TRAIN_EPOCHS} epochs of "
+            f"{len(train_feed)} steps in {seconds:.1f} s, train loss {loss}, "
+            f"dev segment accuracy {[r['dev_segment_acc'] for r in epochs]}, "
+            f"CLI frames/s {[r['frames_per_sec'] for r in epochs]}; launches "
+            f"train-form fwd {got['train']}, bwd {got['bwd']} (expected "
+            f"{expect['train']} = 4 per step), eval-form fwd {got['eval']} "
+            f"(expected {expect['eval']} = 4 per dev batch)")
+        if got != expect:
+            raise AssertionError("launch counts do not match the steps")
+        if not (len(loss) == TRAIN_EPOCHS and np.all(np.isfinite(loss))
+                and loss[1] < loss[0]):
+            raise AssertionError(f"train loss {loss}: not finite or not "
+                                 "falling")
+        name = f"bigru_{best:.2f}_dev"
+        if not os.path.exists(os.path.join("models", f"{name}.npz")):
+            raise AssertionError(f"no checkpoint {name}")
+        labels = read_csv_labels(inference_cli.main([
+            "--pretrained_model", name, "--prob", "big", "--part", "test",
+            "--data_dir", os.path.join(root, "data"), "--annot_path", root,
+            "--device", "cuda"]))
+        if not (labels and all(0 <= l < N_CLASS for l in labels)):
+            raise AssertionError("the trained checkpoint serves no CSV")
+        log(f"[train] checkpoint {name} served: {len(labels)} CSV rows")
+
+    # one step on the card and on the CPU: the smallest train batch, its
+    # videos cut to 512 frames to bound the CPU's time
+    small = min(train_feed.index_batches(),
+                key=lambda ix: max(len(train_feed.dataset.features[i])
+                                   for i in ix))
+    batch = train_feed.collate(small)
+    keep = min(batch[0].shape[1], 512)
+    batch = (batch[0][:, :keep], np.minimum(batch[1], keep),
+             batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
+             batch[3][:, :keep])
+    check_grads_against_cpu(batch)
+    for dt_name in ("float32", "bfloat16"):
+        train_frames_per_sec(card, train_feed, dt_name)
+    return launches, train_rows, bwd_rows
+
+
+def kernel_entry(name, source, replaces, launches, rows):
+    """One ``kernels`` entry: headline numbers from ``rows[0]`` (layer 0,
+    f32, at the main path's shape), every checked shape under ``shapes``."""
+    head = rows[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shapes": rows}
 
 
 def main() -> int:
@@ -376,19 +729,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.time()
     phase_build()
-    bench_rows = phase_kernels()
-    launches, main_rows = phase_slice(card)
+    bench_rows, bench_train_rows, bench_bwd_rows = phase_kernels()
+    with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
+        t0 = time.time()
+        write_dataset(root)
+        log(f"[slice] dataset written in {time.time() - t0:.1f} s")
+        infer_launches, main_rows = phase_slice(card, root)
+        launches, train_rows, bwd_rows = phase_train(card, root)
+    log(f"[done] all phases in {time.time() - start:.1f} s")
 
-    main_row = main_rows[0]  # layer 0 (W_in=400), f32, the main path's shape
-    kernels = [{
-        "name": "gru_bidir_fwd", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": main_rows + bench_rows}]
+    kernels = [
+        kernel_entry("gru_bidir_fwd", FWD_SRC, FWD_REPLACES,
+                     infer_launches + launches["eval"], main_rows + bench_rows),
+        kernel_entry("gru_bidir_fwd_train", FWD_SRC, FWD_REPLACES,
+                     launches["train"], train_rows + bench_train_rows),
+        kernel_entry("gru_bidir_bwd", BWD_SRC, BWD_REPLACES, launches["bwd"],
+                     bwd_rows + bench_bwd_rows)]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,547 @@
+// One bidirectional GRU layer backward (the VJP of the train-form forward in
+// csrc/gru_bidir_fwd.cu) for Hopper (sm_90a).
+//
+// Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
+//   _bwd_kernel_split, reached through gru_bidir_fused_split's custom_vjp.
+//
+// Inputs, for x [T, B, W] time-major and per direction d in {fwd, bwd}:
+// wi_d [W, 3H], wh_d [H, 3H], lengths [B], the forward's ys_d [T, B, H] and
+// residuals res_d [T, B, 4H] = [r, z, n, hg_n] (original time order for both
+// directions), and the output gradients dy_d [T, B, H].  Per chain step, in
+// f32, with hp the previous state read from ys (ys_f[t-1] and ys_b[t+1],
+// 0 past the ends):
+//   dh = dy[t] + carry;  dz = dh * (hp - n)
+//   dpre_n = dh * (1 - z) * (1 - n^2);  dpre_r = dpre_n * hg_n * r * (1 - r)
+//   dpre_z = dz * z * (1 - z)
+//   dxg = [dpre_r, dpre_z, dpre_n];  dhg = [dpre_r, dpre_z, dpre_n * r]
+//   carry' = dh * z + dhg @ wh_d^T
+// On the backward chain's padded steps (t >= lengths[b]) the forward froze
+// the carry, so the gate gradients are 0 and the carry passes through.
+// Then dwh_d = hp^T dhg, dbh_d = sum dhg, dwi_d = x^T dxg_d, dbi_d = sum dxg_d
+// and dx = dxg_f @ wi_f^T + dxg_b @ wi_b^T (one f32 sum, cast to x's dtype).
+// bf16: dhg and hp are rounded to the weight dtype before their products,
+// dxg to the wi dtype for dx and to the x dtype for dwi; every sum is f32
+// and the gradients are written in the weight dtype.
+//
+// What bounds it on an H100: at the bench shape (B=64, T=1024, H=128,
+// W=400) the work is 4*T*B*3H*(2W + 2H) = 106 GFLOP, about 1.6 ms at f32
+// without TF32 (67 TFLOP/s), and about 0.6 GB of traffic (0.2 ms).  Most
+// of it, the weight and input gradients, is large products off the chain;
+// the chain of T dependent steps holds only the [B, 3H] x [3H, H] carry
+// product.  A design that is right but simple is bound by that chain and
+// by SIMT throughput of the products.
+//
+// What the design does about it:
+//  * The chain runs one block per (batch row, direction), 3H threads,
+//    walking t backwards.  Thread (g, k) keeps the H weights wh[k, gH ..
+//    gH+H) of gate block g in registers for the whole layer (as the
+//    forward keeps one column), so the 3H-deep contraction of output k is
+//    split over three threads of H each, whose partials meet in shared
+//    memory.  wh in shared memory instead (192 KB f32) would make a step
+//    3H shared-memory loads a thread, the limit the forward's first,
+//    shared-memory design ran into.  A step's inputs (residuals, dy, hp)
+//    are loaded one step ahead, so their latency hides behind the current
+//    step.
+//  * The chain writes dxg and dhg ([2, T*B, 3H] f32 scratch) and per-row
+//    bias sums; everything else runs off the chain as tiled SIMT GEMMs
+//    over K = T*B (64x64 tiles; one launch for dwi and dwh of both
+//    directions) and one GEMM over K = 6H for dx (128x128 tiles).
+//  * No atomics: each output tile owns its whole K loop and the bias sums
+//    add the per-row partials in a fixed order, so two runs give
+//    bit-identical gradients.
+// wgmma, TMA and split-K with a fixed-order reduction are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ float to_f(T v);
+template <>
+__device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T and back
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+// ------------------------------------------------------------- recurrence
+
+// One chain step's inputs for thread k: the residuals, dy and hp.
+struct StepIn {
+  float r, z, n, hgn, dy, hp;
+};
+
+template <typename T, int H>
+__device__ __forceinline__ StepIn load_step(const T* __restrict__ res,
+                                            const T* __restrict__ dy,
+                                            const T* __restrict__ ys, int t,
+                                            int Tn, int B, int b, int dir,
+                                            int k) {
+  const size_t row = (size_t)t * B + b;
+  const T* rs = res + row * 4 * H;
+  StepIn in;
+  in.r = to_f(rs[k]);
+  in.z = to_f(rs[H + k]);
+  in.n = to_f(rs[2 * H + k]);
+  in.hgn = to_f(rs[3 * H + k]);
+  in.dy = to_f(dy[row * H + k]);
+  // previous state of the chain: t-1 forward, t+1 backward, 0 past the end
+  const int tp = dir ? t + 1 : t - 1;
+  in.hp =
+      (tp >= 0 && tp < Tn) ? to_f(ys[((size_t)tp * B + b) * H + k]) : 0.0f;
+  return in;
+}
+
+// One block per (batch row, direction); blockDim.x == 3H.  Thread tid =
+// g*H + k holds wh[k, gH .. gH+H) in registers and forms gate block g's
+// part of carry output k; threads k < H also own output k's carry, its
+// gate math and its bias sums.
+template <typename T, int H>
+__global__ void __launch_bounds__(3 * H, 1)
+bwd_recur_kernel(const T* __restrict__ wh_f, const T* __restrict__ wh_b,
+                 const int* __restrict__ lengths, const T* __restrict__ ys_f,
+                 const T* __restrict__ ys_b, const T* __restrict__ res_f,
+                 const T* __restrict__ res_b, const T* __restrict__ dy_f,
+                 const T* __restrict__ dy_b, float* __restrict__ dxg,
+                 float* __restrict__ dhg, float* __restrict__ bias_part,
+                 int Tn, int B) {
+  constexpr int G = 3 * H;
+  __shared__ __align__(16) float dhg_s[G];  // this step's dhg, rounded to T
+  __shared__ float part_s[2][H];            // gate blocks z, n of the carry
+  const int dir = blockIdx.y;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int g = tid / H;
+  const int k = tid % H;
+  const T* __restrict__ wh = dir ? wh_b : wh_f;
+  const T* __restrict__ ys = dir ? ys_b : ys_f;
+  const T* __restrict__ res = dir ? res_b : res_f;
+  const T* __restrict__ dy = dir ? dy_b : dy_f;
+  const size_t M = (size_t)Tn * B;
+  float* __restrict__ dxg_d = dxg + dir * M * G;
+  float* __restrict__ dhg_d = dhg + dir * M * G;
+
+  float w[H];
+#pragma unroll
+  for (int j = 0; j < H; ++j) w[j] = to_f(wh[(size_t)k * G + g * H + j]);
+  const int len = lengths[b];
+
+  // the chain's VJP walks t = T-1 .. 0 forward, t = 0 .. T-1 backward
+  float carry = 0.0f, sum_r = 0.0f, sum_z = 0.0f, sum_n = 0.0f,
+        sum_hn = 0.0f;
+  StepIn cur = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (tid < H)
+    cur = load_step<T, H>(res, dy, ys, dir ? 0 : Tn - 1, Tn, B, b, dir, k);
+  for (int s = 0; s < Tn; ++s) {
+    const int t = dir ? s : Tn - 1 - s;
+    StepIn nxt = cur;
+    float dh = 0.0f, z = 0.0f;
+    bool valid = true;
+    if (tid < H) {
+      if (s + 1 < Tn)
+        nxt = load_step<T, H>(res, dy, ys, dir ? s + 1 : Tn - 2 - s, Tn, B,
+                              b, dir, k);
+      z = cur.z;
+      dh = cur.dy + carry;
+      const float dz = dh * (cur.hp - cur.n);
+      float dpn = dh * (1.0f - z) * (1.0f - cur.n * cur.n);
+      float dpr = dpn * cur.hgn * cur.r * (1.0f - cur.r);
+      float dpz = dz * z * (1.0f - z);
+      valid = !(dir && t >= len);
+      if (!valid) dpn = dpr = dpz = 0.0f;  // frozen step: no gate gradient
+      const float dhn = dpn * cur.r;
+      const size_t o = ((size_t)t * B + b) * G;
+      dxg_d[o + k] = dpr;
+      dxg_d[o + H + k] = dpz;
+      dxg_d[o + 2 * H + k] = dpn;
+      dhg_d[o + k] = dpr;
+      dhg_d[o + H + k] = dpz;
+      dhg_d[o + 2 * H + k] = dhn;
+      sum_r += dpr;
+      sum_z += dpz;
+      sum_n += dpn;
+      sum_hn += dhn;
+      dhg_s[k] = rnd<T>(dpr);
+      dhg_s[H + k] = rnd<T>(dpz);
+      dhg_s[2 * H + k] = rnd<T>(dhn);
+    }
+    __syncthreads();
+
+    // gate block g's part of (dhg @ wh^T)[k]: two independent FMA chains
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < H; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&dhg_s[g * H + j]);
+      a0 = fmaf(v.x, w[j], a0);
+      a1 = fmaf(v.y, w[j + 1], a1);
+      a0 = fmaf(v.z, w[j + 2], a0);
+      a1 = fmaf(v.w, w[j + 3], a1);
+    }
+    if (g > 0) part_s[g - 1][k] = a0 + a1;
+    __syncthreads();
+
+    if (tid < H) {
+      const float next = dh * z + ((a0 + a1) + part_s[0][k] + part_s[1][k]);
+      carry = valid ? next : dh;
+      cur = nxt;
+    }
+  }
+
+  if (tid < H) {
+    // bias_part [2 (bi, bh)][2 (dir)][B][G]
+    float* pi = bias_part + ((size_t)dir * B + b) * G;
+    float* ph = bias_part + ((size_t)(2 + dir) * B + b) * G;
+    pi[k] = sum_r;
+    pi[H + k] = sum_z;
+    pi[2 * H + k] = sum_n;
+    ph[k] = sum_r;
+    ph[H + k] = sum_z;
+    ph[2 * H + k] = sum_hn;
+  }
+}
+
+// out[q][dir][c] = sum over b, in order, of bias_part[q][dir][b][c]
+template <typename T>
+__global__ void bias_reduce_kernel(const float* __restrict__ bias_part,
+                                   T* __restrict__ dbif, T* __restrict__ dbib,
+                                   T* __restrict__ dbhf, T* __restrict__ dbhb,
+                                   int B, int G) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 4 * G) return;
+  const int qd = i / G;  // q * 2 + dir
+  const int c = i % G;
+  const float* p = bias_part + (size_t)qd * B * G + c;
+  float sum = 0.0f;
+  for (int b = 0; b < B; ++b) sum += p[(size_t)b * G];
+  T* out[4] = {dbif, dbib, dbhf, dbhb};
+  out[qd][c] = from_f<T>(sum);
+}
+
+// ------------------------------------------------------------------ GEMMs
+
+constexpr int kBK = 8;  // depth per shared-memory stage
+constexpr int kThreads = 256;
+
+// C[m, n] = sum_k A(m, k) * B(k, n) for one BM x BN tile, f32 accumulation,
+// each of the 256 threads a (BM/16) x (BN/16) sub-tile.  A and B are
+// functors that return the operand, already rounded, as a float; their
+// kContigK says whether neighbouring k are neighbours in memory, and the
+// tile loads give neighbouring threads neighbouring addresses accordingly.
+template <int BM, int BN, typename LA, typename LB, typename ST>
+__device__ __forceinline__ void gemm_tile(const LA& a, const LB& bop,
+                                          const ST& st, int M, int N, int K,
+                                          int m0, int n0) {
+  constexpr int TM = BM / 16;
+  constexpr int TN = BN / 16;
+  // +4: transposed stores are conflict-free and rows stay 16-byte aligned
+  __shared__ __align__(16) float As[kBK][BM + 4];
+  __shared__ __align__(16) float Bs[kBK][BN + 4];
+  const int tid = threadIdx.x;
+  const int tr = tid / 16;
+  const int tc = tid % 16;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int i = 0; i < (BM * kBK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int m = LA::kContigK ? e / kBK : e % BM;
+      const int kk = LA::kContigK ? e % kBK : e / BM;
+      const int gm = m0 + m;
+      const int gk = k0 + kk;
+      As[kk][m] = (gm < M && gk < K) ? a(gm, gk) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < (BN * kBK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int n = LB::kContigK ? e / kBK : e % BN;
+      const int kk = LB::kContigK ? e % kBK : e / BN;
+      const int gk = k0 + kk;
+      const int gn = n0 + n;
+      Bs[kk][n] = (gk < K && gn < N) ? bop(gk, gn) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&As[kk][q * 64 + tr * 4]);
+        av[q * 4] = v.x;
+        av[q * 4 + 1] = v.y;
+        av[q * 4 + 2] = v.z;
+        av[q * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&Bs[kk][q * 64 + tc * 4]);
+        bv[q * 4] = v.x;
+        bv[q * 4 + 1] = v.y;
+        bv[q * 4 + 2] = v.z;
+        bv[q * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + (i / 4) * 64 + tr * 4 + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + (j / 4) * 64 + tc * 4 + j % 4;
+      if (gn < N) st(gm, gn, acc[i][j]);
+    }
+  }
+}
+
+// A(m, k) = p[(k + shift) * ld + m], 0 where row k + shift is outside
+// [0, rows): a row-major [rows, ld] matrix read transposed, with rows
+// shifted (hp is ys shifted by one time step, B rows).
+template <typename T>
+struct ShiftedRowsT {
+  static constexpr bool kContigK = false;
+  const T* p;
+  int ld, shift, rows;
+  __device__ float operator()(int m, int k) const {
+    const int r = k + shift;
+    return (r >= 0 && r < rows) ? to_f(p[(size_t)r * ld + m]) : 0.0f;
+  }
+};
+
+// B(k, n) = p[k * ld + n] rounded to T: f32 gate gradients as an operand
+template <typename T>
+struct RoundedRows {
+  static constexpr bool kContigK = false;
+  const float* p;
+  int ld;
+  __device__ float operator()(int k, int n) const {
+    return rnd<T>(p[(size_t)k * ld + n]);
+  }
+};
+
+// dx's A(m, k) = dxg[d][m][k - d*G] rounded to T, d = (k >= G)
+template <typename T>
+struct DxgRows {
+  static constexpr bool kContigK = true;
+  const float* p;
+  size_t dir_stride;
+  int G;
+  __device__ float operator()(int m, int k) const {
+    const int d = k >= G;
+    return rnd<T>(p[d * dir_stride + (size_t)m * G + (k - d * G)]);
+  }
+};
+
+// dx's B(k, n) = wi_d[n][k - d*G], d = (k >= G): both wi transposed
+template <typename T>
+struct WiT {
+  static constexpr bool kContigK = true;
+  const T* wf;
+  const T* wb;
+  int G;
+  __device__ float operator()(int k, int n) const {
+    const int d = k >= G;
+    return to_f((d ? wb : wf)[(size_t)n * G + (k - d * G)]);
+  }
+};
+
+template <typename T>
+struct Store {
+  T* p;
+  int ld;
+  __device__ void operator()(int m, int n, float v) const {
+    p[(size_t)m * ld + n] = from_f<T>(v);
+  }
+};
+
+template <typename T>
+struct WgradProblem {
+  ShiftedRowsT<T> a;
+  RoundedRows<T> b;
+  Store<T> c;
+  int M;
+};
+
+// dwi and dwh of both directions in one launch: blockIdx.z picks the
+// problem, [W or H, 3H] = A^T B over K = T*B rows.
+template <typename T>
+struct WgradProblems {
+  WgradProblem<T> p[4];
+};
+
+constexpr int kWT = 64;   // weight-gradient tile
+constexpr int kDxT = 128; // dx tile
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wgrad_kernel(const WgradProblems<T> probs, int N, int K) {
+  const WgradProblem<T>& p = probs.p[blockIdx.z];
+  const int m0 = blockIdx.x * kWT;
+  if (m0 >= p.M) return;  // the smaller (dwh) problems use fewer row tiles
+  gemm_tile<kWT, kWT>(p.a, p.b, p.c, p.M, N, K, m0, blockIdx.y * kWT);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dx_kernel(const DxgRows<T> a, const WiT<T> b, const Store<T> c, int M, int N,
+          int K) {
+  gemm_tile<kDxT, kDxT>(a, b, c, M, N, K, blockIdx.x * kDxT,
+                        blockIdx.y * kDxT);
+}
+
+template <typename T, int H>
+cudaError_t launch_recur(const void* whf, const void* whb, const int* lengths,
+                         const void* ysf, const void* ysb, const void* resf,
+                         const void* resb, const void* dyf, const void* dyb,
+                         float* dxg, float* dhg, float* bias_part, int Tn,
+                         int B, cudaStream_t stream) {
+  bwd_recur_kernel<T, H><<<dim3(B, 2), 3 * H, 0, stream>>>(
+      static_cast<const T*>(whf), static_cast<const T*>(whb), lengths,
+      static_cast<const T*>(ysf), static_cast<const T*>(ysb),
+      static_cast<const T*>(resf), static_cast<const T*>(resb),
+      static_cast<const T*>(dyf), static_cast<const T*>(dyb), dxg, dhg,
+      bias_part, Tn, B);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
+                    const void* whf, const void* whb, const int* lengths,
+                    const void* ysf, const void* ysb, const void* resf,
+                    const void* resb, const void* dyf, const void* dyb,
+                    void* dx, void* dwif, void* dwib, void* dbif, void* dbib,
+                    void* dwhf, void* dwhb, void* dbhf, void* dbhb,
+                    float* dxg, float* dhg, float* bias_part, int Tn, int B,
+                    int W, int H, cudaStream_t stream) {
+  cudaError_t err;
+  switch (H) {
+    case 16:
+      err = launch_recur<T, 16>(whf, whb, lengths, ysf, ysb, resf, resb, dyf,
+                                dyb, dxg, dhg, bias_part, Tn, B, stream);
+      break;
+    case 32:
+      err = launch_recur<T, 32>(whf, whb, lengths, ysf, ysb, resf, resb, dyf,
+                                dyb, dxg, dhg, bias_part, Tn, B, stream);
+      break;
+    case 64:
+      err = launch_recur<T, 64>(whf, whb, lengths, ysf, ysb, resf, resb, dyf,
+                                dyb, dxg, dhg, bias_part, Tn, B, stream);
+      break;
+    case 128:
+      err = launch_recur<T, 128>(whf, whb, lengths, ysf, ysb, resf, resb,
+                                 dyf, dyb, dxg, dhg, bias_part, Tn, B,
+                                 stream);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+
+  const int G = 3 * H;
+  const int M = Tn * B;
+  bias_reduce_kernel<T><<<(4 * G + 255) / 256, 256, 0, stream>>>(
+      bias_part, static_cast<T*>(dbif), static_cast<T*>(dbib),
+      static_cast<T*>(dbhf), static_cast<T*>(dbhb), B, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  WgradProblems<T> probs;
+  const size_t dstride = (size_t)M * G;
+  // dwi_d = x^T rnd(dxg_d); dwh_d = hp_d^T rnd(dhg_d), hp_f = ys_f one step
+  // earlier (B rows up), hp_b = ys_b one step later (B rows down)
+  const WgradProblem<T> dwi_f = {{static_cast<const T*>(x), W, 0, M},
+                                 {dxg, G}, {static_cast<T*>(dwif), G}, W};
+  const WgradProblem<T> dwi_b = {{static_cast<const T*>(x), W, 0, M},
+                                 {dxg + dstride, G},
+                                 {static_cast<T*>(dwib), G}, W};
+  const WgradProblem<T> dwh_f = {{static_cast<const T*>(ysf), H, -B, M},
+                                 {dhg, G}, {static_cast<T*>(dwhf), G}, H};
+  const WgradProblem<T> dwh_b = {{static_cast<const T*>(ysb), H, B, M},
+                                 {dhg + dstride, G},
+                                 {static_cast<T*>(dwhb), G}, H};
+  probs.p[0] = dwi_f;
+  probs.p[1] = dwi_b;
+  probs.p[2] = dwh_f;
+  probs.p[3] = dwh_b;
+  const int rows = W > H ? W : H;
+  const dim3 wgrid((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4);
+  wgrad_kernel<T><<<wgrid, kThreads, 0, stream>>>(probs, G, M);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
+  const DxgRows<T> xa = {dxg, dstride, G};
+  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
+                     G};
+  const Store<T> xc = {static_cast<T*>(dx), W};
+  dx_kernel<T><<<xgrid, kThreads, 0, stream>>>(xa, xb, xc, M, W, 2 * G);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16; H one of 16, 32, 64, 128.  All pointers
+// are device pointers of contiguous tensors: the inputs x, wif, wib, whf,
+// whb, lengths, ysf, ysb, resf, resb, dyf, dyb; the outputs dx [T, B, W],
+// dwif, dwib [W, 3H], dbif, dbib [3H], dwhf, dwhb [H, 3H], dbhf, dbhb [3H],
+// all in the dtype; f32 scratch dxg and dhg of 2*T*B*3H elements each and
+// bias_part of 4*B*3H.  Launches on `stream` and returns the first non-zero
+// cudaGetLastError() (0 on success).
+int gru_bidir_bwd(int dtype, const void* x, const void* wif, const void* wib,
+                  const void* whf, const void* whb, const int* lengths,
+                  const void* ysf, const void* ysb, const void* resf,
+                  const void* resb, const void* dyf, const void* dyb,
+                  void* dx, void* dwif, void* dwib, void* dbif, void* dbib,
+                  void* dwhf, void* dwhb, void* dbhf, void* dbhb, float* dxg,
+                  float* dhg, float* bias_part, int Tn, int B, int W, int H,
+                  void* stream) {
+  if (Tn <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_bwd<float>(x, wif, wib, whf, whb, lengths, ysf, ysb, resf,
+                               resb, dyf, dyb, dx, dwif, dwib, dbif, dbib,
+                               dwhf, dwhb, dbhf, dbhb, dxg, dhg, bias_part, Tn,
+                               B, W, H, s);
+  if (dtype == 1)
+    return (int)run_bwd<__nv_bfloat16>(
+        x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dx,
+        dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg, bias_part,
+        Tn, B, W, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* gru_bidir_bwd_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

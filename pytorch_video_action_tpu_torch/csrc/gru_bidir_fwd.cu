@@ -1,7 +1,9 @@
-// One bidirectional GRU layer forward (inference form) for Hopper (sm_90a).
+// One bidirectional GRU layer forward, eval and train forms, for Hopper
+// (sm_90a).
 //
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
-//   _fwd_kernel_split (train=False), reached through gru_bidir_fused_split.
+//   _fwd_kernel_split, reached through gru_bidir_fused_split: train=False
+//   (eval form) and train=True (train form, from its custom_vjp forward).
 //
 // Computes, for x [T, B, W] time-major and per direction d in {fwd, bwd}
 // wi_d [W, 3H], wh_d [H, 3H], bi_d [3H], bh_d [3H], lengths [B]:
@@ -14,6 +16,11 @@
 // Matmul inputs are the input dtype (f32 or bf16) with f32 accumulation; the
 // carry and gate math are f32; h is rounded to the weight dtype before the
 // hidden product; ys is stored in the input dtype.
+// The train form also writes each step's residuals for the backward
+// (csrc/gru_bidir_bwd.cu), res_f, res_b [T, B, 4H] = [r, z, n, hg_n] with
+// hg_n = (h @ wh_d + bh_d)[2H:] (bh_n included), in the input dtype.  Both
+// directions are stored in original time order: res_b[t] is the backward
+// chain's step at time t, not its s-th step.
 //
 // What bounds it on an H100: at the bench shape (B=64, T=1024, H=128) the
 // work is 53 GFLOP for layer 0, which at f32 without TF32 (67 TFLOP/s) is
@@ -37,6 +44,9 @@
 //  * The backward direction reads xg at T-1-s; no flipped copy of x exists.
 //  * At H=128 one block fills an SM's registers, so for B > 66 the blocks
 //    run in more than one wave.
+//  * The train form is a template flag: the H threads that update the
+//    carry also store their column's four residuals, off the chain (stores
+//    are not waited on).  The eval form compiles without them.
 // wgmma, TMA and spreading H across SMs are later work.
 
 #include <cuda_bf16.h>
@@ -153,13 +163,14 @@ proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
 // One block per (batch row, direction); blockDim.x == 3H.  Thread c owns
 // gate column c of the hidden product and keeps that column of wh in
 // registers for the whole layer, so a step reads only the carry (one
-// broadcast) from shared memory.
-template <typename T, int H>
+// broadcast) from shared memory.  TRAIN also stores the residuals.
+template <typename T, int H, bool TRAIN>
 __global__ void __launch_bounds__(3 * H, 1)
 recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
              const T* __restrict__ wh_b, const T* __restrict__ bh_f,
              const T* __restrict__ bh_b, const int* __restrict__ lengths,
-             T* __restrict__ ys_f, T* __restrict__ ys_b, int Tn, int B) {
+             T* __restrict__ ys_f, T* __restrict__ ys_b,
+             T* __restrict__ res_f, T* __restrict__ res_b, int Tn, int B) {
   constexpr int G = 3 * H;
   __shared__ __align__(16) float h_s[H];   // f32 carry
   __shared__ __align__(16) float hq_s[H];  // carry rounded to T
@@ -220,6 +231,13 @@ recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
       h_s[tid] = hn;
       hq_s[tid] = to_f(hq);
       ys[((size_t)t * B + b) * H + tid] = hq;
+      if (TRAIN) {
+        T* res = (dir ? res_b : res_f) + ((size_t)t * B + b) * 4 * H;
+        res[tid] = from_f<T>(r);
+        res[H + tid] = from_f<T>(z);
+        res[2 * H + tid] = from_f<T>(n);
+        res[3 * H + tid] = from_f<T>(hg_s[2 * H + tid]);
+      }
     }
     __syncthreads();
   }
@@ -228,12 +246,22 @@ recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
 template <typename T, int H>
 cudaError_t launch_recur(const float* xg, const void* whf, const void* whb,
                          const void* bhf, const void* bhb, const int* lengths,
-                         void* ysf, void* ysb, int Tn, int B,
-                         cudaStream_t stream) {
-  recur_kernel<T, H><<<dim3(B, 2), 3 * H, 0, stream>>>(
-      xg, static_cast<const T*>(whf), static_cast<const T*>(whb),
-      static_cast<const T*>(bhf), static_cast<const T*>(bhb), lengths,
-      static_cast<T*>(ysf), static_cast<T*>(ysb), Tn, B);
+                         void* ysf, void* ysb, void* resf, void* resb,
+                         bool train, int Tn, int B, cudaStream_t stream) {
+  const dim3 grid(B, 2);
+  const T* wf = static_cast<const T*>(whf);
+  const T* wb = static_cast<const T*>(whb);
+  const T* bf = static_cast<const T*>(bhf);
+  const T* bb = static_cast<const T*>(bhb);
+  T* yf = static_cast<T*>(ysf);
+  T* yb = static_cast<T*>(ysb);
+  if (train)
+    recur_kernel<T, H, true><<<grid, 3 * H, 0, stream>>>(
+        xg, wf, wb, bf, bb, lengths, yf, yb, static_cast<T*>(resf),
+        static_cast<T*>(resb), Tn, B);
+  else
+    recur_kernel<T, H, false><<<grid, 3 * H, 0, stream>>>(
+        xg, wf, wb, bf, bb, lengths, yf, yb, nullptr, nullptr, Tn, B);
   return cudaGetLastError();
 }
 
@@ -241,8 +269,9 @@ template <typename T>
 cudaError_t run_layer(const void* x, const void* wif, const void* wib,
                       const void* bif, const void* bib, const void* whf,
                       const void* whb, const void* bhf, const void* bhb,
-                      const int* lengths, void* ysf, void* ysb, float* xg,
-                      int Tn, int B, int W, int H, cudaStream_t stream) {
+                      const int* lengths, void* ysf, void* ysb, void* resf,
+                      void* resb, float* xg, int Tn, int B, int W, int H,
+                      bool train, cudaStream_t stream) {
   const int M = Tn * B;
   const int N = 3 * H;
   const dim3 pgrid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN, 2);
@@ -255,16 +284,16 @@ cudaError_t run_layer(const void* x, const void* wif, const void* wib,
   switch (H) {
     case 16:
       return launch_recur<T, 16>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                 Tn, B, stream);
+                                 resf, resb, train, Tn, B, stream);
     case 32:
       return launch_recur<T, 32>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                 Tn, B, stream);
+                                 resf, resb, train, Tn, B, stream);
     case 64:
       return launch_recur<T, 64>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                 Tn, B, stream);
+                                 resf, resb, train, Tn, B, stream);
     case 128:
       return launch_recur<T, 128>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                  Tn, B, stream);
+                                  resf, resb, train, Tn, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -276,26 +305,31 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; H one of 16, 32, 64, 128.  All pointers
 // are device pointers of contiguous tensors; xg is f32 scratch of
-// 2*T*B*3H elements.  Launches on
+// 2*T*B*3H elements.  train != 0 selects the train form, which also writes
+// resf and resb ([T, B, 4H] each); the eval form ignores them.  Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 int gru_bidir_fwd(int dtype, const void* x, const void* wif, const void* wib,
                   const void* bif, const void* bib, const void* whf,
                   const void* whb, const void* bhf, const void* bhb,
-                  const int* lengths, void* ysf, void* ysb, float* xg, int Tn,
-                  int B, int W, int H, void* stream) {
+                  const int* lengths, void* ysf, void* ysb, void* resf,
+                  void* resb, float* xg, int Tn, int B, int W, int H,
+                  int train, void* stream) {
   if (Tn <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (train && (resf == nullptr || resb == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)run_layer<float>(x, wif, wib, bif, bib, whf, whb, bhf, bhb,
-                                 lengths, ysf, ysb, xg, Tn, B, W, H, s);
+                                 lengths, ysf, ysb, resf, resb, xg, Tn, B, W,
+                                 H, train != 0, s);
   if (dtype == 1)
     return (int)run_layer<__nv_bfloat16>(x, wif, wib, bif, bib, whf, whb, bhf,
-                                         bhb, lengths, ysf, ysb, xg, Tn, B, W,
-                                         H, s);
+                                         bhb, lengths, ysf, ysb, resf, resb,
+                                         xg, Tn, B, W, H, train != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 
-const char* gru_bidir_error_string(int err) {
+const char* gru_bidir_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

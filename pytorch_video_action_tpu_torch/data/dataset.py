@@ -110,6 +110,14 @@ class VideoDataset:
     def __len__(self) -> int:
         return len(self.features)
 
+    def __getitem__(self, idx: int):
+        """``(features [T, 400] f32, labels [T] i64)``; labels are empty on
+        the test part."""
+        data = np.asarray(self.features[idx], dtype=np.float32)
+        if self.labels is None:
+            return data, np.zeros((0,), dtype=np.int64)
+        return data, np.atleast_1d(np.asarray(self.labels[idx], dtype=np.int64))
+
 
 def exclude_label(features, labels, label) -> tuple[list, list]:
     """Delete all frames carrying ``label`` (reference ``_exclude_label``)."""

@@ -27,10 +27,11 @@ def load_models(
     pretrained_names: list[str],
     n_class: int,
     models_dir: str = "models",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict[str, torch.nn.Module]:
     """``{checkpoint_filename: model}`` in the given order (the first model
-    has voting priority, like the reference's dict ordering)."""
+    has voting priority, like the reference's dict ordering), on ``device``:
+    the card unless the caller asks for the CPU."""
     out: dict[str, torch.nn.Module] = {}
     for model_filename in pretrained_names:
         mtype = parse_model_type(model_filename)

@@ -9,6 +9,8 @@ n), all initialised ``U(-1/sqrt(H), 1/sqrt(H))`` like ``torch.nn.GRU``.
 across the stack, each layer is one :func:`rnn_fused.gru_bidir_layer`, each
 boundary is ``concat([ys_f, ys_b]) * mask``, and inter-layer hash dropout
 (train only, strides ``(2H, T*2H, 1)``) follows every layer but the last.
+Under autograd each layer runs its train form and backward kernel; the
+boundary glue is plain torch, differentiated by autograd.
 """
 
 from __future__ import annotations

@@ -9,7 +9,12 @@ and no JAX it runs on its own, without the suite's conftest:
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
 product, so an ulp of difference can carry through the chain; h lies in
-(-1, 1), where one bf16 ulp is at most 2**-8).
+(-1, 1), where one bf16 ulp is at most 2**-8).  Gradients are sums over
+T*B frames, so their error is taken relative to the largest plain value
+(at least 1), with the same two tolerances: in bf16 the kernel and the
+plain version round dhg to bf16 at the same points, and an ulp of
+difference in the f32 carry before a rounding moves one element by one
+bf16 ulp (2**-8 relative).
 """
 
 import numpy as np
@@ -53,10 +58,10 @@ def test_kernel_matches_plain(cuda_device, dtype, b, h):
     x, ws, lengths = _inputs(b, t=48, b=b, w=400, h=h)
     args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (x, *ws)]
     args.append(torch.from_numpy(lengths).to(cuda_device))
-    before = P.gru_bidir_layer.launches
+    before = P.gru_bidir_fwd.launches
     ysf, ysb = P.gru_bidir_layer(*args)
     torch.cuda.synchronize()
-    assert P.gru_bidir_layer.launches == before + 1
+    assert P.gru_bidir_fwd.launches == before + 1
     rf, rb = P.gru_bidir_layer_ref(*args)
     assert ysf.dtype == dtype and ysf.shape == (48, b, h)
     assert (ysf.float() - rf.float()).abs().max().item() <= TOL[dtype]
@@ -76,10 +81,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device, case):
         args[0] = args[0].transpose(0, 1).contiguous().transpose(0, 1)
     elif case == "lengths_int64":
         args[-1] = args[-1].long()
-    before = P.gru_bidir_layer.launches
+    before = P.gru_bidir_fwd.launches
     with pytest.raises((TypeError, ValueError)):
         P.gru_bidir_layer(*args)
-    assert P.gru_bidir_layer.launches == before
+    assert P.gru_bidir_fwd.launches == before
 
 
 def test_bigru_on_card_matches_cpu(cuda_device):
@@ -91,7 +96,121 @@ def test_bigru_on_card_matches_cpu(cuda_device):
     with torch.no_grad():
         want = model(x, lengths)
         gpu = model.to(cuda_device)
-        before = P.gru_bidir_layer.launches
+        before = P.gru_bidir_fwd.launches
         got = gpu(x.to(cuda_device), lengths.to(cuda_device)).cpu()
-    assert P.gru_bidir_layer.launches == before + 4
+    assert P.gru_bidir_fwd.launches == before + 4
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1.0)).item()
+
+
+def _train_case(cuda_device, dtype, b, h, seed=0, t=48, w=400):
+    x, ws, lengths = _inputs(seed, t=t, b=b, w=w, h=h)
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (x, *ws)]
+    args.append(torch.from_numpy(lengths).to(cuda_device))
+    dys = [torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(t, b, h)).astype(np.float32)).to(cuda_device, dtype)
+        for _ in range(2)]
+    return args, dys
+
+
+def _bwd_args(args, fwd, dys):
+    x, wif, wib, _, _, whf, whb, _, _, lengths = args
+    return (x, wif, wib, whf, whb, lengths, *fwd, *dys)
+
+
+@pytest.mark.parametrize("b,h", [(5, 128), (67, 128), (3, 16), (3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_form_matches_plain(cuda_device, dtype, b, h):
+    args, _ = _train_case(cuda_device, dtype, b, h)
+    before = P.gru_bidir_fwd.train_launches
+    got = P.gru_bidir_fwd(*args, train=True)
+    torch.cuda.synchronize()
+    assert P.gru_bidir_fwd.train_launches == before + 1
+    want = P.gru_bidir_layer_ref(*args, train=True)
+    eval_ys = P.gru_bidir_fwd(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+    # the train form's ys are the eval form's, bit for bit
+    assert torch.equal(got[0], eval_ys[0]) and torch.equal(got[1], eval_ys[1])
+
+
+# B=5 one wave of chain blocks, B=67 and B=600 more than one; H picks the
+# template
+@pytest.mark.parametrize("b,h", [(5, 128), (67, 128), (600, 128), (3, 16),
+                                 (3, 32), (3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_matches_plain(cuda_device, dtype, b, h):
+    args, dys = _train_case(cuda_device, dtype, b, h, seed=b + h)
+    fwd = P.gru_bidir_fwd(*args, train=True)
+    bargs = _bwd_args(args, fwd, dys)
+    before = P.gru_bidir_bwd.launches
+    got = P.gru_bidir_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert P.gru_bidir_bwd.launches == before + 1
+    want = P.gru_bidir_layer_bwd_ref(*bargs)
+    names = ["dx", "dwif", "dwib", "dbif", "dbib", "dwhf", "dwhb", "dbhf",
+             "dbhb"]
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+
+
+def test_bwd_kernel_is_deterministic(cuda_device):
+    args, dys = _train_case(cuda_device, torch.float32, 67, 128, seed=3)
+    bargs = _bwd_args(args, P.gru_bidir_fwd(*args, train=True), dys)
+    first = P.gru_bidir_bwd(*bargs)
+    second = P.gru_bidir_bwd(*bargs)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
+    args, dys = _train_case(cuda_device, torch.float32, 3, 128)
+    bargs = list(_bwd_args(args, P.gru_bidir_fwd(*args, train=True), dys))
+    bargs[-1] = bargs[-1].transpose(0, 1).contiguous().transpose(0, 1)
+    before = P.gru_bidir_bwd.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        P.gru_bidir_bwd(*bargs)
+    assert P.gru_bidir_bwd.launches == before
+
+
+def test_bigru_train_step_on_card_matches_cpu(cuda_device):
+    """One f32 train step from the same parameters, batch and dropout seeds
+    on the card and on the CPU.  The loss agrees to 1e-5 and each gradient
+    to 1e-3 of its tensor's largest element: f32 sums in other orders,
+    carried through four layers and their chains."""
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = BiGRU(BiGRUConfig(n_class=48),
+                  generator=torch.Generator().manual_seed(1)).state_dict()
+    rng = np.random.default_rng(1)
+    b, t = 3, 70
+    lengths = np.array([70, 33, 1], np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    batch = (x, lengths, targets.reshape(-1), None)
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = BiGRU(BiGRUConfig(n_class=48))
+        model.load_state_dict(state)
+        trainer = Trainer(model, 48, seed=0, device=device)
+        ts = trainer.init_state()
+        before = (P.gru_bidir_fwd.train_launches, P.gru_bidir_bwd.launches)
+        loss = trainer.train_step(ts, batch, seeds=[1, 2, 3, 4]).item()
+        after = (P.gru_bidir_fwd.train_launches, P.gru_bidir_bwd.launches)
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in ts.model.named_parameters()}
+        out[str(device)] = (loss, grads, (after[0] - before[0],
+                                          after[1] - before[1]))
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[2] == (0, 0) and gpu[2] == (4, 4)
+    assert abs(gpu[0] - cpu[0]) <= 1e-5
+    for k, want in cpu[1].items():
+        err = (gpu[1][k] - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3, k

@@ -4,6 +4,7 @@ inference_cli.py`` and what it calls) against the JAX package's, on the
 JAX ``save_params``.  The port runs on the CPU (``--device cpu``), where the
 GRU layer is its plain PyTorch version."""
 
+import inspect
 import os
 
 import numpy as np
@@ -95,7 +96,8 @@ def test_frame_predictions_match_jax(synthetic_root, models_dir, monkeypatch,
                                        models_dir=models_dir)[NAME]
     want = jpredict.frame_predictions(mdef, params, jds.features,
                                       bucket_multiple=32, batch_size=3)
-    model = ploader.load_models([NAME], pds.n_class, models_dir=models_dir)[NAME]
+    model = ploader.load_models([NAME], pds.n_class, models_dir=models_dir,
+                                device="cpu")[NAME]
     got = frame_predictions(model, pds.features, bucket_multiple=32,
                             batch_size=3)
     for (gp, gm), (wp, wm) in zip(got, want):
@@ -137,7 +139,8 @@ def test_data_parallel_is_not_ported(synthetic_root, models_dir, tmp_path,
 
 def test_unported_family_checkpoint_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
-        ploader.load_models(["mstcn_75.59_dev"], 48, models_dir=str(tmp_path))
+        ploader.load_models(["mstcn_75.59_dev"], 48, models_dir=str(tmp_path),
+                            device="cpu")
 
 
 @pytest.mark.parametrize("name", ["bigru_73.52_dev", "vanilla_lstm_70.11_dev",
@@ -186,3 +189,16 @@ def test_run_length_and_buckets_match_jax():
     for length in (1, 31, 32, 33, 500, 2500):
         for mult in (0, 1, 32, 128):
             assert bucket_length(length, mult) == jbucket(length, mult)
+
+
+def test_load_models_defaults_to_the_card(models_dir):
+    """Without a device the models go to the card; without a card that
+    raises instead of leaving them on the CPU."""
+    assert inspect.signature(ploader.load_models).parameters[
+        "device"].default == "cuda"
+    if torch.cuda.is_available():
+        model = ploader.load_models([NAME], 5, models_dir=models_dir)[NAME]
+        assert next(model.parameters()).is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            ploader.load_models([NAME], 5, models_dir=models_dir)

@@ -18,6 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "pytorch_video_action_tpu")
 MODULES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts)
 FILES = MODULES + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_inference.py",
+    ROOT / "tools" / "torch_profile_train.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py"]
 
 

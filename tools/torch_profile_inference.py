@@ -48,6 +48,36 @@ def busy_us(intervals) -> float:
     return total
 
 
+def device_report(prof, wall_s: float, tool: str) -> int:
+    """Print device time by kernel name, largest first, and the device busy
+    share of the first-to-last kernel span and of the wall time.  Returns 1
+    when the profiler recorded no device time."""
+    import torch
+
+    device_events = [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device_events:
+        print(f"{tool}: the profiler recorded no device time",
+              file=sys.stderr)
+        return 1
+    by_name: dict[str, list[float]] = {}
+    for e in device_events:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    total = sum(sum(v) for v in by_name.values())
+    print(f"device time {total / 1e3:.4f} ms in {len(device_events)} "
+          f"device events")
+    for name, times in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
+        print(f"  {sum(times) / 1e3:10.4f} ms {100 * sum(times) / total:6.2f} % "
+              f"x{len(times):4d}  {name[:100]}")
+    spans = [(e.time_range.start, e.time_range.end) for e in device_events]
+    busy = busy_us(spans)
+    span = max(e for _, e in spans) - min(s for s, _ in spans)
+    print(f"device busy {busy / 1e3:.4f} ms: {100 * busy / span:.2f} % of the "
+          f"first-to-last kernel span ({span / 1e3:.4f} ms), "
+          f"{100 * busy / 1e3 / (wall_s * 1e3):.2f} % of the wall time")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", default="float32",
@@ -71,7 +101,7 @@ def main(argv=None) -> int:
 
     print(chip_smoke.card_line(), flush=True)
     with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
-        chip_smoke.write_dataset(root)
+        chip_smoke.write_dataset(root, train=False)
         feats = VideoDataset(data_dir="data", annot_path=root, part="test",
                              split=1, mode=None, verbose=False).features
     model = build_model("bigru", chip_smoke.N_CLASS,
@@ -90,27 +120,8 @@ def main(argv=None) -> int:
     print(f"forward {args.dtype}: {n_frames} frames in {wall_s:.6f} s = "
           f"{n_frames / wall_s:.1f} frames/s (profiler on)")
 
-    device_events = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device_events:
-        print("torch_profile_inference: the profiler recorded no device "
-              "time", file=sys.stderr)
+    if device_report(prof, wall_s, "torch_profile_inference") != 0:
         return 1
-    by_name: dict[str, list[float]] = {}
-    for e in device_events:
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    total = sum(sum(v) for v in by_name.values())
-    print(f"device time {total / 1e3:.4f} ms in {len(device_events)} "
-          f"device events")
-    for name, times in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
-        print(f"  {sum(times) / 1e3:10.4f} ms {100 * sum(times) / total:6.2f} % "
-              f"x{len(times):4d}  {name[:100]}")
-    spans = [(e.time_range.start, e.time_range.end) for e in device_events]
-    busy = busy_us(spans)
-    span = max(e for _, e in spans) - min(s for s, _ in spans)
-    print(f"device busy {busy / 1e3:.4f} ms: {100 * busy / span:.2f} % of the "
-          f"first-to-last kernel span ({span / 1e3:.4f} ms), "
-          f"{100 * busy / 1e3 / (wall_s * 1e3):.2f} % of the wall time")
     if args.trace:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)

@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Where the time of one bigru train step of the PyTorch port goes, on one
+NVIDIA GPU.
+
+    python3 tools/torch_profile_train.py [--dtype float32|bfloat16]
+                                         [--trace trace.json]
+
+Writes the seeded Breakfast-shaped dataset of ``chip_smoke.py`` (48 train
+videos of 500-2500 frames) into a temporary directory, builds the train
+CLI's feed (batch 8, bucket 128, the frozen-composition sampler with seed
+0) and a full-width bigru with seeded weights, runs one epoch of train
+steps to warm up and one more under ``torch.profiler``, and prints:
+
+* the host wall time of the profiled epoch (synchronised) and its
+  frames/s;
+* device time by kernel name, largest first;
+* the device busy share: the union of the kernels' intervals over the
+  span from the first kernel's start to the last one's end, and over the
+  wall time.
+
+Exits non-zero without a card or when the profiler records no device time.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--trace", default=None,
+                    help="write a Chrome trace of the profiled epoch here")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("torch_profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    import chip_smoke
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+    from torch_profile_inference import device_report
+
+    print(chip_smoke.card_line(), flush=True)
+    with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
+        chip_smoke.write_dataset(root)
+        feed, _ = chip_smoke.train_feeds(root)
+        host_batches = list(feed)
+    model = build_model("bigru", chip_smoke.N_CLASS,
+                        generator=torch.Generator().manual_seed(0))
+    trainer = Trainer(model, chip_smoke.N_CLASS, seed=0,
+                      compute_dtype=args.dtype)
+    ts = trainer.init_state()
+    batches = [trainer.prepare_batch(b) for b in host_batches]
+    n_frames = sum(int(b[1].sum()) for b in host_batches)
+
+    for b in batches:  # warm-up epoch
+        trainer.train_step(ts, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            trainer.train_step(ts, b)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    print(f"train {args.dtype}: {len(batches)} steps, {n_frames} frames in "
+          f"{wall_s:.6f} s = {n_frames / wall_s:.1f} frames/s (profiler on)")
+
+    if device_report(prof, wall_s, "torch_profile_train") != 0:
+        return 1
+    if args.trace:
+        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
