@@ -11,26 +11,31 @@ Phases, in order; any failure exits non-zero:
    with nvcc for sm_90a (one nvcc per source, all started together) and
    prints the build time and ``-Xptxas -v``.
 3. kernels: holds each kernel against its plain PyTorch version on the card
-   at the bench shape (B=64, T=1024, where bench.py times bigru), for layer
-   0 (W_in=400) and the later layers (256) in f32 and bf16: the forward in
-   its eval and train forms and the backward.  Times kernel, plain version
-   and a one-call PyTorch yardstick (nn.GRU on a packed sequence: its
-   forward, its forward with autograd on, and ``torch.autograd.grad``
-   through it) with CUDA events, beside each kernel's bound.
-4. slice: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
-   test videos) and a full-width bigru checkpoint into a temporary
-   directory, repeats phase 3's forward check at the largest forward batch
-   the slice gives the kernel, runs the port's inference CLI on the card
-   (test CSV and dev accuracy, f32 and bf16), checks the launch counts and
-   the CSV, runs the CLI once on the CPU to compare labels, and prints the
-   forward's frames/s.
-5. training: repeats phase 3's train-form and backward checks at the
-   largest train batch, runs the port's train CLI on the card (2 epochs,
-   batch 8, f32 and bf16), checks the launch counts (4 train-form forwards
-   and 4 backwards per step, 4 eval-form forwards per dev batch), that the
-   loss is finite and falls from epoch 1 to 2, and that the inference CLI
-   serves the checkpoint; holds one train step's gradients on the card
-   against the same step on the CPU; prints the train step's frames/s.
+   at the bench shape (B=64, T=1024, where bench.py times bigru and
+   bilstm), for layer 0 (W_in=400) and the later layers (256) in f32 and
+   bf16: the GRU and the LSTM layer's forward in its eval and train forms
+   and its backward.  Times kernel, plain version and a one-call PyTorch
+   yardstick (nn.GRU or nn.LSTM on a packed sequence: its forward, its
+   forward with autograd on, and ``torch.autograd.grad`` through it) with
+   CUDA events, beside each kernel's bound.
+4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
+   test videos) and full-width bigru and bilstm checkpoints into a
+   temporary directory.  For each model: repeats phase 3's forward check at
+   the largest forward batch the slice gives the kernel, runs the port's
+   inference CLI on the card (test CSV and dev accuracy, f32 and bf16),
+   checks the launch counts and the CSV, runs the CLI once on the CPU to
+   compare labels, and prints the forward's frames/s.  Then serves the two
+   checkpoints as one ensemble on the card.
+5. training: for bigru and bilstm, repeats phase 3's train-form and
+   backward checks at the largest train batch, runs the port's train CLI
+   on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
+   (per step one train-form forward and one backward per layer, per dev
+   batch one eval-form forward per layer), that the loss is finite and
+   falls from epoch 1 to 2, and that the inference CLI serves the
+   checkpoint; holds one train step's gradients on the card against the
+   same step on the CPU; prints the train step's frames/s.  Then trains
+   bilstm_lm with the CLI (2 epochs, f32): launch counts, falling loss,
+   and a checkpoint that holds its BatchNorm state (``__state__/`` keys).
 
 Prints a ``kernels`` JSON line (headline numbers at the main path's shape,
 every checked shape under ``shapes``), the card's name and power limit, and
@@ -50,15 +55,111 @@ import time
 
 import numpy as np
 
-B_BENCH, T_BENCH = 64, 1024  # the shape bench.py times bigru at
+B_BENCH, T_BENCH = 64, 1024  # the shape bench.py times bigru and bilstm at
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
-FWD_SRC = "pytorch_video_action_tpu_torch/csrc/gru_bidir_fwd.cu"
-BWD_SRC = "pytorch_video_action_tpu_torch/csrc/gru_bidir_bwd.cu"
-FWD_REPLACES = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:1008"
-BWD_REPLACES = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:1190"
-H = 128  # BiGRUConfig: hidden_dim_1 256 = 2 directions x 128
+CSRC = "pytorch_video_action_tpu_torch/csrc/"
+PALLAS = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:"
+H = 128  # hidden_dim_1 256 = 2 directions x 128, bigru and bilstm alike
+
+
+class Cell:
+    """One recurrent cell's layer kernels, as the checks below use them:
+    the wrappers and plain versions of ``ops/rnn_fused.py``, the weights'
+    shapes, the nn.GRU / nn.LSTM yardstick and the bounds."""
+
+    def __init__(self, name: str):
+        from pytorch_video_action_tpu_torch.ops import rnn_fused
+
+        self.name = name
+        self.lstm = name == "lstm"
+        self.n_gates = 4 if self.lstm else 3
+        self.n_res = 5 if self.lstm else 4  # residual width per step, in H
+        self.fwd_name = f"{name}_bidir_fwd"
+        self.bwd_name = f"{name}_bidir_bwd"
+        self.fwd = getattr(rnn_fused, self.fwd_name)
+        self.bwd = getattr(rnn_fused, self.bwd_name)
+        self.fwd_ref = getattr(rnn_fused, f"{name}_bidir_layer_ref")
+        self.bwd_ref = getattr(rnn_fused, f"{name}_bidir_layer_bwd_ref")
+        self.library = "nn.LSTM" if self.lstm else "nn.GRU"
+        self.fwd_src, self.bwd_src = (f"{CSRC}{n}.cu" for n in
+                                      (self.fwd_name, self.bwd_name))
+        self.fwd_replaces, self.bwd_replaces = (
+            ("1632", "1780") if self.lstm else ("1008", "1190"))
+
+    def weight_shapes(self, w_in):
+        """wif, wib, the biases (one folded bias per direction for the
+        LSTM, bi then bh for the GRU), whf, whb."""
+        g = self.n_gates * H
+        biases = 2 if self.lstm else 4
+        shapes = [(w_in, g)] * 2 + [(g,)] * 2 + [(H, g)] * 2
+        return shapes + [(g,)] * (biases - 2)
+
+    def weight_count(self, w_in):
+        return sum(int(np.prod(s)) for s in self.weight_shapes(w_in))
+
+    def bound(self, t_len, b, w_in, dt_name, train=False):
+        """Least time (ms) the card could take for one layer's forward:
+        each input read once, each output (ys; in the train form also the
+        residuals and, for the LSTM, the f32 cell states) written once,
+        against the peak rates."""
+        size = 4 if dt_name == "float32" else 2
+        outputs = 2 * t_len * b * H * (1 + (self.n_res if train else 0))
+        n_bytes = ((t_len * b * w_in + self.weight_count(w_in) + outputs)
+                   * size + 4 * b)
+        if train and self.lstm:
+            n_bytes += 2 * t_len * b * H * 4
+        flops = 2 * t_len * b * (w_in + H) * self.n_gates * H * 2
+        return _bound(n_bytes, flops, dt_name)
+
+    def bound_bwd(self, t_len, b, w_in, dt_name):
+        """Least time (ms) for one layer's backward: x, the weights, ys, the
+        residuals (and the LSTM's f32 cell states) and dy read once, dx and
+        the gradients written once; FLOPs 4*T*B*gH*(2*W_in + 2H) (dwi, dx,
+        dwh and the carry product, both directions)."""
+        size = 4 if dt_name == "float32" else 2
+        weights = self.weight_count(w_in)
+        reads = (t_len * b * w_in + weights
+                 + 2 * t_len * b * H * (1 + self.n_res + 1))
+        writes = t_len * b * w_in + weights
+        n_bytes = (reads + writes) * size + 4 * b
+        if self.lstm:
+            n_bytes += 2 * t_len * b * H * 4
+        flops = 4 * t_len * b * self.n_gates * H * (2 * w_in + 2 * H)
+        return _bound(n_bytes, flops, dt_name)
+
+    def bwd_args(self, x, ws, lengths, fwd, dys):
+        return (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
+
+    def module(self, x, ws):
+        """torch.nn.GRU / LSTM(bidirectional=True) with the same weights, on
+        the card in x's dtype: the yardstick, timed here only, never called
+        by the port.  The LSTM's folded bias goes to bias_ih, bias_hh is
+        0."""
+        import torch
+
+        w_in = x.shape[2]
+        net = (torch.nn.LSTM if self.lstm else torch.nn.GRU)(
+            w_in, H, bidirectional=True)
+        if self.lstm:
+            wif, wib, bf, bb, whf, whb = ws
+            dirs = (("", wif, whf, bf, torch.zeros_like(bf)),
+                    ("_reverse", wib, whb, bb, torch.zeros_like(bb)))
+        else:
+            wif, wib, bif, bib, whf, whb, bhf, bhb = ws
+            dirs = (("", wif, whf, bif, bhf), ("_reverse", wib, whb, bib, bhb))
+        with torch.no_grad():
+            for sfx, wi, wh, bi, bh in dirs:
+                getattr(net, "weight_ih_l0" + sfx).copy_(wi.t())
+                getattr(net, "weight_hh_l0" + sfx).copy_(wh.t())
+                getattr(net, "bias_ih_l0" + sfx).copy_(bi)
+                getattr(net, "bias_hh_l0" + sfx).copy_(bh)
+        # moving the module lays its weights out as one cuDNN buffer
+        return net.to("cuda", x.dtype)
+
+
+GRU = LSTM = None  # the two Cells, made once torch is importable
 
 
 def log(*a):
@@ -98,67 +199,45 @@ def phase_build():
         log(text.strip())
 
 
-def layer_inputs(t_len, b, w_in, dt, lengths, gen):
+def layer_inputs(cell, t_len, b, w_in, dt, lengths, gen):
     import torch
 
-    h = H
-    k = 1.0 / h ** 0.5
-    shapes = [(w_in, 3 * h)] * 2 + [(3 * h,)] * 2 + [(h, 3 * h)] * 2 + [(3 * h,)] * 2
+    k = 1.0 / H ** 0.5
     ws = [((torch.rand(s, generator=gen) * 2 - 1) * k).to("cuda", dt)
-          for s in shapes]
+          for s in cell.weight_shapes(w_in)]
     x = torch.randn(t_len, b, w_in, generator=gen).to("cuda", dt)
     return x, ws, torch.as_tensor(lengths, dtype=torch.int32).cuda()
 
 
-def cudnn_module(x, ws):
-    """torch.nn.GRU(bidirectional=True) with the same weights, on the card
-    in x's dtype: the yardstick, timed here only, never called by the
-    port."""
-    import torch
-
-    w_in, h = x.shape[2], ws[4].shape[0]
-    gru = torch.nn.GRU(w_in, h, bidirectional=True)
-    wif, wib, bif, bib, whf, whb, bhf, bhb = ws
-    with torch.no_grad():
-        for sfx, wi, wh, bi, bh in (("", wif, whf, bif, bhf),
-                                    ("_reverse", wib, whb, bib, bhb)):
-            getattr(gru, "weight_ih_l0" + sfx).copy_(wi.t())
-            getattr(gru, "weight_hh_l0" + sfx).copy_(wh.t())
-            getattr(gru, "bias_ih_l0" + sfx).copy_(bi)
-            getattr(gru, "bias_hh_l0" + sfx).copy_(bh)
-    # moving the module lays its weights out as one cuDNN buffer
-    return gru.to("cuda", x.dtype)
-
-
-def cudnn_gru(x, ws, lengths):
-    """The forward on a packed sequence: one call."""
+def library_fwd(cell, x, ws, lengths):
+    """The yardstick's forward on a packed sequence: one call."""
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    gru = cudnn_module(x, ws).eval()
+    net = cell.module(x, ws).eval()
     lengths_cpu = lengths.cpu()
 
     def run():
         packed = pack_padded_sequence(x, lengths_cpu, enforce_sorted=False)
-        return gru(packed)[0]
+        return net(packed)[0]
 
     return run
 
 
-def cudnn_gru_train(x, ws, lengths, dys):
-    """The forward with autograd on (what training runs) and
+def library_train(cell, x, ws, lengths, dys):
+    """The yardstick's forward with autograd on (what training runs) and
     ``torch.autograd.grad`` of the packed output against the same output
     gradients (the VJP in one call)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    gru = cudnn_module(x, ws).train()
+    net = cell.module(x, ws).train()
     lengths_cpu = lengths.cpu()
     xg = x.detach().requires_grad_(True)
-    inputs = [xg, *gru.parameters()]
+    inputs = [xg, *net.parameters()]
 
     def fwd():
         packed = pack_padded_sequence(xg, lengths_cpu, enforce_sorted=False)
-        return gru(packed)[0]
+        return net(packed)[0]
 
     out = fwd().data
     dy = pack_padded_sequence(torch.cat(dys, dim=-1), lengths_cpu,
@@ -176,69 +255,38 @@ def _bound(n_bytes, flops, dt_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound(t_len, b, w_in, dt_name, train=False):
-    """Least time (ms) the card could take for one layer's forward: each
-    input read once, each output (ys, and the residuals in the train form)
-    written once, against the peak rates."""
-    h = H
-    size = 4 if dt_name == "float32" else 2
-    weights = 2 * (w_in * 3 * h + h * 3 * h + 6 * h)
-    outputs = 2 * t_len * b * h * (5 if train else 1)
-    n_bytes = (t_len * b * w_in + weights + outputs) * size + 4 * b
-    flops = 2 * t_len * b * (w_in + h) * 3 * h * 2
-    return _bound(n_bytes, flops, dt_name)
-
-
-def bound_bwd(t_len, b, w_in, dt_name):
-    """Least time (ms) for one layer's backward: x, the weights, ys, the
-    residuals and dy read once, dx and the gradients written once; FLOPs
-    4*T*B*3H*(2*W_in + 2H) (dwi, dx, dwh and the carry product, both
-    directions)."""
-    h = H
-    size = 4 if dt_name == "float32" else 2
-    weights = 2 * (w_in * 3 * h + h * 3 * h + 6 * h)
-    reads = t_len * b * w_in + weights + 2 * t_len * b * h * (1 + 4 + 1)
-    writes = t_len * b * w_in + weights
-    n_bytes = (reads + writes) * size + 4 * b
-    flops = 4 * t_len * b * 3 * h * (2 * w_in + 2 * h)
-    return _bound(n_bytes, flops, dt_name)
-
-
-def check_layer(where, lengths, t_len, w_in, dt_name, gen):
-    """Hold the kernel against its plain version on one input and time the
-    kernel, the plain version and the nn.GRU yardstick.  Raises when they
-    disagree.  Returns the row for the ``kernels`` line."""
+def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
+    """Hold the eval-form kernel against its plain version on one input and
+    time the kernel, the plain version and the library yardstick.  Raises
+    when they disagree.  Returns the row for the ``kernels`` line."""
     import torch
-
-    from pytorch_video_action_tpu_torch.ops.rnn_fused import (
-        gru_bidir_fwd, gru_bidir_layer_ref)
 
     dt = getattr(torch, dt_name)
     b = len(lengths)
-    x, ws, lengths = layer_inputs(t_len, b, w_in, dt, lengths, gen)
-    ysf, ysb = gru_bidir_fwd(x, *ws, lengths)
+    x, ws, lengths = layer_inputs(cell, t_len, b, w_in, dt, lengths, gen)
+    ysf, ysb = cell.fwd(x, *ws, lengths)
     torch.cuda.synchronize()
-    rf, rb = gru_bidir_layer_ref(x, *ws, lengths)
+    rf, rb = cell.fwd_ref(x, *ws, lengths)
     err_f = (ysf.float() - rf.float()).abs().max().item()
     err_b = (ysb.float() - rb.float()).abs().max().item()
     pad = (torch.arange(t_len, device="cuda")[:, None]
            >= lengths[None, :].long())
     pad_b = ysb.float().abs()[pad].max().item() if pad.any() else 0.0
-    ms = cuda_ms(lambda: gru_bidir_fwd(x, *ws, lengths), 10, 2)
-    plain_ms = cuda_ms(lambda: gru_bidir_layer_ref(x, *ws, lengths), 2)
-    lib_run = cudnn_gru(x, ws, lengths)
+    ms = cuda_ms(lambda: cell.fwd(x, *ws, lengths), 10, 2)
+    plain_ms = cuda_ms(lambda: cell.fwd_ref(x, *ws, lengths), 2)
+    lib_run = library_fwd(cell, x, ws, lengths)
     with torch.no_grad():
         lib_ms = cuda_ms(lib_run, 10, 2)
-    bound_ms, bound_by = bound(t_len, b, w_in, dt_name)
+    bound_ms, bound_by = cell.bound(t_len, b, w_in, dt_name)
     row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
            "T": t_len, "max_abs_err": max(err_f, err_b), "tol": TOL[dt_name],
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"[kernel] gru_bidir_fwd {where} B={b} T={t_len} W_in={w_in} "
+    log(f"[kernel] {cell.fwd_name} {where} B={b} T={t_len} W_in={w_in} "
         f"{dt_name}: max|ysf-ref|={err_f:.3g} max|ysb-ref|={err_b:.3g} "
         f"(tol {TOL[dt_name]}), max|ysb| on padding={pad_b:.3g}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"nn.GRU packed {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"{cell.library} packed {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by})")
     if not (err_f <= TOL[dt_name] and err_b <= TOL[dt_name]):
         raise AssertionError(f"kernel disagrees with its plain version: {row}")
@@ -247,88 +295,87 @@ def check_layer(where, lengths, t_len, w_in, dt_name, gen):
     return row
 
 
-def check_layers(where, lengths, t_len, gen):
+def check_layers(cell, where, lengths, t_len, gen):
     """``check_layer`` for layer 0 (W_in=400) and the later layers (256), in
     f32 and bf16."""
-    return [check_layer(where, lengths, t_len, w_in, dt_name, gen)
+    return [check_layer(cell, where, lengths, t_len, w_in, dt_name, gen)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
 
 
-def grad_err(got, want):
+def rel_err(got, want):
     """(max abs error, max error relative to the largest plain element, at
-    least 1) over the backward's nine outputs."""
-    abs_err = rel_err = 0.0
+    least 1) over a kernel's outputs."""
+    abs_err = rel = 0.0
     for g, w in zip(got, want):
         d = (g.float() - w.float()).abs().max().item()
         abs_err = max(abs_err, d)
-        rel_err = max(rel_err, d / max(1.0, w.float().abs().max().item()))
-    return abs_err, rel_err
+        rel = max(rel, d / max(1.0, w.float().abs().max().item()))
+    return abs_err, rel
 
 
-def check_train_layer(where, lengths, t_len, w_in, dt_name, gen):
+def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     """Hold the train-form forward and the backward against their plain
     versions on one input, and time each beside its plain version, the
-    nn.GRU yardstick and its bound.  Raises when they disagree.  Returns
+    library yardstick and its bound.  Raises when they disagree.  Returns
     the rows ``(train_form, backward)`` for the ``kernels`` line."""
     import torch
 
-    from pytorch_video_action_tpu_torch.ops.rnn_fused import (
-        gru_bidir_bwd, gru_bidir_fwd, gru_bidir_layer_bwd_ref,
-        gru_bidir_layer_ref)
-
     dt = getattr(torch, dt_name)
     b = len(lengths)
-    x, ws, lengths = layer_inputs(t_len, b, w_in, dt, lengths, gen)
+    x, ws, lengths = layer_inputs(cell, t_len, b, w_in, dt, lengths, gen)
     dys = [torch.randn(t_len, b, H, generator=gen).to("cuda", dt)
            for _ in range(2)]
     head = f"{where} B={b} T={t_len} W_in={w_in} {dt_name}"
     tol = TOL[dt_name]
 
-    fwd = gru_bidir_fwd(x, *ws, lengths, train=True)
+    fwd = cell.fwd(x, *ws, lengths, train=True)
     torch.cuda.synchronize()
-    ref = gru_bidir_layer_ref(x, *ws, lengths, train=True)
-    err_fwd = max((g.float() - w.float()).abs().max().item()
-                  for g, w in zip(fwd, ref))
-    ms = cuda_ms(lambda: gru_bidir_fwd(x, *ws, lengths, train=True), 10, 2)
+    ref = cell.fwd_ref(x, *ws, lengths, train=True)
+    # the error is absolute, except that the LSTM's f32 cell state, which
+    # unlike ys and its residuals is not bounded by 1, is taken relative to
+    # its largest element (at least 1)
+    abs_fwd, rel_fwd = rel_err(fwd, ref)
+    err_fwd = rel_fwd if cell.lstm else abs_fwd
+    ms = cuda_ms(lambda: cell.fwd(x, *ws, lengths, train=True), 10, 2)
     plain_ms = cuda_ms(
-        lambda: gru_bidir_layer_ref(x, *ws, lengths, train=True), 1, 0)
-    lib_fwd, lib_bwd = cudnn_gru_train(x, ws, lengths, dys)
+        lambda: cell.fwd_ref(x, *ws, lengths, train=True), 1, 0)
+    lib_fwd, lib_bwd = library_train(cell, x, ws, lengths, dys)
     lib_ms = cuda_ms(lib_fwd, 10, 2)
-    bound_ms, bound_by = bound(t_len, b, w_in, dt_name, train=True)
+    bound_ms, bound_by = cell.bound(t_len, b, w_in, dt_name, train=True)
     fwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
                "T": t_len, "max_abs_err": err_fwd, "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"[kernel] gru_bidir_fwd train form {head}: max|ys,res-ref|="
-        f"{err_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, nn.GRU packed with autograd {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[kernel] {cell.fwd_name} train form {head}: max|out-ref|="
+        f"{abs_fwd:.3g}, error {err_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {cell.library} packed with autograd "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     if not err_fwd <= tol:
         raise AssertionError(f"train form disagrees with its plain version: "
                              f"{fwd_row}")
 
-    bargs = (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
-    got = gru_bidir_bwd(*bargs)
+    bargs = cell.bwd_args(x, ws, lengths, fwd, dys)
+    got = cell.bwd(*bargs)
     torch.cuda.synchronize()
-    want = gru_bidir_layer_bwd_ref(*bargs)
-    abs_err, rel_err = grad_err(got, want)
-    again = gru_bidir_bwd(*bargs)
+    want = cell.bwd_ref(*bargs)
+    abs_err, err_bwd = rel_err(got, want)
+    again = cell.bwd(*bargs)
     identical = all(torch.equal(a, c) for a, c in zip(got, again))
-    ms = cuda_ms(lambda: gru_bidir_bwd(*bargs), 5, 1)
-    plain_ms = cuda_ms(lambda: gru_bidir_layer_bwd_ref(*bargs), 1, 0)
+    ms = cuda_ms(lambda: cell.bwd(*bargs), 5, 1)
+    plain_ms = cuda_ms(lambda: cell.bwd_ref(*bargs), 1, 0)
     lib_ms = cuda_ms(lib_bwd, 5, 1)
-    bound_ms, bound_by = bound_bwd(t_len, b, w_in, dt_name)
+    bound_ms, bound_by = cell.bound_bwd(t_len, b, w_in, dt_name)
     bwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
-               "T": t_len, "max_abs_err": abs_err, "max_rel_err": rel_err,
+               "T": t_len, "max_abs_err": abs_err, "max_rel_err": err_bwd,
                "tol": tol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bit_identical_rerun": identical}
-    log(f"[kernel] gru_bidir_bwd {head}: max abs err {abs_err:.3g}, max "
-        f"err / max(1, max|plain|) {rel_err:.3g} (tol {tol}), rerun "
+    log(f"[kernel] {cell.bwd_name} {head}: max abs err {abs_err:.3g}, max "
+        f"err / max(1, max|plain|) {err_bwd:.3g} (tol {tol}), rerun "
         f"bit-identical {identical}, kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, autograd.grad through nn.GRU packed "
+        f"{plain_ms:.4f} ms, autograd.grad through {cell.library} packed "
         f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not rel_err <= tol:
+    if not err_bwd <= tol:
         raise AssertionError(f"backward disagrees with its plain version: "
                              f"{bwd_row}")
     if not identical:
@@ -336,26 +383,34 @@ def check_train_layer(where, lengths, t_len, w_in, dt_name, gen):
     return fwd_row, bwd_row
 
 
-def check_train_layers(where, lengths, t_len, gen):
+def check_train_layers(cell, where, lengths, t_len, gen):
     """``check_train_layer`` for W_in 400 and 256, f32 and bf16: lists of
     train-form rows and of backward rows."""
-    rows = [check_train_layer(where, lengths, t_len, w_in, dt_name, gen)
+    rows = [check_train_layer(cell, where, lengths, t_len, w_in, dt_name,
+                              gen)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
     return [r[0] for r in rows], [r[1] for r in rows]
 
 
 def phase_kernels():
+    """Every kernel at the bench shape: ``{kernel name: rows}``."""
     import torch
 
-    gen = torch.Generator().manual_seed(0)
-    lengths = torch.randint(1, T_BENCH + 1, (B_BENCH,), generator=gen)
-    lengths[0], lengths[1] = 1, T_BENCH
-    lengths = lengths.tolist()
-    t0 = time.time()
-    rows = check_layers("bench", lengths, T_BENCH, gen)
-    train_rows, bwd_rows = check_train_layers("bench", lengths, T_BENCH, gen)
-    log(f"[kernel] bench-shape checks in {time.time() - t0:.1f} s")
-    return rows, train_rows, bwd_rows
+    rows = {}
+    for cell in (GRU, LSTM):
+        gen = torch.Generator().manual_seed(0)
+        lengths = torch.randint(1, T_BENCH + 1, (B_BENCH,), generator=gen)
+        lengths[0], lengths[1] = 1, T_BENCH
+        lengths = lengths.tolist()
+        t0 = time.time()
+        rows[cell.fwd_name] = check_layers(cell, "bench", lengths, T_BENCH,
+                                           gen)
+        (rows[cell.fwd_name + "_train"],
+         rows[cell.bwd_name]) = check_train_layers(cell, "bench", lengths,
+                                                   T_BENCH, gen)
+        log(f"[kernel] {cell.name} bench-shape checks in "
+            f"{time.time() - t0:.1f} s")
+    return rows
 
 
 # ------------------------------------------------------------------ slice
@@ -363,10 +418,11 @@ def phase_kernels():
 N_CLASS = 48
 
 
-def write_dataset(root: str, seed: int = 0, train: bool = True) -> None:
+def write_dataset(root: str, seed: int = 0, train: bool = True,
+                  frames=(500, 2500)) -> None:
     """Breakfast-shaped tree: 48 classes, 24 dev and 24 test videos (and 48
-    train videos unless ``train`` is False) of 500-2500 frames, gz text
-    features, ground truth and segment.txt."""
+    train videos unless ``train`` is False) of ``frames`` (500-2500 by
+    default) frames, gz text features, ground truth and segment.txt."""
     rng = np.random.default_rng(seed)
     names = ["SIL"] + [f"action_{i:02d}" for i in range(1, N_CLASS)]
     means = rng.normal(0.0, 1.0, size=(N_CLASS, 400)).astype(np.float32)
@@ -377,9 +433,11 @@ def write_dataset(root: str, seed: int = 0, train: bool = True) -> None:
         f.write("".join(f"{i} {n}\n" for i, n in enumerate(names)))
 
     def video():
-        t_len = int(rng.integers(500, 2501))
+        t_len = int(rng.integers(frames[0], frames[1] + 1))
         labels = np.zeros(t_len, dtype=np.int64)
-        cuts = np.sort(rng.choice(np.arange(50, t_len - 50), 6, replace=False))
+        edge = min(50, t_len // 5)
+        cuts = np.sort(rng.choice(np.arange(edge, t_len - edge), 6,
+                                  replace=False))
         for a, b in zip(cuts[:-1], cuts[1:]):
             labels[a:b] = rng.integers(1, N_CLASS)
         feats = means[labels] + rng.normal(0, 0.5, (t_len, 400))
@@ -432,9 +490,36 @@ def read_csv_labels(path: str) -> list[int]:
     return out
 
 
-def phase_slice(card: str, root: str):
-    """The inference slice on the dataset under ``root`` (the cwd).
-    Returns the eval-form launches of its CLI runs and its kernel rows."""
+# the served and trained models: their layer kernels and layer count
+MODELS = {"bigru": ("gru", 4), "bilstm": ("lstm", 2),
+          "bilstm_lm": ("lstm", 2)}
+
+
+def cell_of(name):
+    return GRU if MODELS[name][0] == "gru" else LSTM
+
+
+def save_checkpoint(root: str, name: str) -> str:
+    """A full-width checkpoint of ``name`` from seeded weights (the
+    inference CLI's default configuration); returns its file name."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.models.params import to_jax_params
+    from pytorch_video_action_tpu_torch.train.checkpoint import save_params
+
+    model = build_model(name, N_CLASS, defaults=True,
+                        generator=torch.Generator().manual_seed(0))
+    ckpt = f"{name}_00.00_dev"
+    save_params(os.path.join(root, "models", f"{ckpt}.npz"),
+                to_jax_params(name, model.state_dict()))
+    return ckpt
+
+
+def phase_slice(card: str, root: str, name: str):
+    """The inference slice of ``name`` on the dataset under ``root`` (the
+    cwd).  Returns its checkpoint name, the eval-form launches of its CLI
+    runs and its kernel rows."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
@@ -443,18 +528,11 @@ def phase_slice(card: str, root: str):
     from pytorch_video_action_tpu_torch.infer.loader import load_models
     from pytorch_video_action_tpu_torch.infer.predict import (
         forward_batches, frame_predictions)
-    from pytorch_video_action_tpu_torch.models import build_model
-    from pytorch_video_action_tpu_torch.models.params import to_jax_params
-    from pytorch_video_action_tpu_torch.ops.rnn_fused import gru_bidir_fwd
-    from pytorch_video_action_tpu_torch.train.checkpoint import save_params
 
+    cell, n_layers = cell_of(name), MODELS[name][1]
     launches = 0
-    model = build_model("bigru", N_CLASS,
-                        generator=torch.Generator().manual_seed(0))
-    name = "bigru_00.00_dev"
-    save_params(os.path.join(root, "models", f"{name}.npz"),
-                to_jax_params("bigru", model.state_dict()))
-    base = ["--pretrained_model", name, "--prob", "big",
+    ckpt = save_checkpoint(root, name)
+    base = ["--pretrained_model", ckpt, "--prob", "big",
             "--data_dir", os.path.join(root, "data"), "--annot_path", root]
     n_segments = sum(len(s) - 1 for s in
                      load_segment_file(os.path.join(root, "segment.txt")))
@@ -469,24 +547,24 @@ def phase_slice(card: str, root: str):
     feats = datasets["test"].features
     t_pad, chunk = max(forward_batches(feats),
                        key=lambda tb: tb[0] * len(tb[1]))
-    rows = check_layers("main path", [len(feats[i]) for i in chunk],
+    rows = check_layers(cell, "main path", [len(feats[i]) for i in chunk],
                         t_pad, torch.Generator().manual_seed(1))
 
     csv = {}
     for dt_name in ("float32", "bfloat16"):
         for part in ("test", "dev"):
-            expect = 4 * len(forward_batches(datasets[part].features))
-            gru_bidir_fwd.launches = 0
+            expect = n_layers * len(forward_batches(datasets[part].features))
+            cell.fwd.launches = 0
             t0 = time.time()
             out = inference_cli.main(base + ["--part", part, "--dtype",
                                              dt_name, "--device", "cuda"])
             seconds = time.time() - t0
-            got = gru_bidir_fwd.launches
+            got = cell.fwd.launches
             launches += got
-            log(f"[slice] cuda {dt_name} --part {part}: "
+            log(f"[slice] {name} cuda {dt_name} --part {part}: "
                 f"{'csv ' + out if part == 'test' else f'accuracy {out:.2f}'}"
-                f" in {seconds:.1f} s, gru_bidir_fwd launches {got} "
-                f"(expected {expect} = 4 per forward batch)")
+                f" in {seconds:.1f} s, {cell.fwd_name} launches {got} "
+                f"(expected {expect} = {n_layers} per forward batch)")
             if got != expect:
                 raise AssertionError("launch count does not match the "
                                      "forward batches")
@@ -507,16 +585,16 @@ def phase_slice(card: str, root: str):
     agree = float(np.mean(np.asarray(cpu_csv) == np.asarray(csv["float32"])))
     agree16 = float(np.mean(np.asarray(csv["bfloat16"])
                             == np.asarray(csv["float32"])))
-    log(f"[slice] cpu float32 --part test in {time.time() - t0:.1f} s; "
-        f"segment labels cuda f32 vs cpu f32 agree {agree:.4f}, "
+    log(f"[slice] {name} cpu float32 --part test in {time.time() - t0:.1f} "
+        f"s; segment labels cuda f32 vs cpu f32 agree {agree:.4f}, "
         f"cuda bf16 vs cuda f32 agree {agree16:.4f}")
     if agree < 0.99:
         raise AssertionError("GPU and CPU segment labels disagree")
 
     # forward throughput: host time around synchronised work
     n_frames = sum(len(f) for f in feats)
-    gpu_model = load_models([name], N_CLASS, models_dir="models",
-                            device="cuda")[name]
+    gpu_model = load_models([ckpt], N_CLASS, models_dir="models",
+                            device="cuda")[ckpt]
     for dt_name in ("float32", "bfloat16"):
         frame_predictions(gpu_model, feats, dtype=dt_name)  # warm-up
         torch.cuda.synchronize()
@@ -524,11 +602,40 @@ def phase_slice(card: str, root: str):
         frame_predictions(gpu_model, feats, dtype=dt_name)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        log(f"[slice] bigru forward {dt_name}: {n_frames} frames of "
+        log(f"[slice] {name} forward {dt_name}: {n_frames} frames of "
             f"{len(feats)} test videos in {seconds:.4f} s = "
             f"{n_frames / seconds:.0f} frames/s (batch 8, bucket 128) "
             f"on {card}")
-    return launches, rows
+    return ckpt, launches, rows
+
+
+def phase_ensemble(root: str, ckpts: list[str]) -> dict:
+    """The inference CLI serves the checkpoints as one ensemble on the card
+    (test part, f32).  Returns the eval-form launches by kernel name."""
+    from pytorch_video_action_tpu_torch.cli import inference_cli
+    from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.predict import forward_batches
+
+    batches = len(forward_batches(VideoDataset(
+        data_dir="data", annot_path=root, part="test", split=1, mode=None,
+        verbose=False).features))
+    names = [c.split("_00.00_dev")[0] for c in ckpts]
+    for cell in (GRU, LSTM):
+        cell.fwd.launches = 0
+    out = inference_cli.main(["--pretrained_model", *ckpts, "--prob", "big",
+                              "--part", "test", "--data_dir",
+                              os.path.join(root, "data"), "--annot_path",
+                              root, "--device", "cuda"])
+    got = {cell.fwd_name: cell.fwd.launches for cell in (GRU, LSTM)}
+    expect = {cell_of(n).fwd_name: MODELS[n][1] * batches for n in names}
+    labels = read_csv_labels(out)
+    log(f"[slice] ensemble {' + '.join(ckpts)} on the card: {len(labels)} "
+        f"CSV rows, launches {got} (expected {expect})")
+    if got != expect:
+        raise AssertionError("ensemble launch counts do not match")
+    if not (labels and all(0 <= l < N_CLASS for l in labels)):
+        raise AssertionError("the ensemble serves no CSV")
+    return got
 
 
 # ---------------------------------------------------------------- training
@@ -560,25 +667,25 @@ def epoch_records(path: str) -> list[dict]:
     return [r for r in records if r["event"] == "epoch"]
 
 
-def check_grads_against_cpu(batch):
-    """One f32 train step on the card and on the CPU, from the same
-    parameters, batch and seeds; raises when a gradient differs by more
-    than ``GRAD_TOL`` of its tensor's largest element."""
+def check_grads_against_cpu(name, batch):
+    """One f32 train step of ``name`` on the card and on the CPU, from the
+    same parameters, batch and seeds; raises when a gradient differs by
+    more than ``GRAD_TOL`` of its tensor's largest element."""
     import torch
 
     from pytorch_video_action_tpu_torch.models import build_model
     from pytorch_video_action_tpu_torch.train.loop import Trainer
 
-    state = build_model("bigru", N_CLASS,
+    state = build_model(name, N_CLASS,
                         generator=torch.Generator().manual_seed(2)).state_dict()
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
-        model = build_model("bigru", N_CLASS)
+        model = build_model(name, N_CLASS)
         model.load_state_dict(state)
         trainer = Trainer(model, N_CLASS, seed=0, device=device)
         ts = trainer.init_state()
-        losses[device] = trainer.train_step(ts, batch,
-                                            seeds=[11, 12, 13, 14]).item()
+        seeds = list(range(11, 11 + model.n_dropout_sites))
+        losses[device] = trainer.train_step(ts, batch, seeds=seeds).item()
         grads[device] = {k: p.grad.detach().cpu()
                          for k, p in ts.model.named_parameters()}
     worst = 0.0
@@ -586,15 +693,15 @@ def check_grads_against_cpu(batch):
         err = ((grads["cuda"][k] - want).abs().max()
                / want.abs().max().clamp(min=1e-30)).item()
         worst = max(worst, err)
-    log(f"[train] one f32 step, B={batch[0].shape[0]} T={batch[0].shape[1]}: "
-        f"loss cuda {losses['cuda']:.6f} cpu {losses['cpu']:.6f}; worst "
-        f"gradient difference / max|cpu gradient| {worst:.3g} "
-        f"(tol {GRAD_TOL})")
+    log(f"[train] {name} one f32 step, B={batch[0].shape[0]} "
+        f"T={batch[0].shape[1]}: loss cuda {losses['cuda']:.6f} cpu "
+        f"{losses['cpu']:.6f}; worst gradient difference / max|cpu "
+        f"gradient| {worst:.3g} (tol {GRAD_TOL})")
     if not worst <= GRAD_TOL or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
         raise AssertionError("card and CPU train steps disagree")
 
 
-def train_frames_per_sec(card, feed, dt_name):
+def train_frames_per_sec(card, name, feed, dt_name):
     """Host clock around one epoch of synchronised train steps on prepared
     batches, after one warm-up step."""
     import torch
@@ -602,7 +709,7 @@ def train_frames_per_sec(card, feed, dt_name):
     from pytorch_video_action_tpu_torch.models import build_model
     from pytorch_video_action_tpu_torch.train.loop import Trainer
 
-    model = build_model("bigru", N_CLASS,
+    model = build_model(name, N_CLASS,
                         generator=torch.Generator().manual_seed(3))
     trainer = Trainer(model, N_CLASS, seed=0, compute_dtype=dt_name)
     ts = trainer.init_state()
@@ -615,21 +722,58 @@ def train_frames_per_sec(card, feed, dt_name):
         trainer.train_step(ts, b)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    log(f"[train] bigru train step {dt_name}: {frames} frames in "
+    log(f"[train] {name} train step {dt_name}: {frames} frames in "
         f"{len(batches)} steps in {seconds:.4f} s = {frames / seconds:.0f} "
         f"frames/s (batch {TRAIN_BATCH}, bucket 128) on {card}")
 
 
-def phase_train(card: str, root: str):
-    """The training slice on the dataset under ``root`` (the cwd).  Returns
-    the launches of its CLI runs by kernel (eval form, train form,
-    backward) and the train-form and backward kernel rows."""
+def train_cli_run(root, name, dt_name, steps, dev_batches):
+    """The train CLI on the card, with the layer kernels' counts set to 0
+    just before it and read just after.  Checks the launch counts and the
+    loss; returns ``(best dev accuracy, launches)``."""
+    from pytorch_video_action_tpu_torch.cli import train_cli
+
+    cell, n_layers = cell_of(name), MODELS[name][1]
+    metrics = os.path.join(root, f"train_{name}_{dt_name}.jsonl")
+    cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
+    t0 = time.time()
+    best = train_cli.main([
+        "--model", name, "--epoch", str(TRAIN_EPOCHS), "--batchsize",
+        str(TRAIN_BATCH), "--split", "0", "--data_dir",
+        os.path.join(root, "data"), "--annot_path", root, "--dtype",
+        dt_name, "--device", "cuda", "--metrics_jsonl", metrics])
+    seconds = time.time() - t0
+    got = {"eval": cell.fwd.launches, "train": cell.fwd.train_launches,
+           "bwd": cell.bwd.launches}
+    expect = {"eval": n_layers * dev_batches, "train": n_layers * steps,
+              "bwd": n_layers * steps}
+    epochs = epoch_records(metrics)
+    loss = [r["train_loss"] for r in epochs]
+    log(f"[train] {name} cuda {dt_name} train CLI: {TRAIN_EPOCHS} epochs of "
+        f"{steps // TRAIN_EPOCHS} steps in {seconds:.1f} s, train loss "
+        f"{loss}, dev segment accuracy "
+        f"{[r['dev_segment_acc'] for r in epochs]}, CLI frames/s "
+        f"{[r['frames_per_sec'] for r in epochs]}; launches train-form fwd "
+        f"{got['train']}, bwd {got['bwd']} (expected {expect['train']} = "
+        f"{n_layers} per step), eval-form fwd {got['eval']} (expected "
+        f"{expect['eval']} = {n_layers} per dev batch)")
+    if got != expect:
+        raise AssertionError("launch counts do not match the steps")
+    if not (len(loss) == TRAIN_EPOCHS and np.all(np.isfinite(loss))
+            and loss[1] < loss[0]):
+        raise AssertionError(f"train loss {loss}: not finite or not falling")
+    return best, got
+
+
+def phase_train(card: str, root: str, name: str):
+    """The training slice of ``name`` on the dataset under ``root`` (the
+    cwd).  Returns the launches of its CLI runs by kernel form (eval form,
+    train form, backward) and the train-form and backward kernel rows."""
     import torch
 
-    from pytorch_video_action_tpu_torch.cli import inference_cli, train_cli
-    from pytorch_video_action_tpu_torch.ops.rnn_fused import (gru_bidir_bwd,
-                                                              gru_bidir_fwd)
+    from pytorch_video_action_tpu_torch.cli import inference_cli
 
+    cell = cell_of(name)
     t0 = time.time()
     train_feed, dev_feed = train_feeds(root)
     log(f"[train] train and dev parts parsed in {time.time() - t0:.1f} s")
@@ -641,54 +785,25 @@ def phase_train(card: str, root: str):
     lens = [len(train_feed.dataset.features[i]) for i in idxs]
     t_pad = train_feed.collate(idxs)[0].shape[1]
     train_rows, bwd_rows = check_train_layers(
-        "main path", lens, t_pad, torch.Generator().manual_seed(4))
+        cell, "main path", lens, t_pad, torch.Generator().manual_seed(4))
 
     steps = TRAIN_EPOCHS * len(train_feed)
     dev_batches = TRAIN_EPOCHS * len(dev_feed)
     launches = {"eval": 0, "train": 0, "bwd": 0}
     for dt_name in ("float32", "bfloat16"):
-        metrics = os.path.join(root, f"train_{dt_name}.jsonl")
-        gru_bidir_fwd.launches = gru_bidir_fwd.train_launches = 0
-        gru_bidir_bwd.launches = 0
-        t0 = time.time()
-        best = train_cli.main([
-            "--model", "bigru", "--epoch", str(TRAIN_EPOCHS), "--batchsize",
-            str(TRAIN_BATCH), "--split", "0", "--data_dir",
-            os.path.join(root, "data"), "--annot_path", root, "--dtype",
-            dt_name, "--device", "cuda", "--metrics_jsonl", metrics])
-        seconds = time.time() - t0
-        got = {"eval": gru_bidir_fwd.launches,
-               "train": gru_bidir_fwd.train_launches,
-               "bwd": gru_bidir_bwd.launches}
-        expect = {"eval": 4 * dev_batches, "train": 4 * steps,
-                  "bwd": 4 * steps}
+        best, got = train_cli_run(root, name, dt_name, steps, dev_batches)
         for k in launches:
             launches[k] += got[k]
-        epochs = epoch_records(metrics)
-        loss = [r["train_loss"] for r in epochs]
-        log(f"[train] cuda {dt_name} train CLI: {TRAIN_EPOCHS} epochs of "
-            f"{len(train_feed)} steps in {seconds:.1f} s, train loss {loss}, "
-            f"dev segment accuracy {[r['dev_segment_acc'] for r in epochs]}, "
-            f"CLI frames/s {[r['frames_per_sec'] for r in epochs]}; launches "
-            f"train-form fwd {got['train']}, bwd {got['bwd']} (expected "
-            f"{expect['train']} = 4 per step), eval-form fwd {got['eval']} "
-            f"(expected {expect['eval']} = 4 per dev batch)")
-        if got != expect:
-            raise AssertionError("launch counts do not match the steps")
-        if not (len(loss) == TRAIN_EPOCHS and np.all(np.isfinite(loss))
-                and loss[1] < loss[0]):
-            raise AssertionError(f"train loss {loss}: not finite or not "
-                                 "falling")
-        name = f"bigru_{best:.2f}_dev"
-        if not os.path.exists(os.path.join("models", f"{name}.npz")):
-            raise AssertionError(f"no checkpoint {name}")
+        ckpt = f"{name}_{best:.2f}_dev"
+        if not os.path.exists(os.path.join("models", f"{ckpt}.npz")):
+            raise AssertionError(f"no checkpoint {ckpt}")
         labels = read_csv_labels(inference_cli.main([
-            "--pretrained_model", name, "--prob", "big", "--part", "test",
+            "--pretrained_model", ckpt, "--prob", "big", "--part", "test",
             "--data_dir", os.path.join(root, "data"), "--annot_path", root,
             "--device", "cuda"]))
         if not (labels and all(0 <= l < N_CLASS for l in labels)):
             raise AssertionError("the trained checkpoint serves no CSV")
-        log(f"[train] checkpoint {name} served: {len(labels)} CSV rows")
+        log(f"[train] checkpoint {ckpt} served: {len(labels)} CSV rows")
 
     # one step on the card and on the CPU: the smallest train batch, its
     # videos cut to 512 frames to bound the CPU's time
@@ -700,10 +815,42 @@ def phase_train(card: str, root: str):
     batch = (batch[0][:, :keep], np.minimum(batch[1], keep),
              batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
              batch[3][:, :keep])
-    check_grads_against_cpu(batch)
+    check_grads_against_cpu(name, batch)
     for dt_name in ("float32", "bfloat16"):
-        train_frames_per_sec(card, train_feed, dt_name)
+        train_frames_per_sec(card, name, train_feed, dt_name)
     return launches, train_rows, bwd_rows
+
+
+LM_FRAMES = (40, 100)
+
+
+def phase_train_lm(root: str) -> dict:
+    """bilstm_lm through the train CLI on the card (f32): launch counts,
+    falling loss, and a checkpoint holding its BatchNorm state.  Returns
+    the launches by kernel form.
+
+    Its own tree of 40-100-frame videos (``root``): the model feeds each
+    frame's log-probs back as the next frames' context, and at its initial
+    weights that loop diverges on Breakfast-length videos, in the JAX
+    package as in the port (log-probs near -2e32 by frame 600, NaN by
+    1500), so the loss would not be finite."""
+    t0 = time.time()
+    write_dataset(root, seed=1, frames=LM_FRAMES)
+    log(f"[train] bilstm_lm dataset of {LM_FRAMES[0]}-{LM_FRAMES[1]}-frame "
+        f"videos written in {time.time() - t0:.1f} s")
+    train_feed, dev_feed = train_feeds(root)
+    best, got = train_cli_run(root, "bilstm_lm", "float32",
+                              TRAIN_EPOCHS * len(train_feed),
+                              TRAIN_EPOCHS * len(dev_feed))
+    path = os.path.join("models", f"bilstm_lm_{best:.2f}_dev.npz")
+    with np.load(path) as z:
+        state = sorted(k for k in z.files if k.startswith("__state__/"))
+    log(f"[train] checkpoint {path}: state keys {state}")
+    if state != ["__state__/bn1/mean", "__state__/bn1/var",
+                 "__state__/bn2/mean", "__state__/bn2/var"]:
+        raise AssertionError("the bilstm_lm checkpoint holds no BatchNorm "
+                             "state")
+    return got
 
 
 def kernel_entry(name, source, replaces, launches, rows):
@@ -721,6 +868,7 @@ def kernel_entry(name, source, replaces, launches, rows):
 def main() -> int:
     import torch
 
+    global GRU, LSTM
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -728,25 +876,52 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    GRU, LSTM = Cell("gru"), Cell("lstm")
 
     start = time.time()
     phase_build()
-    bench_rows, bench_train_rows, bench_bwd_rows = phase_kernels()
+    bench = phase_kernels()
+    rows, launches = {}, {}
     with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
         t0 = time.time()
         write_dataset(root)
         log(f"[slice] dataset written in {time.time() - t0:.1f} s")
-        infer_launches, main_rows = phase_slice(card, root)
-        launches, train_rows, bwd_rows = phase_train(card, root)
+        ckpts = []
+        for name in ("bigru", "bilstm"):
+            cell = cell_of(name)
+            ckpt, n, rows[cell.fwd_name] = phase_slice(card, root, name)
+            ckpts.append(ckpt)
+            launches[cell.fwd_name] = n
+        for k, n in phase_ensemble(root, ckpts[::-1]).items():
+            launches[k] += n
+        t0 = time.time()
+        for name in ("bigru", "bilstm"):
+            cell = cell_of(name)
+            got, rows[cell.fwd_name + "_train"], rows[cell.bwd_name] = (
+                phase_train(card, root, name))
+            launches[cell.fwd_name] += got["eval"]
+            launches[cell.fwd_name + "_train"] = got["train"]
+            launches[cell.bwd_name] = got["bwd"]
+        # its own tree and cwd: the feature cache (data-comp/) is per cwd
+        lm_root = os.path.join(root, "lm")
+        os.makedirs(lm_root)
+        with contextlib.chdir(lm_root):
+            got = phase_train_lm(lm_root)
+        launches[LSTM.fwd_name] += got["eval"]
+        launches[LSTM.fwd_name + "_train"] += got["train"]
+        launches[LSTM.bwd_name] += got["bwd"]
+        log(f"[train] training phases in {time.time() - t0:.1f} s")
     log(f"[done] all phases in {time.time() - start:.1f} s")
 
-    kernels = [
-        kernel_entry("gru_bidir_fwd", FWD_SRC, FWD_REPLACES,
-                     infer_launches + launches["eval"], main_rows + bench_rows),
-        kernel_entry("gru_bidir_fwd_train", FWD_SRC, FWD_REPLACES,
-                     launches["train"], train_rows + bench_train_rows),
-        kernel_entry("gru_bidir_bwd", BWD_SRC, BWD_REPLACES, launches["bwd"],
-                     bwd_rows + bench_bwd_rows)]
+    kernels = []
+    for cell in (GRU, LSTM):
+        for name, src, replaces in (
+                (cell.fwd_name, cell.fwd_src, cell.fwd_replaces),
+                (cell.fwd_name + "_train", cell.fwd_src, cell.fwd_replaces),
+                (cell.bwd_name, cell.bwd_src, cell.bwd_replaces)):
+            kernels.append(kernel_entry(name, src, PALLAS + replaces,
+                                        launches[name],
+                                        rows[name] + bench[name]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,18 @@
 plus ``--device {cuda,cpu}`` (``cuda`` by default; raises without a card).
 
 Run: ``python -m pytorch_video_action_tpu_torch.cli.train_cli --model bigru
---epoch 10 --batchsize 8``.  Each epoch prints the reference's loss and dev
-accuracy lines and saves ``models/{model}_{acc:.2f}_dev.npz`` when the dev
-segment accuracy improves.
+--epoch 10 --batchsize 8`` (or ``--model bilstm``, ``--model bilstm_lm``,
+with the ``--lstm_*`` and ``--pred_mode`` flags).  Each epoch prints the
+reference's loss and dev accuracy lines and saves
+``models/{model}_{acc:.2f}_dev.npz`` when the dev segment accuracy improves;
+a bilstm_lm checkpoint carries its BatchNorm running stats under
+``__state__/``.
 
 Accepted but not served yet, each raising ``NotImplementedError`` naming
 its ROADMAP item before the data loads: ``--data_parallel N>1`` and
 ``--seq_parallel N>1`` (15), ``--resume`` and ``--cache_device`` (14),
-``--lm_path`` (13), models other than bigru (9-12), ``--train_mode
-segment`` and ``cont`` (6).  ``--profile_dir`` raises naming item 14 when
+``--lm_path`` (13), models other than bigru, bilstm and bilstm_lm (9-12),
+``--train_mode segment`` and ``cont`` (6).  ``--profile_dir`` raises naming item 14 when
 the first epoch starts.  ``--use_pallas`` changes nothing: on the card the
 hand-written kernels always run.
 """
@@ -27,7 +30,7 @@ import torch
 
 from ..data import BatchFeed, BucketBatchSampler, VideoDataset
 from ..models import build_model, not_ported
-from ..models.params import from_jax_params, to_jax_params
+from ..models.params import PORTED, load_jax_params, to_jax_params
 from ..train import checkpoint as ckpt
 from ..train.loop import Trainer, evaluate
 from ..utils.observability import MetricsLogger, StepTimer, profile_trace
@@ -140,7 +143,7 @@ def refuse_unserved(args) -> None:
         raise _not_served("--cache_device", 14)
     if args.lm_path is not None:
         raise _not_served("--lm_path", 13)
-    if args.model != 'bigru':
+    if args.model not in PORTED:
         raise not_ported(args.model)
     if args.train_mode != 'active':
         raise _not_served(f"--train_mode {args.train_mode}", 6)
@@ -175,7 +178,11 @@ def main(argv=None):
                          train_mode=args.train_mode,
                          bucket_multiple=max(args.bucket_multiple, 32))
 
-    model = build_model(args.model, n_class,
+    model = build_model(args.model, n_class, pred_mode=args.pred_mode,
+                        lstm_layer=args.lstm_layer,
+                        lstm_dropout=args.lstm_dropout,
+                        lstm_hidden1=args.lstm_hidden1,
+                        lstm_hidden2=args.lstm_hidden2,
                         generator=torch.Generator().manual_seed(args.seed))
     trainer = Trainer(model, n_class, lr=args.lr,
                       lr_step_size=args.lr_step_size,
@@ -185,8 +192,8 @@ def main(argv=None):
 
     if args.pretrained_model is not None:
         model_path = os.path.join('models', f'{args.pretrained_model}.npz')
-        ts.model.load_state_dict(
-            from_jax_params(args.model, ckpt.load_params(model_path)))
+        load_jax_params(ts.model, args.model,
+                        *ckpt.load_params(model_path, with_state=True))
         print(f'Loaded pretrained model: {model_path}')
 
     if args.eval:
@@ -237,8 +244,8 @@ def _train_loop(args, trainer, ts, train_feed, dev_feed):
             print('{} ==> {}'.format(dev_acc, previous_dev))
             model_path = 'models/{}.npz'.format(
                 ckpt.checkpoint_name(args.model, dev_acc))
-            ckpt.save_params(model_path,
-                             to_jax_params(args.model, ts.model.state_dict()))
+            ckpt.save_params(model_path, *to_jax_params(
+                args.model, ts.model.state_dict(), with_state=True))
             metrics.log("checkpoint", path=model_path,
                         dev_segment_acc=round(dev_acc, 4))
             previous_dev = dev_acc

@@ -51,34 +51,9 @@
 //    bit-identical gradients.
 // wgmma, TMA and split-K with a fixed-order reduction are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
+#include "rnn_common.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and back
-template <typename T>
-__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
 // ------------------------------------------------------------- recurrence
 
@@ -216,207 +191,6 @@ bwd_recur_kernel(const T* __restrict__ wh_f, const T* __restrict__ wh_b,
   }
 }
 
-// out[q][dir][c] = sum over b, in order, of bias_part[q][dir][b][c]
-template <typename T>
-__global__ void bias_reduce_kernel(const float* __restrict__ bias_part,
-                                   T* __restrict__ dbif, T* __restrict__ dbib,
-                                   T* __restrict__ dbhf, T* __restrict__ dbhb,
-                                   int B, int G) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 4 * G) return;
-  const int qd = i / G;  // q * 2 + dir
-  const int c = i % G;
-  const float* p = bias_part + (size_t)qd * B * G + c;
-  float sum = 0.0f;
-  for (int b = 0; b < B; ++b) sum += p[(size_t)b * G];
-  T* out[4] = {dbif, dbib, dbhf, dbhb};
-  out[qd][c] = from_f<T>(sum);
-}
-
-// ------------------------------------------------------------------ GEMMs
-
-constexpr int kBK = 8;  // depth per shared-memory stage
-constexpr int kThreads = 256;
-
-// C[m, n] = sum_k A(m, k) * B(k, n) for one BM x BN tile, f32 accumulation,
-// each of the 256 threads a (BM/16) x (BN/16) sub-tile.  A and B are
-// functors that return the operand, already rounded, as a float; their
-// kContigK says whether neighbouring k are neighbours in memory, and the
-// tile loads give neighbouring threads neighbouring addresses accordingly.
-template <int BM, int BN, typename LA, typename LB, typename ST>
-__device__ __forceinline__ void gemm_tile(const LA& a, const LB& bop,
-                                          const ST& st, int M, int N, int K,
-                                          int m0, int n0) {
-  constexpr int TM = BM / 16;
-  constexpr int TN = BN / 16;
-  // +4: transposed stores are conflict-free and rows stay 16-byte aligned
-  __shared__ __align__(16) float As[kBK][BM + 4];
-  __shared__ __align__(16) float Bs[kBK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int i = 0; i < (BM * kBK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int m = LA::kContigK ? e / kBK : e % BM;
-      const int kk = LA::kContigK ? e % kBK : e / BM;
-      const int gm = m0 + m;
-      const int gk = k0 + kk;
-      As[kk][m] = (gm < M && gk < K) ? a(gm, gk) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < (BN * kBK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int n = LB::kContigK ? e / kBK : e % BN;
-      const int kk = LB::kContigK ? e % kBK : e / BN;
-      const int gk = k0 + kk;
-      const int gn = n0 + n;
-      Bs[kk][n] = (gk < K && gn < N) ? bop(gk, gn) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int q = 0; q < TM / 4; ++q) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&As[kk][q * 64 + tr * 4]);
-        av[q * 4] = v.x;
-        av[q * 4 + 1] = v.y;
-        av[q * 4 + 2] = v.z;
-        av[q * 4 + 3] = v.w;
-      }
-#pragma unroll
-      for (int q = 0; q < TN / 4; ++q) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&Bs[kk][q * 64 + tc * 4]);
-        bv[q * 4] = v.x;
-        bv[q * 4 + 1] = v.y;
-        bv[q * 4 + 2] = v.z;
-        bv[q * 4 + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + (i / 4) * 64 + tr * 4 + i % 4;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + (j / 4) * 64 + tc * 4 + j % 4;
-      if (gn < N) st(gm, gn, acc[i][j]);
-    }
-  }
-}
-
-// A(m, k) = p[(k + shift) * ld + m], 0 where row k + shift is outside
-// [0, rows): a row-major [rows, ld] matrix read transposed, with rows
-// shifted (hp is ys shifted by one time step, B rows).
-template <typename T>
-struct ShiftedRowsT {
-  static constexpr bool kContigK = false;
-  const T* p;
-  int ld, shift, rows;
-  __device__ float operator()(int m, int k) const {
-    const int r = k + shift;
-    return (r >= 0 && r < rows) ? to_f(p[(size_t)r * ld + m]) : 0.0f;
-  }
-};
-
-// B(k, n) = p[k * ld + n] rounded to T: f32 gate gradients as an operand
-template <typename T>
-struct RoundedRows {
-  static constexpr bool kContigK = false;
-  const float* p;
-  int ld;
-  __device__ float operator()(int k, int n) const {
-    return rnd<T>(p[(size_t)k * ld + n]);
-  }
-};
-
-// dx's A(m, k) = dxg[d][m][k - d*G] rounded to T, d = (k >= G)
-template <typename T>
-struct DxgRows {
-  static constexpr bool kContigK = true;
-  const float* p;
-  size_t dir_stride;
-  int G;
-  __device__ float operator()(int m, int k) const {
-    const int d = k >= G;
-    return rnd<T>(p[d * dir_stride + (size_t)m * G + (k - d * G)]);
-  }
-};
-
-// dx's B(k, n) = wi_d[n][k - d*G], d = (k >= G): both wi transposed
-template <typename T>
-struct WiT {
-  static constexpr bool kContigK = true;
-  const T* wf;
-  const T* wb;
-  int G;
-  __device__ float operator()(int k, int n) const {
-    const int d = k >= G;
-    return to_f((d ? wb : wf)[(size_t)n * G + (k - d * G)]);
-  }
-};
-
-template <typename T>
-struct Store {
-  T* p;
-  int ld;
-  __device__ void operator()(int m, int n, float v) const {
-    p[(size_t)m * ld + n] = from_f<T>(v);
-  }
-};
-
-template <typename T>
-struct WgradProblem {
-  ShiftedRowsT<T> a;
-  RoundedRows<T> b;
-  Store<T> c;
-  int M;
-};
-
-// dwi and dwh of both directions in one launch: blockIdx.z picks the
-// problem, [W or H, 3H] = A^T B over K = T*B rows.
-template <typename T>
-struct WgradProblems {
-  WgradProblem<T> p[4];
-};
-
-constexpr int kWT = 64;   // weight-gradient tile
-constexpr int kDxT = 128; // dx tile
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const WgradProblems<T> probs, int N, int K) {
-  const WgradProblem<T>& p = probs.p[blockIdx.z];
-  const int m0 = blockIdx.x * kWT;
-  if (m0 >= p.M) return;  // the smaller (dwh) problems use fewer row tiles
-  gemm_tile<kWT, kWT>(p.a, p.b, p.c, p.M, N, K, m0, blockIdx.y * kWT);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const DxgRows<T> a, const WiT<T> b, const Store<T> c, int M, int N,
-          int K) {
-  gemm_tile<kDxT, kDxT>(a, b, c, M, N, K, blockIdx.x * kDxT,
-                        blockIdx.y * kDxT);
-}
-
 template <typename T, int H>
 cudaError_t launch_recur(const void* whf, const void* whb, const int* lengths,
                          const void* ysf, const void* ysb, const void* resf,
@@ -466,44 +240,13 @@ cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
   if (err != cudaSuccess) return err;
 
   const int G = 3 * H;
-  const int M = Tn * B;
-  bias_reduce_kernel<T><<<(4 * G + 255) / 256, 256, 0, stream>>>(
-      bias_part, static_cast<T*>(dbif), static_cast<T*>(dbib),
-      static_cast<T*>(dbhf), static_cast<T*>(dbhb), B, G);
-  err = cudaGetLastError();
+  // bias_part [2 (bi, bh)][2 (dir)][B][G]
+  const BiasOuts<T> bias = {{static_cast<T*>(dbif), static_cast<T*>(dbib),
+                             static_cast<T*>(dbhf), static_cast<T*>(dbhb)}};
+  err = launch_bias_reduce<T>(bias_part, bias, 4, B, G, stream);
   if (err != cudaSuccess) return err;
-
-  WgradProblems<T> probs;
-  const size_t dstride = (size_t)M * G;
-  // dwi_d = x^T rnd(dxg_d); dwh_d = hp_d^T rnd(dhg_d), hp_f = ys_f one step
-  // earlier (B rows up), hp_b = ys_b one step later (B rows down)
-  const WgradProblem<T> dwi_f = {{static_cast<const T*>(x), W, 0, M},
-                                 {dxg, G}, {static_cast<T*>(dwif), G}, W};
-  const WgradProblem<T> dwi_b = {{static_cast<const T*>(x), W, 0, M},
-                                 {dxg + dstride, G},
-                                 {static_cast<T*>(dwib), G}, W};
-  const WgradProblem<T> dwh_f = {{static_cast<const T*>(ysf), H, -B, M},
-                                 {dhg, G}, {static_cast<T*>(dwhf), G}, H};
-  const WgradProblem<T> dwh_b = {{static_cast<const T*>(ysb), H, B, M},
-                                 {dhg + dstride, G},
-                                 {static_cast<T*>(dwhb), G}, H};
-  probs.p[0] = dwi_f;
-  probs.p[1] = dwi_b;
-  probs.p[2] = dwh_f;
-  probs.p[3] = dwh_b;
-  const int rows = W > H ? W : H;
-  const dim3 wgrid((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4);
-  wgrad_kernel<T><<<wgrid, kThreads, 0, stream>>>(probs, G, M);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
-  const DxgRows<T> xa = {dxg, dstride, G};
-  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
-                     G};
-  const Store<T> xc = {static_cast<T*>(dx), W};
-  dx_kernel<T><<<xgrid, kThreads, 0, stream>>>(xa, xb, xc, M, W, 2 * G);
-  return cudaGetLastError();
+  return launch_products<T>(x, wif, wib, ysf, ysb, dxg, dhg, dx, dwif, dwib,
+                            dwhf, dwhb, Tn, B, W, H, G, stream);
 }
 
 }  // namespace

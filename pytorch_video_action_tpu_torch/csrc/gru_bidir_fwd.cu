@@ -49,114 +49,9 @@
 //    are not waited on).  The eval form compiles without them.
 // wgmma, TMA and spreading H across SMs are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stddef.h>
+#include "rnn_common.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// ------------------------------------------------------------- projection
-
-constexpr int kPM = 128;  // rows (t*B + b) per block
-constexpr int kPN = 128;  // gate columns per block
-constexpr int kPK = 8;    // depth per shared-memory stage
-constexpr int kPThreads = 256;
-
-// xg[dir, m, n] = sum_k x[m, k] * wi_dir[k, n] + bi_dir[n]   (f32)
-template <typename T>
-__global__ void __launch_bounds__(kPThreads)
-proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
-            const T* __restrict__ wi_b, const T* __restrict__ bi_f,
-            const T* __restrict__ bi_b, float* __restrict__ xg, int M, int K,
-            int N) {
-  const int dir = blockIdx.z;
-  const T* __restrict__ w = dir ? wi_b : wi_f;
-  const T* __restrict__ bias = dir ? bi_b : bi_f;
-  // +4: the transposed A store is conflict-free and rows stay 16-byte aligned
-  __shared__ __align__(16) float As[kPK][kPM + 4];
-  __shared__ __align__(16) float Bs[kPK][kPN];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kPM;
-  const int n0 = blockIdx.y * kPN;
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += kPK) {
-#pragma unroll
-    for (int i = 0; i < (kPM * kPK) / kPThreads; ++i) {
-      const int e = tid + i * kPThreads;
-      const int m = e / kPK;
-      const int kk = e % kPK;
-      const int gm = m0 + m;
-      const int gk = k0 + kk;
-      As[kk][m] = (gm < M && gk < K) ? to_f(x[(size_t)gm * K + gk]) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < (kPN * kPK) / kPThreads; ++i) {
-      const int e = tid + i * kPThreads;
-      const int kk = e / kPN;
-      const int n = e % kPN;
-      const int gk = k0 + kk;
-      const int gn = n0 + n;
-      Bs[kk][n] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kPK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + tr * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tc * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? tr * 4 + i : 64 + tr * 4 + (i - 4));
-    if (gm >= M) continue;
-    float* __restrict__ row = xg + ((size_t)dir * M + gm) * N;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + (j < 4 ? tc * 4 + j : 64 + tc * 4 + (j - 4));
-      if (gn < N) row[gn] = acc[i][j] + to_f(bias[gn]);
-    }
-  }
-}
 
 // ------------------------------------------------------------- recurrence
 
@@ -272,14 +167,8 @@ cudaError_t run_layer(const void* x, const void* wif, const void* wib,
                       const int* lengths, void* ysf, void* ysb, void* resf,
                       void* resb, float* xg, int Tn, int B, int W, int H,
                       bool train, cudaStream_t stream) {
-  const int M = Tn * B;
-  const int N = 3 * H;
-  const dim3 pgrid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN, 2);
-  proj_kernel<T><<<pgrid, kPThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wif),
-      static_cast<const T*>(wib), static_cast<const T*>(bif),
-      static_cast<const T*>(bib), xg, M, W, N);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err =
+      launch_proj<T>(x, wif, wib, bif, bib, xg, Tn * B, W, 3 * H, stream);
   if (err != cudaSuccess) return err;
   switch (H) {
     case 16:

@@ -1,0 +1,390 @@
+// Device code shared by the bidirectional GRU and LSTM layer kernels
+// (gru_bidir_fwd.cu, gru_bidir_bwd.cu, lstm_bidir_fwd.cu, lstm_bidir_bwd.cu)
+// for Hopper (sm_90a): dtype conversions, the input projection, and the
+// backward's deterministic tiled SIMT GEMMs and bias reduction.  Each .cu
+// includes it and builds into its own library.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ float to_f(T v);
+template <>
+__device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T and back
+template <typename T>
+__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
+
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+// ------------------------------------------------------------- projection
+
+constexpr int kPM = 128;  // rows (t*B + b) per block
+constexpr int kPN = 128;  // gate columns per block
+constexpr int kPK = 8;    // depth per shared-memory stage
+constexpr int kPThreads = 256;
+
+// xg[dir, m, n] = sum_k x[m, k] * wi_dir[k, n] + bi_dir[n]   (f32)
+template <typename T>
+__global__ void __launch_bounds__(kPThreads)
+proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
+            const T* __restrict__ wi_b, const T* __restrict__ bi_f,
+            const T* __restrict__ bi_b, float* __restrict__ xg, int M, int K,
+            int N) {
+  const int dir = blockIdx.z;
+  const T* __restrict__ w = dir ? wi_b : wi_f;
+  const T* __restrict__ bias = dir ? bi_b : bi_f;
+  // +4: the transposed A store is conflict-free and rows stay 16-byte aligned
+  __shared__ __align__(16) float As[kPK][kPM + 4];
+  __shared__ __align__(16) float Bs[kPK][kPN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kPM;
+  const int n0 = blockIdx.y * kPN;
+  const int tr = tid / 16;
+  const int tc = tid % 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += kPK) {
+#pragma unroll
+    for (int i = 0; i < (kPM * kPK) / kPThreads; ++i) {
+      const int e = tid + i * kPThreads;
+      const int m = e / kPK;
+      const int kk = e % kPK;
+      const int gm = m0 + m;
+      const int gk = k0 + kk;
+      As[kk][m] = (gm < M && gk < K) ? to_f(x[(size_t)gm * K + gk]) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < (kPN * kPK) / kPThreads; ++i) {
+      const int e = tid + i * kPThreads;
+      const int kk = e / kPN;
+      const int n = e % kPN;
+      const int gk = k0 + kk;
+      const int gn = n0 + n;
+      Bs[kk][n] = (gk < K && gn < N) ? to_f(w[(size_t)gk * N + gn]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kPK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][tr * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + tr * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tc * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tc * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i < 4 ? tr * 4 + i : 64 + tr * 4 + (i - 4));
+    if (gm >= M) continue;
+    float* __restrict__ row = xg + ((size_t)dir * M + gm) * N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int gn = n0 + (j < 4 ? tc * 4 + j : 64 + tc * 4 + (j - 4));
+      if (gn < N) row[gn] = acc[i][j] + to_f(bias[gn]);
+    }
+  }
+}
+
+// xg [2, M, N] f32 for both directions of x [M, K]: one launch.
+template <typename T>
+cudaError_t launch_proj(const void* x, const void* wif, const void* wib,
+                        const void* bif, const void* bib, float* xg, int M,
+                        int K, int N, cudaStream_t stream) {
+  const dim3 grid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN, 2);
+  proj_kernel<T><<<grid, kPThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wif),
+      static_cast<const T*>(wib), static_cast<const T*>(bif),
+      static_cast<const T*>(bib), xg, M, K, N);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- bias sums
+
+constexpr int kMaxBiasOuts = 4;
+
+template <typename T>
+struct BiasOuts {
+  T* p[kMaxBiasOuts];
+};
+
+// out.p[q][c] = sum over b, in order, of part[q][b][c], q < n_out: the
+// chain's per-row bias sums added in a fixed order (no atomics)
+template <typename T>
+__global__ void bias_reduce_kernel(const float* __restrict__ part,
+                                   const BiasOuts<T> out, int n_out, int B,
+                                   int G) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out * G) return;
+  const int q = i / G;
+  const int c = i % G;
+  const float* p = part + (size_t)q * B * G + c;
+  float sum = 0.0f;
+  for (int b = 0; b < B; ++b) sum += p[(size_t)b * G];
+  out.p[q][c] = from_f<T>(sum);
+}
+
+template <typename T>
+cudaError_t launch_bias_reduce(const float* part, const BiasOuts<T>& out,
+                               int n_out, int B, int G, cudaStream_t stream) {
+  bias_reduce_kernel<T><<<(n_out * G + 255) / 256, 256, 0, stream>>>(
+      part, out, n_out, B, G);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ GEMMs
+
+constexpr int kBK = 8;  // depth per shared-memory stage
+constexpr int kThreads = 256;
+
+// C[m, n] = sum_k A(m, k) * B(k, n) for one BM x BN tile, f32 accumulation,
+// each of the 256 threads a (BM/16) x (BN/16) sub-tile.  A and B are
+// functors that return the operand, already rounded, as a float; their
+// kContigK says whether neighbouring k are neighbours in memory, and the
+// tile loads give neighbouring threads neighbouring addresses accordingly.
+template <int BM, int BN, typename LA, typename LB, typename ST>
+__device__ __forceinline__ void gemm_tile(const LA& a, const LB& bop,
+                                          const ST& st, int M, int N, int K,
+                                          int m0, int n0) {
+  constexpr int TM = BM / 16;
+  constexpr int TN = BN / 16;
+  // +4: transposed stores are conflict-free and rows stay 16-byte aligned
+  __shared__ __align__(16) float As[kBK][BM + 4];
+  __shared__ __align__(16) float Bs[kBK][BN + 4];
+  const int tid = threadIdx.x;
+  const int tr = tid / 16;
+  const int tc = tid % 16;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+#pragma unroll
+    for (int i = 0; i < (BM * kBK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int m = LA::kContigK ? e / kBK : e % BM;
+      const int kk = LA::kContigK ? e % kBK : e / BM;
+      const int gm = m0 + m;
+      const int gk = k0 + kk;
+      As[kk][m] = (gm < M && gk < K) ? a(gm, gk) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < (BN * kBK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int n = LB::kContigK ? e / kBK : e % BN;
+      const int kk = LB::kContigK ? e % kBK : e / BN;
+      const int gk = k0 + kk;
+      const int gn = n0 + n;
+      Bs[kk][n] = (gk < K && gn < N) ? bop(gk, gn) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int q = 0; q < TM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&As[kk][q * 64 + tr * 4]);
+        av[q * 4] = v.x;
+        av[q * 4 + 1] = v.y;
+        av[q * 4 + 2] = v.z;
+        av[q * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < TN / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&Bs[kk][q * 64 + tc * 4]);
+        bv[q * 4] = v.x;
+        bv[q * 4 + 1] = v.y;
+        bv[q * 4 + 2] = v.z;
+        bv[q * 4 + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + (i / 4) * 64 + tr * 4 + i % 4;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + (j / 4) * 64 + tc * 4 + j % 4;
+      if (gn < N) st(gm, gn, acc[i][j]);
+    }
+  }
+}
+
+// A(m, k) = p[(k + shift) * ld + m], 0 where row k + shift is outside
+// [0, rows): a row-major [rows, ld] matrix read transposed, with rows
+// shifted (hp is ys shifted by one time step, B rows).
+template <typename T>
+struct ShiftedRowsT {
+  static constexpr bool kContigK = false;
+  const T* p;
+  int ld, shift, rows;
+  __device__ float operator()(int m, int k) const {
+    const int r = k + shift;
+    return (r >= 0 && r < rows) ? to_f(p[(size_t)r * ld + m]) : 0.0f;
+  }
+};
+
+// B(k, n) = p[k * ld + n] rounded to T: f32 gate gradients as an operand
+template <typename T>
+struct RoundedRows {
+  static constexpr bool kContigK = false;
+  const float* p;
+  int ld;
+  __device__ float operator()(int k, int n) const {
+    return rnd<T>(p[(size_t)k * ld + n]);
+  }
+};
+
+// dx's A(m, k) = dxg[d][m][k - d*G] rounded to T, d = (k >= G)
+template <typename T>
+struct DxgRows {
+  static constexpr bool kContigK = true;
+  const float* p;
+  size_t dir_stride;
+  int G;
+  __device__ float operator()(int m, int k) const {
+    const int d = k >= G;
+    return rnd<T>(p[d * dir_stride + (size_t)m * G + (k - d * G)]);
+  }
+};
+
+// dx's B(k, n) = wi_d[n][k - d*G], d = (k >= G): both wi transposed
+template <typename T>
+struct WiT {
+  static constexpr bool kContigK = true;
+  const T* wf;
+  const T* wb;
+  int G;
+  __device__ float operator()(int k, int n) const {
+    const int d = k >= G;
+    return to_f((d ? wb : wf)[(size_t)n * G + (k - d * G)]);
+  }
+};
+
+template <typename T>
+struct Store {
+  T* p;
+  int ld;
+  __device__ void operator()(int m, int n, float v) const {
+    p[(size_t)m * ld + n] = from_f<T>(v);
+  }
+};
+
+template <typename T>
+struct WgradProblem {
+  ShiftedRowsT<T> a;
+  RoundedRows<T> b;
+  Store<T> c;
+  int M;
+};
+
+// dwi and dwh of both directions in one launch: blockIdx.z picks the
+// problem, [W or H, G] = A^T B over K = T*B rows.
+template <typename T>
+struct WgradProblems {
+  WgradProblem<T> p[4];
+};
+
+constexpr int kWT = 64;   // weight-gradient tile
+constexpr int kDxT = 128; // dx tile
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wgrad_kernel(const WgradProblems<T> probs, int N, int K) {
+  const WgradProblem<T>& p = probs.p[blockIdx.z];
+  const int m0 = blockIdx.x * kWT;
+  if (m0 >= p.M) return;  // the smaller (dwh) problems use fewer row tiles
+  gemm_tile<kWT, kWT>(p.a, p.b, p.c, p.M, N, K, m0, blockIdx.y * kWT);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dx_kernel(const DxgRows<T> a, const WiT<T> b, const Store<T> c, int M, int N,
+          int K) {
+  gemm_tile<kDxT, kDxT>(a, b, c, M, N, K, blockIdx.x * kDxT,
+                        blockIdx.y * kDxT);
+}
+
+// The backward's products off the chain, for gate width G = gH:
+//   dwi_d = x^T rnd(dxg_d), dwh_d = hp_d^T rnd(dhg_d)  (one launch)
+//   dx = rnd(dxg_f) wi_f^T + rnd(dxg_b) wi_b^T
+// with hp_f = ys_f one step earlier (B rows up), hp_b = ys_b one step later
+// (B rows down), 0 past the ends.  dxg and dhg are [2, T*B, G] f32.
+template <typename T>
+cudaError_t launch_products(const void* x, const void* wif, const void* wib,
+                            const void* ysf, const void* ysb,
+                            const float* dxg, const float* dhg, void* dx,
+                            void* dwif, void* dwib, void* dwhf, void* dwhb,
+                            int Tn, int B, int W, int H, int G,
+                            cudaStream_t stream) {
+  const int M = Tn * B;
+  const size_t dstride = (size_t)M * G;
+  WgradProblems<T> probs;
+  probs.p[0] = {{static_cast<const T*>(x), W, 0, M}, {dxg, G},
+                {static_cast<T*>(dwif), G}, W};
+  probs.p[1] = {{static_cast<const T*>(x), W, 0, M}, {dxg + dstride, G},
+                {static_cast<T*>(dwib), G}, W};
+  probs.p[2] = {{static_cast<const T*>(ysf), H, -B, M}, {dhg, G},
+                {static_cast<T*>(dwhf), G}, H};
+  probs.p[3] = {{static_cast<const T*>(ysb), H, B, M}, {dhg + dstride, G},
+                {static_cast<T*>(dwhb), G}, H};
+  const int rows = W > H ? W : H;
+  const dim3 wgrid((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4);
+  wgrad_kernel<T><<<wgrid, kThreads, 0, stream>>>(probs, G, M);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
+  const DxgRows<T> xa = {dxg, dstride, G};
+  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
+                     G};
+  const Store<T> xc = {static_cast<T*>(dx), W};
+  dx_kernel<T><<<xgrid, kThreads, 0, stream>>>(xa, xb, xc, M, W, 2 * G);
+  return cudaGetLastError();
+}
+
+}  // namespace

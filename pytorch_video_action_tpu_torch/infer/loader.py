@@ -4,7 +4,7 @@
 Contract (reference ``inference.py:81-105``): checkpoint filenames are
 ``{model}_{acc:.2f}_dev``; the model type is
 ``'_'.join(name.split('.')[0].split('_')[:-1])`` and the model is built with
-default hyperparameters.  A type the port has not ported yet raises
+default hyperparameters.  bigru and bilstm checkpoints are served.  A type the port has not ported yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -15,7 +15,7 @@ import os
 import torch
 
 from ..models import INFERENCE_NAMES, build_model
-from ..models.params import from_jax_params
+from ..models.params import load_jax_params
 from ..train.checkpoint import load_params
 
 
@@ -38,15 +38,15 @@ def load_models(
         if mtype not in INFERENCE_NAMES:
             print(f"Unknown model type {mtype!r} for {model_filename}; skipping")
             continue
-        model = build_model(mtype, n_class)
+        model = build_model(mtype, n_class, defaults=True)
         path = os.path.join(models_dir, f"{model_filename}.npz")
         try:
-            params = load_params(path)
+            params, state = load_params(path, with_state=True)
         except OSError as e:
             print(e)
             print(f"Model {model_filename} not found in {path}!")
             continue
-        model.load_state_dict(from_jax_params(mtype, params))
+        load_jax_params(model, mtype, params, state)
         out[model_filename] = model.to(device).eval()
         print(f"Load pretrained model: {model_filename}")
     return out

@@ -1,8 +1,10 @@
 """Model registry and factory (counterpart of
 ``pytorch_video_action_tpu/models/__init__.py``).
 
-Only ``bigru`` is ported.  Every other name of the JAX package raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+Ported: ``bigru``, ``bilstm`` and ``bilstm_lm``.  Every other name of the
+JAX package raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.  A model says whether it is stateful (``model.stateful``: its
+module buffers are the JAX package's ``model_state``).
 """
 
 from __future__ import annotations
@@ -10,13 +12,14 @@ from __future__ import annotations
 import torch
 
 from .gru import BiGRU, BiGRUConfig
+from .lstm import BiLSTM, BiLSTMConfig, BiLSTMWithLM, BiLSTMWithLMConfig
 
 # names accepted by the inference drivers' checkpoint-filename parsing
 # (inference.py:82-94; note 'mstcn' there vs 'ms_tcn' in train.py)
 INFERENCE_NAMES = ["simple_fc", "vanilla_lstm", "bilstm", "bigru", "attn", "mstcn"]
 
 _ROADMAP_ITEM = {
-    "vanilla_lstm": 9, "bilstm": 9, "bilstm_lm": 9,
+    "vanilla_lstm": 9,
     "attn": 10, "win_attn": 10,
     "ms_tcn": 11, "mstcn": 11,
     "simple_fc": 12, "ctcloss": 12,
@@ -32,11 +35,28 @@ def not_ported(name: str) -> Exception:
         f"'Modules to port', item {item})")
 
 
-def build_model(name: str, n_class: int, *,
+def build_model(name: str, n_class: int, *, pred_mode: str = "cont",
+                lstm_layer: int = 2, lstm_dropout: float = 0.5,
+                lstm_hidden1: int = 256, lstm_hidden2: int = 64,
+                defaults: bool = False,
                 generator: torch.Generator | None = None) -> torch.nn.Module:
-    """Build a model with the inference drivers' default hyperparameters
-    (``inference.py:83-94``), the checkpoint contract.  ``generator`` seeds
-    the initial weights."""
+    """Build a model.  ``defaults=True`` gives the inference CLIs'
+    class-default hyperparameters (``inference.py:83-94``), the checkpoint
+    contract; otherwise the train CLI's flags apply (``train.py:218-259``),
+    as in the JAX package: bigru takes none of them, bilstm_lm all but
+    ``pred_mode`` and ignores ``defaults``.  ``generator`` seeds the initial
+    weights."""
     if name == "bigru":
         return BiGRU(BiGRUConfig(n_class=n_class), generator=generator)
+    if name == "bilstm":
+        cfg = (BiLSTMConfig(n_class=n_class) if defaults else BiLSTMConfig(
+            lstm_layer=lstm_layer, hidden_dim_1=lstm_hidden1,
+            dropout_rate=lstm_dropout, hidden_dim_2=lstm_hidden2,
+            n_class=n_class, mode=pred_mode))
+        return BiLSTM(cfg, generator=generator)
+    if name == "bilstm_lm":
+        return BiLSTMWithLM(BiLSTMWithLMConfig(
+            lstm_layer=lstm_layer, hidden_dim_1=lstm_hidden1,
+            dropout_rate=lstm_dropout, hidden_dim_2=lstm_hidden2,
+            n_class=n_class), generator=generator)
     raise not_ported(name)

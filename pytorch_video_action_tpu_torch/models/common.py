@@ -42,6 +42,17 @@ def dropout(seed, x: torch.Tensor, rate: float, train: bool) -> torch.Tensor:
     return hashmask.hash_dropout(seed, x, 1.0 - rate)
 
 
+def dropout_on(model, train: bool, seeds) -> bool:
+    """Whether a forward of ``model`` runs dropout: ``train`` and a rate
+    above 0.  Raises when it does and fewer than ``model.n_dropout_sites``
+    seeds are given."""
+    drop = train and model.cfg.dropout_rate > 0.0
+    if drop and (seeds is None or len(seeds) < model.n_dropout_sites):
+        raise ValueError(f"{type(model).__name__}: train=True needs "
+                         f"{model.n_dropout_sites} dropout seeds")
+    return drop
+
+
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
     # always f32: under bf16 the body computes in bf16, normalisation does not
     return torch.log_softmax(x.to(torch.float32), dim=-1)

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from ..ops.rnn import gru_apply, init_rnn
-from .common import Linear, dropout, log_softmax
+from .common import Linear, dropout, dropout_on, log_softmax
 
 
 @dataclass(frozen=True)
@@ -24,12 +24,14 @@ class BiGRUConfig:
 
 
 class BiGRU(nn.Module):
+    stateful = False
+
     def __init__(self, cfg: BiGRUConfig,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
         self.rnn = init_rnn(cfg.input_dim, cfg.hidden_dim_1 // 2,
-                            cfg.gru_layer, generator=generator)
+                            cfg.gru_layer, n_gates=3, generator=generator)
         self.output = Linear(cfg.hidden_dim_1, cfg.n_class,
                              generator=generator)
 
@@ -45,10 +47,7 @@ class BiGRU(nn.Module):
         ``seeds`` (train only): ``seeds[0]`` for the input dropout, then one
         per inter-layer dropout site."""
         rate = self.cfg.dropout_rate
-        drop = train and rate > 0.0
-        if drop and (seeds is None or len(seeds) < self.n_dropout_sites):
-            raise ValueError(f"BiGRU: train=True needs "
-                             f"{self.n_dropout_sites} dropout seeds")
+        drop = dropout_on(self, train, seeds)
         x = dropout(seeds[0] if drop else None, x, rate, drop)
         out = gru_apply(self.rnn, x, lengths, dropout_rate=rate, train=drop,
                         seeds=seeds[1:] if drop else None)

@@ -5,6 +5,8 @@ The JAX package keeps params as nested dicts and lists of arrays (the tree
 ``train.checkpoint.load_params`` returns, e.g. ``rnn/0/fwd/wi``).  The
 port's modules name their parameters after the same paths joined with
 ``.`` (``rnn.0.fwd.wi``), in the same layouts, so carry-over is a rename.
+A stateful model's buffers (``bn1.mean`` ...) are JAX's ``model_state``
+tree, kept apart from the params.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-PORTED = ("bigru",)
+PORTED = ("bigru", "bilstm", "bilstm_lm")
+# each stateful model's buffers: the leaves of JAX's ``model_state`` tree
+STATE_KEYS = {"bilstm_lm": ("bn1.mean", "bn1.var", "bn2.mean", "bn2.var")}
 
 
 def _check_name(name: str) -> None:
@@ -60,15 +64,45 @@ def _listify(node):
     return node
 
 
-def from_jax_params(name: str, tree) -> dict[str, torch.Tensor]:
-    """JAX params tree of numpy arrays -> the port's ``state_dict``."""
-    _check_name(name)
+def _to_torch(tree) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in flatten(tree, ".").items()}
 
 
-def to_jax_params(name: str, state_dict) -> dict:
-    """The port's ``state_dict`` -> JAX params tree of f32 numpy arrays."""
+def from_jax_params(name: str, tree, model_state=None
+                    ) -> dict[str, torch.Tensor]:
+    """JAX params tree (and ``model_state`` tree, if any) of numpy arrays ->
+    the port's ``state_dict``."""
     _check_name(name)
-    return unflatten({k: v.detach().to("cpu", torch.float32).numpy()
-                      for k, v in state_dict.items()}, ".")
+    out = _to_torch(tree)
+    if model_state is not None:
+        out.update(_to_torch(model_state))
+    return out
+
+
+def to_jax_params(name: str, state_dict, with_state: bool = False):
+    """The port's ``state_dict`` -> JAX params tree of f32 numpy arrays, or
+    ``(params, model_state or None)`` when ``with_state``."""
+    _check_name(name)
+    keys = set(STATE_KEYS.get(name, ()))
+    flat = {k: v.detach().to("cpu", torch.float32).numpy()
+            for k, v in state_dict.items()}
+    params = unflatten({k: v for k, v in flat.items() if k not in keys}, ".")
+    if not with_state:
+        return params
+    state = {k: v for k, v in flat.items() if k in keys}
+    return params, (unflatten(state, ".") if state else None)
+
+
+def load_jax_params(model: torch.nn.Module, name: str, tree,
+                    model_state=None) -> None:
+    """Load a JAX params tree (and ``model_state``) into ``model``.  A
+    stateful model's buffers keep their initial values when the checkpoint
+    holds no state, as the JAX CLI keeps its initial ``model_state``."""
+    missing, unexpected = model.load_state_dict(
+        from_jax_params(name, tree, model_state), strict=False)
+    allowed = set() if model_state is not None else set(STATE_KEYS.get(name, ()))
+    if unexpected or set(missing) - allowed:
+        raise RuntimeError(f"{name} checkpoint does not fit the model: "
+                           f"missing {sorted(set(missing) - allowed)}, "
+                           f"unexpected {sorted(unexpected)}")

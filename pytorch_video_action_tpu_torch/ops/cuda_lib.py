@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the hash is of
-the source, so an edited kernel rebuilds) at its first use, and loaded with
-``ctypes``.  Nothing is built or loaded when the module is imported.
+the source and the shared ``csrc/*.cuh`` headers, so an edited kernel
+rebuilds) at its first use, and loaded with ``ctypes``.  Nothing is built or loaded when the module is imported.
 """
 
 from __future__ import annotations
@@ -41,8 +41,12 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source and the shared
+    headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, ptxas_verbose: bool):

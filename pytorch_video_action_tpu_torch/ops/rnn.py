@@ -1,16 +1,20 @@
-"""Bidirectional GRU stack (counterpart of ``pytorch_video_action_tpu/ops/rnn.py``).
+"""Bidirectional GRU and LSTM stacks (counterpart of
+``pytorch_video_action_tpu/ops/rnn.py``).
 
 Parameter layout follows ``init_rnn`` of the JAX package: a list over
-layers of ``{'fwd': p, 'bwd': p}`` where ``p`` holds ``wi [D, 3H]``,
-``wh [H, 3H]``, ``bi [3H]`` and ``bh [3H]`` (right-multiplied, gates r, z,
-n), all initialised ``U(-1/sqrt(H), 1/sqrt(H))`` like ``torch.nn.GRU``.
+layers of ``{'fwd': p, 'bwd': p}`` where ``p`` holds ``wi [D, gH]``,
+``wh [H, gH]``, ``bi [gH]`` and ``bh [gH]`` (right-multiplied; g = 3 gates
+r, z, n for the GRU, 4 gates i, f, g, o for the LSTM), all initialised
+``U(-1/sqrt(H), 1/sqrt(H))`` like ``torch.nn.GRU`` and ``torch.nn.LSTM``.
 
-``gru_apply`` follows ``_run_stack_fused_tm``: the stream stays time-major
-across the stack, each layer is one :func:`rnn_fused.gru_bidir_layer`, each
-boundary is ``concat([ys_f, ys_b]) * mask``, and inter-layer hash dropout
-(train only, strides ``(2H, T*2H, 1)``) follows every layer but the last.
-Under autograd each layer runs its train form and backward kernel; the
-boundary glue is plain torch, differentiated by autograd.
+``gru_apply`` and ``lstm_apply`` follow ``_run_stack_fused_tm``: the stream
+stays time-major across the stack, each layer is one
+:func:`rnn_fused.gru_bidir_layer` or :func:`rnn_fused.lstm_bidir_layer`
+(the LSTM with both biases folded, ``rnn.py:275-277``), each boundary is
+``concat([ys_f, ys_b]) * mask``, and inter-layer hash dropout (train only,
+strides ``(2H, T*2H, 1)``) follows every layer but the last.  Under
+autograd each layer runs its train form and backward kernel; the boundary
+glue is plain torch, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -22,16 +26,16 @@ from torch import nn
 
 from . import hashmask
 from .masking import length_mask
-from .rnn_fused import gru_bidir_layer
+from .rnn_fused import gru_bidir_layer, lstm_bidir_layer
 
 
 class RNNDirection(nn.Module):
-    """One direction of one GRU layer."""
+    """One direction of one GRU (3 gates) or LSTM (4 gates) layer."""
 
-    def __init__(self, input_dim: int, hidden_dim: int,
+    def __init__(self, input_dim: int, hidden_dim: int, n_gates: int,
                  generator: torch.Generator | None = None):
         super().__init__()
-        g = 3 * hidden_dim  # gates r, z, n
+        g = n_gates * hidden_dim
         self.wi = nn.Parameter(torch.empty(input_dim, g))
         self.wh = nn.Parameter(torch.empty(hidden_dim, g))
         self.bi = nn.Parameter(torch.empty(g))
@@ -42,44 +46,70 @@ class RNNDirection(nn.Module):
                 p.uniform_(-k, k, generator=generator)
 
 
-def init_rnn(input_dim: int, hidden_dim: int, num_layers: int,
+def init_rnn(input_dim: int, hidden_dim: int, num_layers: int, *,
+             n_gates: int = 3,
              generator: torch.Generator | None = None) -> nn.ModuleList:
-    """Bidirectional GRU stack parameters, layer 0 of width ``input_dim`` and
-    ``2 * hidden_dim`` after it."""
+    """Bidirectional stack parameters, layer 0 of width ``input_dim`` and
+    ``2 * hidden_dim`` after it; ``n_gates`` 3 for the GRU, 4 for the
+    LSTM."""
     layers = nn.ModuleList()
     d = input_dim
     for _ in range(num_layers):
         layers.append(nn.ModuleDict({
-            "fwd": RNNDirection(d, hidden_dim, generator=generator),
-            "bwd": RNNDirection(d, hidden_dim, generator=generator),
+            "fwd": RNNDirection(d, hidden_dim, n_gates, generator=generator),
+            "bwd": RNNDirection(d, hidden_dim, n_gates, generator=generator),
         }))
         d = 2 * hidden_dim
     return layers
 
 
-def gru_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
-              dropout_rate: float = 0.0, train: bool = False,
-              seeds=None) -> torch.Tensor:
-    """``x [B, T, D]`` -> ``[B, T, 2H]``, zero on padded frames.
+def _gru_layer(x, f, b, lengths):
+    return gru_bidir_layer(x, f.wi, b.wi, f.bi, b.bi, f.wh, b.wh, f.bh, b.bh,
+                           lengths)
+
+
+def _lstm_layer(x, f, b, lengths):
+    return lstm_bidir_layer(x, f.wi, b.wi, f.bi + f.bh, b.bi + b.bh, f.wh,
+                            b.wh, lengths)
+
+
+def _apply_stack(layer_fn, layers, x: torch.Tensor, lengths: torch.Tensor,
+                 dropout_rate: float, train: bool, seeds) -> torch.Tensor:
+    """``x [B, T, D]`` -> ``[B, T, 2H]``, zero on padded frames, one
+    ``layer_fn(x_tm, fwd, bwd, lengths) -> (ys_f, ys_b)`` per layer.
 
     ``seeds`` gives one uint32 per inter-layer dropout site
     (``len(layers) - 1``); dropout runs only when ``train`` is set."""
-    b_sz, t_len = x.shape[0], x.shape[1]
+    t_len = x.shape[1]
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     mask_tb = length_mask(lengths, t_len).t().to(x.dtype)[:, :, None]
     out = x.transpose(0, 1).contiguous()  # [T, B, W]
     drop = train and dropout_rate > 0.0
     if drop and (seeds is None or len(seeds) < len(layers) - 1):
-        raise ValueError("gru_apply: train=True needs one seed per "
+        raise ValueError("rnn stack: train=True needs one seed per "
                          "inter-layer dropout site")
     keep = 1.0 - dropout_rate
     for li, layer in enumerate(layers):
-        f, b = layer["fwd"], layer["bwd"]
-        ysf, ysb = gru_bidir_layer(out, f.wi, b.wi, f.bi, b.bi, f.wh, b.wh,
-                                   f.bh, b.bh, lengths)
+        ysf, ysb = layer_fn(out, layer["fwd"], layer["bwd"], lengths)
         out = torch.cat([ysf, ysb], dim=-1) * mask_tb
         if drop and li < len(layers) - 1:
             h2 = out.shape[-1]
             out = hashmask.hash_dropout(seeds[li], out, keep,
                                         strides=(h2, t_len * h2, 1))
     return out.transpose(0, 1)
+
+
+def gru_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
+              dropout_rate: float = 0.0, train: bool = False,
+              seeds=None) -> torch.Tensor:
+    """The bidirectional GRU stack: ``x [B, T, D]`` -> ``[B, T, 2H]``."""
+    return _apply_stack(_gru_layer, layers, x, lengths, dropout_rate, train,
+                        seeds)
+
+
+def lstm_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
+               dropout_rate: float = 0.0, train: bool = False,
+               seeds=None) -> torch.Tensor:
+    """The bidirectional LSTM stack: ``x [B, T, D]`` -> ``[B, T, 2H]``."""
+    return _apply_stack(_lstm_layer, layers, x, lengths, dropout_rate, train,
+                        seeds)

@@ -1,9 +1,11 @@
-"""One bidirectional GRU layer: the hand-written Hopper kernels
-(``csrc/gru_bidir_fwd.cu``, ``csrc/gru_bidir_bwd.cu``), their plain PyTorch
-versions, and the ``torch.autograd.Function`` that ties the train-form
-forward to the backward.
+"""One bidirectional GRU or LSTM layer: the hand-written Hopper kernels
+(``csrc/gru_bidir_fwd.cu``, ``csrc/gru_bidir_bwd.cu``,
+``csrc/lstm_bidir_fwd.cu``, ``csrc/lstm_bidir_bwd.cu``), their plain
+PyTorch versions, and the ``torch.autograd.Function``s that tie each
+train-form forward to its backward.  The LSTM section, below the GRU's,
+has its own notes.
 
-Counterpart of ``pytorch_video_action_tpu/ops/rnn_fused_pallas.py``
+GRU: counterpart of ``pytorch_video_action_tpu/ops/rnn_fused_pallas.py``
 ``gru_bidir_fused_split``: ``_fwd_kernel_split`` in its eval and train
 forms and ``_bwd_kernel_split``, its VJP.  Same argument order and layouts:
 ``x [T, B, W]`` time-major, per-direction ``wi [W, 3H]``, ``wh [H, 3H]``,
@@ -149,13 +151,14 @@ def gru_bidir_layer_bwd_ref(x, wif, wib, whf, whb, lengths, ysf, ysb, resf,
 
 
 def _check_tensors(where, dtype, expect, tensors):
-    """Shapes, one dtype per tensor (None: int32), one device, contiguity."""
+    """Shapes, one device, contiguity and the dtypes: ``dtype`` for an
+    entry marked 1, int32 for None, else the entry's own dtype."""
     device = tensors[0].device
     for (name, shape, dt), t in zip(expect, tensors):
         if tuple(t.shape) != shape:
             raise ValueError(f"{where}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        want = torch.int32 if dt is None else dtype
+        want = torch.int32 if dt is None else dtype if dt == 1 else dt
         if t.dtype != want:
             raise TypeError(f"{where}: {name} is {t.dtype}, expected {want}")
         if t.device != device:
@@ -217,6 +220,10 @@ _ARGTYPES = {
                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "gru_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 24
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "lstm_bidir_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "lstm_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 23
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 
 
@@ -362,3 +369,275 @@ def gru_bidir_layer(x, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths):
                                        for t in (x, *weights)):
         return GRUBidirLayerFn.apply(x, *weights, lengths)
     return gru_bidir_fwd(x, *weights, lengths)
+
+
+# ------------------------------------------------------------------- LSTM
+#
+# Counterpart of ``rnn_fused_pallas.lstm_bidir_fused_split``:
+# ``_lstm_fwd_kernel_split`` in its eval and train forms and
+# ``_lstm_bwd_kernel_split``, its VJP.  Layouts: ``x [T, B, W]``,
+# per-direction ``wi [W, 4H]``, ``wh [H, 4H]`` and one folded bias
+# ``b = bi + bh [4H]``, gates i, f, g, o; ``lengths [B]``; returns
+# ``(ys_f, ys_b)``, each ``[T, B, H]`` in original time order, unmasked.
+#
+# Masking contract: the forward chain runs through padding unfrozen, in h
+# and c.  The backward chain walks ``t = T-1 .. 0`` from ``h = c = 0`` and
+# keeps both while ``t >= len``, so ``ys_b`` is 0 on padding.
+#
+# The train form also returns ``cs_f``, ``cs_b [T, B, H]``, the carried
+# cell state after each step, in f32 (the accumulation dtype), and the
+# residuals ``res_f``, ``res_b [T, B, 5H] = [i, f, g, o, tanh c]`` in the
+# input dtype, ``tanh c`` of the step's own new cell (also on frozen
+# steps); both directions in original time order.  The backward reads
+# ``c_prev`` from ``cs`` and the previous ``h`` from ``ys`` (``t-1``
+# forward, ``t+1`` backward, 0 past the ends); on the backward chain's
+# frozen steps it gives no gate gradient and passes ``dh`` and ``dc``
+# through.
+#
+# Numerics as the GRU's: products of the input dtype accumulate in f32;
+# ``c`` and the gate math are f32; ``h`` is rounded to the weight dtype
+# before the hidden product.  In the backward the gate gradients are
+# rounded to the weight dtype before the carry product and ``dwh``, to the
+# ``wi`` dtype for ``dx`` and to the ``x`` dtype for ``dwi``.
+
+
+def lstm_bidir_layer_ref(x, wif, wib, bf, bb, whf, whb, lengths,
+                         train=False):
+    """Plain PyTorch version of the LSTM forward: a loop over T with the
+    kernel's masking contract and dtype handling.  ``train=True`` also
+    returns ``(cs_f, cs_b, res_f, res_b)``."""
+    t_len, b, _ = x.shape
+    h = whf.shape[0]
+    dt = x.dtype
+    acc = _acc(dt)
+    wi = torch.stack([wif, wib]).to(acc)  # [2, W, 4H]
+    bias = torch.stack([bf, bb]).to(acc)[:, None, None, :]
+    xg = torch.matmul(x.to(acc).unsqueeze(0), wi.unsqueeze(1)) + bias
+    wh = torch.stack([whf, whb]).to(acc)  # [2, H, 4H]
+    lengths = lengths.to(x.device, torch.int64)
+    hs = torch.zeros(2, b, h, dtype=acc, device=x.device)
+    cs = torch.zeros_like(hs)
+    ysf, ysb = (torch.empty(t_len, b, h, dtype=dt, device=x.device)
+                for _ in range(2))
+    if train:
+        csf, csb = (torch.empty(t_len, b, h, dtype=acc, device=x.device)
+                    for _ in range(2))
+        resf, resb = (torch.empty(t_len, b, 5 * h, dtype=dt, device=x.device)
+                      for _ in range(2))
+    for s in range(t_len):
+        tb = t_len - 1 - s
+        gates = (torch.stack([xg[0, s], xg[1, tb]])
+                 + torch.bmm(hs.to(dt).to(acc), wh))
+        i = torch.sigmoid(gates[..., :h])
+        f = torch.sigmoid(gates[..., h:2 * h])
+        g = torch.tanh(gates[..., 2 * h:3 * h])
+        o = torch.sigmoid(gates[..., 3 * h:])
+        cn = f * cs + i * g
+        tc = torch.tanh(cn)
+        hn = o * tc
+        valid_b = (tb < lengths)[:, None]
+        cs = torch.stack([cn[0], torch.where(valid_b, cn[1], cs[1])])
+        hs = torch.stack([hn[0], torch.where(valid_b, hn[1], hs[1])])
+        ysf[s] = hs[0].to(dt)
+        ysb[tb] = hs[1].to(dt)
+        if train:
+            csf[s], csb[tb] = cs[0], cs[1]
+            step = torch.cat([i, f, g, o, tc], dim=-1).to(dt)
+            resf[s], resb[tb] = step[0], step[1]
+    if train:
+        return ysf, ysb, csf, csb, resf, resb
+    return ysf, ysb
+
+
+def lstm_bidir_layer_bwd_ref(x, wif, wib, whf, whb, lengths, ysf, ysb, csf,
+                             csb, resf, resb, dyf, dyb):
+    """Plain PyTorch version of the LSTM backward: the VJP of the forward
+    in the kernel's order and rounding.  Returns ``(dx, dwif, dwib, dbf,
+    dbb, dwhf, dwhb)``, ``db`` the folded bias's gradient."""
+    t_len, b, w_in = x.shape
+    h = whf.shape[0]
+    dt, wdt = x.dtype, whf.dtype
+    acc = _acc(dt)
+
+    def rnd(v, d):
+        return v.to(d).to(acc)
+
+    def prev(f_seq, b_seq):
+        """The chains' previous states: t-1 forward, t+1 backward."""
+        zero = torch.zeros(1, b, h, dtype=acc, device=x.device)
+        return torch.stack([torch.cat([zero, f_seq[:-1].to(acc)]),
+                            torch.cat([b_seq[1:].to(acc), zero])])
+
+    lengths = lengths.to(x.device, torch.int64)
+    hp, cp = prev(ysf, ysb), prev(csf, csb)  # [2, T, B, H]
+    res = torch.stack([resf, resb]).to(acc)
+    dy = torch.stack([dyf, dyb]).to(acc)
+    wh_t = torch.stack([whf, whb]).to(acc).transpose(1, 2)  # [2, 4H, H]
+    dg = torch.empty(2, t_len, b, 4 * h, dtype=acc, device=x.device)
+    carry_h = torch.zeros(2, b, h, dtype=acc, device=x.device)
+    carry_c = torch.zeros_like(carry_h)
+    always = torch.ones(b, dtype=torch.bool, device=x.device)
+    for s in range(t_len):
+        tf, tb = t_len - 1 - s, s  # the chains' steps, walked backwards
+        rs = torch.stack([res[0, tf], res[1, tb]])
+        i, f, g, o, tc = (rs[..., q * h:(q + 1) * h] for q in range(5))
+        c_prev = torch.stack([cp[0, tf], cp[1, tb]])
+        dh = torch.stack([dy[0, tf], dy[1, tb]]) + carry_h
+        dc = dh * o * (1.0 - tc * tc) + carry_c
+        gates = torch.cat([dc * g * i * (1.0 - i),
+                           dc * c_prev * f * (1.0 - f),
+                           dc * i * (1.0 - g * g),
+                           dh * tc * o * (1.0 - o)], dim=-1)
+        # the backward chain was frozen on padding: no gate gradient there
+        valid = torch.stack([always, tb < lengths])[:, :, None]
+        gates = torch.where(valid, gates, torch.zeros_like(gates))
+        dg[0, tf], dg[1, tb] = gates[0], gates[1]
+        carry_h = torch.where(valid, torch.bmm(rnd(gates, wdt), wh_t), dh)
+        carry_c = torch.where(valid, dc * f, dc)
+    m = t_len * b
+    dg = dg.reshape(2, m, 4 * h)
+    x2 = x.reshape(m, w_in).to(acc)
+    dwi = torch.matmul(x2.t(), rnd(dg, dt))  # [2, W, 4H]
+    dwh = torch.matmul(rnd(hp.reshape(2, m, h), wdt).transpose(1, 2),
+                       rnd(dg, wdt))  # [2, H, 4H]
+    db = dg.sum(dim=1)
+    dx = (torch.matmul(rnd(dg[0], wif.dtype), wif.to(acc).t())
+          + torch.matmul(rnd(dg[1], wib.dtype), wib.to(acc).t()))
+    return (dx.reshape(t_len, b, w_in).to(dt), dwi[0].to(wif.dtype),
+            dwi[1].to(wib.dtype), db[0].to(wdt), db[1].to(wdt),
+            dwh[0].to(wdt), dwh[1].to(wdt))
+
+
+def _check_lstm(x, weights, lengths):
+    """What the LSTM forward kernel takes; raises on anything else."""
+    t_len, b, w_in, h = _dims("lstm_bidir_layer", x, weights[4])
+    g = 4 * h
+    expect = [("x", (t_len, b, w_in), 1), ("wif", (w_in, g), 1),
+              ("wib", (w_in, g), 1), ("bf", (g,), 1), ("bb", (g,), 1),
+              ("whf", (h, g), 1), ("whb", (h, g), 1),
+              ("lengths", (b,), None)]
+    _check_tensors("lstm_bidir_layer", x.dtype, expect,
+                   (x, *weights, lengths))
+    _check_hidden("lstm_bidir_layer", h)
+    return t_len, b, w_in, h
+
+
+def _check_lstm_bwd(x, wif, wib, whf, whb, lengths, ysf, ysb, csf, csb,
+                    resf, resb, dyf, dyb):
+    """What the LSTM backward kernel takes; raises on anything else."""
+    t_len, b, w_in, h = _dims("lstm_bidir_bwd", x, whf)
+    g = 4 * h
+    ys, res = (t_len, b, h), (t_len, b, 5 * h)
+    f32 = torch.float32
+    expect = [("x", (t_len, b, w_in), 1), ("wif", (w_in, g), 1),
+              ("wib", (w_in, g), 1), ("whf", (h, g), 1), ("whb", (h, g), 1),
+              ("lengths", (b,), None), ("ysf", ys, 1), ("ysb", ys, 1),
+              ("csf", ys, f32), ("csb", ys, f32), ("resf", res, 1),
+              ("resb", res, 1), ("dyf", ys, 1), ("dyb", ys, 1)]
+    _check_tensors("lstm_bidir_bwd", x.dtype, expect,
+                   (x, wif, wib, whf, whb, lengths, ysf, ysb, csf, csb, resf,
+                    resb, dyf, dyb))
+    _check_hidden("lstm_bidir_bwd", h)
+    return t_len, b, w_in, h
+
+
+def lstm_bidir_fwd(x, wif, wib, bf, bb, whf, whb, lengths, train=False):
+    """The LSTM forward kernel's wrapper.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  ``launches``
+    counts eval-form launches, ``train_launches`` train-form ones."""
+    weights = (wif, wib, bf, bb, whf, whb)
+    if x.device.type == "cpu":
+        return lstm_bidir_layer_ref(x, *weights, lengths, train=train)
+    if x.device.type != "cuda":
+        raise _no_kernel("lstm_bidir_fwd", x)
+    t_len, b, w_in, h = _check_lstm(x, weights, lengths)
+    ysf = torch.empty((t_len, b, h), dtype=x.dtype, device=x.device)
+    ysb = torch.empty_like(ysf)
+    csf = csb = resf = resb = None
+    if train:
+        csf = torch.empty((t_len, b, h), dtype=torch.float32, device=x.device)
+        csb = torch.empty_like(csf)
+        resf = torch.empty((t_len, b, 5 * h), dtype=x.dtype, device=x.device)
+        resb = torch.empty_like(resf)
+    xg = torch.empty((2, t_len * b, 4 * h), dtype=torch.float32,
+                     device=x.device)
+    _launch("lstm_bidir_fwd", x, _DTYPE_CODE[x.dtype], x.data_ptr(),
+            *(w.data_ptr() for w in weights), lengths.data_ptr(),
+            ysf.data_ptr(), ysb.data_ptr(), _ptr(csf), _ptr(csb), _ptr(resf),
+            _ptr(resb), xg.data_ptr(), t_len, b, w_in, h, int(train))
+    if train:
+        lstm_bidir_fwd.train_launches += 1
+        return ysf, ysb, csf, csb, resf, resb
+    lstm_bidir_fwd.launches += 1
+    return ysf, ysb
+
+
+lstm_bidir_fwd.launches = 0
+lstm_bidir_fwd.train_launches = 0
+
+
+def lstm_bidir_bwd(x, wif, wib, whf, whb, lengths, ysf, ysb, csf, csb, resf,
+                   resb, dyf, dyb):
+    """The LSTM backward kernel's wrapper.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  Returns ``(dx,
+    dwif, dwib, dbf, dbb, dwhf, dwhb)``; ``launches`` counts launches."""
+    args = (x, wif, wib, whf, whb, lengths, ysf, ysb, csf, csb, resf, resb,
+            dyf, dyb)
+    if x.device.type == "cpu":
+        return lstm_bidir_layer_bwd_ref(*args)
+    if x.device.type != "cuda":
+        raise _no_kernel("lstm_bidir_bwd", x)
+    t_len, b, w_in, h = _check_lstm_bwd(*args)
+    g = 4 * h
+    dt = x.dtype
+    dx = torch.empty_like(x)
+    dwif, dwib = (torch.empty((w_in, g), dtype=dt, device=x.device)
+                  for _ in range(2))
+    dbf, dbb = (torch.empty((g,), dtype=dt, device=x.device)
+                for _ in range(2))
+    dwhf, dwhb = (torch.empty((h, g), dtype=dt, device=x.device)
+                  for _ in range(2))
+    # f32 scratch: the per-step gate gradients of both directions, and the
+    # per-row bias sums
+    dg = torch.empty((2, t_len * b, g), dtype=torch.float32, device=x.device)
+    bias_part = torch.empty((2, b, g), dtype=torch.float32, device=x.device)
+    _launch("lstm_bidir_bwd", x, _DTYPE_CODE[dt],
+            *(t.data_ptr() for t in args),
+            dx.data_ptr(), dwif.data_ptr(), dwib.data_ptr(), dbf.data_ptr(),
+            dbb.data_ptr(), dwhf.data_ptr(), dwhb.data_ptr(), dg.data_ptr(),
+            bias_part.data_ptr(), t_len, b, w_in, h)
+    lstm_bidir_bwd.launches += 1
+    return dx, dwif, dwib, dbf, dbb, dwhf, dwhb
+
+
+lstm_bidir_bwd.launches = 0
+
+
+class LSTMBidirLayerFn(torch.autograd.Function):
+    """Train-form forward, backward through ``lstm_bidir_bwd``: the
+    counterpart of ``lstm_bidir_fused_split``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, wif, wib, bf, bb, whf, whb, lengths):
+        ysf, ysb, csf, csb, resf, resb = lstm_bidir_fwd(
+            x, wif, wib, bf, bb, whf, whb, lengths, train=True)
+        ctx.save_for_backward(x, wif, wib, whf, whb, lengths, ysf, ysb, csf,
+                              csb, resf, resb)
+        return ysf, ysb
+
+    @staticmethod
+    def backward(ctx, dyf, dyb):
+        grads = lstm_bidir_bwd(*ctx.saved_tensors, dyf.contiguous(),
+                               dyb.contiguous())
+        return (*grads, None)
+
+
+def lstm_bidir_layer(x, wif, wib, bf, bb, whf, whb, lengths):
+    """One bidirectional LSTM layer, ``(ys_f, ys_b)``: dispatched as
+    :func:`gru_bidir_layer` is, through :class:`LSTMBidirLayerFn` under
+    autograd."""
+    weights = (wif, wib, bf, bb, whf, whb)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *weights)):
+        return LSTMBidirLayerFn.apply(x, *weights, lengths)
+    return lstm_bidir_fwd(x, *weights, lengths)

@@ -9,8 +9,12 @@ uint32 values, ``model.n_dropout_sites`` per step, drawn from a
 from the caller.  Under ``compute_dtype='bfloat16'`` the parameters and
 the Adam state stay f32: the forward runs on bf16 copies, so gradients
 flow back to the f32 masters through the cast, and the log-softmax and
-loss stay f32.  Evaluation runs the f32 model in eval form and computes
-frame accuracy and the per-segment majority vote.
+loss stay f32.  A stateful model (``bilstm_lm``) updates its BatchNorm
+running stats, module buffers, in its train forward; the bf16 step casts
+only the parameters, so the stats stay f32, as the JAX step passes its
+``model_state`` uncast.  Evaluation runs the f32 model in eval form, with
+the stored stats, and computes frame accuracy and the per-segment majority
+vote.
 """
 
 from __future__ import annotations

@@ -6,6 +6,8 @@ and no JAX it runs on its own, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
+The GRU layer's kernels come first, then the LSTM layer's.
+
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
 product, so an ulp of difference can carry through the chain; h lies in
@@ -210,6 +212,159 @@ def test_bigru_train_step_on_card_matches_cpu(cuda_device):
                                           after[1] - before[1]))
     cpu, gpu = out["cpu"], out["cuda"]
     assert cpu[2] == (0, 0) and gpu[2] == (4, 4)
+    assert abs(gpu[0] - cpu[0]) <= 1e-5
+    for k, want in cpu[1].items():
+        err = (gpu[1][k] - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3, k
+
+
+# ------------------------------------------------------------------- LSTM
+#
+# The same tolerances.  The train form's cell states cs are f32 in both
+# versions and, unlike h and the residuals, not bounded by 1, so their
+# error is taken relative to their largest value (at least 1).
+
+LSTM_CASES = [(5, 128), (67, 128), (600, 128), (3, 16), (3, 32), (3, 64)]
+LSTM_GRADS = ["dx", "dwif", "dwib", "dbf", "dbb", "dwhf", "dwhb"]
+
+
+def _lstm_case(cuda_device, dtype, b, h, seed=0, t=48, w=400):
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(h)
+    shapes = [(w, 4 * h)] * 2 + [(4 * h,)] * 2 + [(h, 4 * h)] * 2
+    ws = [rng.uniform(-k, k, s).astype(np.float32) for s in shapes]
+    x = rng.normal(size=(t, b, w)).astype(np.float32)
+    lengths = rng.integers(1, t + 1, b).astype(np.int32)
+    lengths[0], lengths[-1] = t, 1
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (x, *ws)]
+    args.append(torch.from_numpy(lengths).to(cuda_device))
+    dys = [torch.from_numpy(rng.normal(size=(t, b, h)).astype(np.float32))
+           .to(cuda_device, dtype) for _ in range(2)]
+    return args, dys
+
+
+def _lstm_bwd_args(args, fwd, dys):
+    x, wif, wib, _, _, whf, whb, lengths = args
+    return (x, wif, wib, whf, whb, lengths, *fwd, *dys)
+
+
+@pytest.mark.parametrize("b,h", LSTM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_kernel_matches_plain(cuda_device, dtype, b, h):
+    args, _ = _lstm_case(cuda_device, dtype, b, h, seed=b)
+    before = P.lstm_bidir_fwd.launches
+    ysf, ysb = P.lstm_bidir_layer(*args)
+    torch.cuda.synchronize()
+    assert P.lstm_bidir_fwd.launches == before + 1
+    rf, rb = P.lstm_bidir_layer_ref(*args)
+    assert ysf.dtype == dtype and ysf.shape == (48, b, h)
+    assert (ysf.float() - rf.float()).abs().max().item() <= TOL[dtype]
+    assert (ysb.float() - rb.float()).abs().max().item() <= TOL[dtype]
+    pad = torch.arange(48, device=cuda_device)[:, None] >= args[-1][None, :]
+    assert (ysb[pad] == 0).all()
+
+
+@pytest.mark.parametrize("b,h", LSTM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_train_form_matches_plain(cuda_device, dtype, b, h):
+    args, _ = _lstm_case(cuda_device, dtype, b, h, seed=b + 1)
+    before = P.lstm_bidir_fwd.train_launches
+    got = P.lstm_bidir_fwd(*args, train=True)
+    torch.cuda.synchronize()
+    assert P.lstm_bidir_fwd.train_launches == before + 1
+    want = P.lstm_bidir_layer_ref(*args, train=True)
+    eval_ys = P.lstm_bidir_fwd(*args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        cell_state = i in (2, 3)
+        assert g.dtype == (torch.float32 if cell_state else dtype)
+        assert _rel_err(g, w) <= TOL[dtype], i
+    # the train form's ys are the eval form's, bit for bit
+    assert torch.equal(got[0], eval_ys[0]) and torch.equal(got[1], eval_ys[1])
+
+
+@pytest.mark.parametrize("b,h", LSTM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_kernel_matches_plain(cuda_device, dtype, b, h):
+    args, dys = _lstm_case(cuda_device, dtype, b, h, seed=b + h)
+    bargs = _lstm_bwd_args(args, P.lstm_bidir_fwd(*args, train=True), dys)
+    before = P.lstm_bidir_bwd.launches
+    got = P.lstm_bidir_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert P.lstm_bidir_bwd.launches == before + 1
+    want = P.lstm_bidir_layer_bwd_ref(*bargs)
+    for name, g, w in zip(LSTM_GRADS, got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+
+
+def test_lstm_bwd_kernel_is_deterministic(cuda_device):
+    args, dys = _lstm_case(cuda_device, torch.float32, 67, 128, seed=3)
+    bargs = _lstm_bwd_args(args, P.lstm_bidir_fwd(*args, train=True), dys)
+    first = P.lstm_bidir_bwd(*bargs)
+    second = P.lstm_bidir_bwd(*bargs)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous", "lengths_int64",
+                                  "hidden_96", "cs_bf16"])
+def test_lstm_kernels_refuse_what_they_do_not_take(cuda_device, case):
+    args, dys = _lstm_case(cuda_device, torch.float32, 3,
+                           96 if case == "hidden_96" else 128, t=8, w=16)
+    if case == "float64":
+        args = [a.double() for a in args[:-1]] + args[-1:]
+    elif case == "noncontiguous":
+        args[0] = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "lengths_int64":
+        args[-1] = args[-1].long()
+    if case == "cs_bf16":
+        bargs = list(_lstm_bwd_args(args, P.lstm_bidir_fwd(*args, train=True),
+                                    dys))
+        bargs[8] = bargs[8].to(torch.bfloat16)
+        before = P.lstm_bidir_bwd.launches
+        with pytest.raises(TypeError):
+            P.lstm_bidir_bwd(*bargs)
+        assert P.lstm_bidir_bwd.launches == before
+        return
+    before = P.lstm_bidir_fwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        P.lstm_bidir_layer(*args)
+    assert P.lstm_bidir_fwd.launches == before
+
+
+def test_bilstm_train_step_on_card_matches_cpu(cuda_device):
+    """One f32 bilstm train step from the same parameters, batch and
+    dropout seeds on the card and on the CPU: the loss to 1e-5, each
+    gradient to 1e-3 of its tensor's largest element (f32 sums in other
+    orders, through two layers and their chains)."""
+    from pytorch_video_action_tpu_torch.models.lstm import (BiLSTM,
+                                                            BiLSTMConfig)
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = BiLSTM(BiLSTMConfig(n_class=48),
+                   generator=torch.Generator().manual_seed(1)).state_dict()
+    rng = np.random.default_rng(2)
+    b, t = 3, 70
+    lengths = np.array([70, 33, 1], np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    batch = (x, lengths, targets.reshape(-1), None)
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = BiLSTM(BiLSTMConfig(n_class=48))
+        model.load_state_dict(state)
+        trainer = Trainer(model, 48, seed=0, device=device)
+        ts = trainer.init_state()
+        before = (P.lstm_bidir_fwd.train_launches, P.lstm_bidir_bwd.launches)
+        loss = trainer.train_step(ts, batch, seeds=[1, 2, 3]).item()
+        after = (P.lstm_bidir_fwd.train_launches, P.lstm_bidir_bwd.launches)
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in ts.model.named_parameters()}
+        out[str(device)] = (loss, grads, (after[0] - before[0],
+                                          after[1] - before[1]))
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[2] == (0, 0) and gpu[2] == (2, 2)
     assert abs(gpu[0] - cpu[0]) <= 1e-5
     for k, want in cpu[1].items():
         err = (gpu[1][k] - want).abs().max() / want.abs().max()

@@ -364,7 +364,7 @@ def test_train_cli_end_to_end(synthetic_root, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--data_parallel", "2"], 15), (["--seq_parallel", "2"], 15),
     (["--resume", "r.npz"], 14), (["--cache_device"], 14),
-    (["--lm_path", "lm.arpa"], 13), (["--model", "bilstm"], 9),
+    (["--lm_path", "lm.arpa"], 13), (["--model", "vanilla_lstm"], 9),
     (["--model", "attn"], 10), (["--model", "ms_tcn"], 11),
     (["--model", "ctcloss"], 12), (["--train_mode", "segment"], 6),
     (["--train_mode", "cont"], 6)])

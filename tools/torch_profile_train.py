@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one bigru train step of the PyTorch port goes, on one
+"""Where the time of one train step of the PyTorch port goes, on one
 NVIDIA GPU.
 
-    python3 tools/torch_profile_train.py [--dtype float32|bfloat16]
+    python3 tools/torch_profile_train.py [--model bigru|bilstm]
+                                         [--dtype float32|bfloat16]
                                          [--trace trace.json]
 
 Writes the seeded Breakfast-shaped dataset of ``chip_smoke.py`` (48 train
 videos of 500-2500 frames) into a temporary directory, builds the train
 CLI's feed (batch 8, bucket 128, the frozen-composition sampler with seed
-0) and a full-width bigru with seeded weights, runs one epoch of train
-steps to warm up and one more under ``torch.profiler``, and prints:
+0) and a full-width model (bigru by default) with seeded weights, runs one
+epoch of train steps to warm up and one more under ``torch.profiler``, and
+prints:
 
 * the host wall time of the profiled epoch (synchronised) and its
   frames/s;
@@ -37,6 +39,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="bigru", choices=["bigru", "bilstm"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--trace", default=None,
@@ -61,7 +64,7 @@ def main(argv=None) -> int:
         chip_smoke.write_dataset(root)
         feed, _ = chip_smoke.train_feeds(root)
         host_batches = list(feed)
-    model = build_model("bigru", chip_smoke.N_CLASS,
+    model = build_model(args.model, chip_smoke.N_CLASS,
                         generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, chip_smoke.N_CLASS, seed=0,
                       compute_dtype=args.dtype)
@@ -79,7 +82,8 @@ def main(argv=None) -> int:
             trainer.train_step(ts, b)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    print(f"train {args.dtype}: {len(batches)} steps, {n_frames} frames in "
+    print(f"{args.model} train {args.dtype}: {len(batches)} steps, "
+          f"{n_frames} frames in "
           f"{wall_s:.6f} s = {n_frames / wall_s:.1f} frames/s (profiler on)")
 
     if device_report(prof, wall_s, "torch_profile_train") != 0:
