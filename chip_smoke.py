@@ -17,29 +17,41 @@ Phases, in order; any failure exits non-zero:
    and its backward.  Times kernel, plain version and a one-call PyTorch
    yardstick (nn.GRU or nn.LSTM on a packed sequence: its forward, its
    forward with autograd on, and ``torch.autograd.grad`` through it) with
-   CUDA events, beside each kernel's bound.
+   CUDA events, beside each kernel's bound.  Then the flash kernels at
+   attn's bench shape (B=4, H=4, T=4096, d=100, bench.py): the forward in
+   f32 and bf16 with dropout off and on, the fused and the split backward
+   with dropout on, each against the plain version, the two backwards
+   against each other and against a rerun (bit for bit); the times of
+   each kernel's wrapper, the plain version and the yardstick
+   (``scaled_dot_product_attention`` with the key mask, dropout 0, and
+   ``autograd.grad`` through it) from CUDA events.
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
-   test videos) and full-width bigru and bilstm checkpoints into a
-   temporary directory.  For each model: repeats phase 3's forward check at
-   the largest forward batch the slice gives the kernel, runs the port's
-   inference CLI on the card (test CSV and dev accuracy, f32 and bf16),
-   checks the launch counts and the CSV, runs the CLI once on the CPU to
-   compare labels, and prints the forward's frames/s.  Then serves the two
+   test videos) and full-width bigru, bilstm and attn checkpoints into a
+   temporary directory.  For each model: repeats phase 3's forward checks
+   at the largest forward batch the slice gives the kernel (attn: the
+   largest padded to T >= 1024), runs the port's inference CLI on the card
+   (test CSV and dev accuracy, f32 and bf16), checks the launch counts of
+   every kernel and the CSV, runs the CLI once on the CPU to compare
+   labels, and prints the forward's frames/s.  Then serves the three
    checkpoints as one ensemble on the card.
-5. training: for bigru and bilstm, repeats phase 3's train-form and
+5. training: for bigru, bilstm and attn, repeats phase 3's train-form and
    backward checks at the largest train batch, runs the port's train CLI
    on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
-   (per step one train-form forward and one backward per layer, per dev
-   batch one eval-form forward per layer), that the loss is finite and
-   falls from epoch 1 to 2, and that the inference CLI serves the
-   checkpoint; holds one train step's gradients on the card against the
-   same step on the CPU; prints the train step's frames/s.  Then trains
-   bilstm_lm with the CLI (2 epochs, f32): launch counts, falling loss,
-   and a checkpoint that holds its BatchNorm state (``__state__/`` keys).
+   of every kernel (per step one train-form forward and one backward per
+   layer and, for attn at padded T >= 1024, one flash forward and one
+   flash backward; per dev batch one eval-form forward per layer and the
+   flash forward), that the loss is finite and falls from epoch 1 to 2,
+   and that the inference CLI serves the checkpoint; holds one train
+   step's gradients on the card against the same step on the CPU (attn on
+   its dense and its flash path); prints the train step's frames/s.  Then
+   trains win_attn (f32) the same way, and bilstm_lm with the CLI (2
+   epochs, f32): launch counts, falling loss, and a checkpoint that holds
+   its BatchNorm state (``__state__/`` keys).
 
-Prints a ``kernels`` JSON line (headline numbers at the main path's shape,
-every checked shape under ``shapes``), the card's name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Prints a ``kernels`` JSON line (ten entries, headline numbers at the main
+path's shape, every checked shape under ``shapes``), the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -62,6 +74,18 @@ PEAK_BYTES = 3.35e12
 CSRC = "pytorch_video_action_tpu_torch/csrc/"
 PALLAS = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:"
 H = 128  # hidden_dim_1 256 = 2 directions x 128, bigru and bilstm alike
+# attn: E=400 over 4 heads; bench.py:72-77 times its train step at B=4,
+# T=4096, every frame valid; post-softmax dropout 0.3
+ATTN_H, ATTN_D = 4, 100
+B_ATTN, T_ATTN = 4, 4096
+ATTN_RATE = 0.3
+FLASH_PALLAS = "pytorch_video_action_tpu/ops/flash_pallas.py:"
+# the flash entries of the kernels line (each a wrapper of ops/flash.py):
+# source and the TPU kernel's line in flash_pallas.py
+FLASH = {"flash_fwd": ("flash_fwd.cu", "166"),
+         "flash_bwd_fused": ("flash_bwd.cu", "375"),
+         "flash_bwd_dkdv": ("flash_bwd.cu", "331"),
+         "flash_bwd_dq": ("flash_bwd.cu", "520")}
 
 
 class Cell:
@@ -410,7 +434,188 @@ def phase_kernels():
                                                    T_BENCH, gen)
         log(f"[kernel] {cell.name} bench-shape checks in "
             f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(5)
+    for name, got in check_flash(
+            "bench", [T_ATTN] * B_ATTN, T_ATTN, gen,
+            fwd=[(dt, r) for dt in ("float32", "bfloat16")
+                 for r in (0.0, ATTN_RATE)],
+            bwd=[(dt, ATTN_RATE) for dt in ("float32", "bfloat16")]).items():
+        rows[name] = got
+    log(f"[kernel] flash bench-shape checks in {time.time() - t0:.1f} s")
     return rows
+
+
+# ------------------------------------------------------------------ flash
+
+
+def flash_inputs(lengths, t_len, dt, gen):
+    """q (pre-scaled), k, v, dout ``[B, 4, T, 100]`` and the key mask on the
+    card."""
+    import torch
+
+    shape = (len(lengths), ATTN_H, t_len, ATTN_D)
+    q = torch.randn(shape, generator=gen) / ATTN_D ** 0.5
+    k, v, dout = (torch.randn(shape, generator=gen) for _ in range(3))
+    mask = torch.arange(t_len)[None, :] < torch.as_tensor(lengths)[:, None]
+    return (*(a.to("cuda", dt) for a in (q, k, v)), mask.cuda(),
+            dout.to("cuda", dt))
+
+
+def flash_bound(lengths, t_len, dt_name, products, operands, f32_outputs,
+                row_vectors):
+    """Least time (ms) of a flash function on this input: ``products`` score
+    or value products of 2*d operations for each query and each valid key
+    (``2 * products * H * T * d * sum(lengths)``), against its bytes:
+    ``operands`` [B, H, T, d] tensors in the input dtype, ``f32_outputs``
+    of them in f32, ``row_vectors`` f32 [B, H, T] vectors (lse; delta in
+    the backward) and the key mask, each read or written once."""
+    size = 4 if dt_name == "float32" else 2
+    b = len(lengths)
+    bhtd = b * ATTN_H * t_len * ATTN_D
+    rows = b * ATTN_H * t_len * 4 * row_vectors
+    n_bytes = (operands * size + f32_outputs * 4) * bhtd + rows + b * t_len
+    flops = 2 * products * ATTN_H * t_len * ATTN_D * sum(lengths)
+    return _bound(n_bytes, flops, dt_name)
+
+
+def sdpa(q, k, v, mask):
+    """The yardstick: one ``scaled_dot_product_attention`` call with the key
+    mask (q is pre-scaled), dropout 0.  Timed here only; the port never
+    calls it."""
+    import torch.nn.functional as nnf
+
+    return nnf.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :], scale=1.0)
+
+
+def check_flash_fwd(where, lengths, t_len, dt_name, rate, gen):
+    """Hold the flash forward against its plain version and time it beside
+    the plain version, the yardstick and its bound.  Returns its row."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    dt = getattr(torch, dt_name)
+    q, k, v, mask, _ = flash_inputs(lengths, t_len, dt, gen)
+    out, lse = F.flash_fwd(q, k, v, mask, rate, 1234)
+    torch.cuda.synchronize()
+    ref, ref_lse, _ = F.flash_fwd_ref(q, k, v, mask, rate, 1234)
+    err = (out.float() - ref.float()).abs().max().item()
+    _, lse_err = rel_err([lse], [ref_lse])
+    ms = cuda_ms(lambda: F.flash_fwd(q, k, v, mask, rate, 1234), 10, 2)
+    plain_ms = cuda_ms(lambda: F.flash_fwd_ref(q, k, v, mask, rate, 1234), 1)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: sdpa(q, k, v, mask), 10, 2)
+    bound_ms, bound_by = flash_bound(lengths, t_len, dt_name, 2, 4, 0, 1)
+    tol = TOL[dt_name]
+    row = {"where": where, "dtype": dt_name, "rate": rate, "B": len(lengths),
+           "T": t_len, "max_abs_err": err, "lse_rel_err": lse_err, "tol": tol,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernel] flash_fwd {where} B={len(lengths)} T={t_len} {dt_name} "
+        f"dropout {rate}: max|out-ref|={err:.3g} (tol {tol}), lse error "
+        f"{lse_err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms (dropout 0), bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err <= tol and lse_err <= TOL["float32"]):
+        raise AssertionError(f"flash_fwd disagrees with its plain version: "
+                             f"{row}")
+    return row
+
+
+def check_flash_bwd(where, lengths, t_len, dt_name, rate, gen):
+    """Hold the fused and the split backward against the plain version and
+    each other, rerun each (bit for bit), and time each kernel beside the
+    plain version, the yardstick and its bound.  Returns ``{entry: row}``
+    for the fused form, the split's dk/dv kernel and its dq kernel."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    dt = getattr(torch, dt_name)
+    q, k, v, mask, dout = flash_inputs(lengths, t_len, dt, gen)
+    out, lse = F.flash_fwd(q, k, v, mask, rate, 99)
+    args = (q, k, v, mask, rate, 99, out, lse, dout)
+    want = F.flash_bwd_ref(*args)
+    runs = {}
+    for fused in (True, False):
+        runs[fused] = [F.flash_bwd(*args, fused=fused) for _ in range(2)]
+        torch.cuda.synchronize()
+    tol = TOL[dt_name]
+    errs = {f: rel_err(runs[f][0], want) for f in runs}
+    agree = rel_err(runs[True][0], runs[False][0])[1]
+    identical = all(torch.equal(a, b) for f in runs for a, b in zip(*runs[f]))
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    part_args = (q, k, v, mask, rate, 99, lse, delta, dout)
+    part_ms = {name: cuda_ms(lambda f=getattr(F, name): f(*part_args), 5, 1)
+               for name in ("flash_bwd_fused", "flash_bwd_dkdv",
+                            "flash_bwd_dq")}
+    plain_ms = cuda_ms(lambda: F.flash_bwd_ref(*args), 1, 0)
+    leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    lib_out = sdpa(*leaves, mask)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, dout,
+                                                 retain_graph=True), 5, 1)
+    # products: the fused form and the split as a whole 5 (s, g, dv, dk,
+    # dq), the dk/dv kernel 4, the dq kernel 3; operands q, k, v, out,
+    # dout and dk, dv (dq: q, k, v, dout), dq in f32
+    shapes = {"flash_bwd_fused": (5, 7, 1), "flash_bwd_dkdv": (4, 6, 0),
+              "flash_bwd_dq": (3, 4, 1)}
+    rows = {}
+    for name, (products, operands, f32_out) in shapes.items():
+        ms = part_ms[name]
+        fused = name == "flash_bwd_fused"
+        bound_ms, bound_by = flash_bound(lengths, t_len, dt_name, products,
+                                         operands, f32_out, 2)
+        abs_err, err = errs[fused]
+        rows[name] = {"where": where, "dtype": dt_name, "rate": rate,
+                      "B": len(lengths), "T": t_len, "max_abs_err": abs_err,
+                      "max_rel_err": err, "forms_rel_diff": agree, "tol": tol,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bit_identical_rerun": identical}
+        log(f"[kernel] {name} {where} B={len(lengths)} T={t_len} {dt_name} "
+            f"dropout {rate}: max abs err {abs_err:.3g}, max err / max(1, "
+            f"max|plain|) {err:.3g} (tol {tol}), kernel {ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    log(f"[kernel] flash backward {where} B={len(lengths)} T={t_len} "
+        f"{dt_name}: fused against split {agree:.3g}, reruns bit-identical "
+        f"{identical}, plain {plain_ms:.4f} ms, autograd.grad through sdpa "
+        f"{lib_ms:.4f} ms (dropout 0), fused form "
+        f"{F.fused_chunks(len(lengths) * ATTN_H, t_len, sms())} chunks, "
+        f"dispatch picks "
+        f"{'fused' if use_fused(len(lengths), t_len) else 'split'}")
+    if not (max(e[1] for e in errs.values()) <= tol and agree <= tol):
+        raise AssertionError(f"flash backward disagrees: {rows}")
+    if not identical:
+        raise AssertionError("two flash backward runs differ")
+    return rows
+
+
+def check_flash(where, lengths, t_len, gen, fwd, bwd) -> dict:
+    """``check_flash_fwd`` for each ``(dtype, rate)`` of ``fwd`` and
+    ``check_flash_bwd`` for each of ``bwd``: ``{entry: rows}``."""
+    rows = {name: [] for name in FLASH}
+    for dt_name, rate in fwd:
+        rows["flash_fwd"].append(
+            check_flash_fwd(where, lengths, t_len, dt_name, rate, gen))
+    for dt_name, rate in bwd:
+        for name, row in check_flash_bwd(where, lengths, t_len, dt_name,
+                                         rate, gen).items():
+            rows[name].append(row)
+    return {k: v for k, v in rows.items() if v}
+
+
+def sms() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def use_fused(b, t_len) -> bool:
+    """The backward the port's dispatch picks for attn at [b, T]."""
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    return F.use_fused(b * ATTN_H, t_len, t_len, ATTN_D, sms())
 
 
 # ------------------------------------------------------------------ slice
@@ -490,13 +695,87 @@ def read_csv_labels(path: str) -> list[int]:
     return out
 
 
-# the served and trained models: their layer kernels and layer count
+# the served and trained models: their recurrent layer kernels and layer
+# count (attn: one GRU layer after the attention; win_attn: none)
 MODELS = {"bigru": ("gru", 4), "bilstm": ("lstm", 2),
-          "bilstm_lm": ("lstm", 2)}
+          "bilstm_lm": ("lstm", 2), "attn": ("gru", 1),
+          "win_attn": (None, 0)}
+DTYPES = ("float32", "bfloat16")
 
 
 def cell_of(name):
-    return GRU if MODELS[name][0] == "gru" else LSTM
+    kind = MODELS[name][0]
+    return None if kind is None else GRU if kind == "gru" else LSTM
+
+
+def counters() -> dict:
+    """Every kernel wrapper's launch count, by kernels-line entry."""
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    out = {}
+    for cell in (GRU, LSTM):
+        out[cell.fwd_name] = cell.fwd.launches
+        out[cell.fwd_name + "_train"] = cell.fwd.train_launches
+        out[cell.bwd_name] = cell.bwd.launches
+    for name in FLASH:
+        out[name] = getattr(F, name).launches
+    return out
+
+
+def reset_counters() -> None:
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    for cell in (GRU, LSTM):
+        cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
+    for name in FLASH:
+        getattr(F, name).launches = 0
+
+
+def expected_launches(name, forwards=(), steps=()) -> dict:
+    """Every kernel's launches in a run of ``name`` whose eval forwards and
+    train steps have the ``(B, padded T)`` of ``forwards`` and ``steps``:
+    per layer one eval form a forward, one train form and one backward a
+    step; for attn at padded T >= BLOCKWISE_MIN_T one flash forward a
+    forward or step and one flash backward a step, fused or split as the
+    port's dispatch picks."""
+    from pytorch_video_action_tpu_torch.models import attention
+
+    out = dict.fromkeys(counters(), 0)
+    cell, n_layers = cell_of(name), MODELS[name][1]
+    if cell is not None:
+        out[cell.fwd_name] = n_layers * len(forwards)
+        out[cell.fwd_name + "_train"] = n_layers * len(steps)
+        out[cell.bwd_name] = n_layers * len(steps)
+    if name == "attn":
+        min_t = attention.BLOCKWISE_MIN_T
+        out["flash_fwd"] = sum(t >= min_t for _, t in (*forwards, *steps))
+        long_steps = [(b, t) for b, t in steps if t >= min_t]
+        fused = sum(use_fused(b, t) for b, t in long_steps)
+        out["flash_bwd_fused"] = fused
+        out["flash_bwd_dkdv"] = out["flash_bwd_dq"] = len(long_steps) - fused
+    return out
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+@contextlib.contextmanager
+def blockwise_min_t(value: int):
+    """The port's flash threshold set to ``value`` inside the block."""
+    from pytorch_video_action_tpu_torch.models import attention
+
+    old = attention.BLOCKWISE_MIN_T
+    attention.BLOCKWISE_MIN_T = value
+    try:
+        yield
+    finally:
+        attention.BLOCKWISE_MIN_T = old
 
 
 def save_checkpoint(root: str, name: str) -> str:
@@ -518,8 +797,8 @@ def save_checkpoint(root: str, name: str) -> str:
 
 def phase_slice(card: str, root: str, name: str):
     """The inference slice of ``name`` on the dataset under ``root`` (the
-    cwd).  Returns its checkpoint name, the eval-form launches of its CLI
-    runs and its kernel rows."""
+    cwd).  Returns its checkpoint name, the launches of its CLI runs and
+    its kernel rows, each by kernels-line entry."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
@@ -528,9 +807,10 @@ def phase_slice(card: str, root: str, name: str):
     from pytorch_video_action_tpu_torch.infer.loader import load_models
     from pytorch_video_action_tpu_torch.infer.predict import (
         forward_batches, frame_predictions)
+    from pytorch_video_action_tpu_torch.models import attention
 
-    cell, n_layers = cell_of(name), MODELS[name][1]
-    launches = 0
+    cell = cell_of(name)
+    launches = {}
     ckpt = save_checkpoint(root, name)
     base = ["--pretrained_model", ckpt, "--prob", "big",
             "--data_dir", os.path.join(root, "data"), "--annot_path", root]
@@ -542,31 +822,44 @@ def phase_slice(card: str, root: str, name: str):
         "dev": VideoDataset(data_dir="data", annot_path=root, part="dev",
                             split=0, mode="active", verbose=False)}
 
-    # the kernel at the largest shape the slice gives it: the forward
-    # batch of the test part with the most frames, its own lengths
+    # the kernels at the largest shape the slice gives them: the forward
+    # batch of the test part with the most frames (attn: of those padded to
+    # the flash path), its own lengths
     feats = datasets["test"].features
-    t_pad, chunk = max(forward_batches(feats),
-                       key=lambda tb: tb[0] * len(tb[1]))
-    rows = check_layers(cell, "main path", [len(feats[i]) for i in chunk],
-                        t_pad, torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    batches = forward_batches(feats)
+    if name == "attn":
+        batches = [tb for tb in batches
+                   if tb[0] >= attention.BLOCKWISE_MIN_T]
+    t_pad, chunk = max(batches, key=lambda tb: tb[0] * len(tb[1]))
+    lens = [len(feats[i]) for i in chunk]
+    if name == "attn":
+        rows = check_flash("main path", lens, t_pad, gen,
+                           fwd=[(dt, r) for dt in DTYPES
+                                for r in (0.0, ATTN_RATE)], bwd=[])
+    else:
+        rows = {cell.fwd_name: check_layers(cell, "main path", lens, t_pad,
+                                            gen)}
 
     csv = {}
-    for dt_name in ("float32", "bfloat16"):
+    for dt_name in DTYPES:
         for part in ("test", "dev"):
-            expect = n_layers * len(forward_batches(datasets[part].features))
-            cell.fwd.launches = 0
+            expect = expected_launches(name, forwards=[
+                (len(c), t) for t, c in
+                forward_batches(datasets[part].features)])
+            reset_counters()
             t0 = time.time()
             out = inference_cli.main(base + ["--part", part, "--dtype",
                                              dt_name, "--device", "cuda"])
             seconds = time.time() - t0
-            got = cell.fwd.launches
-            launches += got
+            got = counters()
+            add_launches(launches, got)
             log(f"[slice] {name} cuda {dt_name} --part {part}: "
                 f"{'csv ' + out if part == 'test' else f'accuracy {out:.2f}'}"
-                f" in {seconds:.1f} s, {cell.fwd_name} launches {got} "
-                f"(expected {expect} = {n_layers} per forward batch)")
+                f" in {seconds:.1f} s, launches {nonzero(got)} (expected "
+                f"{nonzero(expect)})")
             if got != expect:
-                raise AssertionError("launch count does not match the "
+                raise AssertionError("launch counts do not match the "
                                      "forward batches")
             if part == "test":
                 labels = read_csv_labels(out)
@@ -595,7 +888,7 @@ def phase_slice(card: str, root: str, name: str):
     n_frames = sum(len(f) for f in feats)
     gpu_model = load_models([ckpt], N_CLASS, models_dir="models",
                             device="cuda")[ckpt]
-    for dt_name in ("float32", "bfloat16"):
+    for dt_name in DTYPES:
         frame_predictions(gpu_model, feats, dtype=dt_name)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -611,26 +904,27 @@ def phase_slice(card: str, root: str, name: str):
 
 def phase_ensemble(root: str, ckpts: list[str]) -> dict:
     """The inference CLI serves the checkpoints as one ensemble on the card
-    (test part, f32).  Returns the eval-form launches by kernel name."""
+    (test part, f32).  Returns the launches by kernels-line entry."""
     from pytorch_video_action_tpu_torch.cli import inference_cli
     from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
     from pytorch_video_action_tpu_torch.infer.predict import forward_batches
 
-    batches = len(forward_batches(VideoDataset(
+    forwards = [(len(c), t) for t, c in forward_batches(VideoDataset(
         data_dir="data", annot_path=root, part="test", split=1, mode=None,
-        verbose=False).features))
-    names = [c.split("_00.00_dev")[0] for c in ckpts]
-    for cell in (GRU, LSTM):
-        cell.fwd.launches = 0
+        verbose=False).features)]
+    expect = {}
+    for ckpt in ckpts:
+        add_launches(expect, expected_launches(ckpt.split("_00.00_dev")[0],
+                                               forwards=forwards))
+    reset_counters()
     out = inference_cli.main(["--pretrained_model", *ckpts, "--prob", "big",
                               "--part", "test", "--data_dir",
                               os.path.join(root, "data"), "--annot_path",
                               root, "--device", "cuda"])
-    got = {cell.fwd_name: cell.fwd.launches for cell in (GRU, LSTM)}
-    expect = {cell_of(n).fwd_name: MODELS[n][1] * batches for n in names}
+    got = counters()
     labels = read_csv_labels(out)
     log(f"[slice] ensemble {' + '.join(ckpts)} on the card: {len(labels)} "
-        f"CSV rows, launches {got} (expected {expect})")
+        f"CSV rows, launches {nonzero(got)} (expected {nonzero(expect)})")
     if got != expect:
         raise AssertionError("ensemble launch counts do not match")
     if not (labels and all(0 <= l < N_CLASS for l in labels)):
@@ -660,6 +954,12 @@ def train_feeds(root: str):
             BatchFeed(dev_ds, batch_size=TRAIN_BATCH))
 
 
+def feed_shapes(feed) -> list:
+    """``(B, padded T)`` of each batch of one epoch of ``feed``."""
+    return [tuple(feed.collate(ix)[0].shape[:2])
+            for ix in feed.index_batches()]
+
+
 def epoch_records(path: str) -> list[dict]:
     """The ``epoch`` records of a ``--metrics_jsonl`` file."""
     with open(path) as f:
@@ -667,7 +967,7 @@ def epoch_records(path: str) -> list[dict]:
     return [r for r in records if r["event"] == "epoch"]
 
 
-def check_grads_against_cpu(name, batch):
+def check_grads_against_cpu(name, batch, where=""):
     """One f32 train step of ``name`` on the card and on the CPU, from the
     same parameters, batch and seeds; raises when a gradient differs by
     more than ``GRAD_TOL`` of its tensor's largest element."""
@@ -687,17 +987,19 @@ def check_grads_against_cpu(name, batch):
         seeds = list(range(11, 11 + model.n_dropout_sites))
         losses[device] = trainer.train_step(ts, batch, seeds=seeds).item()
         grads[device] = {k: p.grad.detach().cpu()
-                         for k, p in ts.model.named_parameters()}
+                         for k, p in ts.model.named_parameters()
+                         if p.grad is not None}
     worst = 0.0
     for k, want in grads["cpu"].items():
         err = ((grads["cuda"][k] - want).abs().max()
                / want.abs().max().clamp(min=1e-30)).item()
         worst = max(worst, err)
-    log(f"[train] {name} one f32 step, B={batch[0].shape[0]} "
+    log(f"[train] {name}{where} one f32 step, B={batch[0].shape[0]} "
         f"T={batch[0].shape[1]}: loss cuda {losses['cuda']:.6f} cpu "
         f"{losses['cpu']:.6f}; worst gradient difference / max|cpu "
         f"gradient| {worst:.3g} (tol {GRAD_TOL})")
-    if not worst <= GRAD_TOL or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+    if (grads["cuda"].keys() != grads["cpu"].keys() or not worst <= GRAD_TOL
+            or abs(losses["cuda"] - losses["cpu"]) > 1e-4):
         raise AssertionError("card and CPU train steps disagree")
 
 
@@ -727,15 +1029,14 @@ def train_frames_per_sec(card, name, feed, dt_name):
         f"frames/s (batch {TRAIN_BATCH}, bucket 128) on {card}")
 
 
-def train_cli_run(root, name, dt_name, steps, dev_batches):
-    """The train CLI on the card, with the layer kernels' counts set to 0
-    just before it and read just after.  Checks the launch counts and the
-    loss; returns ``(best dev accuracy, launches)``."""
+def train_cli_run(root, name, dt_name, expect):
+    """The train CLI on the card, with every kernel's count set to 0 just
+    before it and read just after.  Checks the launch counts against
+    ``expect`` and the loss; returns ``(best dev accuracy, launches)``."""
     from pytorch_video_action_tpu_torch.cli import train_cli
 
-    cell, n_layers = cell_of(name), MODELS[name][1]
     metrics = os.path.join(root, f"train_{name}_{dt_name}.jsonl")
-    cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
+    reset_counters()
     t0 = time.time()
     best = train_cli.main([
         "--model", name, "--epoch", str(TRAIN_EPOCHS), "--batchsize",
@@ -743,20 +1044,14 @@ def train_cli_run(root, name, dt_name, steps, dev_batches):
         os.path.join(root, "data"), "--annot_path", root, "--dtype",
         dt_name, "--device", "cuda", "--metrics_jsonl", metrics])
     seconds = time.time() - t0
-    got = {"eval": cell.fwd.launches, "train": cell.fwd.train_launches,
-           "bwd": cell.bwd.launches}
-    expect = {"eval": n_layers * dev_batches, "train": n_layers * steps,
-              "bwd": n_layers * steps}
+    got = counters()
     epochs = epoch_records(metrics)
     loss = [r["train_loss"] for r in epochs]
-    log(f"[train] {name} cuda {dt_name} train CLI: {TRAIN_EPOCHS} epochs of "
-        f"{steps // TRAIN_EPOCHS} steps in {seconds:.1f} s, train loss "
-        f"{loss}, dev segment accuracy "
+    log(f"[train] {name} cuda {dt_name} train CLI: {TRAIN_EPOCHS} epochs in "
+        f"{seconds:.1f} s, train loss {loss}, dev segment accuracy "
         f"{[r['dev_segment_acc'] for r in epochs]}, CLI frames/s "
-        f"{[r['frames_per_sec'] for r in epochs]}; launches train-form fwd "
-        f"{got['train']}, bwd {got['bwd']} (expected {expect['train']} = "
-        f"{n_layers} per step), eval-form fwd {got['eval']} (expected "
-        f"{expect['eval']} = {n_layers} per dev batch)")
+        f"{[r['frames_per_sec'] for r in epochs]}; launches {nonzero(got)} "
+        f"(expected {nonzero(expect)})")
     if got != expect:
         raise AssertionError("launch counts do not match the steps")
     if not (len(loss) == TRAIN_EPOCHS and np.all(np.isfinite(loss))
@@ -767,16 +1062,19 @@ def train_cli_run(root, name, dt_name, steps, dev_batches):
 
 def phase_train(card: str, root: str, name: str):
     """The training slice of ``name`` on the dataset under ``root`` (the
-    cwd).  Returns the launches of its CLI runs by kernel form (eval form,
-    train form, backward) and the train-form and backward kernel rows."""
+    cwd).  Returns the launches of its CLI runs and its kernel rows, each
+    by kernels-line entry."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
+    from pytorch_video_action_tpu_torch.models import INFERENCE_NAMES
 
     cell = cell_of(name)
     t0 = time.time()
     train_feed, dev_feed = train_feeds(root)
-    log(f"[train] train and dev parts parsed in {time.time() - t0:.1f} s")
+    steps, forwards = feed_shapes(train_feed), feed_shapes(dev_feed)
+    log(f"[train] train and dev parts parsed in {time.time() - t0:.1f} s; "
+        f"train batches (B, padded T) {steps}")
     # the kernels at the largest shape training gives them: the train
     # batch with the most padded frames, its own lengths
     idxs = max(train_feed.index_batches(),
@@ -784,17 +1082,33 @@ def phase_train(card: str, root: str, name: str):
                                   for i in ix))
     lens = [len(train_feed.dataset.features[i]) for i in idxs]
     t_pad = train_feed.collate(idxs)[0].shape[1]
-    train_rows, bwd_rows = check_train_layers(
-        cell, "main path", lens, t_pad, torch.Generator().manual_seed(4))
+    gen = torch.Generator().manual_seed(4)
+    if name == "attn":
+        forms = [(dt, r) for r in (ATTN_RATE, 0.0) for dt in DTYPES]
+        rows = check_flash("main path", lens, t_pad, gen, fwd=forms,
+                           bwd=forms)
+    elif cell is not None:
+        train_rows, bwd_rows = check_train_layers(cell, "main path", lens,
+                                                  t_pad, gen)
+        rows = {cell.fwd_name + "_train": train_rows,
+                cell.bwd_name: bwd_rows}
+    else:
+        rows = {}
 
-    steps = TRAIN_EPOCHS * len(train_feed)
-    dev_batches = TRAIN_EPOCHS * len(dev_feed)
-    launches = {"eval": 0, "train": 0, "bwd": 0}
-    for dt_name in ("float32", "bfloat16"):
-        best, got = train_cli_run(root, name, dt_name, steps, dev_batches)
-        for k in launches:
-            launches[k] += got[k]
+    expect = expected_launches(name, forwards=forwards * TRAIN_EPOCHS,
+                               steps=steps * TRAIN_EPOCHS)
+    launches = {}
+    dtypes = ("float32",) if name == "win_attn" else DTYPES
+    for dt_name in dtypes:
+        best, got = train_cli_run(root, name, dt_name, expect)
+        add_launches(launches, got)
         ckpt = f"{name}_{best:.2f}_dev"
+        if name not in INFERENCE_NAMES:
+            # win_attn writes class scores on every fifth frame only, so
+            # its dev segment accuracy, and with it a checkpoint, may stay
+            # 0; the inference CLIs do not serve it, as in JAX
+            log(f"[train] {name}: best dev segment accuracy {best:.2f}")
+            continue
         if not os.path.exists(os.path.join("models", f"{ckpt}.npz")):
             raise AssertionError(f"no checkpoint {ckpt}")
         labels = read_csv_labels(inference_cli.main([
@@ -806,7 +1120,8 @@ def phase_train(card: str, root: str, name: str):
         log(f"[train] checkpoint {ckpt} served: {len(labels)} CSV rows")
 
     # one step on the card and on the CPU: the smallest train batch, its
-    # videos cut to 512 frames to bound the CPU's time
+    # videos cut to 512 frames to bound the CPU's time (attn also with the
+    # flash threshold lowered to 256, so that the step runs the flash path)
     small = min(train_feed.index_batches(),
                 key=lambda ix: max(len(train_feed.dataset.features[i])
                                    for i in ix))
@@ -816,9 +1131,12 @@ def phase_train(card: str, root: str, name: str):
              batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
              batch[3][:, :keep])
     check_grads_against_cpu(name, batch)
-    for dt_name in ("float32", "bfloat16"):
+    if name == "attn":
+        with blockwise_min_t(256):
+            check_grads_against_cpu(name, batch, " flash path")
+    for dt_name in dtypes:
         train_frames_per_sec(card, name, train_feed, dt_name)
-    return launches, train_rows, bwd_rows
+    return launches, rows
 
 
 LM_FRAMES = (40, 100)
@@ -827,7 +1145,7 @@ LM_FRAMES = (40, 100)
 def phase_train_lm(root: str) -> dict:
     """bilstm_lm through the train CLI on the card (f32): launch counts,
     falling loss, and a checkpoint holding its BatchNorm state.  Returns
-    the launches by kernel form.
+    the launches by kernels-line entry.
 
     Its own tree of 40-100-frame videos (``root``): the model feeds each
     frame's log-probs back as the next frames' context, and at its initial
@@ -839,9 +1157,10 @@ def phase_train_lm(root: str) -> dict:
     log(f"[train] bilstm_lm dataset of {LM_FRAMES[0]}-{LM_FRAMES[1]}-frame "
         f"videos written in {time.time() - t0:.1f} s")
     train_feed, dev_feed = train_feeds(root)
-    best, got = train_cli_run(root, "bilstm_lm", "float32",
-                              TRAIN_EPOCHS * len(train_feed),
-                              TRAIN_EPOCHS * len(dev_feed))
+    expect = expected_launches(
+        "bilstm_lm", forwards=feed_shapes(dev_feed) * TRAIN_EPOCHS,
+        steps=feed_shapes(train_feed) * TRAIN_EPOCHS)
+    best, got = train_cli_run(root, "bilstm_lm", "float32", expect)
     path = os.path.join("models", f"bilstm_lm_{best:.2f}_dev.npz")
     with np.load(path) as z:
         state = sorted(k for k in z.files if k.startswith("__state__/"))
@@ -854,8 +1173,8 @@ def phase_train_lm(root: str) -> dict:
 
 
 def kernel_entry(name, source, replaces, launches, rows):
-    """One ``kernels`` entry: headline numbers from ``rows[0]`` (layer 0,
-    f32, at the main path's shape), every checked shape under ``shapes``."""
+    """One ``kernels`` entry: headline numbers from ``rows[0]`` (f32 at the
+    main path's shape), every checked shape under ``shapes``."""
     head = rows[0]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -882,46 +1201,53 @@ def main() -> int:
     phase_build()
     bench = phase_kernels()
     rows, launches = {}, {}
+
+    def add_rows(new):
+        for k, v in new.items():
+            rows.setdefault(k, []).extend(v)
+
     with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
         t0 = time.time()
         write_dataset(root)
         log(f"[slice] dataset written in {time.time() - t0:.1f} s")
         ckpts = []
-        for name in ("bigru", "bilstm"):
-            cell = cell_of(name)
-            ckpt, n, rows[cell.fwd_name] = phase_slice(card, root, name)
+        for name in ("bigru", "bilstm", "attn"):
+            t0 = time.time()
+            ckpt, got, new_rows = phase_slice(card, root, name)
             ckpts.append(ckpt)
-            launches[cell.fwd_name] = n
-        for k, n in phase_ensemble(root, ckpts[::-1]).items():
-            launches[k] += n
+            add_launches(launches, got)
+            add_rows(new_rows)
+            log(f"[slice] {name} serving phase in {time.time() - t0:.1f} s")
+        add_launches(launches, phase_ensemble(root, ckpts[::-1]))
         t0 = time.time()
-        for name in ("bigru", "bilstm"):
-            cell = cell_of(name)
-            got, rows[cell.fwd_name + "_train"], rows[cell.bwd_name] = (
-                phase_train(card, root, name))
-            launches[cell.fwd_name] += got["eval"]
-            launches[cell.fwd_name + "_train"] = got["train"]
-            launches[cell.bwd_name] = got["bwd"]
+        for name in ("bigru", "bilstm", "attn", "win_attn"):
+            t1 = time.time()
+            got, new_rows = phase_train(card, root, name)
+            add_launches(launches, got)
+            add_rows(new_rows)
+            log(f"[train] {name} training phase in {time.time() - t1:.1f} s")
         # its own tree and cwd: the feature cache (data-comp/) is per cwd
         lm_root = os.path.join(root, "lm")
         os.makedirs(lm_root)
         with contextlib.chdir(lm_root):
-            got = phase_train_lm(lm_root)
-        launches[LSTM.fwd_name] += got["eval"]
-        launches[LSTM.fwd_name + "_train"] += got["train"]
-        launches[LSTM.bwd_name] += got["bwd"]
+            add_launches(launches, phase_train_lm(lm_root))
         log(f"[train] training phases in {time.time() - t0:.1f} s")
     log(f"[done] all phases in {time.time() - start:.1f} s")
 
-    kernels = []
+    entries = []
     for cell in (GRU, LSTM):
-        for name, src, replaces in (
-                (cell.fwd_name, cell.fwd_src, cell.fwd_replaces),
-                (cell.fwd_name + "_train", cell.fwd_src, cell.fwd_replaces),
-                (cell.bwd_name, cell.bwd_src, cell.bwd_replaces)):
-            kernels.append(kernel_entry(name, src, PALLAS + replaces,
-                                        launches[name],
-                                        rows[name] + bench[name]))
+        entries += [(cell.fwd_name, cell.fwd_src, PALLAS + cell.fwd_replaces),
+                    (cell.fwd_name + "_train", cell.fwd_src,
+                     PALLAS + cell.fwd_replaces),
+                    (cell.bwd_name, cell.bwd_src, PALLAS + cell.bwd_replaces)]
+    entries += [(name, CSRC + src, FLASH_PALLAS + line)
+                for name, (src, line) in FLASH.items()]
+    kernels = [kernel_entry(name, src, replaces, launches.get(name, 0),
+                            rows.get(name, []) + bench[name])
+               for name, src, replaces in entries]
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels the main path never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

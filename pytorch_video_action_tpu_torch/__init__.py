@@ -8,9 +8,10 @@ Pallas kernel on a ported path becomes a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use; on CPU tensors each kernel's
 plain PyTorch version runs instead.
 
-Ported so far: bigru inference and training end to end
-(``python -m pytorch_video_action_tpu_torch.cli.inference_cli`` and
-``... .cli.train_cli``).
+Ported so far, served (``python -m
+pytorch_video_action_tpu_torch.cli.inference_cli``) and trained (``...
+.cli.train_cli``) end to end: bigru, bilstm, attn; trained: bilstm_lm,
+win_attn.
 """
 
 N_FEAT = 400  # I3D feature dimension (reference data_utils.py:147 loadtxt width)

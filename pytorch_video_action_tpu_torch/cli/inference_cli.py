@@ -88,7 +88,8 @@ def main(argv=None):
         part=args.part, split=split, mode=mode,
     )
     models = load_models(args.pretrained_model, dataset.n_class,
-                         models_dir=args.models_dir, device=device)
+                         models_dir=args.models_dir, device=device,
+                         attn_head=args.attn_head)
     if len(models) == 0:
         print('No model is loaded...')
         return 0

@@ -4,18 +4,19 @@ plus ``--device {cuda,cpu}`` (``cuda`` by default; raises without a card).
 
 Run: ``python -m pytorch_video_action_tpu_torch.cli.train_cli --model bigru
 --epoch 10 --batchsize 8`` (or ``--model bilstm``, ``--model bilstm_lm``,
-with the ``--lstm_*`` and ``--pred_mode`` flags).  Each epoch prints the
-reference's loss and dev accuracy lines and saves
-``models/{model}_{acc:.2f}_dev.npz`` when the dev segment accuracy improves;
-a bilstm_lm checkpoint carries its BatchNorm running stats under
-``__state__/``.
+with the ``--lstm_*`` and ``--pred_mode`` flags, ``--model attn`` with
+``--attn_head`` and ``--pred_mode``, ``--model win_attn`` with
+``--attn_head``).  Each epoch prints the reference's loss and dev
+accuracy lines and saves ``models/{model}_{acc:.2f}_dev.npz`` when the dev
+segment accuracy improves; a bilstm_lm checkpoint carries its BatchNorm
+running stats under ``__state__/``.
 
 Accepted but not served yet, each raising ``NotImplementedError`` naming
 its ROADMAP item before the data loads: ``--data_parallel N>1`` and
 ``--seq_parallel N>1`` (15), ``--resume`` and ``--cache_device`` (14),
-``--lm_path`` (13), models other than bigru, bilstm and bilstm_lm (9-12),
-``--train_mode segment`` and ``cont`` (6).  ``--profile_dir`` raises naming item 14 when
-the first epoch starts.  ``--use_pallas`` changes nothing: on the card the
+``--lm_path`` (13), models other than bigru, bilstm, bilstm_lm, attn and
+win_attn (9, 11, 12), ``--train_mode segment`` and ``cont`` (6).
+``--profile_dir`` raises naming item 14 when the first epoch starts.  ``--use_pallas`` changes nothing: on the card the
 hand-written kernels always run.
 """
 
@@ -183,6 +184,7 @@ def main(argv=None):
                         lstm_dropout=args.lstm_dropout,
                         lstm_hidden1=args.lstm_hidden1,
                         lstm_hidden2=args.lstm_hidden2,
+                        attn_head=args.attn_head,
                         generator=torch.Generator().manual_seed(args.seed))
     trainer = Trainer(model, n_class, lr=args.lr,
                       lr_step_size=args.lr_step_size,

@@ -1,39 +1,16 @@
 // Device code shared by the bidirectional GRU and LSTM layer kernels
 // (gru_bidir_fwd.cu, gru_bidir_bwd.cu, lstm_bidir_fwd.cu, lstm_bidir_bwd.cu)
-// for Hopper (sm_90a): dtype conversions, the input projection, and the
-// backward's deterministic tiled SIMT GEMMs and bias reduction.  Each .cu
-// includes it and builds into its own library.
+// for Hopper (sm_90a): the input projection, and the backward's
+// deterministic tiled SIMT GEMMs and bias reduction.  Each .cu includes it
+// and builds into its own library.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "dtype.cuh"
 
 #include <stddef.h>
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T and back
-template <typename T>
-__device__ __forceinline__ float rnd(float v) { return to_f(from_f<T>(v)); }
 
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));

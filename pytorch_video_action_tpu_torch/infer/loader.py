@@ -4,8 +4,10 @@
 Contract (reference ``inference.py:81-105``): checkpoint filenames are
 ``{model}_{acc:.2f}_dev``; the model type is
 ``'_'.join(name.split('.')[0].split('_')[:-1])`` and the model is built with
-default hyperparameters.  bigru and bilstm checkpoints are served.  A type the port has not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+default hyperparameters; ``attn_head`` is handed to ``build_model`` as
+the JAX loader hands it (attn's defaults keep 4 heads).  bigru, bilstm and
+attn checkpoints are served.  A type the port has not ported
+yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ def load_models(
     n_class: int,
     models_dir: str = "models",
     device: str | torch.device = "cuda",
+    attn_head: int = 4,
 ) -> dict[str, torch.nn.Module]:
     """``{checkpoint_filename: model}`` in the given order (the first model
     has voting priority, like the reference's dict ordering), on ``device``:
@@ -38,7 +41,7 @@ def load_models(
         if mtype not in INFERENCE_NAMES:
             print(f"Unknown model type {mtype!r} for {model_filename}; skipping")
             continue
-        model = build_model(mtype, n_class, defaults=True)
+        model = build_model(mtype, n_class, attn_head=attn_head, defaults=True)
         path = os.path.join(models_dir, f"{model_filename}.npz")
         try:
             params, state = load_params(path, with_state=True)

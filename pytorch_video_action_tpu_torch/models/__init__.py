@@ -1,7 +1,8 @@
 """Model registry and factory (counterpart of
 ``pytorch_video_action_tpu/models/__init__.py``).
 
-Ported: ``bigru``, ``bilstm`` and ``bilstm_lm``.  Every other name of the
+Ported: ``bigru``, ``bilstm``, ``bilstm_lm``, ``attn`` and ``win_attn``.
+Every other name of the
 JAX package raises ``NotImplementedError`` naming the ROADMAP item that
 ports it.  A model says whether it is stateful (``model.stateful``: its
 module buffers are the JAX package's ``model_state``).
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .attention import Attn, AttnConfig, WinAttn, WinAttnConfig
 from .gru import BiGRU, BiGRUConfig
 from .lstm import BiLSTM, BiLSTMConfig, BiLSTMWithLM, BiLSTMWithLMConfig
 
@@ -20,7 +22,6 @@ INFERENCE_NAMES = ["simple_fc", "vanilla_lstm", "bilstm", "bigru", "attn", "mstc
 
 _ROADMAP_ITEM = {
     "vanilla_lstm": 9,
-    "attn": 10, "win_attn": 10,
     "ms_tcn": 11, "mstcn": 11,
     "simple_fc": 12, "ctcloss": 12,
 }
@@ -38,14 +39,15 @@ def not_ported(name: str) -> Exception:
 def build_model(name: str, n_class: int, *, pred_mode: str = "cont",
                 lstm_layer: int = 2, lstm_dropout: float = 0.5,
                 lstm_hidden1: int = 256, lstm_hidden2: int = 64,
-                defaults: bool = False,
+                attn_head: int = 4, defaults: bool = False,
                 generator: torch.Generator | None = None) -> torch.nn.Module:
     """Build a model.  ``defaults=True`` gives the inference CLIs'
     class-default hyperparameters (``inference.py:83-94``), the checkpoint
     contract; otherwise the train CLI's flags apply (``train.py:218-259``),
     as in the JAX package: bigru takes none of them, bilstm_lm all but
-    ``pred_mode`` and ignores ``defaults``.  ``generator`` seeds the initial
-    weights."""
+    ``pred_mode`` and ignores ``defaults``, attn takes ``attn_head`` and
+    ``pred_mode``, win_attn ``attn_head`` alone, also with ``defaults``.
+    ``generator`` seeds the initial weights."""
     if name == "bigru":
         return BiGRU(BiGRUConfig(n_class=n_class), generator=generator)
     if name == "bilstm":
@@ -59,4 +61,11 @@ def build_model(name: str, n_class: int, *, pred_mode: str = "cont",
             lstm_layer=lstm_layer, hidden_dim_1=lstm_hidden1,
             dropout_rate=lstm_dropout, hidden_dim_2=lstm_hidden2,
             n_class=n_class), generator=generator)
+    if name == "attn":
+        cfg = (AttnConfig(n_class=n_class) if defaults else AttnConfig(
+            num_heads=attn_head, n_class=n_class, mode=pred_mode))
+        return Attn(cfg, generator=generator)
+    if name == "win_attn":
+        return WinAttn(WinAttnConfig(num_heads=attn_head, n_class=n_class),
+                       generator=generator)
     raise not_ported(name)

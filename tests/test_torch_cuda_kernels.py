@@ -6,7 +6,8 @@ and no JAX it runs on its own, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
-The GRU layer's kernels come first, then the LSTM layer's.
+The GRU layer's kernels come first, then the LSTM layer's, then the
+flash-attention kernels.
 
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
@@ -369,3 +370,149 @@ def test_bilstm_train_step_on_card_matches_cpu(cuda_device):
     for k, want in cpu[1].items():
         err = (gpu[1][k] - want).abs().max() / want.abs().max()
         assert err.item() <= 1e-3, k
+
+
+# ---------------------------------------------------------------- flash
+#
+# The flash kernels against ops/flash.py's plain versions: f32 1e-4 (the
+# same products summed in another order), bf16 3e-2 (both round the dropped
+# p, and in the backward ds, to bf16 at the same points; an ulp of
+# difference in an f32 exp before a rounding moves one element by one bf16
+# ulp).  lse and the gradients are compared relative to their largest
+# plain element (at least 1).
+
+from pytorch_video_action_tpu_torch.ops import flash as F  # noqa: E402
+
+# (B, H, T, lengths): one zero-length video, T not a multiple of the
+# 64-row tile, and one T long enough for several tiles of each kind
+FLASH_CASES = [(3, 4, 200, [200, 77, 0]), (2, 4, 1100, [1100, 613])]
+
+
+def _flash_case(cuda_device, dtype, b, h, t, lengths, seed=0, d=100):
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (rng.normal(size=(b, h, t, d)).astype(np.float32)
+                     for _ in range(4))
+    q /= np.sqrt(d)
+    mask = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    to = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    return (to(q), to(k), to(v), torch.from_numpy(mask).to(cuda_device),
+            to(dout))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=["T200", "T1100"])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_matches_plain(cuda_device, dtype, rate, case):
+    q, k, v, mask, _ = _flash_case(cuda_device, dtype, *case)
+    before = F.flash_fwd.launches
+    out, lse = F.flash_fwd(q, k, v, mask, rate, 1234)
+    torch.cuda.synchronize()
+    assert F.flash_fwd.launches == before + 1
+    want, want_lse, _ = F.flash_fwd_ref(q, k, v, mask, rate, 1234)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _rel_err(lse, want_lse) <= TOL[torch.float32]
+    # the zero-length video: zero output and zero lse
+    dead = ~mask.any(dim=-1)
+    assert (out[dead] == 0).all() and (lse[dead] == 0).all()
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=["T200", "T1100"])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_matches_plain(cuda_device, dtype, rate, fused, case):
+    q, k, v, mask, dout = _flash_case(cuda_device, dtype, *case, seed=1)
+    out, lse = F.flash_fwd(q, k, v, mask, rate, 99)
+    counts = lambda: (F.flash_bwd_fused.launches,  # noqa: E731
+                      F.flash_bwd_dkdv.launches, F.flash_bwd_dq.launches)
+    before = counts()
+    got = F.flash_bwd(q, k, v, mask, rate, 99, out, lse, dout, fused=fused)
+    torch.cuda.synchronize()
+    step = (1, 0, 0) if fused else (0, 1, 1)
+    assert counts() == tuple(a + s for a, s in zip(before, step))
+    want = F.flash_bwd_ref(q, k, v, mask, rate, 99, out, lse, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("sms", [132, 24, 4])
+def test_flash_bwd_forms_agree_and_rerun_bit_identical(cuda_device, sms,
+                                                      monkeypatch):
+    """The fused form over 16, 3 and 1 KV chunks (B*H = 8 on 132, 24 and 4
+    SMs), against the split; each form twice, bit for bit."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": sms})())
+    q, k, v, mask, dout = _flash_case(cuda_device, torch.float32, 2, 4, 1100,
+                                      [1100, 613], seed=2)
+    out, lse = F.flash_fwd(q, k, v, mask, 0.3, 7)
+    runs = {f: [F.flash_bwd(q, k, v, mask, 0.3, 7, out, lse, dout, fused=f)
+                for _ in range(2)] for f in (True, False)}
+    for f in (True, False):
+        for a, b in zip(*runs[f]):
+            assert torch.equal(a, b), f
+    for a, b in zip(runs[True][0], runs[False][0]):
+        assert _rel_err(a, b) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous", "mask_uint8",
+                                  "head_129"])
+def test_flash_kernels_refuse_what_they_do_not_take(cuda_device, case):
+    d = 129 if case == "head_129" else 100
+    q, k, v, mask, dout = _flash_case(cuda_device, torch.float32, 1, 2, 70,
+                                      [70], d=d)
+    if case == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif case == "noncontiguous":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    elif case == "mask_uint8":
+        mask = mask.to(torch.uint8)
+    before = F.flash_fwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        F.flash_fwd(q, k, v, mask)
+    assert F.flash_fwd.launches == before
+
+
+def test_attn_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """One f32 attn train step with dropout on the card and on the CPU, on
+    the flash path (``BLOCKWISE_MIN_T`` lowered to 64) and the dense one:
+    the loss to 1e-5, each gradient to 1e-3 of its largest element."""
+    from pytorch_video_action_tpu_torch.models import attention as A
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = build_model("attn", 48, generator=torch.Generator().manual_seed(
+        1)).state_dict()
+    rng = np.random.default_rng(1)
+    b, t = 3, 150
+    lengths = np.array([150, 61, 1], np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    batch = (x, lengths, targets.reshape(-1), None)
+    for min_t in (64, 1024):
+        monkeypatch.setattr(A, "BLOCKWISE_MIN_T", min_t)
+        out = {}
+        for device in ("cpu", cuda_device):
+            model = build_model("attn", 48)
+            model.load_state_dict(state)
+            trainer = Trainer(model, 48, seed=0, device=device)
+            ts = trainer.init_state()
+            before = (F.flash_fwd.launches, F.flash_bwd_fused.launches
+                      + F.flash_bwd_dkdv.launches)
+            loss = trainer.train_step(ts, batch, seeds=[5]).item()
+            after = (F.flash_fwd.launches, F.flash_bwd_fused.launches
+                     + F.flash_bwd_dkdv.launches)
+            grads = {k: p.grad.detach().cpu()
+                     for k, p in ts.model.named_parameters()}
+            out[str(device)] = (loss, grads, (after[0] - before[0],
+                                              after[1] - before[1]))
+        cpu, gpu = out["cpu"], out["cuda"]
+        assert cpu[2] == (0, 0)
+        assert gpu[2] == ((1, 1) if min_t == 64 else (0, 0))
+        assert abs(gpu[0] - cpu[0]) <= 1e-5, min_t
+        for k, want in cpu[1].items():
+            err = (gpu[1][k] - want).abs().max() / want.abs().max()
+            assert err.item() <= 1e-3, (min_t, k)

@@ -365,7 +365,7 @@ def test_train_cli_end_to_end(synthetic_root, tmp_path, monkeypatch):
     (["--data_parallel", "2"], 15), (["--seq_parallel", "2"], 15),
     (["--resume", "r.npz"], 14), (["--cache_device"], 14),
     (["--lm_path", "lm.arpa"], 13), (["--model", "vanilla_lstm"], 9),
-    (["--model", "attn"], 10), (["--model", "ms_tcn"], 11),
+    (["--model", "simple_fc"], 12), (["--model", "ms_tcn"], 11),
     (["--model", "ctcloss"], 12), (["--train_mode", "segment"], 6),
     (["--train_mode", "cont"], 6)])
 def test_unserved_flags_raise_before_the_data_loads(tmp_path, monkeypatch,

@@ -2,7 +2,7 @@
 """Where the time of one train step of the PyTorch port goes, on one
 NVIDIA GPU.
 
-    python3 tools/torch_profile_train.py [--model bigru|bilstm]
+    python3 tools/torch_profile_train.py [--model bigru|bilstm|attn]
                                          [--dtype float32|bfloat16]
                                          [--trace trace.json]
 
@@ -18,7 +18,12 @@ prints:
 * device time by kernel name, largest first;
 * the device busy share: the union of the kernels' intervals over the
   span from the first kernel's start to the last one's end, and over the
-  wall time.
+  wall time;
+* for attn, the steps of one more epoch (not profiled) by attention path,
+  each timed with CUDA events: the dense path's (padded T below
+  ``BLOCKWISE_MIN_T``) and the flash path's, and the time the dense
+  path's int64-emulated dropout mask over ``[B, 4, T, T]``
+  (``hashmask.keep_mask``) takes at those steps' shapes.
 
 Exits non-zero without a card or when the profiler records no device time.
 Imports nothing of JAX.
@@ -39,7 +44,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="bigru", choices=["bigru", "bilstm"])
+    ap.add_argument("--model", default="bigru",
+                    choices=["bigru", "bilstm", "attn"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--trace", default=None,
@@ -88,10 +94,51 @@ def main(argv=None) -> int:
 
     if device_report(prof, wall_s, "torch_profile_train") != 0:
         return 1
+    if args.model == "attn":
+        attn_paths(trainer, ts, batches)
     if args.trace:
         os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
         prof.export_chrome_trace(args.trace)
     return 0
+
+
+def attn_paths(trainer, ts, batches) -> None:
+    """Print attn's steps by attention path and the dense path's mask."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import attention
+    from pytorch_video_action_tpu_torch.ops import hashmask
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    steps = {"dense": [], "flash": []}
+    mask_ms = 0.0
+    thresh = hashmask.threshold(1.0 - ts.model.cfg.dropout_rate)
+    for b in batches:
+        b_n, t = b[0].shape[:2]
+        path = "flash" if t >= attention.BLOCKWISE_MIN_T else "dense"
+        steps[path].append((b_n, t, event_ms(
+            lambda: trainer.train_step(ts, b))))
+        if path == "dense":
+            shape = (b_n, ts.model.cfg.num_heads, t, t)
+            mask_ms += event_ms(lambda: hashmask.keep_mask(
+                1, shape, thresh, device=b[0].device))
+    total = sum(ms for v in steps.values() for _, _, ms in v)
+    for path, v in steps.items():
+        ms = sum(m for _, _, m in v)
+        print(f"attn {path} path: {len(v)} steps {[(b, t) for b, t, _ in v]}"
+              f", {ms:.4f} ms = {100 * ms / total:.2f} % of the epoch's "
+              f"{total:.4f} ms (CUDA events, profiler off)")
+    print(f"attn dense path dropout mask (hashmask.keep_mask over [B, 4, T, "
+          f"T], int64): {mask_ms:.4f} ms = {100 * mask_ms / total:.2f} % of "
+          f"the epoch")
 
 
 if __name__ == "__main__":
