@@ -24,7 +24,16 @@ Phases, in order; any failure exits non-zero:
    against each other and against a rerun (bit for bit); the times of
    each kernel's wrapper, the plain version and the yardstick
    (``scaled_dot_product_attention`` with the key mask, dropout 0, and
-   ``autograd.grad`` through it) from CUDA events.
+   ``autograd.grad`` through it) from CUDA events.  Then MS-TCN's conv
+   kernels at ms_tcn's bench shape (B=8, T=4096, every frame valid,
+   bench.py): the dilated residual layer's forward in its train form (the
+   global dropout stream), eval form and per-video form, its backward at
+   dropout 0.5 and 0 (each rerun, bit for bit), at d < T, d = T-1, d = T
+   and d >> T, and the 20-layer stage at keep 1 and 0.5, in f32 and bf16;
+   each beside its plain version, its bound and a cuDNN yardstick (per
+   layer ``F.conv1d`` dilated conv -> relu -> 1x1 ``F.conv1d`` ->
+   residual and mask, TF32 off; ``autograd.grad`` through it for the
+   backward).
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
    test videos) and full-width bigru, bilstm and attn checkpoints into a
    temporary directory.  For each model: repeats phase 3's forward checks
@@ -32,15 +41,22 @@ Phases, in order; any failure exits non-zero:
    largest padded to T >= 1024), runs the port's inference CLI on the card
    (test CSV and dev accuracy, f32 and bf16), checks the launch counts of
    every kernel and the CSV, runs the CLI once on the CPU to compare
-   labels, and prints the forward's frames/s.  Then serves the three
-   checkpoints as one ensemble on the card.
+   labels, and prints the forward's frames/s.  Then trains ms_tcn (as
+   phase 5 does the others), copies its ``ms_tcn_*`` checkpoint to
+   ``mstcn_*``, the inference CLIs' name for it, and serves it the same
+   way (the stage kernel held at the largest forward batch; four stage
+   launches a forward batch); then serves the four checkpoints as one
+   ensemble on the card.
 5. training: for bigru, bilstm and attn, repeats phase 3's train-form and
    backward checks at the largest train batch, runs the port's train CLI
    on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
    of every kernel (per step one train-form forward and one backward per
    layer and, for attn at padded T >= 1024, one flash forward and one
    flash backward; per dev batch one eval-form forward per layer and the
-   flash forward), that the loss is finite and falls from epoch 1 to 2,
+   flash forward; for ms_tcn per step 80 layer forwards and 80 layer
+   backwards, per dev batch 4 stage launches, its layer forward and
+   backward held first at the largest train batch), that the loss is
+   finite and falls from epoch 1 to 2,
    and that the inference CLI serves the checkpoint; holds one train
    step's gradients on the card against the same step on the CPU (attn on
    its dense and its flash path); prints the train step's frames/s.  Then
@@ -48,8 +64,8 @@ Phases, in order; any failure exits non-zero:
    epochs, f32): launch counts, falling loss, and a checkpoint that holds
    its BatchNorm state (``__state__/`` keys).
 
-Prints a ``kernels`` JSON line (ten entries, headline numbers at the main
-path's shape, every checked shape under ``shapes``), the card's name and
+Prints a ``kernels`` JSON line (thirteen entries, headline numbers at the
+main path's shape, every checked shape under ``shapes``), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -60,6 +76,7 @@ import contextlib
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -69,6 +86,7 @@ import numpy as np
 
 B_BENCH, T_BENCH = 64, 1024  # the shape bench.py times bigru and bilstm at
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+DTYPES = ("float32", "bfloat16")
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 CSRC = "pytorch_video_action_tpu_torch/csrc/"
@@ -197,13 +215,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# cuda_ms holds the stream at most this long; the clock converts it to the
+# cycles torch.cuda._sleep counts (an H100 SXM's boost clock: at a lower
+# clock the hold only lasts longer)
+MAX_HOLD_S = 0.5
+SM_HZ = 1.98e9
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time (ms) of ``fn`` over ``iters`` calls, from CUDA
+    events.  After the warm-up the stream is held (``torch.cuda._sleep``)
+    for twice the host's time to issue the calls, taken on the last
+    warm-up call, so every launch is queued before the first one runs: a
+    wrapper's host work (checks, allocations, the ctypes call) then does
+    not stand between its kernels, and the events time the device.  With
+    no warm-up, or once the hold would pass ``MAX_HOLD_S`` (the plain
+    versions' Python loops over T), the host's time stays in."""
     import torch
 
+    hold_s = 0.0
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        hold_s = 2 * (time.perf_counter() - t0) * iters
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if 0.0 < hold_s <= MAX_HOLD_S:
+        torch.cuda._sleep(int(hold_s * SM_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -443,6 +483,10 @@ def phase_kernels():
             bwd=[(dt, ATTN_RATE) for dt in ("float32", "bfloat16")]).items():
         rows[name] = got
     log(f"[kernel] flash bench-shape checks in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    rows.update(check_conv("bench", [T_TCN] * B_TCN, T_TCN,
+                           torch.Generator().manual_seed(6)))
+    log(f"[kernel] conv bench-shape checks in {time.time() - t0:.1f} s")
     return rows
 
 
@@ -618,6 +662,268 @@ def use_fused(b, t_len) -> bool:
     return F.use_fused(b * ATTN_H, t_len, t_len, ATTN_D, sms())
 
 
+# ------------------------------------------------------------------ ms_tcn
+
+CONV_PALLAS = "pytorch_video_action_tpu/ops/conv_pallas.py:"
+# the conv entries of the kernels line (each a wrapper of ops/conv.py):
+# source and the TPU kernel's line in conv_pallas.py
+CONV = {"dilated_residual_layer": ("conv_layer_fwd.cu", "86"),
+        "dilated_residual_layer_bwd": ("conv_layer_bwd.cu", "415"),
+        "fused_stage": ("conv_stage_fwd.cu", "248")}
+# ms_tcn: bench.py:66,75 times it at B=8, T=4096, every frame valid; 64
+# feature maps, 4 stages of 20 layers, dropout 0.5
+B_TCN, T_TCN = 8, 4096
+TCN_C, TCN_STAGES, TCN_LAYERS, TCN_RATE = 64, 4, 20, 0.5
+# the layer's forms, the train step's (global stream) first
+CONV_FORMS = ("global", "eval", "per_video")
+
+
+def conv_dilations(t_len):
+    """d < T, d = T-1, d = T and d >> T."""
+    return [1, t_len - 1, t_len, 2 ** 19]
+
+
+def conv_inputs(lengths, t_len, dt, gen, n_layers=None):
+    """One layer's weights ``[w_d, b_d, w_p, b_p]`` at the model's init
+    scale (a stage's, stacked, for ``n_layers``), x and dy ``[B, T, 64]``
+    with values on the padded rows (as ``conv_in`` leaves them) and the f32
+    frame mask, on the card."""
+    import torch
+
+    c = TCN_C
+    lead = () if n_layers is None else (n_layers,)
+
+    def u(shape, fan_in):
+        k = 1.0 / fan_in ** 0.5
+        return ((torch.rand(lead + shape, generator=gen) * 2 - 1) * k).to(
+            "cuda", dt)
+
+    ws = [u((3, c, c), 3 * c), u((c,), 3 * c),
+          u((c, c) if n_layers else (1, c, c), c), u((c,), c)]
+    b = len(lengths)
+    x, dy = (torch.randn(b, t_len, c, generator=gen).to("cuda", dt)
+             for _ in range(2))
+    mask = (torch.arange(t_len)[None, :]
+            < torch.as_tensor(lengths)[:, None]).to("cuda", torch.float32)
+    return ws, x, dy, mask
+
+
+def conv_rows(lengths, t_len, d):
+    """Output rows a product of the layer needs at dilation ``d``: the
+    valid frames (the center tap, the 1x1), and the valid frames whose
+    side-tap source row lies inside ``[0, T)`` (both side taps)."""
+    center = sum(lengths)
+    if d >= t_len:
+        return center, 0
+    return center, sum(max(0, n - d) + max(0, min(n, t_len - d))
+                       for n in lengths)
+
+
+def conv_bound(lengths, t_len, dt_name, dilations, backward=False):
+    """Least time (ms) of the layers at ``dilations`` on this input: 2*64*64
+    operations a row of each product (forward: the taps and the 1x1;
+    backward: the recomputed taps, dh, dw_p, the weight taps and the dx
+    taps), against x and y (backward: x, dy and dx) ``[B, T, 64]`` in the
+    input dtype, the f32 frame mask and each layer's weights (backward:
+    and its gradients), each read or written once."""
+    size = 4 if dt_name == "float32" else 2
+    c, b = TCN_C, len(lengths)
+    flops = 0
+    for d in dilations:
+        center, side = conv_rows(lengths, t_len, d)
+        taps = center + side
+        flops += 2 * c * c * (3 * taps + 2 * center if backward
+                              else taps + center)
+    act = (3 if backward else 2) * b * t_len * c
+    weights = len(dilations) * (4 * c * c + 2 * c) * (2 if backward else 1)
+    return _bound((act + weights) * size + 4 * b * t_len, flops, dt_name)
+
+
+def cudnn_chain(x, layers, mask, grad=False):
+    """The yardstick: each layer as ``F.conv1d`` (the dilated conv, padding
+    d) -> relu -> ``F.conv1d`` (1x1) -> ``(x + out) * mask`` in cuDNN's
+    ``[B, 64, T]`` layout (transposed once, outside the timing); d >= T is
+    given as T, where the side taps read padding alike.  ``layers``: ``(w_d
+    [3, C, C], b_d, w_p [C, C], b_p, d)``.  Returns ``(inputs, run)``, the
+    inputs leaves when ``grad``.  Timed here only (TF32 off); the port
+    never calls it."""
+    import torch.nn.functional as nnf
+
+    t_len = x.shape[1]
+    x_ncw = x.transpose(1, 2).contiguous().requires_grad_(grad)
+    m = mask.to(x.dtype)[:, None, :]
+    params = [(w_d.permute(2, 1, 0).contiguous().requires_grad_(grad),
+               b_d.clone().requires_grad_(grad),
+               w_p.t().contiguous()[:, :, None].requires_grad_(grad),
+               b_p.clone().requires_grad_(grad), min(d, t_len))
+              for w_d, b_d, w_p, b_p, d in layers]
+
+    def run():
+        h = x_ncw
+        for wc, bc, w1, b1, d in params:
+            out = nnf.relu(nnf.conv1d(h, wc, bc, padding=d, dilation=d))
+            h = (h + nnf.conv1d(out, w1, b1)) * m
+        return h
+
+    return [x_ncw] + [p for layer in params for p in layer[:4]], run
+
+
+def _conv_row(where, lengths, t_len, dt_name, ms, plain_ms, lib_ms, bound,
+              **extra):
+    return {"where": where, "dtype": dt_name, "B": len(lengths), "T": t_len,
+            **extra, "tol": TOL[dt_name], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def check_conv_layer(where, lengths, t_len, dt_name, gen):
+    """Hold the layer kernel in each form against ``layer_ref`` at each of
+    ``conv_dilations``, and time it beside the plain version, the cuDNN
+    yardstick (eval chain) and its bound.  Returns its rows."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import conv as CV
+
+    dt = getattr(torch, dt_name)
+    ws, x, _, mask = conv_inputs(lengths, t_len, dt, gen)
+    b, tol, rows = len(lengths), TOL[dt_name], []
+    for form in CONV_FORMS:
+        keep = 1.0 if form == "eval" else 1.0 - TCN_RATE
+        kw = {"global": {"seed": 321}, "eval": {},
+              "per_video": {"seeds": list(range(7, 7 + b))}}[form]
+        for d in conv_dilations(t_len):
+            args = (*ws, x, mask, d, keep)
+            got = CV.dilated_residual_layer(*args, **kw)
+            torch.cuda.synchronize()
+            abs_err, err = rel_err([got], [CV.layer_ref(*args, **kw)])
+            ms = cuda_ms(lambda: CV.dilated_residual_layer(*args, **kw), 10,
+                         2)
+            plain_ms = cuda_ms(lambda: CV.layer_ref(*args, **kw), 2)
+            _, run = cudnn_chain(x, [(ws[0], ws[1], ws[2][0], ws[3], d)],
+                                 mask)
+            with torch.no_grad():
+                lib_ms = cuda_ms(run, 10, 2)
+            bound = conv_bound(lengths, t_len, dt_name, [d])
+            row = _conv_row(where, lengths, t_len, dt_name, ms, plain_ms,
+                            lib_ms, bound, form=form, dilation=d,
+                            max_abs_err=abs_err, max_rel_err=err)
+            log(f"[kernel] dilated_residual_layer {form} {where} B={b} "
+                f"T={t_len} d={d} {dt_name}: max abs err {abs_err:.3g}, "
+                f"err / max(1, max|plain|) {err:.3g} (tol {tol}), kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN chain "
+                f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            if not err <= tol:
+                raise AssertionError(f"layer kernel disagrees with its plain "
+                                     f"version: {row}")
+            rows.append(row)
+    return rows
+
+
+def check_conv_bwd(where, lengths, t_len, dt_name, keep, gen):
+    """Hold the layer's backward against ``layer_bwd_ref`` at each of
+    ``conv_dilations``, rerun it (bit for bit), and time it beside the
+    plain version, ``autograd.grad`` through the cuDNN chain and its bound.
+    Returns its rows."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import conv as CV
+
+    dt = getattr(torch, dt_name)
+    ws, x, dy, mask = conv_inputs(lengths, t_len, dt, gen)
+    b, tol, rows = len(lengths), TOL[dt_name], []
+    for d in conv_dilations(t_len):
+        args = (ws[0], ws[1], ws[2], x, mask, dy, d, keep, 99)
+        got = CV.dilated_residual_layer_bwd(*args)
+        again = CV.dilated_residual_layer_bwd(*args)
+        torch.cuda.synchronize()
+        identical = all(torch.equal(g, a) for g, a in zip(got, again))
+        abs_err, err = rel_err(got, CV.layer_bwd_ref(*args))
+        ms = cuda_ms(lambda: CV.dilated_residual_layer_bwd(*args), 5, 1)
+        plain_ms = cuda_ms(lambda: CV.layer_bwd_ref(*args), 2)
+        leaves, run = cudnn_chain(x, [(ws[0], ws[1], ws[2][0], ws[3], d)],
+                                  mask, grad=True)
+        out = run()
+        dy_ncw = dy.transpose(1, 2).contiguous()
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dy_ncw, retain_graph=True), 5, 1)
+        bound = conv_bound(lengths, t_len, dt_name, [d], backward=True)
+        row = _conv_row(where, lengths, t_len, dt_name, ms, plain_ms, lib_ms,
+                        bound, keep=keep, dilation=d, max_abs_err=abs_err,
+                        max_rel_err=err, bit_identical_rerun=identical)
+        log(f"[kernel] dilated_residual_layer_bwd {where} B={b} T={t_len} "
+            f"d={d} {dt_name} keep {keep}: max abs err {abs_err:.3g}, max "
+            f"err / max(1, max|plain|) {err:.3g} (tol {tol}), rerun "
+            f"bit-identical {identical}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, autograd.grad through the cuDNN chain "
+            f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        if not err <= tol:
+            raise AssertionError(f"layer backward disagrees with its plain "
+                                 f"version: {row}")
+        if not identical:
+            raise AssertionError("two layer backward runs differ")
+        rows.append(row)
+    return rows
+
+
+def check_fused_stage(where, lengths, t_len, dt_name, keep, gen):
+    """Hold the stage kernel (20 layers, dilations 2^i) against
+    ``stage_ref`` and time it beside the plain version, the 20-layer cuDNN
+    chain and its bound.  Returns its row."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import conv as CV
+
+    dt = getattr(torch, dt_name)
+    ws, x, _, mask = conv_inputs(lengths, t_len, dt, gen, TCN_LAYERS)
+    b = len(lengths)
+    seeds = (torch.randint(0, 2 ** 32, (b, TCN_LAYERS), generator=gen)
+             if keep < 1.0 else None)
+    args = (*ws, x, mask, keep, seeds)
+    got = CV.fused_stage(*args)
+    torch.cuda.synchronize()
+    abs_err, err = rel_err([got], [CV.stage_ref(*args)])
+    ms = cuda_ms(lambda: CV.fused_stage(*args), 10, 2)
+    plain_ms = cuda_ms(lambda: CV.stage_ref(*args), 1)
+    dilations = CV.stage_dilations(TCN_LAYERS, t_len)
+    _, run = cudnn_chain(x, [(ws[0][i], ws[1][i], ws[2][i], ws[3][i], d)
+                             for i, d in enumerate(dilations)], mask)
+    with torch.no_grad():
+        lib_ms = cuda_ms(run, 10, 2)
+    bound = conv_bound(lengths, t_len, dt_name, dilations)
+    tol = TOL[dt_name]
+    row = _conv_row(where, lengths, t_len, dt_name, ms, plain_ms, lib_ms,
+                    bound, keep=keep, max_abs_err=abs_err, max_rel_err=err)
+    log(f"[kernel] fused_stage {where} B={b} T={t_len} {dt_name} keep {keep} "
+        f"({TCN_LAYERS} layers, {sum(d < t_len for d in dilations)} with side "
+        f"taps): max abs err {abs_err:.3g}, err / max(1, max|plain|) "
+        f"{err:.3g} (tol {tol}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, cuDNN chain {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
+    if not err <= tol:
+        raise AssertionError(f"stage kernel disagrees with its plain "
+                             f"version: {row}")
+    return row
+
+
+def check_conv(where, lengths, t_len, gen, kinds=("layer", "bwd", "stage")):
+    """The conv kernels on one input shape, f32 first then bf16: the layer's
+    forms, its backward at dropout 0.5 then 0, the stage at keep 1 then
+    0.5.  Returns ``{entry: rows}``, each entry's f32 headline first."""
+    rows = {}
+    if "layer" in kinds:
+        rows["dilated_residual_layer"] = [
+            r for dt in DTYPES
+            for r in check_conv_layer(where, lengths, t_len, dt, gen)]
+    if "bwd" in kinds:
+        rows["dilated_residual_layer_bwd"] = [
+            r for keep in (1.0 - TCN_RATE, 1.0) for dt in DTYPES
+            for r in check_conv_bwd(where, lengths, t_len, dt, keep, gen)]
+    if "stage" in kinds:
+        rows["fused_stage"] = [
+            check_fused_stage(where, lengths, t_len, dt, keep, gen)
+            for keep in (1.0, 1.0 - TCN_RATE) for dt in DTYPES]
+    return rows
+
+
 # ------------------------------------------------------------------ slice
 
 N_CLASS = 48
@@ -696,20 +1002,21 @@ def read_csv_labels(path: str) -> list[int]:
 
 
 # the served and trained models: their recurrent layer kernels and layer
-# count (attn: one GRU layer after the attention; win_attn: none)
+# count (attn: one GRU layer after the attention; win_attn: none), or
+# ms_tcn's conv stages (mstcn is its name in the inference CLIs)
 MODELS = {"bigru": ("gru", 4), "bilstm": ("lstm", 2),
           "bilstm_lm": ("lstm", 2), "attn": ("gru", 1),
-          "win_attn": (None, 0)}
-DTYPES = ("float32", "bfloat16")
+          "win_attn": (None, 0), "ms_tcn": ("conv", TCN_STAGES),
+          "mstcn": ("conv", TCN_STAGES)}
 
 
 def cell_of(name):
-    kind = MODELS[name][0]
-    return None if kind is None else GRU if kind == "gru" else LSTM
+    return {"gru": GRU, "lstm": LSTM}.get(MODELS[name][0])
 
 
 def counters() -> dict:
     """Every kernel wrapper's launch count, by kernels-line entry."""
+    from pytorch_video_action_tpu_torch.ops import conv as CV
     from pytorch_video_action_tpu_torch.ops import flash as F
 
     out = {}
@@ -719,16 +1026,21 @@ def counters() -> dict:
         out[cell.bwd_name] = cell.bwd.launches
     for name in FLASH:
         out[name] = getattr(F, name).launches
+    for name in CONV:
+        out[name] = getattr(CV, name).launches
     return out
 
 
 def reset_counters() -> None:
+    from pytorch_video_action_tpu_torch.ops import conv as CV
     from pytorch_video_action_tpu_torch.ops import flash as F
 
     for cell in (GRU, LSTM):
         cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
     for name in FLASH:
         getattr(F, name).launches = 0
+    for name in CONV:
+        getattr(CV, name).launches = 0
 
 
 def expected_launches(name, forwards=(), steps=()) -> dict:
@@ -737,7 +1049,8 @@ def expected_launches(name, forwards=(), steps=()) -> dict:
     per layer one eval form a forward, one train form and one backward a
     step; for attn at padded T >= BLOCKWISE_MIN_T one flash forward a
     forward or step and one flash backward a step, fused or split as the
-    port's dispatch picks."""
+    port's dispatch picks; for ms_tcn one stage launch a stage a forward
+    and one layer forward and one layer backward a layer a step."""
     from pytorch_video_action_tpu_torch.models import attention
 
     out = dict.fromkeys(counters(), 0)
@@ -753,6 +1066,10 @@ def expected_launches(name, forwards=(), steps=()) -> dict:
         fused = sum(use_fused(b, t) for b, t in long_steps)
         out["flash_bwd_fused"] = fused
         out["flash_bwd_dkdv"] = out["flash_bwd_dq"] = len(long_steps) - fused
+    if MODELS[name][0] == "conv":
+        out["fused_stage"] = TCN_STAGES * len(forwards)
+        out["dilated_residual_layer"] = out["dilated_residual_layer_bwd"] = (
+            TCN_STAGES * TCN_LAYERS * len(steps))
     return out
 
 
@@ -795,10 +1112,11 @@ def save_checkpoint(root: str, name: str) -> str:
     return ckpt
 
 
-def phase_slice(card: str, root: str, name: str):
+def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
     """The inference slice of ``name`` on the dataset under ``root`` (the
-    cwd).  Returns its checkpoint name, the launches of its CLI runs and
-    its kernel rows, each by kernels-line entry."""
+    cwd), serving ``ckpt`` (by default a checkpoint of seeded weights).
+    Returns its checkpoint name, the launches of its CLI runs and its
+    kernel rows, each by kernels-line entry."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
@@ -811,7 +1129,8 @@ def phase_slice(card: str, root: str, name: str):
 
     cell = cell_of(name)
     launches = {}
-    ckpt = save_checkpoint(root, name)
+    if ckpt is None:
+        ckpt = save_checkpoint(root, name)
     base = ["--pretrained_model", ckpt, "--prob", "big",
             "--data_dir", os.path.join(root, "data"), "--annot_path", root]
     n_segments = sum(len(s) - 1 for s in
@@ -837,6 +1156,8 @@ def phase_slice(card: str, root: str, name: str):
         rows = check_flash("main path", lens, t_pad, gen,
                            fwd=[(dt, r) for dt in DTYPES
                                 for r in (0.0, ATTN_RATE)], bwd=[])
+    elif cell is None:
+        rows = check_conv("main path", lens, t_pad, gen, kinds=("stage",))
     else:
         rows = {cell.fwd_name: check_layers(cell, "main path", lens, t_pad,
                                             gen)}
@@ -907,6 +1228,7 @@ def phase_ensemble(root: str, ckpts: list[str]) -> dict:
     (test part, f32).  Returns the launches by kernels-line entry."""
     from pytorch_video_action_tpu_torch.cli import inference_cli
     from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.loader import parse_model_type
     from pytorch_video_action_tpu_torch.infer.predict import forward_batches
 
     forwards = [(len(c), t) for t, c in forward_batches(VideoDataset(
@@ -914,7 +1236,7 @@ def phase_ensemble(root: str, ckpts: list[str]) -> dict:
         verbose=False).features)]
     expect = {}
     for ckpt in ckpts:
-        add_launches(expect, expected_launches(ckpt.split("_00.00_dev")[0],
+        add_launches(expect, expected_launches(parse_model_type(ckpt),
                                                forwards=forwards))
     reset_counters()
     out = inference_cli.main(["--pretrained_model", *ckpts, "--prob", "big",
@@ -989,15 +1311,16 @@ def check_grads_against_cpu(name, batch, where=""):
         grads[device] = {k: p.grad.detach().cpu()
                          for k, p in ts.model.named_parameters()
                          if p.grad is not None}
-    worst = 0.0
+    worst, worst_k = 0.0, None
     for k, want in grads["cpu"].items():
         err = ((grads["cuda"][k] - want).abs().max()
                / want.abs().max().clamp(min=1e-30)).item()
-        worst = max(worst, err)
+        if err >= worst:
+            worst, worst_k = err, k
     log(f"[train] {name}{where} one f32 step, B={batch[0].shape[0]} "
         f"T={batch[0].shape[1]}: loss cuda {losses['cuda']:.6f} cpu "
         f"{losses['cpu']:.6f}; worst gradient difference / max|cpu "
-        f"gradient| {worst:.3g} (tol {GRAD_TOL})")
+        f"gradient| {worst:.3g} ({worst_k}; tol {GRAD_TOL})")
     if (grads["cuda"].keys() != grads["cpu"].keys() or not worst <= GRAD_TOL
             or abs(losses["cuda"] - losses["cpu"]) > 1e-4):
         raise AssertionError("card and CPU train steps disagree")
@@ -1063,7 +1386,7 @@ def train_cli_run(root, name, dt_name, expect):
 def phase_train(card: str, root: str, name: str):
     """The training slice of ``name`` on the dataset under ``root`` (the
     cwd).  Returns the launches of its CLI runs and its kernel rows, each
-    by kernels-line entry."""
+    by kernels-line entry, and the best dev accuracy of its f32 run."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
@@ -1092,21 +1415,26 @@ def phase_train(card: str, root: str, name: str):
                                                   t_pad, gen)
         rows = {cell.fwd_name + "_train": train_rows,
                 cell.bwd_name: bwd_rows}
+    elif MODELS[name][0] == "conv":
+        rows = check_conv("main path", lens, t_pad, gen,
+                          kinds=("layer", "bwd"))
     else:
         rows = {}
 
     expect = expected_launches(name, forwards=forwards * TRAIN_EPOCHS,
                                steps=steps * TRAIN_EPOCHS)
-    launches = {}
+    launches, bests = {}, {}
     dtypes = ("float32",) if name == "win_attn" else DTYPES
     for dt_name in dtypes:
         best, got = train_cli_run(root, name, dt_name, expect)
+        bests[dt_name] = best
         add_launches(launches, got)
         ckpt = f"{name}_{best:.2f}_dev"
         if name not in INFERENCE_NAMES:
             # win_attn writes class scores on every fifth frame only, so
             # its dev segment accuracy, and with it a checkpoint, may stay
-            # 0; the inference CLIs do not serve it, as in JAX
+            # 0; the inference CLIs do not serve it, as in JAX.  ms_tcn's
+            # checkpoint serves under the name mstcn (phase_slice).
             log(f"[train] {name}: best dev segment accuracy {best:.2f}")
             continue
         if not os.path.exists(os.path.join("models", f"{ckpt}.npz")):
@@ -1136,7 +1464,7 @@ def phase_train(card: str, root: str, name: str):
             check_grads_against_cpu(name, batch, " flash path")
     for dt_name in dtypes:
         train_frames_per_sec(card, name, train_feed, dt_name)
-    return launches, rows
+    return launches, rows, bests["float32"]
 
 
 LM_FRAMES = (40, 100)
@@ -1218,11 +1546,27 @@ def main() -> int:
             add_launches(launches, got)
             add_rows(new_rows)
             log(f"[slice] {name} serving phase in {time.time() - t0:.1f} s")
+        # ms_tcn is served from the checkpoint its training writes, under
+        # the inference CLIs' name for it
+        t0 = time.time()
+        got, new_rows, best = phase_train(card, root, "ms_tcn")
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[train] ms_tcn training phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        ckpt = f"mstcn_{best:.2f}_dev"
+        shutil.copy(os.path.join("models", f"ms_tcn_{best:.2f}_dev.npz"),
+                    os.path.join("models", f"{ckpt}.npz"))
+        ckpt, got, new_rows = phase_slice(card, root, "mstcn", ckpt)
+        ckpts.append(ckpt)
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[slice] mstcn serving phase in {time.time() - t0:.1f} s")
         add_launches(launches, phase_ensemble(root, ckpts[::-1]))
         t0 = time.time()
         for name in ("bigru", "bilstm", "attn", "win_attn"):
             t1 = time.time()
-            got, new_rows = phase_train(card, root, name)
+            got, new_rows, _ = phase_train(card, root, name)
             add_launches(launches, got)
             add_rows(new_rows)
             log(f"[train] {name} training phase in {time.time() - t1:.1f} s")
@@ -1242,6 +1586,8 @@ def main() -> int:
                     (cell.bwd_name, cell.bwd_src, PALLAS + cell.bwd_replaces)]
     entries += [(name, CSRC + src, FLASH_PALLAS + line)
                 for name, (src, line) in FLASH.items()]
+    entries += [(name, CSRC + src, CONV_PALLAS + line)
+                for name, (src, line) in CONV.items()]
     kernels = [kernel_entry(name, src, replaces, launches.get(name, 0),
                             rows.get(name, []) + bench[name])
                for name, src, replaces in entries]

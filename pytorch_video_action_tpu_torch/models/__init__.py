@@ -1,11 +1,12 @@
 """Model registry and factory (counterpart of
 ``pytorch_video_action_tpu/models/__init__.py``).
 
-Ported: ``bigru``, ``bilstm``, ``bilstm_lm``, ``attn`` and ``win_attn``.
-Every other name of the
-JAX package raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.  A model says whether it is stateful (``model.stateful``: its
-module buffers are the JAX package's ``model_state``).
+Ported: ``bigru``, ``bilstm``, ``bilstm_lm``, ``attn``, ``win_attn`` and
+``ms_tcn`` (also ``mstcn``, the inference CLIs' name).  Every other name of
+the JAX package raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.  A model names its family (``model.name``, which picks its
+loss) and says whether it is stateful (``model.stateful``: its module
+buffers are the JAX package's ``model_state``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from .attention import Attn, AttnConfig, WinAttn, WinAttnConfig
 from .gru import BiGRU, BiGRUConfig
 from .lstm import BiLSTM, BiLSTMConfig, BiLSTMWithLM, BiLSTMWithLMConfig
+from .mstcn import MSTCN, MSTCNConfig
 
 # names accepted by the inference drivers' checkpoint-filename parsing
 # (inference.py:82-94; note 'mstcn' there vs 'ms_tcn' in train.py)
@@ -22,7 +24,6 @@ INFERENCE_NAMES = ["simple_fc", "vanilla_lstm", "bilstm", "bigru", "attn", "mstc
 
 _ROADMAP_ITEM = {
     "vanilla_lstm": 9,
-    "ms_tcn": 11, "mstcn": 11,
     "simple_fc": 12, "ctcloss": 12,
 }
 
@@ -46,8 +47,9 @@ def build_model(name: str, n_class: int, *, pred_mode: str = "cont",
     contract; otherwise the train CLI's flags apply (``train.py:218-259``),
     as in the JAX package: bigru takes none of them, bilstm_lm all but
     ``pred_mode`` and ignores ``defaults``, attn takes ``attn_head`` and
-    ``pred_mode``, win_attn ``attn_head`` alone, also with ``defaults``.
-    ``generator`` seeds the initial weights."""
+    ``pred_mode``, win_attn ``attn_head`` alone, also with ``defaults``;
+    ms_tcn (``mstcn``) takes none.  ``generator`` seeds the initial
+    weights."""
     if name == "bigru":
         return BiGRU(BiGRUConfig(n_class=n_class), generator=generator)
     if name == "bilstm":
@@ -68,4 +70,6 @@ def build_model(name: str, n_class: int, *, pred_mode: str = "cont",
     if name == "win_attn":
         return WinAttn(WinAttnConfig(num_heads=attn_head, n_class=n_class),
                        generator=generator)
+    if name in ("ms_tcn", "mstcn"):
+        return MSTCN(MSTCNConfig(n_class=n_class), generator=generator)
     raise not_ported(name)

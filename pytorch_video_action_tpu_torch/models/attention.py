@@ -102,6 +102,7 @@ class Attn(nn.Module):
     ``cont`` (per frame), ``last`` (the last valid frame) or ``avg`` (the
     mean over valid frames) (``apply_attn``)."""
 
+    name = "attn"
     stateful = False
     n_dropout_sites = 1  # the attention matrix
 
@@ -152,6 +153,7 @@ class WinAttn(nn.Module):
     ``combine_output`` is declared but unused, as in the reference, so
     checkpoints round-trip."""
 
+    name = "win_attn"
     stateful = False
     n_dropout_sites = 1  # the attention matrix
 

@@ -24,6 +24,7 @@ class BiGRUConfig:
 
 
 class BiGRU(nn.Module):
+    name = "bigru"
     stateful = False
 
     def __init__(self, cfg: BiGRUConfig,

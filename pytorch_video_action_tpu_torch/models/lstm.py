@@ -37,6 +37,7 @@ class BiLSTM(nn.Module):
     (per frame), ``last`` (the last valid frame) or ``avg`` (the mean of
     ``linear`` over valid frames)."""
 
+    name = "bilstm"
     stateful = False
 
     def __init__(self, cfg: BiLSTMConfig,
@@ -128,6 +129,7 @@ class BiLSTMWithLM(nn.Module):
     unchanged over padded frames and padded outputs are 0
     (``models/lstm.py:159-211``)."""
 
+    name = "bilstm_lm"
     stateful = True
 
     def __init__(self, cfg: BiLSTMWithLMConfig,

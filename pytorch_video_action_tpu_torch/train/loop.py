@@ -2,8 +2,9 @@
 ``pytorch_video_action_tpu/train/loop.py``, reference ``train.py:143-349``).
 
 One train step is the JAX ``Trainer`` step: a ``train=True`` forward with
-hash dropout, an f32 log-softmax and loss, the backward (through the GRU
-layer's kernels on the card), one Adam update.  Dropout seeds are explicit
+hash dropout, the model's f32 loss (``make_loss_fn(model.name)``: NLL over
+log-probs, ms_tcn's cross-entropy over logits), the backward (through the
+layer kernels on the card), one Adam update.  Dropout seeds are explicit
 uint32 values, ``model.n_dropout_sites`` per step, drawn from a
 ``torch.Generator`` seeded by ``seed``; ``train_step`` also takes them
 from the caller.  Under ``compute_dtype='bfloat16'`` the parameters and
@@ -27,7 +28,7 @@ from torch.func import functional_call
 
 from .. import TARGET_PAD
 from ..utils.runlength import run_length_segments
-from .losses import nll_loss
+from .losses import make_loss_fn
 from .optim import make_optimizer, set_lr
 
 
@@ -52,6 +53,7 @@ class Trainer:
                                "(pass device='cpu' to train on the CPU)")
         self.model = model
         self.n_class = n_class
+        self.loss_fn = make_loss_fn(model.name)
         self.seed = seed
         self.make_opt, self.lr_for_epoch = make_optimizer(
             lr, lr_step_size, lr_gamma)
@@ -94,7 +96,7 @@ class Trainer:
                       for k, p in model.named_parameters()}
             out = functional_call(model, params, (x, lengths),
                                   {"train": True, "seeds": seeds})
-        return nll_loss(out.to(torch.float32), targets)
+        return self.loss_fn(out.to(torch.float32), targets)
 
     def train_step(self, ts: TrainState, batch, seeds=None) -> torch.Tensor:
         """One Adam step on a host batch or a prepared one; returns the

@@ -7,7 +7,8 @@
 
 Both are masked means over the valid targets, the count clamped to at
 least 1, matching torch's 'mean' reduction with ``ignore_index``.  The
-target pick is a plain ``gather``.  CTC is ROADMAP item 12.
+target pick is a plain ``gather``.  ``make_loss_fn`` picks one by model
+name, as the JAX one does.  CTC is ROADMAP item 12.
 """
 
 from __future__ import annotations
@@ -32,3 +33,15 @@ def cross_entropy_loss(logits: torch.Tensor,
                        targets: torch.Tensor) -> torch.Tensor:
     """CrossEntropyLoss(ignore_index=-1) over raw logits."""
     return nll_loss(torch.log_softmax(logits, dim=-1), targets)
+
+
+def make_loss_fn(model_name: str):
+    """Loss selector mirroring ``train.py:266-271``: cross-entropy over
+    ms_tcn's logits, NLL over every other ported model's log-probs."""
+    if model_name in ("ms_tcn", "mstcn"):
+        return cross_entropy_loss
+    if model_name == "ctcloss":
+        from ..models import not_ported
+
+        raise not_ported(model_name)
+    return nll_loss

@@ -7,7 +7,7 @@ and no JAX it runs on its own, without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
 The GRU layer's kernels come first, then the LSTM layer's, then the
-flash-attention kernels.
+flash-attention kernels, then MS-TCN's conv kernels.
 
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
@@ -516,3 +516,181 @@ def test_attn_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
         for k, want in cpu[1].items():
             err = (gpu[1][k] - want).abs().max() / want.abs().max()
             assert err.item() <= 1e-3, (min_t, k)
+
+
+# ----------------------------------------------------------------- MS-TCN
+#
+# The conv kernels take the plain versions' arithmetic: f32 products of f32
+# (or exactly converted bf16) operands, f32 tail, one rounding to the
+# input dtype.  Forwards: f32 1e-4, bf16 3e-2 of the largest plain value
+# (at least 1; a stage of 20 residual layers grows the values past 1).
+# Gradients relative to their largest plain element, the same tolerances.
+
+from pytorch_video_action_tpu_torch.ops import conv as CV  # noqa: E402
+
+# (B, T, lengths): T not a multiple of the 64-frame tile and several tiles,
+# then the main paths' shapes (serving B=3, T=1280; training B=8, T=1920)
+CONV_CASES = [(3, 200, [200, 77, 1]), (3, 1280, [1280, 900, 513]),
+              (8, 1920, [1920, 1800, 1500, 1200, 900, 700, 600, 513])]
+
+
+def _conv_case(cuda_device, dtype, b, t, lengths, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.1).astype(np.float32)).to(cuda_device, dtype)
+    ws = [mk(3, 64, 64), mk(64), mk(1, 64, 64), mk(64)]
+    x = torch.from_numpy(rng.normal(size=(b, t, 64)).astype(np.float32)).to(
+        cuda_device, dtype)  # padded rows hold values, as conv_in leaves them
+    mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]).to(
+        cuda_device, torch.float32)
+    dy = torch.from_numpy(rng.normal(size=(b, t, 64)).astype(np.float32)).to(
+        cuda_device, dtype)
+    return ws, x, mask, dy
+
+
+def _dilations(t):
+    return [1, 5, t - 1, t, 2 ** 19]
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=["T200", "T1280", "T1920"])
+@pytest.mark.parametrize("form", ["eval", "global", "per_video"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_layer_fwd_matches_plain(cuda_device, dtype, form, case):
+    ws, x, mask, _ = _conv_case(cuda_device, dtype, *case)
+    b = case[0]
+    keep = 1.0 if form == "eval" else 0.5
+    kw = ({"seed": 77} if form == "global" else
+          {"seeds": list(range(1000, 1000 + b))} if form == "per_video"
+          else {})
+    for d in _dilations(case[1]):
+        before = CV.dilated_residual_layer.launches
+        got = CV.dilated_residual_layer(*ws, x, mask, d, keep, **kw)
+        torch.cuda.synchronize()
+        assert CV.dilated_residual_layer.launches == before + 1
+        want = CV.layer_ref(*ws, x, mask, d, keep, **kw)
+        assert got.dtype == dtype
+        assert _rel_err(got, want) <= TOL[dtype], (d, _rel_err(got, want))
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=["T200", "T1280", "T1920"])
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_layer_bwd_matches_plain_and_reruns(cuda_device, dtype, keep,
+                                                 case):
+    ws, x, mask, dy = _conv_case(cuda_device, dtype, *case, seed=1)
+    for d in _dilations(case[1]):
+        args = (ws[0], ws[1], ws[2], x, mask, dy, d, keep, 55)
+        before = CV.dilated_residual_layer_bwd.launches
+        got = CV.dilated_residual_layer_bwd(*args)
+        again = CV.dilated_residual_layer_bwd(*args)
+        torch.cuda.synchronize()
+        assert CV.dilated_residual_layer_bwd.launches == before + 2
+        want = CV.layer_bwd_ref(*args)
+        for name, g, a, w in zip(("dx", "dw_d", "db_d", "dw_p", "db_p"), got,
+                                 again, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, a), (d, name)
+            assert _rel_err(g, w) <= TOL[dtype], (d, name, _rel_err(g, w))
+
+
+@pytest.mark.parametrize("case", CONV_CASES[:2], ids=["T200", "T1280"])
+@pytest.mark.parametrize("keep", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_stage_matches_plain(cuda_device, dtype, keep, case):
+    """20 layers (dilations 1 .. 2^19): at T=200 twelve collapse to d = T;
+    the carry stays f32 in both versions."""
+    rng = np.random.default_rng(2)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=s) * 0.05).astype(np.float32)).to(cuda_device, dtype)
+    stack = [mk(20, 3, 64, 64), mk(20, 64), mk(20, 64, 64), mk(20, 64)]
+    _, x, mask, _ = _conv_case(cuda_device, dtype, *case, seed=3)
+    seeds = (rng.integers(0, 2 ** 32, (case[0], 20), dtype=np.uint32)
+             if keep < 1 else None)
+    before = CV.fused_stage.launches
+    got = CV.fused_stage(*stack, x, mask, keep, seeds)
+    torch.cuda.synchronize()
+    assert CV.fused_stage.launches == before + 1
+    want = CV.stage_ref(*stack, x, mask, keep, seeds)
+    assert got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype], _rel_err(got, want)
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous", "channels_32",
+                                  "per_video_seed_count"])
+def test_conv_kernels_refuse_what_they_do_not_take(cuda_device, case):
+    ws, x, mask, _ = _conv_case(cuda_device, torch.float32, 2, 70, [70, 9])
+    kw = {}
+    if case == "float64":
+        ws, x = [w.double() for w in ws], x.double()
+    elif case == "noncontiguous":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "channels_32":
+        x = x[..., :32].contiguous()
+    else:
+        kw = {"keep": 0.5, "seeds": [1, 2, 3]}
+    before = CV.dilated_residual_layer.launches
+    with pytest.raises((TypeError, ValueError)):
+        CV.dilated_residual_layer(*ws, x, mask, 3, **kw)
+    assert CV.dilated_residual_layer.launches == before
+
+
+def _mstcn_batch(seed, b=3, t=150, lengths=(150, 61, 1)):
+    rng = np.random.default_rng(seed)
+    lengths = np.array(lengths, np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    x[np.arange(t)[None, :] >= lengths[:, None]] = 0.0
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    return x, lengths, targets.reshape(-1), None
+
+
+def test_mstcn_forward_on_card_matches_cpu(cuda_device):
+    """The full-width eval forward: one stage launch a stage, logits to
+    1e-4 of their largest value."""
+    from pytorch_video_action_tpu_torch.models import build_model
+
+    model = build_model("mstcn", 48, defaults=True,
+                        generator=torch.Generator().manual_seed(0))
+    x, lengths, _, _ = _mstcn_batch(0)
+    xt, lt = torch.from_numpy(x), torch.from_numpy(lengths)
+    with torch.no_grad():
+        want = model(xt, lt)
+        gpu = model.to(cuda_device)
+        before = CV.fused_stage.launches
+        got = gpu(xt.to(cuda_device), lt.to(cuda_device)).cpu()
+    assert CV.fused_stage.launches == before + 4
+    assert _rel_err(got, want) <= 1e-4
+
+
+def test_mstcn_train_step_on_card_matches_cpu(cuda_device):
+    """One f32 ms_tcn train step with dropout from the same parameters,
+    batch and seeds on the card and on the CPU: 80 layer forwards and 80
+    layer backwards on the card; the loss to 1e-5, each gradient to 1e-3
+    of its tensor's largest element."""
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = build_model("ms_tcn", 48, generator=torch.Generator().manual_seed(
+        1)).state_dict()
+    batch = _mstcn_batch(1)
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = build_model("ms_tcn", 48)
+        model.load_state_dict(state)
+        trainer = Trainer(model, 48, seed=0, device=device)
+        ts = trainer.init_state()
+        counts = lambda: (CV.dilated_residual_layer.launches,  # noqa: E731
+                          CV.dilated_residual_layer_bwd.launches)
+        before = counts()
+        loss = trainer.train_step(ts, batch, seeds=list(range(80))).item()
+        after = counts()
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in ts.model.named_parameters()}
+        out[str(device)] = (loss, grads, (after[0] - before[0],
+                                          after[1] - before[1]))
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[2] == (0, 0) and gpu[2] == (80, 80)
+    assert abs(gpu[0] - cpu[0]) <= 1e-5
+    for k, want in cpu[1].items():
+        err = (gpu[1][k] - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3, k

@@ -138,9 +138,21 @@ def test_data_parallel_is_not_ported(synthetic_root, models_dir, tmp_path,
 
 
 def test_unported_family_checkpoint_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ploader.load_models(["mstcn_75.59_dev"], 48, models_dir=str(tmp_path),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ploader.load_models(["vanilla_lstm_75.59_dev"], 48,
+                            models_dir=str(tmp_path), device="cpu")
+
+
+def test_mstcn_checkpoint_loads(tmp_path):
+    from pytorch_video_action_tpu_torch.models.mstcn import MSTCN
+
+    mdef = jbuild("mstcn", 48, defaults=True)
+    jsave(os.path.join(tmp_path, "mstcn_75.59_dev.npz"),
+          mdef.init_params(jax.random.PRNGKey(1)))
+    got = ploader.load_models(["mstcn_75.59_dev"], 48,
+                              models_dir=str(tmp_path), device="cpu")
+    assert isinstance(got["mstcn_75.59_dev"], MSTCN)
+    assert not got["mstcn_75.59_dev"].training
 
 
 @pytest.mark.parametrize("name", ["bigru_73.52_dev", "vanilla_lstm_70.11_dev",

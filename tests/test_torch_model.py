@@ -123,7 +123,16 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("simple_fc", 12), ("vanilla_lstm", 9), ("mstcn", 11), ("ctcloss", 12)])
+    ("simple_fc", 12), ("vanilla_lstm", 9), ("ctcloss", 12)])
 def test_unported_models_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_model(name, 48)
+
+
+def test_mstcn_builds_with_the_inference_defaults():
+    from pytorch_video_action_tpu_torch.models.mstcn import MSTCN
+
+    model = build_model("mstcn", 48, defaults=True)
+    assert isinstance(model, MSTCN)
+    assert (model.cfg.dim, model.cfg.num_stages, model.cfg.num_layers,
+            model.cfg.num_f_maps, model.cfg.n_class) == (400, 4, 20, 64, 48)

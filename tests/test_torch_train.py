@@ -365,7 +365,8 @@ def test_train_cli_end_to_end(synthetic_root, tmp_path, monkeypatch):
     (["--data_parallel", "2"], 15), (["--seq_parallel", "2"], 15),
     (["--resume", "r.npz"], 14), (["--cache_device"], 14),
     (["--lm_path", "lm.arpa"], 13), (["--model", "vanilla_lstm"], 9),
-    (["--model", "simple_fc"], 12), (["--model", "ms_tcn"], 11),
+    (["--model", "simple_fc"], 12),
+    (["--model", "ms_tcn", "--seq_parallel", "2"], 15),
     (["--model", "ctcloss"], 12), (["--train_mode", "segment"], 6),
     (["--train_mode", "cont"], 6)])
 def test_unserved_flags_raise_before_the_data_loads(tmp_path, monkeypatch,
@@ -373,6 +374,13 @@ def test_unserved_flags_raise_before_the_data_loads(tmp_path, monkeypatch,
     monkeypatch.chdir(tmp_path)
     argv = _argv(tmp_path / "no_such_tree") + extra
     with pytest.raises(NotImplementedError, match=f"item {item}"):
+        train_cli.main(argv)
+
+
+def test_ms_tcn_gets_past_the_flag_checks(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    argv = _argv(tmp_path / "no_such_tree") + ["--model", "ms_tcn"]
+    with pytest.raises(FileNotFoundError, match="no_such_tree"):
         train_cli.main(argv)
 
 

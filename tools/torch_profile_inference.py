@@ -54,8 +54,12 @@ def device_report(prof, wall_s: float, tool: str) -> int:
     when the profiler recorded no device time."""
     import torch
 
+    # kernels and copies; not the user annotations the profiler mirrors onto
+    # the device timeline (Adam's step is one), whose spans cover the gaps
+    # between their kernels
     device_events = [e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation]
     if not device_events:
         print(f"{tool}: the profiler recorded no device time",
               file=sys.stderr)

@@ -2,7 +2,7 @@
 """Where the time of one train step of the PyTorch port goes, on one
 NVIDIA GPU.
 
-    python3 tools/torch_profile_train.py [--model bigru|bilstm|attn]
+    python3 tools/torch_profile_train.py [--model bigru|bilstm|attn|ms_tcn]
                                          [--dtype float32|bfloat16]
                                          [--trace trace.json]
 
@@ -45,7 +45,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="bigru",
-                    choices=["bigru", "bilstm", "attn"])
+                    choices=["bigru", "bilstm", "attn", "ms_tcn"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--trace", default=None,
