@@ -33,7 +33,14 @@ Phases, in order; any failure exits non-zero:
    each beside its plain version, its bound and a cuDNN yardstick (per
    layer ``F.conv1d`` dilated conv -> relu -> 1x1 ``F.conv1d`` ->
    residual and mask, TF32 off; ``autograd.grad`` through it for the
-   backward).
+   backward).  Then the flash kernels at d > 128 (attn with 2 heads, d=200,
+   and 1 head, d=400, at attn's serving shape B=3, T=1280): the forward in
+   f32 and bf16 and both backwards in f32, each against the plain version.
+   Then the LSTM scan's four kernels (the eval and saving forwards, the
+   saved-gates and the recompute backward) at an odd width (W=100) and one
+   past a block's shared memory (W=512), B=8, T=1920, f32: each against
+   its plain version and a rerun, timed beside nn.LSTM (one direction,
+   packed) and its bound.
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
    test videos) and full-width bigru, bilstm and attn checkpoints into a
    temporary directory.  For each model: repeats phase 3's forward checks
@@ -45,8 +52,14 @@ Phases, in order; any failure exits non-zero:
    phase 5 does the others), copies its ``ms_tcn_*`` checkpoint to
    ``mstcn_*``, the inference CLIs' name for it, and serves it the same
    way (the stage kernel held at the largest forward batch; four stage
-   launches a forward batch); then serves the four checkpoints as one
-   ensemble on the card.
+   launches a forward batch).  Then trains vanilla_lstm (as phase 5 does
+   the others, at the train CLI's defaults: H=256, 2 layers, dropout 0.5;
+   its scan kernels held first at the largest train batch, B=8, T=1920;
+   plus one step with the recompute backward, its gradients against the
+   saved-gates step's), trains it again at the inference CLIs' defaults
+   (H=64, 1 layer, dropout 0), serves that checkpoint the same way (the
+   eval form held at the largest forward batch, B=3, T=1280); then serves
+   the five checkpoints as one ensemble on the card.
 5. training: for bigru, bilstm and attn, repeats phase 3's train-form and
    backward checks at the largest train batch, runs the port's train CLI
    on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
@@ -62,10 +75,17 @@ Phases, in order; any failure exits non-zero:
    its dense and its flash path); prints the train step's frames/s.  Then
    trains win_attn (f32) the same way, and bilstm_lm with the CLI (2
    epochs, f32): launch counts, falling loss, and a checkpoint that holds
-   its BatchNorm state (``__state__/`` keys).
+   its BatchNorm state (``__state__/`` keys).  bilstm also takes one step
+   at ``--lstm_hidden1 512`` (H=256, through the LSTM scan: launch counts,
+   and its gradients against the CPU's), attn's gradients are held against
+   the CPU at ``--attn_head`` 2 and 1 on the flash path, and ms_tcn's
+   gradient of ``stages.1.layers.12.conv_dilated.w`` on the card and on
+   the CPU against a float64 step (its side taps exactly 0).
 
-Prints a ``kernels`` JSON line (thirteen entries, headline numbers at the
-main path's shape, every checked shape under ``shapes``), the card's name and
+Each phase logs its time.  Prints a ``kernels`` JSON line (seventeen
+entries for the fifteen ported TPU kernels, rows 1 and 3 in their eval and
+train forms; headline numbers at the main path's shape, every checked
+shape under ``shapes``), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -97,6 +117,8 @@ H = 128  # hidden_dim_1 256 = 2 directions x 128, bigru and bilstm alike
 ATTN_H, ATTN_D = 4, 100
 B_ATTN, T_ATTN = 4, 4096
 ATTN_RATE = 0.3
+# attn's serving main path (the largest forward batch padded to T >= 1024)
+WIDE_T, WIDE_LENGTHS = 1280, [1280, 1100, 1024]
 FLASH_PALLAS = "pytorch_video_action_tpu/ops/flash_pallas.py:"
 # the flash entries of the kernels line (each a wrapper of ops/flash.py):
 # source and the TPU kernel's line in flash_pallas.py
@@ -487,19 +509,45 @@ def phase_kernels():
     rows.update(check_conv("bench", [T_TCN] * B_TCN, T_TCN,
                            torch.Generator().manual_seed(6)))
     log(f"[kernel] conv bench-shape checks in {time.time() - t0:.1f} s")
+    # flash at d > 128 (attn with 2 heads, d=200, and 1 head, d=400), at
+    # attn's serving main-path shape
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(7)
+    for heads in (2, 1):
+        for name, got in check_flash(
+                f"d={head_width(heads)}", WIDE_LENGTHS, WIDE_T, gen,
+                fwd=[(dt, ATTN_RATE) for dt in DTYPES],
+                bwd=[("float32", ATTN_RATE)], heads=heads).items():
+            rows[name] += got
+    log(f"[kernel] flash d=200 and d=400 checks in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    for where, b, t_len, w in SCAN_EXTRA:
+        lengths = torch.randint(1, t_len + 1, (b,), generator=gen).tolist()
+        lengths[0] = t_len
+        for name, got in check_scan(where, lengths, t_len, w, "float32",
+                                    gen).items():
+            rows.setdefault(name, []).extend(got)
+    log(f"[kernel] LSTM scan checks at W=100 and W=512 in "
+        f"{time.time() - t0:.1f} s")
     return rows
 
 
 # ------------------------------------------------------------------ flash
 
 
-def flash_inputs(lengths, t_len, dt, gen):
-    """q (pre-scaled), k, v, dout ``[B, 4, T, 100]`` and the key mask on the
-    card."""
+def head_width(heads: int) -> int:
+    """d of attn's E=400 over ``heads`` heads."""
+    return ATTN_H * ATTN_D // heads
+
+
+def flash_inputs(lengths, t_len, dt, gen, heads=ATTN_H):
+    """q (pre-scaled), k, v, dout ``[B, heads, T, 400 / heads]`` and the key
+    mask on the card."""
     import torch
 
-    shape = (len(lengths), ATTN_H, t_len, ATTN_D)
-    q = torch.randn(shape, generator=gen) / ATTN_D ** 0.5
+    d = head_width(heads)
+    shape = (len(lengths), heads, t_len, d)
+    q = torch.randn(shape, generator=gen) / d ** 0.5
     k, v, dout = (torch.randn(shape, generator=gen) for _ in range(3))
     mask = torch.arange(t_len)[None, :] < torch.as_tensor(lengths)[:, None]
     return (*(a.to("cuda", dt) for a in (q, k, v)), mask.cuda(),
@@ -507,7 +555,7 @@ def flash_inputs(lengths, t_len, dt, gen):
 
 
 def flash_bound(lengths, t_len, dt_name, products, operands, f32_outputs,
-                row_vectors):
+                row_vectors, heads=ATTN_H):
     """Least time (ms) of a flash function on this input: ``products`` score
     or value products of 2*d operations for each query and each valid key
     (``2 * products * H * T * d * sum(lengths)``), against its bytes:
@@ -516,10 +564,10 @@ def flash_bound(lengths, t_len, dt_name, products, operands, f32_outputs,
     the backward) and the key mask, each read or written once."""
     size = 4 if dt_name == "float32" else 2
     b = len(lengths)
-    bhtd = b * ATTN_H * t_len * ATTN_D
-    rows = b * ATTN_H * t_len * 4 * row_vectors
+    bhtd = b * heads * t_len * head_width(heads)
+    rows = b * heads * t_len * 4 * row_vectors
     n_bytes = (operands * size + f32_outputs * 4) * bhtd + rows + b * t_len
-    flops = 2 * products * ATTN_H * t_len * ATTN_D * sum(lengths)
+    flops = 2 * products * heads * t_len * head_width(heads) * sum(lengths)
     return _bound(n_bytes, flops, dt_name)
 
 
@@ -533,7 +581,7 @@ def sdpa(q, k, v, mask):
         q, k, v, attn_mask=mask[:, None, None, :], scale=1.0)
 
 
-def check_flash_fwd(where, lengths, t_len, dt_name, rate, gen):
+def check_flash_fwd(where, lengths, t_len, dt_name, rate, gen, heads=ATTN_H):
     """Hold the flash forward against its plain version and time it beside
     the plain version, the yardstick and its bound.  Returns its row."""
     import torch
@@ -541,7 +589,7 @@ def check_flash_fwd(where, lengths, t_len, dt_name, rate, gen):
     from pytorch_video_action_tpu_torch.ops import flash as F
 
     dt = getattr(torch, dt_name)
-    q, k, v, mask, _ = flash_inputs(lengths, t_len, dt, gen)
+    q, k, v, mask, _ = flash_inputs(lengths, t_len, dt, gen, heads)
     out, lse = F.flash_fwd(q, k, v, mask, rate, 1234)
     torch.cuda.synchronize()
     ref, ref_lse, _ = F.flash_fwd_ref(q, k, v, mask, rate, 1234)
@@ -551,14 +599,16 @@ def check_flash_fwd(where, lengths, t_len, dt_name, rate, gen):
     plain_ms = cuda_ms(lambda: F.flash_fwd_ref(q, k, v, mask, rate, 1234), 1)
     with torch.no_grad():
         lib_ms = cuda_ms(lambda: sdpa(q, k, v, mask), 10, 2)
-    bound_ms, bound_by = flash_bound(lengths, t_len, dt_name, 2, 4, 0, 1)
+    bound_ms, bound_by = flash_bound(lengths, t_len, dt_name, 2, 4, 0, 1,
+                                     heads)
     tol = TOL[dt_name]
     row = {"where": where, "dtype": dt_name, "rate": rate, "B": len(lengths),
-           "T": t_len, "max_abs_err": err, "lse_rel_err": lse_err, "tol": tol,
+           "T": t_len, "d": head_width(heads), "max_abs_err": err,
+           "lse_rel_err": lse_err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by}
-    log(f"[kernel] flash_fwd {where} B={len(lengths)} T={t_len} {dt_name} "
-        f"dropout {rate}: max|out-ref|={err:.3g} (tol {tol}), lse error "
+    log(f"[kernel] flash_fwd {where} B={len(lengths)} T={t_len} "
+        f"d={head_width(heads)} {dt_name} dropout {rate}: max|out-ref|={err:.3g} (tol {tol}), lse error "
         f"{lse_err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{lib_ms:.4f} ms (dropout 0), bound {bound_ms:.4f} ms ({bound_by})")
     if not (err <= tol and lse_err <= TOL["float32"]):
@@ -567,7 +617,7 @@ def check_flash_fwd(where, lengths, t_len, dt_name, rate, gen):
     return row
 
 
-def check_flash_bwd(where, lengths, t_len, dt_name, rate, gen):
+def check_flash_bwd(where, lengths, t_len, dt_name, rate, gen, heads=ATTN_H):
     """Hold the fused and the split backward against the plain version and
     each other, rerun each (bit for bit), and time each kernel beside the
     plain version, the yardstick and its bound.  Returns ``{entry: row}``
@@ -577,7 +627,7 @@ def check_flash_bwd(where, lengths, t_len, dt_name, rate, gen):
     from pytorch_video_action_tpu_torch.ops import flash as F
 
     dt = getattr(torch, dt_name)
-    q, k, v, mask, dout = flash_inputs(lengths, t_len, dt, gen)
+    q, k, v, mask, dout = flash_inputs(lengths, t_len, dt, gen, heads)
     out, lse = F.flash_fwd(q, k, v, mask, rate, 99)
     args = (q, k, v, mask, rate, 99, out, lse, dout)
     want = F.flash_bwd_ref(*args)
@@ -609,25 +659,26 @@ def check_flash_bwd(where, lengths, t_len, dt_name, rate, gen):
         ms = part_ms[name]
         fused = name == "flash_bwd_fused"
         bound_ms, bound_by = flash_bound(lengths, t_len, dt_name, products,
-                                         operands, f32_out, 2)
+                                         operands, f32_out, 2, heads)
         abs_err, err = errs[fused]
         rows[name] = {"where": where, "dtype": dt_name, "rate": rate,
-                      "B": len(lengths), "T": t_len, "max_abs_err": abs_err,
+                      "B": len(lengths), "T": t_len, "d": head_width(heads),
+                      "max_abs_err": abs_err,
                       "max_rel_err": err, "forms_rel_diff": agree, "tol": tol,
                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "bit_identical_rerun": identical}
-        log(f"[kernel] {name} {where} B={len(lengths)} T={t_len} {dt_name} "
-            f"dropout {rate}: max abs err {abs_err:.3g}, max err / max(1, "
+        log(f"[kernel] {name} {where} B={len(lengths)} T={t_len} "
+            f"d={head_width(heads)} {dt_name} dropout {rate}: max abs err {abs_err:.3g}, max err / max(1, "
             f"max|plain|) {err:.3g} (tol {tol}), kernel {ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
     log(f"[kernel] flash backward {where} B={len(lengths)} T={t_len} "
-        f"{dt_name}: fused against split {agree:.3g}, reruns bit-identical "
-        f"{identical}, plain {plain_ms:.4f} ms, autograd.grad through sdpa "
-        f"{lib_ms:.4f} ms (dropout 0), fused form "
-        f"{F.fused_chunks(len(lengths) * ATTN_H, t_len, sms())} chunks, "
+        f"d={head_width(heads)} {dt_name}: fused against split {agree:.3g}, "
+        f"reruns bit-identical {identical}, plain {plain_ms:.4f} ms, "
+        f"autograd.grad through sdpa {lib_ms:.4f} ms (dropout 0), fused form "
+        f"{F.fused_chunks(len(lengths) * heads, t_len, sms())} chunks, "
         f"dispatch picks "
-        f"{'fused' if use_fused(len(lengths), t_len) else 'split'}")
+        f"{'fused' if use_fused(len(lengths), t_len, heads) else 'split'}")
     if not (max(e[1] for e in errs.values()) <= tol and agree <= tol):
         raise AssertionError(f"flash backward disagrees: {rows}")
     if not identical:
@@ -635,16 +686,16 @@ def check_flash_bwd(where, lengths, t_len, dt_name, rate, gen):
     return rows
 
 
-def check_flash(where, lengths, t_len, gen, fwd, bwd) -> dict:
+def check_flash(where, lengths, t_len, gen, fwd, bwd, heads=ATTN_H) -> dict:
     """``check_flash_fwd`` for each ``(dtype, rate)`` of ``fwd`` and
     ``check_flash_bwd`` for each of ``bwd``: ``{entry: rows}``."""
     rows = {name: [] for name in FLASH}
     for dt_name, rate in fwd:
         rows["flash_fwd"].append(
-            check_flash_fwd(where, lengths, t_len, dt_name, rate, gen))
+            check_flash_fwd(where, lengths, t_len, dt_name, rate, gen, heads))
     for dt_name, rate in bwd:
         for name, row in check_flash_bwd(where, lengths, t_len, dt_name,
-                                         rate, gen).items():
+                                         rate, gen, heads).items():
             rows[name].append(row)
     return {k: v for k, v in rows.items() if v}
 
@@ -655,11 +706,150 @@ def sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def use_fused(b, t_len) -> bool:
+def use_fused(b, t_len, heads=ATTN_H) -> bool:
     """The backward the port's dispatch picks for attn at [b, T]."""
     from pytorch_video_action_tpu_torch.ops import flash as F
 
-    return F.use_fused(b * ATTN_H, t_len, t_len, ATTN_D, sms())
+    return F.use_fused(b * heads, t_len, t_len, head_width(heads), sms())
+
+
+# --------------------------------------------------------------- LSTM scan
+
+SCAN_PALLAS = "pytorch_video_action_tpu/ops/rnn_pallas.py:"
+# the LSTM scan's entries of the kernels line (each a wrapper of
+# ops/rnn_scan.py): source and the TPU kernel's line in rnn_pallas.py
+SCAN = {"lstm_scan_fwd": ("lstm_scan_fwd.cu", "421"),
+        "lstm_scan_fwd_save": ("lstm_scan_fwd.cu", "479"),
+        "lstm_scan_bwd_saved": ("lstm_scan_bwd.cu", "546"),
+        "lstm_scan_bwd": ("lstm_scan_bwd.cu", "627")}
+# vanilla_lstm: the inference CLIs' defaults (H=64, 1 layer) and the train
+# CLI's (H=256, 2 layers, dropout 0.5)
+VANILLA_SERVE = 1
+VANILLA_SERVE_FLAGS = ["--lstm_hidden1", "64", "--lstm_layer", "1",
+                       "--lstm_dropout", "0"]
+# (where, B, T, W) beside the main paths' shapes: an odd width and one
+# whose weight slices pass a block's shared memory (f32)
+SCAN_EXTRA = [("odd width", 8, 1920, 100), ("wide", 8, 1920, 512)]
+
+
+def scan_inputs(lengths, t_len, w, dt, gen):
+    """xg [T, B, 4W], wh [W, 4W], dy [T, B, W] (0 on padded frames) and
+    the lengths on the card."""
+    import torch
+
+    b = len(lengths)
+    xg = torch.randn(t_len, b, 4 * w, generator=gen) * 0.5
+    wh = (torch.rand(w, 4 * w, generator=gen) * 2 - 1) / w ** 0.5
+    valid = torch.arange(t_len)[:, None] < torch.as_tensor(lengths)[None, :]
+    dy = torch.randn(t_len, b, w, generator=gen) * valid[:, :, None]
+    return (xg.to("cuda", dt), wh.to("cuda", dt), dy.to("cuda", dt),
+            torch.as_tensor(lengths, dtype=torch.int64))
+
+
+def scan_bound(name, t_len, b, w, dt_name):
+    """Least time (ms) of one scan kernel on this input: per frame row the
+    kernel reads xg (4W) and writes ys and cs (the saving form also res,
+    5W); the backwards read res (5W; recompute: xg 4W and cs) and hp, cp,
+    dy and write dxg (4W); wh read once, dwh written once.  Operations:
+    2*T*B*W*4W a product -- the hidden product forward, the carry product
+    and dwh backward, and the recomputed gates."""
+    size = 4 if dt_name == "float32" else 2
+    per_row = {"lstm_scan_fwd": 6, "lstm_scan_fwd_save": 11,
+               "lstm_scan_bwd_saved": 12, "lstm_scan_bwd": 12}[name]
+    weights = 4 * w * w * (1 if name.startswith("lstm_scan_fwd") else 2)
+    products = {"lstm_scan_fwd": 1, "lstm_scan_fwd_save": 1,
+                "lstm_scan_bwd_saved": 2, "lstm_scan_bwd": 3}[name]
+    n_bytes = (t_len * b * w * per_row + weights) * size
+    flops = products * 2 * t_len * b * w * 4 * w
+    return _bound(n_bytes, flops, dt_name)
+
+
+def library_lstm(x, lengths, w):
+    """The yardstick: ``nn.LSTM`` (one direction, hidden W, input W) on a
+    packed sequence, in x's dtype.  It also computes the input projection
+    that the scan takes precomputed.  Returns ``(forward, forward with
+    autograd, autograd.grad through it)`` callables; timed here only."""
+    import torch
+
+    net = torch.nn.LSTM(w, w).to("cuda", x.dtype)
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x, lengths, enforce_sorted=False)
+
+    def fwd():
+        return net(packed)[0]
+
+    leaves = [x.detach().requires_grad_(True), *net.parameters()]
+    out = torch.nn.utils.rnn.pack_padded_sequence(
+        leaves[0], lengths, enforce_sorted=False)
+    y = net(out)[0].data
+    dy = torch.ones_like(y)
+
+    def bwd():
+        return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    return fwd, fwd, bwd
+
+
+def check_scan(where, lengths, t_len, w, dt_name, gen) -> dict:
+    """Hold the four scan kernels against their plain versions on one
+    input (the backwards also against a rerun, bit for bit) and time each
+    beside its plain version, nn.LSTM and its bound: ``{entry: [row]}``."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    xg, wh, dy, lens = scan_inputs(lengths, t_len, w, dt, gen)
+    ys, cs, res = RS.lstm_scan_ref(xg, wh, save=True)
+    hp, cp = RS._shift(ys), RS._shift(cs)
+    calls = {
+        "lstm_scan_fwd": (RS.lstm_scan_fwd, RS.lstm_scan_ref, (xg, wh)),
+        "lstm_scan_fwd_save": (RS.lstm_scan_fwd_save,
+                               lambda *a: RS.lstm_scan_ref(*a, save=True),
+                               (xg, wh)),
+        "lstm_scan_bwd_saved": (RS.lstm_scan_bwd_saved,
+                                RS.lstm_scan_bwd_saved_ref,
+                                (res, hp, cp, dy, wh)),
+        "lstm_scan_bwd": (RS.lstm_scan_bwd, RS.lstm_scan_bwd_ref,
+                          (xg, hp, cp, cs, dy, wh))}
+    x = torch.randn(t_len, b, w, generator=gen).to("cuda", dt)
+    lib_fwd, lib_train, lib_bwd = library_lstm(x, lens, w)
+    with torch.no_grad():
+        lib_eval_ms = cuda_ms(lib_fwd, 5, 1)
+    lib_ms = {"lstm_scan_fwd": lib_eval_ms,
+              "lstm_scan_fwd_save": cuda_ms(lib_train, 5, 1),
+              "lstm_scan_bwd_saved": cuda_ms(lib_bwd, 5, 1)}
+    lib_ms["lstm_scan_bwd"] = lib_ms["lstm_scan_bwd_saved"]
+    tol = TOL[dt_name]
+    rows = {}
+    for name, (fn, ref, args) in calls.items():
+        got = fn(*args)
+        again = fn(*args)
+        torch.cuda.synchronize()
+        want = ref(*args)
+        abs_err, err = rel_err(got, want)
+        identical = all(torch.equal(a, c) for a, c in zip(got, again))
+        ms = cuda_ms(lambda: fn(*args), 5, 1)
+        plain_ms = cuda_ms(lambda: ref(*args), 1, 0)
+        bound_ms, bound_by = scan_bound(name, t_len, b, w, dt_name)
+        rows[name] = [{"where": where, "W": w, "dtype": dt_name, "B": b,
+                       "T": t_len, "cluster": RS.cluster_size(w),
+                       "max_abs_err": abs_err, "max_rel_err": err,
+                       "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms[name], "bound_ms": bound_ms,
+                       "bound_by": bound_by, "bit_identical_rerun": identical}]
+        log(f"[kernel] {name} {where} B={b} T={t_len} W={w} {dt_name} "
+            f"(cluster of {RS.cluster_size(w)}): max abs err {abs_err:.3g}, "
+            f"max err / max(1, max|plain|) {err:.3g} (tol {tol}), rerun "
+            f"bit-identical {identical}, kernel {ms:.4f} ms "
+            f"({ms / t_len * 1e3:.3f} us a step), plain {plain_ms:.4f} ms, "
+            f"nn.LSTM packed (with its input projection) "
+            f"{lib_ms[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if not (err <= tol and identical):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"or a rerun: {rows[name][0]}")
+    return rows
 
 
 # ------------------------------------------------------------------ ms_tcn
@@ -1004,7 +1194,8 @@ def read_csv_labels(path: str) -> list[int]:
 # the served and trained models: their recurrent layer kernels and layer
 # count (attn: one GRU layer after the attention; win_attn: none), or
 # ms_tcn's conv stages (mstcn is its name in the inference CLIs)
-MODELS = {"bigru": ("gru", 4), "bilstm": ("lstm", 2),
+MODELS = {"bigru": ("gru", 4), "vanilla_lstm": ("scan", 2),
+          "bilstm": ("lstm", 2),
           "bilstm_lm": ("lstm", 2), "attn": ("gru", 1),
           "win_attn": (None, 0), "ms_tcn": ("conv", TCN_STAGES),
           "mstcn": ("conv", TCN_STAGES)}
@@ -1014,12 +1205,27 @@ def cell_of(name):
     return {"gru": GRU, "lstm": LSTM}.get(MODELS[name][0])
 
 
+def serve_layers(name):
+    """Layers of the inference CLIs' ``name`` (None: the train CLI's)."""
+    return VANILLA_SERVE if name == "vanilla_lstm" else None
+
+
+def merge_rows(parts) -> dict:
+    """``{entry: rows}`` dicts joined entry by entry."""
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out.setdefault(k, []).extend(v)
+    return out
+
+
 def counters() -> dict:
     """Every kernel wrapper's launch count, by kernels-line entry."""
     from pytorch_video_action_tpu_torch.ops import conv as CV
     from pytorch_video_action_tpu_torch.ops import flash as F
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
-    out = {}
+    out = {name: getattr(RS, name).launches for name in SCAN}
     for cell in (GRU, LSTM):
         out[cell.fwd_name] = cell.fwd.launches
         out[cell.fwd_name + "_train"] = cell.fwd.train_launches
@@ -1034,7 +1240,10 @@ def counters() -> dict:
 def reset_counters() -> None:
     from pytorch_video_action_tpu_torch.ops import conv as CV
     from pytorch_video_action_tpu_torch.ops import flash as F
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
+    for name in SCAN:
+        getattr(RS, name).launches = 0
     for cell in (GRU, LSTM):
         cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
     for name in FLASH:
@@ -1043,18 +1252,26 @@ def reset_counters() -> None:
         getattr(CV, name).launches = 0
 
 
-def expected_launches(name, forwards=(), steps=()) -> dict:
-    """Every kernel's launches in a run of ``name`` whose eval forwards and
-    train steps have the ``(B, padded T)`` of ``forwards`` and ``steps``:
-    per layer one eval form a forward, one train form and one backward a
-    step; for attn at padded T >= BLOCKWISE_MIN_T one flash forward a
+def expected_launches(name, forwards=(), steps=(), n_layers=None) -> dict:
+    """Every kernel's launches in a run of ``name`` (``n_layers`` layers, by
+    default the train CLI's) whose eval forwards and train steps have the
+    ``(B, padded T)`` of ``forwards`` and ``steps``: per layer one eval
+    form a forward, one train form and one backward a step (vanilla_lstm:
+    the scan's eval form, its saving form and its saved-gates backward);
+    for attn at padded T >= BLOCKWISE_MIN_T one flash forward a
     forward or step and one flash backward a step, fused or split as the
     port's dispatch picks; for ms_tcn one stage launch a stage a forward
     and one layer forward and one layer backward a layer a step."""
     from pytorch_video_action_tpu_torch.models import attention
 
     out = dict.fromkeys(counters(), 0)
-    cell, n_layers = cell_of(name), MODELS[name][1]
+    cell = cell_of(name)
+    if n_layers is None:
+        n_layers = MODELS[name][1]
+    if MODELS[name][0] == "scan":
+        out["lstm_scan_fwd"] = n_layers * len(forwards)
+        out["lstm_scan_fwd_save"] = out["lstm_scan_bwd_saved"] = (
+            n_layers * len(steps))
     if cell is not None:
         out[cell.fwd_name] = n_layers * len(forwards)
         out[cell.fwd_name + "_train"] = n_layers * len(steps)
@@ -1156,6 +1373,9 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
         rows = check_flash("main path", lens, t_pad, gen,
                            fwd=[(dt, r) for dt in DTYPES
                                 for r in (0.0, ATTN_RATE)], bwd=[])
+    elif MODELS[name][0] == "scan":
+        rows = merge_rows(check_scan("main path", lens, t_pad, 64, dt, gen)
+                          for dt in DTYPES)
     elif cell is None:
         rows = check_conv("main path", lens, t_pad, gen, kinds=("stage",))
     else:
@@ -1167,7 +1387,8 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
         for part in ("test", "dev"):
             expect = expected_launches(name, forwards=[
                 (len(c), t) for t, c in
-                forward_batches(datasets[part].features)])
+                forward_batches(datasets[part].features)],
+                n_layers=serve_layers(name))
             reset_counters()
             t0 = time.time()
             out = inference_cli.main(base + ["--part", part, "--dtype",
@@ -1236,8 +1457,9 @@ def phase_ensemble(root: str, ckpts: list[str]) -> dict:
         verbose=False).features)]
     expect = {}
     for ckpt in ckpts:
-        add_launches(expect, expected_launches(parse_model_type(ckpt),
-                                               forwards=forwards))
+        name = parse_model_type(ckpt)
+        add_launches(expect, expected_launches(
+            name, forwards=forwards, n_layers=serve_layers(name)))
     reset_counters()
     out = inference_cli.main(["--pretrained_model", *ckpts, "--prob", "big",
                               "--part", "test", "--data_dir",
@@ -1289,20 +1511,21 @@ def epoch_records(path: str) -> list[dict]:
     return [r for r in records if r["event"] == "epoch"]
 
 
-def check_grads_against_cpu(name, batch, where=""):
-    """One f32 train step of ``name`` on the card and on the CPU, from the
-    same parameters, batch and seeds; raises when a gradient differs by
-    more than ``GRAD_TOL`` of its tensor's largest element."""
+def check_grads_against_cpu(name, batch, where="", **flags):
+    """One f32 train step of ``name`` (built with ``flags``) on the card and
+    on the CPU, from the same parameters, batch and seeds; raises when a
+    gradient differs by more than ``GRAD_TOL`` of its tensor's largest
+    element.  Returns the gradients by device."""
     import torch
 
     from pytorch_video_action_tpu_torch.models import build_model
     from pytorch_video_action_tpu_torch.train.loop import Trainer
 
-    state = build_model(name, N_CLASS,
+    state = build_model(name, N_CLASS, **flags,
                         generator=torch.Generator().manual_seed(2)).state_dict()
     grads, losses = {}, {}
     for device in ("cuda", "cpu"):
-        model = build_model(name, N_CLASS)
+        model = build_model(name, N_CLASS, **flags)
         model.load_state_dict(state)
         trainer = Trainer(model, N_CLASS, seed=0, device=device)
         ts = trainer.init_state()
@@ -1324,6 +1547,7 @@ def check_grads_against_cpu(name, batch, where=""):
     if (grads["cuda"].keys() != grads["cpu"].keys() or not worst <= GRAD_TOL
             or abs(losses["cuda"] - losses["cpu"]) > 1e-4):
         raise AssertionError("card and CPU train steps disagree")
+    return grads
 
 
 def train_frames_per_sec(card, name, feed, dt_name):
@@ -1352,25 +1576,29 @@ def train_frames_per_sec(card, name, feed, dt_name):
         f"frames/s (batch {TRAIN_BATCH}, bucket 128) on {card}")
 
 
-def train_cli_run(root, name, dt_name, expect):
-    """The train CLI on the card, with every kernel's count set to 0 just
-    before it and read just after.  Checks the launch counts against
-    ``expect`` and the loss; returns ``(best dev accuracy, launches)``."""
+def train_cli_run(root, name, dt_name, expect, flags=()):
+    """The train CLI on the card (with the extra ``flags``), with every
+    kernel's count set to 0 just before it and read just after.  Checks
+    the launch counts against ``expect`` and the loss; returns ``(best dev
+    accuracy, launches)``."""
     from pytorch_video_action_tpu_torch.cli import train_cli
 
-    metrics = os.path.join(root, f"train_{name}_{dt_name}.jsonl")
+    metrics = os.path.join(root, f"train_{name}_{dt_name}"
+                           f"{'_'.join(('', *flags))}.jsonl")
     reset_counters()
     t0 = time.time()
     best = train_cli.main([
         "--model", name, "--epoch", str(TRAIN_EPOCHS), "--batchsize",
         str(TRAIN_BATCH), "--split", "0", "--data_dir",
         os.path.join(root, "data"), "--annot_path", root, "--dtype",
-        dt_name, "--device", "cuda", "--metrics_jsonl", metrics])
+        dt_name, "--device", "cuda", "--metrics_jsonl", metrics, *flags])
     seconds = time.time() - t0
     got = counters()
     epochs = epoch_records(metrics)
     loss = [r["train_loss"] for r in epochs]
-    log(f"[train] {name} cuda {dt_name} train CLI: {TRAIN_EPOCHS} epochs in "
+    log(f"[train] {name}{''.join(' ' + f for f in flags)} cuda {dt_name} "
+        f"train CLI: "
+        f"{TRAIN_EPOCHS} epochs in "
         f"{seconds:.1f} s, train loss {loss}, dev segment accuracy "
         f"{[r['dev_segment_acc'] for r in epochs]}, CLI frames/s "
         f"{[r['frames_per_sec'] for r in epochs]}; launches {nonzero(got)} "
@@ -1410,6 +1638,9 @@ def phase_train(card: str, root: str, name: str):
         forms = [(dt, r) for r in (ATTN_RATE, 0.0) for dt in DTYPES]
         rows = check_flash("main path", lens, t_pad, gen, fwd=forms,
                            bwd=forms)
+    elif MODELS[name][0] == "scan":
+        rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen)
+                          for dt in DTYPES)
     elif cell is not None:
         train_rows, bwd_rows = check_train_layers(cell, "main path", lens,
                                                   t_pad, gen)
@@ -1430,11 +1661,14 @@ def phase_train(card: str, root: str, name: str):
         bests[dt_name] = best
         add_launches(launches, got)
         ckpt = f"{name}_{best:.2f}_dev"
-        if name not in INFERENCE_NAMES:
+        if name not in INFERENCE_NAMES or name == "vanilla_lstm":
             # win_attn writes class scores on every fifth frame only, so
             # its dev segment accuracy, and with it a checkpoint, may stay
             # 0; the inference CLIs do not serve it, as in JAX.  ms_tcn's
-            # checkpoint serves under the name mstcn (phase_slice).
+            # checkpoint serves under the name mstcn (phase_slice).  The
+            # inference CLIs build vanilla_lstm at H=64 and 1 layer, which
+            # a checkpoint of the train CLI's defaults does not fit, as in
+            # JAX (phase_vanilla_serving trains one that does).
             log(f"[train] {name}: best dev segment accuracy {best:.2f}")
             continue
         if not os.path.exists(os.path.join("models", f"{ckpt}.npz")):
@@ -1458,13 +1692,222 @@ def phase_train(card: str, root: str, name: str):
     batch = (batch[0][:, :keep], np.minimum(batch[1], keep),
              batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
              batch[3][:, :keep])
-    check_grads_against_cpu(name, batch)
+    grads = check_grads_against_cpu(name, batch)
     if name == "attn":
         with blockwise_min_t(256):
             check_grads_against_cpu(name, batch, " flash path")
+            # the kernels walk d = 200 and d = 400 in slabs of 128
+            for heads in (2, 1):
+                check_grads_against_cpu(name, batch, f" flash path, "
+                                        f"--attn_head {heads}",
+                                        attn_head=heads)
+    if name == "ms_tcn":
+        check_mstcn_grad_f64(batch, grads)
+    if name == "vanilla_lstm":
+        add_launches(launches, recompute_step(train_feed))
+    if name == "bilstm":
+        add_launches(launches, bilstm_wide_step(train_feed))
     for dt_name in dtypes:
         train_frames_per_sec(card, name, train_feed, dt_name)
     return launches, rows, bests["float32"]
+
+
+def largest_batch(feed):
+    """The train batch with the most padded frames, as the CLI collates it."""
+    idxs = max(feed.index_batches(),
+               key=lambda ix: max(len(feed.dataset.features[i]) for i in ix))
+    return feed.collate(idxs)
+
+
+def one_step(name, batch, expect, **flags):
+    """One f32 Trainer step of ``name`` on the card, every count set to 0
+    just before it and read just after; raises unless the counts are
+    ``expect`` and the loss is finite.  Returns ``(launches, gradients)``."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    model = build_model(name, N_CLASS, **flags,
+                        generator=torch.Generator().manual_seed(5))
+    trainer = Trainer(model, N_CLASS, seed=0)
+    ts = trainer.init_state()
+    seeds = list(range(21, 21 + model.n_dropout_sites))
+    reset_counters()
+    loss = trainer.train_step(ts, batch, seeds=seeds).item()
+    torch.cuda.synchronize()
+    got = counters()
+    want = dict.fromkeys(got, 0)
+    want.update(expect)
+    log(f"[train] {name} {flags} one step, B={batch[0].shape[0]} "
+        f"T={batch[0].shape[1]}: loss {loss:.6f}, launches {nonzero(got)} "
+        f"(expected {nonzero(want)})")
+    if got != want or not np.isfinite(loss):
+        raise AssertionError(f"{name} step: launches or loss wrong")
+    return got, {k: p.grad.detach().clone()
+                 for k, p in ts.model.named_parameters()}
+
+
+def recompute_step(train_feed) -> dict:
+    """A vanilla_lstm train step with the recompute backward (row 16) on the
+    largest train batch: per layer the eval-form forward and the recompute
+    backward; its gradients against the saved-gates step's.  Returns the
+    recompute step's launches."""
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
+
+    batch = largest_batch(train_feed)
+    _, saved = one_step("vanilla_lstm", batch, {"lstm_scan_fwd_save": 2,
+                                                "lstm_scan_bwd_saved": 2})
+    RS.RECOMPUTE_BWD = True
+    try:
+        got, grads = one_step("vanilla_lstm", batch, {"lstm_scan_fwd": 2,
+                                                      "lstm_scan_bwd": 2})
+    finally:
+        RS.RECOMPUTE_BWD = False
+    worst = max(((grads[k] - v).abs().max() / v.abs().max()).item()
+                for k, v in saved.items())
+    log(f"[train] vanilla_lstm recompute against saved-gates backward: "
+        f"worst gradient difference / max|gradient| {worst:.3g} (tol "
+        f"{TOL['float32']})")
+    if not worst <= TOL["float32"]:
+        raise AssertionError("the two backwards' gradients differ")
+    return got
+
+
+def bilstm_wide_step(train_feed) -> dict:
+    """bilstm at ``--lstm_hidden1 512`` (H=256 a direction, a width the
+    fused layer kernel does not take): one step on the largest train batch
+    through the scan, both directions of both layers, and one step's
+    gradients against the CPU.  Returns the card step's launches."""
+    batch = largest_batch(train_feed)
+    got, _ = one_step("bilstm", batch, {"lstm_scan_fwd_save": 4,
+                                        "lstm_scan_bwd_saved": 4},
+                      lstm_hidden1=512)
+    small = (batch[0][:3, :300], np.minimum(batch[1][:3], 300),
+             batch[2].reshape(len(batch[1]), -1)[:3, :300].reshape(-1),
+             batch[3][:3, :300])
+    check_grads_against_cpu("bilstm", small, " --lstm_hidden1 512",
+                            lstm_hidden1=512)
+    return got
+
+
+MSTCN_PROBE = "stages.1.layers.12.conv_dilated.w"
+
+
+def mstcn_grads(batch, device, dtype, record=None):
+    """One ms_tcn train step's f64 gradients on ``device`` in ``dtype``, from
+    check_grads_against_cpu's parameters and seeds.  ``record`` collects
+    each layer backward's ``(arguments, outputs)``."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.ops import conv as CV
+    from pytorch_video_action_tpu_torch.train.losses import make_loss_fn
+
+    model = build_model("ms_tcn", N_CLASS, generator=torch.Generator(
+        ).manual_seed(2)).to(device, dtype)
+    x, lengths, targets, _ = batch
+    bwd = CV.dilated_residual_layer_bwd
+
+    def recorded(*args):
+        out = bwd(*args)
+        record.append((args, out))
+        return out
+
+    if record is not None:
+        recorded.launches = 0
+        CV.dilated_residual_layer_bwd = recorded
+    try:
+        out = model(torch.from_numpy(np.asarray(x, np.float64)).to(
+            device, dtype), torch.from_numpy(np.asarray(
+                lengths, np.int32)).to(device), train=True,
+            seeds=list(range(11, 11 + model.n_dropout_sites)))
+        make_loss_fn("ms_tcn")(out.to(torch.float64), torch.from_numpy(
+            np.asarray(targets, np.int64)).to(device)).backward()
+    finally:
+        CV.dilated_residual_layer_bwd = bwd
+    return {k: p.grad.to("cpu", torch.float64)
+            for k, p in model.named_parameters()}
+
+
+def check_mstcn_grad_f64(batch, grads):
+    """The card's and the CPU's f32 gradient of ``MSTCN_PROBE`` (a layer
+    whose dilation passes T, so only the centre tap reads valid frames)
+    against a float64 step on the CPU from the same parameters, batch and
+    seeds; its side-tap slices must be exactly 0 everywhere.  A step's
+    gradients are not smooth in the forward's rounding: a pre-activation
+    within rounding of 0 puts relu on either side.  So the layer kernels
+    are held on their own inputs: each of the card step's 80 layer
+    backwards against the plain version in float64 on the same inputs, the
+    worst within 10x of the plain version's worst in f32 on the CPU.  Logs
+    the probe layer's smallest pre-activation of the float64 step."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import conv as CV
+
+    calls = []
+    mstcn_grads(batch, "cuda", torch.float32, calls)
+    f64 = mstcn_grads(batch, "cpu", torch.float64)
+
+    def err(got, want):
+        return max(((g.double().cpu() - w).abs().max()
+                    / w.abs().max().clamp(min=1e-30)).item()
+                   for g, w in zip(got, want))
+
+    kernel = cpu = 0.0
+    for args, out in calls:
+        w_d, b_d, w_p, x, mask, dy, dilation, keep, seed = args
+        tensors = (w_d, b_d, w_p, x)
+        want = CV.layer_bwd_ref(*(t.double().cpu() for t in tensors),
+                                mask.cpu(), dy.double().cpu(), dilation,
+                                keep, seed)
+        plain = CV.layer_bwd_ref(*(t.cpu() for t in tensors), mask.cpu(),
+                                 dy.cpu(), dilation, keep, seed)
+        kernel = max(kernel, err(out, want))
+        cpu = max(cpu, err(plain, want))
+    # the probe layer's input in the float64 step: stage 1, layer 12
+    probe = calls[len(calls) - 1 - 32][0]
+    g = CV._taps(probe[0].double().cpu(), probe[1].double().cpu(),
+                 probe[3].double().cpu(), probe[6])
+    valid = probe[4].cpu().bool()[:, :, None].expand_as(g)
+    margin = g.abs()[valid].min().item() / g.abs().max().item()
+    errs = {dev: ((grads[dev][MSTCN_PROBE].double() - f64[MSTCN_PROBE]).abs()
+                  .max() / f64[MSTCN_PROBE].abs().max()).item()
+            for dev in ("cuda", "cpu")}
+    side = {dev: grads[dev][MSTCN_PROBE][[0, 2]].abs().max().item()
+            for dev in ("cuda", "cpu")}
+    side["float64"] = f64[MSTCN_PROBE][[0, 2]].abs().max().item()
+    log(f"[train] ms_tcn {MSTCN_PROBE} against float64: error / max|grad| "
+        f"card {errs['cuda']:.3g}, cpu {errs['cpu']:.3g} (max|grad| "
+        f"{f64[MSTCN_PROBE].abs().max().item():.3g}); its layer's smallest "
+        f"|pre-activation| / largest on valid frames {margin:.3g} (card "
+        f"step's input); side-tap slices max|dw| {side}; the 80 layer "
+        f"backwards on the card step's inputs against float64: kernel worst "
+        f"{kernel:.3g}, plain f32 on the CPU worst {cpu:.3g}")
+    if any(side.values()):
+        raise AssertionError("side taps of a centre-only layer have a "
+                             "gradient")
+    if kernel > 10 * max(cpu, 1e-7):
+        raise AssertionError("the layer backward kernel is over 10x "
+                             "further from float64 than the plain f32 "
+                             "version")
+
+
+def phase_vanilla_serving(card: str, root: str):
+    """vanilla_lstm trained by the train CLI at the inference CLIs'
+    defaults (H=64, 1 layer, dropout 0; f32, launch counts and loss as in
+    phase_train), then its checkpoint served by phase_slice.  Returns what
+    phase_slice returns, the training run's launches added."""
+    train_feed, dev_feed = train_feeds(root)
+    expect = expected_launches(
+        "vanilla_lstm", forwards=feed_shapes(dev_feed) * TRAIN_EPOCHS,
+        steps=feed_shapes(train_feed) * TRAIN_EPOCHS, n_layers=VANILLA_SERVE)
+    best, got = train_cli_run(root, "vanilla_lstm", "float32", expect,
+                              VANILLA_SERVE_FLAGS)
+    ckpt, launches, rows = phase_slice(card, root, "vanilla_lstm",
+                                       f"vanilla_lstm_{best:.2f}_dev")
+    add_launches(launches, got)
+    return ckpt, launches, rows
 
 
 LM_FRAMES = (40, 100)
@@ -1527,7 +1970,9 @@ def main() -> int:
 
     start = time.time()
     phase_build()
+    t0 = time.time()
     bench = phase_kernels()
+    log(f"[kernel] kernel phase in {time.time() - t0:.1f} s")
     rows, launches = {}, {}
 
     def add_rows(new):
@@ -1562,7 +2007,20 @@ def main() -> int:
         add_launches(launches, got)
         add_rows(new_rows)
         log(f"[slice] mstcn serving phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        got, new_rows, _ = phase_train(card, root, "vanilla_lstm")
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[train] vanilla_lstm training phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        ckpt, got, new_rows = phase_vanilla_serving(card, root)
+        ckpts.append(ckpt)
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[slice] vanilla_lstm serving phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
         add_launches(launches, phase_ensemble(root, ckpts[::-1]))
+        log(f"[slice] ensemble phase in {time.time() - t0:.1f} s")
         t0 = time.time()
         for name in ("bigru", "bilstm", "attn", "win_attn"):
             t1 = time.time()
@@ -1584,6 +2042,8 @@ def main() -> int:
                     (cell.fwd_name + "_train", cell.fwd_src,
                      PALLAS + cell.fwd_replaces),
                     (cell.bwd_name, cell.bwd_src, PALLAS + cell.bwd_replaces)]
+    entries += [(name, CSRC + src, SCAN_PALLAS + line)
+                for name, (src, line) in SCAN.items()]
     entries += [(name, CSRC + src, FLASH_PALLAS + line)
                 for name, (src, line) in FLASH.items()]
     entries += [(name, CSRC + src, CONV_PALLAS + line)

@@ -3,10 +3,11 @@
 plus ``--device {cuda,cpu}`` (``cuda`` by default; raises without a card).
 
 Run: ``python -m pytorch_video_action_tpu_torch.cli.train_cli --model bigru
---epoch 10 --batchsize 8`` (or ``--model bilstm``, ``--model bilstm_lm``,
-with the ``--lstm_*`` and ``--pred_mode`` flags, ``--model attn`` with
-``--attn_head`` and ``--pred_mode``, ``--model win_attn`` with
-``--attn_head``, ``--model ms_tcn``).  Each epoch prints the reference's
+--epoch 10 --batchsize 8`` (or ``--model vanilla_lstm``, ``--model
+bilstm``, ``--model bilstm_lm``, with the ``--lstm_*`` and ``--pred_mode``
+flags, ``--model attn`` with ``--attn_head`` and ``--pred_mode``, ``--model
+win_attn`` with ``--attn_head``, ``--model ms_tcn``).  Each epoch prints
+the reference's
 loss and dev accuracy lines and saves ``models/{model}_{acc:.2f}_dev.npz``
 when the dev segment accuracy improves; a bilstm_lm checkpoint carries its
 BatchNorm running stats under ``__state__/``.  The inference CLIs serve an
@@ -15,8 +16,8 @@ ms_tcn checkpoint under the name ``mstcn_{acc:.2f}_dev``, as in JAX.
 Accepted but not served yet, each raising ``NotImplementedError`` naming
 its ROADMAP item before the data loads: ``--data_parallel N>1`` and
 ``--seq_parallel N>1`` (15), ``--resume`` and ``--cache_device`` (14),
-``--lm_path`` (13), models other than bigru, bilstm, bilstm_lm, attn,
-win_attn and ms_tcn (9, 12), ``--train_mode segment`` and ``cont`` (6).
+``--lm_path`` (13), simple_fc and ctcloss (12), ``--train_mode segment``
+and ``cont`` (6).
 ``--profile_dir`` raises naming item 14 when the first epoch starts.
 ``--use_pallas`` changes nothing: on the card the hand-written kernels
 always run, and ms_tcn trains with the default path's dropout stream (one

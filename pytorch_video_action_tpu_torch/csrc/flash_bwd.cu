@@ -40,7 +40,11 @@
 //    Twice the score step, no scratch; ops/flash.py::use_fused picks it
 //    for videos whose fused scratch would pass its budget.
 //  * The products are SIMT f32 FMAs on 64 x 64 tiles in shared memory
-//    (flash_common.cuh); wgmma and TMA are later work.
+//    (flash_common.cuh).  A head wider than 128 is walked in slabs of 128
+//    columns: the score step sums q k^T and dout v^T over the slabs, and
+//    each output slab of dk, dv and dq is a pass of its own, recomputing
+//    the score step (for ns slabs, 2 ns + 3 products' work instead of 5).
+//    wgmma and TMA are later work.
 
 #include "flash_common.cuh"
 
@@ -61,35 +65,83 @@ struct BwdArgs {
   Dropout dr;
 };
 
-// The query tile at q0 of (b, h): q, dout, lse and delta into shared memory.
+// The query tile at q0 of (b, h): lse and delta and, for a head of one
+// slab, q and dout into shared memory.
 template <typename T>
 __device__ __forceinline__ void load_query_tile(const BwdSmem& sm,
                                                 const BwdArgs& a, int bh,
                                                 int q0) {
-  const size_t off = (size_t)bh * a.Tn * a.d;
-  load_tile(sm.q, static_cast<const T*>(a.q) + off, q0, a.Tn, a.d);
-  load_tile(sm.dout, static_cast<const T*>(a.dout) + off, q0, a.Tn, a.d);
+  if (n_slabs(a.d) == 1) {
+    const size_t off = (size_t)bh * a.Tn * a.d;
+    load_tile(sm.q, static_cast<const T*>(a.q) + off, q0, a.Tn, a.d, 0, a.d);
+    load_tile(sm.dout, static_cast<const T*>(a.dout) + off, q0, a.Tn, a.d, 0,
+              a.d);
+  }
   load_rows(sm.lse, a.lse + (size_t)bh * a.Tn, q0, a.Tn);
   load_rows(sm.delta, a.delta + (size_t)bh * a.Tn, q0, a.Tn);
 }
 
-// The key tile at k0 of (b, h): k, v and the keys' validity.
+// The key tile at k0 of (b, h): the keys' validity and, for a head of one
+// slab, k and v.
 template <typename T>
 __device__ __forceinline__ void load_key_tile(const BwdSmem& sm,
                                               int* key_valid,
                                               const BwdArgs& a, int bh,
                                               int k0) {
-  const size_t off = (size_t)bh * a.Tkv * a.d;
-  load_tile(sm.k, static_cast<const T*>(a.k) + off, k0, a.Tkv, a.d);
-  load_tile(sm.v, static_cast<const T*>(a.v) + off, k0, a.Tkv, a.d);
+  if (n_slabs(a.d) == 1) {
+    const size_t off = (size_t)bh * a.Tkv * a.d;
+    load_tile(sm.k, static_cast<const T*>(a.k) + off, k0, a.Tkv, a.d, 0,
+              a.d);
+    load_tile(sm.v, static_cast<const T*>(a.v) + off, k0, a.Tkv, a.d, 0,
+              a.d);
+  }
   load_key_valid(key_valid, a.mask + (size_t)(bh / a.H) * a.Tkv, k0, a.Tkv);
+}
+
+// The score step (flash_common.cuh::bwd_probs) of query tile q0 and key
+// tile k0 for output slab o.  A head of one slab has its tiles in shared
+// memory already; a wider head loads q, dout, k and v slab by slab, summing
+// q k^T and dout v^T, and ends with slab o in shared memory for the
+// products that follow.  The caller synchronises before and after.
+template <typename T>
+__device__ __forceinline__ void score_step(const BwdSmem& sm,
+                                           const int* key_valid,
+                                           const BwdArgs& a, int bh, int q0,
+                                           int k0, int o) {
+  const int ns = n_slabs(a.d);
+  float s[4][4], g[4][4];
+  zero_scores(s);
+  zero_scores(g);
+  const size_t q_off = (size_t)bh * a.Tn * a.d;
+  const size_t kv_off = (size_t)bh * a.Tkv * a.d;
+  for (int i = 0; i < ns; ++i) {
+    const int e = (o + 1 + i) % ns;
+    const int w = slab_width(a.d, e);
+    if (ns > 1) {
+      const int c0 = e * kDMax;
+      __syncthreads();  // the previous slab is read
+      load_tile(sm.q, static_cast<const T*>(a.q) + q_off, q0, a.Tn, a.d, c0,
+                w);
+      load_tile(sm.dout, static_cast<const T*>(a.dout) + q_off, q0, a.Tn,
+                a.d, c0, w);
+      load_tile(sm.k, static_cast<const T*>(a.k) + kv_off, k0, a.Tkv, a.d,
+                c0, w);
+      load_tile(sm.v, static_cast<const T*>(a.v) + kv_off, k0, a.Tkv, a.d,
+                c0, w);
+      __syncthreads();
+    }
+    tile_abt(sm.q, sm.k, w, s);
+    tile_abt(sm.dout, sm.v, w, g);
+  }
+  bwd_probs<T>(sm, key_valid, q0, k0, a.Tn, a.Tkv, bh, a.dr, s, g);
 }
 
 // ------------------------------------------------------------------ fused
 
 // grid (chunks, B*H).  Block (c, bh) takes key tiles [c*n/chunks,
 // (c+1)*n/chunks) of n; dq_out is dq itself when chunks == 1, else the
-// chunk's slice of the [chunks, B*H, T, d] partial-dq scratch.
+// chunk's slice of the [chunks, B*H, T, d] partial-dq scratch.  Each output
+// slab of d is a pass of its own.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_fused_kernel(BwdArgs a, float* __restrict__ part, int chunks) {
@@ -106,42 +158,47 @@ flash_bwd_fused_kernel(BwdArgs a, float* __restrict__ part, int chunks) {
   float* dq_out = (part ? part + (size_t)c * gridDim.y * a.Tn * a.d : a.dq) +
                   (size_t)bh * a.Tn * a.d;
   const size_t kv_off = (size_t)bh * a.Tkv * a.d;
+  const int ns = n_slabs(a.d);
 
   for (int j = j0; j < j1; ++j) {
     const int k0 = j * kTile;
-    float dk[4][8], dv[4][8];
-    zero_acc(dk);
-    zero_acc(dv);
-    __syncthreads();  // the previous key tile is read
-    load_key_tile<T>(sm, key_valid, a, bh, k0);
-    for (int q0 = 0; q0 < a.Tn; q0 += kTile) {
-      __syncthreads();  // the previous query tile and score tiles are read
-      load_query_tile<T>(sm, a, bh, q0);
-      __syncthreads();
-      bwd_scores<T>(sm, key_valid, q0, k0, a.Tn, a.Tkv, a.d, bh, a.dr);
-      __syncthreads();
-      tile_ptb(sm.p, sm.dout, dv);
-      tile_ptb(sm.ds, sm.q, dk);
-      float dq[4][8];
-      zero_acc(dq);
-      tile_pb(sm.ds, sm.k, dq);
-      // this thread's slots of the query tile's partial dq: written by the
-      // chunk's first key tile, then added to in key-tile order
+    for (int o = 0; o < ns; ++o) {
+      const int oc = o * kDMax;
+      const int ow = slab_width(a.d, o);
+      float dk[4][8], dv[4][8];
+      zero_acc(dk);
+      zero_acc(dv);
+      __syncthreads();  // the previous key tile is read
+      load_key_tile<T>(sm, key_valid, a, bh, k0);
+      for (int q0 = 0; q0 < a.Tn; q0 += kTile) {
+        __syncthreads();  // the previous query tile and score tiles are read
+        load_query_tile<T>(sm, a, bh, q0);
+        __syncthreads();
+        score_step<T>(sm, key_valid, a, bh, q0, k0, o);
+        __syncthreads();
+        tile_ptb(sm.p, sm.dout, dv);
+        tile_ptb(sm.ds, sm.q, dk);
+        float dq[4][8];
+        zero_acc(dq);
+        tile_pb(sm.ds, sm.k, dq);
+        // this thread's slots of the query tile's partial dq: written by
+        // the chunk's first key tile, then added to in key-tile order
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = q0 + 4 * ty + i;
-        if (r >= a.Tn) continue;
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + 4 * ty + i;
+          if (r >= a.Tn) continue;
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int col = tx + 16 * jj;
-          if (col >= a.d) continue;
-          float* slot = dq_out + (size_t)r * a.d + col;
-          *slot = (j == j0) ? dq[i][jj] : *slot + dq[i][jj];
+          for (int jj = 0; jj < 8; ++jj) {
+            const int col = tx + 16 * jj;
+            if (col >= ow) continue;
+            float* slot = dq_out + (size_t)r * a.d + oc + col;
+            *slot = (j == j0) ? dq[i][jj] : *slot + dq[i][jj];
+          }
         }
       }
+      store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, a.d, oc, ow);
+      store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, a.d, oc, ow);
     }
-    store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, a.d);
-    store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, a.d);
   }
 }
 
@@ -159,7 +216,8 @@ __global__ void flash_bwd_dq_reduce(const float* __restrict__ part,
 
 // ------------------------------------------------------------------ split
 
-// grid (key tiles, B*H): dk and dv of one key tile, walking the query tiles.
+// grid (key tiles, B*H): dk and dv of one key tile, walking the query
+// tiles, a pass per output slab.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkdv_kernel(BwdArgs a) {
@@ -168,25 +226,31 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
   __shared__ int key_valid[kTile];
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kTile;
-  float dk[4][8], dv[4][8];
-  zero_acc(dk);
-  zero_acc(dv);
-  load_key_tile<T>(sm, key_valid, a, bh, k0);
-  for (int q0 = 0; q0 < a.Tn; q0 += kTile) {
-    __syncthreads();
-    load_query_tile<T>(sm, a, bh, q0);
-    __syncthreads();
-    bwd_scores<T>(sm, key_valid, q0, k0, a.Tn, a.Tkv, a.d, bh, a.dr);
-    __syncthreads();
-    tile_ptb(sm.p, sm.dout, dv);
-    tile_ptb(sm.ds, sm.q, dk);
-  }
   const size_t kv_off = (size_t)bh * a.Tkv * a.d;
-  store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, a.d);
-  store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, a.d);
+  for (int o = 0; o < n_slabs(a.d); ++o) {
+    float dk[4][8], dv[4][8];
+    zero_acc(dk);
+    zero_acc(dv);
+    __syncthreads();  // the previous pass's tiles are read
+    load_key_tile<T>(sm, key_valid, a, bh, k0);
+    for (int q0 = 0; q0 < a.Tn; q0 += kTile) {
+      __syncthreads();
+      load_query_tile<T>(sm, a, bh, q0);
+      __syncthreads();
+      score_step<T>(sm, key_valid, a, bh, q0, k0, o);
+      __syncthreads();
+      tile_ptb(sm.p, sm.dout, dv);
+      tile_ptb(sm.ds, sm.q, dk);
+    }
+    const int oc = o * kDMax;
+    const int ow = slab_width(a.d, o);
+    store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, a.d, oc, ow);
+    store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, a.d, oc, ow);
+  }
 }
 
-// grid (query tiles, B*H): dq of one query tile, walking the key tiles.
+// grid (query tiles, B*H): dq of one query tile, walking the key tiles, a
+// pass per output slab.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(BwdArgs a) {
@@ -195,18 +259,21 @@ flash_bwd_dq_kernel(BwdArgs a) {
   __shared__ int key_valid[kTile];
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kTile;
-  float dq[4][8];
-  zero_acc(dq);
   load_query_tile<T>(sm, a, bh, q0);
-  for (int k0 = 0; k0 < a.Tkv; k0 += kTile) {
-    __syncthreads();
-    load_key_tile<T>(sm, key_valid, a, bh, k0);
-    __syncthreads();
-    bwd_scores<T>(sm, key_valid, q0, k0, a.Tn, a.Tkv, a.d, bh, a.dr);
-    __syncthreads();
-    tile_pb(sm.ds, sm.k, dq);
+  for (int o = 0; o < n_slabs(a.d); ++o) {
+    float dq[4][8];
+    zero_acc(dq);
+    for (int k0 = 0; k0 < a.Tkv; k0 += kTile) {
+      __syncthreads();
+      load_key_tile<T>(sm, key_valid, a, bh, k0);
+      __syncthreads();
+      score_step<T>(sm, key_valid, a, bh, q0, k0, o);
+      __syncthreads();
+      tile_pb(sm.ds, sm.k, dq);
+    }
+    store_acc(a.dq + (size_t)bh * a.Tn * a.d, dq, q0, a.Tn, a.d, o * kDMax,
+              slab_width(a.d, o));
   }
-  store_acc(a.dq + (size_t)bh * a.Tn * a.d, dq, q0, a.Tn, a.d);
 }
 
 template <typename K>
@@ -252,7 +319,7 @@ cudaError_t run_dq(const BwdArgs& a, int BH, cudaStream_t stream) {
 bool bad_args(int BH, int H, int Tn, int Tkv, int d, float keep,
               int dropout) {
   return BH <= 0 || H <= 0 || BH % H || Tn <= 0 || Tkv <= 0 || d <= 0 ||
-         d > kDMax || (dropout && !(keep > 0.0f));
+         n_slabs(d) > kMaxSlabs || (dropout && !(keep > 0.0f));
 }
 
 }  // namespace
@@ -263,7 +330,7 @@ extern "C" {
 // q, dout [BH, T, d] and k, v [BH, T_kv, d] in dtype; mask [BH / H, T_kv]
 // bytes (1 = attendable); lse, delta [BH, T] f32; outputs dq [BH, T, d] f32,
 // dk, dv [BH, T_kv, d] in dtype (an entry point that does not write one
-// ignores its pointer).  d in 1..128.  Dropout as flash_fwd's.  Launch on
+// ignores its pointer).  d in 1..512.  Dropout as flash_fwd's.  Launch on
 // `stream`; return cudaGetLastError() (0 on success).
 
 // The split's dk/dv kernel: writes dk and dv.

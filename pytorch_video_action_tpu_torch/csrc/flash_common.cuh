@@ -3,7 +3,10 @@
 // dropout keep-bit, tile loads, the SIMT tile products and the backward's
 // score step (the masked score tile and the exp(s - lse) recompute).
 //
-// Tiles are 64 query rows by 64 key rows, d <= 128 columns.  A block has
+// Tiles are 64 query rows by 64 key rows by a slab of at most 128 of the
+// head's d columns; a wider head is walked in slabs (at most kMaxSlabs):
+// the score products sum over every slab, and each output slab is a pass
+// of its own.  A block has
 // 256 threads, thread (ty, tx) = (tid / 16, tid % 16); in a 64 x 64 score
 // tile it owns rows 4ty..4ty+3 and columns tx + 16j (j < 4), in a 64 x d
 // output tile rows 4ty..4ty+3 and columns tx + 16j (j < 8).  The 16
@@ -22,8 +25,9 @@
 namespace {
 
 constexpr int kTile = 64;        // query and key rows per tile
-constexpr int kDMax = 128;       // the widest head
-constexpr int kLd = kDMax + 1;   // row stride of a [64, d] tile
+constexpr int kDMax = 128;       // the widest slab of d
+constexpr int kMaxSlabs = 4;     // the widest head: 512
+constexpr int kLd = kDMax + 1;   // row stride of a [64, slab] tile
 constexpr int kLdp = kTile + 1;  // row stride of a [64, 64] tile
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;  // finite: exp(s - m) stays exp(0)
@@ -55,17 +59,27 @@ __device__ __forceinline__ bool kept(const Dropout& dr, uint32_t bh,
   return fmix32(((bh * Tn + q) * Tkv + k) ^ dr.key) < dr.thresh;
 }
 
-// Rows [r0, r0 + 64) of a row-major [rows, d] matrix into a [64][kLd] f32
-// tile, zero past `rows` and in columns [d, kDMax).
+// Slabs of a head of width d, and slab e's first column and width.
+__host__ __device__ __forceinline__ int n_slabs(int d) {
+  return (d + kDMax - 1) / kDMax;
+}
+__device__ __forceinline__ int slab_width(int d, int e) {
+  return min(kDMax, d - e * kDMax);
+}
+
+// Rows [r0, r0 + 64), columns [c0, c0 + w) of a row-major [rows, ld]
+// matrix into a [64][kLd] f32 tile, zero past `rows` and in columns
+// [w, kDMax).
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const T* __restrict__ src, int r0,
-                                          int rows, int d) {
+                                          int rows, int ld, int c0, int w) {
   for (int i = threadIdx.x; i < kTile * kDMax; i += kThreads) {
     const int r = i / kDMax;
     const int c = i % kDMax;
     float v = 0.0f;
-    if (r0 + r < rows && c < d) v = to_f(src[(size_t)(r0 + r) * d + c]);
+    if (r0 + r < rows && c < w)
+      v = to_f(src[(size_t)(r0 + r) * ld + c0 + c]);
     dst[r * kLd + c] = v;
   }
 }
@@ -89,18 +103,21 @@ __device__ __forceinline__ void load_key_valid(
   }
 }
 
-// s[i][j] = sum_e a[4ty + i][e] * b[tx + 16j][e] over e < d: a row tile
-// times a row tile transposed (q k^T, dout v^T).
+__device__ __forceinline__ void zero_scores(float s[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+}
+
+// s[i][j] += sum_e a[4ty + i][e] * b[tx + 16j][e] over e < d: a row tile
+// times a row tile transposed (q k^T, dout v^T), one slab of d.
 __device__ __forceinline__ void tile_abt(const float* a, const float* b,
                                          int d, float s[4][4]) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
   const float* ar = a + 4 * ty * kLd;
   const float* br = b + tx * kLd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
   for (int e = 0; e < d; ++e) {
     float av[4], bv[4];
@@ -163,12 +180,13 @@ __device__ __forceinline__ void zero_acc(float acc[4][8]) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 }
 
-// Rows [r0, r0 + 64) of a [rows, d] output from this thread's accumulator
-// slots, rows past `rows` and columns past d left alone.
+// Rows [r0, r0 + 64), columns [c0, c0 + w) of a [rows, ld] output from
+// this thread's accumulator slots, rows past `rows` and columns past w
+// left alone.
 template <typename T>
 __device__ __forceinline__ void store_acc(T* __restrict__ dst,
                                           float acc[4][8], int r0,
-                                          int rows, int d) {
+                                          int rows, int ld, int c0, int w) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
 #pragma unroll
@@ -178,7 +196,7 @@ __device__ __forceinline__ void store_acc(T* __restrict__ dst,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) dst[(size_t)r * d + c] = from_f<T>(acc[i][j]);
+      if (c < w) dst[(size_t)r * ld + c0 + c] = from_f<T>(acc[i][j]);
     }
   }
 }
@@ -213,22 +231,22 @@ __device__ __forceinline__ BwdSmem bwd_smem(float* base) {
 }
 
 // The score step of the backward for the query tile at q0 and the key tile
-// at k0 (tiles, lse, delta and key_valid already in shared memory):
-//   s = q k^T masked to -1e30, p = exp(s - lse) (0 on query rows past T),
-//   g = dout v^T; with dropout, p_drop = p * m and g *= m, m = kept / keep;
+// at k0, from s = q k^T and g = dout v^T summed over every slab of d (lse,
+// delta and key_valid already in shared memory):
+//   s masked to -1e30, p = exp(s - lse) (0 on query rows past T);
+//   with dropout, p_drop = p * m and g *= m, m = kept / keep;
 //   ds = p (g - delta) with the undropped p.
 // Writes p_drop and ds, each rounded to T, into sm.p and sm.ds.  The
 // caller synchronises before and after.
 template <typename T>
-__device__ __forceinline__ void bwd_scores(const BwdSmem& sm,
-                                           const int* key_valid, int q0,
-                                           int k0, int Tn, int Tkv, int d,
-                                           uint32_t bh, const Dropout& dr) {
+__device__ __forceinline__ void bwd_probs(const BwdSmem& sm,
+                                          const int* key_valid, int q0,
+                                          int k0, int Tn, int Tkv,
+                                          uint32_t bh, const Dropout& dr,
+                                          const float s[4][4],
+                                          const float g[4][4]) {
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  float s[4][4], g[4][4];
-  tile_abt(sm.q, sm.k, d, s);
-  tile_abt(sm.dout, sm.v, d, g);
   const float inv_keep = 1.0f / dr.keep;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

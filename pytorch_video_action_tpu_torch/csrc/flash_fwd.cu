@@ -30,6 +30,11 @@
 //    the SM: the work is O(T * T_kv) products and O(T * d) bytes.
 //  * SIMT f32 FMAs on tiles in shared memory: each thread computes 4 x 4
 //    scores and 4 x 8 outputs, so a shared-memory load feeds 2 to 4 FMAs.
+//  * A head wider than 128 (attn with 2 heads, d = 200, or 1, d = 400)
+//    is walked in slabs of 128 columns: q k^T sums over the slabs, and
+//    each output slab is a pass of its own over the key tiles, which
+//    recomputes q k^T (ns + 1 products' work for ns slabs instead of 2).
+//    The tiles, registers and shared memory stay those of d <= 128.
 //    wgmma, TMA and double-buffered tiles are later work.
 
 #include "flash_common.cuh"
@@ -39,8 +44,10 @@ namespace {
 constexpr size_t kFwdSmemBytes =
     sizeof(float) * (3 * kTile * kLd + kTile * kLdp);
 
+// One block an SM: kFwdSmemBytes (113 KB) leaves no room for a second, so
+// a thread may take up to 255 registers.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v,
                  const unsigned char* __restrict__ mask, T* __restrict__ out,
@@ -62,72 +69,87 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)bh * Tkv * d;
   const unsigned char* mask_b = mask + (size_t)(bh / H) * Tkv;
 
-  load_tile(q_s, qb, q0, Tn, d);
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-  }
-  zero_acc(acc);
-
-  for (int k0 = 0; k0 < Tkv; k0 += kTile) {
-    __syncthreads();  // the previous tile's k_s, v_s and p_s are read
-    load_tile(k_s, kb, k0, Tkv, d);
-    load_tile(v_s, vb, k0, Tkv, d);
-    load_key_valid(key_valid, mask_b, k0, Tkv);
-    __syncthreads();
-
-    float s[4][4];
-    tile_abt(q_s, k_s, d, s);
+  // one pass per output slab of d; a head of one slab keeps its q tile
+  const int ns = n_slabs(d);
+  if (ns == 1) load_tile(q_s, qb, q0, Tn, d, 0, d);
+  for (int o = 0; o < ns; ++o) {
+    const int oc = o * kDMax;
+    float m[4], l[4], acc[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!key_valid[tx + 16 * j]) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      const int r = 4 * ty + i;
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float p = expf(s[i][j] - m_new);
-        sum += p;
-        if (dr.on)
-          p = kept(dr, bh, Tn, Tkv, q0 + r, k0 + c) ? p / dr.keep : 0.0f;
-        p_s[r * kLdp + c] = rnd<T>(p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      m[i] = kNegInf;
+      l[i] = 0.0f;
     }
-    __syncthreads();  // p_s is complete
-    tile_pb(p_s, v_s, acc);
-  }
+    zero_acc(acc);
 
-  // rows with no valid key (bucket padding): zero output, zero lse
+    for (int k0 = 0; k0 < Tkv; k0 += kTile) {
+      __syncthreads();  // the previous tile's k_s, v_s and p_s are read
+      load_tile(v_s, vb, k0, Tkv, d, oc, slab_width(d, o));
+      load_key_valid(key_valid, mask_b, k0, Tkv);
+      float s[4][4];
+      zero_scores(s);
+      for (int e = 0; e < ns; ++e) {  // s = q k^T over every slab
+        const int w = slab_width(d, e);
+        if (ns > 1) {
+          if (e > 0) __syncthreads();  // the previous slab is read
+          load_tile(q_s, qb, q0, Tn, d, e * kDMax, w);
+        }
+        load_tile(k_s, kb, k0, Tkv, d, e * kDMax, w);
+        __syncthreads();
+        tile_abt(q_s, k_s, w, s);
+      }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool valid = m[i] > kNegInf / 2;
-    const float l_safe = fmaxf(l[i], 1e-30f);
+      for (int i = 0; i < 4; ++i) {
+        float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = valid ? acc[i][j] / l_safe : 0.0f;
-    const int r = q0 + 4 * ty + i;
-    if (tx == 0 && r < Tn)
-      lse[(size_t)bh * Tn + r] = valid ? m[i] + logf(l_safe) : 0.0f;
+        for (int j = 0; j < 4; ++j) {
+          if (!key_valid[tx + 16 * j]) s[i][j] = kNegInf;
+          mx = fmaxf(mx, s[i][j]);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - m_new);
+        const int r = 4 * ty + i;
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j;
+          float p = expf(s[i][j] - m_new);
+          sum += p;
+          if (dr.on)
+            p = kept(dr, bh, Tn, Tkv, q0 + r, k0 + c) ? p / dr.keep : 0.0f;
+          p_s[r * kLdp + c] = rnd<T>(p);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      }
+      __syncthreads();  // p_s is complete
+      tile_pb(p_s, v_s, acc);
+    }
+
+    // rows with no valid key (bucket padding): zero output, zero lse; every
+    // pass computes the same m and l
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool valid = m[i] > kNegInf / 2;
+      const float l_safe = fmaxf(l[i], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[i][j] = valid ? acc[i][j] / l_safe : 0.0f;
+      const int r = q0 + 4 * ty + i;
+      if (o == 0 && tx == 0 && r < Tn)
+        lse[(size_t)bh * Tn + r] = valid ? m[i] + logf(l_safe) : 0.0f;
+    }
+    store_acc(out + (size_t)bh * Tn * d, acc, q0, Tn, d, oc,
+              slab_width(d, o));
   }
-  store_acc(out + (size_t)bh * Tn * d, acc, q0, Tn, d);
 }
 
 template <typename T>
@@ -153,7 +175,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Device pointers of contiguous tensors:
 // q, out [BH, T, d]; k, v [BH, T_kv, d]; mask [BH / H, T_kv] bytes (1 =
-// attendable); lse [BH, T] f32.  d in 1..128.  dropout != 0 turns the
+// attendable); lse [BH, T] f32.  d in 1..512.  dropout != 0 turns the
 // post-softmax dropout on with the stream key `key`, keep threshold
 // `thresh` and keep probability `keep`.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
@@ -162,7 +184,7 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
               int Tn, int Tkv, int d, unsigned int key, unsigned int thresh,
               float keep, int dropout, void* stream) {
   if (BH <= 0 || H <= 0 || BH % H || Tn <= 0 || Tkv <= 0 || d <= 0 ||
-      d > kDMax || (dropout && !(keep > 0.0f)))
+      n_slabs(d) > kMaxSlabs || (dropout && !(keep > 0.0f)))
     return (int)cudaErrorInvalidValue;
   const Dropout dr{key, thresh, keep, dropout != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -6,11 +6,13 @@ Contract (reference ``inference.py:81-105``): checkpoint filenames are
 ``'_'.join(name.split('.')[0].split('_')[:-1])`` and the model is built with
 default hyperparameters; ``attn_head`` is handed to ``build_model`` as
 the JAX loader hands it (attn's defaults keep 4 heads).  bigru, bilstm,
-attn and mstcn checkpoints are served.  The train CLI names an ms_tcn
-checkpoint ``ms_tcn_...``, which is not an inference name: it is skipped
-as "Unknown model type", as in JAX, and serves once renamed ``mstcn_...``.
+attn, mstcn and vanilla_lstm checkpoints are served.  The train CLI names
+an ms_tcn checkpoint ``ms_tcn_...``, which is not an inference name: it is
+skipped as "Unknown model type", as in JAX, and serves once renamed
+``mstcn_...``.
 A type the port has not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.
+its ROADMAP item.  A checkpoint that cannot be read (missing, not an npz,
+truncated) is skipped with the error and a "not found" line, as in JAX.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def load_models(
         path = os.path.join(models_dir, f"{model_filename}.npz")
         try:
             params, state = load_params(path, with_state=True)
-        except OSError as e:
+        except Exception as e:  # noqa: BLE001 -- the JAX loader's contract
             print(e)
             print(f"Model {model_filename} not found in {path}!")
             continue

@@ -1,11 +1,11 @@
-"""BiLSTM and BiLSTMWithLM (counterpart of
-``pytorch_video_action_tpu/models/lstm.py``, reference ``networks.py:50-141``).
+"""vanillaLSTM, BiLSTM and BiLSTMWithLM (counterpart of
+``pytorch_video_action_tpu/models/lstm.py``, reference ``networks.py:24-141``).
 
-Both run the bidirectional LSTM stack (``ops/rnn.py::lstm_apply``).
-``BiLSTMWithLM`` is the zoo's one stateful model: its BatchNorm running
-statistics are module buffers (``bn1.mean`` ...), updated in place by a
-``train=True`` forward and read by the eval form.  vanillaLSTM is not
-ported yet (ROADMAP.md, item 9).
+vanillaLSTM runs the unidirectional LSTM stack, the others the
+bidirectional one (``ops/rnn.py::lstm_apply``).  ``BiLSTMWithLM`` is the
+zoo's one stateful model: its BatchNorm running statistics are module
+buffers (``bn1.mean`` ...), updated in place by a ``train=True`` forward
+and read by the eval form.
 """
 
 from __future__ import annotations
@@ -18,6 +18,52 @@ from torch import nn
 from ..ops.masking import length_mask, masked_mean, take_last_valid
 from ..ops.rnn import init_rnn, lstm_apply
 from .common import Linear, dropout, dropout_on, log_softmax
+
+
+@dataclass(frozen=True)
+class VanillaLSTMConfig:
+    input_dim: int = 400
+    lstm_layer: int = 1
+    dropout_rate: float = 0.0
+    hidden_dim: int = 64
+    n_class: int = 48
+    mode: str = "cont"
+
+
+class VanillaLSTM(nn.Module):
+    """The unidirectional LSTM stack, ``linear`` H -> n_class and an f32
+    log-softmax; ``mode`` ``last`` takes the last valid frame, every other
+    mode runs per frame (JAX ``apply_vanilla_lstm``)."""
+
+    name = "vanilla_lstm"
+    stateful = False
+
+    def __init__(self, cfg: VanillaLSTMConfig,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.rnn = init_rnn(cfg.input_dim, cfg.hidden_dim, cfg.lstm_layer,
+                            n_gates=4, bidirectional=False,
+                            generator=generator)
+        self.linear = Linear(cfg.hidden_dim, cfg.n_class,
+                             generator=generator)
+
+    @property
+    def n_dropout_sites(self) -> int:
+        """Seeds a ``train=True`` forward takes: one per inter-layer site."""
+        return self.cfg.lstm_layer - 1
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, *,
+                train: bool = False, seeds=None) -> torch.Tensor:
+        """``x [B, T, input_dim]`` -> log-probs ``[B, T, n_class]`` or, in
+        mode ``last``, ``[B, n_class]``, f32."""
+        cfg = self.cfg
+        drop = dropout_on(self, train, seeds)
+        out = lstm_apply(self.rnn, x, lengths, dropout_rate=cfg.dropout_rate,
+                         train=drop, seeds=seeds if drop else None)
+        if cfg.mode == "last":
+            out = take_last_valid(out, lengths)
+        return log_softmax(self.linear(out))
 
 
 @dataclass(frozen=True)

@@ -15,6 +15,17 @@ stays time-major across the stack, each layer is one
 strides ``(2H, T*2H, 1)``) follows every layer but the last.  Under
 autograd each layer runs its train form and backward kernel; the boundary
 glue is plain torch, differentiated by autograd.
+
+Where the fused LSTM layer kernel does not take ``H`` (``_HIDDEN``), the
+bidirectional LSTM stack runs JAX's per-layer fallback instead
+(``rnn.py:425-477``): per direction the projection ``x @ wi + bi + bh``,
+then :func:`rnn_scan.lstm_scan` (the backward direction on
+:func:`masking.masked_reverse` of the input, its output reversed back),
+batch-major, with inter-layer hash dropout over ``[B, T, 2H]`` at default
+strides, the same stream as the time-major strides above.  The
+unidirectional stack (vanilla_lstm, no ``bwd`` parameters) is JAX's
+``rnn_apply`` loop of ``_run_direction`` (``rnn.py:507-528``) on the same
+scan, with hash dropout over ``[B, T, H]`` between layers.
 """
 
 from __future__ import annotations
@@ -25,8 +36,9 @@ import torch
 from torch import nn
 
 from . import hashmask
-from .masking import length_mask
-from .rnn_fused import gru_bidir_layer, lstm_bidir_layer
+from .masking import length_mask, masked_reverse
+from .rnn_fused import _HIDDEN, gru_bidir_layer, lstm_bidir_layer
+from .rnn_scan import lstm_scan
 
 
 class RNNDirection(nn.Module):
@@ -47,19 +59,19 @@ class RNNDirection(nn.Module):
 
 
 def init_rnn(input_dim: int, hidden_dim: int, num_layers: int, *,
-             n_gates: int = 3,
+             n_gates: int = 3, bidirectional: bool = True,
              generator: torch.Generator | None = None) -> nn.ModuleList:
-    """Bidirectional stack parameters, layer 0 of width ``input_dim`` and
-    ``2 * hidden_dim`` after it; ``n_gates`` 3 for the GRU, 4 for the
-    LSTM."""
+    """Stack parameters, layer 0 of width ``input_dim`` and ``2 *
+    hidden_dim`` (``hidden_dim`` when not ``bidirectional``: no ``bwd``)
+    after it; ``n_gates`` 3 for the GRU, 4 for the LSTM."""
     layers = nn.ModuleList()
     d = input_dim
+    dirs = ("fwd", "bwd") if bidirectional else ("fwd",)
     for _ in range(num_layers):
         layers.append(nn.ModuleDict({
-            "fwd": RNNDirection(d, hidden_dim, n_gates, generator=generator),
-            "bwd": RNNDirection(d, hidden_dim, n_gates, generator=generator),
-        }))
-        d = 2 * hidden_dim
+            k: RNNDirection(d, hidden_dim, n_gates, generator=generator)
+            for k in dirs}))
+        d = len(dirs) * hidden_dim
     return layers
 
 
@@ -107,9 +119,44 @@ def gru_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
                         seeds)
 
 
+def _scan_direction(p, x, lengths, mask_tm, reverse):
+    """One LSTM direction on the scan, ``x [B, T, D]`` -> masked ``[B, T,
+    H]`` (JAX ``_run_direction``)."""
+    if reverse:
+        x = masked_reverse(x, lengths)
+    xg = (torch.matmul(x, p.wi) + p.bi + p.bh).transpose(0, 1)
+    ys = lstm_scan(xg, p.wh, mask_tm).transpose(0, 1)
+    return masked_reverse(ys, lengths) if reverse else ys
+
+
+def _scan_stack(layers, x, lengths, dropout_rate, train, seeds):
+    """The LSTM stack on the scan, batch-major: one direction per layer, or
+    two, concatenated, for a stack with ``bwd`` parameters; hash dropout
+    over ``[B, T, dirs*H]`` with default strides after every layer but the
+    last."""
+    lengths = lengths.to(device=x.device, dtype=torch.int32)
+    mask_tm = length_mask(lengths, x.shape[1]).t().to(x.dtype)[:, :, None]
+    drop = train and dropout_rate > 0.0
+    if drop and (seeds is None or len(seeds) < len(layers) - 1):
+        raise ValueError("rnn stack: train=True needs one seed per "
+                         "inter-layer dropout site")
+    out = x
+    for li, layer in enumerate(layers):
+        out = torch.cat([_scan_direction(layer[k], out, lengths, mask_tm,
+                                         k == "bwd") for k in layer], dim=-1)
+        if drop and li < len(layers) - 1:
+            out = hashmask.hash_dropout(seeds[li], out, 1.0 - dropout_rate)
+    return out
+
+
 def lstm_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
                dropout_rate: float = 0.0, train: bool = False,
                seeds=None) -> torch.Tensor:
-    """The bidirectional LSTM stack: ``x [B, T, D]`` -> ``[B, T, 2H]``."""
-    return _apply_stack(_lstm_layer, layers, x, lengths, dropout_rate, train,
-                        seeds)
+    """The LSTM stack: ``x [B, T, D]`` -> ``[B, T, 2H]``, or ``[B, T, H]``
+    for a unidirectional stack (no ``bwd`` parameters).  The bidirectional
+    stack runs the fused layer kernel where it takes ``H`` and the scan
+    elsewhere; the unidirectional one always runs the scan."""
+    if "bwd" in layers[0] and layers[0]["fwd"].wh.shape[0] in _HIDDEN:
+        return _apply_stack(_lstm_layer, layers, x, lengths, dropout_rate,
+                            train, seeds)
+    return _scan_stack(layers, x, lengths, dropout_rate, train, seeds)

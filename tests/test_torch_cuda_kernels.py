@@ -7,7 +7,7 @@ and no JAX it runs on its own, without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
 The GRU layer's kernels come first, then the LSTM layer's, then the
-flash-attention kernels, then MS-TCN's conv kernels.
+flash-attention kernels, then MS-TCN's conv kernels, then the LSTM scan's.
 
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
@@ -458,9 +458,9 @@ def test_flash_bwd_forms_agree_and_rerun_bit_identical(cuda_device, sms,
 
 
 @pytest.mark.parametrize("case", ["float64", "noncontiguous", "mask_uint8",
-                                  "head_129"])
+                                  "head_513"])
 def test_flash_kernels_refuse_what_they_do_not_take(cuda_device, case):
-    d = 129 if case == "head_129" else 100
+    d = 513 if case == "head_513" else 100
     q, k, v, mask, dout = _flash_case(cuda_device, torch.float32, 1, 2, 70,
                                       [70], d=d)
     if case == "float64":
@@ -473,6 +473,30 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda_device, case):
     with pytest.raises((TypeError, ValueError)):
         F.flash_fwd(q, k, v, mask)
     assert F.flash_fwd.launches == before
+
+
+# attn with 2 heads (d = 200) and 1 head (d = 400): the kernels walk d in
+# slabs of 128 columns
+WIDE_CASES = [(2, 2, 1100, [1100, 613], 200), (1, 1, 1100, [1100], 400)]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES, ids=["d200", "d400"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_heads_match_plain(cuda_device, dtype, case):
+    """The forward and both backwards at d > 128, with dropout."""
+    b, h, t, lengths, d = case
+    q, k, v, mask, dout = _flash_case(cuda_device, dtype, b, h, t, lengths,
+                                      seed=3, d=d)
+    out, lse = F.flash_fwd(q, k, v, mask, 0.3, 11)
+    want, want_lse, _ = F.flash_fwd_ref(q, k, v, mask, 0.3, 11)
+    assert out.shape == want.shape
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _rel_err(lse, want_lse) <= TOL[torch.float32]
+    want_g = F.flash_bwd_ref(q, k, v, mask, 0.3, 11, out, lse, dout)
+    for fused in (True, False):
+        got = F.flash_bwd(q, k, v, mask, 0.3, 11, out, lse, dout, fused=fused)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want_g):
+            assert _rel_err(g, w) <= TOL[dtype], (fused, name, _rel_err(g, w))
 
 
 def test_attn_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
@@ -694,3 +718,143 @@ def test_mstcn_train_step_on_card_matches_cpu(cuda_device):
     for k, want in cpu[1].items():
         err = (gpu[1][k] - want).abs().max() / want.abs().max()
         assert err.item() <= 1e-3, k
+
+
+# -------------------------------------------------------------- LSTM scan
+#
+# The scan kernels (ops/rnn_scan.py) against their plain versions: f32
+# 1e-4, bf16 3e-2 (both round h, and the gate gradients, to bf16 at the
+# same points), outputs and gradients relative to their largest plain
+# element (at least 1).  The widths: vanilla_lstm serving (64) and training
+# (256), the bidirectional stack's scan route at H=48 and 256, an odd width
+# (100) and one whose weight slices pass a block's shared memory (512).
+
+from pytorch_video_action_tpu_torch.ops import rnn_scan as RS  # noqa: E402
+
+SCAN_CASES = [(48, 3, 40), (64, 3, 40), (100, 5, 33), (256, 8, 40),
+              (512, 8, 24), (64, 11, 20)]
+
+
+def _scan_case(cuda_device, dtype, w, b, t, seed=0):
+    rng = np.random.default_rng(seed + w)
+    to = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    xg = rng.normal(0, 0.5, size=(t, b, 4 * w)).astype(np.float32)
+    wh = rng.uniform(-1, 1, size=(w, 4 * w)).astype(np.float32) / np.sqrt(w)
+    dy = rng.normal(size=(t, b, w)).astype(np.float32)
+    return to(xg), to(wh), to(dy)
+
+
+@pytest.mark.parametrize("w,b,t", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
+    xg, wh, _ = _scan_case(cuda_device, dtype, w, b, t)
+    counts = lambda: (RS.lstm_scan_fwd.launches,  # noqa: E731
+                      RS.lstm_scan_fwd_save.launches)
+    before = counts()
+    ys, cs = RS.lstm_scan_fwd(xg, wh)
+    ys2, cs2, res = RS.lstm_scan_fwd_save(xg, wh)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(ys, ys2) and torch.equal(cs, cs2)
+    wys, wcs, wres = RS.lstm_scan_ref(xg, wh, save=True)
+    for got, want in ((ys, wys), (cs, wcs), (res, wres)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("w,b,t", SCAN_CASES)
+@pytest.mark.parametrize("recompute", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
+                                                w, b, t):
+    xg, wh, dy = _scan_case(cuda_device, dtype, w, b, t, seed=1)
+    ys, cs, res = RS.lstm_scan_ref(xg, wh, save=True)
+    hp, cp = RS._shift(ys), RS._shift(cs)
+    if recompute:
+        fn, ref, args = (RS.lstm_scan_bwd, RS.lstm_scan_bwd_ref,
+                         (xg, hp, cp, cs, dy, wh))
+    else:
+        fn, ref, args = (RS.lstm_scan_bwd_saved, RS.lstm_scan_bwd_saved_ref,
+                         (res, hp, cp, dy, wh))
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for name, g, a, want in zip(("dxg", "dwh"), got, again, ref(*args)):
+        assert g.dtype == dtype and g.shape == want.shape, name
+        assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous", "wh_bf16"])
+def test_lstm_scan_kernels_refuse_what_they_do_not_take(cuda_device, case):
+    xg, wh, _ = _scan_case(cuda_device, torch.float32, 64, 3, 8)
+    if case == "float64":
+        xg, wh = xg.double(), wh.double()
+    elif case == "noncontiguous":
+        xg = xg.transpose(0, 1).contiguous().transpose(0, 1)
+    else:
+        wh = wh.to(torch.bfloat16)
+    before = RS.lstm_scan_fwd.launches
+    with pytest.raises((TypeError, ValueError)):
+        RS.lstm_scan_fwd(xg, wh)
+    assert RS.lstm_scan_fwd.launches == before
+
+
+def _train_step_card_vs_cpu(cuda_device, name, flags, counters, want_counts,
+                            seeds, b=3, t=70, lengths=(70, 33, 1)):
+    """One f32 train step from the same parameters, batch and seeds on the
+    card and on the CPU: the launches on the card, the loss to 1e-5, each
+    gradient to 1e-3 of its tensor's largest element."""
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = build_model(name, 48, **flags,
+                        generator=torch.Generator().manual_seed(1)).state_dict()
+    rng = np.random.default_rng(2)
+    lengths = np.asarray(lengths, np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    batch = (x, lengths, targets.reshape(-1), None)
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = build_model(name, 48, **flags)
+        model.load_state_dict(state)
+        trainer = Trainer(model, 48, seed=0, device=device)
+        ts = trainer.init_state()
+        before = [c.launches for c in counters]
+        loss = trainer.train_step(ts, batch, seeds=seeds).item()
+        steps = tuple(c.launches - n for c, n in zip(counters, before))
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in ts.model.named_parameters()}
+        out[str(device)] = (loss, grads, steps)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[2] == (0,) * len(counters) and gpu[2] == want_counts
+    assert abs(gpu[0] - cpu[0]) <= 1e-5
+    for k, want in cpu[1].items():
+        err = (gpu[1][k] - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3, k
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_vanilla_lstm_train_step_on_card_matches_cpu(cuda_device, monkeypatch,
+                                                     recompute):
+    """vanilla_lstm at the train CLI's defaults (H=256, 2 layers, dropout
+    0.5): a saving forward and a backward a layer, or with the recompute
+    backward an eval-form forward and a recompute backward."""
+    monkeypatch.setattr(RS, "RECOMPUTE_BWD", recompute)
+    counters = (RS.lstm_scan_fwd, RS.lstm_scan_fwd_save,
+                RS.lstm_scan_bwd_saved, RS.lstm_scan_bwd)
+    want = (2, 0, 0, 2) if recompute else (0, 2, 2, 0)
+    _train_step_card_vs_cpu(cuda_device, "vanilla_lstm", {}, counters, want,
+                            [7])
+
+
+def test_bilstm_at_lstm_hidden1_512_trains_on_card(cuda_device):
+    """bilstm at ``--lstm_hidden1 512`` (H=256, not a width of the fused
+    layer kernel) takes the scan, both directions, both layers."""
+    _train_step_card_vs_cpu(cuda_device, "bilstm", {"lstm_hidden1": 512},
+                            (RS.lstm_scan_fwd_save, RS.lstm_scan_bwd_saved),
+                            (4, 4), [1, 2, 3])

@@ -138,8 +138,8 @@ def test_data_parallel_is_not_ported(synthetic_root, models_dir, tmp_path,
 
 
 def test_unported_family_checkpoint_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ploader.load_models(["vanilla_lstm_75.59_dev"], 48,
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ploader.load_models(["simple_fc_75.59_dev"], 48,
                             models_dir=str(tmp_path), device="cpu")
 
 

@@ -1,0 +1,166 @@
+"""The port's LSTM scan (``pytorch_video_action_tpu_torch/ops/rnn_scan.py``)
+and ``masked_reverse`` against the JAX package.
+
+On the CPU the wrappers run their plain PyTorch versions.  Those are held
+against the JAX package's XLA scan ``rnn._scan_packed`` (Pallas is off on
+the CPU), forward and ``jax.grad``, and in one forward and one VJP call
+against ``rnn_pallas.lstm_scan_pallas`` in interpret mode.  The CUDA
+kernels themselves are held against the plain versions in
+``test_torch_cuda_kernels.py``, which runs only with a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pytorch_video_action_tpu.ops import masking as JM
+from pytorch_video_action_tpu.ops import rnn as R
+from pytorch_video_action_tpu.ops import rnn_pallas as RP
+from pytorch_video_action_tpu_torch.ops import masking as PM
+from pytorch_video_action_tpu_torch.ops import rnn_scan as S
+
+
+def _inputs(seed, t, b, w, lengths=None):
+    """``xg [T, B, 4W]``, ``wh [W, 4W]``, prefix-form lengths, a cotangent
+    ``[T, B, W]``."""
+    rng = np.random.default_rng(seed)
+    xg = rng.normal(0, 0.5, size=(t, b, 4 * w)).astype(np.float32)
+    wh = rng.uniform(-1, 1, size=(w, 4 * w)).astype(np.float32) / np.sqrt(w)
+    if lengths is None:
+        lengths = rng.integers(1, t + 1, b)
+        lengths[0] = t
+    cot = rng.normal(size=(t, b, w)).astype(np.float32)
+    return xg, wh, np.asarray(lengths, np.int32), cot
+
+
+def _mask(lengths, t):
+    return (np.arange(t)[:, None] < lengths[None, :]).astype(np.float32)[
+        :, :, None]
+
+
+def _jax(xg, wh, mask, cot, dtype=jnp.float32):
+    """The XLA scan's masked ys and the gradients of sum(ys * cot)."""
+    w = wh.shape[0]
+    bh = jnp.zeros((4 * w,), dtype)
+
+    def f(a, b):
+        ys = R._scan_packed("lstm", a, b, bh, jnp.asarray(mask, dtype), w)
+        return jnp.sum(ys.astype(jnp.float32) * cot), ys
+
+    (_, ys), grads = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(xg, dtype), jnp.asarray(wh, dtype))
+    return [np.asarray(v, np.float32) for v in (ys, *grads)]
+
+
+def _port(xg, wh, mask, cot, dtype=torch.float32):
+    a = torch.from_numpy(xg).to(dtype).requires_grad_()
+    b = torch.from_numpy(wh).to(dtype).requires_grad_()
+    ys = S.lstm_scan(a, b, torch.from_numpy(mask).to(dtype))
+    (ys.float() * torch.from_numpy(cot)).sum().backward()
+    return [v.detach().float().numpy() for v in (ys, a.grad, b.grad)]
+
+
+def _close(got, want, tol):
+    """Each of ys, dxg, dwh within ``tol`` of its largest element (at
+    least 1)."""
+    for g, w, name in zip(got, want, ("ys", "dxg", "dwh")):
+        scale = max(1.0, float(np.abs(w).max()))
+        assert np.abs(g - w).max() <= tol * scale, name
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+@pytest.mark.parametrize("w,t,b", [(48, 24, 3), (100, 17, 2), (16, 40, 5)])
+def test_scan_matches_xla_f32(monkeypatch, w, t, b, recompute):
+    """Ragged lengths: the raw recurrence, masked, equals the XLA scan that
+    freezes the carry, and so do both backwards (f32, sums in another
+    order: 1e-5 of the largest element)."""
+    monkeypatch.setattr(S, "RECOMPUTE_BWD", recompute)
+    xg, wh, lengths, cot = _inputs(w + t, t, b, w)
+    mask = _mask(lengths, t)
+    _close(_port(xg, wh, mask, cot), _jax(xg, wh, mask, cot), 1e-5)
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_scan_bf16_close_to_xla_bf16(monkeypatch, recompute):
+    """bf16 rounds at other places: the port carries c and the gate math in
+    f32 and rounds h before the product, the XLA scan rounds every step's
+    gates, h and c; 3e-2 of the largest element."""
+    monkeypatch.setattr(S, "RECOMPUTE_BWD", recompute)
+    xg, wh, lengths, cot = _inputs(7, 24, 3, 48)
+    mask = _mask(lengths, 24)
+    _close(_port(xg, wh, mask, cot, torch.bfloat16),
+           _jax(xg, wh, mask, cot, jnp.bfloat16), 3e-2)
+
+
+def test_plain_versions_match_pallas_interpret():
+    """One forward and one VJP call of the TPU kernels in interpret mode
+    (W=128, T=16, B=8, as the JAX package's own Pallas tests): the raw,
+    unmasked outputs and both gradients."""
+    t, b, w = 16, 8, 128
+    xg, wh, _, cot = _inputs(3, t, b, w)
+    ys, vjp = jax.vjp(lambda a, c: RP.lstm_scan_pallas(a, c, True),
+                      jnp.asarray(xg), jnp.asarray(wh))
+    dxg, dwh = vjp(jnp.asarray(cot))
+    got = _port(xg, wh, np.ones((t, b, 1), np.float32), cot)
+    _close(got, [np.asarray(v) for v in (ys, dxg, dwh)], 1e-5)
+
+
+def test_saving_form_and_backwards_agree():
+    """The saving forward's ys and cs are the eval form's; the residuals
+    are the gates; the two backwards give the same gradients (f32), and
+    LSTMScanFn's equal autograd through the plain forward in float64."""
+    t, b, w = 12, 3, 20
+    xg, wh, _, cot = _inputs(5, t, b, w)
+    xt, wt = torch.from_numpy(xg), torch.from_numpy(wh)
+    ys, cs = S.lstm_scan_fwd(xt, wt)
+    ys2, cs2, res = S.lstm_scan_fwd_save(xt, wt)
+    assert torch.equal(ys, ys2) and torch.equal(cs, cs2)
+    assert res.shape == (t, b, 5 * w)
+    assert torch.allclose(res[..., 4 * w:], torch.tanh(cs), atol=1e-6)
+    hp, cp = S._shift(ys), S._shift(cs)
+    dy = torch.from_numpy(cot)
+    saved = S.lstm_scan_bwd_saved(res, hp, cp, dy, wt)
+    recomputed = S.lstm_scan_bwd(xt, hp, cp, cs, dy, wt)
+    for a, c in zip(saved, recomputed):
+        assert torch.allclose(a, c, atol=1e-6, rtol=1e-5)
+
+    x64 = xt.double().requires_grad_()
+    w64 = wt.double().requires_grad_()
+    ys64, _ = S.lstm_scan_ref(x64, w64)
+    (ys64 * dy.double()).sum().backward()
+    dxg, dwh = S.lstm_scan_bwd_saved(*S.lstm_scan_ref(
+        xt.double(), wt.double(), save=True)[2:], S._shift(ys64.detach()),
+        S._shift(S.lstm_scan_ref(xt.double(), wt.double())[1]), dy.double(),
+        wt.double())
+    assert torch.allclose(dxg, x64.grad, atol=1e-12)
+    assert torch.allclose(dwh, w64.grad, atol=1e-12)
+
+
+def test_wrappers_refuse_other_devices():
+    xg = torch.zeros(2, 1, 8, device="meta")
+    wh = torch.zeros(2, 8, device="meta")
+    for fn in (S.lstm_scan_fwd, S.lstm_scan_fwd_save):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(xg, wh)
+
+
+@pytest.mark.parametrize("w,n", [(16, 1), (48, 4), (64, 4), (100, 8),
+                                 (256, 16), (512, 16), (4096, 16)])
+def test_cluster_size(w, n):
+    assert S.cluster_size(w) == n
+
+
+@pytest.mark.parametrize("shape", [(3, 7), (3, 7, 5), (2, 6, 2, 3)])
+def test_masked_reverse_matches_jax(shape):
+    rng = np.random.default_rng(len(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    lengths = np.array([shape[1], 1, 4][:shape[0]], np.int32)
+    want = np.asarray(JM.masked_reverse(jnp.asarray(x), jnp.asarray(lengths)))
+    got = PM.masked_reverse(torch.from_numpy(x), torch.from_numpy(lengths))
+    assert np.array_equal(got.numpy(), want)
+    twice = PM.masked_reverse(got, torch.from_numpy(lengths)).numpy()
+    valid = np.arange(shape[1])[None, :] < lengths[:, None]
+    assert np.array_equal(twice[valid], x[valid])

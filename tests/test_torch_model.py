@@ -122,11 +122,12 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
         assert np.array_equal(np.asarray(got[k]), want[k])
 
 
-@pytest.mark.parametrize("name,item", [
-    ("simple_fc", 12), ("vanilla_lstm", 9), ("ctcloss", 12)])
-def test_unported_models_name_their_roadmap_item(name, item):
+@pytest.mark.parametrize("name,item,flags", [
+    ("simple_fc", 12, {}), ("simple_fc", 12, {"defaults": True}),
+    ("ctcloss", 12, {})])
+def test_unported_models_name_their_roadmap_item(name, item, flags):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(name, 48)
+        build_model(name, 48, **flags)
 
 
 def test_mstcn_builds_with_the_inference_defaults():

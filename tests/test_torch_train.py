@@ -364,7 +364,8 @@ def test_train_cli_end_to_end(synthetic_root, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     (["--data_parallel", "2"], 15), (["--seq_parallel", "2"], 15),
     (["--resume", "r.npz"], 14), (["--cache_device"], 14),
-    (["--lm_path", "lm.arpa"], 13), (["--model", "vanilla_lstm"], 9),
+    (["--lm_path", "lm.arpa"], 13),
+    (["--model", "vanilla_lstm", "--lm_path", "lm.arpa"], 13),
     (["--model", "simple_fc"], 12),
     (["--model", "ms_tcn", "--seq_parallel", "2"], 15),
     (["--model", "ctcloss"], 12), (["--train_mode", "segment"], 6),
