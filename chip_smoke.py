@@ -40,7 +40,9 @@ Phases, in order; any failure exits non-zero:
    saved-gates and the recompute backward) at an odd width (W=100) and one
    past a block's shared memory (W=512), B=8, T=1920, f32: each against
    its plain version and a rerun, timed beside nn.LSTM (one direction,
-   packed) and its bound.
+   packed) and its bound.  Then the GRU scan's four kernels the same way
+   (beside nn.GRU) at an odd width (W=96) and W=512, B=8, T=1920, and at
+   the serving shape B=3, T=1280, W=256, in f32 and bf16.
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
    test videos) and full-width bigru, bilstm and attn checkpoints into a
    temporary directory.  For each model: repeats phase 3's forward checks
@@ -58,8 +60,10 @@ Phases, in order; any failure exits non-zero:
    plus one step with the recompute backward, its gradients against the
    saved-gates step's), trains it again at the inference CLIs' defaults
    (H=64, 1 layer, dropout 0), serves that checkpoint the same way (the
-   eval form held at the largest forward batch, B=3, T=1280); then serves
-   the five checkpoints as one ensemble on the card.
+   eval form held at the largest forward batch, B=3, T=1280); trains
+   simple_fc (as phase 5 does the others; its f32 run without ``--model``,
+   the train CLI's default) and serves its checkpoint the same way (no
+   kernel); then serves the six checkpoints as one ensemble on the card.
 5. training: for bigru, bilstm and attn, repeats phase 3's train-form and
    backward checks at the largest train batch, runs the port's train CLI
    on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
@@ -80,11 +84,20 @@ Phases, in order; any failure exits non-zero:
    and its gradients against the CPU's), attn's gradients are held against
    the CPU at ``--attn_head`` 2 and 1 on the flash path, and ms_tcn's
    gradient of ``stages.1.layers.12.conv_dilated.w`` on the card and on
-   the CPU against a float64 step (its side taps exactly 0).
+   the CPU against a float64 step (its side taps exactly 0).  ctcloss
+   trains like bigru (CTC loss, blank = class 48; its checkpoint, if the
+   dev accuracy rises above 0, loads).  Last, the bidirectional GRU at
+   widths the fused layer kernel refuses, on the GRU scan: its four
+   kernels held at the largest train batch (W=256, the batch's own
+   lengths, f32 and bf16); one Trainer step each of BiGRU at
+   ``hidden_dim_1`` 512 and 192 and attn at ``hidden_dim`` 192 (launch
+   counts, gradients against the CPU, frames/s), one BiGRU 512 step with
+   the recompute backward against the saved-gates step, and the BiGRU
+   512 eval forward over the test videos (launch counts, frames/s).
 
-Each phase logs its time.  Prints a ``kernels`` JSON line (seventeen
-entries for the fifteen ported TPU kernels, rows 1 and 3 in their eval and
-train forms; headline numbers at the main path's shape, every checked
+Each phase logs its time.  Prints a ``kernels`` JSON line (twenty-one
+entries for the nineteen ported TPU kernels, rows 1 and 3 in their eval
+and train forms; headline numbers at the main path's shape, every checked
 shape under ``shapes``), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
@@ -529,6 +542,17 @@ def phase_kernels():
             rows.setdefault(name, []).extend(got)
     log(f"[kernel] LSTM scan checks at W=100 and W=512 in "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    for where, b, t_len, w, lengths in GSCAN_EXTRA:
+        if lengths is None:
+            lengths = torch.randint(1, t_len + 1, (b,), generator=gen).tolist()
+            lengths[0] = t_len
+        for dt_name in DTYPES:
+            for name, got in check_scan(where, lengths, t_len, w, dt_name,
+                                        gen, cell="gru").items():
+                rows.setdefault(name, []).extend(got)
+    log(f"[kernel] GRU scan checks at W=96, W=512 and the serving shape in "
+        f"{time.time() - t0:.1f} s")
     return rows
 
 
@@ -730,48 +754,77 @@ VANILLA_SERVE_FLAGS = ["--lstm_hidden1", "64", "--lstm_layer", "1",
 # (where, B, T, W) beside the main paths' shapes: an odd width and one
 # whose weight slices pass a block's shared memory (f32)
 SCAN_EXTRA = [("odd width", 8, 1920, 100), ("wide", 8, 1920, 512)]
+# the GRU scan's entries of the kernels line, as SCAN's
+GSCAN = {"gru_scan_fwd": ("gru_scan_fwd.cu", "92"),
+         "gru_scan_fwd_save": ("gru_scan_fwd.cu", "147"),
+         "gru_scan_bwd_saved": ("gru_scan_bwd.cu", "202"),
+         "gru_scan_bwd": ("gru_scan_bwd.cu", "282")}
+# BiGRU at hidden_dim_1 512 and 192 (H=256 and 96 a direction) and attn at
+# hidden_dim 192 (H=96): widths the fused layer kernel refuses, so their
+# GRU runs the scan, as JAX's does there
+GRU_WIDE = {"bigru": [{"hidden_dim_1": 512}, {"hidden_dim_1": 192}],
+            "attn": [{"hidden_dim": 192}]}
+# (where, B, T, W, lengths or None for random ones) of the GRU scan beside
+# the training main path's: an odd width, one whose weight slices pass a
+# block's shared memory, and the serving shape of attn's flash path
+GSCAN_EXTRA = [("odd width", 8, 1920, 96, None), ("wide", 8, 1920, 512, None),
+               ("serving", 3, WIDE_T, 256, WIDE_LENGTHS)]
+# the two scans: gates per hidden unit and residuals a step, in W
+SCAN_GATES = {"lstm": (4, 5), "gru": (3, 4)}
 
 
-def scan_inputs(lengths, t_len, w, dt, gen):
-    """xg [T, B, 4W], wh [W, 4W], dy [T, B, W] (0 on padded frames) and
-    the lengths on the card."""
+def scan_inputs(lengths, t_len, w, dt, gen, cell="lstm"):
+    """xg [T, B, gW], wh [W, gW], bh [gW] (the GRU's; None for the LSTM),
+    dy [T, B, W] (0 on padded frames) and the lengths on the card."""
     import torch
 
     b = len(lengths)
-    xg = torch.randn(t_len, b, 4 * w, generator=gen) * 0.5
-    wh = (torch.rand(w, 4 * w, generator=gen) * 2 - 1) / w ** 0.5
+    g = SCAN_GATES[cell][0]
+    xg = torch.randn(t_len, b, g * w, generator=gen) * 0.5
+    wh = (torch.rand(w, g * w, generator=gen) * 2 - 1) / w ** 0.5
+    bh = ((torch.rand(g * w, generator=gen) * 2 - 1) / w ** 0.5).to(
+        "cuda", dt) if cell == "gru" else None
     valid = torch.arange(t_len)[:, None] < torch.as_tensor(lengths)[None, :]
     dy = torch.randn(t_len, b, w, generator=gen) * valid[:, :, None]
-    return (xg.to("cuda", dt), wh.to("cuda", dt), dy.to("cuda", dt),
+    return (xg.to("cuda", dt), wh.to("cuda", dt), bh, dy.to("cuda", dt),
             torch.as_tensor(lengths, dtype=torch.int64))
 
 
 def scan_bound(name, t_len, b, w, dt_name):
-    """Least time (ms) of one scan kernel on this input: per frame row the
-    kernel reads xg (4W) and writes ys and cs (the saving form also res,
-    5W); the backwards read res (5W; recompute: xg 4W and cs) and hp, cp,
-    dy and write dxg (4W); wh read once, dwh written once.  Operations:
-    2*T*B*W*4W a product -- the hidden product forward, the carry product
-    and dwh backward, and the recomputed gates."""
+    """Least time (ms) of one scan kernel on this input.  Per frame row,
+    in W: the LSTM forward reads xg (4) and writes ys and cs (the saving
+    form also res, 5); its backwards read res (5; recompute: xg 4 and cs)
+    and hp, cp, dy and write dxg (4).  The GRU forward reads xg (3) and
+    writes ys (the saving form also res, 4); its backwards read res (4;
+    recompute: xg 3) and hp, dy and write dxg (3).  wh (and the GRU's bh)
+    read once, dwh (and dbh) written once.  Operations: 2*T*B*W*gW a
+    product -- the hidden product forward, the carry product and dwh
+    backward, and the recomputed gates."""
     size = 4 if dt_name == "float32" else 2
     per_row = {"lstm_scan_fwd": 6, "lstm_scan_fwd_save": 11,
-               "lstm_scan_bwd_saved": 12, "lstm_scan_bwd": 12}[name]
-    weights = 4 * w * w * (1 if name.startswith("lstm_scan_fwd") else 2)
-    products = {"lstm_scan_fwd": 1, "lstm_scan_fwd_save": 1,
-                "lstm_scan_bwd_saved": 2, "lstm_scan_bwd": 3}[name]
+               "lstm_scan_bwd_saved": 12, "lstm_scan_bwd": 12,
+               "gru_scan_fwd": 4, "gru_scan_fwd_save": 8,
+               "gru_scan_bwd_saved": 9, "gru_scan_bwd": 8}[name]
+    cell, _, kind = name.partition("_scan_")
+    g = SCAN_GATES[cell][0]
+    weights = (g * w * w + (g * w if cell == "gru" else 0)) * (
+        1 if kind.startswith("fwd") else 2)
+    products = {"fwd": 1, "fwd_save": 1, "bwd_saved": 2, "bwd": 3}[kind]
     n_bytes = (t_len * b * w * per_row + weights) * size
-    flops = products * 2 * t_len * b * w * 4 * w
+    flops = products * 2 * t_len * b * w * g * w
     return _bound(n_bytes, flops, dt_name)
 
 
-def library_lstm(x, lengths, w):
-    """The yardstick: ``nn.LSTM`` (one direction, hidden W, input W) on a
-    packed sequence, in x's dtype.  It also computes the input projection
-    that the scan takes precomputed.  Returns ``(forward, forward with
-    autograd, autograd.grad through it)`` callables; timed here only."""
+def library_rnn(cell, x, lengths, w):
+    """The yardstick: ``nn.LSTM`` or ``nn.GRU`` (one direction, hidden W,
+    input W) on a packed sequence, in x's dtype.  It also computes the
+    input projection that the scan takes precomputed.  Returns
+    ``(forward, forward with autograd, autograd.grad through it)``
+    callables; timed here only."""
     import torch
 
-    net = torch.nn.LSTM(w, w).to("cuda", x.dtype)
+    net = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(w, w).to(
+        "cuda", x.dtype)
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         x, lengths, enforce_sorted=False)
 
@@ -790,20 +843,27 @@ def library_lstm(x, lengths, w):
     return fwd, fwd, bwd
 
 
-def check_scan(where, lengths, t_len, w, dt_name, gen) -> dict:
-    """Hold the four scan kernels against their plain versions on one
-    input (the backwards also against a rerun, bit for bit) and time each
-    beside its plain version, nn.LSTM and its bound: ``{entry: [row]}``."""
-    import torch
-
+def scan_calls(cell, xg, wh, bh, dy):
+    """``{entry: (wrapper, plain version, arguments)}`` of one scan's four
+    kernels on one input."""
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
-    dt = getattr(torch, dt_name)
-    b = len(lengths)
-    xg, wh, dy, lens = scan_inputs(lengths, t_len, w, dt, gen)
+    if cell == "gru":
+        ys, res = RS.gru_scan_ref(xg, wh, bh, save=True)
+        hp = RS._shift(ys)
+        return {
+            "gru_scan_fwd": (RS.gru_scan_fwd, RS.gru_scan_ref, (xg, wh, bh)),
+            "gru_scan_fwd_save": (RS.gru_scan_fwd_save,
+                                  lambda *a: RS.gru_scan_ref(*a, save=True),
+                                  (xg, wh, bh)),
+            "gru_scan_bwd_saved": (RS.gru_scan_bwd_saved,
+                                   RS.gru_scan_bwd_saved_ref,
+                                   (res, hp, dy, wh)),
+            "gru_scan_bwd": (RS.gru_scan_bwd, RS.gru_scan_bwd_ref,
+                             (xg, hp, dy, wh, bh))}
     ys, cs, res = RS.lstm_scan_ref(xg, wh, save=True)
     hp, cp = RS._shift(ys), RS._shift(cs)
-    calls = {
+    return {
         "lstm_scan_fwd": (RS.lstm_scan_fwd, RS.lstm_scan_ref, (xg, wh)),
         "lstm_scan_fwd_save": (RS.lstm_scan_fwd_save,
                                lambda *a: RS.lstm_scan_ref(*a, save=True),
@@ -813,21 +873,43 @@ def check_scan(where, lengths, t_len, w, dt_name, gen) -> dict:
                                 (res, hp, cp, dy, wh)),
         "lstm_scan_bwd": (RS.lstm_scan_bwd, RS.lstm_scan_bwd_ref,
                           (xg, hp, cp, cs, dy, wh))}
+
+
+def _outputs(out):
+    """A wrapper's outputs as a tuple (the GRU scan's eval form returns one
+    tensor)."""
+    return (out,) if not isinstance(out, tuple) else out
+
+
+def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm") -> dict:
+    """Hold the four kernels of one scan (``cell`` lstm or gru) against
+    their plain versions on one input (each also against a rerun, bit for
+    bit) and time each beside its plain version, nn.LSTM or nn.GRU and its
+    bound: ``{entry: [row]}``."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    xg, wh, bh, dy, lens = scan_inputs(lengths, t_len, w, dt, gen, cell)
+    calls = scan_calls(cell, xg, wh, bh, dy)
     x = torch.randn(t_len, b, w, generator=gen).to("cuda", dt)
-    lib_fwd, lib_train, lib_bwd = library_lstm(x, lens, w)
+    lib_fwd, lib_train, lib_bwd = library_rnn(cell, x, lens, w)
     with torch.no_grad():
         lib_eval_ms = cuda_ms(lib_fwd, 5, 1)
-    lib_ms = {"lstm_scan_fwd": lib_eval_ms,
-              "lstm_scan_fwd_save": cuda_ms(lib_train, 5, 1),
-              "lstm_scan_bwd_saved": cuda_ms(lib_bwd, 5, 1)}
-    lib_ms["lstm_scan_bwd"] = lib_ms["lstm_scan_bwd_saved"]
+    fwd, fwd_save, bwd_saved, bwd = calls
+    lib_ms = {fwd: lib_eval_ms, fwd_save: cuda_ms(lib_train, 5, 1),
+              bwd_saved: cuda_ms(lib_bwd, 5, 1)}
+    lib_ms[bwd] = lib_ms[bwd_saved]
+    library = "nn.LSTM" if cell == "lstm" else "nn.GRU"
     tol = TOL[dt_name]
     rows = {}
     for name, (fn, ref, args) in calls.items():
-        got = fn(*args)
-        again = fn(*args)
+        got = _outputs(fn(*args))
+        again = _outputs(fn(*args))
         torch.cuda.synchronize()
-        want = ref(*args)
+        want = _outputs(ref(*args))
         abs_err, err = rel_err(got, want)
         identical = all(torch.equal(a, c) for a, c in zip(got, again))
         ms = cuda_ms(lambda: fn(*args), 5, 1)
@@ -844,7 +926,7 @@ def check_scan(where, lengths, t_len, w, dt_name, gen) -> dict:
             f"max err / max(1, max|plain|) {err:.3g} (tol {tol}), rerun "
             f"bit-identical {identical}, kernel {ms:.4f} ms "
             f"({ms / t_len * 1e3:.3f} us a step), plain {plain_ms:.4f} ms, "
-            f"nn.LSTM packed (with its input projection) "
+            f"{library} packed (with its input projection) "
             f"{lib_ms[name]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         if not (err <= tol and identical):
             raise AssertionError(f"{name} disagrees with its plain version "
@@ -1194,8 +1276,8 @@ def read_csv_labels(path: str) -> list[int]:
 # the served and trained models: their recurrent layer kernels and layer
 # count (attn: one GRU layer after the attention; win_attn: none), or
 # ms_tcn's conv stages (mstcn is its name in the inference CLIs)
-MODELS = {"bigru": ("gru", 4), "vanilla_lstm": ("scan", 2),
-          "bilstm": ("lstm", 2),
+MODELS = {"bigru": ("gru", 4), "ctcloss": ("gru", 4), "simple_fc": (None, 0),
+          "vanilla_lstm": ("scan", 2), "bilstm": ("lstm", 2),
           "bilstm_lm": ("lstm", 2), "attn": ("gru", 1),
           "win_attn": (None, 0), "ms_tcn": ("conv", TCN_STAGES),
           "mstcn": ("conv", TCN_STAGES)}
@@ -1225,7 +1307,7 @@ def counters() -> dict:
     from pytorch_video_action_tpu_torch.ops import flash as F
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
-    out = {name: getattr(RS, name).launches for name in SCAN}
+    out = {name: getattr(RS, name).launches for name in (*SCAN, *GSCAN)}
     for cell in (GRU, LSTM):
         out[cell.fwd_name] = cell.fwd.launches
         out[cell.fwd_name + "_train"] = cell.fwd.train_launches
@@ -1242,7 +1324,7 @@ def reset_counters() -> None:
     from pytorch_video_action_tpu_torch.ops import flash as F
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
-    for name in SCAN:
+    for name in (*SCAN, *GSCAN):
         getattr(RS, name).launches = 0
     for cell in (GRU, LSTM):
         cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
@@ -1376,11 +1458,13 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
     elif MODELS[name][0] == "scan":
         rows = merge_rows(check_scan("main path", lens, t_pad, 64, dt, gen)
                           for dt in DTYPES)
-    elif cell is None:
+    elif MODELS[name][0] == "conv":
         rows = check_conv("main path", lens, t_pad, gen, kinds=("stage",))
-    else:
+    elif cell is not None:
         rows = {cell.fwd_name: check_layers(cell, "main path", lens, t_pad,
                                             gen)}
+    else:  # simple_fc: no kernel
+        rows = {}
 
     csv = {}
     for dt_name in DTYPES:
@@ -1550,15 +1634,81 @@ def check_grads_against_cpu(name, batch, where="", **flags):
     return grads
 
 
-def train_frames_per_sec(card, name, feed, dt_name):
+def check_relu_grads(batch, name="simple_fc"):
+    """simple_fc's one-step check on the card.  Its ReLUs make the plain
+    card-against-CPU comparison depend on branches: a pre-activation
+    within f32 rounding of 0 can land on the other side of the ReLU on the
+    card than on the CPU, and that frame's whole gradient term then moves
+    (on the chip dataset's smallest batch one such ReLU moves ``fc1.w`` by
+    2.2e-3 of its largest element).  So the card's f32 step
+    (the Trainer's loss, NLL over the raw logits) is held against a float64
+    step on the CPU that takes the card's own ReLU branches, within
+    ``GRAD_TOL``; the plain f32 comparison, the branches that differ from
+    float64's own and the largest float64 pre-activation among them are
+    logged."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.losses import nll_loss
+
+    state = build_model(name, N_CLASS,
+                        generator=torch.Generator().manual_seed(2)).state_dict()
+    x = torch.from_numpy(np.asarray(batch[0], np.float32))
+    targets = torch.from_numpy(np.asarray(batch[2], np.int64))
+
+    def step(device, dtype, masks=None):
+        model = build_model(name, N_CLASS)
+        model.load_state_dict(state)
+        model = model.to(device, dtype)
+        h, branches, pre = x.to(device, dtype), [], []
+        layers = (model.fc1, model.fc2, model.fc3, model.fc4)
+        for i, layer in enumerate(layers):
+            h = layer(h)
+            if i + 1 < len(layers):
+                branches.append((h > 0).cpu())
+                pre.append(h.detach().double().cpu())
+                h = (h * masks[i].to(device, dtype) if masks is not None
+                     else torch.relu(h))
+        nll_loss(h.to(torch.promote_types(dtype, torch.float32)),
+                 targets.to(device)).backward()
+        return ({k: p.grad.detach().double().cpu()
+                 for k, p in model.named_parameters()}, branches, pre)
+
+    def worst(got, want):
+        return max((((got[k] - w).abs().max() / w.abs().max()).item(), k)
+                   for k, w in want.items())
+
+    card, card_branches, _ = step("cuda", torch.float32)
+    cpu, _, _ = step("cpu", torch.float32)
+    _, f64_branches, f64_pre = step("cpu", torch.float64)
+    ref, _, _ = step("cpu", torch.float64, card_branches)
+    differ = [a != b for a, b in zip(card_branches, f64_branches)]
+    flips = [int(d.sum()) for d in differ]
+    flip_pre = max((float(p[d].abs().max()) for p, d in zip(f64_pre, differ)
+                    if d.any()), default=0.0)
+    err, key = worst(card, ref)
+    plain, plain_key = worst(card, cpu)
+    log(f"[train] {name} one f32 step, B={x.shape[0]} T={x.shape[1]}: card "
+        f"against a float64 CPU step on the card's ReLU branches: worst "
+        f"gradient difference / max|gradient| {err:.3g} ({key}; tol "
+        f"{GRAD_TOL}); card against the CPU's f32 step {plain:.3g} "
+        f"({plain_key}); ReLUs whose branch differs from float64's, by "
+        f"layer: {flips}, their float64 pre-activations at most "
+        f"{flip_pre:.3g} in magnitude")
+    if not err <= GRAD_TOL:
+        raise AssertionError(f"{name}: the card's step disagrees with the "
+                             "CPU's on the same branches")
+
+
+def train_frames_per_sec(card, name, feed, dt_name, **flags):
     """Host clock around one epoch of synchronised train steps on prepared
-    batches, after one warm-up step."""
+    batches, after one warm-up step (the model built with ``flags``)."""
     import torch
 
     from pytorch_video_action_tpu_torch.models import build_model
     from pytorch_video_action_tpu_torch.train.loop import Trainer
 
-    model = build_model(name, N_CLASS,
+    model = build_model(name, N_CLASS, **flags,
                         generator=torch.Generator().manual_seed(3))
     trainer = Trainer(model, N_CLASS, seed=0, compute_dtype=dt_name)
     ts = trainer.init_state()
@@ -1571,16 +1721,18 @@ def train_frames_per_sec(card, name, feed, dt_name):
         trainer.train_step(ts, b)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    log(f"[train] {name} train step {dt_name}: {frames} frames in "
+    log(f"[train] {name}{' ' + str(flags) if flags else ''} train step "
+        f"{dt_name}: {frames} frames in "
         f"{len(batches)} steps in {seconds:.4f} s = {frames / seconds:.0f} "
         f"frames/s (batch {TRAIN_BATCH}, bucket 128) on {card}")
 
 
-def train_cli_run(root, name, dt_name, expect, flags=()):
-    """The train CLI on the card (with the extra ``flags``), with every
-    kernel's count set to 0 just before it and read just after.  Checks
-    the launch counts against ``expect`` and the loss; returns ``(best dev
-    accuracy, launches)``."""
+def train_cli_run(root, name, dt_name, expect, flags=(), model_flag=True):
+    """The train CLI on the card (with the extra ``flags``; without
+    ``--model`` unless ``model_flag``: simple_fc is the CLI's default), with
+    every kernel's count set to 0 just before it and read just after.
+    Checks the launch counts against ``expect`` and the loss; returns
+    ``(best dev accuracy, launches)``."""
     from pytorch_video_action_tpu_torch.cli import train_cli
 
     metrics = os.path.join(root, f"train_{name}_{dt_name}"
@@ -1588,7 +1740,8 @@ def train_cli_run(root, name, dt_name, expect, flags=()):
     reset_counters()
     t0 = time.time()
     best = train_cli.main([
-        "--model", name, "--epoch", str(TRAIN_EPOCHS), "--batchsize",
+        *(["--model", name] if model_flag else []), "--epoch",
+        str(TRAIN_EPOCHS), "--batchsize",
         str(TRAIN_BATCH), "--split", "0", "--data_dir",
         os.path.join(root, "data"), "--annot_path", root, "--dtype",
         dt_name, "--device", "cuda", "--metrics_jsonl", metrics, *flags])
@@ -1597,7 +1750,7 @@ def train_cli_run(root, name, dt_name, expect, flags=()):
     epochs = epoch_records(metrics)
     loss = [r["train_loss"] for r in epochs]
     log(f"[train] {name}{''.join(' ' + f for f in flags)} cuda {dt_name} "
-        f"train CLI: "
+        f"train CLI{'' if model_flag else ' (no --model)'}: "
         f"{TRAIN_EPOCHS} epochs in "
         f"{seconds:.1f} s, train loss {loss}, dev segment accuracy "
         f"{[r['dev_segment_acc'] for r in epochs]}, CLI frames/s "
@@ -1614,7 +1767,9 @@ def train_cli_run(root, name, dt_name, expect, flags=()):
 def phase_train(card: str, root: str, name: str):
     """The training slice of ``name`` on the dataset under ``root`` (the
     cwd).  Returns the launches of its CLI runs and its kernel rows, each
-    by kernels-line entry, and the best dev accuracy of its f32 run."""
+    by kernels-line entry, and the best dev accuracy of its f32 run.
+    ctcloss runs bigru's kernels at bigru's shapes, and simple_fc none: no
+    kernel rows of their own."""
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
@@ -1641,7 +1796,7 @@ def phase_train(card: str, root: str, name: str):
     elif MODELS[name][0] == "scan":
         rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen)
                           for dt in DTYPES)
-    elif cell is not None:
+    elif cell is not None and name != "ctcloss":
         train_rows, bwd_rows = check_train_layers(cell, "main path", lens,
                                                   t_pad, gen)
         rows = {cell.fwd_name + "_train": train_rows,
@@ -1657,7 +1812,9 @@ def phase_train(card: str, root: str, name: str):
     launches, bests = {}, {}
     dtypes = ("float32",) if name == "win_attn" else DTYPES
     for dt_name in dtypes:
-        best, got = train_cli_run(root, name, dt_name, expect)
+        best, got = train_cli_run(
+            root, name, dt_name, expect,
+            model_flag=not (name == "simple_fc" and dt_name == "float32"))
         bests[dt_name] = best
         add_launches(launches, got)
         ckpt = f"{name}_{best:.2f}_dev"
@@ -1668,8 +1825,11 @@ def phase_train(card: str, root: str, name: str):
             # checkpoint serves under the name mstcn (phase_slice).  The
             # inference CLIs build vanilla_lstm at H=64 and 1 layer, which
             # a checkpoint of the train CLI's defaults does not fit, as in
-            # JAX (phase_vanilla_serving trains one that does).
+            # JAX (phase_vanilla_serving trains one that does).  ctcloss is
+            # no inference name; its checkpoint loads into the model.
             log(f"[train] {name}: best dev segment accuracy {best:.2f}")
+            if name == "ctcloss":
+                check_ctc_checkpoint(best, ckpt)
             continue
         if not os.path.exists(os.path.join("models", f"{ckpt}.npz")):
             raise AssertionError(f"no checkpoint {ckpt}")
@@ -1692,7 +1852,10 @@ def phase_train(card: str, root: str, name: str):
     batch = (batch[0][:, :keep], np.minimum(batch[1], keep),
              batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
              batch[3][:, :keep])
-    grads = check_grads_against_cpu(name, batch)
+    if name == "simple_fc":
+        check_relu_grads(batch)
+    else:
+        grads = check_grads_against_cpu(name, batch)
     if name == "attn":
         with blockwise_min_t(256):
             check_grads_against_cpu(name, batch, " flash path")
@@ -1710,6 +1873,26 @@ def phase_train(card: str, root: str, name: str):
     for dt_name in dtypes:
         train_frames_per_sec(card, name, train_feed, dt_name)
     return launches, rows, bests["float32"]
+
+
+def check_ctc_checkpoint(best, ckpt):
+    """ctcloss's checkpoint, when the CLI wrote one, loads into the port's
+    model.  The CLI writes one only once the dev segment accuracy rises
+    above 0, as the JAX CLI does; a CTC model's frames vote mostly for the
+    blank (class n_class), which no segment has, so two epochs may leave
+    it at 0 and write none."""
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.models.params import load_jax_params
+    from pytorch_video_action_tpu_torch.train.checkpoint import load_params
+
+    path = os.path.join("models", f"{ckpt}.npz")
+    if best <= 0.0:
+        log(f"[train] ctcloss: dev segment accuracy 0 in every epoch, so no "
+            f"checkpoint was written (as the JAX CLI does)")
+        return
+    load_jax_params(build_model("ctcloss", N_CLASS), "ctcloss",
+                    *load_params(path, with_state=True))
+    log(f"[train] checkpoint {path} loads into ctcloss")
 
 
 def largest_batch(feed):
@@ -1791,6 +1974,99 @@ def bilstm_wide_step(train_feed) -> dict:
     return got
 
 
+def phase_gru_wide(card: str, root: str):
+    """The bidirectional GRU at widths the fused layer kernel refuses, on the
+    GRU scan (rows 9-12): its four kernels held at the largest train batch
+    (the BiGRU at hidden_dim_1 512, W=256, the batch's own lengths, f32 and
+    bf16); one Trainer step of each model of GRU_WIDE on that batch
+    (launch counts: a saving forward and a saved-gates backward a
+    direction a layer; attn's flash kernels besides), and one more of the
+    BiGRU at 512 with the recompute backward (an eval-form forward and a
+    recompute backward a direction a layer), its gradients against the
+    saved-gates step's; each model's step against the CPU on a small
+    batch; the eval forward of the BiGRU at 512 over the test videos (one
+    eval-form scan a direction a layer a batch); frames/s of each.
+    Returns the launches and the kernel rows by kernels-line entry."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.predict import (
+        forward_batches, frame_predictions)
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
+
+    train_feed, _ = train_feeds(root)
+    batch = largest_batch(train_feed)
+    b, t_pad = batch[0].shape[:2]
+    gen = torch.Generator().manual_seed(8)
+    rows = merge_rows(check_scan("main path", batch[1].tolist(), t_pad, 256,
+                                 dt, gen, cell="gru") for dt in DTYPES)
+    launches = {}
+    small = (batch[0][:3, :300], np.minimum(batch[1][:3], 300),
+             batch[2].reshape(b, -1)[:3, :300].reshape(-1),
+             batch[3][:3, :300])
+    saved = None
+    for name, configs in GRU_WIDE.items():
+        layers = 2 * (4 if name == "bigru" else 1)  # directions x layers
+        expect = {"gru_scan_fwd_save": layers, "gru_scan_bwd_saved": layers}
+        if name == "attn":  # padded T >= 1024: the flash path
+            from pytorch_video_action_tpu_torch.models import attention
+
+            assert t_pad >= attention.BLOCKWISE_MIN_T
+            expect["flash_fwd"] = 1
+            expect.update(dict.fromkeys(
+                ["flash_bwd_fused"] if use_fused(b, t_pad)
+                else ["flash_bwd_dkdv", "flash_bwd_dq"], 1))
+        for cfg in configs:
+            flags = {"cfg_overrides": cfg}
+            got, grads = one_step(name, batch, expect, **flags)
+            add_launches(launches, got)
+            saved = saved or grads
+            check_grads_against_cpu(name, small, f" {cfg}", **flags)
+            train_frames_per_sec(card, name, train_feed, "float32", **flags)
+    wide = {"cfg_overrides": GRU_WIDE["bigru"][0]}
+    train_frames_per_sec(card, "bigru", train_feed, "bfloat16", **wide)
+    RS.RECOMPUTE_BWD = True
+    try:
+        got, grads = one_step("bigru", batch, {"gru_scan_fwd": 8,
+                                               "gru_scan_bwd": 8}, **wide)
+    finally:
+        RS.RECOMPUTE_BWD = False
+    add_launches(launches, got)
+    worst = max(((grads[k] - v).abs().max() / v.abs().max()).item()
+                for k, v in saved.items())
+    log(f"[train] bigru {wide} recompute against saved-gates backward: "
+        f"worst gradient difference / max|gradient| {worst:.3g} (tol "
+        f"{TOL['float32']})")
+    if not worst <= TOL["float32"]:
+        raise AssertionError("the two GRU scan backwards' gradients differ")
+
+    feats = VideoDataset(data_dir="data", annot_path=root, part="test",
+                         split=1, mode=None, verbose=False).features
+    model = build_model("bigru", N_CLASS, **wide,
+                        generator=torch.Generator().manual_seed(9)).to(
+                            "cuda").eval()
+    expect = {"gru_scan_fwd": 8 * len(forward_batches(feats))}
+    frame_predictions(model, feats)  # warm-up
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame_predictions(model, feats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = nonzero(counters())
+    add_launches(launches, got)
+    n_frames = sum(len(f) for f in feats)
+    log(f"[slice] bigru {wide} forward float32: {n_frames} frames of "
+        f"{len(feats)} test videos in {seconds:.4f} s = "
+        f"{n_frames / seconds:.0f} frames/s (batch 8, bucket 128) on {card}; "
+        f"launches {got} (expected {expect})")
+    if got != expect:
+        raise AssertionError("GRU scan launch counts do not match the "
+                             "forward batches")
+    return launches, rows
+
+
 MSTCN_PROBE = "stages.1.layers.12.conv_dilated.w"
 
 
@@ -1856,7 +2132,7 @@ def check_mstcn_grad_f64(batch, grads):
 
     kernel = cpu = 0.0
     for args, out in calls:
-        w_d, b_d, w_p, x, mask, dy, dilation, keep, seed = args
+        w_d, b_d, w_p, x, mask, dy, dilation, keep, seed, _ = args
         tensors = (w_d, b_d, w_p, x)
         want = CV.layer_bwd_ref(*(t.double().cpu() for t in tensors),
                                 mask.cpu(), dy.double().cpu(), dilation,
@@ -2018,16 +2294,32 @@ def main() -> int:
         add_launches(launches, got)
         add_rows(new_rows)
         log(f"[slice] vanilla_lstm serving phase in {time.time() - t0:.1f} s")
+        # simple_fc likewise, from the checkpoint the train CLI writes
+        t0 = time.time()
+        got, new_rows, best = phase_train(card, root, "simple_fc")
+        add_launches(launches, got)
+        log(f"[train] simple_fc training phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        ckpt, got, new_rows = phase_slice(card, root, "simple_fc",
+                                          f"simple_fc_{best:.2f}_dev")
+        ckpts.append(ckpt)
+        add_launches(launches, got)
+        log(f"[slice] simple_fc serving phase in {time.time() - t0:.1f} s")
         t0 = time.time()
         add_launches(launches, phase_ensemble(root, ckpts[::-1]))
         log(f"[slice] ensemble phase in {time.time() - t0:.1f} s")
         t0 = time.time()
-        for name in ("bigru", "bilstm", "attn", "win_attn"):
+        for name in ("bigru", "ctcloss", "bilstm", "attn", "win_attn"):
             t1 = time.time()
             got, new_rows, _ = phase_train(card, root, name)
             add_launches(launches, got)
             add_rows(new_rows)
             log(f"[train] {name} training phase in {time.time() - t1:.1f} s")
+        t1 = time.time()
+        got, new_rows = phase_gru_wide(card, root)
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[train] GRU scan phase in {time.time() - t1:.1f} s")
         # its own tree and cwd: the feature cache (data-comp/) is per cwd
         lm_root = os.path.join(root, "lm")
         os.makedirs(lm_root)
@@ -2043,7 +2335,7 @@ def main() -> int:
                      PALLAS + cell.fwd_replaces),
                     (cell.bwd_name, cell.bwd_src, PALLAS + cell.bwd_replaces)]
     entries += [(name, CSRC + src, SCAN_PALLAS + line)
-                for name, (src, line) in SCAN.items()]
+                for name, (src, line) in (*SCAN.items(), *GSCAN.items())]
     entries += [(name, CSRC + src, FLASH_PALLAS + line)
                 for name, (src, line) in FLASH.items()]
     entries += [(name, CSRC + src, CONV_PALLAS + line)

@@ -3,26 +3,27 @@
 plus ``--device {cuda,cpu}`` (``cuda`` by default; raises without a card).
 
 Run: ``python -m pytorch_video_action_tpu_torch.cli.train_cli --model bigru
---epoch 10 --batchsize 8`` (or ``--model vanilla_lstm``, ``--model
-bilstm``, ``--model bilstm_lm``, with the ``--lstm_*`` and ``--pred_mode``
-flags, ``--model attn`` with ``--attn_head`` and ``--pred_mode``, ``--model
+--epoch 10 --batchsize 8`` (or ``--model simple_fc``, the default,
+``--model ctcloss``, ``--model vanilla_lstm``, ``--model bilstm``,
+``--model bilstm_lm``, with the ``--lstm_*`` and ``--pred_mode`` flags,
+``--model attn`` with ``--attn_head`` and ``--pred_mode``, ``--model
 win_attn`` with ``--attn_head``, ``--model ms_tcn``).  Each epoch prints
-the reference's
-loss and dev accuracy lines and saves ``models/{model}_{acc:.2f}_dev.npz``
-when the dev segment accuracy improves; a bilstm_lm checkpoint carries its
-BatchNorm running stats under ``__state__/``.  The inference CLIs serve an
-ms_tcn checkpoint under the name ``mstcn_{acc:.2f}_dev``, as in JAX.
+the reference's loss and dev accuracy lines and saves
+``models/{model}_{acc:.2f}_dev.npz`` when the dev segment accuracy
+improves; a bilstm_lm checkpoint carries its BatchNorm running stats under
+``__state__/``.  The inference CLIs serve an ms_tcn checkpoint under the
+name ``mstcn_{acc:.2f}_dev``, as in JAX.
 
 Accepted but not served yet, each raising ``NotImplementedError`` naming
 its ROADMAP item before the data loads: ``--data_parallel N>1`` and
 ``--seq_parallel N>1`` (15), ``--resume`` and ``--cache_device`` (14),
-``--lm_path`` (13), simple_fc and ctcloss (12), ``--train_mode segment``
-and ``cont`` (6).
+``--lm_path`` (13), ``--train_mode segment`` and ``cont`` (6).
 ``--profile_dir`` raises naming item 14 when the first epoch starts.
-``--use_pallas`` changes nothing: on the card the hand-written kernels
-always run, and ms_tcn trains with the default path's dropout stream (one
-seed a layer over the whole ``[B, T, C]`` batch), not the per-video stream
-that the JAX package's ``--use_pallas`` draws.
+``--use_pallas`` selects, as in the JAX package, ms_tcn's per-video
+dropout stream (one seed a video a layer, the TPU layer kernel's own
+form) over the default path's (one seed a layer over the whole ``[B, T,
+C]`` batch); it changes nothing else: on the card the hand-written
+kernels always run.
 """
 
 from __future__ import annotations
@@ -101,8 +102,9 @@ def parse_arguments(argv=None):
                              '1 = exact-length parity bucketing')
     parser.add_argument('--use_pallas', type=bool, nargs='?', const=True,
                         default=False,
-                        help='accepted for compatibility; changes nothing: '
-                             'on the card the hand-written kernels always run')
+                        help="ms_tcn: the Pallas layer's per-video dropout "
+                             'stream, as in JAX; nothing else changes: on '
+                             'the card the hand-written kernels always run')
     parser.add_argument('--data_parallel', type=int, default=0,
                         help='Shard the batch over this many devices (0 = off)')
     parser.add_argument('--seq_parallel', type=int, default=0,
@@ -190,6 +192,7 @@ def main(argv=None):
                         lstm_hidden1=args.lstm_hidden1,
                         lstm_hidden2=args.lstm_hidden2,
                         attn_head=args.attn_head,
+                        use_pallas=args.use_pallas,
                         generator=torch.Generator().manual_seed(args.seed))
     trainer = Trainer(model, n_class, lr=args.lr,
                       lr_step_size=args.lr_step_size,

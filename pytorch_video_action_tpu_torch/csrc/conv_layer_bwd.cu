@@ -1,5 +1,6 @@
 // The VJP of one MS-TCN dilated residual layer, train form with the global
-// dropout stream, for Hopper (sm_90a); deterministic (no atomics).
+// or the per-video dropout stream, for Hopper (sm_90a); deterministic (no
+// atomics).
 //
 // Replaces: pytorch_video_action_tpu/ops/conv_pallas.py _layer_bwd_kernel
 //   (pallas_call at :528, in _layer_bwd_call), launched from
@@ -8,8 +9,10 @@
 // Computes, for x, dy [B, T, 64], the layer's weights and the frame mask
 // [B, T] (f32), recomputing the forward from x:
 //   g = x[t-d] w0 + x[t] w1 + x[t+d] w2 + b_d,  h = relu(g),
-//   dout = drop(dy * mask) (the forward's keep bits, idx = b*T*64 + t*64
-//   + c, kept values scaled by 1/keep),
+//   dout = drop(dy * mask) (the forward's keep bits: idx = b*T*64 + t*64
+//   + c with one key a layer, the global stream, or idx = t*64 + c with
+//   the key of seeds[b], the per-video stream; kept values scaled by
+//   1/keep),
 //   dw_p = h^T dout, db_p = sum dout, dg = (g > 0) dout w_p^T,
 //   db_d = sum dg, dw0 = x[t-d]^T dg, dw1 = x^T dg, dw2 = x[t+d]^T dg,
 //   dx = dy * mask + dg w1^T + dg[t+d] w0^T + dg[t-d] w2^T
@@ -53,13 +56,14 @@ struct BwdArgs {
   const void* wd;
   const void* bd;
   const void* wp;
+  const int* seeds;  // [B] uint32 bits, dropout 2 only
   float* dg;    // [B, T, 64] f32 scratch
   float* part;  // [blocks, kGradFloats] f32 scratch
   void* dx;
   int B, Tn, d;
   uint32_t key, thresh;
   float scale;
-  int dropout;
+  int dropout;  // 0 off, 1 the global stream, 2 the per-video stream
 };
 
 template <typename T>
@@ -100,7 +104,11 @@ conv_bwd_dg_kernel(BwdArgs a) {
     const T* xb = static_cast<const T*>(a.x) + b * video;
     const T* dyb = static_cast<const T*>(a.dy) + b * video;
     const float* mask_b = a.mask + (size_t)b * a.Tn;
-    const uint32_t idx0 = (uint32_t)b * (uint32_t)a.Tn * (uint32_t)kC;
+    const bool per_video = a.dropout == 2;
+    const uint32_t key =
+        per_video ? stream_key((uint32_t)a.seeds[b]) : a.key;
+    const uint32_t idx0 =
+        per_video ? 0u : (uint32_t)b * (uint32_t)a.Tn * (uint32_t)kC;
     __syncthreads();  // the previous tile's slabs are read
     load_slab(xc, xb, t0, a.Tn);
     if (side) {
@@ -127,7 +135,7 @@ conv_bwd_dg_kernel(BwdArgs a) {
           v = to_f(dyb[(size_t)t * kC + c]) * mask_b[t];
           if (a.dropout) {
             const uint32_t idx = idx0 + (uint32_t)t * (uint32_t)kC + c;
-            v = fmix32(idx ^ a.key) < a.thresh ? v * a.scale : 0.0f;
+            v = fmix32(idx ^ key) < a.thresh ? v * a.scale : 0.0f;
           }
         }
         ds[r * kLd + c] = v;
@@ -279,22 +287,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Device pointers of contiguous tensors:
 // x, dy, dx [B, T, 64], w_d [3, 64, 64], b_d [64], w_p [64, 64] in dtype;
-// mask [B, T] f32; scratch dg [B, T, 64] and part [blocks, 4*64*64 + 128]
-// f32; output grads [4*64*64 + 128] f32 = dw0, dw1, dw2, dw_p, db_d, db_p.
-// 1 <= blocks; 1 <= d (d >= T takes the center tap); dropout with `key`,
-// `thresh` and `scale` as the forward's global stream.  Launch on
-// `stream`; return cudaGetLastError() (0 on success).
+// mask [B, T] f32; seeds [B] int32 (uint32 bits, dropout 2 only); scratch
+// dg [B, T, 64] and part [blocks, 4*64*64 + 128] f32; output grads
+// [4*64*64 + 128] f32 = dw0, dw1, dw2, dw_p, db_d, db_p.  1 <= blocks; 1 <=
+// d (d >= T takes the center tap); dropout 0 off, 1 with `key` (the
+// forward's global stream), 2 with the keys of `seeds` (its per-video
+// stream), `thresh` and `scale` as the forward's.  Launch on `stream`;
+// return cudaGetLastError() (0 on success).
 int conv_layer_bwd(int dtype, const void* x, const float* mask,
                    const void* dy, const void* wd, const void* bd,
-                   const void* wp, float* dg, float* part, void* dx,
+                   const void* wp, const int* seeds, float* dg, float* part,
+                   void* dx,
                    float* grads, int blocks, int B, int Tn, int d,
                    unsigned int key, unsigned int thresh, float scale,
                    int dropout, void* stream) {
   if (B <= 0 || Tn <= 0 || d <= 0 || blocks <= 0 || !dg || !part || !dx ||
-      !grads)
+      !grads || dropout < 0 || dropout > 2 || (dropout == 2 && !seeds))
     return (int)cudaErrorInvalidValue;
-  const BwdArgs a{x,  mask, dy, wd,  bd,     wp,    dg,     part,
-                  dx, B,    Tn, d,   key,    thresh, scale, dropout};
+  const BwdArgs a{x,  mask, dy, wd,  bd,  wp,     seeds, dg,     part,
+                  dx, B,    Tn, d,   key, thresh, scale, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)run<float>(a, grads, blocks, s);
   if (dtype == 1) return (int)run<__nv_bfloat16>(a, grads, blocks, s);

@@ -1,11 +1,12 @@
-// Device code shared by the LSTM scan kernels (lstm_scan_fwd.cu,
-// lstm_scan_bwd.cu) for Hopper (sm_90a): the chain's geometry on a thread
-// block cluster, its shared-memory budget, the per-step product of a few
-// batch rows with a weight slice, and the cluster launch.
+// Device code shared by the LSTM and GRU scan kernels (lstm_scan_fwd.cu,
+// lstm_scan_bwd.cu, gru_scan_fwd.cu, gru_scan_bwd.cu) for Hopper (sm_90a):
+// the chain's geometry on a thread block cluster, its shared-memory
+// budget, the per-step product of a few batch rows with a weight slice,
+// and the cluster launch.
 //
 // A chain carries up to kMaxRows batch rows through T steps on a cluster
 // of NC blocks.  Block r owns hidden units [r*U, r*U + ucnt), U =
-// ceil(W / NC), and the four gate columns of each; a step's per-unit
+// ceil(W / NC), and the gate columns of each (four LSTM, three GRU); a step's per-unit
 // values (the new h forward, the gate gradients backward) are written into
 // every block's shared memory through distributed shared memory, and one
 // cluster barrier a step publishes them.  Every block has the same shared

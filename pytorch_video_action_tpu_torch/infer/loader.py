@@ -5,13 +5,13 @@ Contract (reference ``inference.py:81-105``): checkpoint filenames are
 ``{model}_{acc:.2f}_dev``; the model type is
 ``'_'.join(name.split('.')[0].split('_')[:-1])`` and the model is built with
 default hyperparameters; ``attn_head`` is handed to ``build_model`` as
-the JAX loader hands it (attn's defaults keep 4 heads).  bigru, bilstm,
-attn, mstcn and vanilla_lstm checkpoints are served.  The train CLI names
+the JAX loader hands it (attn's defaults keep 4 heads).  Every inference
+name is served: simple_fc, vanilla_lstm, bilstm, bigru, attn and mstcn.
+The train CLI names
 an ms_tcn checkpoint ``ms_tcn_...``, which is not an inference name: it is
 skipped as "Unknown model type", as in JAX, and serves once renamed
 ``mstcn_...``.
-A type the port has not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item.  A checkpoint that cannot be read (missing, not an npz,
+A checkpoint that cannot be read (missing, not an npz,
 truncated) is skipped with the error and a "not found" line, as in JAX.
 """
 

@@ -141,13 +141,17 @@ class WinAttnConfig:
     n_class: int = 48
     dropout_rate: float = 0.3
     window_size: int = 5
+    # True: keys past each video's length are masked, as the JAX default;
+    # False attends the zero-pad tail and the batch padding, as the
+    # reference does (networks.py:221; JAX's parity-test setting)
+    mask_padding: bool = True
 
 
 class WinAttn(nn.Module):
     """Strided windowed attention (``apply_win_attn``, reference
     ``networks.py:217-240``): for ``f`` in ``range(w, T, w)`` attend over
     frames ``[f-w, f+w]`` (zero past T), keys past each video's length
-    masked, and write ``output`` of the window's centre at row ``f - w``;
+    masked (unless ``mask_padding`` is off), and write ``output`` of the window's centre at row ``f - w``;
     every other row stays 0 before the f32 log-softmax.  The windows run as
     one batch of ``2w + 1``-frame sequences, on the dense path.
     ``combine_output`` is declared but unused, as in the reference, so
@@ -182,8 +186,8 @@ class WinAttn(nn.Module):
         n_win = centers.numel()
         win = xp[:, idx].reshape(b * n_win, 2 * w + 1, e)
         lengths = lengths.to(device=x.device, dtype=torch.int64)
-        key_mask = (idx[None] < lengths[:, None, None]).reshape(
-            b * n_win, 2 * w + 1)
+        key_mask = ((idx[None] < lengths[:, None, None]).reshape(
+            b * n_win, 2 * w + 1) if cfg.mask_padding else None)
         feat = mha_self_attention(self.attention, win, cfg.num_heads,
                                   key_mask=key_mask,
                                   dropout_rate=cfg.dropout_rate, train=drop,

@@ -9,7 +9,10 @@ cross-entropy.
 The train form runs each layer through ``DilatedResidualFn`` (the layer
 kernel and its backward on the card), with the global dropout stream and
 one seed a layer, stage-major: the JAX default path's stream, so the same
-seeds give the JAX ``Trainer``'s masks.  The eval form runs each stage's
+seeds give the JAX ``Trainer``'s masks.  With ``use_pallas`` (the train
+CLI's ``--use_pallas``, as in JAX) it draws the per-video stream instead,
+the JAX package's Pallas layer's (``ops/conv.py:366-375``): each layer's
+seed is a sequence of one uint32 a video.  The eval form runs each stage's
 layers in one ``fused_stage`` launch; with gradients enabled it takes the
 per-layer path instead, whose backward is a kernel.
 """
@@ -34,6 +37,7 @@ class MSTCNConfig:
     num_f_maps: int = 64
     n_class: int = 48
     dropout_rate: float = 0.5
+    use_pallas: bool = False  # the per-video dropout stream
 
 
 class DilatedResidualLayer(nn.Module):
@@ -53,16 +57,20 @@ class Stage(nn.Module):
             for _ in range(num_layers))
         self.conv_out = init_conv1d(num_f_maps, n_class, 1, generator)
 
-    def forward(self, x, maskf, mask, keep: float, seeds, train: bool):
+    def forward(self, x, maskf, mask, keep: float, seeds, train: bool,
+                per_video: bool):
         """``maskf`` f32 ``[B, T]`` for the layers, ``mask`` ``[B, T, 1]``
-        in x's dtype; ``seeds`` one a layer when ``keep < 1``."""
+        in x's dtype; ``seeds`` one a layer when ``keep < 1``: a uint32
+        (the global stream) or, with ``per_video``, one a video."""
         out = conv1x1(self.conv_in, x)
         if train or torch.is_grad_enabled():
             for i, layer in enumerate(self.layers):
+                seed = None if seeds is None else seeds[i]
                 out = DilatedResidualFn.apply(
                     layer.conv_dilated.w, layer.conv_dilated.b,
                     layer.conv_1x1.w, layer.conv_1x1.b, out, maskf, 2 ** i,
-                    keep, None if seeds is None else seeds[i])
+                    keep, None if per_video else seed,
+                    seed if per_video else None)
         else:
             out = fused_stage(
                 torch.stack([l.conv_dilated.w for l in self.layers]),
@@ -88,15 +96,20 @@ class MSTCN(nn.Module):
 
     @property
     def n_dropout_sites(self) -> int:
-        """Seeds a ``train=True`` forward takes: one a layer, stage-major."""
+        """Seeds a ``train=True`` forward takes: one a layer, stage-major
+        (each a sequence of one a video with :attr:`per_video_dropout`)."""
         return self.cfg.num_stages * self.cfg.num_layers
+
+    @property
+    def per_video_dropout(self) -> bool:
+        return self.cfg.use_pallas
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, *,
                 train: bool = False, seeds=None) -> torch.Tensor:
         """``x [B, T, dim]`` -> logits ``[B, T, n_class]`` (stage max).
 
         ``seeds`` (train only): layer i of stage s takes ``seeds[s *
-        num_layers + i]``."""
+        num_layers + i]``, ``B`` of them with ``use_pallas``."""
         drop = dropout_on(self, train, seeds)
         keep = 1.0 - self.cfg.dropout_rate if drop else 1.0
         maskf = length_mask(lengths, x.shape[1]).to(torch.float32)
@@ -106,6 +119,7 @@ class MSTCN(nn.Module):
         for s, stage in enumerate(self.stages):
             inp = x if s == 0 else torch.softmax(out, dim=-1) * mask
             out = stage(inp, maskf, mask, keep,
-                        seeds[s * n:(s + 1) * n] if drop else None, train)
+                        seeds[s * n:(s + 1) * n] if drop else None, train,
+                        self.cfg.use_pallas)
             acc = out if acc is None else torch.maximum(acc, out)
         return acc

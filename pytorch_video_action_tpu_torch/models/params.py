@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-PORTED = ("bigru", "vanilla_lstm", "bilstm", "bilstm_lm", "attn", "win_attn",
-          "ms_tcn", "mstcn")
+PORTED = ("simple_fc", "bigru", "ctcloss", "vanilla_lstm", "bilstm",
+          "bilstm_lm", "attn", "win_attn", "ms_tcn", "mstcn")
 # each stateful model's buffers: the leaves of JAX's ``model_state`` tree
 STATE_KEYS = {"bilstm_lm": ("bn1.mean", "bn1.var", "bn2.mean", "bn2.var")}
 

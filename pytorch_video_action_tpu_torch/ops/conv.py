@@ -157,10 +157,12 @@ def layer_ref(w_d, b_d, w_p, b_p, x, mask, dilation: int, keep: float = 1.0,
 
 
 def layer_bwd_ref(w_d, b_d, w_p, x, mask, dy, dilation: int,
-                  keep: float = 1.0, seed=None):
-    """Plain version of the layer's VJP with the global stream
-    (``conv_pallas.py::_layer_bwd_call``): recomputes ``g`` from ``x`` and
-    returns ``(dx, dw_d [3, C, C], db_d, dw_p [1, C, C], db_p)``."""
+                  keep: float = 1.0, seed=None, seeds=None):
+    """Plain version of the layer's VJP with the global stream of ``seed``
+    (``conv_pallas.py::_layer_bwd_call``) or the per-video stream of
+    ``seeds [B]`` (the VJP of ``conv_pallas.py::_fused``): recomputes ``g``
+    from ``x`` and returns ``(dx, dw_d [3, C, C], db_d, dw_p [1, C, C],
+    db_p)``."""
     b, t, _ = x.shape
     acc = _acc(x.dtype)
     xa, wd, wp = x.to(acc), w_d.to(acc), w_p[0].to(acc)
@@ -169,7 +171,7 @@ def layer_bwd_ref(w_d, b_d, w_p, x, mask, dy, dilation: int,
     dym = dy.to(acc) * _mask3(mask, b, t, acc)
     dout = dym
     if keep < 1.0:
-        km = keep_bits(dym.shape, keep, seed, None, x.device)
+        km = keep_bits(dym.shape, keep, seed, seeds, x.device)
         dout = torch.where(km, dym * (1.0 / keep),
                            torch.zeros((), dtype=acc, device=x.device))
     dw_p = torch.einsum("btc,bte->ce", h, dout)
@@ -220,9 +222,9 @@ _ARGTYPES = {
     # scale; mode; stream
     "conv_layer_fwd": [_I] + [_P] * 8 + [_I] * 3 + [_U] * 2
                       + [ctypes.c_float, _I, _P],
-    # dtype; x, mask, dy, w_d, b_d, w_p, dg, part, dx, grads; blocks; B, T,
-    # d; key, thresh; scale; dropout; stream
-    "conv_layer_bwd": [_I] + [_P] * 10 + [_I] * 4 + [_U] * 2
+    # dtype; x, mask, dy, w_d, b_d, w_p, seeds, dg, part, dx, grads;
+    # blocks; B, T, d; key, thresh; scale; dropout; stream
+    "conv_layer_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_U] * 2
                       + [ctypes.c_float, _I, _P],
     # dtype; x, mask, w_d, b_d, w_p, b_p, seeds, buf, y; B, T, L; thresh;
     # scale; dropout; stream
@@ -356,26 +358,31 @@ def bwd_blocks(b: int, t: int, sms: int) -> int:
 
 
 def dilated_residual_layer_bwd(w_d, b_d, w_p, x, mask, dy, dilation: int,
-                               keep: float = 1.0, seed=None):
+                               keep: float = 1.0, seed=None, seeds=None):
     """The layer VJP kernel's wrapper (TPU ``conv_pallas.py:415
-    _layer_bwd_kernel``), global stream: ``(dx, dw_d, db_d, dw_p, db_p)``.
-    A CPU tensor takes :func:`layer_bwd_ref`; a CUDA tensor launches the
-    kernels (``dg`` and per-block partials, their fixed-order sum, then
-    ``dx``) or raises.  ``launches`` counts launches."""
+    _layer_bwd_kernel``), global stream (``seed``) or per-video stream
+    (``seeds [B]``): ``(dx, dw_d, db_d, dw_p, db_p)``.  A CPU tensor takes
+    :func:`layer_bwd_ref`; a CUDA tensor launches the kernels (``dg`` and
+    per-block partials, their fixed-order sum, then ``dx``) or raises.
+    ``launches`` counts launches."""
     if x.device.type == "cpu":
-        return layer_bwd_ref(w_d, b_d, w_p, x, mask, dy, dilation, keep, seed)
+        return layer_bwd_ref(w_d, b_d, w_p, x, mask, dy, dilation, keep, seed,
+                             seeds)
     if x.device.type != "cuda":
         raise _no_kernel("dilated_residual_layer_bwd", x)
     b, t = _check("dilated_residual_layer_bwd", x,
                   [("dy", dy, x.shape), *_layer_weights(w_d, b_d, w_p)])
     maskf = _mask_f32("dilated_residual_layer_bwd", mask, b, t, x.device)
-    key, thresh, scale, on = 0, 0, 1.0, 0
+    key, thresh, scale, on, seed_t = 0, 0, 1.0, 0, None
     if keep < 1.0:
-        if seed is None:
+        thresh, scale = hashmask.threshold(keep), 1.0 / keep
+        if seeds is not None:
+            on, seed_t = 2, _seed_tensor(seeds, b, x.device)
+        elif seed is not None:
+            on, key = 1, hashmask.stream_key(seed)
+        else:
             raise ValueError("dilated_residual_layer_bwd: dropout needs a "
-                             "seed")
-        key, thresh = hashmask.stream_key(seed), hashmask.threshold(keep)
-        scale, on = 1.0 / keep, 1
+                             "seed or per-video seeds")
     blocks = bwd_blocks(b, t, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -385,7 +392,8 @@ def dilated_residual_layer_bwd(w_d, b_d, w_p, x, mask, dy, dilation: int,
     dx = torch.empty_like(x)
     _launch("conv_layer_bwd", x, _DTYPE_CODE[x.dtype], x.data_ptr(),
             maskf.data_ptr(), dy.data_ptr(), w_d.data_ptr(), b_d.data_ptr(),
-            w_p.data_ptr(), dg.data_ptr(), part.data_ptr(), dx.data_ptr(),
+            w_p.data_ptr(), 0 if seed_t is None else seed_t.data_ptr(),
+            dg.data_ptr(), part.data_ptr(), dx.data_ptr(),
             grads.data_ptr(), blocks, b, t, min(int(dilation), t), key,
             thresh, scale, on)
     dilated_residual_layer_bwd.launches += 1
@@ -439,17 +447,21 @@ fused_stage.launches = 0
 
 
 class DilatedResidualFn(torch.autograd.Function):
-    """The layer's train form with the global stream, backward through
-    :func:`dilated_residual_layer_bwd`: the counterpart of
-    ``conv.py::_layer_train_fused``'s ``custom_vjp``.  Saves ``x``, the
-    weights and the mask; the backward recomputes the rest."""
+    """The layer's train form, backward through
+    :func:`dilated_residual_layer_bwd`: with the global stream of ``seed``
+    the counterpart of ``conv.py::_layer_train_fused``'s ``custom_vjp``,
+    with the per-video stream of ``seeds [B]`` that of
+    ``conv_pallas.py::_fused``'s (the JAX package's ``use_pallas``).  Saves
+    ``x``, the weights and the mask; the backward recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, w_d, b_d, w_p, b_p, x, mask, dilation, keep, seed):
+    def forward(ctx, w_d, b_d, w_p, b_p, x, mask, dilation, keep, seed,
+                seeds=None):
         y = dilated_residual_layer(w_d, b_d, w_p, b_p, x, mask, dilation,
-                                   keep, seed)
+                                   keep, seed, seeds)
         ctx.save_for_backward(w_d, b_d, w_p, x, mask)
-        ctx.dilation, ctx.keep, ctx.seed = dilation, keep, seed
+        ctx.dilation, ctx.keep, ctx.seed, ctx.seeds = (dilation, keep, seed,
+                                                       seeds)
         return y
 
     @staticmethod
@@ -457,5 +469,5 @@ class DilatedResidualFn(torch.autograd.Function):
         w_d, b_d, w_p, x, mask = ctx.saved_tensors
         dx, dw_d, db_d, dw_p, db_p = dilated_residual_layer_bwd(
             w_d, b_d, w_p, x, mask, dy.contiguous(), ctx.dilation, ctx.keep,
-            ctx.seed)
-        return dw_d, db_d, dw_p, db_p, dx, None, None, None, None
+            ctx.seed, ctx.seeds)
+        return dw_d, db_d, dw_p, db_p, dx, None, None, None, None, None

@@ -16,16 +16,20 @@ strides ``(2H, T*2H, 1)``) follows every layer but the last.  Under
 autograd each layer runs its train form and backward kernel; the boundary
 glue is plain torch, differentiated by autograd.
 
-Where the fused LSTM layer kernel does not take ``H`` (``_HIDDEN``), the
-bidirectional LSTM stack runs JAX's per-layer fallback instead
-(``rnn.py:425-477``): per direction the projection ``x @ wi + bi + bh``,
-then :func:`rnn_scan.lstm_scan` (the backward direction on
+Where the fused layer kernels do not take ``H`` (``_HIDDEN``), the
+bidirectional GRU and LSTM stacks run JAX's per-layer fallback instead
+(``rnn.py:425-477``, its ``_scan_packed`` on ``rnn_pallas``'s scans): per
+direction the projection (GRU ``x @ wi + bi``, ``bh`` going to the scan;
+LSTM ``x @ wi + bi + bh``), then :func:`rnn_scan.gru_scan` or
+:func:`rnn_scan.lstm_scan` (the backward direction on
 :func:`masking.masked_reverse` of the input, its output reversed back),
 batch-major, with inter-layer hash dropout over ``[B, T, 2H]`` at default
-strides, the same stream as the time-major strides above.  The
-unidirectional stack (vanilla_lstm, no ``bwd`` parameters) is JAX's
-``rnn_apply`` loop of ``_run_direction`` (``rnn.py:507-528``) on the same
-scan, with hash dropout over ``[B, T, H]`` between layers.
+strides, the same stream as the time-major strides above.  JAX packs both
+directions into one ``[B, 2H]`` chain with a block-diagonal ``wh``; the
+function is the same.  The routing is by ``H`` alone, on the CPU as on the
+card.  The unidirectional stack (vanilla_lstm, no ``bwd`` parameters) is
+JAX's ``rnn_apply`` loop of ``_run_direction`` (``rnn.py:507-528``) on the
+LSTM scan, with hash dropout over ``[B, T, H]`` between layers.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from torch import nn
 from . import hashmask
 from .masking import length_mask, masked_reverse
 from .rnn_fused import _HIDDEN, gru_bidir_layer, lstm_bidir_layer
-from .rnn_scan import lstm_scan
+from .rnn_scan import gru_scan, lstm_scan
 
 
 class RNNDirection(nn.Module):
@@ -111,29 +115,26 @@ def _apply_stack(layer_fn, layers, x: torch.Tensor, lengths: torch.Tensor,
     return out.transpose(0, 1)
 
 
-def gru_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
-              dropout_rate: float = 0.0, train: bool = False,
-              seeds=None) -> torch.Tensor:
-    """The bidirectional GRU stack: ``x [B, T, D]`` -> ``[B, T, 2H]``."""
-    return _apply_stack(_gru_layer, layers, x, lengths, dropout_rate, train,
-                        seeds)
-
-
-def _scan_direction(p, x, lengths, mask_tm, reverse):
-    """One LSTM direction on the scan, ``x [B, T, D]`` -> masked ``[B, T,
-    H]`` (JAX ``_run_direction``)."""
+def _scan_direction(cell, p, x, lengths, mask_tm, reverse):
+    """One GRU or LSTM direction on the scan, ``x [B, T, D]`` -> masked
+    ``[B, T, H]`` (JAX ``_run_direction``)."""
     if reverse:
         x = masked_reverse(x, lengths)
-    xg = (torch.matmul(x, p.wi) + p.bi + p.bh).transpose(0, 1)
-    ys = lstm_scan(xg, p.wh, mask_tm).transpose(0, 1)
+    if cell == "gru":  # bh stays inside the reset gate
+        xg = (torch.matmul(x, p.wi) + p.bi).transpose(0, 1)
+        ys = gru_scan(xg, p.wh, p.bh, mask_tm)
+    else:
+        xg = (torch.matmul(x, p.wi) + p.bi + p.bh).transpose(0, 1)
+        ys = lstm_scan(xg, p.wh, mask_tm)
+    ys = ys.transpose(0, 1)
     return masked_reverse(ys, lengths) if reverse else ys
 
 
-def _scan_stack(layers, x, lengths, dropout_rate, train, seeds):
-    """The LSTM stack on the scan, batch-major: one direction per layer, or
-    two, concatenated, for a stack with ``bwd`` parameters; hash dropout
-    over ``[B, T, dirs*H]`` with default strides after every layer but the
-    last."""
+def _scan_stack(cell, layers, x, lengths, dropout_rate, train, seeds):
+    """The GRU or LSTM stack on the scan, batch-major: one direction per
+    layer, or two, concatenated, for a stack with ``bwd`` parameters; hash
+    dropout over ``[B, T, dirs*H]`` with default strides after every layer
+    but the last."""
     lengths = lengths.to(device=x.device, dtype=torch.int32)
     mask_tm = length_mask(lengths, x.shape[1]).t().to(x.dtype)[:, :, None]
     drop = train and dropout_rate > 0.0
@@ -142,8 +143,9 @@ def _scan_stack(layers, x, lengths, dropout_rate, train, seeds):
                          "inter-layer dropout site")
     out = x
     for li, layer in enumerate(layers):
-        out = torch.cat([_scan_direction(layer[k], out, lengths, mask_tm,
-                                         k == "bwd") for k in layer], dim=-1)
+        out = torch.cat([_scan_direction(cell, layer[k], out, lengths,
+                                         mask_tm, k == "bwd")
+                         for k in layer], dim=-1)
         if drop and li < len(layers) - 1:
             out = hashmask.hash_dropout(seeds[li], out, 1.0 - dropout_rate)
     return out
@@ -159,4 +161,16 @@ def lstm_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
     if "bwd" in layers[0] and layers[0]["fwd"].wh.shape[0] in _HIDDEN:
         return _apply_stack(_lstm_layer, layers, x, lengths, dropout_rate,
                             train, seeds)
-    return _scan_stack(layers, x, lengths, dropout_rate, train, seeds)
+    return _scan_stack("lstm", layers, x, lengths, dropout_rate, train,
+                       seeds)
+
+
+def gru_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
+              dropout_rate: float = 0.0, train: bool = False,
+              seeds=None) -> torch.Tensor:
+    """The bidirectional GRU stack: ``x [B, T, D]`` -> ``[B, T, 2H]``: the
+    fused layer kernel where it takes ``H``, the GRU scan elsewhere."""
+    if layers[0]["fwd"].wh.shape[0] in _HIDDEN:
+        return _apply_stack(_gru_layer, layers, x, lengths, dropout_rate,
+                            train, seeds)
+    return _scan_stack("gru", layers, x, lengths, dropout_rate, train, seeds)

@@ -1,9 +1,11 @@
-"""The LSTM scan: the hand-written Hopper kernels (``csrc/lstm_scan_fwd.cu``,
-``csrc/lstm_scan_bwd.cu``), their plain PyTorch versions, and the
-``torch.autograd.Function`` that ties the training forward to its
-backward.
+"""The LSTM and GRU scans: the hand-written Hopper kernels
+(``csrc/lstm_scan_fwd.cu``, ``csrc/lstm_scan_bwd.cu``,
+``csrc/gru_scan_fwd.cu``, ``csrc/gru_scan_bwd.cu``), their plain PyTorch
+versions, and the ``torch.autograd.Function`` of each that ties the
+training forward to its backward.  The GRU section, below the LSTM's, has
+its own notes.
 
-Counterpart of the LSTM half of ``pytorch_video_action_tpu/ops/
+LSTM: counterpart of the LSTM half of ``pytorch_video_action_tpu/ops/
 rnn_pallas.py``: ``_lstm_fwd_kernel`` (the eval form),
 ``_lstm_fwd_save_kernel`` (the training forward, which also saves the
 gates), ``_lstm_bwd_saved_kernel`` (the VJP from the saved gates) and
@@ -153,6 +155,13 @@ _ARGTYPES = {
     # T, B, W, cluster; stream
     "lstm_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    # dtype; xg, wh, bh, ys, res; T, B, W, save, cluster; stream
+    "gru_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    # dtype, recompute; xg or res, hp, dy, wh, wh^T, bh, dxg, dhg,
+    # bias_part, dwh, dbh; T, B, W, cluster; stream
+    "gru_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 
 
@@ -176,22 +185,27 @@ def _launch(name, x, *args):
                            f"{err_string(err).decode()} ({err})")
 
 
-def _check(where, xg, wh, named, width):
+def _check(where, xg, wh, named, width, gates=_GATES, bh=None):
     """Shapes, dtypes, one device and contiguity of the kernels' operands:
-    ``xg`` (or ``res``) ``[T, B, width*W]`` with ``wh [W, 4W]`` of its
-    dtype, and ``named`` further ``[T, B, W]`` tensors."""
+    ``xg`` (or ``res``) ``[T, B, width*W]`` with ``wh [W, gates*W]`` (and
+    ``bh [gates*W]``) of its dtype, and ``named`` further ``[T, B, W]``
+    tensors."""
     if xg.dtype not in _DTYPE_CODE:
         raise TypeError(f"{where}: dtype {xg.dtype} not supported "
                         "(float32 or bfloat16)")
     if xg.dim() != 3 or wh.dim() != 2:
-        raise ValueError(f"{where}: expected [T, B, {width}W] and [W, 4W], "
-                         f"got {tuple(xg.shape)} and {tuple(wh.shape)}")
+        raise ValueError(f"{where}: expected [T, B, {width}W] and "
+                         f"[W, {gates}W], got {tuple(xg.shape)} and "
+                         f"{tuple(wh.shape)}")
     t_len, b, _ = xg.shape
     w = wh.shape[0]
-    expect = [("xg", (t_len, b, width * w), 1), ("wh", (w, _GATES * w), 1)]
+    expect = [("xg", (t_len, b, width * w), 1), ("wh", (w, gates * w), 1)]
     expect += [(n, (t_len, b, w), 1) for n, _ in named]
-    _check_tensors(where, xg.dtype, expect,
-                   (xg, wh, *(t for _, t in named)))
+    tensors = [xg, wh, *(t for _, t in named)]
+    if bh is not None:
+        expect.append(("bh", (gates * w,), 1))
+        tensors.append(bh)
+    _check_tensors(where, xg.dtype, expect, tensors)
     if t_len < 1 or b < 1:
         raise ValueError(f"{where}: empty sequence")
     return t_len, b, w
@@ -332,4 +346,267 @@ def lstm_scan(xg_tm, wh, mask_tm):
         ys = LSTMScanFn.apply(xg_tm, wh)
     else:
         ys, _ = lstm_scan_fwd(xg_tm, wh)
+    return ys * mask_tm
+
+
+# ====================================================================== GRU
+# Counterpart of the GRU half of ``rnn_pallas.py``: ``_gru_fwd_kernel``
+# (the eval form), ``_gru_fwd_save_kernel`` (the training forward, which
+# also saves the gates), ``_gru_bwd_saved_kernel`` (the VJP from the saved
+# gates) and ``_gru_bwd_kernel`` (the VJP that recomputes them,
+# ``PVA_RNN_RECOMPUTE=1``, read as :data:`RECOMPUTE_BWD`), tied together by
+# ``gru_scan_pallas``'s ``custom_vjp`` and called through ``gru_scan``.
+#
+# Layouts: ``xg [T, B, 3W]`` time-major, the input projection with ``bi``
+# only, gates r, z, n; ``wh [W, 3W]``; ``bh [3W]``, which stays inside the
+# reset gate.  Per step, in f32: ``hg = h @ wh + bh``, ``r = sigmoid(xg_r +
+# hg_r)``, ``z = sigmoid(xg_z + hg_z)``, ``n = tanh(xg_n + r hg_n)``, ``h' =
+# (1 - z) n + z h``, from ``h = 0``, with no carry freeze (prefix-form
+# masks, as the LSTM scan).
+#
+# Numerics (``rnn_pallas.py:92-256``): ``h`` is rounded to ``wh``'s dtype
+# before the hidden product, products accumulate in f32, ``h`` and the gate
+# math are f32; ``ys`` and the residuals ``[r, z, n, hg_n]`` are stored in
+# ``xg``'s dtype.  The backward carries ``dh`` in f32, forms ``dhg = [dr,
+# dz, dn r]`` (``hg_n`` enters ``n`` through ``r``), rounds it to ``wh``'s
+# dtype for the carry product and ``dwh`` and ``dxg = [dr, dz, dn]`` to
+# ``xg``'s dtype, and sums ``dwh`` (of the rounded ``dhg``) and ``dbh`` (of
+# the unrounded one) in f32, returned in the weights' dtype.
+
+_GRU_GATES = 3
+_GRU_RES = 4
+# the widest W the GRU kernels' shared-memory layout takes (the recompute
+# backward's double-buffered gate gradients, [2, 8, 3W] f32, bind)
+GRU_W_MAX = 768
+
+
+def gru_scan_ref(xg, wh, bh, save=False):
+    """Plain PyTorch version of the forward: ``ys``, and with ``save`` also
+    the residuals ``(ys, res [T, B, 4W])``."""
+    t_len, b, _ = xg.shape
+    w = wh.shape[0]
+    dt, acc = xg.dtype, _acc(xg.dtype)
+    whf, bhf = wh.to(acc), bh.to(acc)
+    h = torch.zeros(b, w, dtype=acc, device=xg.device)
+    ys = torch.empty(t_len, b, w, dtype=dt, device=xg.device)
+    res = (torch.empty(t_len, b, _GRU_RES * w, dtype=dt, device=xg.device)
+           if save else None)
+    for t in range(t_len):
+        x = xg[t].to(acc)
+        hg = torch.matmul(h.to(wh.dtype).to(acc), whf) + bhf
+        r = torch.sigmoid(x[:, :w] + hg[:, :w])
+        z = torch.sigmoid(x[:, w:2 * w] + hg[:, w:2 * w])
+        hg_n = hg[:, 2 * w:]
+        n = torch.tanh(x[:, 2 * w:] + r * hg_n)
+        h = (1.0 - z) * n + z * h
+        ys[t] = h.to(dt)
+        if save:
+            res[t] = torch.cat([r, z, n, hg_n], dim=-1).to(dt)
+    return (ys, res) if save else ys
+
+
+def _gru_bwd_chain(gate_fn, hp, dy, wh, dxg_dtype):
+    """The backward chain over ``t = T-1 .. 0``, ``dwh`` and ``dbh``, from
+    ``gate_fn(t) -> (r, z, n, hg_n)`` in the accumulation dtype."""
+    t_len, b, w = dy.shape
+    acc = _acc(dxg_dtype)
+    wdt = wh.dtype
+    wh_t = wh.to(acc).t()
+    dxg = torch.empty(t_len, b, _GRU_GATES * w, dtype=acc, device=dy.device)
+    dhg_c = torch.empty_like(dxg)
+    dbh = torch.zeros(_GRU_GATES * w, dtype=acc, device=dy.device)
+    dh_c = torch.zeros(b, w, dtype=acc, device=dy.device)
+    for t in range(t_len - 1, -1, -1):
+        r, z, n, hg_n = gate_fn(t)
+        dh = dy[t].to(acc) + dh_c
+        dz = dh * (hp[t].to(acc) - n)
+        dn = dh * (1.0 - z) * (1.0 - n * n)
+        dr = dn * hg_n * r * (1.0 - r)
+        dzp = dz * z * (1.0 - z)
+        dxg[t] = torch.cat([dr, dzp, dn], dim=-1)
+        dhg = torch.cat([dr, dzp, dn * r], dim=-1)
+        dhg_c[t] = dhg.to(wdt).to(acc)
+        dh_c = dh * z + torch.matmul(dhg_c[t], wh_t)
+        dbh = dbh + dhg.sum(0)
+    m = t_len * b
+    dwh = torch.matmul(hp.reshape(m, w).to(wdt).to(acc).t(),
+                       dhg_c.reshape(m, _GRU_GATES * w))
+    return dxg.to(dxg_dtype), dwh.to(wdt), dbh.to(wdt)
+
+
+def gru_scan_bwd_saved_ref(res, hp, dy, wh):
+    """Plain PyTorch version of the saved-gates backward: ``(dxg, dwh,
+    dbh)`` from the residuals and ``hp``, ``ys`` one step earlier (0 at
+    ``t = 0``)."""
+    w = wh.shape[0]
+    acc = _acc(res.dtype)
+
+    def gate_fn(t):
+        r = res[t].to(acc)
+        return tuple(r[..., q * w:(q + 1) * w] for q in range(_GRU_RES))
+
+    return _gru_bwd_chain(gate_fn, hp, dy, wh, res.dtype)
+
+
+def gru_scan_bwd_ref(xg, hp, dy, wh, bh):
+    """Plain PyTorch version of the recompute backward: the gates again
+    from ``xg[t]`` and ``hp[t] @ wh + bh``."""
+    w = wh.shape[0]
+    acc = _acc(xg.dtype)
+    whf, bhf = wh.to(acc), bh.to(acc)
+
+    def gate_fn(t):
+        x = xg[t].to(acc)
+        hg = torch.matmul(hp[t].to(acc), whf) + bhf
+        r = torch.sigmoid(x[:, :w] + hg[:, :w])
+        z = torch.sigmoid(x[:, w:2 * w] + hg[:, w:2 * w])
+        n = torch.tanh(x[:, 2 * w:] + r * hg[:, 2 * w:])
+        return r, z, n, hg[:, 2 * w:]
+
+    return _gru_bwd_chain(gate_fn, hp, dy, wh, xg.dtype)
+
+
+def _gru_check(where, first, width, wh, bh, named):
+    t_len, b, w = _check(where, first, wh, named, width, _GRU_GATES, bh)
+    if w > GRU_W_MAX:
+        raise ValueError(f"{where}: W={w} is wider than the GRU scan kernels "
+                         f"take (at most {GRU_W_MAX})")
+    return t_len, b, w
+
+
+def _gru_fwd(xg, wh, bh, save):
+    where = "gru_scan_fwd_save" if save else "gru_scan_fwd"
+    t_len, b, w = _gru_check(where, xg, _GRU_GATES, wh, bh, ())
+    ys = torch.empty((t_len, b, w), dtype=xg.dtype, device=xg.device)
+    res = (torch.empty((t_len, b, _GRU_RES * w), dtype=xg.dtype,
+                       device=xg.device) if save else None)
+    _launch("gru_scan_fwd", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
+            wh.data_ptr(), bh.data_ptr(), ys.data_ptr(),
+            0 if res is None else res.data_ptr(), t_len, b, w, int(save),
+            cluster_size(w))
+    return (ys, res) if save else ys
+
+
+def gru_scan_fwd(xg, wh, bh):
+    """Row 9, the eval form's wrapper: ``ys``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises.
+    ``launches`` counts launches."""
+    if xg.device.type == "cpu":
+        return gru_scan_ref(xg, wh, bh)
+    if xg.device.type != "cuda":
+        raise _no_kernel("gru_scan_fwd", xg)
+    out = _gru_fwd(xg, wh, bh, False)
+    gru_scan_fwd.launches += 1
+    return out
+
+
+gru_scan_fwd.launches = 0
+
+
+def gru_scan_fwd_save(xg, wh, bh):
+    """Row 10, the training forward's wrapper: ``(ys, res)``; as
+    :func:`gru_scan_fwd`."""
+    if xg.device.type == "cpu":
+        return gru_scan_ref(xg, wh, bh, save=True)
+    if xg.device.type != "cuda":
+        raise _no_kernel("gru_scan_fwd_save", xg)
+    out = _gru_fwd(xg, wh, bh, True)
+    gru_scan_fwd_save.launches += 1
+    return out
+
+
+gru_scan_fwd_save.launches = 0
+
+
+def _gru_bwd(where, first, width, hp, dy, wh, bh, recompute):
+    t_len, b, w = _gru_check(where, first, width, wh, bh,
+                             [("hp", hp), ("dy", dy)])
+    g = _GRU_GATES * w
+    dxg = torch.empty((t_len, b, g), dtype=first.dtype, device=first.device)
+    dwh = torch.empty_like(wh)
+    dbh = torch.empty((g,), dtype=wh.dtype, device=wh.device)
+    f32 = dict(dtype=torch.float32, device=first.device)
+    dhg = torch.empty((t_len, b, g), **f32)  # rnd(dhg), dwh's operand
+    bias_part = torch.empty((b, g), **f32)  # each row's dbh
+    wh_t = wh.t().contiguous()  # [3W, W]: the carry product's operand
+    _launch("gru_scan_bwd", first, _DTYPE_CODE[first.dtype], int(recompute),
+            first.data_ptr(), hp.data_ptr(), dy.data_ptr(), wh.data_ptr(),
+            wh_t.data_ptr(), 0 if bh is None else bh.data_ptr(),
+            dxg.data_ptr(), dhg.data_ptr(), bias_part.data_ptr(),
+            dwh.data_ptr(), dbh.data_ptr(), t_len, b, w, cluster_size(w))
+    return dxg, dwh, dbh
+
+
+def gru_scan_bwd_saved(res, hp, dy, wh):
+    """Row 11, the saved-gates backward's wrapper: ``(dxg, dwh, dbh)``.  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernels
+    (the chain, dwh, the sum of dbh) or raises.  ``launches`` counts
+    launches."""
+    if res.device.type == "cpu":
+        return gru_scan_bwd_saved_ref(res, hp, dy, wh)
+    if res.device.type != "cuda":
+        raise _no_kernel("gru_scan_bwd_saved", res)
+    out = _gru_bwd("gru_scan_bwd_saved", res, _GRU_RES, hp, dy, wh, None,
+                   False)
+    gru_scan_bwd_saved.launches += 1
+    return out
+
+
+gru_scan_bwd_saved.launches = 0
+
+
+def gru_scan_bwd(xg, hp, dy, wh, bh):
+    """Row 12, the recompute backward's wrapper: ``(dxg, dwh, dbh)``; as
+    :func:`gru_scan_bwd_saved`."""
+    if xg.device.type == "cpu":
+        return gru_scan_bwd_ref(xg, hp, dy, wh, bh)
+    if xg.device.type != "cuda":
+        raise _no_kernel("gru_scan_bwd", xg)
+    out = _gru_bwd("gru_scan_bwd", xg, _GRU_GATES, hp, dy, wh, bh, True)
+    gru_scan_bwd.launches += 1
+    return out
+
+
+gru_scan_bwd.launches = 0
+
+
+class GRUScanFn(torch.autograd.Function):
+    """The GRU scan under autograd, ``xg, wh, bh -> ys``: the counterpart
+    of ``gru_scan_pallas``'s ``custom_vjp``.  The forward saves the gates
+    (row 10, backward row 11), or with :data:`RECOMPUTE_BWD` only ``ys``
+    (row 9, backward row 12)."""
+
+    @staticmethod
+    def forward(ctx, xg, wh, bh):
+        ctx.recompute = RECOMPUTE_BWD
+        if ctx.recompute:
+            ys = gru_scan_fwd(xg, wh, bh)
+            ctx.save_for_backward(xg, wh, bh, ys)
+        else:
+            ys, res = gru_scan_fwd_save(xg, wh, bh)
+            ctx.save_for_backward(res, wh, bh, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        first, wh, bh, ys = ctx.saved_tensors
+        hp = _shift(ys)
+        dy = dy.contiguous()
+        if ctx.recompute:
+            return gru_scan_bwd(first, hp, dy, wh, bh)
+        return gru_scan_bwd_saved(first, hp, dy, wh)
+
+
+def gru_scan(xg_tm, wh, bh, mask_tm):
+    """Masked ``ys [T, B, W]`` of the GRU scan over ``xg_tm [T, B, 3W]``
+    (``mask_tm [T, B, 1]``, prefix-form): the eval form when grad mode is
+    off or nothing requires a gradient, else :class:`GRUScanFn`.  Kernels
+    on CUDA tensors, plain versions on CPU tensors; neither falls back to
+    the other."""
+    xg_tm = xg_tm.contiguous()
+    if torch.is_grad_enabled() and (xg_tm.requires_grad or wh.requires_grad
+                                    or bh.requires_grad):
+        ys = GRUScanFn.apply(xg_tm, wh, bh)
+    else:
+        ys = gru_scan_fwd(xg_tm, wh, bh)
     return ys * mask_tm

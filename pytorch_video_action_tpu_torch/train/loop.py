@@ -3,8 +3,10 @@
 
 One train step is the JAX ``Trainer`` step: a ``train=True`` forward with
 hash dropout, the model's f32 loss (``make_loss_fn(model.name)``: NLL over
-log-probs, ms_tcn's cross-entropy over logits), the backward (through the
-layer kernels on the card), one Adam update.  Dropout seeds are explicit
+the output, ms_tcn's cross-entropy over logits, ctcloss's CTC against the
+collapsed frame labels, ``prepare_ctc_targets``, as the JAX step takes
+them), the backward (through the layer kernels on the card), one Adam
+update.  Dropout seeds are explicit
 uint32 values, ``model.n_dropout_sites`` per step, drawn from a
 ``torch.Generator`` seeded by ``seed``; ``train_step`` also takes them
 from the caller.  Under ``compute_dtype='bfloat16'`` the parameters and
@@ -28,7 +30,7 @@ from torch.func import functional_call
 
 from .. import TARGET_PAD
 from ..utils.runlength import run_length_segments
-from .losses import make_loss_fn
+from .losses import make_loss_fn, prepare_ctc_targets
 from .optim import make_optimizer, set_lr
 
 
@@ -53,7 +55,8 @@ class Trainer:
                                "(pass device='cpu' to train on the CPU)")
         self.model = model
         self.n_class = n_class
-        self.loss_fn = make_loss_fn(model.name)
+        self.is_ctc = model.name == "ctcloss"
+        self.loss_fn = make_loss_fn(model.name, n_class)
         self.seed = seed
         self.make_opt, self.lr_for_epoch = make_optimizer(
             lr, lr_step_size, lr_gamma)
@@ -73,22 +76,28 @@ class Trainer:
     def prepare_batch(self, batch) -> tuple:
         """Host batch ``(x, lengths, targets, mask)`` -> device tensors
         ``(x, lengths, targets)``, x in the compute dtype (converted on the
-        host under bf16: half the bytes to copy)."""
+        host under bf16: half the bytes to copy); for ctcloss also the CTC
+        targets and their lengths."""
         x, lengths, targets, _ = batch
         x = torch.from_numpy(np.asarray(x, dtype=np.float32))
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return (x.to(self.device),
-                torch.from_numpy(np.asarray(lengths, np.int32)).to(self.device),
-                torch.from_numpy(np.asarray(targets, np.int64)).to(self.device))
+        host = [x, np.asarray(lengths, np.int32), np.asarray(targets, np.int64)]
+        if self.is_ctc:
+            host += prepare_ctc_targets(targets, x.shape[0])
+        return tuple(torch.as_tensor(a).to(self.device) for a in host)
 
-    def draw_seeds(self, ts: TrainState) -> list[int]:
+    def draw_seeds(self, ts: TrainState, batch_size: int) -> list:
+        """``model.n_dropout_sites`` uint32 seeds, each a list of
+        ``batch_size`` (one a video) for a model with per-video dropout."""
         n = ts.model.n_dropout_sites
-        return torch.randint(0, 2 ** 32, (n,), generator=ts.rng).tolist()
+        shape = ((n, batch_size) if getattr(ts.model, "per_video_dropout",
+                                            False) else (n,))
+        return torch.randint(0, 2 ** 32, shape, generator=ts.rng).tolist()
 
-    def loss(self, model, x, lengths, targets, seeds) -> torch.Tensor:
+    def loss(self, model, x, lengths, targets, seeds, ctc=()) -> torch.Tensor:
         """The train forward's f32 loss, differentiable to the f32
-        parameters."""
+        parameters; ``ctc`` is ctcloss's ``(targets, target_lengths)``."""
         if self.compute_dtype is None:
             out = model(x, lengths, train=True, seeds=seeds)
         else:
@@ -96,6 +105,8 @@ class Trainer:
                       for k, p in model.named_parameters()}
             out = functional_call(model, params, (x, lengths),
                                   {"train": True, "seeds": seeds})
+        if self.is_ctc:
+            return self.loss_fn(out.to(torch.float32), lengths, *ctc)
         return self.loss_fn(out.to(torch.float32), targets)
 
     def train_step(self, ts: TrainState, batch, seeds=None) -> torch.Tensor:
@@ -104,11 +115,11 @@ class Trainer:
         parameters' ``.grad`` until the next step."""
         if not isinstance(batch[0], torch.Tensor):
             batch = self.prepare_batch(batch)
-        x, lengths, targets = batch
+        x, lengths, targets, *ctc = batch
         if seeds is None:
-            seeds = self.draw_seeds(ts)
+            seeds = self.draw_seeds(ts, x.shape[0])
         ts.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(ts.model, x, lengths, targets, seeds)
+        loss = self.loss(ts.model, x, lengths, targets, seeds, ctc)
         loss.backward()
         ts.optimizer.step()
         return loss.detach()

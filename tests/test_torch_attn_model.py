@@ -179,6 +179,32 @@ def test_win_attn_matches_jax(t, lengths, train):
         _close(grads[k], jgrads[k], k)
 
 
+@pytest.mark.parametrize("train", [False, True])
+def test_win_attn_without_padding_mask_matches_jax(train):
+    """``cfg_overrides={"mask_padding": False}`` in both packages (JAX's
+    parity-test hook, ``models/__init__.py:62-73``): the windows attend
+    the zero-pad tail and the batch padding, as the reference does.  A
+    bucket-padded batch with ragged lengths, where that changes the
+    scores."""
+    flags = dict(attn_head=4, cfg_overrides={"mask_padding": False})
+    mdef, params, model = _pair("win_attn", seed=2, **flags)
+    assert not model.cfg.mask_padding
+    x, lens, _, _ = _batch(3, b=2, t=64, lengths=[61, 17])
+    key = jax.random.PRNGKey(6) if train else None
+    cot = np.random.default_rng(3).normal(size=(2, 64, N_CLASS)).astype(
+        np.float32)
+    got, want, grads, jgrads = _forward_and_grads(
+        "win_attn", mdef, params, model, x, lens, key, cot)
+    _close(got, want, "log-probs")
+    for k in jgrads:
+        _close(grads[k], jgrads[k], k)
+    masked = build_model("win_attn", N_CLASS, attn_head=4)
+    masked.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        other = masked(torch.from_numpy(x), torch.from_numpy(lens)).numpy()
+    assert np.abs(other - got).max() > 1e-3  # the mask matters here
+
+
 @pytest.mark.parametrize("name,flags", [
     ("attn", dict(defaults=True, attn_head=5, pred_mode="avg")),
     ("attn", dict(attn_head=5, pred_mode="last")),
@@ -192,8 +218,7 @@ def test_build_model_follows_the_jax_factory(name, flags):
     model = build_model(name, 48, **flags)
     got_cfg = dataclasses.asdict(model.cfg)
     want_cfg = dataclasses.asdict(mdef.config)
-    want_cfg.pop("mask_padding", None)  # the port always masks padding
-    assert got_cfg == want_cfg
+    assert got_cfg == want_cfg  # win_attn's mask_padding included
     assert not model.stateful and model.n_dropout_sites == 1
     want = _flat(mdef.init(jax.random.PRNGKey(0)))
     got = {k.replace(".", "/"): tuple(v.shape)

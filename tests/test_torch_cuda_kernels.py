@@ -7,7 +7,8 @@ and no JAX it runs on its own, without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
 The GRU layer's kernels come first, then the LSTM layer's, then the
-flash-attention kernels, then MS-TCN's conv kernels, then the LSTM scan's.
+flash-attention kernels, then MS-TCN's conv kernels, then the LSTM scan's,
+then the GRU scan's.
 
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
@@ -617,6 +618,26 @@ def test_conv_layer_bwd_matches_plain_and_reruns(cuda_device, dtype, keep,
             assert _rel_err(g, w) <= TOL[dtype], (d, name, _rel_err(g, w))
 
 
+@pytest.mark.parametrize("case", CONV_CASES, ids=["T200", "T1280", "T1920"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_layer_bwd_per_video_matches_plain_and_reruns(cuda_device,
+                                                           dtype, case):
+    """The backward with the per-video stream (ms_tcn's ``use_pallas``):
+    one seed a video, the forward's keep bits."""
+    ws, x, mask, dy = _conv_case(cuda_device, dtype, *case, seed=2)
+    seeds = list(range(3000, 3000 + case[0]))
+    for d in _dilations(case[1]):
+        args = (ws[0], ws[1], ws[2], x, mask, dy, d, 0.5)
+        got = CV.dilated_residual_layer_bwd(*args, seeds=seeds)
+        again = CV.dilated_residual_layer_bwd(*args, seeds=seeds)
+        torch.cuda.synchronize()
+        want = CV.layer_bwd_ref(*args, seeds=seeds)
+        for name, g, a, w in zip(("dx", "dw_d", "db_d", "dw_p", "db_p"), got,
+                                 again, want):
+            assert torch.equal(g, a), (d, name)
+            assert _rel_err(g, w) <= TOL[dtype], (d, name, _rel_err(g, w))
+
+
 @pytest.mark.parametrize("case", CONV_CASES[:2], ids=["T200", "T1280"])
 @pytest.mark.parametrize("keep", [1.0, 0.5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -858,3 +879,119 @@ def test_bilstm_at_lstm_hidden1_512_trains_on_card(cuda_device):
     _train_step_card_vs_cpu(cuda_device, "bilstm", {"lstm_hidden1": 512},
                             (RS.lstm_scan_fwd_save, RS.lstm_scan_bwd_saved),
                             (4, 4), [1, 2, 3])
+
+
+# The GRU scan kernels (ops/rnn_scan.py) against their plain versions, with
+# the LSTM scan's tolerances.  The widths: the bidirectional GRU stack's
+# scan route at BiGRU hidden_dim_1 192 and 512 (H=96 and 256) and attn at
+# hidden_dim 192 (H=96), an odd width (100), one whose weight slices pass
+# a block's shared memory (512) and the widest the kernels take (768).
+
+GRU_SCAN_CASES = [(96, 3, 40), (100, 5, 33), (256, 8, 40), (512, 8, 24),
+                  (768, 3, 12), (20, 11, 20)]
+
+
+def _gru_scan_case(cuda_device, dtype, w, b, t, seed=0):
+    rng = np.random.default_rng(seed + w)
+    to = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    k = 1.0 / np.sqrt(w)
+    xg = rng.normal(0, 0.5, size=(t, b, 3 * w)).astype(np.float32)
+    wh = rng.uniform(-k, k, size=(w, 3 * w)).astype(np.float32)
+    bh = rng.uniform(-k, k, size=(3 * w,)).astype(np.float32)
+    dy = rng.normal(size=(t, b, w)).astype(np.float32)
+    return to(xg), to(wh), to(bh), to(dy)
+
+
+@pytest.mark.parametrize("w,b,t", GRU_SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
+    xg, wh, bh, _ = _gru_scan_case(cuda_device, dtype, w, b, t)
+    counts = lambda: (RS.gru_scan_fwd.launches,  # noqa: E731
+                      RS.gru_scan_fwd_save.launches)
+    before = counts()
+    ys = RS.gru_scan_fwd(xg, wh, bh)
+    ys2, res = RS.gru_scan_fwd_save(xg, wh, bh)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(ys, ys2)
+    wys, wres = RS.gru_scan_ref(xg, wh, bh, save=True)
+    for got, want in ((ys, wys), (res, wres)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("w,b,t", GRU_SCAN_CASES)
+@pytest.mark.parametrize("recompute", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
+                                               w, b, t):
+    xg, wh, bh, dy = _gru_scan_case(cuda_device, dtype, w, b, t, seed=1)
+    ys, res = RS.gru_scan_ref(xg, wh, bh, save=True)
+    hp = RS._shift(ys)
+    if recompute:
+        fn, ref, args = (RS.gru_scan_bwd, RS.gru_scan_bwd_ref,
+                         (xg, hp, dy, wh, bh))
+    else:
+        fn, ref, args = (RS.gru_scan_bwd_saved, RS.gru_scan_bwd_saved_ref,
+                         (res, hp, dy, wh))
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    for name, g, a, want in zip(("dxg", "dwh", "dbh"), got, again,
+                                ref(*args)):
+        assert g.dtype == dtype and g.shape == want.shape, name
+        assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous", "bh_bf16",
+                                  "too_wide"])
+def test_gru_scan_kernels_refuse_what_they_do_not_take(cuda_device, case):
+    w = RS.GRU_W_MAX + 4 if case == "too_wide" else 64
+    xg, wh, bh, _ = _gru_scan_case(cuda_device, torch.float32, w, 3, 8)
+    if case == "float64":
+        xg, wh, bh = xg.double(), wh.double(), bh.double()
+    elif case == "noncontiguous":
+        xg = xg.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "bh_bf16":
+        bh = bh.to(torch.bfloat16)
+    before = RS.gru_scan_fwd.launches
+    with pytest.raises((TypeError, ValueError),
+                       match=str(RS.GRU_W_MAX) if case == "too_wide" else None):
+        RS.gru_scan_fwd(xg, wh, bh)
+    assert RS.gru_scan_fwd.launches == before
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+@pytest.mark.parametrize("hidden", [192, 512])
+def test_bigru_at_widths_the_fused_layer_refuses_trains_on_card(
+        cuda_device, monkeypatch, hidden, recompute):
+    """BiGRU at hidden_dim_1 192 and 512 (H=96 and 256, not widths of the
+    fused layer kernel) runs forward and backward on the card through the
+    GRU scan, both directions of its 4 layers, and matches the CPU."""
+    monkeypatch.setattr(RS, "RECOMPUTE_BWD", recompute)
+    counters = (RS.gru_scan_fwd, RS.gru_scan_fwd_save, RS.gru_scan_bwd_saved,
+                RS.gru_scan_bwd)
+    want = (8, 0, 0, 8) if recompute else (0, 8, 8, 0)
+    _train_step_card_vs_cpu(cuda_device, "bigru",
+                            {"cfg_overrides": {"hidden_dim_1": hidden}},
+                            counters, want, [1, 2, 3, 4])
+
+
+def test_attn_at_hidden_dim_192_trains_on_card(cuda_device):
+    """attn at hidden_dim 192: its one GRU layer (H=96) on the scan."""
+    _train_step_card_vs_cpu(cuda_device, "attn",
+                            {"cfg_overrides": {"hidden_dim": 192}},
+                            (RS.gru_scan_fwd_save, RS.gru_scan_bwd_saved),
+                            (2, 2), [5])
+
+
+def test_mstcn_per_video_train_step_on_card_matches_cpu(cuda_device):
+    """ms_tcn with ``use_pallas`` (the per-video dropout stream, one seed a
+    video a layer): 80 layer forwards and backwards on the card."""
+    _train_step_card_vs_cpu(
+        cuda_device, "ms_tcn", {"use_pallas": True},
+        (CV.dilated_residual_layer, CV.dilated_residual_layer_bwd), (80, 80),
+        [[7 * i + j for j in range(3)] for i in range(80)])

@@ -138,9 +138,24 @@ def test_data_parallel_is_not_ported(synthetic_root, models_dir, tmp_path,
 
 
 def test_unported_family_checkpoint_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ploader.load_models(["simple_fc_75.59_dev"], 48,
-                            models_dir=str(tmp_path), device="cpu")
+    """A ``simple_fc_*`` checkpoint, once the unported case here (ROADMAP
+    item 12), loads: the JAX-written weights in a SimpleFC, whose raw
+    logits equal the JAX model's."""
+    from pytorch_video_action_tpu_torch.models.simple_fc import SimpleFC
+
+    mdef = jbuild("simple_fc", 48, defaults=True)
+    params = mdef.init_params(jax.random.PRNGKey(3))
+    jsave(os.path.join(tmp_path, "simple_fc_75.59_dev.npz"), params)
+    models = ploader.load_models(["simple_fc_75.59_dev"], 48,
+                                 models_dir=str(tmp_path), device="cpu")
+    model = models["simple_fc_75.59_dev"]
+    assert isinstance(model, SimpleFC) and not model.training
+    x = np.random.default_rng(4).normal(size=(2, 9, 400)).astype(np.float32)
+    lengths = np.array([9, 4], np.int32)
+    want = np.asarray(mdef.apply(params, x, lengths))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), torch.from_numpy(lengths)).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
 
 
 def test_mstcn_checkpoint_loads(tmp_path):

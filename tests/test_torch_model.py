@@ -122,12 +122,25 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
         assert np.array_equal(np.asarray(got[k]), want[k])
 
 
-@pytest.mark.parametrize("name,item,flags", [
-    ("simple_fc", 12, {}), ("simple_fc", 12, {"defaults": True}),
-    ("ctcloss", 12, {})])
-def test_unported_models_name_their_roadmap_item(name, item, flags):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(name, 48, **flags)
+@pytest.mark.parametrize("name,flags", [
+    ("simple_fc", {}), ("simple_fc", {"defaults": True}), ("ctcloss", {})])
+def test_unported_models_name_their_roadmap_item(name, flags):
+    """simple_fc and ctcloss, the two families ROADMAP item 12 named, are
+    ported: each builds its class (ctcloss: the BiGRU with the CTC blank
+    as one more class), and only an unknown name raises."""
+    from pytorch_video_action_tpu_torch.models.simple_fc import SimpleFC
+
+    model = build_model(name, 48, **flags)
+    assert model.name == name and model.n_dropout_sites >= 0
+    if name == "simple_fc":
+        assert isinstance(model, SimpleFC) and model.cfg.n_class == 48
+        assert [model.fc1.w.shape[0], *(getattr(model, f"fc{i}").w.shape[1]
+                                        for i in range(1, 5))] == [
+            400, 256, 128, 32, 48]
+    else:
+        assert isinstance(model, BiGRU) and model.cfg.n_class == 49
+    with pytest.raises(NotImplementedError, match="unknown model"):
+        build_model("no_such_model", 48, **flags)
 
 
 def test_mstcn_builds_with_the_inference_defaults():

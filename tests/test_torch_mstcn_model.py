@@ -146,6 +146,56 @@ def test_train_forward_and_loss_match_jax_with_its_seeds():
     _assert_grads_close(model, want_grads)
 
 
+def test_use_pallas_trains_on_the_jax_per_video_stream(monkeypatch):
+    """``--use_pallas``: the JAX layer then draws one uint32 seed a video a
+    layer, ``bits(rng, (B,))`` (``ops/conv.py:366-375``), for its Pallas
+    kernel.  The JAX model runs here with that call replaced by the
+    stream's XLA reference, ``conv_pallas.hash_dropout_reference`` (the
+    function the kernel's VJP recomputes through), never the kernel; the
+    port takes the same seeds, computed in JAX.  Logits, loss and every
+    gradient to 1e-5."""
+    from pytorch_video_action_tpu.ops import conv_pallas as jcp
+
+    monkeypatch.setattr(
+        jcp, "fused_dilated_residual",
+        lambda layer, x, mask, dilation, dropout_rate=0.0, seeds=None:
+        jcp.hash_dropout_reference(layer, x, mask, dilation, dropout_rate,
+                                   seeds))
+    cfg = jmstcn.MSTCNConfig(**SMALL, use_pallas=True)
+    params = jmstcn.init(jax.random.PRNGKey(2), cfg)
+    x, lengths, targets, _ = _small_batch(2)
+    key = jax.random.PRNGKey(6)
+
+    def jloss(p):
+        out = jmstcn.apply(p, cfg, jnp.asarray(x), jnp.asarray(lengths),
+                           train=True, rng=key)
+        return jlosses.cross_entropy_loss(out, jnp.asarray(targets)), out
+
+    (want_loss, want), jgrads = jax.jit(jax.value_and_grad(
+        jloss, has_aux=True))(params)
+    seeds = [np.asarray(jax.random.bits(r, (3,), jnp.uint32)).tolist()
+             for r_stage in jax.random.split(key, cfg.num_stages)
+             for r in jax.random.split(r_stage, cfg.num_layers)]
+    model = build_model("ms_tcn", 7, use_pallas=True, cfg_overrides={
+        k: v for k, v in SMALL.items() if k != "n_class"})
+    assert model.per_video_dropout and model.n_dropout_sites == 10
+    model.load_state_dict(from_jax_params(
+        "ms_tcn", jax.tree.map(np.asarray, params)))
+    out = model(torch.from_numpy(x), torch.from_numpy(lengths), train=True,
+                seeds=seeds)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=0)
+    loss = plosses.cross_entropy_loss(out, torch.from_numpy(targets))
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= 1e-5
+    _assert_grads_close(model, {k: np.asarray(v) for k, v in
+                                jckpt._flatten(jgrads).items()})
+    # the Trainer draws one seed a video for each of its layers
+    tr = Trainer(model, 7, seed=0, device="cpu")
+    drawn = tr.draw_seeds(tr.init_state(), 3)
+    assert len(drawn) == 10 and all(len(s) == 3 for s in drawn)
+
+
 def test_params_round_trip_and_checkpoints_load_both_ways(tmp_path):
     cfg = jmstcn.MSTCNConfig(**SMALL)
     params = jmstcn.init(jax.random.PRNGKey(2), cfg)
@@ -174,7 +224,15 @@ def test_build_model_and_loss_selection():
     for name in ("bigru", "bilstm", "bilstm_lm", "attn", "win_attn"):
         assert plosses.make_loss_fn(name) is plosses.nll_loss
         assert build_model(name, 48).name == name
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # ctcloss (a BiGRU with the CTC blank as class n_class) takes CTC
+    ctc = build_model("ctcloss", 48)
+    assert ctc.name == "ctcloss" and ctc.cfg.n_class == 49
+    fn = plosses.make_loss_fn("ctcloss", 48)
+    lp = torch.log_softmax(torch.randn(2, 9, 49), -1)
+    args = (torch.tensor([9, 5]), torch.tensor([[3, 7, 3], [1, 0, 0]]),
+            torch.tensor([3, 1]))
+    assert fn(lp, *args).item() == plosses.ctc_loss(lp, *args, 48).item()
+    with pytest.raises(ValueError, match="n_class"):
         plosses.make_loss_fn("ctcloss")
 
 
