@@ -94,11 +94,26 @@ Phases, in order; any failure exits non-zero:
    counts, gradients against the CPU, frames/s), one BiGRU 512 step with
    the recompute backward against the saved-gates step, and the BiGRU
    512 eval forward over the test videos (launch counts, frames/s).
+6. the ``PVA_RNN_SPLIT=0`` route (``rnn_fused.SPLIT`` set to False for
+   the phase, restored after it): the merged-body layer kernels (rows
+   5-8) held at the main path's shapes, the eval forms at the largest
+   test forward batch (W_in=400), the train forms and backwards at the
+   largest train batch (W_in 400 and 256), f32 and bf16, each against its
+   plain version, against rows 1-4 on the same weights (ys; dx, dwi and
+   the diagonal blocks of dwh2, dbi2, dbh2 against the per-direction
+   gradients) and, the backwards, against a rerun (bit for bit), timed
+   beside its plain version, its bound and nn.GRU / nn.LSTM packed; then
+   bigru (f32 and bf16) and bilstm (f32) trained 2 epochs by the train
+   CLI and their checkpoints served by the inference CLI (launch counts
+   with rows 5-8 counted and rows 1-4 at 0, falling loss, labels against
+   the CPU's, frames/s); one step each of bigru, bilstm, attn on its dense
+   and its flash path, ctcloss and bilstm_lm (on its 40-100-frame
+   videos), with launch counts and gradients against the CPU.
 
-Each phase logs its time.  Prints a ``kernels`` JSON line (twenty-one
-entries for the nineteen ported TPU kernels, rows 1 and 3 in their eval
-and train forms; headline numbers at the main path's shape, every checked
-shape under ``shapes``), the card's name and
+Each phase logs its time.  Prints a ``kernels`` JSON line (twenty-seven
+entries for the twenty-three ported TPU kernels, rows 1, 3, 5 and 7 in
+their eval and train forms; headline numbers at the main path's shape,
+every checked shape under ``shapes``), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
@@ -164,6 +179,17 @@ class Cell:
                                       (self.fwd_name, self.bwd_name))
         self.fwd_replaces, self.bwd_replaces = (
             ("1632", "1780") if self.lstm else ("1008", "1190"))
+        # the merged body (rows 5-8, PVA_RNN_SPLIT=0)
+        self.mfwd_name = f"{name}_merged_fwd"
+        self.mbwd_name = f"{name}_merged_bwd"
+        self.mfwd = getattr(rnn_fused, self.mfwd_name)
+        self.mbwd = getattr(rnn_fused, self.mbwd_name)
+        self.mfwd_ref = getattr(rnn_fused, f"{name}_merged_layer_ref")
+        self.mbwd_ref = getattr(rnn_fused, f"{name}_merged_layer_bwd_ref")
+        self.mfwd_src, self.mbwd_src = (f"{CSRC}{n}.cu" for n in
+                                        (self.mfwd_name, self.mbwd_name))
+        self.mfwd_replaces, self.mbwd_replaces = (
+            ("500", "630") if self.lstm else ("111", "241"))
 
     def weight_shapes(self, w_in):
         """wif, wib, the biases (one folded bias per direction for the
@@ -208,6 +234,66 @@ class Cell:
 
     def bwd_args(self, x, ws, lengths, fwd, dys):
         return (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
+
+    def merged_weights(self, ws):
+        """The merged body's weights of the same layer: wif2, wib2, the
+        gate-grouped bi2 and wh2 and, for the GRU, bh2 (ops/rnn.py's
+        packing)."""
+        from pytorch_video_action_tpu_torch.ops import rnn
+
+        g = self.n_gates
+        pack = [rnn._pack_gate_grouped(ws[4:6], H, g),
+                rnn._pack_gate_grouped_vec(ws[2:4], H, g)]
+        if not self.lstm:
+            pack.append(rnn._pack_gate_grouped_vec(ws[6:8], H, g))
+        wh2, bi2, *bh2 = (t.contiguous() for t in pack)
+        return (ws[0], ws[1], bi2, wh2, *bh2)
+
+    def merged_bwd_args(self, x, mws, lengths, fwd, dys):
+        """The merged backward's arguments from its train form's outputs:
+        hp2 (and cp2) built as the autograd Function builds them."""
+        import torch
+
+        from pytorch_video_action_tpu_torch.ops import rnn_fused
+
+        hp2 = rnn_fused._prev_kernel_order(fwd[0], fwd[1])
+        if self.lstm:
+            cs = fwd[2]
+            cp2 = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+            return (x, fwd[3], hp2, cp2, *dys, mws[0], mws[1], mws[3],
+                    lengths)
+        return (x, fwd[2], hp2, *dys, mws[0], mws[1], mws[3], lengths)
+
+    def merged_bound(self, t_len, b, w_in, dt_name, train=False):
+        """Least time (ms) for one merged forward: the FLOPs of rows 1/3 (the
+        block-diagonal product's non-zero half); bytes of x, the weights as
+        packed (the whole wh2) and the outputs (ys; in the train form also
+        the kernel-order residuals and, for the LSTM, cs in the dtype)."""
+        size = 4 if dt_name == "float32" else 2
+        g = self.n_gates * H
+        weights = 2 * w_in * g + 4 * H * g + 2 * g * (1 if self.lstm else 2)
+        outputs = 2 * t_len * b * H * (1 + (self.n_res if train else 0)
+                                       + (1 if train and self.lstm else 0))
+        n_bytes = (t_len * b * w_in + weights + outputs) * size + 4 * b
+        flops = 2 * t_len * b * (w_in + H) * g * 2
+        return _bound(n_bytes, flops, dt_name)
+
+    def merged_bound_bwd(self, t_len, b, w_in, dt_name):
+        """Least time (ms) for one merged backward: rows 2/4's FLOPs, 4*T*B*
+        gH*(2*W_in + 2H), plus dwh2's off-diagonal half, 4*T*B*gH*H; bytes
+        of x, the packed weights, the residuals, hp2 (and cp2), dy read
+        once, dx_f, dx_b and the gradients written once."""
+        size = 4 if dt_name == "float32" else 2
+        g = self.n_gates * H
+        weights = 2 * w_in * g + 4 * H * g + 2 * g * (1 if self.lstm else 2)
+        rows = t_len * b
+        reads = (rows * w_in + weights
+                 + rows * H * (2 * self.n_res + 2 * (2 if self.lstm else 1)
+                               + 2))
+        writes = 2 * rows * w_in + weights
+        n_bytes = (reads + writes) * size + 4 * b
+        flops = 4 * rows * g * (2 * w_in + 3 * H)
+        return _bound(n_bytes, flops, dt_name)
 
     def module(self, x, ws):
         """torch.nn.GRU / LSTM(bidirectional=True) with the same weights, on
@@ -489,6 +575,141 @@ def check_train_layers(cell, where, lengths, t_len, gen):
                               gen)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
     return [r[0] for r in rows], [r[1] for r in rows]
+
+
+# ------------------------------------------------------------ merged body
+
+
+def merged_vs_split(cell, merged, split):
+    """Largest error, relative to the largest element (at least 1), of the
+    merged backward's gradients (rows 6/8) against the split one's (rows
+    2/4) on the same weights: dx_f + dx_b against dx; dwif, dwib; the
+    diagonal blocks of dwh2, dbi2 (and the GRU's dbh2) against the
+    per-direction gradients."""
+    from pytorch_video_action_tpu_torch.ops.rnn_fused import _dense
+
+    g = cell.n_gates
+    dxf, dxb, dwif, dwib, dbi2, dwh2, *dbh2 = merged
+    got = [dxf.float() + dxb.float(), dwif, dwib, _dense(dbi2, H, g, 0),
+           _dense(dbi2, H, g, 1), _dense(dwh2[:H], H, g, 0),
+           _dense(dwh2[H:], H, g, 1)]
+    if dbh2:
+        got += [_dense(dbh2[0], H, g, 0), _dense(dbh2[0], H, g, 1)]
+    return rel_err(got, split)[1]
+
+
+def check_merged_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
+    """Row 5 or 7's eval form against its plain version and against row 1
+    or 3 on the same weights, timed beside its plain version, the library
+    yardstick (nn.GRU / nn.LSTM packed) and its bound.  Raises when they
+    disagree.  Returns the row for the ``kernels`` line."""
+    import torch
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    x, ws, lengths = layer_inputs(cell, t_len, b, w_in, dt, lengths, gen)
+    mws = cell.merged_weights(ws)
+    got = cell.mfwd(x, *mws, lengths)
+    torch.cuda.synchronize()
+    err = rel_err(got, cell.mfwd_ref(x, *mws, lengths))[0]
+    split = rel_err(got, cell.fwd(x, *ws, lengths))[0]
+    ms = cuda_ms(lambda: cell.mfwd(x, *mws, lengths), 10, 2)
+    plain_ms = cuda_ms(lambda: cell.mfwd_ref(x, *mws, lengths), 2)
+    lib_run = library_fwd(cell, x, ws, lengths)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lib_run, 10, 2)
+    bound_ms, bound_by = cell.merged_bound(t_len, b, w_in, dt_name)
+    tol = TOL[dt_name]
+    row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
+           "T": t_len, "max_abs_err": err, "tol": tol,
+           "split_max_abs_err": split, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernel] {cell.mfwd_name} {where} B={b} T={t_len} W_in={w_in} "
+        f"{dt_name}: max|ys-ref|={err:.3g}, against {cell.fwd_name} "
+        f"{split:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {cell.library} packed {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    if not (err <= tol and split <= tol):
+        raise AssertionError(f"merged forward disagrees: {row}")
+    return row
+
+
+def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
+                             gen):
+    """Row 5 or 7's train form and row 6 or 8 against their plain versions
+    and against rows 1-4 on the same weights (ys, and the gradients as
+    ``merged_vs_split`` takes them), the backward rerun bit for bit; each
+    timed beside its plain version, the library yardstick and its bound.
+    Raises when they disagree.  Returns the rows ``(train_form,
+    backward)``."""
+    import torch
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    x, ws, lengths = layer_inputs(cell, t_len, b, w_in, dt, lengths, gen)
+    mws = cell.merged_weights(ws)
+    dys = [torch.randn(t_len, b, H, generator=gen).to("cuda", dt)
+           for _ in range(2)]
+    head = f"{where} B={b} T={t_len} W_in={w_in} {dt_name}"
+    tol = TOL[dt_name]
+
+    fwd = cell.mfwd(x, *mws, lengths, train=True)
+    torch.cuda.synchronize()
+    abs_fwd, rel_fwd = rel_err(fwd, cell.mfwd_ref(x, *mws, lengths,
+                                                  train=True))
+    # the LSTM's cell states are not bounded by 1: relative, as for row 3
+    err_fwd = rel_fwd if cell.lstm else abs_fwd
+    sfwd = cell.fwd(x, *ws, lengths, train=True)
+    split_fwd = rel_err(fwd[:2], sfwd[:2])[0]
+    ms = cuda_ms(lambda: cell.mfwd(x, *mws, lengths, train=True), 10, 2)
+    plain_ms = cuda_ms(
+        lambda: cell.mfwd_ref(x, *mws, lengths, train=True), 1, 0)
+    lib_fwd, lib_bwd = library_train(cell, x, ws, lengths, dys)
+    lib_ms = cuda_ms(lib_fwd, 10, 2)
+    bound_ms, bound_by = cell.merged_bound(t_len, b, w_in, dt_name,
+                                           train=True)
+    fwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
+               "T": t_len, "max_abs_err": err_fwd, "tol": tol,
+               "split_max_abs_err": split_fwd, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernel] {cell.mfwd_name} train form {head}: max|out-ref|="
+        f"{abs_fwd:.3g}, error {err_fwd:.3g}, ys against {cell.fwd_name} "
+        f"{split_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {cell.library} packed with autograd "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err_fwd <= tol and split_fwd <= tol):
+        raise AssertionError(f"merged train form disagrees: {fwd_row}")
+
+    bargs = cell.merged_bwd_args(x, mws, lengths, fwd, dys)
+    got = cell.mbwd(*bargs)
+    torch.cuda.synchronize()
+    abs_err, err_bwd = rel_err(got, cell.mbwd_ref(*bargs))
+    again = cell.mbwd(*bargs)
+    identical = all(torch.equal(a, c) for a, c in zip(got, again))
+    split_bwd = merged_vs_split(
+        cell, got, cell.bwd(*cell.bwd_args(x, ws, lengths, sfwd, dys)))
+    ms = cuda_ms(lambda: cell.mbwd(*bargs), 5, 1)
+    plain_ms = cuda_ms(lambda: cell.mbwd_ref(*bargs), 1, 0)
+    lib_ms = cuda_ms(lib_bwd, 5, 1)
+    bound_ms, bound_by = cell.merged_bound_bwd(t_len, b, w_in, dt_name)
+    bwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
+               "T": t_len, "max_abs_err": abs_err, "max_rel_err": err_bwd,
+               "tol": tol, "split_max_rel_err": split_bwd, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bit_identical_rerun": identical}
+    log(f"[kernel] {cell.mbwd_name} {head}: max abs err {abs_err:.3g}, max "
+        f"err / max(1, max|plain|) {err_bwd:.3g}, against {cell.bwd_name} "
+        f"{split_bwd:.3g} (tol {tol}), rerun bit-identical {identical}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd.grad "
+        f"through {cell.library} packed {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    if not (err_bwd <= tol and split_bwd <= tol):
+        raise AssertionError(f"merged backward disagrees: {bwd_row}")
+    if not identical:
+        raise AssertionError("two merged backward runs differ")
+    return fwd_row, bwd_row
 
 
 def phase_kernels():
@@ -1309,9 +1530,12 @@ def counters() -> dict:
 
     out = {name: getattr(RS, name).launches for name in (*SCAN, *GSCAN)}
     for cell in (GRU, LSTM):
-        out[cell.fwd_name] = cell.fwd.launches
-        out[cell.fwd_name + "_train"] = cell.fwd.train_launches
-        out[cell.bwd_name] = cell.bwd.launches
+        for fwd, bwd, name, bname in (
+                (cell.fwd, cell.bwd, cell.fwd_name, cell.bwd_name),
+                (cell.mfwd, cell.mbwd, cell.mfwd_name, cell.mbwd_name)):
+            out[name] = fwd.launches
+            out[name + "_train"] = fwd.train_launches
+            out[bname] = bwd.launches
     for name in FLASH:
         out[name] = getattr(F, name).launches
     for name in CONV:
@@ -1327,18 +1551,21 @@ def reset_counters() -> None:
     for name in (*SCAN, *GSCAN):
         getattr(RS, name).launches = 0
     for cell in (GRU, LSTM):
-        cell.fwd.launches = cell.fwd.train_launches = cell.bwd.launches = 0
+        for fwd, bwd in ((cell.fwd, cell.bwd), (cell.mfwd, cell.mbwd)):
+            fwd.launches = fwd.train_launches = bwd.launches = 0
     for name in FLASH:
         getattr(F, name).launches = 0
     for name in CONV:
         getattr(CV, name).launches = 0
 
 
-def expected_launches(name, forwards=(), steps=(), n_layers=None) -> dict:
+def expected_launches(name, forwards=(), steps=(), n_layers=None,
+                      merged=False) -> dict:
     """Every kernel's launches in a run of ``name`` (``n_layers`` layers, by
     default the train CLI's) whose eval forwards and train steps have the
     ``(B, padded T)`` of ``forwards`` and ``steps``: per layer one eval
-    form a forward, one train form and one backward a step (vanilla_lstm:
+    form a forward, one train form and one backward a step (with
+    ``merged``, the ``PVA_RNN_SPLIT=0`` route, of rows 5-8; vanilla_lstm:
     the scan's eval form, its saving form and its saved-gates backward);
     for attn at padded T >= BLOCKWISE_MIN_T one flash forward a
     forward or step and one flash backward a step, fused or split as the
@@ -1355,9 +1582,11 @@ def expected_launches(name, forwards=(), steps=(), n_layers=None) -> dict:
         out["lstm_scan_fwd_save"] = out["lstm_scan_bwd_saved"] = (
             n_layers * len(steps))
     if cell is not None:
-        out[cell.fwd_name] = n_layers * len(forwards)
-        out[cell.fwd_name + "_train"] = n_layers * len(steps)
-        out[cell.bwd_name] = n_layers * len(steps)
+        fwd, bwd = ((cell.mfwd_name, cell.mbwd_name) if merged
+                    else (cell.fwd_name, cell.bwd_name))
+        out[fwd] = n_layers * len(forwards)
+        out[fwd + "_train"] = n_layers * len(steps)
+        out[bwd] = n_layers * len(steps)
     if name == "attn":
         min_t = attention.BLOCKWISE_MIN_T
         out["flash_fwd"] = sum(t >= min_t for _, t in (*forwards, *steps))
@@ -1421,9 +1650,7 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
     from pytorch_video_action_tpu_torch.cli import inference_cli
     from pytorch_video_action_tpu_torch.data.bundles import load_segment_file
     from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
-    from pytorch_video_action_tpu_torch.infer.loader import load_models
-    from pytorch_video_action_tpu_torch.infer.predict import (
-        forward_batches, frame_predictions)
+    from pytorch_video_action_tpu_torch.infer.predict import forward_batches
     from pytorch_video_action_tpu_torch.models import attention
 
     cell = cell_of(name)
@@ -1510,7 +1737,19 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
     if agree < 0.99:
         raise AssertionError("GPU and CPU segment labels disagree")
 
-    # forward throughput: host time around synchronised work
+    forward_frames_per_sec(card, name, ckpt, feats)
+    return ckpt, launches, rows
+
+
+def forward_frames_per_sec(card, name, ckpt, feats, where=""):
+    """Host clock around synchronised ``frame_predictions`` of the served
+    checkpoint over ``feats``, f32 and bf16, after a warm-up each."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.infer.loader import load_models
+    from pytorch_video_action_tpu_torch.infer.predict import (
+        frame_predictions)
+
     n_frames = sum(len(f) for f in feats)
     gpu_model = load_models([ckpt], N_CLASS, models_dir="models",
                             device="cuda")[ckpt]
@@ -1521,11 +1760,10 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
         frame_predictions(gpu_model, feats, dtype=dt_name)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        log(f"[slice] {name} forward {dt_name}: {n_frames} frames of "
+        log(f"[slice] {name}{where} forward {dt_name}: {n_frames} frames of "
             f"{len(feats)} test videos in {seconds:.4f} s = "
             f"{n_frames / seconds:.0f} frames/s (batch 8, bucket 128) "
             f"on {card}")
-    return ckpt, launches, rows
 
 
 def phase_ensemble(root: str, ckpts: list[str]) -> dict:
@@ -1700,7 +1938,7 @@ def check_relu_grads(batch, name="simple_fc"):
                              "CPU's on the same branches")
 
 
-def train_frames_per_sec(card, name, feed, dt_name, **flags):
+def train_frames_per_sec(card, name, feed, dt_name, where="", **flags):
     """Host clock around one epoch of synchronised train steps on prepared
     batches, after one warm-up step (the model built with ``flags``)."""
     import torch
@@ -1721,21 +1959,23 @@ def train_frames_per_sec(card, name, feed, dt_name, **flags):
         trainer.train_step(ts, b)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    log(f"[train] {name}{' ' + str(flags) if flags else ''} train step "
+    log(f"[train] {name}{where}{' ' + str(flags) if flags else ''} train step "
         f"{dt_name}: {frames} frames in "
         f"{len(batches)} steps in {seconds:.4f} s = {frames / seconds:.0f} "
         f"frames/s (batch {TRAIN_BATCH}, bucket 128) on {card}")
 
 
-def train_cli_run(root, name, dt_name, expect, flags=(), model_flag=True):
+def train_cli_run(root, name, dt_name, expect, flags=(), model_flag=True,
+                  where=""):
     """The train CLI on the card (with the extra ``flags``; without
-    ``--model`` unless ``model_flag``: simple_fc is the CLI's default), with
+    ``--model`` unless ``model_flag``: simple_fc is the CLI's default;
+    ``where`` names the run's metrics file and its log lines), with
     every kernel's count set to 0 just before it and read just after.
     Checks the launch counts against ``expect`` and the loss; returns
     ``(best dev accuracy, launches)``."""
     from pytorch_video_action_tpu_torch.cli import train_cli
 
-    metrics = os.path.join(root, f"train_{name}_{dt_name}"
+    metrics = os.path.join(root, f"train_{name}_{dt_name}{where}"
                            f"{'_'.join(('', *flags))}.jsonl")
     reset_counters()
     t0 = time.time()
@@ -1749,7 +1989,8 @@ def train_cli_run(root, name, dt_name, expect, flags=(), model_flag=True):
     got = counters()
     epochs = epoch_records(metrics)
     loss = [r["train_loss"] for r in epochs]
-    log(f"[train] {name}{''.join(' ' + f for f in flags)} cuda {dt_name} "
+    log(f"[train] {name}{''.join(' ' + f for f in flags)}{where} cuda "
+        f"{dt_name} "
         f"train CLI{'' if model_flag else ' (no --model)'}: "
         f"{TRAIN_EPOCHS} epochs in "
         f"{seconds:.1f} s, train loss {loss}, dev segment accuracy "
@@ -1841,17 +2082,9 @@ def phase_train(card: str, root: str, name: str):
             raise AssertionError("the trained checkpoint serves no CSV")
         log(f"[train] checkpoint {ckpt} served: {len(labels)} CSV rows")
 
-    # one step on the card and on the CPU: the smallest train batch, its
-    # videos cut to 512 frames to bound the CPU's time (attn also with the
-    # flash threshold lowered to 256, so that the step runs the flash path)
-    small = min(train_feed.index_batches(),
-                key=lambda ix: max(len(train_feed.dataset.features[i])
-                                   for i in ix))
-    batch = train_feed.collate(small)
-    keep = min(batch[0].shape[1], 512)
-    batch = (batch[0][:, :keep], np.minimum(batch[1], keep),
-             batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
-             batch[3][:, :keep])
+    # one step on the card and on the CPU (attn also with the flash threshold
+    # lowered to 256, so that the step runs the flash path)
+    batch = small_batch(train_feed)
     if name == "simple_fc":
         check_relu_grads(batch)
     else:
@@ -1873,6 +2106,19 @@ def phase_train(card: str, root: str, name: str):
     for dt_name in dtypes:
         train_frames_per_sec(card, name, train_feed, dt_name)
     return launches, rows, bests["float32"]
+
+
+def small_batch(feed):
+    """The smallest train batch, its videos cut to 512 frames to bound the
+    CPU's time."""
+    small = min(feed.index_batches(),
+                key=lambda ix: max(len(feed.dataset.features[i])
+                                   for i in ix))
+    batch = feed.collate(small)
+    keep = min(batch[0].shape[1], 512)
+    return (batch[0][:, :keep], np.minimum(batch[1], keep),
+            batch[2].reshape(len(small), -1)[:, :keep].reshape(-1),
+            batch[3][:, :keep])
 
 
 def check_ctc_checkpoint(best, ckpt):
@@ -2219,6 +2465,161 @@ def phase_train_lm(root: str) -> dict:
     return got
 
 
+def merged_step(name, batch, expect, where="", **flags):
+    """One f32 train step of ``name`` on the card against the CPU's (as
+    ``check_grads_against_cpu``) on the ``PVA_RNN_SPLIT=0`` route, every
+    count set to 0 just before it and read just after; raises unless the
+    card step's counts are ``expect``.  Returns them."""
+    reset_counters()
+    check_grads_against_cpu(name, batch, f" PVA_RNN_SPLIT=0{where}", **flags)
+    got = counters()
+    want = dict.fromkeys(got, 0)
+    want.update(expect)
+    log(f"[merged] {name}{where} one step: launches {nonzero(got)} "
+        f"(expected {nonzero(want)})")
+    if got != want:
+        raise AssertionError(f"{name}{where}: merged-route launches wrong")
+    return got
+
+
+def serve_merged(card, root, name, ckpt):
+    """The inference CLI serves ``ckpt`` on the card (test part, f32 and
+    bf16: launch counts of rows 5/7) and on the CPU (labels, f32, at least
+    0.99 equal); the forward's frames/s.  Returns the card runs'
+    launches."""
+    from pytorch_video_action_tpu_torch.cli import inference_cli
+    from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.predict import forward_batches
+
+    feats = VideoDataset(data_dir="data", annot_path=root, part="test",
+                         split=1, mode=None, verbose=False).features
+    expect = expected_launches(name, forwards=[
+        (len(c), t) for t, c in forward_batches(feats)], merged=True)
+    base = ["--pretrained_model", ckpt, "--prob", "big", "--part", "test",
+            "--data_dir", os.path.join(root, "data"), "--annot_path", root]
+    launches, csv = {}, {}
+    for dt_name in DTYPES:
+        reset_counters()
+        csv[dt_name] = read_csv_labels(inference_cli.main(
+            base + ["--dtype", dt_name, "--device", "cuda"]))
+        got = counters()
+        add_launches(launches, got)
+        log(f"[merged] {name} served on the card, {dt_name}: "
+            f"{len(csv[dt_name])} CSV rows, launches {nonzero(got)} "
+            f"(expected {nonzero(expect)})")
+        if got != expect:
+            raise AssertionError("merged-route serving launches wrong")
+    t0 = time.time()
+    cpu = read_csv_labels(inference_cli.main(base + ["--device", "cpu"]))
+    agree = float(np.mean(np.asarray(cpu) == np.asarray(csv["float32"])))
+    log(f"[merged] {name} served on the CPU in {time.time() - t0:.1f} s; "
+        f"segment labels cuda f32 vs cpu f32 agree {agree:.4f}")
+    if agree < 0.99:
+        raise AssertionError("GPU and CPU segment labels disagree")
+    forward_frames_per_sec(card, name, ckpt, feats, " PVA_RNN_SPLIT=0")
+    return launches
+
+
+def phase_merged(card: str, root: str, lm_root: str):
+    """The ``PVA_RNN_SPLIT=0`` route (rows 5-8), with ``rnn_fused.SPLIT``
+    set to False for the phase: the merged kernels held at the main path's
+    shapes (the eval forms at the largest test forward batch, W_in=400;
+    the train forms and backwards at the largest train batch, W_in 400 and
+    256; f32 and bf16); bigru (f32, bf16) and bilstm (f32) trained by the
+    train CLI and their f32 checkpoints served by the inference CLI
+    (launch counts with rows 1-4 at 0, falling loss, labels against the
+    CPU, frames/s); one step each of bigru, bilstm, attn on its dense and
+    its flash path, ctcloss and, on ``lm_root``'s 40-100-frame videos,
+    bilstm_lm, its gradients against the CPU.  Returns the launches and
+    the kernel rows by kernels-line entry."""
+    from pytorch_video_action_tpu_torch.ops import rnn_fused
+
+    split = rnn_fused.SPLIT
+    rnn_fused.SPLIT = False
+    try:
+        return _merged_route(card, root, lm_root)
+    finally:
+        rnn_fused.SPLIT = split
+
+
+def _merged_route(card, root, lm_root):
+    import torch
+
+    from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.predict import forward_batches
+
+    rows, launches = {}, {}
+    feats = VideoDataset(data_dir="data", annot_path=root, part="test",
+                         split=1, mode=None, verbose=False).features
+    t_serve, chunk = max(forward_batches(feats),
+                         key=lambda tb: tb[0] * len(tb[1]))
+    serve_lens = [len(feats[i]) for i in chunk]
+    train_feed, dev_feed = train_feeds(root)
+    batch = largest_batch(train_feed)
+    train_lens, t_train = batch[1].tolist(), batch[0].shape[1]
+    gen = torch.Generator().manual_seed(10)
+    t0 = time.time()
+    for cell in (GRU, LSTM):
+        for dt_name in DTYPES:
+            rows.setdefault(cell.mfwd_name, []).append(check_merged_layer(
+                cell, "main path", serve_lens, t_serve, 400, dt_name, gen))
+        for w_in in (400, 256):
+            for dt_name in DTYPES:
+                f, b = check_merged_train_layer(cell, "main path",
+                                                train_lens, t_train, w_in,
+                                                dt_name, gen)
+                rows.setdefault(cell.mfwd_name + "_train", []).append(f)
+                rows.setdefault(cell.mbwd_name, []).append(b)
+    log(f"[merged] kernel checks in {time.time() - t0:.1f} s")
+
+    steps, forwards = feed_shapes(train_feed), feed_shapes(dev_feed)
+    small = small_batch(train_feed)
+    for name, dtypes in (("bigru", DTYPES), ("bilstm", ("float32",))):
+        t0 = time.time()
+        expect = expected_launches(name, forwards=forwards * TRAIN_EPOCHS,
+                                   steps=steps * TRAIN_EPOCHS, merged=True)
+        for dt_name in dtypes:
+            best, got = train_cli_run(root, name, dt_name, expect,
+                                      where="_split0")
+            add_launches(launches, got)
+            if dt_name == "float32":
+                ckpt = f"{name}_{best:.2f}_dev"
+        add_launches(launches, serve_merged(card, root, name, ckpt))
+        layers = MODELS[name][1]
+        cell = cell_of(name)
+        add_launches(launches, merged_step(
+            name, small, {cell.mfwd_name + "_train": layers,
+                          cell.mbwd_name: layers}))
+        for dt_name in dtypes:
+            train_frames_per_sec(card, name, train_feed, dt_name,
+                                 " PVA_RNN_SPLIT=0")
+        log(f"[merged] {name} in {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    gru_step = {"gru_merged_fwd_train": 1, "gru_merged_bwd": 1}
+    add_launches(launches, merged_step("attn", small, gru_step,
+                                       " dense path"))
+    b, t_len = small[0].shape[:2]
+    flash = {"flash_fwd": 1}
+    flash.update(dict.fromkeys(
+        ["flash_bwd_fused"] if use_fused(b, t_len)
+        else ["flash_bwd_dkdv", "flash_bwd_dq"], 1))
+    with blockwise_min_t(256):
+        add_launches(launches, merged_step("attn", small,
+                                           {**gru_step, **flash},
+                                           " flash path"))
+    add_launches(launches, merged_step(
+        "ctcloss", small, {"gru_merged_fwd_train": 4, "gru_merged_bwd": 4}))
+    with contextlib.chdir(lm_root):
+        lm_feed, _ = train_feeds(lm_root)
+        add_launches(launches, merged_step(
+            "bilstm_lm", small_batch(lm_feed),
+            {"lstm_merged_fwd_train": 2, "lstm_merged_bwd": 2}))
+    log(f"[merged] attn, ctcloss and bilstm_lm steps in "
+        f"{time.time() - t0:.1f} s")
+    return launches, rows
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One ``kernels`` entry: headline numbers from ``rows[0]`` (f32 at the
     main path's shape), every checked shape under ``shapes``."""
@@ -2326,6 +2727,11 @@ def main() -> int:
         with contextlib.chdir(lm_root):
             add_launches(launches, phase_train_lm(lm_root))
         log(f"[train] training phases in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        got, new_rows = phase_merged(card, root, lm_root)
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[merged] PVA_RNN_SPLIT=0 phase in {time.time() - t0:.1f} s")
     log(f"[done] all phases in {time.time() - start:.1f} s")
 
     entries = []
@@ -2334,6 +2740,13 @@ def main() -> int:
                     (cell.fwd_name + "_train", cell.fwd_src,
                      PALLAS + cell.fwd_replaces),
                     (cell.bwd_name, cell.bwd_src, PALLAS + cell.bwd_replaces)]
+    for cell in (GRU, LSTM):
+        entries += [(cell.mfwd_name, cell.mfwd_src,
+                     PALLAS + cell.mfwd_replaces),
+                    (cell.mfwd_name + "_train", cell.mfwd_src,
+                     PALLAS + cell.mfwd_replaces),
+                    (cell.mbwd_name, cell.mbwd_src,
+                     PALLAS + cell.mbwd_replaces)]
     entries += [(name, CSRC + src, SCAN_PALLAS + line)
                 for name, (src, line) in (*SCAN.items(), *GSCAN.items())]
     entries += [(name, CSRC + src, FLASH_PALLAS + line)
@@ -2341,7 +2754,7 @@ def main() -> int:
     entries += [(name, CSRC + src, CONV_PALLAS + line)
                 for name, (src, line) in CONV.items()]
     kernels = [kernel_entry(name, src, replaces, launches.get(name, 0),
-                            rows.get(name, []) + bench[name])
+                            rows.get(name, []) + bench.get(name, []))
                for name, src, replaces in entries]
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:

@@ -1,8 +1,9 @@
-// Device code shared by the bidirectional GRU and LSTM layer kernels
+// Device code shared by the bidirectional GRU and LSTM layer kernels, split
 // (gru_bidir_fwd.cu, gru_bidir_bwd.cu, lstm_bidir_fwd.cu, lstm_bidir_bwd.cu)
-// for Hopper (sm_90a): the input projection, and the backward's
-// deterministic tiled SIMT GEMMs and bias reduction.  Each .cu includes it
-// and builds into its own library.
+// and merged-body ({gru,lstm}_merged_{fwd,bwd}.cu), for Hopper (sm_90a):
+// the input projection, and the backward's deterministic tiled SIMT GEMMs
+// and bias reduction.  Each .cu includes it and builds into its own
+// library.
 
 #pragma once
 
@@ -23,7 +24,8 @@ constexpr int kPN = 128;  // gate columns per block
 constexpr int kPK = 8;    // depth per shared-memory stage
 constexpr int kPThreads = 256;
 
-// xg[dir, m, n] = sum_k x[m, k] * wi_dir[k, n] + bi_dir[n]   (f32)
+// xg[dir, m, n] = sum_k x[m, k] * wi_dir[k, n] + bi_dir[n]   (f32); with
+// null bias pointers (the merged layers add theirs on the chain) no bias
 template <typename T>
 __global__ void __launch_bounds__(kPThreads)
 proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
@@ -91,7 +93,7 @@ proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int gn = n0 + (j < 4 ? tc * 4 + j : 64 + tc * 4 + (j - 4));
-      if (gn < N) row[gn] = acc[i][j] + to_f(bias[gn]);
+      if (gn < N) row[gn] = bias ? acc[i][j] + to_f(bias[gn]) : acc[i][j];
     }
   }
 }
@@ -362,6 +364,53 @@ cudaError_t launch_products(const void* x, const void* wif, const void* wib,
   const Store<T> xc = {static_cast<T*>(dx), W};
   dx_kernel<T><<<xgrid, kThreads, 0, stream>>>(xa, xb, xc, M, W, 2 * G);
   return cudaGetLastError();
+}
+
+// The merged-body backward's products, for G = gH a direction and G2 = 2G:
+//   dwi_d = x^T rnd(dxg_d)                      [W, G]
+//   dwh2  = hp2^T rnd(dhg2)                     [2H, G2], off-diagonal
+//                                               blocks included
+//   dx_d  = rnd(dxg_d) wi_d^T, apart            [T*B, W] each
+// dxg is the chain's [2, T*B, G] f32, each direction dense and in original
+// time order (launch_products' layout); dhg2 its [T*B, G2] f32 in kernel
+// order, gate-grouped, the rows of hp2 [T*B, 2H] (in T).  dwif, dwib and
+// dwh2's two column halves are the four problems of one wgrad_kernel
+// launch, so their long-K tiles run as one wave.
+template <typename T>
+cudaError_t launch_merged_products(const void* x, const void* wif,
+                                   const void* wib, const void* hp2,
+                                   const float* dxg, const float* dhg2,
+                                   void* dxf, void* dxb, void* dwif,
+                                   void* dwib, void* dwh2, int Tn, int B,
+                                   int W, int H, int G, cudaStream_t stream) {
+  const int M = Tn * B;
+  const int G2 = 2 * G;
+  const size_t dstride = (size_t)M * G;
+  const T* xt = static_cast<const T*>(x);
+  const T* hp = static_cast<const T*>(hp2);
+  T* dwh = static_cast<T*>(dwh2);
+  WgradProblems<T> probs;
+  probs.p[0] = {{xt, W, 0, M}, {dxg, G}, {static_cast<T*>(dwif), G}, W};
+  probs.p[1] = {{xt, W, 0, M}, {dxg + dstride, G},
+                {static_cast<T*>(dwib), G}, W};
+  probs.p[2] = {{hp, 2 * H, 0, M}, {dhg2, G2}, {dwh, G2}, 2 * H};
+  probs.p[3] = {{hp, 2 * H, 0, M}, {dhg2 + G, G2}, {dwh + G, G2}, 2 * H};
+  const int rows = W > 2 * H ? W : 2 * H;
+  wgrad_kernel<T><<<dim3((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4),
+                    kThreads, 0, stream>>>(probs, G, M);
+  cudaError_t err = cudaGetLastError();
+
+  // dx_d over K = G: DxgRows and WiT then read direction d alone
+  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
+  for (int d = 0; d < 2 && err == cudaSuccess; ++d) {
+    const T* wi = static_cast<const T*>(d ? wib : wif);
+    const DxgRows<T> xa = {dxg + d * dstride, dstride, G};
+    const WiT<T> xb = {wi, wi, G};
+    const Store<T> xc = {static_cast<T*>(d ? dxb : dxf), W};
+    dx_kernel<T><<<xgrid, kThreads, 0, stream>>>(xa, xb, xc, M, W, G);
+    err = cudaGetLastError();
+  }
+  return err;
 }
 
 }  // namespace

@@ -16,6 +16,15 @@ strides ``(2H, T*2H, 1)``) follows every layer but the last.  Under
 autograd each layer runs its train form and backward kernel; the boundary
 glue is plain torch, differentiated by autograd.
 
+``rnn_fused.SPLIT`` (``PVA_RNN_SPLIT``, read at import; the stack reads
+the attribute at call time) picks the layer body as ``_fused_layer_tm``
+does (``rnn.py:258-288``): the split layer above by default, else the
+merged one, :func:`rnn_fused.gru_merged_layer` or
+:func:`rnn_fused.lstm_merged_layer`, on the gate-grouped weights
+:func:`_pack_bidir` builds (the LSTM's ``b2`` folds both biases and has
+no hidden bias).  The packing is differentiable torch, so its VJP keeps
+only the diagonal blocks of ``dwh2``.  Both bodies take the same widths.
+
 Where the fused layer kernels do not take ``H`` (``_HIDDEN``), the
 bidirectional GRU and LSTM stacks run JAX's per-layer fallback instead
 (``rnn.py:425-477``, its ``_scan_packed`` on ``rnn_pallas``'s scans): per
@@ -39,9 +48,10 @@ import math
 import torch
 from torch import nn
 
-from . import hashmask
+from . import hashmask, rnn_fused
 from .masking import length_mask, masked_reverse
-from .rnn_fused import _HIDDEN, gru_bidir_layer, lstm_bidir_layer
+from .rnn_fused import (_HIDDEN, gru_bidir_layer, gru_merged_layer,
+                        lstm_bidir_layer, lstm_merged_layer)
 from .rnn_scan import gru_scan, lstm_scan
 
 
@@ -79,14 +89,54 @@ def init_rnn(input_dim: int, hidden_dim: int, num_layers: int, *,
     return layers
 
 
+def _pack_gate_grouped(mats, h: int, n_gates: int) -> torch.Tensor:
+    """Per-direction hidden weights ``[H, gH]`` -> a block-diagonal ``[D*H,
+    g*D*H]`` with gate-grouped columns ``[gate0_dir0 | gate0_dir1 | gate1_dir0
+    | ...]`` (JAX ``rnn.py:110-123``), as one broadcast product with the
+    identity, so that its VJP passes each direction its diagonal blocks and
+    drops the others in two kernels."""
+    d = len(mats)
+    m = torch.stack(mats).view(d, h, n_gates, 1, h)
+    eye = torch.eye(d, dtype=m.dtype, device=m.device).view(d, 1, 1, d, 1)
+    return (m * eye).reshape(d * h, n_gates * d * h)
+
+
+def _pack_gate_grouped_vec(vecs, h: int, n_gates: int) -> torch.Tensor:
+    """The same gate-grouped packing for bias vectors ``[gH]`` -> ``[g*D*H]``
+    (JAX ``rnn.py:126-131``)."""
+    d = len(vecs)
+    return torch.stack(vecs).view(d, n_gates, h).transpose(0, 1).reshape(
+        n_gates * d * h)
+
+
+def _pack_bidir(cell: str, f, b, h: int, n_gates: int):
+    """Gate-grouped ``(b2, wh2, bh2)`` of one layer's two directions for the
+    merged body (JAX ``rnn.py:244-255``): the LSTM's ``b2`` folds both
+    biases and its ``bh2`` is None (the merged LSTM takes no hidden bias);
+    the GRU's ``b2`` holds ``bi``, ``bh2`` its ``bh`` (inside the reset
+    gate)."""
+    wh2 = _pack_gate_grouped([f.wh, b.wh], h, n_gates)
+    if cell == "lstm":
+        return (_pack_gate_grouped_vec([f.bi + f.bh, b.bi + b.bh], h,
+                                       n_gates), wh2, None)
+    return (_pack_gate_grouped_vec([f.bi, b.bi], h, n_gates), wh2,
+            _pack_gate_grouped_vec([f.bh, b.bh], h, n_gates))
+
+
 def _gru_layer(x, f, b, lengths):
-    return gru_bidir_layer(x, f.wi, b.wi, f.bi, b.bi, f.wh, b.wh, f.bh, b.bh,
-                           lengths)
+    if rnn_fused.SPLIT:
+        return gru_bidir_layer(x, f.wi, b.wi, f.bi, b.bi, f.wh, b.wh, f.bh,
+                               b.bh, lengths)
+    b2, wh2, bh2 = _pack_bidir("gru", f, b, f.wh.shape[0], 3)
+    return gru_merged_layer(x, f.wi, b.wi, b2, wh2, bh2, lengths)
 
 
 def _lstm_layer(x, f, b, lengths):
-    return lstm_bidir_layer(x, f.wi, b.wi, f.bi + f.bh, b.bi + b.bh, f.wh,
-                            b.wh, lengths)
+    if rnn_fused.SPLIT:
+        return lstm_bidir_layer(x, f.wi, b.wi, f.bi + f.bh, b.bi + b.bh,
+                                f.wh, b.wh, lengths)
+    b2, wh2, _ = _pack_bidir("lstm", f, b, f.wh.shape[0], 4)
+    return lstm_merged_layer(x, f.wi, b.wi, b2, wh2, lengths)
 
 
 def _apply_stack(layer_fn, layers, x: torch.Tensor, lengths: torch.Tensor,

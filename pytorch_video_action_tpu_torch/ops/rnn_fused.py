@@ -3,7 +3,8 @@
 ``csrc/lstm_bidir_fwd.cu``, ``csrc/lstm_bidir_bwd.cu``), their plain
 PyTorch versions, and the ``torch.autograd.Function``s that tie each
 train-form forward to its backward.  The LSTM section, below the GRU's,
-has its own notes.
+has its own notes, and so has the merged-body section at the end (the
+``PVA_RNN_SPLIT=0`` route, ``csrc/{gru,lstm}_merged_{fwd,bwd}.cu``).
 
 GRU: counterpart of ``pytorch_video_action_tpu/ops/rnn_fused_pallas.py``
 ``gru_bidir_fused_split``: ``_fwd_kernel_split`` in its eval and train
@@ -36,6 +37,7 @@ and returned in the weight dtype.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -224,6 +226,14 @@ _ARGTYPES = {
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 23
                        + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "gru_merged_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "gru_merged_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 19
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "lstm_merged_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "lstm_merged_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 19
+                        + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 
 
@@ -641,3 +651,502 @@ def lstm_bidir_layer(x, wif, wib, bf, bb, whf, whb, lengths):
                                        for t in (x, *weights)):
         return LSTMBidirLayerFn.apply(x, *weights, lengths)
     return lstm_bidir_fwd(x, *weights, lengths)
+
+
+# ------------------------------------------------------------ merged body
+#
+# Counterpart of ``rnn_fused_pallas.gru_bidir_fused`` and
+# ``lstm_bidir_fused``, the route ``PVA_RNN_SPLIT=0`` selects:
+# ``_fwd_kernel`` / ``_lstm_fwd_kernel`` in their eval and train forms and
+# ``_bwd_kernel`` / ``_lstm_bwd_kernel``, their VJPs.  Both directions run
+# as one ``[B, 2H]`` chain against a gate-grouped hidden weight.  Layouts,
+# g = 3 gates (GRU) or 4 (LSTM):
+#
+# * dense per-direction input weights ``wif2``, ``wib2 [W, gH]``;
+# * gate-grouped ``bi2 [g*2H]``, ``wh2 [2H, g*2H]`` and, for the GRU only,
+#   ``bh2 [g*2H]``: columns ``[gate0_f gate0_b | gate1_f gate1_b | ...]``
+#   (``ops/rnn.py:_pack_gate_grouped``); ``wh2`` is block-diagonal, the
+#   LSTM's ``bi2`` holds both folded biases;
+# * ``ys_f``, ``ys_b [T, B, H]`` in original time order, unmasked;
+# * the train form's residuals in KERNEL order, row s holding the forward
+#   chain's step s (time s) and the backward chain's step s (time T-1-s):
+#   GRU ``res [T, B, 8H] = [r z n hg_n]``, LSTM ``res [T, B, 10H] = [i f g
+#   o tanh_c]``, each of them 2H wide, gate-grouped; and the LSTM's
+#   carried cell state ``cs [T, B, 2H]``, kernel order, in the input
+#   dtype (the split route keeps its cell states in f32).
+#
+# Masking contract as the split route's: the backward chain's carry is
+# frozen on its flipped-prefix padding (kernel step s < T - len, i.e.
+# time t >= len), where its VJP gives no gate gradient and passes dh (and
+# the LSTM's dc) through.  The backward takes ``hp2`` (and ``cp2``), the
+# kernel-order previous state, which the autograd Function builds from
+# ``ys`` (and ``cs``) in plain torch, as JAX builds them outside the
+# kernel, and returns ``dx_f`` and ``dx_b`` apart, each in x's dtype;
+# the Function sums them in f32.  Its ``dwh2`` is the whole ``[2H,
+# g*2H]``, off-diagonal blocks included (``hp2^T dhg2``); the packing's
+# VJP keeps only the diagonal blocks.  Numerics as the split route's.
+
+SPLIT = os.environ.get("PVA_RNN_SPLIT", "1") == "1"
+
+
+def _dense(v, h, n_gates, d):
+    """Direction ``d``'s dense ``[..., gH]`` columns out of gate-grouped
+    ``[..., g*2H]`` ones."""
+    return torch.cat([v[..., q * 2 * h + d * h:q * 2 * h + (d + 1) * h]
+                      for q in range(n_gates)], dim=-1)
+
+
+def _grouped(vf, vb, h, n_gates):
+    """Gate-grouped ``[..., g*2H]`` columns of two directions' dense
+    ``[..., gH]`` ones."""
+    return torch.cat([v[..., q * h:(q + 1) * h] for q in range(n_gates)
+                      for v in (vf, vb)], dim=-1)
+
+
+def _merged_xg(x, wif2, wib2, n_gates):
+    """The chain's input gates, no bias, kernel order, gate-grouped
+    ``[T, B, g*2H]`` in the accumulation dtype."""
+    acc = _acc(x.dtype)
+    h = wif2.shape[1] // n_gates
+    xf = x.to(acc)
+    xgf = torch.matmul(xf, wif2.to(acc))
+    xgb = torch.matmul(xf, wib2.to(acc)).flip(0)
+    return _grouped(xgf, xgb, h, n_gates)
+
+
+def _updated_lanes(s, t_len, lengths, h):
+    """``[B, 2H]`` bool: True on the lanes a kernel step updates (every
+    forward lane; the backward chain's where s >= T - len)."""
+    valid = (s >= t_len - lengths)[:, None].expand(-1, h)
+    return torch.cat([torch.ones_like(valid), valid], dim=-1)
+
+
+def gru_merged_layer_ref(x, wif2, wib2, bi2, wh2, bh2, lengths, train=False):
+    """Plain PyTorch version of the merged GRU forward: one ``[B, 2H]``
+    chain against the whole ``wh2``, a loop over the kernel steps.
+    ``train=True`` also returns the kernel-order residuals."""
+    t_len, b, _ = x.shape
+    h = wh2.shape[0] // 2
+    w2 = 2 * h
+    dt = x.dtype
+    acc = _acc(dt)
+    xg2 = _merged_xg(x, wif2, wib2, 3)
+    bi, wh, bh = bi2.to(acc), wh2.to(acc), bh2.to(acc)
+    lengths = lengths.to(x.device, torch.int64)
+    h2 = torch.zeros(b, w2, dtype=acc, device=x.device)
+    ysf, ysb = (torch.empty(t_len, b, h, dtype=dt, device=x.device)
+                for _ in range(2))
+    if train:
+        res = torch.empty(t_len, b, 8 * h, dtype=dt, device=x.device)
+    for s in range(t_len):
+        gx = xg2[s] + bi
+        hg = torch.matmul(h2.to(wh2.dtype).to(acc), wh) + bh
+        r = torch.sigmoid(gx[:, :w2] + hg[:, :w2])
+        z = torch.sigmoid(gx[:, w2:2 * w2] + hg[:, w2:2 * w2])
+        hg_n = hg[:, 2 * w2:]
+        n = torch.tanh(gx[:, 2 * w2:] + r * hg_n)
+        hn = (1.0 - z) * n + z * h2
+        h2 = torch.where(_updated_lanes(s, t_len, lengths, h), hn, h2)
+        ysf[s] = h2[:, :h].to(dt)
+        ysb[t_len - 1 - s] = h2[:, h:].to(dt)
+        if train:
+            res[s] = torch.cat([r, z, n, hg_n], dim=-1).to(dt)
+    if train:
+        return ysf, ysb, res
+    return ysf, ysb
+
+
+def _merged_products(x, wif2, wib2, wh2, hp2, dxg2, dhg2, n_gates):
+    """The backward's products off the chain, from the kernel-order
+    gate-grouped gate gradients ``dxg2``, ``dhg2 [T, B, g*2H]``: ``(dx_f,
+    dx_b, dwif, dwib, dbi2, dwh2, dbh2)``, the per-direction ones in
+    original time order."""
+    t_len, b, w_in = x.shape
+    h = wh2.shape[0] // 2
+    dt, wdt = x.dtype, wh2.dtype
+    acc = _acc(dt)
+    m = t_len * b
+
+    def rnd(v, d):
+        return v.to(d).to(acc)
+
+    gw = n_gates * h
+    dxg_f = _dense(dxg2, h, n_gates, 0).reshape(m, gw)
+    dxg_b = _dense(dxg2, h, n_gates, 1).flip(0).reshape(m, gw)
+    x2 = x.reshape(m, w_in).to(acc)
+    dxf = torch.matmul(rnd(dxg_f, wif2.dtype), wif2.to(acc).t())
+    dxb = torch.matmul(rnd(dxg_b, wib2.dtype), wib2.to(acc).t())
+    dwif = torch.matmul(x2.t(), rnd(dxg_f, dt))
+    dwib = torch.matmul(x2.t(), rnd(dxg_b, dt))
+    dwh2 = torch.matmul(rnd(hp2.reshape(m, 2 * h).to(acc), wdt).t(),
+                        rnd(dhg2.reshape(m, 2 * gw), wdt))
+    return (dxf.reshape(t_len, b, w_in).to(dt),
+            dxb.reshape(t_len, b, w_in).to(dt), dwif.to(wif2.dtype),
+            dwib.to(wib2.dtype), dxg2.sum(dim=(0, 1)).to(wdt), dwh2.to(wdt),
+            dhg2.sum(dim=(0, 1)).to(wdt))
+
+
+def gru_merged_layer_bwd_ref(x, res, hp2, dyf, dyb, wif2, wib2, wh2,
+                             lengths):
+    """Plain PyTorch version of the merged GRU backward: the VJP of the
+    forward in JAX's ``_bwd_kernel``'s order and rounding, the carry
+    product against the whole ``wh2``.  Returns ``(dx_f, dx_b, dwif, dwib,
+    dbi2, dwh2, dbh2)``."""
+    t_len, b, _ = x.shape
+    h = wh2.shape[0] // 2
+    w2 = 2 * h
+    acc = _acc(x.dtype)
+    wdt = wh2.dtype
+    lengths = lengths.to(x.device, torch.int64)
+    res = res.to(acc)
+    hp = hp2.to(acc)
+    dy2 = torch.cat([dyf, dyb.flip(0)], dim=-1).to(acc)  # kernel order
+    wh_t = wh2.to(acc).t()
+    dxg2 = torch.empty(t_len, b, 6 * h, dtype=acc, device=x.device)
+    dhg2 = torch.empty_like(dxg2)
+    carry = torch.zeros(b, w2, dtype=acc, device=x.device)
+    for s in range(t_len - 1, -1, -1):
+        r, z, n, hg_n = (res[s, :, i * w2:(i + 1) * w2] for i in range(4))
+        dh = dy2[s] + carry
+        dz = dh * (hp[s] - n)
+        dpn = dh * (1.0 - z) * (1.0 - n * n)
+        dpr = dpn * hg_n * r * (1.0 - r)
+        dpz = dz * z * (1.0 - z)
+        # the backward chain was frozen on its padding: no gate gradient
+        valid = _updated_lanes(s, t_len, lengths, h)
+        keep = valid.to(acc)
+        dpn, dpr, dpz = dpn * keep, dpr * keep, dpz * keep
+        dxg2[s] = torch.cat([dpr, dpz, dpn], dim=-1)
+        dhg2[s] = torch.cat([dpr, dpz, dpn * r], dim=-1)
+        step = dh * z + torch.matmul(dhg2[s].to(wdt).to(acc), wh_t)
+        carry = torch.where(valid, step, dh)
+    return _merged_products(x, wif2, wib2, wh2, hp, dxg2, dhg2, 3)
+
+
+def lstm_merged_layer_ref(x, wif2, wib2, bi2, wh2, lengths, train=False):
+    """Plain PyTorch version of the merged LSTM forward: one ``[B, 2H]``
+    chain (h and c) against the whole ``wh2``.  ``train=True`` also
+    returns ``(cs, res)``, kernel order, in x's dtype."""
+    t_len, b, _ = x.shape
+    h = wh2.shape[0] // 2
+    w2 = 2 * h
+    dt = x.dtype
+    acc = _acc(dt)
+    xg2 = _merged_xg(x, wif2, wib2, 4)
+    bi, wh = bi2.to(acc), wh2.to(acc)
+    lengths = lengths.to(x.device, torch.int64)
+    h2 = torch.zeros(b, w2, dtype=acc, device=x.device)
+    c2 = torch.zeros_like(h2)
+    ysf, ysb = (torch.empty(t_len, b, h, dtype=dt, device=x.device)
+                for _ in range(2))
+    if train:
+        cs = torch.empty(t_len, b, w2, dtype=dt, device=x.device)
+        res = torch.empty(t_len, b, 10 * h, dtype=dt, device=x.device)
+    for s in range(t_len):
+        gates = (xg2[s] + bi) + torch.matmul(h2.to(wh2.dtype).to(acc), wh)
+        i = torch.sigmoid(gates[:, :w2])
+        f = torch.sigmoid(gates[:, w2:2 * w2])
+        g = torch.tanh(gates[:, 2 * w2:3 * w2])
+        o = torch.sigmoid(gates[:, 3 * w2:])
+        c = f * c2 + i * g
+        tanh_c = torch.tanh(c)
+        valid = _updated_lanes(s, t_len, lengths, h)
+        h2 = torch.where(valid, o * tanh_c, h2)
+        c2 = torch.where(valid, c, c2)
+        ysf[s] = h2[:, :h].to(dt)
+        ysb[t_len - 1 - s] = h2[:, h:].to(dt)
+        if train:
+            cs[s] = c2.to(dt)
+            res[s] = torch.cat([i, f, g, o, tanh_c], dim=-1).to(dt)
+    if train:
+        return ysf, ysb, cs, res
+    return ysf, ysb
+
+
+def lstm_merged_layer_bwd_ref(x, res, hp2, cp2, dyf, dyb, wif2, wib2, wh2,
+                              lengths):
+    """Plain PyTorch version of the merged LSTM backward, in JAX's
+    ``_lstm_bwd_kernel``'s order and rounding.  Returns ``(dx_f, dx_b,
+    dwif, dwib, dbi2, dwh2)``."""
+    t_len, b, _ = x.shape
+    h = wh2.shape[0] // 2
+    w2 = 2 * h
+    acc = _acc(x.dtype)
+    wdt = wh2.dtype
+    lengths = lengths.to(x.device, torch.int64)
+    res = res.to(acc)
+    hp, cp = hp2.to(acc), cp2.to(acc)
+    dy2 = torch.cat([dyf, dyb.flip(0)], dim=-1).to(acc)
+    wh_t = wh2.to(acc).t()
+    dg2 = torch.empty(t_len, b, 8 * h, dtype=acc, device=x.device)
+    carry_h = torch.zeros(b, w2, dtype=acc, device=x.device)
+    carry_c = torch.zeros_like(carry_h)
+    for s in range(t_len - 1, -1, -1):
+        i, f, g, o, tanh_c = (res[s, :, q * w2:(q + 1) * w2]
+                              for q in range(5))
+        dh = dy2[s] + carry_h
+        dc = dh * o * (1.0 - tanh_c * tanh_c) + carry_c
+        valid = _updated_lanes(s, t_len, lengths, h)
+        keep = valid.to(acc)
+        dg2[s] = torch.cat([dc * g * i * (1.0 - i) * keep,
+                            dc * cp[s] * f * (1.0 - f) * keep,
+                            dc * i * (1.0 - g * g) * keep,
+                            dh * tanh_c * o * (1.0 - o) * keep], dim=-1)
+        carry_h = torch.where(
+            valid, torch.matmul(dg2[s].to(wdt).to(acc), wh_t), dh)
+        carry_c = torch.where(valid, dc * f, dc)
+    # the LSTM's input and hidden gate gradients are both dgates
+    return _merged_products(x, wif2, wib2, wh2, hp, dg2, dg2, 4)[:6]
+
+
+def _merged_dims(where, x, wh2):
+    """``(T, B, W, H)`` of a merged kernel's call; raises on a dtype, rank or
+    width the kernels do not take."""
+    if wh2.dim() != 2 or wh2.shape[0] % 2:
+        raise ValueError(f"{where}: wh2 must be [2H, g*2H], got "
+                         f"{tuple(wh2.shape)}")
+    t_len, b, w_in, h = _dims(where, x, wh2[:wh2.shape[0] // 2])
+    _check_hidden(where, h)
+    return t_len, b, w_in, h
+
+
+def _merged_expect(t_len, b, w_in, h, n_gates, *names):
+    """The shapes of the merged kernels' arguments, by name, as
+    ``_check_tensors`` takes them."""
+    g, g2 = n_gates * h, 2 * n_gates * h
+    n_res = 8 * h if n_gates == 3 else 10 * h
+    shapes = {"x": (t_len, b, w_in), "wif2": (w_in, g), "wib2": (w_in, g),
+              "bi2": (g2,), "wh2": (2 * h, g2), "bh2": (g2,),
+              "res": (t_len, b, n_res), "hp2": (t_len, b, 2 * h),
+              "cp2": (t_len, b, 2 * h), "dyf": (t_len, b, h),
+              "dyb": (t_len, b, h), "lengths": (b,)}
+    return [(n, shapes[n], None if n == "lengths" else 1) for n in names]
+
+
+def gru_merged_fwd(x, wif2, wib2, bi2, wh2, bh2, lengths, train=False):
+    """Row 5's wrapper.  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/gru_merged_fwd.cu`` or raises.  The kernel reads only
+    the two diagonal blocks of ``wh2`` (and of ``bi2``/``bh2`` the
+    direction's own columns): it relies on ``wh2`` being block-diagonal, as
+    ``ops/rnn.py:_pack_gate_grouped`` makes it.  ``launches`` counts
+    eval-form launches, ``train_launches`` train-form ones."""
+    if x.device.type == "cpu":
+        return gru_merged_layer_ref(x, wif2, wib2, bi2, wh2, bh2, lengths,
+                                    train=train)
+    if x.device.type != "cuda":
+        raise _no_kernel("gru_merged_fwd", x)
+    t_len, b, w_in, h = _merged_dims("gru_merged_fwd", x, wh2)
+    _check_tensors("gru_merged_fwd", x.dtype, _merged_expect(
+        t_len, b, w_in, h, 3, "x", "wif2", "wib2", "bi2", "wh2", "bh2",
+        "lengths"), (x, wif2, wib2, bi2, wh2, bh2, lengths))
+    ysf = torch.empty((t_len, b, h), dtype=x.dtype, device=x.device)
+    ysb = torch.empty_like(ysf)
+    res = (torch.empty((t_len, b, 8 * h), dtype=x.dtype, device=x.device)
+           if train else None)
+    xg = torch.empty((2, t_len * b, 3 * h), dtype=torch.float32,
+                     device=x.device)
+    _launch("gru_merged_fwd", x, _DTYPE_CODE[x.dtype], x.data_ptr(),
+            wif2.data_ptr(), wib2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(),
+            bh2.data_ptr(), lengths.data_ptr(), ysf.data_ptr(),
+            ysb.data_ptr(), _ptr(res), xg.data_ptr(), t_len, b, w_in, h,
+            int(train))
+    if train:
+        gru_merged_fwd.train_launches += 1
+        return ysf, ysb, res
+    gru_merged_fwd.launches += 1
+    return ysf, ysb
+
+
+gru_merged_fwd.launches = 0
+gru_merged_fwd.train_launches = 0
+
+
+def gru_merged_bwd(x, res, hp2, dyf, dyb, wif2, wib2, wh2, lengths):
+    """Row 6's wrapper.  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/gru_merged_bwd.cu`` or raises.  Returns ``(dx_f,
+    dx_b, dwif, dwib, dbi2, dwh2, dbh2)``; ``launches`` counts launches.
+    Like JAX's ``_bwd_kernel`` it relies on ``wh2`` being block-diagonal:
+    its carry product reads only the diagonal blocks."""
+    args = (x, res, hp2, dyf, dyb, wif2, wib2, wh2, lengths)
+    if x.device.type == "cpu":
+        return gru_merged_layer_bwd_ref(*args)
+    if x.device.type != "cuda":
+        raise _no_kernel("gru_merged_bwd", x)
+    t_len, b, w_in, h = _merged_dims("gru_merged_bwd", x, wh2)
+    _check_tensors("gru_merged_bwd", x.dtype, _merged_expect(
+        t_len, b, w_in, h, 3, "x", "res", "hp2", "dyf", "dyb", "wif2",
+        "wib2", "wh2", "lengths"), args)
+    dt = x.dtype
+    dxf, dxb = torch.empty_like(x), torch.empty_like(x)
+    dwif, dwib = (torch.empty_like(wif2), torch.empty_like(wib2))
+    dbi2, dbh2 = (torch.empty(6 * h, dtype=dt, device=x.device)
+                  for _ in range(2))
+    dwh2 = torch.empty_like(wh2)
+    # f32 scratch: the chain's gate gradients, dxg per direction in time
+    # order and dhg2 in kernel order, gate-grouped; the per-row bias sums
+    dxg = torch.empty((2, t_len * b, 3 * h), dtype=torch.float32,
+                      device=x.device)
+    dhg = torch.empty((t_len * b, 6 * h), dtype=torch.float32,
+                      device=x.device)
+    bias_part = torch.empty((2, b, 6 * h), dtype=torch.float32,
+                            device=x.device)
+    _launch("gru_merged_bwd", x, _DTYPE_CODE[dt],
+            *(t.data_ptr() for t in args), dxf.data_ptr(), dxb.data_ptr(),
+            dwif.data_ptr(), dwib.data_ptr(), dbi2.data_ptr(),
+            dwh2.data_ptr(), dbh2.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
+            bias_part.data_ptr(), t_len, b, w_in, h)
+    gru_merged_bwd.launches += 1
+    return dxf, dxb, dwif, dwib, dbi2, dwh2, dbh2
+
+
+gru_merged_bwd.launches = 0
+
+
+def _prev_kernel_order(ysf, ysb):
+    """``hp2 [T, B, 2H]``: the kernel-order state before each step,
+    ``[ys_f[s-1], ys_b[T-s]]``, 0 at s = 0."""
+    ys_k = torch.cat([ysf, ysb.flip(0)], dim=-1)
+    return torch.cat([torch.zeros_like(ys_k[:1]), ys_k[:-1]])
+
+
+def _sum_dx(dxf, dxb, dtype):
+    return (dxf.float() + dxb.float()).to(dtype)
+
+
+class GRUMergedLayerFn(torch.autograd.Function):
+    """Row 5's train form, backward through row 6: the counterpart of
+    ``gru_bidir_fused``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, wif2, wib2, bi2, wh2, bh2, lengths):
+        ysf, ysb, res = gru_merged_fwd(x, wif2, wib2, bi2, wh2, bh2,
+                                       lengths, train=True)
+        ctx.save_for_backward(x, wif2, wib2, wh2, lengths, ysf, ysb, res)
+        return ysf, ysb
+
+    @staticmethod
+    def backward(ctx, dyf, dyb):
+        x, wif2, wib2, wh2, lengths, ysf, ysb, res = ctx.saved_tensors
+        dxf, dxb, *grads = gru_merged_bwd(
+            x, res, _prev_kernel_order(ysf, ysb), dyf.contiguous(),
+            dyb.contiguous(), wif2, wib2, wh2, lengths)
+        return (_sum_dx(dxf, dxb, x.dtype), *grads, None)
+
+
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def gru_merged_layer(x, wif2, wib2, bi2, wh2, bh2, lengths):
+    """One bidirectional GRU layer on the merged body, ``(ys_f, ys_b)``:
+    dispatched as :func:`gru_bidir_layer` is, through
+    :class:`GRUMergedLayerFn` under autograd."""
+    weights = (wif2, wib2, bi2, wh2, bh2)
+    if _needs_grad(x, *weights):
+        return GRUMergedLayerFn.apply(x, *weights, lengths)
+    return gru_merged_fwd(x, *weights, lengths)
+
+
+def lstm_merged_fwd(x, wif2, wib2, bi2, wh2, lengths, train=False):
+    """Row 7's wrapper.  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/lstm_merged_fwd.cu`` or raises.  Like row 5's kernel it
+    reads only the diagonal blocks of ``wh2``.  ``launches`` counts
+    eval-form launches, ``train_launches`` train-form ones."""
+    if x.device.type == "cpu":
+        return lstm_merged_layer_ref(x, wif2, wib2, bi2, wh2, lengths,
+                                     train=train)
+    if x.device.type != "cuda":
+        raise _no_kernel("lstm_merged_fwd", x)
+    t_len, b, w_in, h = _merged_dims("lstm_merged_fwd", x, wh2)
+    _check_tensors("lstm_merged_fwd", x.dtype, _merged_expect(
+        t_len, b, w_in, h, 4, "x", "wif2", "wib2", "bi2", "wh2", "lengths"),
+        (x, wif2, wib2, bi2, wh2, lengths))
+    ysf = torch.empty((t_len, b, h), dtype=x.dtype, device=x.device)
+    ysb = torch.empty_like(ysf)
+    cs = res = None
+    if train:
+        cs = torch.empty((t_len, b, 2 * h), dtype=x.dtype, device=x.device)
+        res = torch.empty((t_len, b, 10 * h), dtype=x.dtype, device=x.device)
+    xg = torch.empty((2, t_len * b, 4 * h), dtype=torch.float32,
+                     device=x.device)
+    _launch("lstm_merged_fwd", x, _DTYPE_CODE[x.dtype], x.data_ptr(),
+            wif2.data_ptr(), wib2.data_ptr(), bi2.data_ptr(), wh2.data_ptr(),
+            lengths.data_ptr(), ysf.data_ptr(), ysb.data_ptr(), _ptr(cs),
+            _ptr(res), xg.data_ptr(), t_len, b, w_in, h, int(train))
+    if train:
+        lstm_merged_fwd.train_launches += 1
+        return ysf, ysb, cs, res
+    lstm_merged_fwd.launches += 1
+    return ysf, ysb
+
+
+lstm_merged_fwd.launches = 0
+lstm_merged_fwd.train_launches = 0
+
+
+def lstm_merged_bwd(x, res, hp2, cp2, dyf, dyb, wif2, wib2, wh2, lengths):
+    """Row 8's wrapper.  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/lstm_merged_bwd.cu`` or raises.  Returns ``(dx_f,
+    dx_b, dwif, dwib, dbi2, dwh2)``; ``launches`` counts launches.  Its
+    carry product reads only the diagonal blocks of ``wh2``."""
+    args = (x, res, hp2, cp2, dyf, dyb, wif2, wib2, wh2, lengths)
+    if x.device.type == "cpu":
+        return lstm_merged_layer_bwd_ref(*args)
+    if x.device.type != "cuda":
+        raise _no_kernel("lstm_merged_bwd", x)
+    t_len, b, w_in, h = _merged_dims("lstm_merged_bwd", x, wh2)
+    _check_tensors("lstm_merged_bwd", x.dtype, _merged_expect(
+        t_len, b, w_in, h, 4, "x", "res", "hp2", "cp2", "dyf", "dyb", "wif2",
+        "wib2", "wh2", "lengths"), args)
+    dt = x.dtype
+    dxf, dxb = torch.empty_like(x), torch.empty_like(x)
+    dwif, dwib = (torch.empty_like(wif2), torch.empty_like(wib2))
+    dbi2 = torch.empty(8 * h, dtype=dt, device=x.device)
+    dwh2 = torch.empty_like(wh2)
+    # f32 scratch: the chain's gate gradients, per direction in time order
+    # and in kernel order, gate-grouped; the per-row bias sums
+    dg = torch.empty((2, t_len * b, 4 * h), dtype=torch.float32,
+                     device=x.device)
+    dg2 = torch.empty((t_len * b, 8 * h), dtype=torch.float32,
+                      device=x.device)
+    bias_part = torch.empty((b, 8 * h), dtype=torch.float32, device=x.device)
+    _launch("lstm_merged_bwd", x, _DTYPE_CODE[dt],
+            *(t.data_ptr() for t in args), dxf.data_ptr(), dxb.data_ptr(),
+            dwif.data_ptr(), dwib.data_ptr(), dbi2.data_ptr(),
+            dwh2.data_ptr(), dg.data_ptr(), dg2.data_ptr(),
+            bias_part.data_ptr(), t_len, b, w_in, h)
+    lstm_merged_bwd.launches += 1
+    return dxf, dxb, dwif, dwib, dbi2, dwh2
+
+
+lstm_merged_bwd.launches = 0
+
+
+class LSTMMergedLayerFn(torch.autograd.Function):
+    """Row 7's train form, backward through row 8: the counterpart of
+    ``lstm_bidir_fused``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, wif2, wib2, bi2, wh2, lengths):
+        ysf, ysb, cs, res = lstm_merged_fwd(x, wif2, wib2, bi2, wh2, lengths,
+                                            train=True)
+        ctx.save_for_backward(x, wif2, wib2, wh2, lengths, ysf, ysb, cs, res)
+        return ysf, ysb
+
+    @staticmethod
+    def backward(ctx, dyf, dyb):
+        x, wif2, wib2, wh2, lengths, ysf, ysb, cs, res = ctx.saved_tensors
+        cp2 = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+        dxf, dxb, *grads = lstm_merged_bwd(
+            x, res, _prev_kernel_order(ysf, ysb), cp2, dyf.contiguous(),
+            dyb.contiguous(), wif2, wib2, wh2, lengths)
+        return (_sum_dx(dxf, dxb, x.dtype), *grads, None)
+
+
+def lstm_merged_layer(x, wif2, wib2, bi2, wh2, lengths):
+    """One bidirectional LSTM layer on the merged body, ``(ys_f, ys_b)``,
+    through :class:`LSTMMergedLayerFn` under autograd."""
+    weights = (wif2, wib2, bi2, wh2)
+    if _needs_grad(x, *weights):
+        return LSTMMergedLayerFn.apply(x, *weights, lengths)
+    return lstm_merged_fwd(x, *weights, lengths)

@@ -8,7 +8,7 @@ and no JAX it runs on its own, without the suite's conftest:
 
 The GRU layer's kernels come first, then the LSTM layer's, then the
 flash-attention kernels, then MS-TCN's conv kernels, then the LSTM scan's,
-then the GRU scan's.
+then the GRU scan's, then the merged-body layers' (``PVA_RNN_SPLIT=0``).
 
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
@@ -995,3 +995,212 @@ def test_mstcn_per_video_train_step_on_card_matches_cpu(cuda_device):
         cuda_device, "ms_tcn", {"use_pallas": True},
         (CV.dilated_residual_layer, CV.dilated_residual_layer_bwd), (80, 80),
         [[7 * i + j for j in range(3)] for i in range(80)])
+
+
+# The merged-body layers (rows 5-8, the PVA_RNN_SPLIT=0 route) against their
+# plain versions, with the split layer's tolerances, and against the split
+# kernels (rows 1-4) on the same weights.  The LSTM's cell states cs (in
+# the input dtype here) are taken relative to their largest value.
+
+from pytorch_video_action_tpu_torch.ops import rnn as R  # noqa: E402
+
+MERGED_CASES = [(5, 128), (67, 128), (3, 32)]
+
+
+def _merged_case(cuda_device, dtype, cell, b, h, seed=0, t=48, w=400):
+    """Per-direction weights, their gate-grouped packing, x, lengths and
+    output gradients: ``(split_args, merged_args, dys)``, the layer
+    arguments of rows 1/3 and of rows 5/7 on the same weights."""
+    g = 4 if cell == "lstm" else 3
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(h)
+    to = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    wif, wib = (to(rng.uniform(-k, k, (w, g * h)).astype(np.float32))
+                for _ in range(2))
+    whf, whb = (to(rng.uniform(-k, k, (h, g * h)).astype(np.float32))
+                for _ in range(2))
+    bif, bib, bhf, bhb = (to(rng.uniform(-k, k, (g * h,)).astype(np.float32))
+                          for _ in range(4))
+    x = to(rng.normal(size=(t, b, w)).astype(np.float32))
+    lengths = rng.integers(1, t + 1, b).astype(np.int32)
+    lengths[0], lengths[-1] = t, 1
+    lengths = torch.from_numpy(lengths).to(cuda_device)
+    dys = [to(rng.normal(size=(t, b, h)).astype(np.float32))
+           for _ in range(2)]
+    wh2 = R._pack_gate_grouped([whf, whb], h, g)
+    if cell == "lstm":
+        bf, bb = bif + bhf, bib + bhb
+        split = (x, wif, wib, bf, bb, whf, whb, lengths)
+        merged = (x, wif, wib, R._pack_gate_grouped_vec([bf, bb], h, g), wh2,
+                  lengths)
+    else:
+        split = (x, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths)
+        merged = (x, wif, wib, R._pack_gate_grouped_vec([bif, bib], h, g),
+                  wh2, R._pack_gate_grouped_vec([bhf, bhb], h, g), lengths)
+    return split, merged, dys
+
+
+def _merged_fns(cell):
+    if cell == "lstm":
+        return (P.lstm_merged_fwd, P.lstm_merged_layer_ref,
+                P.lstm_merged_bwd, P.lstm_merged_layer_bwd_ref)
+    return (P.gru_merged_fwd, P.gru_merged_layer_ref, P.gru_merged_bwd,
+            P.gru_merged_layer_bwd_ref)
+
+
+def _merged_bwd_args(cell, merged, fwd, dys):
+    """The merged backward's arguments: hp2 (and cp2) built from the train
+    form's outputs, as the autograd Functions build them."""
+    x, wif2, wib2, _, wh2, *_ = merged
+    lengths = merged[-1]
+    ys_k = torch.cat([fwd[0], fwd[1].flip(0)], dim=-1)
+    hp2 = torch.cat([torch.zeros_like(ys_k[:1]), ys_k[:-1]])
+    if cell == "lstm":
+        cs = fwd[2]
+        cp2 = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+        return (x, fwd[3], hp2, cp2, *dys, wif2, wib2, wh2, lengths)
+    return (x, fwd[2], hp2, *dys, wif2, wib2, wh2, lengths)
+
+
+@pytest.mark.parametrize("b,h", MERGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_merged_fwd_matches_plain(cuda_device, cell, dtype, b, h):
+    _, merged, _ = _merged_case(cuda_device, dtype, cell, b, h, seed=b + h)
+    fwd, ref, _, _ = _merged_fns(cell)
+    before = (fwd.launches, fwd.train_launches)
+    ysf, ysb = fwd(*merged)
+    got = fwd(*merged, train=True)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.train_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for g, w in zip((ysf, ysb), ref(*merged)):
+        assert g.dtype == dtype and g.shape == (48, b, h)
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+    for i, (g, w) in enumerate(zip(got, ref(*merged, train=True))):
+        assert g.dtype == dtype and g.shape == w.shape, i
+        assert _rel_err(g, w) <= TOL[dtype], (i, _rel_err(g, w))
+    # the train form's ys are the eval form's, bit for bit; ys_b is 0 on
+    # the padding, where the backward half was frozen at its initial 0
+    assert torch.equal(got[0], ysf) and torch.equal(got[1], ysb)
+    pad = torch.arange(48, device=cuda_device)[:, None] >= merged[-1][None, :]
+    assert (ysb[pad] == 0).all()
+
+
+@pytest.mark.parametrize("b,h", MERGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_merged_bwd_matches_plain_and_reruns(cuda_device, cell, dtype, b, h):
+    _, merged, dys = _merged_case(cuda_device, dtype, cell, b, h, seed=b)
+    fwd, _, bwd, bwd_ref = _merged_fns(cell)
+    bargs = _merged_bwd_args(cell, merged, fwd(*merged, train=True), dys)
+    before = bwd.launches
+    got = bwd(*bargs)
+    again = bwd(*bargs)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 2
+    want = bwd_ref(*bargs)
+    assert len(got) == len(want) == (6 if cell == "lstm" else 7)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype and g.shape == w.shape, i
+        assert _rel_err(g, w) <= TOL[dtype], (i, _rel_err(g, w))
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_merged_kernels_equal_split_kernels(cuda_device, cell):
+    """Rows 5-8 against rows 1-4 on the same weights, f32: ys, dx (the sum
+    of the merged dx_f and dx_b), dwif, dwib and the diagonal blocks of
+    dwh2, dbi2 (and the GRU's dbh2) against the per-direction gradients."""
+    h = 128
+    split, merged, dys = _merged_case(cuda_device, torch.float32, cell, 8, h,
+                                      seed=11)
+    g = 4 if cell == "lstm" else 3
+    fwd, _, bwd, _ = _merged_fns(cell)
+    sfwd = P.lstm_bidir_fwd if cell == "lstm" else P.gru_bidir_fwd
+    sbwd = P.lstm_bidir_bwd if cell == "lstm" else P.gru_bidir_bwd
+    mf = fwd(*merged, train=True)
+    sf = sfwd(*split, train=True)
+    for a, c in zip(mf[:2], sf[:2]):
+        assert (a - c).abs().max().item() <= 1e-4
+    mg = bwd(*_merged_bwd_args(cell, merged, mf, dys))
+    x, wif, wib = split[:3]
+    whf, whb = split[5:7]
+    sg = sbwd(x, wif, wib, whf, whb, split[-1], *sf, *dys)
+    dwh2 = mg[5]
+    got = {"dx": mg[0] + mg[1], "dwif": mg[2], "dwib": mg[3],
+           "dbf": P._dense(mg[4], h, g, 0), "dbb": P._dense(mg[4], h, g, 1),
+           "dwhf": P._dense(dwh2[:h], h, g, 0),
+           "dwhb": P._dense(dwh2[h:], h, g, 1)}
+    want = {"dx": sg[0], "dwif": sg[1], "dwib": sg[2], "dbf": sg[3],
+            "dbb": sg[4], "dwhf": sg[5], "dwhb": sg[6]}
+    if cell == "gru":
+        got.update(dbhf=P._dense(mg[6], h, g, 0),
+                   dbhb=P._dense(mg[6], h, g, 1))
+        want.update(dbhf=sg[7], dbhb=sg[8])
+    for k, w in want.items():
+        assert _rel_err(got[k], w) <= 1e-4, (k, _rel_err(got[k], w))
+
+
+@pytest.mark.parametrize("case", ["float64", "noncontiguous", "lengths_int64",
+                                  "hidden_96", "res_shape"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_merged_kernels_refuse_what_they_do_not_take(cuda_device, cell,
+                                                     case):
+    h = 96 if case == "hidden_96" else 128
+    _, merged, dys = _merged_case(cuda_device, torch.float32, cell, 3, h,
+                                  t=8, w=16)
+    fwd, _, bwd, _ = _merged_fns(cell)
+    merged = list(merged)
+    if case == "res_shape":
+        bargs = list(_merged_bwd_args(cell, merged, fwd(*merged, train=True),
+                                      dys))
+        bargs[1] = bargs[1][..., :-1].contiguous()
+        before = bwd.launches
+        with pytest.raises(ValueError):
+            bwd(*bargs)
+        assert bwd.launches == before
+        return
+    if case == "float64":
+        merged = [a.double() for a in merged[:-1]] + merged[-1:]
+    elif case == "noncontiguous":
+        merged[0] = merged[0].transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "lengths_int64":
+        merged[-1] = merged[-1].long()
+    before = (fwd.launches, fwd.train_launches)
+    with pytest.raises((TypeError, ValueError)):
+        fwd(*merged)
+    with pytest.raises((TypeError, ValueError)):
+        fwd(*merged, train=True)
+    assert (fwd.launches, fwd.train_launches) == before
+
+
+class _TrainForm:
+    """A forward wrapper's train-form count, read as ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.train_launches
+
+
+@pytest.mark.parametrize("name", ["bigru", "bilstm"])
+def test_merged_route_train_step_on_card_matches_cpu(cuda_device,
+                                                     monkeypatch, name):
+    """BiGRU (4 layers) and BiLSTM (2 layers) under ``PVA_RNN_SPLIT=0``: a
+    merged train-form forward and backward a layer on the card, none of
+    rows 1-4, and the step matches the CPU's."""
+    monkeypatch.setattr(P, "SPLIT", False)
+    cell = "lstm" if name == "bilstm" else "gru"
+    fwd, _, bwd, _ = _merged_fns(cell)
+    sfwd = P.lstm_bidir_fwd if cell == "lstm" else P.gru_bidir_fwd
+    sbwd = P.lstm_bidir_bwd if cell == "lstm" else P.gru_bidir_bwd
+    layers = 2 if cell == "lstm" else 4
+    _train_step_card_vs_cpu(
+        cuda_device, name, {}, (_TrainForm(fwd), bwd, _TrainForm(sfwd),
+                                sbwd, sfwd),
+        (layers, layers, 0, 0, 0),
+        [1, 2, 3] if cell == "lstm" else [1, 2, 3, 4])
