@@ -109,12 +109,38 @@ Phases, in order; any failure exits non-zero:
    the CPU's, frames/s); one step each of bigru, bilstm, attn on its dense
    and its flash path, ctcloss and bilstm_lm (on its 40-100-frame
    videos), with launch counts and gradients against the CPU.
+7. JAX's two remaining flags, each set for its half of the phase and
+   restored after it.  ``PVA_RNN_FUSED_BOUNDARY=1``
+   (``rnn_fused.FUSED_BOUNDARY``): the GRU layer's fused-boundary forms
+   (rows 1 alt and 2 alt, W = 2H = 256) held at the main path's shapes,
+   the eval form at the largest test forward batch (dropout off), the
+   train form and the backward at the largest train batch at keep 0.5 and
+   0.7, f32 and bf16, each against its plain version and against rows 1-2
+   on the glue-built input (the halves' gradients against the glue's
+   autograd; bit for bit), the backward rerun bit for bit, timed beside
+   its plain version, nn.GRU packed, its bound and rows 1 or 2 plus the
+   glue they replace; bigru trained 2 epochs by the train CLI (f32, bf16)
+   and served (launch counts: layer 0 on rows 1-2, layers 1-3 on rows 1-2
+   alt; falling loss; labels against the CPU's; frames/s); one bigru step
+   on the card against the glue route's, loss and every gradient bit for
+   bit; one step each of bigru and ctcloss against the CPU; train frames/s
+   with the flag on and off.  ``PVA_FLASH_BTHD=1``: the head-major flash
+   forms (rows 17 alt and 18 alt, attn's d=100 folded to 128) at attn's
+   serving shape and its train batches padded to 1024-1535, f32 and bf16,
+   dropout 0.3, against their plain versions and against rows 17-20 on
+   the ``[B, H, T, d]`` transposes (bit for bit), reruns bit for bit,
+   timed beside the plain version, SDPA and the bound at d=128 and 100;
+   attn trained 2 epochs (f32) and served (launch counts with rows 17-18
+   at 0, rows 19-20 behind transposes for the split batches); one step
+   each of attn at 4 and at 2 heads (d 200 -> 256) against the CPU on the
+   flash path; train frames/s with the flag on and off.
 
-Each phase logs its time.  Prints a ``kernels`` JSON line (twenty-seven
+Each phase logs its time.  Prints a ``kernels`` JSON line (thirty-two
 entries for the twenty-three ported TPU kernels, rows 1, 3, 5 and 7 in
-their eval and train forms; headline numbers at the main path's shape,
-every checked shape under ``shapes``), the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
+their eval and train forms, and the four alternate forms, row 1 alt in
+both; headline numbers at the main path's shape, every checked shape
+under ``shapes``), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -154,6 +180,17 @@ FLASH = {"flash_fwd": ("flash_fwd.cu", "166"),
          "flash_bwd_fused": ("flash_bwd.cu", "375"),
          "flash_bwd_dkdv": ("flash_bwd.cu", "331"),
          "flash_bwd_dq": ("flash_bwd.cu", "520")}
+# the alternate forms' entries of the kernels line (phase 7): the GRU
+# layer's fused-boundary pair (wrappers of ops/rnn_fused.py, the TPU form's
+# line in rnn_fused_pallas.py) and flash's head-major pair (wrappers of
+# ops/flash.py, the bthd form's line in flash_pallas.py)
+BND = {"gru_bidir_bnd_fwd": ("gru_bidir_fwd.cu", PALLAS + "1578"),
+       "gru_bidir_bnd_fwd_train": ("gru_bidir_fwd.cu", PALLAS + "1578"),
+       "gru_bidir_bnd_bwd": ("gru_bidir_bwd.cu", PALLAS + "1607")}
+BTHD = {"flash_fwd_bthd": ("flash_fwd.cu", FLASH_PALLAS + "249"),
+        "flash_bwd_fused_bthd": ("flash_bwd.cu", FLASH_PALLAS + "428")}
+BTHD_D = 128  # attn's head width 100 as the fold pads it
+BND_KEEPS = (0.5, 0.7)  # bigru's dropout and a keep whose scale rounds
 
 
 class Cell:
@@ -190,6 +227,9 @@ class Cell:
                                         (self.mfwd_name, self.mbwd_name))
         self.mfwd_replaces, self.mbwd_replaces = (
             ("500", "630") if self.lstm else ("111", "241"))
+        if not self.lstm:  # the GRU's fused-boundary form (rows 1-2 alt)
+            self.bfwd = rnn_fused.gru_bidir_bnd_fwd
+            self.bbwd = rnn_fused.gru_bidir_bnd_bwd
 
     def weight_shapes(self, w_in):
         """wif, wib, the biases (one folded bias per direction for the
@@ -800,19 +840,21 @@ def flash_inputs(lengths, t_len, dt, gen, heads=ATTN_H):
 
 
 def flash_bound(lengths, t_len, dt_name, products, operands, f32_outputs,
-                row_vectors, heads=ATTN_H):
+                row_vectors, heads=ATTN_H, d=None):
     """Least time (ms) of a flash function on this input: ``products`` score
     or value products of 2*d operations for each query and each valid key
     (``2 * products * H * T * d * sum(lengths)``), against its bytes:
     ``operands`` [B, H, T, d] tensors in the input dtype, ``f32_outputs``
     of them in f32, ``row_vectors`` f32 [B, H, T] vectors (lse; delta in
-    the backward) and the key mask, each read or written once."""
+    the backward) and the key mask, each read or written once.  ``d``: the
+    head width, attn's own by default."""
+    d = d or head_width(heads)
     size = 4 if dt_name == "float32" else 2
     b = len(lengths)
-    bhtd = b * heads * t_len * head_width(heads)
+    bhtd = b * heads * t_len * d
     rows = b * heads * t_len * 4 * row_vectors
     n_bytes = (operands * size + f32_outputs * 4) * bhtd + rows + b * t_len
-    flops = 2 * products * heads * t_len * head_width(heads) * sum(lengths)
+    flops = 2 * products * heads * t_len * d * sum(lengths)
     return _bound(n_bytes, flops, dt_name)
 
 
@@ -951,11 +993,13 @@ def sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-def use_fused(b, t_len, heads=ATTN_H) -> bool:
-    """The backward the port's dispatch picks for attn at [b, T]."""
+def use_fused(b, t_len, heads=ATTN_H, d=None) -> bool:
+    """The backward the port's dispatch picks for attn at [b, T] (head width
+    ``d``, attn's own by default)."""
     from pytorch_video_action_tpu_torch.ops import flash as F
 
-    return F.use_fused(b * heads, t_len, t_len, head_width(heads), sms())
+    return F.use_fused(b * heads, t_len, t_len, d or head_width(heads),
+                       sms())
 
 
 # --------------------------------------------------------------- LSTM scan
@@ -1536,10 +1580,13 @@ def counters() -> dict:
             out[name] = fwd.launches
             out[name + "_train"] = fwd.train_launches
             out[bname] = bwd.launches
-    for name in FLASH:
+    for name in (*FLASH, *BTHD):
         out[name] = getattr(F, name).launches
     for name in CONV:
         out[name] = getattr(CV, name).launches
+    out["gru_bidir_bnd_fwd"] = GRU.bfwd.launches
+    out["gru_bidir_bnd_fwd_train"] = GRU.bfwd.train_launches
+    out["gru_bidir_bnd_bwd"] = GRU.bbwd.launches
     return out
 
 
@@ -1553,23 +1600,27 @@ def reset_counters() -> None:
     for cell in (GRU, LSTM):
         for fwd, bwd in ((cell.fwd, cell.bwd), (cell.mfwd, cell.mbwd)):
             fwd.launches = fwd.train_launches = bwd.launches = 0
-    for name in FLASH:
+    for name in (*FLASH, *BTHD):
         getattr(F, name).launches = 0
     for name in CONV:
         getattr(CV, name).launches = 0
+    GRU.bfwd.launches = GRU.bfwd.train_launches = GRU.bbwd.launches = 0
 
 
 def expected_launches(name, forwards=(), steps=(), n_layers=None,
-                      merged=False) -> dict:
+                      merged=False, boundary=False, bthd=False) -> dict:
     """Every kernel's launches in a run of ``name`` (``n_layers`` layers, by
     default the train CLI's) whose eval forwards and train steps have the
     ``(B, padded T)`` of ``forwards`` and ``steps``: per layer one eval
     form a forward, one train form and one backward a step (with
-    ``merged``, the ``PVA_RNN_SPLIT=0`` route, of rows 5-8; vanilla_lstm:
-    the scan's eval form, its saving form and its saved-gates backward);
-    for attn at padded T >= BLOCKWISE_MIN_T one flash forward a
-    forward or step and one flash backward a step, fused or split as the
-    port's dispatch picks; for ms_tcn one stage launch a stage a forward
+    ``merged``, the ``PVA_RNN_SPLIT=0`` route, of rows 5-8; with
+    ``boundary``, ``PVA_RNN_FUSED_BOUNDARY=1``, the GRU's layers after the
+    first of rows 1 alt and 2 alt; vanilla_lstm: the scan's eval form, its
+    saving form and its saved-gates backward); for attn at padded T >=
+    BLOCKWISE_MIN_T one flash forward a forward or step and one flash
+    backward a step, fused or split as the port's dispatch picks (with
+    ``bthd``, ``PVA_FLASH_BTHD=1``, the head-major forward and fused
+    backward at d = 128); for ms_tcn one stage launch a stage a forward
     and one layer forward and one layer backward a layer a step."""
     from pytorch_video_action_tpu_torch.models import attention
 
@@ -1587,12 +1638,21 @@ def expected_launches(name, forwards=(), steps=(), n_layers=None,
         out[fwd] = n_layers * len(forwards)
         out[fwd + "_train"] = n_layers * len(steps)
         out[bwd] = n_layers * len(steps)
+        if boundary and n_layers > 1:
+            out[fwd], out[fwd + "_train"], out[bwd] = (
+                len(forwards), len(steps), len(steps))
+            out["gru_bidir_bnd_fwd"] = (n_layers - 1) * len(forwards)
+            out["gru_bidir_bnd_fwd_train"] = out["gru_bidir_bnd_bwd"] = (
+                (n_layers - 1) * len(steps))
     if name == "attn":
         min_t = attention.BLOCKWISE_MIN_T
-        out["flash_fwd"] = sum(t >= min_t for _, t in (*forwards, *steps))
+        fwd, fused_bwd = (("flash_fwd_bthd", "flash_bwd_fused_bthd") if bthd
+                          else ("flash_fwd", "flash_bwd_fused"))
+        out[fwd] = sum(t >= min_t for _, t in (*forwards, *steps))
         long_steps = [(b, t) for b, t in steps if t >= min_t]
-        fused = sum(use_fused(b, t) for b, t in long_steps)
-        out["flash_bwd_fused"] = fused
+        fused = sum(use_fused(b, t, d=BTHD_D if bthd else None)
+                    for b, t in long_steps)
+        out[fused_bwd] = fused
         out["flash_bwd_dkdv"] = out["flash_bwd_dq"] = len(long_steps) - fused
     if MODELS[name][0] == "conv":
         out["fused_stage"] = TCN_STAGES * len(forwards)
@@ -2465,28 +2525,34 @@ def phase_train_lm(root: str) -> dict:
     return got
 
 
-def merged_step(name, batch, expect, where="", **flags):
+def route_step(route, name, batch, expect, where="", **flags):
     """One f32 train step of ``name`` on the card against the CPU's (as
-    ``check_grads_against_cpu``) on the ``PVA_RNN_SPLIT=0`` route, every
-    count set to 0 just before it and read just after; raises unless the
-    card step's counts are ``expect``.  Returns them."""
+    ``check_grads_against_cpu``) on the route the caller has set (named by
+    ``route``), every count set to 0 just before it and read just after;
+    raises unless the card step's counts are ``expect``.  Returns them."""
     reset_counters()
-    check_grads_against_cpu(name, batch, f" PVA_RNN_SPLIT=0{where}", **flags)
+    check_grads_against_cpu(name, batch, f" {route}{where}", **flags)
     got = counters()
     want = dict.fromkeys(got, 0)
     want.update(expect)
-    log(f"[merged] {name}{where} one step: launches {nonzero(got)} "
+    log(f"[route] {route} {name}{where} one step: launches {nonzero(got)} "
         f"(expected {nonzero(want)})")
     if got != want:
-        raise AssertionError(f"{name}{where}: merged-route launches wrong")
+        raise AssertionError(f"{name}{where}: {route} launches wrong")
     return got
 
 
-def serve_merged(card, root, name, ckpt):
+def merged_step(name, batch, expect, where="", **flags):
+    """``route_step`` on the ``PVA_RNN_SPLIT=0`` route."""
+    return route_step("PVA_RNN_SPLIT=0", name, batch, expect, where, **flags)
+
+
+def serve_route(card, root, name, ckpt, route, **kinds):
     """The inference CLI serves ``ckpt`` on the card (test part, f32 and
-    bf16: launch counts of rows 5/7) and on the CPU (labels, f32, at least
-    0.99 equal); the forward's frames/s.  Returns the card runs'
-    launches."""
+    bf16: launch counts as ``expected_launches(**kinds)`` gives them) and
+    on the CPU (labels, f32, at least 0.99 equal) on the route the caller
+    has set (named by ``route``); the forward's frames/s.  Returns the
+    card runs' launches."""
     from pytorch_video_action_tpu_torch.cli import inference_cli
     from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
     from pytorch_video_action_tpu_torch.infer.predict import forward_batches
@@ -2494,7 +2560,7 @@ def serve_merged(card, root, name, ckpt):
     feats = VideoDataset(data_dir="data", annot_path=root, part="test",
                          split=1, mode=None, verbose=False).features
     expect = expected_launches(name, forwards=[
-        (len(c), t) for t, c in forward_batches(feats)], merged=True)
+        (len(c), t) for t, c in forward_batches(feats)], **kinds)
     base = ["--pretrained_model", ckpt, "--prob", "big", "--part", "test",
             "--data_dir", os.path.join(root, "data"), "--annot_path", root]
     launches, csv = {}, {}
@@ -2504,19 +2570,20 @@ def serve_merged(card, root, name, ckpt):
             base + ["--dtype", dt_name, "--device", "cuda"]))
         got = counters()
         add_launches(launches, got)
-        log(f"[merged] {name} served on the card, {dt_name}: "
+        log(f"[route] {route} {name} served on the card, {dt_name}: "
             f"{len(csv[dt_name])} CSV rows, launches {nonzero(got)} "
             f"(expected {nonzero(expect)})")
         if got != expect:
-            raise AssertionError("merged-route serving launches wrong")
+            raise AssertionError(f"{route} serving launches wrong")
     t0 = time.time()
     cpu = read_csv_labels(inference_cli.main(base + ["--device", "cpu"]))
     agree = float(np.mean(np.asarray(cpu) == np.asarray(csv["float32"])))
-    log(f"[merged] {name} served on the CPU in {time.time() - t0:.1f} s; "
-        f"segment labels cuda f32 vs cpu f32 agree {agree:.4f}")
+    log(f"[route] {route} {name} served on the CPU in "
+        f"{time.time() - t0:.1f} s; segment labels cuda f32 vs cpu f32 "
+        f"agree {agree:.4f}")
     if agree < 0.99:
         raise AssertionError("GPU and CPU segment labels disagree")
-    forward_frames_per_sec(card, name, ckpt, feats, " PVA_RNN_SPLIT=0")
+    forward_frames_per_sec(card, name, ckpt, feats, f" {route}")
     return launches
 
 
@@ -2584,7 +2651,8 @@ def _merged_route(card, root, lm_root):
             add_launches(launches, got)
             if dt_name == "float32":
                 ckpt = f"{name}_{best:.2f}_dev"
-        add_launches(launches, serve_merged(card, root, name, ckpt))
+        add_launches(launches, serve_route(card, root, name, ckpt,
+                                           "PVA_RNN_SPLIT=0", merged=True))
         layers = MODELS[name][1]
         cell = cell_of(name)
         add_launches(launches, merged_step(
@@ -2617,6 +2685,482 @@ def _merged_route(card, root, lm_root):
             {"lstm_merged_fwd_train": 2, "lstm_merged_bwd": 2}))
     log(f"[merged] attn, ctcloss and bilstm_lm steps in "
         f"{time.time() - t0:.1f} s")
+    return launches, rows
+
+
+# ------------------------------------------------- the two flags (phase 7)
+
+
+def check_bnd_eval(where, lengths, t_len, dt_name, gen):
+    """Row 1 alt's eval form (dropout off) on halves of a [T, B, 2H] layer
+    input against its plain version and against row 1 on the glue-built
+    input (bit for bit); timed beside its plain version, nn.GRU packed, its
+    bound (row 1's at W = 2H) and row 1 plus the glue it replaces
+    (``torch.cat``, ``* mask``).  Returns its row."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import rnn_fused as P
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    x, ws, lens = layer_inputs(GRU, t_len, b, 2 * H, dt, lengths, gen)
+    xa, xb = x[..., :H].contiguous(), x[..., H:].contiguous()
+    got = GRU.bfwd(xa, xb, *ws, lens)
+    torch.cuda.synchronize()
+    err = rel_err(got, P.gru_bidir_bnd_layer_ref(xa, xb, *ws, lens))[0]
+
+    def glue():
+        mask_tb = P.time_mask(lens, t_len, dt)
+        return GRU.fwd(P.boundary_input(xa, xb, mask_tb), *ws, lens)
+
+    same = all(torch.equal(a, c) for a, c in zip(got, glue()))
+    ms = cuda_ms(lambda: GRU.bfwd(xa, xb, *ws, lens), 10, 2)
+    glue_ms = cuda_ms(glue, 10, 2)
+    plain_ms = cuda_ms(lambda: P.gru_bidir_bnd_layer_ref(xa, xb, *ws, lens),
+                       1, 0)
+    lib_run = library_fwd(GRU, x, ws, lens)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lib_run, 10, 2)
+    bound_ms, bound_by = GRU.bound(t_len, b, 2 * H, dt_name)
+    tol = TOL[dt_name]
+    row = {"where": where, "w_in": 2 * H, "dtype": dt_name, "B": b,
+           "T": t_len, "keep": None, "max_abs_err": err, "tol": tol,
+           "equals_row_1_on_glue": same, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "row_1_and_glue_ms": glue_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[flags] gru_bidir_bnd_fwd {where} B={b} T={t_len} W_in={2 * H} "
+        f"{dt_name}: max|ys-ref|={err:.3g} (tol {tol}), equals row 1 on the "
+        f"glue's input {same}, kernel {ms:.4f} ms, row 1 + glue "
+        f"{glue_ms:.4f} ms, plain {plain_ms:.4f} ms, nn.GRU packed "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err <= tol and same):
+        raise AssertionError(f"fused-boundary eval form disagrees: {row}")
+    return row
+
+
+def check_bnd_train(where, lengths, t_len, dt_name, keep, gen):
+    """Row 1 alt's train form and row 2 alt (boundary dropout at ``keep``)
+    against their plain versions and against rows 1-2 on the glue-built
+    input, the gradients of the halves against the glue's autograd (bit for
+    bit), the backward rerun bit for bit; each timed beside its plain
+    version, nn.GRU packed, its bound and rows 1 or 2 plus the glue they
+    replace (``torch.cat``, ``* mask`` and ``hash_dropout``, under
+    autograd).  Returns the rows ``(train_form, backward)``."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import rnn_fused as P
+
+    dt = getattr(torch, dt_name)
+    b = len(lengths)
+    x, ws, lens = layer_inputs(GRU, t_len, b, 2 * H, dt, lengths, gen)
+    xa, xb = x[..., :H].contiguous(), x[..., H:].contiguous()
+    dys = [torch.randn(t_len, b, H, generator=gen).to("cuda", dt)
+           for _ in range(2)]
+    seed, tol = 4321, TOL[dt_name]
+    head = f"{where} B={b} T={t_len} W_in={2 * H} {dt_name} keep {keep}"
+    args = (xa, xb, *ws, lens, seed, keep)
+
+    fwd = GRU.bfwd(*args, train=True)
+    torch.cuda.synchronize()
+    err_fwd = rel_err(fwd, P.gru_bidir_bnd_layer_ref(*args, train=True))[0]
+    leaves = [xa.clone().requires_grad_(True),
+              xb.clone().requires_grad_(True)]
+    xg = P.boundary_input(*leaves, P.time_mask(lens, t_len, dt), seed, keep)
+    rfwd = GRU.fwd(xg.detach(), *ws, lens, train=True)
+    same_fwd = all(torch.equal(a, c) for a, c in zip(fwd, rfwd))
+    ms = cuda_ms(lambda: GRU.bfwd(*args, train=True), 10, 2)
+    glue_ms = cuda_ms(lambda: GRU.fwd(P.boundary_input(
+        *leaves, P.time_mask(lens, t_len, dt), seed, keep).detach(), *ws,
+        lens, train=True), 10, 2)
+    plain_ms = cuda_ms(lambda: P.gru_bidir_bnd_layer_ref(*args, train=True),
+                       1, 0)
+    lib_fwd, lib_bwd = library_train(GRU, xg.detach(), ws, lens, dys)
+    lib_ms = cuda_ms(lib_fwd, 10, 2)
+    bound_ms, bound_by = GRU.bound(t_len, b, 2 * H, dt_name, train=True)
+    fwd_row = {"where": where, "w_in": 2 * H, "dtype": dt_name, "B": b,
+               "T": t_len, "keep": keep, "max_abs_err": err_fwd, "tol": tol,
+               "equals_row_1_on_glue": same_fwd, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "row_1_and_glue_ms": glue_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+    log(f"[flags] gru_bidir_bnd_fwd train form {head}: max|out-ref|="
+        f"{err_fwd:.3g} (tol {tol}), equals row 1 on the glue's input "
+        f"{same_fwd}, kernel {ms:.4f} ms, row 1 + glue {glue_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, nn.GRU packed with autograd "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err_fwd <= tol and same_fwd):
+        raise AssertionError(f"fused-boundary train form disagrees: "
+                             f"{fwd_row}")
+
+    bargs = (xa, xb, ws[0], ws[1], ws[4], ws[5], lens, *fwd, *dys, seed,
+             keep)
+    got = GRU.bbwd(*bargs)
+    torch.cuda.synchronize()
+    abs_err, err_bwd = rel_err(got, P.gru_bidir_bnd_layer_bwd_ref(*bargs))
+    identical = all(torch.equal(a, c) for a, c in zip(got, GRU.bbwd(*bargs)))
+    split_args = (xg.detach(), ws[0], ws[1], ws[4], ws[5], lens, *rfwd,
+                  *dys)
+
+    def glue_bwd():
+        dx, *grads = GRU.bwd(*split_args)
+        return (*torch.autograd.grad(xg, leaves, dx, retain_graph=True),
+                *grads)
+
+    same_bwd = all(torch.equal(a, c) for a, c in zip(got, glue_bwd()))
+    ms = cuda_ms(lambda: GRU.bbwd(*bargs), 5, 1)
+    glue_ms = cuda_ms(glue_bwd, 5, 1)
+    plain_ms = cuda_ms(lambda: P.gru_bidir_bnd_layer_bwd_ref(*bargs), 1, 0)
+    lib_ms = cuda_ms(lib_bwd, 5, 1)
+    bound_ms, bound_by = GRU.bound_bwd(t_len, b, 2 * H, dt_name)
+    bwd_row = {"where": where, "w_in": 2 * H, "dtype": dt_name, "B": b,
+               "T": t_len, "keep": keep, "max_abs_err": abs_err,
+               "max_rel_err": err_bwd, "tol": tol,
+               "equals_row_2_and_glue_autograd": same_bwd, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "row_2_and_glue_ms": glue_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bit_identical_rerun": identical}
+    log(f"[flags] gru_bidir_bnd_bwd {head}: max abs err {abs_err:.3g}, max "
+        f"err / max(1, max|plain|) {err_bwd:.3g} (tol {tol}), equals row 2 "
+        f"and the glue's autograd {same_bwd}, rerun bit-identical "
+        f"{identical}, kernel {ms:.4f} ms, row 2 + glue {glue_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, autograd.grad through nn.GRU packed "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    if not (err_bwd <= tol and same_bwd and identical):
+        raise AssertionError(f"fused-boundary backward disagrees: {bwd_row}")
+    return fwd_row, bwd_row
+
+
+def bthd_inputs(lengths, t_len, dt, gen):
+    """attn's operands as the fold leaves them: q (pre-scaled), k, v and
+    dout ``[B, T, 4 * 128]``, each head's 100 columns random and its 28 pad
+    columns 0; the key mask."""
+    import torch.nn.functional as nnf
+
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    q, k, v, mask, dout = flash_inputs(lengths, t_len, dt, gen)
+    flat = [F._flat(nnf.pad(a, (0, BTHD_D - ATTN_D))).contiguous()
+            for a in (q, k, v, dout)]
+    return (*flat[:3], mask, flat[3])
+
+
+def _bthd_bounds(lengths, t_len, dt_name, *shape):
+    """The bound at d = 128 (the work the padded function does) and at
+    attn's own d = 100 (without the pad)."""
+    return (flash_bound(lengths, t_len, dt_name, *shape, d=BTHD_D),
+            flash_bound(lengths, t_len, dt_name, *shape)[0])
+
+
+def check_flash_bthd_fwd(where, lengths, t_len, dt_name, rate, gen):
+    """Row 17 alt against its plain version and against row 17 on the
+    ``[B, H, T, d]`` transposes (bit for bit); timed beside the plain
+    version, SDPA on those transposes and its bound at d = 128 and 100.
+    Returns its row."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    dt = getattr(torch, dt_name)
+    q, k, v, mask, _ = bthd_inputs(lengths, t_len, dt, gen)
+    out, lse = F.flash_fwd_bthd(q, k, v, mask, ATTN_H, rate, 1234)
+    torch.cuda.synchronize()
+    ref, ref_lse = F.flash_fwd_bthd_ref(q, k, v, mask, ATTN_H, rate, 1234)
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = rel_err([lse], [ref_lse])[1]
+    heads = [F._heads(a, ATTN_H).contiguous() for a in (q, k, v)]
+    out4, lse4 = F.flash_fwd(*heads, mask, rate, 1234)
+    same = (torch.equal(out, F._flat(out4))
+            and torch.equal(lse, lse4.reshape(lse.shape)))
+    ms = cuda_ms(lambda: F.flash_fwd_bthd(q, k, v, mask, ATTN_H, rate, 1234),
+                 10, 2)
+    plain_ms = cuda_ms(lambda: F.flash_fwd_bthd_ref(q, k, v, mask, ATTN_H,
+                                                    rate, 1234), 1)
+    with torch.no_grad():
+        lib_ms = cuda_ms(lambda: sdpa(*heads, mask), 10, 2)
+    (bound_ms, bound_by), bound_100 = _bthd_bounds(lengths, t_len, dt_name,
+                                                   2, 4, 0, 1)
+    tol = TOL[dt_name]
+    row = {"where": where, "dtype": dt_name, "rate": rate, "B": len(lengths),
+           "T": t_len, "d": BTHD_D, "max_abs_err": err,
+           "lse_rel_err": lse_err, "tol": tol, "equals_row_17": same,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_d100": bound_100}
+    log(f"[flags] flash_fwd_bthd {where} B={len(lengths)} T={t_len} "
+        f"d={BTHD_D} {dt_name} dropout {rate}: max|out-ref|={err:.3g} (tol "
+        f"{tol}), lse error {lse_err:.3g}, equals row 17 on the transposes "
+        f"{same}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms (dropout 0), bound {bound_ms:.4f} ms ({bound_by}; "
+        f"d=100: {bound_100:.4f} ms)")
+    if not (err <= tol and lse_err <= TOL["float32"] and same):
+        raise AssertionError(f"flash_fwd_bthd disagrees: {row}")
+    return row
+
+
+def check_flash_bthd_bwd(where, lengths, t_len, dt_name, rate, gen):
+    """The head-major backward in both forms (the fused row 18 alt in
+    place, the split rows 19-20 on transposes) against the plain version
+    and against rows 18-20 on the ``[B, H, T, d]`` transposes (bit for
+    bit), each rerun bit for bit; row 18 alt timed beside the plain
+    version, ``autograd.grad`` through SDPA and its bound at d = 128 and
+    100.  Returns its row."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import flash as F
+
+    dt = getattr(torch, dt_name)
+    q, k, v, mask, dout = bthd_inputs(lengths, t_len, dt, gen)
+    out, lse = F.flash_fwd_bthd(q, k, v, mask, ATTN_H, rate, 99)
+    args = (q, k, v, mask, ATTN_H, rate, 99, out, lse, dout)
+    want = F.flash_bwd_bthd_ref(*args)
+    heads = [F._heads(a, ATTN_H).contiguous() for a in (q, k, v, out, dout)]
+    lse4 = lse.view(len(lengths), ATTN_H, t_len)
+    tol, errs, same, identical = TOL[dt_name], {}, True, True
+    for fused in (True, False):
+        runs = [F.flash_bwd_bthd(*args, fused=fused) for _ in range(2)]
+        ref4 = F.flash_bwd(*heads[:3], mask, rate, 99, heads[3], lse4,
+                           heads[4], fused=fused)
+        torch.cuda.synchronize()
+        errs[fused] = rel_err(runs[0], want)
+        identical &= all(torch.equal(a, c) for a, c in zip(*runs))
+        same &= all(torch.equal(a, F._flat(r)) for a, r in zip(runs[0],
+                                                              ref4))
+    delta = F._delta_bthd(dout, out, ATTN_H)
+    ms = cuda_ms(lambda: F.flash_bwd_fused_bthd(
+        q, k, v, mask, ATTN_H, rate, 99, lse, delta, dout), 5, 1)
+    split_ms = cuda_ms(lambda: F.flash_bwd_bthd(*args, fused=False), 5, 1)
+    plain_ms = cuda_ms(lambda: F.flash_bwd_bthd_ref(*args), 1, 0)
+    leaves = [a.detach().requires_grad_(True) for a in heads[:3]]
+    lib_out = sdpa(*leaves, mask)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, heads[4], retain_graph=True), 5, 1)
+    (bound_ms, bound_by), bound_100 = _bthd_bounds(lengths, t_len, dt_name,
+                                                   5, 7, 1, 2)
+    abs_err, err = errs[True]
+    row = {"where": where, "dtype": dt_name, "rate": rate, "B": len(lengths),
+           "T": t_len, "d": BTHD_D, "max_abs_err": abs_err,
+           "max_rel_err": err, "split_max_rel_err": errs[False][1],
+           "tol": tol, "equals_rows_18_20": same,
+           "bit_identical_rerun": identical, "ms": ms,
+           "split_with_transposes_ms": split_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_ms_d100": bound_100}
+    log(f"[flags] flash_bwd_fused_bthd {where} B={len(lengths)} T={t_len} "
+        f"d={BTHD_D} {dt_name} dropout {rate}: max err / max(1, max|plain|)"
+        f" fused {err:.3g}, split {errs[False][1]:.3g} (tol {tol}), equals "
+        f"rows 18-20 on the transposes {same}, reruns bit-identical "
+        f"{identical}, kernel {ms:.4f} ms, split with transposes "
+        f"{split_ms:.4f} ms, plain {plain_ms:.4f} ms, autograd.grad through "
+        f"sdpa {lib_ms:.4f} ms (dropout 0), bound {bound_ms:.4f} ms "
+        f"({bound_by}; d=100: {bound_100:.4f} ms), dispatch picks "
+        f"{'fused' if use_fused(len(lengths), t_len, d=BTHD_D) else 'split'}")
+    if not (max(e[1] for e in errs.values()) <= tol and same and identical):
+        raise AssertionError(f"head-major backward disagrees: {row}")
+    return row
+
+
+def card_step(name, batch):
+    """One f32 Trainer step of ``name`` on the card from seeded weights:
+    ``(loss, gradients)``."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    model = build_model(name, N_CLASS,
+                        generator=torch.Generator().manual_seed(2))
+    trainer = Trainer(model, N_CLASS, seed=0, device="cuda")
+    ts = trainer.init_state()
+    loss = trainer.train_step(ts, batch, seeds=list(
+        range(11, 11 + model.n_dropout_sites))).item()
+    return loss, {k: p.grad.detach().clone()
+                  for k, p in ts.model.named_parameters()}
+
+
+@contextlib.contextmanager
+def fused_boundary(on: bool):
+    """``rnn_fused.FUSED_BOUNDARY`` (``PVA_RNN_FUSED_BOUNDARY``) set to
+    ``on`` inside the block."""
+    from pytorch_video_action_tpu_torch.ops import rnn_fused
+
+    old = rnn_fused.FUSED_BOUNDARY
+    rnn_fused.FUSED_BOUNDARY = on
+    try:
+        yield
+    finally:
+        rnn_fused.FUSED_BOUNDARY = old
+
+
+@contextlib.contextmanager
+def flash_bthd(on: bool):
+    """``PVA_FLASH_BTHD`` set to 1 (``on``) or unset inside the block."""
+    old = os.environ.pop("PVA_FLASH_BTHD", None)
+    if on:
+        os.environ["PVA_FLASH_BTHD"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PVA_FLASH_BTHD", None)
+        if old is not None:
+            os.environ["PVA_FLASH_BTHD"] = old
+
+
+def phase_flags(card: str, root: str):
+    """JAX's two remaining flags, each set for its half of the phase and
+    restored after it: ``PVA_RNN_FUSED_BOUNDARY=1`` (``rnn_fused.
+    FUSED_BOUNDARY``) and ``PVA_FLASH_BTHD=1``.  Returns the launches and
+    the kernel rows by kernels-line entry."""
+    launches, rows = {}, {}
+    for name, flag, route in (
+            ("PVA_RNN_FUSED_BOUNDARY=1", fused_boundary, _boundary_route),
+            ("PVA_FLASH_BTHD=1", flash_bthd, _bthd_route)):
+        t0 = time.time()
+        with flag(True):
+            got, new_rows = route(card, root)
+        add_launches(launches, got)
+        rows.update(new_rows)
+        log(f"[flags] {name} in {time.time() - t0:.1f} s")
+    return launches, rows
+
+
+def _boundary_route(card, root):
+    """Rows 1 alt and 2 alt at the main path's shapes (W = 2H = 256; the
+    eval form at the largest test forward batch, dropout off; the train
+    form and the backward at the largest train batch at keep 0.5 and 0.7;
+    f32 and bf16); bigru trained 2 epochs by the train CLI (f32, bf16) and
+    served; the flag's invariance on the card (a bigru step, keep 0.5, bit
+    for bit against the glue route); one step each of bigru and ctcloss
+    against the CPU; frames/s with the flag on and off."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.predict import forward_batches
+
+    route = "PVA_RNN_FUSED_BOUNDARY=1"
+    rows, launches = {k: [] for k in BND}, {}
+    feats = VideoDataset(data_dir="data", annot_path=root, part="test",
+                         split=1, mode=None, verbose=False).features
+    t_serve, chunk = max(forward_batches(feats),
+                         key=lambda tb: tb[0] * len(tb[1]))
+    serve_lens = [len(feats[i]) for i in chunk]
+    train_feed, dev_feed = train_feeds(root)
+    batch = largest_batch(train_feed)
+    train_lens, t_train = batch[1].tolist(), batch[0].shape[1]
+    gen = torch.Generator().manual_seed(12)
+    t0 = time.time()
+    for dt_name in DTYPES:
+        rows["gru_bidir_bnd_fwd"].append(check_bnd_eval(
+            "main path", serve_lens, t_serve, dt_name, gen))
+    for keep in BND_KEEPS:
+        for dt_name in DTYPES:
+            f, b = check_bnd_train("main path", train_lens, t_train, dt_name,
+                                   keep, gen)
+            rows["gru_bidir_bnd_fwd_train"].append(f)
+            rows["gru_bidir_bnd_bwd"].append(b)
+    log(f"[flags] fused-boundary kernel checks in {time.time() - t0:.1f} s")
+
+    steps, forwards = feed_shapes(train_feed), feed_shapes(dev_feed)
+    expect = expected_launches("bigru", forwards=forwards * TRAIN_EPOCHS,
+                               steps=steps * TRAIN_EPOCHS, boundary=True)
+    for dt_name in DTYPES:
+        best, got = train_cli_run(root, "bigru", dt_name, expect,
+                                  where="_bnd")
+        add_launches(launches, got)
+        if dt_name == "float32":
+            ckpt = f"bigru_{best:.2f}_dev"
+    add_launches(launches, serve_route(card, root, "bigru", ckpt, route,
+                                       boundary=True))
+    small = small_batch(train_feed)
+    on = card_step("bigru", small)
+    with fused_boundary(False):
+        off = card_step("bigru", small)
+        for dt_name in DTYPES:
+            train_frames_per_sec(card, "bigru", train_feed, dt_name,
+                                 " flag off")
+    same = on[0] == off[0] and all(torch.equal(g, off[1][k])
+                                   for k, g in on[1].items())
+    log(f"[flags] bigru one step on the card, {route} against the glue "
+        f"route (keep 0.5): loss {on[0]:.6f} and {off[0]:.6f}, loss and "
+        f"every gradient bit for bit {same}")
+    if not same:
+        raise AssertionError("the boundary flag changes bigru's step")
+    for dt_name in DTYPES:
+        train_frames_per_sec(card, "bigru", train_feed, dt_name, f" {route}")
+    per_step = {"gru_bidir_fwd_train": 1, "gru_bidir_bwd": 1}
+    for name, layers in (("bigru", 4), ("ctcloss", 4)):
+        add_launches(launches, route_step(route, name, small, {
+            **per_step, "gru_bidir_bnd_fwd_train": layers - 1,
+            "gru_bidir_bnd_bwd": layers - 1}))
+    return launches, rows
+
+
+def _bthd_route(card, root):
+    """Rows 17 alt and 18 alt: the forward at attn's serving shape (the
+    largest test forward batch padded to T >= 1024) and forward and
+    backward at its train batches padded to T >= 1024 below 1536 (f32,
+    bf16, dropout 0.3); attn trained 2 epochs (f32) by the train CLI and
+    served; one step each of attn and attn at ``--attn_head`` 2 (d 200 ->
+    256) against the CPU on the flash path; frames/s with the flag on and
+    off."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+    from pytorch_video_action_tpu_torch.infer.predict import forward_batches
+    from pytorch_video_action_tpu_torch.models import attention
+
+    route = "PVA_FLASH_BTHD=1"
+    min_t = attention.BLOCKWISE_MIN_T
+    rows, launches = {k: [] for k in BTHD}, {}
+    feats = VideoDataset(data_dir="data", annot_path=root, part="test",
+                         split=1, mode=None, verbose=False).features
+    t_serve, chunk = max(((t, c) for t, c in forward_batches(feats)
+                          if t >= min_t), key=lambda tb: tb[0] * len(tb[1]))
+    train_feed, dev_feed = train_feeds(root)
+    gen = torch.Generator().manual_seed(13)
+    t0 = time.time()
+    for dt_name in DTYPES:
+        rows["flash_fwd_bthd"].append(check_flash_bthd_fwd(
+            "main path", [len(feats[i]) for i in chunk], t_serve, dt_name,
+            ATTN_RATE, gen))
+    long = {}  # padded T -> a train batch of it, on the flash path
+    for ix in train_feed.index_batches():
+        t_len = train_feed.collate(ix)[0].shape[1]
+        if min_t <= t_len < 1536:
+            long.setdefault(t_len, ix)
+    for t_len, ix in sorted(long.items()):
+        lens = [len(train_feed.dataset.features[i]) for i in ix]
+        for dt_name in DTYPES:
+            rows["flash_fwd_bthd"].append(check_flash_bthd_fwd(
+                "main path", lens, t_len, dt_name, ATTN_RATE, gen))
+            rows["flash_bwd_fused_bthd"].append(check_flash_bthd_bwd(
+                "main path", lens, t_len, dt_name, ATTN_RATE, gen))
+    log(f"[flags] head-major flash kernel checks in "
+        f"{time.time() - t0:.1f} s")
+
+    steps, forwards = feed_shapes(train_feed), feed_shapes(dev_feed)
+    expect = expected_launches("attn", forwards=forwards * TRAIN_EPOCHS,
+                               steps=steps * TRAIN_EPOCHS, bthd=True)
+    best, got = train_cli_run(root, "attn", "float32", expect, where="_bthd")
+    add_launches(launches, got)
+    add_launches(launches, serve_route(card, root, "attn",
+                                       f"attn_{best:.2f}_dev", route,
+                                       bthd=True))
+    train_frames_per_sec(card, "attn", train_feed, "float32", f" {route}")
+    small = small_batch(train_feed)
+    b, t_len = small[0].shape[:2]
+    per_step = {"gru_bidir_fwd_train": 1, "gru_bidir_bwd": 1,
+                "flash_fwd_bthd": 1}
+    with blockwise_min_t(256):
+        for heads in (ATTN_H, 2):
+            d = BTHD_D * (ATTN_H // heads)
+            bwd = (["flash_bwd_fused_bthd"] if use_fused(b, t_len, heads, d)
+                   else ["flash_bwd_dkdv", "flash_bwd_dq"])
+            add_launches(launches, route_step(
+                route, "attn", small, {**per_step, **dict.fromkeys(bwd, 1)},
+                f" --attn_head {heads}", attn_head=heads))
+    with flash_bthd(False):
+        train_frames_per_sec(card, "attn", train_feed, "float32",
+                             " flag off")
     return launches, rows
 
 
@@ -2732,6 +3276,11 @@ def main() -> int:
         add_launches(launches, got)
         add_rows(new_rows)
         log(f"[merged] PVA_RNN_SPLIT=0 phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        got, new_rows = phase_flags(card, root)
+        add_launches(launches, got)
+        add_rows(new_rows)
+        log(f"[flags] flags phase in {time.time() - t0:.1f} s")
     log(f"[done] all phases in {time.time() - start:.1f} s")
 
     entries = []
@@ -2753,6 +3302,8 @@ def main() -> int:
                 for name, (src, line) in FLASH.items()]
     entries += [(name, CSRC + src, CONV_PALLAS + line)
                 for name, (src, line) in CONV.items()]
+    entries += [(name, CSRC + src, replaces)
+                for name, (src, replaces) in (*BND.items(), *BTHD.items())]
     kernels = [kernel_entry(name, src, replaces, launches.get(name, 0),
                             rows.get(name, []) + bench.get(name, []))
                for name, src, replaces in entries]

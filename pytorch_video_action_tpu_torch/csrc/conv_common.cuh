@@ -1,7 +1,7 @@
 // Device code shared by MS-TCN's conv kernels (conv_layer_fwd.cu,
 // conv_layer_bwd.cu, conv_stage_fwd.cu) for Hopper (sm_90a): the tile
-// geometry, the fmix32 keep bit, slab and weight loads into shared memory,
-// the SIMT tile products, and one dilated residual layer over one tile.
+// geometry, slab and weight loads into shared memory, the SIMT tile
+// products, and one dilated residual layer over one tile.
 //
 // C = 64 feature maps.  A tile is 64 frames of one video.  A block has 256
 // threads; thread (ty, tx) = (tid / 16, tid % 16) owns rows 4ty..4ty+3 and
@@ -14,6 +14,7 @@
 #pragma once
 
 #include "dtype.cuh"
+#include "hash.cuh"
 
 #include <stddef.h>
 #include <stdint.h>
@@ -25,21 +26,6 @@ constexpr int kRows = 64;    // frames per tile
 constexpr int kLd = kC + 1;  // row stride of a tile in shared memory
 constexpr int kTile = kRows * kLd;  // floats of one tile
 constexpr int kThreads = 256;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// The stream key of a uint32 seed, ops/hashmask.py::stream_key.
-__device__ __forceinline__ uint32_t stream_key(uint32_t seed) {
-  return fmix32(seed + kGolden);
-}
 
 // Loads through L2 only (ld.global.cg): the stage kernel reads rows that
 // other blocks wrote earlier in the same launch, which L1 may hold stale.

@@ -4,7 +4,10 @@
 // Replaces: pytorch_video_action_tpu/ops/flash_pallas.py
 //   _bwd_fused_kernel (pallas_call at :487, in _bwd_fused_call), and the
 //   split's _dkdv_kernel (:643) and _dq_kernel (:682), all launched by
-//   flash_bwd_pallas from ops/flash.py's custom_vjp backward.
+//   flash_bwd_pallas from ops/flash.py's custom_vjp backward; and the fused
+//   kernel's bthd=True form (flash_bwd_fused_bthd), from
+//   flash_self_attention_bthd's.  The split takes [B*H, T, d] only: under
+//   bthd the caller transposes around it (flash_pallas.py:594-610).
 //
 // Computes, for q, dout [B*H, T, d], k, v [B*H, T_kv, d], mask [B, T_kv],
 // lse and delta = sum(dout * out) [B*H, T] f32:
@@ -44,6 +47,10 @@
 //    columns: the score step sums q k^T and dout v^T over the slabs, and
 //    each output slab of dk, dv and dq is a pass of its own, recomputing
 //    the score step (for ns slabs, 2 ns + 3 products' work instead of 5).
+//  * The head-major flat layout [B, T, H*d] differs only in where a head's
+//    rows start and their stride (BwdArgs::bthd, flash_common.cuh::
+//    head_base); a chunk's partial dq takes dq's layout, so the reduction
+//    is the same elementwise sum.
 //    wgmma and TMA are later work.
 
 #include "flash_common.cuh"
@@ -63,7 +70,20 @@ struct BwdArgs {
   void* dv;
   int H, Tn, Tkv, d;
   Dropout dr;
+  int bthd;  // the head-major flat layout (flash_common.cuh::head_base)
 };
+
+// Where head bh's query rows (q, dout, dq) and key rows (k, v, dk, dv)
+// start, and the stride between rows.
+__device__ __forceinline__ size_t q_base(const BwdArgs& a, int bh) {
+  return head_base(a.bthd, bh, a.H, a.Tn, a.d);
+}
+__device__ __forceinline__ size_t kv_base(const BwdArgs& a, int bh) {
+  return head_base(a.bthd, bh, a.H, a.Tkv, a.d);
+}
+__device__ __forceinline__ int ld(const BwdArgs& a) {
+  return row_stride(a.bthd, a.H, a.d);
+}
 
 // The query tile at q0 of (b, h): lse and delta and, for a head of one
 // slab, q and dout into shared memory.
@@ -72,10 +92,11 @@ __device__ __forceinline__ void load_query_tile(const BwdSmem& sm,
                                                 const BwdArgs& a, int bh,
                                                 int q0) {
   if (n_slabs(a.d) == 1) {
-    const size_t off = (size_t)bh * a.Tn * a.d;
-    load_tile(sm.q, static_cast<const T*>(a.q) + off, q0, a.Tn, a.d, 0, a.d);
-    load_tile(sm.dout, static_cast<const T*>(a.dout) + off, q0, a.Tn, a.d, 0,
+    const size_t off = q_base(a, bh);
+    load_tile(sm.q, static_cast<const T*>(a.q) + off, q0, a.Tn, ld(a), 0,
               a.d);
+    load_tile(sm.dout, static_cast<const T*>(a.dout) + off, q0, a.Tn, ld(a),
+              0, a.d);
   }
   load_rows(sm.lse, a.lse + (size_t)bh * a.Tn, q0, a.Tn);
   load_rows(sm.delta, a.delta + (size_t)bh * a.Tn, q0, a.Tn);
@@ -89,10 +110,10 @@ __device__ __forceinline__ void load_key_tile(const BwdSmem& sm,
                                               const BwdArgs& a, int bh,
                                               int k0) {
   if (n_slabs(a.d) == 1) {
-    const size_t off = (size_t)bh * a.Tkv * a.d;
-    load_tile(sm.k, static_cast<const T*>(a.k) + off, k0, a.Tkv, a.d, 0,
+    const size_t off = kv_base(a, bh);
+    load_tile(sm.k, static_cast<const T*>(a.k) + off, k0, a.Tkv, ld(a), 0,
               a.d);
-    load_tile(sm.v, static_cast<const T*>(a.v) + off, k0, a.Tkv, a.d, 0,
+    load_tile(sm.v, static_cast<const T*>(a.v) + off, k0, a.Tkv, ld(a), 0,
               a.d);
   }
   load_key_valid(key_valid, a.mask + (size_t)(bh / a.H) * a.Tkv, k0, a.Tkv);
@@ -112,21 +133,22 @@ __device__ __forceinline__ void score_step(const BwdSmem& sm,
   float s[4][4], g[4][4];
   zero_scores(s);
   zero_scores(g);
-  const size_t q_off = (size_t)bh * a.Tn * a.d;
-  const size_t kv_off = (size_t)bh * a.Tkv * a.d;
+  const size_t q_off = q_base(a, bh);
+  const size_t kv_off = kv_base(a, bh);
+  const int lda = ld(a);
   for (int i = 0; i < ns; ++i) {
     const int e = (o + 1 + i) % ns;
     const int w = slab_width(a.d, e);
     if (ns > 1) {
       const int c0 = e * kDMax;
       __syncthreads();  // the previous slab is read
-      load_tile(sm.q, static_cast<const T*>(a.q) + q_off, q0, a.Tn, a.d, c0,
+      load_tile(sm.q, static_cast<const T*>(a.q) + q_off, q0, a.Tn, lda, c0,
                 w);
       load_tile(sm.dout, static_cast<const T*>(a.dout) + q_off, q0, a.Tn,
-                a.d, c0, w);
-      load_tile(sm.k, static_cast<const T*>(a.k) + kv_off, k0, a.Tkv, a.d,
+                lda, c0, w);
+      load_tile(sm.k, static_cast<const T*>(a.k) + kv_off, k0, a.Tkv, lda,
                 c0, w);
-      load_tile(sm.v, static_cast<const T*>(a.v) + kv_off, k0, a.Tkv, a.d,
+      load_tile(sm.v, static_cast<const T*>(a.v) + kv_off, k0, a.Tkv, lda,
                 c0, w);
       __syncthreads();
     }
@@ -155,9 +177,11 @@ flash_bwd_fused_kernel(BwdArgs a, float* __restrict__ part, int chunks) {
   const int n_kv = (a.Tkv + kTile - 1) / kTile;
   const int j0 = (int)((long long)c * n_kv / chunks);
   const int j1 = (int)((long long)(c + 1) * n_kv / chunks);
+  // a chunk's partial dq has dq's layout
   float* dq_out = (part ? part + (size_t)c * gridDim.y * a.Tn * a.d : a.dq) +
-                  (size_t)bh * a.Tn * a.d;
-  const size_t kv_off = (size_t)bh * a.Tkv * a.d;
+                  q_base(a, bh);
+  const size_t kv_off = kv_base(a, bh);
+  const int lda = ld(a);
   const int ns = n_slabs(a.d);
 
   for (int j = j0; j < j1; ++j) {
@@ -191,13 +215,13 @@ flash_bwd_fused_kernel(BwdArgs a, float* __restrict__ part, int chunks) {
           for (int jj = 0; jj < 8; ++jj) {
             const int col = tx + 16 * jj;
             if (col >= ow) continue;
-            float* slot = dq_out + (size_t)r * a.d + oc + col;
+            float* slot = dq_out + (size_t)r * lda + oc + col;
             *slot = (j == j0) ? dq[i][jj] : *slot + dq[i][jj];
           }
         }
       }
-      store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, a.d, oc, ow);
-      store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, a.d, oc, ow);
+      store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, lda, oc, ow);
+      store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, lda, oc, ow);
     }
   }
 }
@@ -226,7 +250,7 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
   __shared__ int key_valid[kTile];
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kTile;
-  const size_t kv_off = (size_t)bh * a.Tkv * a.d;
+  const size_t kv_off = kv_base(a, bh);
   for (int o = 0; o < n_slabs(a.d); ++o) {
     float dk[4][8], dv[4][8];
     zero_acc(dk);
@@ -244,8 +268,8 @@ flash_bwd_dkdv_kernel(BwdArgs a) {
     }
     const int oc = o * kDMax;
     const int ow = slab_width(a.d, o);
-    store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, a.d, oc, ow);
-    store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, a.d, oc, ow);
+    store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, ld(a), oc, ow);
+    store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, ld(a), oc, ow);
   }
 }
 
@@ -271,7 +295,7 @@ flash_bwd_dq_kernel(BwdArgs a) {
       __syncthreads();
       tile_pb(sm.ds, sm.k, dq);
     }
-    store_acc(a.dq + (size_t)bh * a.Tn * a.d, dq, q0, a.Tn, a.d, o * kDMax,
+    store_acc(a.dq + q_base(a, bh), dq, q0, a.Tn, ld(a), o * kDMax,
               slab_width(a.d, o));
   }
 }
@@ -322,6 +346,30 @@ bool bad_args(int BH, int H, int Tn, int Tkv, int d, float keep,
          n_slabs(d) > kMaxSlabs || (dropout && !(keep > 0.0f));
 }
 
+// Checks the fused form's arguments and launches it in the layout bthd
+// selects.
+int fused_entry(int dtype, const void* q, const void* k, const void* v,
+                const unsigned char* mask, const float* lse,
+                const float* delta, const void* dout, float* dq, void* dk,
+                void* dv, int BH, int H, int Tn, int Tkv, int d,
+                unsigned int key, unsigned int thresh, float keep,
+                int dropout, float* part, int chunks, int bthd,
+                void* stream) {
+  if (bad_args(BH, H, Tn, Tkv, d, keep, dropout) || !dq || !dk || !dv ||
+      chunks < 1 ||
+      chunks > (Tkv + kTile - 1) / kTile || (chunks > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{q,  k,  v,  mask, lse, delta, dout,
+                  dq, dk, dv, H,    Tn,  Tkv,   d,
+                  Dropout{key, thresh, keep, dropout != 0}, bthd};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scratch = chunks > 1 ? part : nullptr;
+  if (dtype == 0) return (int)run_fused<float>(a, BH, scratch, chunks, s);
+  if (dtype == 1)
+    return (int)run_fused<__nv_bfloat16>(a, BH, scratch, chunks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -344,7 +392,7 @@ int flash_bwd_dkdv(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q,  k,  v,  mask, lse, delta, dout,
                   dq, dk, dv, H,    Tn,  Tkv,   d,
-                  Dropout{key, thresh, keep, dropout != 0}};
+                  Dropout{key, thresh, keep, dropout != 0}, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)run_dkdv<float>(a, BH, s);
   if (dtype == 1) return (int)run_dkdv<__nv_bfloat16>(a, BH, s);
@@ -362,7 +410,7 @@ int flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q,  k,  v,  mask, lse, delta, dout,
                   dq, dk, dv, H,    Tn,  Tkv,   d,
-                  Dropout{key, thresh, keep, dropout != 0}};
+                  Dropout{key, thresh, keep, dropout != 0}, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)run_dq<float>(a, BH, s);
   if (dtype == 1) return (int)run_dq<__nv_bfloat16>(a, BH, s);
@@ -377,19 +425,26 @@ int flash_bwd_fused(int dtype, const void* q, const void* k, const void* v,
                     void* dv, int BH, int H, int Tn, int Tkv, int d,
                     unsigned int key, unsigned int thresh, float keep,
                     int dropout, float* part, int chunks, void* stream) {
-  if (bad_args(BH, H, Tn, Tkv, d, keep, dropout) || !dq || !dk || !dv ||
-      chunks < 1 ||
-      chunks > (Tkv + kTile - 1) / kTile || (chunks > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const BwdArgs a{q,  k,  v,  mask, lse, delta, dout,
-                  dq, dk, dv, H,    Tn,  Tkv,   d,
-                  Dropout{key, thresh, keep, dropout != 0}};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* scratch = chunks > 1 ? part : nullptr;
-  if (dtype == 0) return (int)run_fused<float>(a, BH, scratch, chunks, s);
-  if (dtype == 1)
-    return (int)run_fused<__nv_bfloat16>(a, BH, scratch, chunks, s);
-  return (int)cudaErrorInvalidValue;
+  return fused_entry(dtype, q, k, v, mask, lse, delta, dout, dq, dk, dv, BH,
+                     H, Tn, Tkv, d, key, thresh, keep, dropout, part, chunks,
+                     0, stream);
+}
+
+// The fused form on the head-major flat layout (flash_pallas.py
+// _bwd_fused_kernel with bthd=True): q, dout, dq [BH / H, T, H*d] and k, v,
+// dk, dv [BH / H, T_kv, H*d], head h the column slab [h*d, (h+1)*d); `part`
+// holds each chunk's partial dq in dq's layout; lse, delta [BH, T] and the
+// rest as flash_bwd_fused's.
+int flash_bwd_fused_bthd(int dtype, const void* q, const void* k,
+                         const void* v, const unsigned char* mask,
+                         const float* lse, const float* delta,
+                         const void* dout, float* dq, void* dk, void* dv,
+                         int BH, int H, int Tn, int Tkv, int d,
+                         unsigned int key, unsigned int thresh, float keep,
+                         int dropout, float* part, int chunks, void* stream) {
+  return fused_entry(dtype, q, k, v, mask, lse, delta, dout, dq, dk, dv, BH,
+                     H, Tn, Tkv, d, key, thresh, keep, dropout, part, chunks,
+                     1, stream);
 }
 
 const char* flash_bwd_error_string(int err) {

@@ -1,7 +1,8 @@
 // Device code shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu) for Hopper (sm_90a): the tile geometry, the fmix32
-// dropout keep-bit, tile loads, the SIMT tile products and the backward's
-// score step (the masked score tile and the exp(s - lse) recompute).
+// flash_bwd.cu) for Hopper (sm_90a): the tile geometry, the dropout keep
+// bit (hash.cuh's fmix32), the head layouts, tile loads, the SIMT tile
+// products and the backward's score step (the masked score tile and the
+// exp(s - lse) recompute).
 //
 // Tiles are 64 query rows by 64 key rows by a slab of at most 128 of the
 // head's d columns; a wider head is walked in slabs (at most kMaxSlabs):
@@ -18,6 +19,7 @@
 #pragma once
 
 #include "dtype.cuh"
+#include "hash.cuh"
 
 #include <stddef.h>
 #include <stdint.h>
@@ -41,15 +43,6 @@ struct Dropout {
   int on;
 };
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
 // Keep bit of score (bh, q, k): the hash of its index in the virtual
 // [B, H, T, T_kv] matrix, ((b*H + h)*T + q)*T_kv + k with uint32 wrap,
 // xor the key -- the stream of ops/flash.py::block_keep_mask.
@@ -57,6 +50,20 @@ __device__ __forceinline__ bool kept(const Dropout& dr, uint32_t bh,
                                      uint32_t Tn, uint32_t Tkv, uint32_t q,
                                      uint32_t k) {
   return fmix32(((bh * Tn + q) * Tkv + k) ^ dr.key) < dr.thresh;
+}
+
+// Where head bh's rows start in q, k, v, out and their gradients, and the
+// stride between its rows: [B*H, rows, d] (bthd == 0) or the head-major
+// flat [B, rows, H*d] (bthd != 0), whose head h is the column slab
+// [h*d, (h+1)*d) of every row.  lse, delta and the dropout index stay
+// [B*H, T]-indexed in both.
+__device__ __forceinline__ size_t head_base(int bthd, int bh, int H, int rows,
+                                            int d) {
+  return bthd ? ((size_t)(bh / H) * rows * H + bh % H) * d
+              : (size_t)bh * rows * d;
+}
+__device__ __forceinline__ int row_stride(int bthd, int H, int d) {
+  return bthd ? H * d : d;
 }
 
 // Slabs of a head of width d, and slab e's first column and width.

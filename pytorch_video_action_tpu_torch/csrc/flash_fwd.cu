@@ -3,7 +3,9 @@
 //
 // Replaces: pytorch_video_action_tpu/ops/flash_pallas.py _fwd_kernel,
 //   launched by flash_fwd_pallas (the pallas_call at :297), which
-//   ops/flash.py::flash_self_attention reaches for padded T >= 1024.
+//   ops/flash.py::flash_self_attention reaches for padded T >= 1024; and
+//   its bthd=True form (flash_fwd_bthd), which
+//   ops/flash.py::flash_self_attention_bthd reaches under PVA_FLASH_BTHD=1.
 //
 // Computes, for each (b, h) of q [B*H, T, d] (pre-scaled by 1/sqrt(d)),
 // k and v [B*H, T_kv, d], mask [B, T_kv] (1 = attendable):
@@ -35,6 +37,9 @@
 //    each output slab is a pass of its own over the key tiles, which
 //    recomputes q k^T (ns + 1 products' work for ns slabs instead of 2).
 //    The tiles, registers and shared memory stay those of d <= 128.
+//  * The head-major flat layout [B, T, H*d] differs only in where a head's
+//    rows start and their stride (flash_common.cuh::head_base); the
+//    arithmetic and its order are the same.
 //    wgmma, TMA and double-buffered tiles are later work.
 
 #include "flash_common.cuh"
@@ -52,7 +57,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v,
                  const unsigned char* __restrict__ mask, T* __restrict__ out,
                  float* __restrict__ lse, int H, int Tn, int Tkv, int d,
-                 Dropout dr) {
+                 Dropout dr, int bthd) {
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + kTile * kLd;
@@ -64,14 +69,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * kTile;
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const T* qb = q + (size_t)bh * Tn * d;
-  const T* kb = k + (size_t)bh * Tkv * d;
-  const T* vb = v + (size_t)bh * Tkv * d;
+  const int ld = row_stride(bthd, H, d);
+  const T* qb = q + head_base(bthd, bh, H, Tn, d);
+  const T* kb = k + head_base(bthd, bh, H, Tkv, d);
+  const T* vb = v + head_base(bthd, bh, H, Tkv, d);
   const unsigned char* mask_b = mask + (size_t)(bh / H) * Tkv;
 
   // one pass per output slab of d; a head of one slab keeps its q tile
   const int ns = n_slabs(d);
-  if (ns == 1) load_tile(q_s, qb, q0, Tn, d, 0, d);
+  if (ns == 1) load_tile(q_s, qb, q0, Tn, ld, 0, d);
   for (int o = 0; o < ns; ++o) {
     const int oc = o * kDMax;
     float m[4], l[4], acc[4][8];
@@ -84,7 +90,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int k0 = 0; k0 < Tkv; k0 += kTile) {
       __syncthreads();  // the previous tile's k_s, v_s and p_s are read
-      load_tile(v_s, vb, k0, Tkv, d, oc, slab_width(d, o));
+      load_tile(v_s, vb, k0, Tkv, ld, oc, slab_width(d, o));
       load_key_valid(key_valid, mask_b, k0, Tkv);
       float s[4][4];
       zero_scores(s);
@@ -92,9 +98,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int w = slab_width(d, e);
         if (ns > 1) {
           if (e > 0) __syncthreads();  // the previous slab is read
-          load_tile(q_s, qb, q0, Tn, d, e * kDMax, w);
+          load_tile(q_s, qb, q0, Tn, ld, e * kDMax, w);
         }
-        load_tile(k_s, kb, k0, Tkv, d, e * kDMax, w);
+        load_tile(k_s, kb, k0, Tkv, ld, e * kDMax, w);
         __syncthreads();
         tile_abt(q_s, k_s, w, s);
       }
@@ -147,7 +153,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (o == 0 && tx == 0 && r < Tn)
         lse[(size_t)bh * Tn + r] = valid ? m[i] + logf(l_safe) : 0.0f;
     }
-    store_acc(out + (size_t)bh * Tn * d, acc, q0, Tn, d, oc,
+    store_acc(out + head_base(bthd, bh, H, Tn, d), acc, q0, Tn, ld, oc,
               slab_width(d, o));
   }
 }
@@ -155,7 +161,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 cudaError_t run_fwd(const void* q, const void* k, const void* v,
                     const unsigned char* mask, void* out, float* lse, int BH,
-                    int H, int Tn, int Tkv, int d, Dropout dr,
+                    int H, int Tn, int Tkv, int d, Dropout dr, int bthd,
                     cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -165,8 +171,27 @@ cudaError_t run_fwd(const void* q, const void* k, const void* v,
   flash_fwd_kernel<T><<<grid, kThreads, kFwdSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, H, Tn, Tkv,
-      d, dr);
+      d, dr, bthd);
   return cudaGetLastError();
+}
+
+// Checks the arguments and launches in the layout bthd selects.
+int fwd_entry(int dtype, const void* q, const void* k, const void* v,
+              const unsigned char* mask, void* out, float* lse, int BH, int H,
+              int Tn, int Tkv, int d, unsigned int key, unsigned int thresh,
+              float keep, int dropout, int bthd, void* stream) {
+  if (BH <= 0 || H <= 0 || BH % H || Tn <= 0 || Tkv <= 0 || d <= 0 ||
+      n_slabs(d) > kMaxSlabs || (dropout && !(keep > 0.0f)))
+    return (int)cudaErrorInvalidValue;
+  const Dropout dr{key, thresh, keep, dropout != 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_fwd<float>(q, k, v, mask, out, lse, BH, H, Tn, Tkv, d,
+                               dr, bthd, s);
+  if (dtype == 1)
+    return (int)run_fwd<__nv_bfloat16>(q, k, v, mask, out, lse, BH, H, Tn,
+                                       Tkv, d, dr, bthd, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -183,18 +208,20 @@ int flash_fwd(int dtype, const void* q, const void* k, const void* v,
               const unsigned char* mask, void* out, float* lse, int BH, int H,
               int Tn, int Tkv, int d, unsigned int key, unsigned int thresh,
               float keep, int dropout, void* stream) {
-  if (BH <= 0 || H <= 0 || BH % H || Tn <= 0 || Tkv <= 0 || d <= 0 ||
-      n_slabs(d) > kMaxSlabs || (dropout && !(keep > 0.0f)))
-    return (int)cudaErrorInvalidValue;
-  const Dropout dr{key, thresh, keep, dropout != 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)run_fwd<float>(q, k, v, mask, out, lse, BH, H, Tn, Tkv, d,
-                               dr, s);
-  if (dtype == 1)
-    return (int)run_fwd<__nv_bfloat16>(q, k, v, mask, out, lse, BH, H, Tn,
-                                       Tkv, d, dr, s);
-  return (int)cudaErrorInvalidValue;
+  return fwd_entry(dtype, q, k, v, mask, out, lse, BH, H, Tn, Tkv, d, key,
+                   thresh, keep, dropout, 0, stream);
+}
+
+// The head-major form (flash_pallas.py _fwd_kernel with bthd=True): q, out
+// [BH / H, T, H*d] and k, v [BH / H, T_kv, H*d], head h the column slab
+// [h*d, (h+1)*d); lse [BH, T] and the rest as flash_fwd's.
+int flash_fwd_bthd(int dtype, const void* q, const void* k, const void* v,
+                   const unsigned char* mask, void* out, float* lse, int BH,
+                   int H, int Tn, int Tkv, int d, unsigned int key,
+                   unsigned int thresh, float keep, int dropout,
+                   void* stream) {
+  return fwd_entry(dtype, q, k, v, mask, out, lse, BH, H, Tn, Tkv, d, key,
+                   thresh, keep, dropout, 1, stream);
 }
 
 const char* flash_fwd_error_string(int err) {

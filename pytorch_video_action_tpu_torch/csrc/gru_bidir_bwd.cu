@@ -2,7 +2,8 @@
 // csrc/gru_bidir_fwd.cu) for Hopper (sm_90a).
 //
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
-//   _bwd_kernel_split, reached through gru_bidir_fused_split's custom_vjp.
+//   _bwd_kernel_split, reached through gru_bidir_fused_split's custom_vjp,
+//   and its boundary form, reached through gru_bidir_fused_split_bnd's.
 //
 // Inputs, for x [T, B, W] time-major and per direction d in {fwd, bwd}:
 // wi_d [W, 3H], wh_d [H, 3H], lengths [B], the forward's ys_d [T, B, H] and
@@ -49,6 +50,11 @@
 //  * No atomics: each output tile owns its whole K loop and the bias sums
 //    add the per-row partials in a fixed order, so two runs give
 //    bit-identical gradients.
+//  * The fused-boundary form (gru_bidir_bnd_bwd) runs the same chain; its
+//    weight-gradient tiles build dwi's x operand from the previous layer's
+//    halves as the forward did, and dx_kernel's store applies the
+//    boundary's VJP (mask, and dropout's keep bit and scale) and writes the
+//    two halves' gradients dxa and dxb directly (rnn_common.cuh).
 // wgmma, TMA and split-K with a fixed-order reduction are later work.
 
 #include "rnn_common.cuh"
@@ -206,15 +212,14 @@ cudaError_t launch_recur(const void* whf, const void* whb, const int* lengths,
   return cudaGetLastError();
 }
 
+// The chain (dxg, dhg and the bias sums) and the bias reduction.
 template <typename T>
-cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
-                    const void* whf, const void* whb, const int* lengths,
-                    const void* ysf, const void* ysb, const void* resf,
-                    const void* resb, const void* dyf, const void* dyb,
-                    void* dx, void* dwif, void* dwib, void* dbif, void* dbib,
-                    void* dwhf, void* dwhb, void* dbhf, void* dbhb,
-                    float* dxg, float* dhg, float* bias_part, int Tn, int B,
-                    int W, int H, cudaStream_t stream) {
+cudaError_t run_chain(const void* whf, const void* whb, const int* lengths,
+                      const void* ysf, const void* ysb, const void* resf,
+                      const void* resb, const void* dyf, const void* dyb,
+                      void* dbif, void* dbib, void* dbhf, void* dbhb,
+                      float* dxg, float* dhg, float* bias_part, int Tn, int B,
+                      int H, cudaStream_t stream) {
   cudaError_t err;
   switch (H) {
     case 16:
@@ -243,10 +248,56 @@ cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
   // bias_part [2 (bi, bh)][2 (dir)][B][G]
   const BiasOuts<T> bias = {{static_cast<T*>(dbif), static_cast<T*>(dbib),
                              static_cast<T*>(dbhf), static_cast<T*>(dbhb)}};
-  err = launch_bias_reduce<T>(bias_part, bias, 4, B, G, stream);
+  return launch_bias_reduce<T>(bias_part, bias, 4, B, G, stream);
+}
+
+template <typename T>
+cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
+                    const void* whf, const void* whb, const int* lengths,
+                    const void* ysf, const void* ysb, const void* resf,
+                    const void* resb, const void* dyf, const void* dyb,
+                    void* dx, void* dwif, void* dwib, void* dbif, void* dbib,
+                    void* dwhf, void* dwhb, void* dbhf, void* dbhb,
+                    float* dxg, float* dhg, float* bias_part, int Tn, int B,
+                    int W, int H, cudaStream_t stream) {
+  const cudaError_t err =
+      run_chain<T>(whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dbif,
+                   dbib, dbhf, dbhb, dxg, dhg, bias_part, Tn, B, H, stream);
   if (err != cudaSuccess) return err;
   return launch_products<T>(x, wif, wib, ysf, ysb, dxg, dhg, dx, dwif, dwib,
-                            dwhf, dwhb, Tn, B, W, H, G, stream);
+                            dwhf, dwhb, Tn, B, W, H, 3 * H, stream);
+}
+
+// The fused-boundary form: the same chain, then the products with dwi read
+// from the boundary the forward built and dx carried through its VJP into
+// dxa and dxb.
+template <typename T>
+cudaError_t run_bwd_boundary(
+    const void* xa, const void* xb, const void* wif, const void* wib,
+    const void* whf, const void* whb, const int* lengths, const void* ysf,
+    const void* ysb, const void* resf, const void* resb, const void* dyf,
+    const void* dyb, void* dxa, void* dxb, void* dwif, void* dwib,
+    void* dbif, void* dbib, void* dwhf, void* dwhb, void* dbhf, void* dbhb,
+    float* dxg, float* dhg, float* bias_part, int Tn, int B, int Hx, int H,
+    uint32_t seed, uint32_t thresh, float scale, bool drop,
+    cudaStream_t stream) {
+  const cudaError_t err =
+      run_chain<T>(whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dbif,
+                   dbib, dbhf, dbhb, dxg, dhg, bias_part, Tn, B, H, stream);
+  if (err != cudaSuccess) return err;
+  const Boundary<T> bnd = {static_cast<const T*>(xa),
+                           static_cast<const T*>(xb),
+                           lengths,
+                           B,
+                           Hx,
+                           Tn,
+                           stream_key(seed),
+                           thresh,
+                           scale,
+                           drop};
+  return launch_boundary_products<T>(bnd, wif, wib, ysf, ysb, dxg, dhg, dxa,
+                                     dxb, dwif, dwib, dwhf, dwhb, Tn, B, H,
+                                     3 * H, stream);
 }
 
 }  // namespace
@@ -280,6 +331,35 @@ int gru_bidir_bwd(int dtype, const void* x, const void* wif, const void* wib,
         x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dx,
         dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg, bias_part,
         Tn, B, W, H, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fused-boundary form's backward (the VJP of gru_bidir_bnd_fwd's train
+// form): xa, xb [T, B, Hx] in place of x and, in place of dx, dxa and dxb
+// [T, B, Hx] through the boundary's VJP; seed, thresh, scale and drop as
+// gru_bidir_bnd_fwd's.  Other arguments as gru_bidir_bwd's.
+int gru_bidir_bnd_bwd(int dtype, const void* xa, const void* xb,
+                      const void* wif, const void* wib, const void* whf,
+                      const void* whb, const int* lengths, const void* ysf,
+                      const void* ysb, const void* resf, const void* resb,
+                      const void* dyf, const void* dyb, void* dxa, void* dxb,
+                      void* dwif, void* dwib, void* dbif, void* dbib,
+                      void* dwhf, void* dwhb, void* dbhf, void* dbhb,
+                      float* dxg, float* dhg, float* bias_part, int Tn, int B,
+                      int Hx, int H, unsigned int seed, unsigned int thresh,
+                      float scale, int drop, void* stream) {
+  if (Tn <= 0 || B <= 0 || Hx <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_bwd_boundary<float>(
+        xa, xb, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb,
+        dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg,
+        bias_part, Tn, B, Hx, H, seed, thresh, scale, drop != 0, s);
+  if (dtype == 1)
+    return (int)run_bwd_boundary<__nv_bfloat16>(
+        xa, xb, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb,
+        dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg,
+        bias_part, Tn, B, Hx, H, seed, thresh, scale, drop != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

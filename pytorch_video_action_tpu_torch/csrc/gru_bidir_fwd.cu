@@ -3,7 +3,9 @@
 //
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
 //   _fwd_kernel_split, reached through gru_bidir_fused_split: train=False
-//   (eval form) and train=True (train form, from its custom_vjp forward).
+//   (eval form) and train=True (train form, from its custom_vjp forward);
+//   and its halves=/boundary form, reached through
+//   gru_bidir_fused_split_bnd (eval form and its custom_vjp forward).
 //
 // Computes, for x [T, B, W] time-major and per direction d in {fwd, bwd}
 // wi_d [W, 3H], wh_d [H, 3H], bi_d [3H], bh_d [3H], lengths [B]:
@@ -47,6 +49,13 @@
 //  * The train form is a template flag: the H threads that update the
 //    carry also store their column's four residuals, off the chain (stores
 //    are not waited on).  The eval form compiles without them.
+//  * The fused-boundary form (gru_bidir_bnd_fwd, the layers after the
+//    first under PVA_RNN_FUSED_BOUNDARY=1) builds its layer input in the
+//    projection's tile loads (rnn_common.cuh::Boundary): the previous
+//    layer's halves, the length mask and the hash dropout in registers, so
+//    the stack writes no [T, B, 2H] boundary tensor.  Each element is
+//    hashed once a product; the TPU form hashed it once a direction.  The
+//    recurrence does not read x and is the same kernel.
 // wgmma, TMA and spreading H across SMs are later work.
 
 #include "rnn_common.cuh"
@@ -160,16 +169,12 @@ cudaError_t launch_recur(const float* xg, const void* whf, const void* whb,
   return cudaGetLastError();
 }
 
+// The recurrence on the projected gates xg, for the H of the layer.
 template <typename T>
-cudaError_t run_layer(const void* x, const void* wif, const void* wib,
-                      const void* bif, const void* bib, const void* whf,
-                      const void* whb, const void* bhf, const void* bhb,
-                      const int* lengths, void* ysf, void* ysb, void* resf,
-                      void* resb, float* xg, int Tn, int B, int W, int H,
-                      bool train, cudaStream_t stream) {
-  const cudaError_t err =
-      launch_proj<T>(x, wif, wib, bif, bib, xg, Tn * B, W, 3 * H, stream);
-  if (err != cudaSuccess) return err;
+cudaError_t run_recur(const float* xg, const void* whf, const void* whb,
+                      const void* bhf, const void* bhb, const int* lengths,
+                      void* ysf, void* ysb, void* resf, void* resb,
+                      bool train, int Tn, int B, int H, cudaStream_t stream) {
   switch (H) {
     case 16:
       return launch_recur<T, 16>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
@@ -186,6 +191,58 @@ cudaError_t run_layer(const void* x, const void* wif, const void* wib,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The layer on a dense x [T, B, W] (launch_proj_of with x's DenseRows) or,
+// the fused-boundary form, on the boundary the operand XA builds.
+template <typename T, typename XA>
+cudaError_t run_layer(const XA& x, const void* wif, const void* wib,
+                      const void* bif, const void* bib, const void* whf,
+                      const void* whb, const void* bhf, const void* bhb,
+                      const int* lengths, void* ysf, void* ysb, void* resf,
+                      void* resb, float* xg, int Tn, int B, int W, int H,
+                      bool train, cudaStream_t stream) {
+  const cudaError_t err =
+      launch_proj_of<T>(x, wif, wib, bif, bib, xg, Tn * B, W, 3 * H, stream);
+  if (err != cudaSuccess) return err;
+  return run_recur<T>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb, resf, resb,
+                      train, Tn, B, H, stream);
+}
+
+template <typename T>
+cudaError_t run_dense(const void* x, const void* wif, const void* wib,
+                      const void* bif, const void* bib, const void* whf,
+                      const void* whb, const void* bhf, const void* bhb,
+                      const int* lengths, void* ysf, void* ysb, void* resf,
+                      void* resb, float* xg, int Tn, int B, int W, int H,
+                      bool train, cudaStream_t stream) {
+  return run_layer<T>(DenseRows<T>{static_cast<const T*>(x), W}, wif, wib,
+                      bif, bib, whf, whb, bhf, bhb, lengths, ysf, ysb, resf,
+                      resb, xg, Tn, B, W, H, train, stream);
+}
+
+template <typename T>
+cudaError_t run_boundary(const void* xa, const void* xb, const void* wif,
+                         const void* wib, const void* bif, const void* bib,
+                         const void* whf, const void* whb, const void* bhf,
+                         const void* bhb, const int* lengths, void* ysf,
+                         void* ysb, void* resf, void* resb, float* xg, int Tn,
+                         int B, int Hx, int H, bool train, uint32_t seed,
+                         uint32_t thresh, float scale, bool drop,
+                         cudaStream_t stream) {
+  const Boundary<T> bnd = {static_cast<const T*>(xa),
+                           static_cast<const T*>(xb),
+                           lengths,
+                           B,
+                           Hx,
+                           Tn,
+                           stream_key(seed),
+                           thresh,
+                           scale,
+                           drop};
+  return run_layer<T>(bnd, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths,
+                      ysf, ysb, resf, resb, xg, Tn, B, 2 * Hx, H, train,
+                      stream);
 }
 
 }  // namespace
@@ -208,13 +265,43 @@ int gru_bidir_fwd(int dtype, const void* x, const void* wif, const void* wib,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)run_layer<float>(x, wif, wib, bif, bib, whf, whb, bhf, bhb,
+    return (int)run_dense<float>(x, wif, wib, bif, bib, whf, whb, bhf, bhb,
                                  lengths, ysf, ysb, resf, resb, xg, Tn, B, W,
                                  H, train != 0, s);
   if (dtype == 1)
-    return (int)run_layer<__nv_bfloat16>(x, wif, wib, bif, bib, whf, whb, bhf,
+    return (int)run_dense<__nv_bfloat16>(x, wif, wib, bif, bib, whf, whb, bhf,
                                          bhb, lengths, ysf, ysb, resf, resb,
                                          xg, Tn, B, W, H, train != 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fused-boundary form (rnn_fused_pallas.py gru_bidir_fused_split_bnd):
+// gru_bidir_fwd on the GRU stack's layer boundary built from the previous
+// layer's halves xa, xb [T, B, Hx] (W = 2 Hx) inside the projection, with
+// the hash dropout of seed `seed` (keep threshold `thresh`, `scale` = 1/keep
+// rounded to the dtype) when drop != 0.  Other arguments as gru_bidir_fwd's.
+int gru_bidir_bnd_fwd(int dtype, const void* xa, const void* xb,
+                      const void* wif, const void* wib, const void* bif,
+                      const void* bib, const void* whf, const void* whb,
+                      const void* bhf, const void* bhb, const int* lengths,
+                      void* ysf, void* ysb, void* resf, void* resb, float* xg,
+                      int Tn, int B, int Hx, int H, int train,
+                      unsigned int seed, unsigned int thresh, float scale,
+                      int drop, void* stream) {
+  if (Tn <= 0 || B <= 0 || Hx <= 0) return (int)cudaErrorInvalidValue;
+  if (train && (resf == nullptr || resb == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_boundary<float>(xa, xb, wif, wib, bif, bib, whf, whb, bhf,
+                                    bhb, lengths, ysf, ysb, resf, resb, xg,
+                                    Tn, B, Hx, H, train != 0, seed, thresh,
+                                    scale, drop != 0, s);
+  if (dtype == 1)
+    return (int)run_boundary<__nv_bfloat16>(
+        xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths, ysf, ysb,
+        resf, resb, xg, Tn, B, Hx, H, train != 0, seed, thresh, scale,
+        drop != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,12 +2,14 @@
 // (gru_bidir_fwd.cu, gru_bidir_bwd.cu, lstm_bidir_fwd.cu, lstm_bidir_bwd.cu)
 // and merged-body ({gru,lstm}_merged_{fwd,bwd}.cu), for Hopper (sm_90a):
 // the input projection, and the backward's deterministic tiled SIMT GEMMs
-// and bias reduction.  Each .cu includes it and builds into its own
-// library.
+// and bias reduction; and the GRU stack's layer boundary, built on load as
+// an operand of those products (the fused-boundary form).  Each .cu
+// includes it and builds into its own library.
 
 #pragma once
 
 #include "dtype.cuh"
+#include "hash.cuh"
 
 #include <stddef.h>
 
@@ -17,6 +19,55 @@ __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
+// ---------------------------------------------------------- layer input
+
+// x[m, k] of a row-major [M, ld] layer input, as a float
+template <typename T>
+struct DenseRows {
+  const T* p;
+  int ld;
+  __device__ float operator()(int m, int k) const {
+    return to_f(p[(size_t)m * ld + k]);
+  }
+};
+
+// The GRU stack's layer boundary (ops/rnn.py's glue between layers), built
+// in registers from the previous layer's direction halves xa, xb [T, B, H]
+// wherever a product reads the layer input; no [T, B, 2H] tensor exists.
+// Row r = t*B + b, column c < 2H:
+//   x = concat(xa, xb)[t, b, c] * (t < lengths[b])
+//   with dropout: x = kept(t, b, c) ? rnd(x * scale) : 0
+// kept: fmix32(idx ^ key) < thresh with idx = ((b*T + t)*2H + c) mod 2^32,
+// the stream of ops/hashmask.py::keep_mask at strides (2H, T*2H, 1); scale
+// is 1/keep rounded to T, as the glue's hash_dropout rounds it.  The same
+// rounding steps as the glue's, so the products read the same values.
+template <typename T>
+struct Boundary {
+  const T* xa;
+  const T* xb;
+  const int* lengths;
+  int B, H, Tn;
+  uint32_t key, thresh;
+  float scale;
+  int drop;
+  __device__ bool valid(int t, int b) const { return t < lengths[b]; }
+  __device__ bool kept(int t, int b, int c) const {
+    const uint32_t idx =
+        ((uint32_t)b * (uint32_t)Tn + (uint32_t)t) * (uint32_t)(2 * H) +
+        (uint32_t)c;
+    return fmix32(idx ^ key) < thresh;
+  }
+  __device__ float operator()(int r, int c) const {
+    const int t = r / B;
+    const int b = r - t * B;
+    const size_t o = (size_t)r * H;
+    float v = to_f(c < H ? xa[o + c] : xb[o + c - H]);
+    v *= valid(t, b) ? 1.0f : 0.0f;
+    if (drop) v = kept(t, b, c) ? rnd<T>(v * scale) : 0.0f;
+    return v;
+  }
+};
+
 // ------------------------------------------------------------- projection
 
 constexpr int kPM = 128;  // rows (t*B + b) per block
@@ -24,11 +75,13 @@ constexpr int kPN = 128;  // gate columns per block
 constexpr int kPK = 8;    // depth per shared-memory stage
 constexpr int kPThreads = 256;
 
-// xg[dir, m, n] = sum_k x[m, k] * wi_dir[k, n] + bi_dir[n]   (f32); with
-// null bias pointers (the merged layers add theirs on the chain) no bias
-template <typename T>
+// xg[dir, m, n] = sum_k x(m, k) * wi_dir[k, n] + bi_dir[n]   (f32), x read
+// through the operand XA (DenseRows, or Boundary for the fused-boundary
+// form); with null bias pointers (the merged layers add theirs on the
+// chain) no bias
+template <typename T, typename XA>
 __global__ void __launch_bounds__(kPThreads)
-proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
+proj_kernel(const XA x, const T* __restrict__ wi_f,
             const T* __restrict__ wi_b, const T* __restrict__ bi_f,
             const T* __restrict__ bi_b, float* __restrict__ xg, int M, int K,
             int N) {
@@ -57,7 +110,7 @@ proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
       const int kk = e % kPK;
       const int gm = m0 + m;
       const int gk = k0 + kk;
-      As[kk][m] = (gm < M && gk < K) ? to_f(x[(size_t)gm * K + gk]) : 0.0f;
+      As[kk][m] = (gm < M && gk < K) ? x(gm, gk) : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < (kPN * kPK) / kPThreads; ++i) {
@@ -98,17 +151,26 @@ proj_kernel(const T* __restrict__ x, const T* __restrict__ wi_f,
   }
 }
 
-// xg [2, M, N] f32 for both directions of x [M, K]: one launch.
+// xg [2, M, N] f32 for both directions of the layer input x [M, K], read
+// through the operand x: one launch.
+template <typename T, typename XA>
+cudaError_t launch_proj_of(const XA& x, const void* wif, const void* wib,
+                           const void* bif, const void* bib, float* xg, int M,
+                           int K, int N, cudaStream_t stream) {
+  const dim3 grid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN, 2);
+  proj_kernel<T, XA><<<grid, kPThreads, 0, stream>>>(
+      x, static_cast<const T*>(wif), static_cast<const T*>(wib),
+      static_cast<const T*>(bif), static_cast<const T*>(bib), xg, M, K, N);
+  return cudaGetLastError();
+}
+
+// launch_proj_of for a dense x [M, K].
 template <typename T>
 cudaError_t launch_proj(const void* x, const void* wif, const void* wib,
                         const void* bif, const void* bib, float* xg, int M,
                         int K, int N, cudaStream_t stream) {
-  const dim3 grid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN, 2);
-  proj_kernel<T><<<grid, kPThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wif),
-      static_cast<const T*>(wib), static_cast<const T*>(bif),
-      static_cast<const T*>(bib), xg, M, K, N);
-  return cudaGetLastError();
+  return launch_proj_of<T>(DenseRows<T>{static_cast<const T*>(x), K}, wif,
+                           wib, bif, bib, xg, M, K, N, stream);
 }
 
 // ---------------------------------------------------------- bias sums
@@ -293,9 +355,47 @@ struct Store {
   }
 };
 
+// The wgrad A operand of the fused-boundary backward: problems 0-1 (dwi)
+// read the layer input as the forward built it (the maskdropped boundary,
+// row k, column m), problems 2-3 (dwh) the shifted ys rows.
 template <typename T>
+struct BoundaryOrRows {
+  static constexpr bool kContigK = false;
+  ShiftedRowsT<T> rows;
+  Boundary<T> bnd;
+  int use_bnd;
+  __device__ float operator()(int m, int k) const {
+    return use_bnd ? bnd(k, m) : rows(m, k);
+  }
+};
+
+// dx of the fused-boundary backward, through the boundary's VJP: the sum
+// over both directions rounded to T (the glue's dx), then as the glue's
+// autograd carries it back, kept(t, b, c) ? rnd(v * scale) : 0 with
+// dropout, times the length mask; columns c < H go to dxa, the rest to dxb
+// ([T, B, H] each).
+template <typename T>
+struct BoundaryStore {
+  T* dxa;
+  T* dxb;
+  Boundary<T> bnd;
+  __device__ void operator()(int m, int n, float v) const {
+    const int t = m / bnd.B;
+    const int b = m - t * bnd.B;
+    v = rnd<T>(v);
+    if (bnd.drop) v = bnd.kept(t, b, n) ? rnd<T>(v * bnd.scale) : 0.0f;
+    v *= bnd.valid(t, b) ? 1.0f : 0.0f;
+    const size_t o = (size_t)m * bnd.H;
+    if (n < bnd.H)
+      dxa[o + n] = from_f<T>(v);
+    else
+      dxb[o + n - bnd.H] = from_f<T>(v);
+  }
+};
+
+template <typename T, typename A = ShiftedRowsT<T>>
 struct WgradProblem {
-  ShiftedRowsT<T> a;
+  A a;
   RoundedRows<T> b;
   Store<T> c;
   int M;
@@ -303,26 +403,26 @@ struct WgradProblem {
 
 // dwi and dwh of both directions in one launch: blockIdx.z picks the
 // problem, [W or H, G] = A^T B over K = T*B rows.
-template <typename T>
+template <typename T, typename A = ShiftedRowsT<T>>
 struct WgradProblems {
-  WgradProblem<T> p[4];
+  WgradProblem<T, A> p[4];
 };
 
 constexpr int kWT = 64;   // weight-gradient tile
 constexpr int kDxT = 128; // dx tile
 
-template <typename T>
+template <typename T, typename A = ShiftedRowsT<T>>
 __global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const WgradProblems<T> probs, int N, int K) {
-  const WgradProblem<T>& p = probs.p[blockIdx.z];
+wgrad_kernel(const WgradProblems<T, A> probs, int N, int K) {
+  const WgradProblem<T, A>& p = probs.p[blockIdx.z];
   const int m0 = blockIdx.x * kWT;
   if (m0 >= p.M) return;  // the smaller (dwh) problems use fewer row tiles
   gemm_tile<kWT, kWT>(p.a, p.b, p.c, p.M, N, K, m0, blockIdx.y * kWT);
 }
 
-template <typename T>
+template <typename T, typename ST = Store<T>>
 __global__ void __launch_bounds__(kThreads)
-dx_kernel(const DxgRows<T> a, const WiT<T> b, const Store<T> c, int M, int N,
+dx_kernel(const DxgRows<T> a, const WiT<T> b, const ST c, int M, int N,
           int K) {
   gemm_tile<kDxT, kDxT>(a, b, c, M, N, K, blockIdx.x * kDxT,
                         blockIdx.y * kDxT);
@@ -332,7 +432,40 @@ dx_kernel(const DxgRows<T> a, const WiT<T> b, const Store<T> c, int M, int N,
 //   dwi_d = x^T rnd(dxg_d), dwh_d = hp_d^T rnd(dhg_d)  (one launch)
 //   dx = rnd(dxg_f) wi_f^T + rnd(dxg_b) wi_b^T
 // with hp_f = ys_f one step earlier (B rows up), hp_b = ys_b one step later
-// (B rows down), 0 past the ends.  dxg and dhg are [2, T*B, G] f32.
+// (B rows down), 0 past the ends.  dxg and dhg are [2, T*B, G] f32.  The
+// A operands x_a (x transposed), hpf_a and hpb_a and dx's store dx_st are
+// given: a dense layer input (launch_products) or the GRU stack's boundary
+// (launch_boundary_products).
+template <typename T, typename A, typename ST>
+cudaError_t launch_products_of(const A& x_a, const A& hpf_a, const A& hpb_a,
+                               const ST& dx_st, const void* wif,
+                               const void* wib, const float* dxg,
+                               const float* dhg, void* dwif, void* dwib,
+                               void* dwhf, void* dwhb, int Tn, int B, int W,
+                               int H, int G, cudaStream_t stream) {
+  const int M = Tn * B;
+  const size_t dstride = (size_t)M * G;
+  WgradProblems<T, A> probs;
+  probs.p[0] = {x_a, {dxg, G}, {static_cast<T*>(dwif), G}, W};
+  probs.p[1] = {x_a, {dxg + dstride, G}, {static_cast<T*>(dwib), G}, W};
+  probs.p[2] = {hpf_a, {dhg, G}, {static_cast<T*>(dwhf), G}, H};
+  probs.p[3] = {hpb_a, {dhg + dstride, G}, {static_cast<T*>(dwhb), G}, H};
+  const int rows = W > H ? W : H;
+  const dim3 wgrid((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4);
+  wgrad_kernel<T, A><<<wgrid, kThreads, 0, stream>>>(probs, G, M);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
+  const DxgRows<T> xa = {dxg, dstride, G};
+  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
+                     G};
+  dx_kernel<T, ST><<<xgrid, kThreads, 0, stream>>>(xa, xb, dx_st, M, W,
+                                                   2 * G);
+  return cudaGetLastError();
+}
+
+// launch_products_of for a dense layer input x [T*B, W] and dx [T*B, W].
 template <typename T>
 cudaError_t launch_products(const void* x, const void* wif, const void* wib,
                             const void* ysf, const void* ysb,
@@ -341,29 +474,34 @@ cudaError_t launch_products(const void* x, const void* wif, const void* wib,
                             int Tn, int B, int W, int H, int G,
                             cudaStream_t stream) {
   const int M = Tn * B;
-  const size_t dstride = (size_t)M * G;
-  WgradProblems<T> probs;
-  probs.p[0] = {{static_cast<const T*>(x), W, 0, M}, {dxg, G},
-                {static_cast<T*>(dwif), G}, W};
-  probs.p[1] = {{static_cast<const T*>(x), W, 0, M}, {dxg + dstride, G},
-                {static_cast<T*>(dwib), G}, W};
-  probs.p[2] = {{static_cast<const T*>(ysf), H, -B, M}, {dhg, G},
-                {static_cast<T*>(dwhf), G}, H};
-  probs.p[3] = {{static_cast<const T*>(ysb), H, B, M}, {dhg + dstride, G},
-                {static_cast<T*>(dwhb), G}, H};
-  const int rows = W > H ? W : H;
-  const dim3 wgrid((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4);
-  wgrad_kernel<T><<<wgrid, kThreads, 0, stream>>>(probs, G, M);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  return launch_products_of<T>(
+      ShiftedRowsT<T>{static_cast<const T*>(x), W, 0, M},
+      ShiftedRowsT<T>{static_cast<const T*>(ysf), H, -B, M},
+      ShiftedRowsT<T>{static_cast<const T*>(ysb), H, B, M},
+      Store<T>{static_cast<T*>(dx), W}, wif, wib, dxg, dhg, dwif, dwib, dwhf,
+      dwhb, Tn, B, W, H, G, stream);
+}
 
-  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
-  const DxgRows<T> xa = {dxg, dstride, G};
-  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
-                     G};
-  const Store<T> xc = {static_cast<T*>(dx), W};
-  dx_kernel<T><<<xgrid, kThreads, 0, stream>>>(xa, xb, xc, M, W, 2 * G);
-  return cudaGetLastError();
+// launch_products_of for the GRU stack's boundary bnd (W = 2 bnd.H): dwi
+// reads the maskdropped layer input, dx goes through the boundary's VJP
+// into dxa and dxb [T*B, bnd.H].
+template <typename T>
+cudaError_t launch_boundary_products(const Boundary<T>& bnd, const void* wif,
+                                     const void* wib, const void* ysf,
+                                     const void* ysb, const float* dxg,
+                                     const float* dhg, void* dxa, void* dxb,
+                                     void* dwif, void* dwib, void* dwhf,
+                                     void* dwhb, int Tn, int B, int H, int G,
+                                     cudaStream_t stream) {
+  const int M = Tn * B;
+  const ShiftedRowsT<T> none = {nullptr, 0, 0, 0};
+  return launch_products_of<T>(
+      BoundaryOrRows<T>{none, bnd, 1},
+      BoundaryOrRows<T>{{static_cast<const T*>(ysf), H, -B, M}, bnd, 0},
+      BoundaryOrRows<T>{{static_cast<const T*>(ysb), H, B, M}, bnd, 0},
+      BoundaryStore<T>{static_cast<T*>(dxa), static_cast<T*>(dxb), bnd},
+      wif, wib, dxg, dhg, dwif, dwib, dwhf, dwhb, Tn, B, 2 * bnd.H, H, G,
+      stream);
 }
 
 // The merged-body backward's products, for G = gH a direction and G2 = 2G:

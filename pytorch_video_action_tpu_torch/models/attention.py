@@ -7,18 +7,24 @@ exact-length batches unmasked).  Sequences of padded length
 ``BLOCKWISE_MIN_T`` or more take the flash path (``ops/flash.py``: the
 kernels on the card, O(T * 64) memory); shorter ones the dense path, plain
 torch over the ``[B, H, T, T]`` scores with the same hash dropout stream.
+With ``PVA_FLASH_BTHD=1`` the flash path folds the scale and a lane pad
+into the projections and runs on the head-major flat layout
+(:func:`_mha_flash_bthd`), as JAX's does.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as nnf
 from torch import nn
 
 from ..ops import hashmask
-from ..ops.flash import NEG_INF, flash_self_attention
+from ..ops.flash import (NEG_INF, flash_self_attention,
+                         flash_self_attention_bthd)
 from ..ops.masking import length_mask, masked_mean, take_last_valid
 from ..ops.rnn import gru_apply, init_rnn
 from .common import Linear, dropout_on, log_softmax
@@ -49,6 +55,45 @@ class MHA(nn.Module):
             self.out_proj_w.uniform_(-k, k, generator=generator)
 
 
+def _use_bthd() -> bool:
+    """``PVA_FLASH_BTHD=1``: the flash path on the head-major flat layout
+    (JAX's ``_use_bthd``, off by default).  Read at call time."""
+    return os.environ.get("PVA_FLASH_BTHD") == "1"
+
+
+def _mha_flash_bthd(p: MHA, x, num_heads, *, key_mask, rate, seed):
+    """The flash path on ``[B, T, H*hdp]`` (JAX ``_mha_flash_bthd``): the
+    query scale ``1/sqrt(hd)`` folded into ``wq`` and ``bq``, each head's
+    columns of ``wq``, ``wk``, ``wv`` and their biases padded with zeros to
+    ``hdp``, the next multiple of 128, and the out projection's rows
+    likewise.  The pad lanes add zero products, give zero output columns
+    and, the fold being differentiable torch, receive zero gradients."""
+    b, t, e = x.shape
+    hd = e // num_heads
+    dp = (128 - hd % 128) % 128
+    hdp = hd + dp
+    wq, wk, wv = p.in_proj_w.split(e, dim=1)
+    bq, bk, bv = p.in_proj_b.split(e)
+    scale = (1.0 / torch.sqrt(torch.tensor(float(hd)))).to(
+        p.in_proj_w.dtype)
+
+    def fold(w, bias, s=None):
+        w, bias = w.reshape(e, num_heads, hd), bias.reshape(num_heads, hd)
+        if s is not None:
+            w, bias = w * s, bias * s
+        return (nnf.pad(w, (0, dp)).reshape(e, num_heads * hdp),
+                nnf.pad(bias, (0, dp)).reshape(num_heads * hdp))
+
+    (wq, bq), (wk, bk), (wv, bv) = fold(wq, bq, scale), fold(wk, bk), fold(
+        wv, bv)
+    qkv = (torch.matmul(x, torch.cat([wq, wk, wv], dim=1))
+           + torch.cat([bq, bk, bv]))
+    q, k, v = qkv.split(num_heads * hdp, dim=-1)
+    out = flash_self_attention_bthd(q, k, v, key_mask, num_heads, rate, seed)
+    wo = nnf.pad(p.out_proj_w.reshape(num_heads, hd, e), (0, 0, 0, dp))
+    return torch.matmul(out, wo.reshape(num_heads * hdp, e)) + p.out_proj_b
+
+
 def mha_self_attention(p: MHA, x: torch.Tensor, num_heads: int, *,
                        key_mask: torch.Tensor | None = None,
                        dropout_rate: float = 0.0, train: bool = False,
@@ -59,6 +104,11 @@ def mha_self_attention(p: MHA, x: torch.Tensor, num_heads: int, *,
     b, t, e = x.shape
     hd = e // num_heads
     rate = dropout_rate if train else 0.0
+    if t >= BLOCKWISE_MIN_T and key_mask is None:
+        key_mask = torch.ones((b, t), dtype=torch.bool, device=x.device)
+    if t >= BLOCKWISE_MIN_T and _use_bthd():
+        return _mha_flash_bthd(p, x, num_heads, key_mask=key_mask, rate=rate,
+                               seed=seed)
     qkv = torch.matmul(x, p.in_proj_w) + p.in_proj_b
     q, k, v = qkv.split(e, dim=-1)
 
@@ -68,8 +118,6 @@ def mha_self_attention(p: MHA, x: torch.Tensor, num_heads: int, *,
     scale = torch.sqrt(torch.tensor(float(hd))).to(x.dtype)
     q, k, v = heads(q) / scale, heads(k), heads(v)
     if t >= BLOCKWISE_MIN_T:
-        if key_mask is None:
-            key_mask = torch.ones((b, t), dtype=torch.bool, device=x.device)
         out = flash_self_attention(q, k, v, key_mask, rate, seed)
     else:
         scores = torch.matmul(q, k.transpose(-1, -2))

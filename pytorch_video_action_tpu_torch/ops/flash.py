@@ -1,7 +1,9 @@
 """Exact self-attention in O(T * block) memory with a recompute backward:
 the hand-written Hopper kernels (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``), their plain PyTorch versions, and the
-``torch.autograd.Function`` that ties the forward to its backward.
+``torch.autograd.Function`` that ties the forward to its backward; and the
+same on the head-major flat layout ``[B, T, H*d]`` (the ``bthd`` section
+at the end, ``PVA_FLASH_BTHD=1``).
 
 Counterpart of ``pytorch_video_action_tpu/ops/flash.py`` (the XLA scan,
 ``_flash_fwd_scan`` and ``_flash_vjp_bwd``) together with the call surface
@@ -196,8 +198,13 @@ _ARGTYPES = {
     "flash_bwd_fused": _BWD_ARGTYPES + [ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p],
 }
+# the head-major forms take the same arguments
+_ARGTYPES["flash_fwd_bthd"] = _ARGTYPES["flash_fwd"]
+_ARGTYPES["flash_bwd_fused_bthd"] = _ARGTYPES["flash_bwd_fused"]
 _LIBRARY = {"flash_fwd": "flash_fwd", "flash_bwd_dkdv": "flash_bwd",
-            "flash_bwd_dq": "flash_bwd", "flash_bwd_fused": "flash_bwd"}
+            "flash_bwd_dq": "flash_bwd", "flash_bwd_fused": "flash_bwd",
+            "flash_fwd_bthd": "flash_fwd",
+            "flash_bwd_fused_bthd": "flash_bwd"}
 
 
 def _kernel(name):
@@ -229,20 +236,26 @@ def _launch(name, x, *args):
 def _check(where, q, k, v, key_mask, extra=()):
     """What the kernels take; raises on anything else.  ``extra`` holds
     ``(name, tensor, shape, dtype)`` of further inputs."""
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{where}: dtype {q.dtype} not supported "
-                        "(float32 or bfloat16)")
     if q.dim() != 4:
         raise ValueError(f"{where}: q must be [B, H, T, d], got "
                          f"{tuple(q.shape)}")
     b, h, t, d = q.shape
     t_kv = k.shape[2] if k.dim() == 4 else -1
+    _check_expect(where, q, d, t, t_kv, [
+        ("q", q, (b, h, t, d), q.dtype), ("k", k, (b, h, t_kv, d), q.dtype),
+        ("v", v, (b, h, t_kv, d), q.dtype),
+        ("key_mask", key_mask, (b, t_kv), torch.bool), *extra])
+    return b, h, t, t_kv, d
+
+
+def _check_expect(where, q, d, t, t_kv, expect):
+    """q's dtype and the head width, then each ``(name, tensor, shape,
+    dtype)`` of ``expect``: its shape, dtype, device and contiguity."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{where}: dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
     if not 0 < d <= D_MAX:
         raise ValueError(f"{where}: head width {d} not in 1..{D_MAX}")
-    expect = [("q", q, (b, h, t, d), q.dtype), ("k", k, (b, h, t_kv, d),
-                                                q.dtype),
-              ("v", v, (b, h, t_kv, d), q.dtype),
-              ("key_mask", key_mask, (b, t_kv), torch.bool), *extra]
     for name, x, shape, dtype in expect:
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{where}: {name} has shape {tuple(x.shape)}, "
@@ -255,7 +268,6 @@ def _check(where, q, k, v, key_mask, extra=()):
             raise ValueError(f"{where}: tensors must be contiguous")
     if t < 1 or t_kv < 1:
         raise ValueError(f"{where}: empty sequence")
-    return b, h, t, t_kv, d
 
 
 def _dropout_args(rate: float, seed):
@@ -453,3 +465,208 @@ def flash_self_attention(q, k, v, key_mask, rate: float = 0.0, seed=None):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttnFn.apply(q, k, v, key_mask, rate, seed)
     return flash_fwd(q, k, v, key_mask, rate, seed)[0]
+
+
+# ------------------------------------------------ head-major flat layout
+#
+# Counterpart of ``ops/flash.py::flash_self_attention_bthd`` (``flash_pallas``
+# with ``bthd=True``): q, k and v ``[B, T, H*d]`` as they fall out of a
+# packed projection, head h the column slab ``[h*d, (h+1)*d)``, so no
+# ``[B, H, T, d]`` transpose is made.  ``lse`` is ``[B*H, T]``; the dropout
+# stream is the ``[B, H, T, T_kv]`` global-index stream above, unchanged.
+# The forward and the fused backward read the layout in place
+# (``flash_fwd_bthd``, ``flash_bwd_fused_bthd``).  Where :func:`use_fused`
+# picks the split backward, the operands are transposed to ``[B, H, T, d]``
+# for :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq` and the gradients
+# back, as ``flash_pallas.py:594-610`` does.  JAX's callers pad d to a
+# multiple of 128 (``models/attention.py``); the kernels take any d up to
+# ``D_MAX``.
+
+
+def _heads(a, num_heads):
+    """``[B, T, H*d]`` -> ``[B, H, T, d]`` (a view)."""
+    b, t, hd = a.shape
+    return a.view(b, t, num_heads, hd // num_heads).transpose(1, 2)
+
+
+def _flat(a):
+    """``[B, H, T, d]`` -> ``[B, T, H*d]``."""
+    b, h, t, d = a.shape
+    return a.transpose(1, 2).reshape(b, t, h * d)
+
+
+def flash_fwd_bthd_ref(q, k, v, key_mask, num_heads, rate=0.0, seed=None):
+    """Plain version of the head-major forward: :func:`flash_fwd_ref` on
+    the ``[B, H, T, d]`` views.  Returns ``out [B, T, H*d]`` and ``lse
+    [B*H, T]``."""
+    out, lse, _ = flash_fwd_ref(_heads(q, num_heads), _heads(k, num_heads),
+                                _heads(v, num_heads), key_mask, rate, seed)
+    return _flat(out), lse.reshape(-1, q.shape[1])
+
+
+def _bwd_bthd_ref(q, k, v, key_mask, num_heads, rate, seed, lse, delta,
+                  dout):
+    """:func:`_bwd_ref` on the ``[B, H, T, d]`` views, from ``delta [B*H,
+    T]``: ``(dq f32, dk, dv)``, each ``[B, T, H*d]``."""
+    b, t = q.shape[:2]
+    grads = _bwd_ref(_heads(q, num_heads), _heads(k, num_heads),
+                     _heads(v, num_heads), key_mask, rate, seed,
+                     lse.view(b, num_heads, t), delta.view(b, num_heads, t),
+                     _heads(dout, num_heads))
+    return tuple(_flat(g) for g in grads)
+
+
+def _delta_bthd(dout, out, num_heads):
+    """``sum(dout * out)`` over each head's d columns, f32 ``[B*H, T]``."""
+    b, t, hd = out.shape
+    prod = dout.to(_acc(out.dtype)) * out.to(_acc(out.dtype))
+    return prod.view(b, t, num_heads, hd // num_heads).sum(dim=-1).transpose(
+        1, 2).reshape(b * num_heads, t)
+
+
+def flash_bwd_bthd_ref(q, k, v, key_mask, num_heads, rate, seed, out, lse,
+                       dout):
+    """Plain version of the head-major backward: ``(dq, dk, dv)``, each
+    ``[B, T, H*d]`` in the dtypes of ``q``, ``k`` and ``v``."""
+    dq, dk, dv = _bwd_bthd_ref(q, k, v, key_mask, num_heads, rate, seed, lse,
+                               _delta_bthd(dout, out, num_heads), dout)
+    return dq.to(q.dtype), dk, dv
+
+
+def _check_bthd(where, q, k, v, key_mask, num_heads, extra=()):
+    """What the head-major kernels take; raises on anything else."""
+    if q.dim() != 3 or k.dim() != 3 or q.shape[2] % num_heads:
+        raise ValueError(f"{where}: q, k and v must be [B, T, H*d] with H = "
+                         f"{num_heads}, got {tuple(q.shape)}")
+    b, t, hd = q.shape
+    t_kv = k.shape[1]
+    _check_expect(where, q, hd // num_heads, t, t_kv, [
+        ("q", q, (b, t, hd), q.dtype), ("k", k, (b, t_kv, hd), q.dtype),
+        ("v", v, (b, t_kv, hd), q.dtype),
+        ("key_mask", key_mask, (b, t_kv), torch.bool), *extra])
+    return b, num_heads, t, t_kv, hd // num_heads
+
+
+def flash_fwd_bthd(q, k, v, key_mask, num_heads, rate: float = 0.0,
+                   seed=None):
+    """The head-major forward kernel's wrapper: ``(out [B, T, H*d], lse
+    [B*H, T])``.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises.  ``launches`` counts launches."""
+    if q.device.type == "cpu":
+        return flash_fwd_bthd_ref(q, k, v, key_mask, num_heads, rate, seed)
+    if q.device.type != "cuda":
+        raise _no_kernel("flash_fwd_bthd", q)
+    b, h, t, t_kv, d = _check_bthd("flash_fwd_bthd", q, k, v, key_mask,
+                                   num_heads)
+    key, thresh, keep, on = _dropout_args(rate, seed)
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_bthd", q, _DTYPE_CODE[q.dtype], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b * h, h, t, t_kv, d, key, thresh, keep, on)
+    flash_fwd_bthd.launches += 1
+    return out, lse
+
+
+flash_fwd_bthd.launches = 0
+
+
+def flash_bwd_fused_bthd(q, k, v, key_mask, num_heads, rate, seed, lse,
+                         delta, dout):
+    """The head-major fused backward's wrapper, from ``delta [B*H, T]`` f32:
+    ``(dq f32, dk, dv)``, each ``[B, T, H*d]``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (over
+    :func:`fused_chunks` chunks) or raises.  ``launches`` counts
+    launches."""
+    if q.device.type == "cpu":
+        return _bwd_bthd_ref(q, k, v, key_mask, num_heads, rate, seed, lse,
+                             delta, dout)
+    if q.device.type != "cuda":
+        raise _no_kernel("flash_bwd_fused_bthd", q)
+    rows = (q.shape[0] * num_heads, q.shape[1])
+    b, h, t, t_kv, d = _check_bthd(
+        "flash_bwd_fused_bthd", q, k, v, key_mask, num_heads,
+        [("dout", dout, q.shape, q.dtype), ("lse", lse, rows, torch.float32),
+         ("delta", delta, rows, torch.float32)])
+    key, thresh, keep, on = _dropout_args(rate, seed)
+    chunks = fused_chunks(b * h, t_kv, _sms(q.device))
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = (torch.empty((chunks, *q.shape), dtype=torch.float32,
+                        device=q.device) if chunks > 1 else None)
+    _launch("flash_bwd_fused_bthd", q, _DTYPE_CODE[q.dtype], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b * h, h, t, t_kv, d, key, thresh, keep, on,
+            _ptr(part), chunks)
+    flash_bwd_fused_bthd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_fused_bthd.launches = 0
+
+
+def flash_bwd_bthd(q, k, v, key_mask, num_heads, rate, seed, out, lse, dout,
+                   fused=None):
+    """The head-major backward: ``(dq, dk, dv)``, each ``[B, T, H*d]`` in
+    the dtypes of ``q``, ``k``, ``v``.  Computes ``delta`` and calls
+    :func:`flash_bwd_fused_bthd` (``fused=True``) or, on ``[B, H, T, d]``
+    transposes, :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq`
+    (``False``); when ``fused`` is None, by :func:`use_fused` on the card
+    and the fused wrapper on the CPU.  Each wrapper launches its kernel on
+    CUDA tensors and takes its plain version on CPU tensors."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise _no_kernel("flash_bwd_bthd", q)
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError("flash_bwd_bthd: out must have q's shape and dtype")
+    delta = _delta_bthd(dout, out, num_heads)
+    b, t, hd = q.shape
+    if fused is None:
+        fused = q.device.type == "cpu" or use_fused(
+            b * num_heads, t, k.shape[1], hd // num_heads, _sms(q.device))
+    if fused:
+        dq, dk, dv = flash_bwd_fused_bthd(q, k, v, key_mask, num_heads, rate,
+                                          seed, lse, delta, dout)
+    else:
+        qh, kh, vh, douth = (_heads(a, num_heads).contiguous()
+                             for a in (q, k, v, dout))
+        args = (qh, kh, vh, key_mask, rate, seed,
+                lse.view(b, num_heads, t), delta.view(b, num_heads, t), douth)
+        dk, dv = (_flat(g) for g in flash_bwd_dkdv(*args))
+        dq = _flat(flash_bwd_dq(*args))
+    return dq.to(q.dtype), dk, dv
+
+
+class FlashAttnBthdFn(torch.autograd.Function):
+    """The head-major forward kernel, backward through
+    :func:`flash_bwd_bthd`: the counterpart of
+    ``flash_self_attention_bthd``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, num_heads, rate, seed):
+        out, lse = flash_fwd_bthd(q, k, v, key_mask, num_heads, rate, seed)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.num_heads, ctx.rate, ctx.seed = num_heads, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_bthd(q, k, v, key_mask, ctx.num_heads,
+                                    ctx.rate, ctx.seed, out, lse,
+                                    dout.contiguous())
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_self_attention_bthd(q, k, v, key_mask, num_heads,
+                              rate: float = 0.0, seed=None):
+    """:func:`flash_self_attention` on the head-major flat ``[B, T, H*d]``
+    layout (q pre-scaled): ``out [B, T, H*d]``, differentiable through
+    :class:`FlashAttnBthdFn`.  The kernels on CUDA tensors, the plain
+    versions on CPU tensors."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    key_mask = key_mask.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttnBthdFn.apply(q, k, v, key_mask, num_heads, rate,
+                                     seed)
+    return flash_fwd_bthd(q, k, v, key_mask, num_heads, rate, seed)[0]

@@ -77,8 +77,12 @@ def keep_mask(seed: int, shape, thresh: int, offset: int | None = None,
 
 def hash_dropout(seed: int, x: torch.Tensor, keep: float,
                  strides=None) -> torch.Tensor:
-    """Inverted dropout with the keep-mask drawn from the hash stream."""
+    """Inverted dropout with the keep-mask drawn from the hash stream.  The
+    scale ``1 / keep`` is rounded to ``x.dtype`` before the product, as
+    JAX's weakly typed ``x * (1.0 / keep)`` rounds it (bf16: 1/0.7 is
+    1.4296875)."""
     km = keep_mask(seed, x.shape, threshold(keep), strides=strides,
                    device=x.device)
-    return torch.where(km, x * (1.0 / keep), torch.zeros((), dtype=x.dtype,
-                                                         device=x.device))
+    scale = torch.tensor(1.0 / keep, dtype=x.dtype, device=x.device)
+    return torch.where(km, x * scale, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))

@@ -25,6 +25,16 @@ merged one, :func:`rnn_fused.gru_merged_layer` or
 no hidden bias).  The packing is differentiable torch, so its VJP keeps
 only the diagonal blocks of ``dwh2``.  Both bodies take the same widths.
 
+``rnn_fused.FUSED_BOUNDARY`` (``PVA_RNN_FUSED_BOUNDARY``, read at import;
+the stack reads the attribute at call time) with the split body moves the
+GRU stack's boundaries into the layers, as ``_run_stack_fused_tm`` does
+(``rnn.py:359-389``): layer 0 runs the split layer, each later layer
+:func:`rnn_fused.gru_bidir_bnd_layer` on the previous layer's halves
+with the pending boundary's seed (none after the last layer and in eval),
+and the stack's output is ``concat * mask`` of the last layer.  The seeds
+and the values are the glue's, so the flag never changes a result.  The
+LSTM has no such form (nor has JAX), and a one-layer stack no boundary.
+
 Where the fused layer kernels do not take ``H`` (``_HIDDEN``), the
 bidirectional GRU and LSTM stacks run JAX's per-layer fallback instead
 (``rnn.py:425-477``, its ``_scan_packed`` on ``rnn_pallas``'s scans): per
@@ -49,9 +59,10 @@ import torch
 from torch import nn
 
 from . import hashmask, rnn_fused
-from .masking import length_mask, masked_reverse
-from .rnn_fused import (_HIDDEN, gru_bidir_layer, gru_merged_layer,
-                        lstm_bidir_layer, lstm_merged_layer)
+from .masking import masked_reverse
+from .rnn_fused import (_HIDDEN, boundary_input, gru_bidir_bnd_layer,
+                        gru_bidir_layer, gru_merged_layer, lstm_bidir_layer,
+                        lstm_merged_layer, time_mask)
 from .rnn_scan import gru_scan, lstm_scan
 
 
@@ -140,28 +151,39 @@ def _lstm_layer(x, f, b, lengths):
 
 
 def _apply_stack(layer_fn, layers, x: torch.Tensor, lengths: torch.Tensor,
-                 dropout_rate: float, train: bool, seeds) -> torch.Tensor:
+                 dropout_rate: float, train: bool, seeds,
+                 fused_boundary: bool = False) -> torch.Tensor:
     """``x [B, T, D]`` -> ``[B, T, 2H]``, zero on padded frames, one
-    ``layer_fn(x_tm, fwd, bwd, lengths) -> (ys_f, ys_b)`` per layer.
+    ``layer_fn(x_tm, fwd, bwd, lengths) -> (ys_f, ys_b)`` per layer.  With
+    ``fused_boundary`` (the GRU) the layers after the first take the
+    previous layer's halves through :func:`rnn_fused.gru_bidir_bnd_layer`,
+    which builds the boundary itself.
 
     ``seeds`` gives one uint32 per inter-layer dropout site
     (``len(layers) - 1``); dropout runs only when ``train`` is set."""
-    t_len = x.shape[1]
     lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    mask_tb = length_mask(lengths, t_len).t().to(x.dtype)[:, :, None]
+    mask_tb = time_mask(lengths, x.shape[1], x.dtype)
     out = x.transpose(0, 1).contiguous()  # [T, B, W]
     drop = train and dropout_rate > 0.0
     if drop and (seeds is None or len(seeds) < len(layers) - 1):
         raise ValueError("rnn stack: train=True needs one seed per "
                          "inter-layer dropout site")
     keep = 1.0 - dropout_rate
+    halves = seed = None
     for li, layer in enumerate(layers):
-        ysf, ysb = layer_fn(out, layer["fwd"], layer["bwd"], lengths)
-        out = torch.cat([ysf, ysb], dim=-1) * mask_tb
-        if drop and li < len(layers) - 1:
-            h2 = out.shape[-1]
-            out = hashmask.hash_dropout(seeds[li], out, keep,
-                                        strides=(h2, t_len * h2, 1))
+        f, b = layer["fwd"], layer["bwd"]
+        if halves is None:
+            ysf, ysb = layer_fn(out, f, b, lengths)
+        else:
+            ysf, ysb = gru_bidir_bnd_layer(*halves, f.wi, b.wi, f.bi, b.bi,
+                                           f.wh, b.wh, f.bh, b.bh, lengths,
+                                           seed, keep)
+        last = li == len(layers) - 1
+        seed = seeds[li] if drop and not last else None
+        if fused_boundary and not last:
+            halves = (ysf, ysb)  # the next layer builds the boundary
+        else:
+            out = boundary_input(ysf, ysb, mask_tb, seed, keep)
     return out.transpose(0, 1)
 
 
@@ -186,7 +208,7 @@ def _scan_stack(cell, layers, x, lengths, dropout_rate, train, seeds):
     dropout over ``[B, T, dirs*H]`` with default strides after every layer
     but the last."""
     lengths = lengths.to(device=x.device, dtype=torch.int32)
-    mask_tm = length_mask(lengths, x.shape[1]).t().to(x.dtype)[:, :, None]
+    mask_tm = time_mask(lengths, x.shape[1], x.dtype)
     drop = train and dropout_rate > 0.0
     if drop and (seeds is None or len(seeds) < len(layers) - 1):
         raise ValueError("rnn stack: train=True needs one seed per "
@@ -219,8 +241,11 @@ def gru_apply(layers, x: torch.Tensor, lengths: torch.Tensor, *,
               dropout_rate: float = 0.0, train: bool = False,
               seeds=None) -> torch.Tensor:
     """The bidirectional GRU stack: ``x [B, T, D]`` -> ``[B, T, 2H]``: the
-    fused layer kernel where it takes ``H``, the GRU scan elsewhere."""
+    fused layer kernel where it takes ``H`` (the split body with
+    ``FUSED_BOUNDARY`` takes the fused-boundary form after layer 0), the GRU
+    scan elsewhere."""
     if layers[0]["fwd"].wh.shape[0] in _HIDDEN:
         return _apply_stack(_gru_layer, layers, x, lengths, dropout_rate,
-                            train, seeds)
+                            train, seeds, fused_boundary=(
+                                rnn_fused.FUSED_BOUNDARY and rnn_fused.SPLIT))
     return _scan_stack("gru", layers, x, lengths, dropout_rate, train, seeds)

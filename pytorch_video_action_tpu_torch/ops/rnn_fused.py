@@ -6,6 +6,9 @@ train-form forward to its backward.  The LSTM section, below the GRU's,
 has its own notes, and so has the merged-body section at the end (the
 ``PVA_RNN_SPLIT=0`` route, ``csrc/{gru,lstm}_merged_{fwd,bwd}.cu``).
 
+The GRU's fused-boundary form (rows 1 alt and 2 alt, the layers after
+the first under ``PVA_RNN_FUSED_BOUNDARY=1``) follows the GRU section.
+
 GRU: counterpart of ``pytorch_video_action_tpu/ops/rnn_fused_pallas.py``
 ``gru_bidir_fused_split``: ``_fwd_kernel_split`` in its eval and train
 forms and ``_bwd_kernel_split``, its VJP.  Same argument order and layouts:
@@ -40,6 +43,9 @@ import ctypes
 import os
 
 import torch
+
+from . import hashmask
+from .masking import length_mask
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN = (16, 32, 64, 128)  # the kernels' register-resident widths
@@ -184,34 +190,48 @@ def _check_hidden(where, h):
                          f"(one of {_HIDDEN})")
 
 
-def _check(x, weights, lengths):
-    """What the forward kernel takes; raises on anything else."""
-    t_len, b, w_in, h = _dims("gru_bidir_layer", x, weights[4])
+def _inputs(where, xs, whf):
+    """The layer input as a tuple, its sizes and its check entries: ``x``,
+    or the previous layer's halves ``(xa, xb)`` of the fused-boundary form
+    (W = 2 Hx)."""
+    xs = xs if isinstance(xs, tuple) else (xs,)
+    t_len, b, w, h = _dims(where, xs[0], whf)
+    if len(xs) == 1:
+        return xs, t_len, b, w, h, [("x", (t_len, b, w), 1)]
+    return xs, t_len, b, 2 * w, h, [("xa", (t_len, b, w), 1),
+                                    ("xb", (t_len, b, w), 1)]
+
+
+def _check(xs, weights, lengths, where="gru_bidir_layer"):
+    """What the forward kernel takes, for the layer input ``xs`` (as
+    :func:`_inputs`); raises on anything else."""
+    xs, t_len, b, w_in, h, expect = _inputs(where, xs, weights[4])
     g = 3 * h
-    expect = [("x", (t_len, b, w_in), 1), ("wif", (w_in, g), 1),
-              ("wib", (w_in, g), 1), ("bif", (g,), 1), ("bib", (g,), 1),
-              ("whf", (h, g), 1), ("whb", (h, g), 1), ("bhf", (g,), 1),
-              ("bhb", (g,), 1), ("lengths", (b,), None)]
-    _check_tensors("gru_bidir_layer", x.dtype, expect, (x, *weights, lengths))
-    _check_hidden("gru_bidir_layer", h)
+    expect += [("wif", (w_in, g), 1),
+               ("wib", (w_in, g), 1), ("bif", (g,), 1), ("bib", (g,), 1),
+               ("whf", (h, g), 1), ("whb", (h, g), 1), ("bhf", (g,), 1),
+               ("bhb", (g,), 1), ("lengths", (b,), None)]
+    _check_tensors(where, xs[0].dtype, expect, (*xs, *weights, lengths))
+    _check_hidden(where, h)
     return t_len, b, w_in, h
 
 
-def _check_bwd(x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf,
-               dyb):
-    """What the backward kernel takes; raises on anything else."""
-    t_len, b, w_in, h = _dims("gru_bidir_bwd", x, whf)
+def _check_bwd(xs, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf,
+               dyb, where="gru_bidir_bwd"):
+    """What the backward kernel takes, for the layer input ``xs`` (as
+    :func:`_inputs`); raises on anything else."""
+    xs, t_len, b, w_in, h, expect = _inputs(where, xs, whf)
     g = 3 * h
     ys, res = (t_len, b, h), (t_len, b, 4 * h)
-    expect = [("x", (t_len, b, w_in), 1), ("wif", (w_in, g), 1),
-              ("wib", (w_in, g), 1), ("whf", (h, g), 1), ("whb", (h, g), 1),
-              ("lengths", (b,), None), ("ysf", ys, 1), ("ysb", ys, 1),
-              ("resf", res, 1), ("resb", res, 1), ("dyf", ys, 1),
-              ("dyb", ys, 1)]
-    _check_tensors("gru_bidir_bwd", x.dtype, expect,
-                   (x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb,
+    expect += [("wif", (w_in, g), 1),
+               ("wib", (w_in, g), 1), ("whf", (h, g), 1), ("whb", (h, g), 1),
+               ("lengths", (b,), None), ("ysf", ys, 1), ("ysb", ys, 1),
+               ("resf", res, 1), ("resb", res, 1), ("dyf", ys, 1),
+               ("dyb", ys, 1)]
+    _check_tensors(where, xs[0].dtype, expect,
+                   (*xs, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb,
                     dyf, dyb))
-    _check_hidden("gru_bidir_bwd", h)
+    _check_hidden(where, h)
     return t_len, b, w_in, h
 
 
@@ -234,22 +254,35 @@ _ARGTYPES = {
                         + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_merged_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 19
                         + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    # the fused-boundary forms: then the seed, the keep threshold, the
+    # scale and the dropout switch
+    "gru_bidir_bnd_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 16
+                          + [ctypes.c_int] * 5 + [ctypes.c_uint] * 2
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "gru_bidir_bnd_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 26
+                          + [ctypes.c_int] * 4 + [ctypes.c_uint] * 2
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
+# the entry points that live in another entry point's csrc/<name>.cu
+_LIBRARY = {"gru_bidir_bnd_fwd": "gru_bidir_fwd",
+            "gru_bidir_bnd_bwd": "gru_bidir_bwd"}
 
 
 def _kernel(name):
-    """``(entry point, error-string function)`` of ``csrc/<name>.cu``."""
+    """``(entry point, error-string function)`` of ``name``'s library,
+    ``csrc/<name>.cu`` unless ``_LIBRARY`` names another."""
     from . import cuda_lib
 
-    lib = cuda_lib.load(name)
+    lib_name = _LIBRARY.get(name, name)
+    lib = cuda_lib.load(lib_name)
     fn = getattr(lib, name)
+    err = getattr(lib, f"{lib_name}_error_string")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
-        err = getattr(lib, f"{name}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-    return fn, getattr(lib, f"{name}_error_string")
+    return fn, err
 
 
 def _launch(name, x, *args):
@@ -379,6 +412,207 @@ def gru_bidir_layer(x, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths):
                                        for t in (x, *weights)):
         return GRUBidirLayerFn.apply(x, *weights, lengths)
     return gru_bidir_fwd(x, *weights, lengths)
+
+
+# --------------------------------------------------- GRU, fused boundary
+#
+# Counterpart of ``rnn_fused_pallas.gru_bidir_fused_split_bnd``: the GRU
+# layer above on the stack's layer boundary.  Its input is not ``x [T, B,
+# W]`` but the previous layer's raw direction halves ``xa``, ``xb [T, B,
+# Hx]`` (W = 2 Hx), from which it builds the boundary the stack's glue
+# (``ops/rnn.py``) would have built, :func:`boundary_input`: ``concat([xa,
+# xb]) * mask`` and, with a ``seed``, the hash dropout over ``[T, B, 2Hx]``
+# at strides ``(2Hx, T*2Hx, 1)`` with the scale ``1/keep`` rounded to the
+# input dtype.  The kernels build it in the products' tile loads and never
+# write it.  The backward returns ``dxa`` and ``dxb`` in place of ``dx``:
+# the glue's VJP of ``dx`` rounded to the dtype (:func:`boundary_vjp`),
+# ``dwi`` taken against the boundary.  The same values as the glue's, in
+# the same rounding steps, so the flag never changes a result.
+#
+# ``FUSED_BOUNDARY`` (``PVA_RNN_FUSED_BOUNDARY``, read at import, off by
+# default as in JAX; the stack reads the attribute at call time) routes the
+# split GRU stack's layers after the first here.
+
+FUSED_BOUNDARY = os.environ.get("PVA_RNN_FUSED_BOUNDARY", "0") == "1"
+
+
+def time_mask(lengths, t_len, dtype):
+    """The time-major length mask ``[T, B, 1]`` in ``dtype``."""
+    return length_mask(lengths, t_len).t().to(dtype)[:, :, None]
+
+
+def boundary_input(xa, xb, mask_tb, seed=None, keep=1.0):
+    """The stack's layer boundary ``[T, B, 2Hx]`` (its glue, ``ops/rnn.py``):
+    ``concat([xa, xb]) * mask_tb`` then, with a ``seed``, the hash dropout
+    at the time-major strides."""
+    x = torch.cat([xa, xb], dim=-1) * mask_tb
+    if seed is not None:
+        h2 = x.shape[-1]
+        x = hashmask.hash_dropout(seed, x, keep,
+                                  strides=(h2, x.shape[0] * h2, 1))
+    return x
+
+
+def boundary_vjp(dx, mask_tb, seed=None, keep=1.0):
+    """``(dxa, dxb)`` from the boundary's gradient ``dx [T, B, 2Hx]``: the
+    VJP of :func:`boundary_input` (the dropout's ``where(kept, dx * scale,
+    0)`` with its scale and keep bits, times the mask, split in halves)."""
+    t_len, _, h2 = dx.shape
+    if seed is not None:
+        dx = hashmask.hash_dropout(seed, dx, keep,
+                                   strides=(h2, t_len * h2, 1))
+    dx = dx * mask_tb
+    return dx[..., :h2 // 2].contiguous(), dx[..., h2 // 2:].contiguous()
+
+
+def gru_bidir_bnd_layer_ref(xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb,
+                            lengths, seed=None, keep=1.0, train=False):
+    """Plain version of the fused-boundary forward: :func:`boundary_input`,
+    then :func:`gru_bidir_layer_ref`."""
+    x = boundary_input(xa, xb, time_mask(lengths, xa.shape[0], xa.dtype),
+                       seed, keep)
+    return gru_bidir_layer_ref(x, wif, wib, bif, bib, whf, whb, bhf, bhb,
+                               lengths, train=train)
+
+
+def gru_bidir_bnd_layer_bwd_ref(xa, xb, wif, wib, whf, whb, lengths, ysf,
+                                ysb, resf, resb, dyf, dyb, seed=None,
+                                keep=1.0):
+    """Plain version of the fused-boundary backward: row 2's on the
+    boundary, then :func:`boundary_vjp`.  Returns ``(dxa, dxb, dwif, dwib,
+    dbif, dbib, dwhf, dwhb, dbhf, dbhb)``."""
+    mask_tb = time_mask(lengths, xa.shape[0], xa.dtype)
+    x = boundary_input(xa, xb, mask_tb, seed, keep)
+    dx, *grads = gru_bidir_layer_bwd_ref(x, wif, wib, whf, whb, lengths, ysf,
+                                         ysb, resf, resb, dyf, dyb)
+    return (*boundary_vjp(dx, mask_tb, seed, keep), *grads)
+
+
+def _dropout_args(seed, keep, dtype):
+    """``(seed, thresh, scale, on)`` of the boundary's dropout for the
+    kernels; the scale is 1/keep rounded to ``dtype``."""
+    if seed is None:
+        return 0, 0, 1.0, 0
+    scale = float(torch.tensor(1.0 / keep, dtype=dtype))
+    return int(seed) & 0xFFFFFFFF, hashmask.threshold(keep), scale, 1
+
+
+def gru_bidir_bnd_fwd(xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb,
+                      lengths, seed=None, keep=1.0, train=False):
+    """The fused-boundary forward kernel's wrapper (row 1 alt): dropout on
+    the boundary when ``seed`` is given.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.  ``launches``
+    counts eval-form launches, ``train_launches`` train-form ones."""
+    weights = (wif, wib, bif, bib, whf, whb, bhf, bhb)
+    if xa.device.type == "cpu":
+        return gru_bidir_bnd_layer_ref(xa, xb, *weights, lengths, seed, keep,
+                                       train=train)
+    if xa.device.type != "cuda":
+        raise _no_kernel("gru_bidir_bnd_fwd", xa)
+    t_len, b, w_in, h = _check((xa, xb), weights, lengths,
+                               "gru_bidir_bnd_fwd")
+    ysf = torch.empty((t_len, b, h), dtype=xa.dtype, device=xa.device)
+    ysb = torch.empty_like(ysf)
+    resf = resb = None
+    if train:
+        resf = torch.empty((t_len, b, 4 * h), dtype=xa.dtype,
+                           device=xa.device)
+        resb = torch.empty_like(resf)
+    xg = torch.empty((2, t_len * b, 3 * h), dtype=torch.float32,
+                     device=xa.device)
+    _launch("gru_bidir_bnd_fwd", xa, _DTYPE_CODE[xa.dtype], xa.data_ptr(),
+            xb.data_ptr(), *(w.data_ptr() for w in weights),
+            lengths.data_ptr(), ysf.data_ptr(), ysb.data_ptr(), _ptr(resf),
+            _ptr(resb), xg.data_ptr(), t_len, b, w_in // 2, h, int(train),
+            *_dropout_args(seed, keep, xa.dtype))
+    if train:
+        gru_bidir_bnd_fwd.train_launches += 1
+        return ysf, ysb, resf, resb
+    gru_bidir_bnd_fwd.launches += 1
+    return ysf, ysb
+
+
+gru_bidir_bnd_fwd.launches = 0
+gru_bidir_bnd_fwd.train_launches = 0
+
+
+def gru_bidir_bnd_bwd(xa, xb, wif, wib, whf, whb, lengths, ysf, ysb, resf,
+                      resb, dyf, dyb, seed=None, keep=1.0):
+    """The fused-boundary backward kernel's wrapper (row 2 alt).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises.  Returns ``(dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf,
+    dbhb)``; ``launches`` counts launches."""
+    args = (wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb)
+    if xa.device.type == "cpu":
+        return gru_bidir_bnd_layer_bwd_ref(xa, xb, *args, seed, keep)
+    if xa.device.type != "cuda":
+        raise _no_kernel("gru_bidir_bnd_bwd", xa)
+    t_len, b, w_in, h = _check_bwd((xa, xb), *args, "gru_bidir_bnd_bwd")
+    g = 3 * h
+    dt = xa.dtype
+    dxa, dxb = torch.empty_like(xa), torch.empty_like(xb)
+    dwif, dwib = (torch.empty((w_in, g), dtype=dt, device=xa.device)
+                  for _ in range(2))
+    dwhf, dwhb = (torch.empty((h, g), dtype=dt, device=xa.device)
+                  for _ in range(2))
+    dbif, dbib, dbhf, dbhb = (torch.empty((g,), dtype=dt, device=xa.device)
+                              for _ in range(4))
+    dxg = torch.empty((2, t_len * b, g), dtype=torch.float32,
+                      device=xa.device)
+    dhg = torch.empty_like(dxg)
+    bias_part = torch.empty((2, 2, b, g), dtype=torch.float32,
+                            device=xa.device)
+    _launch("gru_bidir_bnd_bwd", xa, _DTYPE_CODE[dt], xa.data_ptr(),
+            xb.data_ptr(), *(t.data_ptr() for t in args), dxa.data_ptr(),
+            dxb.data_ptr(), dwif.data_ptr(), dwib.data_ptr(), dbif.data_ptr(),
+            dbib.data_ptr(), dwhf.data_ptr(), dwhb.data_ptr(),
+            dbhf.data_ptr(), dbhb.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
+            bias_part.data_ptr(), t_len, b, w_in // 2, h,
+            *_dropout_args(seed, keep, dt))
+    gru_bidir_bnd_bwd.launches += 1
+    return dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb
+
+
+gru_bidir_bnd_bwd.launches = 0
+
+
+class GRUBidirBndLayerFn(torch.autograd.Function):
+    """Train-form fused-boundary forward, backward through
+    ``gru_bidir_bnd_bwd``: the counterpart of
+    ``gru_bidir_fused_split_bnd``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths,
+                seed, keep):
+        ysf, ysb, resf, resb = gru_bidir_bnd_fwd(
+            xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths, seed,
+            keep, train=True)
+        ctx.save_for_backward(xa, xb, wif, wib, whf, whb, lengths, ysf, ysb,
+                              resf, resb)
+        ctx.seed, ctx.keep = seed, keep
+        return ysf, ysb
+
+    @staticmethod
+    def backward(ctx, dyf, dyb):
+        grads = gru_bidir_bnd_bwd(*ctx.saved_tensors, dyf.contiguous(),
+                                  dyb.contiguous(), ctx.seed, ctx.keep)
+        return (*grads, None, None, None)
+
+
+def gru_bidir_bnd_layer(xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb,
+                        lengths, seed=None, keep=1.0):
+    """One bidirectional GRU layer on the stack's boundary of the previous
+    layer's halves, ``(ys_f, ys_b)``, dropout on the boundary when ``seed``
+    is given.  The eval form when grad mode is off or no input requires a
+    gradient; otherwise the train form through
+    :class:`GRUBidirBndLayerFn`.  Kernels on CUDA tensors, plain versions
+    on CPU tensors; neither falls back to the other."""
+    weights = (wif, wib, bif, bib, whf, whb, bhf, bhb)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xa, xb, *weights)):
+        return GRUBidirBndLayerFn.apply(xa, xb, *weights, lengths, seed,
+                                        keep)
+    return gru_bidir_bnd_fwd(xa, xb, *weights, lengths, seed, keep)
 
 
 # ------------------------------------------------------------------- LSTM

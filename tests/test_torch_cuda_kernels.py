@@ -8,7 +8,9 @@ and no JAX it runs on its own, without the suite's conftest:
 
 The GRU layer's kernels come first, then the LSTM layer's, then the
 flash-attention kernels, then MS-TCN's conv kernels, then the LSTM scan's,
-then the GRU scan's, then the merged-body layers' (``PVA_RNN_SPLIT=0``).
+then the GRU scan's, then the merged-body layers' (``PVA_RNN_SPLIT=0``),
+then the GRU layer's fused-boundary form (``PVA_RNN_FUSED_BOUNDARY=1``) and
+the flash kernels' head-major form (``PVA_FLASH_BTHD=1``).
 
 Tolerances: f32 1e-4 (the same products summed in another order), bf16
 3e-2 (the kernel and the plain version round h to bf16 before each hidden
@@ -1204,3 +1206,227 @@ def test_merged_route_train_step_on_card_matches_cpu(cuda_device,
                                 sbwd, sfwd),
         (layers, layers, 0, 0, 0),
         [1, 2, 3] if cell == "lstm" else [1, 2, 3, 4])
+
+
+# --------------------------------------------------- GRU, fused boundary
+#
+# The fused-boundary forms (rows 1 alt and 2 alt) build the layer input in
+# the products' tile loads with the glue's rounding steps, so they equal
+# rows 1-2 on the glue-built input bit for bit, and their plain versions
+# within the layer's tolerances.  keep None: no dropout (eval).
+
+
+def _bnd_case(cuda_device, dtype, b, h=128, t=48, seed=0):
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(h)
+    shapes = ([(2 * h, 3 * h)] * 2 + [(3 * h,)] * 2 + [(h, 3 * h)] * 2
+              + [(3 * h,)] * 2)
+    to = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    ws = [to(rng.uniform(-k, k, s).astype(np.float32)) for s in shapes]
+    xa, xb, dyf, dyb = (to(rng.normal(size=(t, b, h)).astype(np.float32))
+                        for _ in range(4))
+    lengths = rng.integers(1, t + 1, b).astype(np.int32)
+    lengths[0], lengths[-1] = t, 1
+    return xa, xb, ws, torch.from_numpy(lengths).to(cuda_device), (dyf, dyb)
+
+
+BND_GRADS = ["dxa", "dxb", "dwif", "dwib", "dbif", "dbib", "dwhf", "dwhb",
+             "dbhf", "dbhb"]
+
+
+@pytest.mark.parametrize("keep", [None, 0.5, 0.7])
+@pytest.mark.parametrize("b,h", [(5, 128), (67, 128), (3, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bnd_kernels_match_plain(cuda_device, dtype, b, h, keep):
+    """Eval and train forms and the backward against their plain versions;
+    the backward twice, bit for bit."""
+    xa, xb, ws, lengths, dys = _bnd_case(cuda_device, dtype, b, h)
+    seed = None if keep is None else 321
+    keep = keep or 1.0
+    counts = lambda: (P.gru_bidir_bnd_fwd.launches,  # noqa: E731
+                      P.gru_bidir_bnd_fwd.train_launches,
+                      P.gru_bidir_bnd_bwd.launches)
+    before = counts()
+    ys = P.gru_bidir_bnd_fwd(xa, xb, *ws, lengths, seed, keep)
+    fwd = P.gru_bidir_bnd_fwd(xa, xb, *ws, lengths, seed, keep, train=True)
+    wif, wib, _, _, whf, whb, _, _ = ws
+    bargs = (xa, xb, wif, wib, whf, whb, lengths, *fwd, *dys, seed, keep)
+    got = P.gru_bidir_bnd_bwd(*bargs)
+    again = P.gru_bidir_bnd_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    want = P.gru_bidir_bnd_layer_ref(xa, xb, *ws, lengths, seed, keep,
+                                     train=True)
+    for g, w in zip(fwd, want):
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+    assert torch.equal(ys[0], fwd[0]) and torch.equal(ys[1], fwd[1])
+    for name, g, w, a in zip(BND_GRADS, got,
+                             P.gru_bidir_bnd_layer_bwd_ref(*bargs), again):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("keep", [None, 0.5, 0.7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bnd_kernels_equal_rows_1_2_on_the_glue_input(cuda_device, dtype,
+                                                      keep):
+    """Row 1 alt's ys and residuals equal row 1's on the glue-built
+    boundary, and row 2 alt's gradients row 2's with the glue's VJP of dx,
+    bit for bit."""
+    xa, xb, ws, lengths, dys = _bnd_case(cuda_device, dtype, 8, t=96, seed=4)
+    seed = None if keep is None else 99
+    keep = keep or 1.0
+    mask_tb = P.time_mask(lengths, xa.shape[0], dtype)
+    x = P.boundary_input(xa, xb, mask_tb, seed, keep)
+    fwd = P.gru_bidir_bnd_fwd(xa, xb, *ws, lengths, seed, keep, train=True)
+    ref = P.gru_bidir_fwd(x, *ws, lengths, train=True)
+    for g, w in zip(fwd, ref):
+        assert torch.equal(g, w)
+    wif, wib, _, _, whf, whb, _, _ = ws
+    got = P.gru_bidir_bnd_bwd(xa, xb, wif, wib, whf, whb, lengths, *fwd,
+                              *dys, seed, keep)
+    dx, *grads = P.gru_bidir_bwd(x, wif, wib, whf, whb, lengths, *ref, *dys)
+    want = (*P.boundary_vjp(dx, mask_tb, seed, keep), *grads)
+    for name, g, w in zip(BND_GRADS, got, want):
+        assert torch.equal(g, w), name
+
+
+def _bigru_batch():
+    rng = np.random.default_rng(1)
+    b, t = 3, 70
+    lengths = np.array([70, 33, 1], np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    return (x, lengths, targets.reshape(-1), None)
+
+
+def test_bigru_train_step_under_the_boundary_flag(cuda_device, monkeypatch):
+    """One f32 bigru train step under ``FUSED_BOUNDARY`` on the card: one
+    row-1 train form and one row 2 (layer 0), three row-1-alt train forms
+    and three row 2 alt; the gradients against the CPU's to 1e-3 and,
+    dropout 0.5, against the card's glue route bit for bit."""
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    state = BiGRU(BiGRUConfig(n_class=48),
+                  generator=torch.Generator().manual_seed(1)).state_dict()
+    batch = _bigru_batch()
+    counters = (P.gru_bidir_fwd, P.gru_bidir_bwd, P.gru_bidir_bnd_fwd,
+                P.gru_bidir_bnd_bwd)
+
+    def step(device, flag):
+        monkeypatch.setattr(P, "FUSED_BOUNDARY", flag)
+        model = BiGRU(BiGRUConfig(n_class=48))
+        model.load_state_dict(state)
+        trainer = Trainer(model, 48, seed=0, device=device)
+        ts = trainer.init_state()
+        before = [getattr(c, "train_launches", c.launches) for c in counters]
+        loss = trainer.train_step(ts, batch, seeds=[1, 2, 3, 4]).item()
+        torch.cuda.synchronize()
+        after = [getattr(c, "train_launches", c.launches) for c in counters]
+        grads = {k: p.grad.detach().cpu()
+                 for k, p in ts.model.named_parameters()}
+        return loss, grads, [a - b for a, b in zip(after, before)]
+
+    gpu, cpu, glue = (step(cuda_device, True), step("cpu", True),
+                      step(cuda_device, False))
+    assert gpu[2] == [1, 1, 3, 3] and cpu[2] == [0, 0, 0, 0]
+    assert glue[2] == [4, 4, 0, 0]
+    assert abs(gpu[0] - cpu[0]) <= 1e-5 and gpu[0] == glue[0]
+    for k, want in cpu[1].items():
+        err = (gpu[1][k] - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3, k
+        assert torch.equal(gpu[1][k], glue[1][k]), k
+
+
+# ------------------------------------------------- flash, head-major bthd
+#
+# The head-major forms (rows 17 alt and 18 alt) differ from rows 17-18 only
+# in addressing, so they equal them on transposed operands bit for bit,
+# and their plain versions within the flash tolerances.  attn folds its
+# head width 100 into 128.
+
+
+def _bthd_case(cuda_device, dtype, b, h, t, lengths, seed=0, d=128):
+    q, k, v, mask, dout = _flash_case(cuda_device, dtype, b, h, t, lengths,
+                                      seed=seed, d=d)
+    return tuple(F._flat(a).contiguous() for a in (q, k, v)) + (
+        mask, F._flat(dout).contiguous())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=["T200", "T1100"])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bthd_matches_plain_and_the_bhtd_kernels(cuda_device, dtype,
+                                                       rate, case):
+    """The forward and both backwards (the fused form in place, the split
+    on transposes) against the plain versions, and against rows 17-20 on
+    ``[B, H, T, d]`` transposes bit for bit."""
+    b, h, t, lengths = case
+    q, k, v, mask, dout = _bthd_case(cuda_device, dtype, *case, seed=5)
+    before = (F.flash_fwd_bthd.launches, F.flash_bwd_fused_bthd.launches)
+    out, lse = F.flash_fwd_bthd(q, k, v, mask, h, rate, 1234)
+    torch.cuda.synchronize()
+    want, want_lse = F.flash_fwd_bthd_ref(q, k, v, mask, h, rate, 1234)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _rel_err(lse, want_lse) <= TOL[torch.float32]
+    heads = [F._heads(a, h).contiguous() for a in (q, k, v, dout)]
+    out4, lse4 = F.flash_fwd(*heads[:3], mask, rate, 1234)
+    assert torch.equal(out, F._flat(out4))
+    assert torch.equal(lse, lse4.reshape(b * h, t))
+    want_g = F.flash_bwd_bthd_ref(q, k, v, mask, h, rate, 1234, out, lse,
+                                  dout)
+    for fused in (True, False):
+        got = F.flash_bwd_bthd(q, k, v, mask, h, rate, 1234, out, lse, dout,
+                               fused=fused)
+        ref4 = F.flash_bwd(*heads[:3], mask, rate, 1234, out4, lse4,
+                           heads[3], fused=fused)
+        for name, g, w, r in zip("qkv", got, want_g, ref4):
+            assert g.shape == (b, t, h * 128) and g.dtype == dtype, name
+            assert _rel_err(g, w) <= TOL[dtype], (fused, name)
+            assert torch.equal(g, F._flat(r)), (fused, name)
+    assert (F.flash_fwd_bthd.launches,
+            F.flash_bwd_fused_bthd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+
+
+def test_attn_train_step_under_bthd(cuda_device, monkeypatch):
+    """One f32 attn train step under ``PVA_FLASH_BTHD=1`` (flash path at
+    ``BLOCKWISE_MIN_T`` 64): one row 17 alt and one row 18 alt, rows 17-18
+    at 0; the loss to 1e-5 and each gradient to 1e-3 of the CPU's."""
+    from pytorch_video_action_tpu_torch.models import attention as A
+    from pytorch_video_action_tpu_torch.models import build_model
+    from pytorch_video_action_tpu_torch.train.loop import Trainer
+
+    monkeypatch.setattr(A, "BLOCKWISE_MIN_T", 64)
+    monkeypatch.setenv("PVA_FLASH_BTHD", "1")
+    state = build_model("attn", 48, generator=torch.Generator().manual_seed(
+        1)).state_dict()
+    rng = np.random.default_rng(1)
+    b, t = 3, 150
+    lengths = np.array([150, 61, 1], np.int32)
+    x = rng.normal(size=(b, t, 400)).astype(np.float32)
+    targets = rng.integers(0, 48, (b, t))
+    targets[np.arange(t)[None, :] >= lengths[:, None]] = -1
+    batch = (x, lengths, targets.reshape(-1), None)
+    names = ("flash_fwd_bthd", "flash_bwd_fused_bthd", "flash_fwd",
+             "flash_bwd_fused")
+    out = {}
+    for device in ("cpu", cuda_device):
+        model = build_model("attn", 48)
+        model.load_state_dict(state)
+        trainer = Trainer(model, 48, seed=0, device=device)
+        ts = trainer.init_state()
+        before = [getattr(F, n).launches for n in names]
+        loss = trainer.train_step(ts, batch, seeds=[5]).item()
+        after = [getattr(F, n).launches for n in names]
+        out[str(device)] = (loss, {k: p.grad.detach().cpu() for k, p in
+                                   ts.model.named_parameters()},
+                            [a - b_ for a, b_ in zip(after, before)])
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[2] == [0, 0, 0, 0] and gpu[2] == [1, 1, 0, 0]
+    assert abs(gpu[0] - cpu[0]) <= 1e-5
+    for k, want in cpu[1].items():
+        err = (gpu[1][k] - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3, k

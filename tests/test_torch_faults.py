@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, each with the input
+"""Four faults of the port against the JAX package, each with the input
 that showed it:
 
 1. ``infer/loader.py::load_models`` on a checkpoint that is not a valid
@@ -12,6 +12,10 @@ that showed it:
    (padded T >= 1024): the port's flash kernels took d <= 128.  Forward and
    gradients against JAX on the CPU; the kernels at those widths are held
    against their plain versions in ``test_torch_cuda_kernels.py``.
+4. ``ops/hashmask.py::hash_dropout`` in bf16: JAX rounds the scale
+   ``1 / keep`` to bf16 before the product (a weakly typed scalar), the
+   port multiplied by the f32 scale and rounded after it.  At keep 0.7 one
+   output in eight differed by an ulp.
 
 f32: 1e-5 of each tensor's largest element (at least 1), the same sums in
 another order.
@@ -31,6 +35,7 @@ from pytorch_video_action_tpu.train import checkpoint as jckpt
 from pytorch_video_action_tpu_torch.infer import loader as ploader
 from pytorch_video_action_tpu_torch.models import build_model
 from pytorch_video_action_tpu_torch.models.params import from_jax_params
+from pytorch_video_action_tpu_torch.ops import hashmask as PH
 from pytorch_video_action_tpu_torch.ops import rnn as PR
 from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
@@ -177,3 +182,20 @@ def test_attn_wide_heads_on_the_flash_path_match_jax(heads):
     jgrads = {k: np.asarray(v) for k, v in jckpt._flatten(jgrads).items()}
     for k, p in model.named_parameters():
         _close(p.grad.numpy(), jgrads[k.replace(".", "/")], k)
+
+
+# ------------------------------------------- 4. the bf16 dropout scale
+
+
+def test_bf16_dropout_scale_matches_jax():
+    """The same seed, shape and keep 0.7 through both packages'
+    ``hash_dropout`` in bf16: bit-equal outputs (the scale 1/0.7 rounds to
+    bf16's 1.4296875 first in both)."""
+    key = jax.random.PRNGKey(11)
+    x = np.random.default_rng(12).normal(size=(8, 512)).astype(np.float32)
+    want = jhash.hash_dropout(key, jnp.asarray(x, jnp.bfloat16), 0.7)
+    got = PH.hash_dropout(int(jhash.rng_seed_u32(key)),
+                          torch.from_numpy(x).to(torch.bfloat16), 0.7)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.float().numpy(),
+                          np.asarray(want.astype(jnp.float32)))

@@ -73,6 +73,14 @@ def device_report(prof, wall_s: float, tool: str) -> int:
     for name, times in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:15]:
         print(f"  {sum(times) / 1e3:10.4f} ms {100 * sum(times) / total:6.2f} % "
               f"x{len(times):4d}  {name[:100]}")
+    # the port's kernels live in csrc/'s anonymous namespaces; the rest is
+    # PyTorch's own (glue, products, loss, the optimizer) and copies
+    own = [e for e in device_events if "(anonymous namespace)::" in e.name]
+    own_us = sum(e.time_range.elapsed_us() for e in own)
+    print(f"csrc kernels {own_us / 1e3:.4f} ms in {len(own)} events, the "
+          f"rest {(total - own_us) / 1e3:.4f} ms "
+          f"({100 * (total - own_us) / total:.2f} %) in "
+          f"{len(device_events) - len(own)} events")
     spans = [(e.time_range.start, e.time_range.end) for e in device_events]
     busy = busy_us(spans)
     span = max(e for _, e in spans) - min(s for s, _ in spans)
