@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero:
    and turns TF32 off for matmul and cuDNN.
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together) and
-   prints the build time and ``-Xptxas -v``.
+   prints the build time and ``-Xptxas -v``; checks with ``cuobjdump
+   -sass`` that the flash forward and fused backward issue wgmma (HGMMA)
+   in every instantiation, f32 and bf16.
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the bench shape (B=64, T=1024, where bench.py times bigru and
    bilstm), for layer 0 (W_in=400) and the later layers (256) in f32 and
@@ -34,8 +36,8 @@ Phases, in order; any failure exits non-zero:
    layer ``F.conv1d`` dilated conv -> relu -> 1x1 ``F.conv1d`` ->
    residual and mask, TF32 off; ``autograd.grad`` through it for the
    backward).  Then the flash kernels at d > 128 (attn with 2 heads, d=200,
-   and 1 head, d=400, at attn's serving shape B=3, T=1280): the forward in
-   f32 and bf16 and both backwards in f32, each against the plain version.
+   and 1 head, d=400, at attn's serving shape B=3, T=1280): the forward
+   and both backwards in f32 and bf16, each against the plain version.
    Then the LSTM scan's four kernels (the eval and saving forwards, the
    saved-gates and the recompute backward) at an odd width (W=100) and one
    past a block's shared memory (W=512), B=8, T=1920, f32: each against
@@ -65,7 +67,9 @@ Phases, in order; any failure exits non-zero:
    the train CLI's default) and serves its checkpoint the same way (no
    kernel); then serves the six checkpoints as one ensemble on the card.
 5. training: for bigru, bilstm and attn, repeats phase 3's train-form and
-   backward checks at the largest train batch, runs the port's train CLI
+   backward checks at the largest train batch (attn's two backwards also
+   at each other padded length the dispatch sends to the split, f32;
+   1536 here), runs the port's train CLI
    on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
    of every kernel (per step one train-form forward and one backward per
    layer and, for attn at padded T >= 1024, one flash forward and one
@@ -162,6 +166,7 @@ B_BENCH, T_BENCH = 64, 1024  # the shape bench.py times bigru and bilstm at
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 DTYPES = ("float32", "bfloat16")
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+TF32_FLOPS = 495e12  # the tensor cores' TF32 peak, dense (flash_bound)
 PEAK_BYTES = 3.35e12
 CSRC = "pytorch_video_action_tpu_torch/csrc/"
 PALLAS = "pytorch_video_action_tpu/ops/rnn_fused_pallas.py:"
@@ -422,6 +427,44 @@ def phase_build():
     for name, text in logs.items():
         log(f"[build] -Xptxas -v for {name}:")
         log(text.strip())
+    check_wgmma()
+
+
+# kernels whose products run on the tensor cores: (library, kernel); each
+# instantiation (f32 and bf16, every template form) must issue wgmma
+WGMMA_KERNELS = [("flash_fwd", "flash_fwd_kernel"),
+                 ("flash_bwd", "flash_bwd_fused_kernel")]
+
+
+def check_wgmma():
+    """``cuobjdump -sass`` of the flash libraries: counts HGMMA (wgmma)
+    instructions in every instantiation of ``WGMMA_KERNELS`` and fails
+    unless each has some and both dtypes are there."""
+    from pytorch_video_action_tpu_torch.ops import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib.nvcc()), "cuobjdump")
+    for lib, kernel in WGMMA_KERNELS:
+        sass = subprocess.run([tool, "-sass", str(cuda_lib.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, first, fn = {}, {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                if kernel in fn:
+                    counts[fn] = 0
+            elif fn in counts and "HGMMA" in line:
+                counts[fn] += 1
+                first.setdefault(fn, " ".join(line.split("*/", 1)[-1].split()))
+        dtypes = {"float32": [f for f in counts if f"{kernel}If" in f],
+                  "bfloat16": [f for f in counts
+                               if f"{kernel}I13__nv_bfloat16" in f]}
+        for dt_name, fns in dtypes.items():
+            for f in fns:
+                log(f"[build] {kernel} {dt_name} ({f}): {counts[f]} HGMMA, "
+                    f"e.g. {first.get(f)}")
+            if not fns or not all(counts[f] for f in fns):
+                raise AssertionError(f"{kernel} issues no wgmma in {dt_name}")
 
 
 def layer_inputs(cell, t_len, b, w_in, dt, lengths, gen):
@@ -791,7 +834,7 @@ def phase_kernels():
         for name, got in check_flash(
                 f"d={head_width(heads)}", WIDE_LENGTHS, WIDE_T, gen,
                 fwd=[(dt, ATTN_RATE) for dt in DTYPES],
-                bwd=[("float32", ATTN_RATE)], heads=heads).items():
+                bwd=[(dt, ATTN_RATE) for dt in DTYPES], heads=heads).items():
             rows[name] += got
     log(f"[kernel] flash d=200 and d=400 checks in {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -847,7 +890,10 @@ def flash_bound(lengths, t_len, dt_name, products, operands, f32_outputs,
     ``operands`` [B, H, T, d] tensors in the input dtype, ``f32_outputs``
     of them in f32, ``row_vectors`` f32 [B, H, T] vectors (lse; delta in
     the backward) and the key mask, each read or written once.  ``d``: the
-    head width, attn's own by default."""
+    head width, attn's own by default.  The operations run on the tensor
+    cores: bf16 at its peak; f32 as 3xTF32, three TF32 products for each
+    f32 one, at the TF32 peak (``TF32_FLOPS``) -- faster than f32 outside
+    the tensor cores, so the least time the card could take."""
     d = d or head_width(heads)
     size = 4 if dt_name == "float32" else 2
     b = len(lengths)
@@ -855,7 +901,10 @@ def flash_bound(lengths, t_len, dt_name, products, operands, f32_outputs,
     rows = b * heads * t_len * 4 * row_vectors
     n_bytes = (operands * size + f32_outputs * 4) * bhtd + rows + b * t_len
     flops = 2 * products * heads * t_len * d * sum(lengths)
-    return _bound(n_bytes, flops, dt_name)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = (3 * flops / TF32_FLOPS if dt_name == "float32"
+             else flops / PEAK_FLOPS[dt_name]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def sdpa(q, k, v, mask):
@@ -2094,6 +2143,23 @@ def phase_train(card: str, root: str, name: str):
         forms = [(dt, r) for r in (ATTN_RATE, 0.0) for dt in DTYPES]
         rows = check_flash("main path", lens, t_pad, gen, fwd=forms,
                            bwd=forms)
+        # the fused and the split backward at the other padded lengths
+        # whose batches the dispatch (use_fused) sends to the split (1536
+        # on the chip dataset): the times that place its threshold
+        split = {}
+        for ix in train_feed.index_batches():
+            t_len = train_feed.collate(ix)[0].shape[1]
+            if t_len != t_pad and not use_fused(len(ix), t_len):
+                split.setdefault(t_len, ix)
+        if not split:
+            raise AssertionError("no train batch besides the largest goes "
+                                 "to the split backward")
+        for t_len, ix in sorted(split.items()):
+            lens_t = [len(train_feed.dataset.features[i]) for i in ix]
+            for k, got in check_flash("main path", lens_t, t_len, gen,
+                                      fwd=[], bwd=[("float32",
+                                                    ATTN_RATE)]).items():
+                rows[k] += got
     elif MODELS[name][0] == "scan":
         rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen)
                           for dt in DTYPES)

@@ -176,7 +176,7 @@ def _bwd_ref(q, k, v, key_mask, rate, seed, lse, delta, dout,
 # ----------------------------------------------------------------- kernels
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-D_MAX = 512  # head widths the kernels take: up to 4 slabs of 128 columns
+D_MAX = 512  # the widest head the kernels take (csrc/flash_common.cuh kDHead)
 TILE = 64  # query and KV rows per tile
 # The fused backward's partial-dq scratch ([chunks, B*H, T, d] f32) may be
 # at most this large; a longer video takes the split, which needs none.

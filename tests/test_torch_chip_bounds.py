@@ -1,0 +1,38 @@
+"""``chip_smoke.py``'s bound of the flash kernels (``flash_bound``), the
+least time the card could take for their work: the operations run on the
+tensor cores, bf16 at its peak and f32 as 3xTF32 (three TF32 products for
+each f32 one) at the TF32 peak; the bytes are each operand read and each
+output written once.  Arithmetic on shapes only: no card."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+_SPEC = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+CS = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(CS)
+
+# attn's serving main path: B=3, T=1280, H=4, d=100
+LENGTHS, T, H, D = [1280, 1100, 1024], 1280, 4, 100
+
+
+@pytest.mark.parametrize("dt_name,rate", [("float32", 495e12 / 3),
+                                          ("bfloat16", 989e12)])
+def test_flash_bound_reads_the_tensor_cores_work(dt_name, rate):
+    """The forward (2 products) at the serving shape is bound by its
+    operations: 2 * 2 * H * T * d * sum(lengths) at the dtype's rate."""
+    ms, by = CS.flash_bound(LENGTHS, T, dt_name, 2, 4, 0, 1)
+    flops = 2 * 2 * H * T * D * sum(LENGTHS)
+    assert by == "operations"
+    assert ms == pytest.approx(flops / rate * 1e3, rel=1e-12)
+
+
+def test_flash_bound_counts_each_byte_once():
+    """With one valid key a video the bytes bound it: 4 operands of the
+    input dtype, lse in f32 and the key mask."""
+    ms, by = CS.flash_bound([1, 1, 1], T, "bfloat16", 2, 4, 0, 1)
+    n_bytes = 4 * 2 * 3 * H * T * D + 3 * H * T * 4 + 3 * T
+    assert by == "bytes"
+    assert ms == pytest.approx(n_bytes / 3.35e12 * 1e3, rel=1e-12)

@@ -402,11 +402,18 @@ def _flash_case(cuda_device, dtype, b, h, t, lengths, seed=0, d=100):
             to(dout))
 
 
+# attn's head width, and those of --attn_head 16 and 8, whose rows (50
+# and 100 bytes in bf16, 100 and 200 in f32) take the kernels' narrower
+# load paths
+FLASH_DS = [100, 25, 50]
+
+
+@pytest.mark.parametrize("d", FLASH_DS)
 @pytest.mark.parametrize("case", FLASH_CASES, ids=["T200", "T1100"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_fwd_matches_plain(cuda_device, dtype, rate, case):
-    q, k, v, mask, _ = _flash_case(cuda_device, dtype, *case)
+def test_flash_fwd_matches_plain(cuda_device, dtype, rate, case, d):
+    q, k, v, mask, _ = _flash_case(cuda_device, dtype, *case, d=d)
     before = F.flash_fwd.launches
     out, lse = F.flash_fwd(q, k, v, mask, rate, 1234)
     torch.cuda.synchronize()
@@ -420,12 +427,14 @@ def test_flash_fwd_matches_plain(cuda_device, dtype, rate, case):
     assert (out[dead] == 0).all() and (lse[dead] == 0).all()
 
 
+@pytest.mark.parametrize("d", FLASH_DS)
 @pytest.mark.parametrize("case", FLASH_CASES, ids=["T200", "T1100"])
 @pytest.mark.parametrize("fused", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_bwd_matches_plain(cuda_device, dtype, rate, fused, case):
-    q, k, v, mask, dout = _flash_case(cuda_device, dtype, *case, seed=1)
+def test_flash_bwd_matches_plain(cuda_device, dtype, rate, fused, case, d):
+    q, k, v, mask, dout = _flash_case(cuda_device, dtype, *case, seed=1,
+                                      d=d)
     out, lse = F.flash_fwd(q, k, v, mask, rate, 99)
     counts = lambda: (F.flash_bwd_fused.launches,  # noqa: E731
                       F.flash_bwd_dkdv.launches, F.flash_bwd_dq.launches)
@@ -458,6 +467,87 @@ def test_flash_bwd_forms_agree_and_rerun_bit_identical(cuda_device, sms,
             assert torch.equal(a, b), f
     for a, b in zip(runs[True][0], runs[False][0]):
         assert _rel_err(a, b) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("t", [2176, 3584])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fused_bwd_long_video_in_one_chunk(cuda_device, dtype, t,
+                                                 monkeypatch):
+    """The fused backward in one KV chunk a (b, h) (B*H = 4 on 4 SMs, as
+    B*H >= 67 gives on 132) at padded T where lse, delta and the key mask
+    no longer fit in shared memory beside an f32 ring of 4 stages: against
+    its plain version, and in f32 against the split."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": 4})())
+    q, k, v, mask, dout = _flash_case(cuda_device, dtype, 2, 2, t,
+                                      [t, t - 300], seed=9)
+    assert F.fused_chunks(4, t, 4) == 1
+    out, lse = F.flash_fwd(q, k, v, mask, 0.3, 5)
+    got = F.flash_bwd(q, k, v, mask, 0.3, 5, out, lse, dout, fused=True)
+    want = F.flash_bwd_ref(q, k, v, mask, 0.3, 5, out, lse, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+    if dtype == torch.float32:
+        split = F.flash_bwd(q, k, v, mask, 0.3, 5, out, lse, dout,
+                            fused=False)
+        for name, g, w in zip(("dq", "dk", "dv"), got, split):
+            assert _rel_err(g, w) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_wide_head_long_keys(cuda_device, dtype):
+    """The forward at d = 480 (8 chunks of q beside the ring) with
+    T_kv = 20480, where the key mask no longer fits in shared memory beside
+    an f32 ring of 2 stages, against its plain version."""
+    rng = np.random.default_rng(10)
+    d, t, t_kv = 480, 128, 20480
+    q = rng.normal(size=(1, 2, t, d)).astype(np.float32) / np.sqrt(d)
+    k, v = (rng.normal(size=(1, 2, t_kv, d)).astype(np.float32)
+            for _ in range(2))
+    mask = np.arange(t_kv)[None, :] < 20000
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in (q, k, v))
+    mask = torch.from_numpy(mask).to(cuda_device)
+    out, lse = F.flash_fwd(q, k, v, mask, 0.3, 3)
+    want, want_lse, _ = F.flash_fwd_ref(q, k, v, mask, 0.3, 3)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _rel_err(lse, want_lse) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("sms", [132, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_skips_key_tiles_with_no_valid_key_exactly(cuda_device, dtype,
+                                                         sms, monkeypatch):
+    """Key tiles 8-9 of T_kv = 640 masked in both videos, tiles 0-2 in the
+    second: against the same calls on T_kv = 512 (those two tiles cut off),
+    out, lse, dk and dv bit for bit, dq (whose chunks follow T_kv) to the
+    f32 tolerance.  Dropout 0, as the keep bit's index holds T_kv.  On 8
+    SMs the fused backward has 2 chunks a (b, h): the second video's first
+    chunk starts on masked tiles, and every video's second chunk ends on
+    them; on 132, one chunk a tile, three of them fully masked."""
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: type("P", (), {
+                            "multi_processor_count": sms})())
+    q, k, v, mask, dout = _flash_case(cuda_device, dtype, 2, 2, 640,
+                                      [512, 512], seed=6)
+    mask[1, :192] = False
+    cut = [a[:, :, :512].contiguous() for a in (k, v)]
+    out, lse = F.flash_fwd(q, k, v, mask)
+    out_c, lse_c = F.flash_fwd(q, *cut, mask[:, :512].contiguous())
+    assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dq, dk, dv = F.flash_bwd_fused(q, k, v, mask, 0.0, None, lse, delta,
+                                   dout)
+    dq_c, dk_c, dv_c = F.flash_bwd_fused(q, *cut, mask[:, :512].contiguous(),
+                                         0.0, None, lse, delta, dout)
+    assert torch.equal(dk[:, :, :512], dk_c) and torch.equal(dv[:, :, :512],
+                                                             dv_c)
+    assert (dk[:, :, 512:] == 0).all() and (dv[:, :, 512:] == 0).all()
+    assert dq.dtype == torch.float32  # the f32 sums, before any rounding
+    assert _rel_err(dq, dq_c) <= TOL[torch.float32]
+    want = F._bwd_ref(q, k, v, mask, 0.0, None, lse, delta, dout)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _rel_err(g, w) <= TOL[dtype], name
 
 
 @pytest.mark.parametrize("case", ["float64", "noncontiguous", "mask_uint8",
@@ -1389,6 +1479,33 @@ def test_flash_bthd_matches_plain_and_the_bhtd_kernels(cuda_device, dtype,
     assert (F.flash_fwd_bthd.launches,
             F.flash_bwd_fused_bthd.launches) == (before[0] + 1,
                                                  before[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bthd_wide_head_matches_plain_and_the_bhtd_kernels(
+        cuda_device, dtype):
+    """The head-major forms at d = 200 (attn at --attn_head 2, one output
+    pass of the forward, two slabs of the backward) against their plain
+    versions, and against rows 17-18 on transposes bit for bit."""
+    b, h, t, lengths = 2, 2, 300, [300, 171]
+    q, k, v, mask, dout = _bthd_case(cuda_device, dtype, b, h, t, lengths,
+                                     seed=8, d=200)
+    out, lse = F.flash_fwd_bthd(q, k, v, mask, h, 0.3, 21)
+    want, want_lse = F.flash_fwd_bthd_ref(q, k, v, mask, h, 0.3, 21)
+    assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert _rel_err(lse, want_lse) <= TOL[torch.float32]
+    heads = [F._heads(a, h).contiguous() for a in (q, k, v, dout)]
+    out4, lse4 = F.flash_fwd(*heads[:3], mask, 0.3, 21)
+    assert torch.equal(out, F._flat(out4))
+    assert torch.equal(lse, lse4.reshape(b * h, t))
+    got = F.flash_bwd_bthd(q, k, v, mask, h, 0.3, 21, out, lse, dout,
+                           fused=True)
+    want_g = F.flash_bwd_bthd_ref(q, k, v, mask, h, 0.3, 21, out, lse, dout)
+    ref4 = F.flash_bwd(*heads[:3], mask, 0.3, 21, out4, lse4, heads[3],
+                       fused=True)
+    for name, g, w, r in zip("qkv", got, want_g, ref4):
+        assert _rel_err(g, w) <= TOL[dtype], name
+        assert torch.equal(g, F._flat(r)), name
 
 
 def test_attn_train_step_under_bthd(cuda_device, monkeypatch):
