@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero:
    and turns TF32 off for matmul and cuDNN.
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together) and
-   prints the build time and ``-Xptxas -v``; checks with ``cuobjdump
-   -sass`` that the flash forward and fused backward issue wgmma (HGMMA)
-   in every instantiation, f32 and bf16.
+   prints the build time and ``-Xptxas -v`` (and, for each flash kernel,
+   its registers and spills); checks with ``cuobjdump -sass`` that the
+   flash forward, the fused backward and the split backward's two kernels
+   issue wgmma (HGMMA) in every instantiation, f32 and bf16.
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the bench shape (B=64, T=1024, where bench.py times bigru and
    bilstm), for layer 0 (W_in=400) and the later layers (256) in f32 and
@@ -22,7 +23,7 @@ Phases, in order; any failure exits non-zero:
    CUDA events, beside each kernel's bound.  Then the flash kernels at
    attn's bench shape (B=4, H=4, T=4096, d=100, bench.py): the forward in
    f32 and bf16 with dropout off and on, the fused and the split backward
-   with dropout on, each against the plain version, the two backwards
+   likewise, each against the plain version, the two backwards
    against each other and against a rerun (bit for bit); the times of
    each kernel's wrapper, the plain version and the yardstick
    (``scaled_dot_product_attention`` with the key mask, dropout 0, and
@@ -37,7 +38,8 @@ Phases, in order; any failure exits non-zero:
    residual and mask, TF32 off; ``autograd.grad`` through it for the
    backward).  Then the flash kernels at d > 128 (attn with 2 heads, d=200,
    and 1 head, d=400, at attn's serving shape B=3, T=1280): the forward
-   and both backwards in f32 and bf16, each against the plain version.
+   and both backwards in f32 and bf16 (the backwards with dropout off and
+   on), each against the plain version.
    Then the LSTM scan's four kernels (the eval and saving forwards, the
    saved-gates and the recompute backward) at an odd width (W=100) and one
    past a block's shared memory (W=512), B=8, T=1920, f32: each against
@@ -427,13 +429,40 @@ def phase_build():
     for name, text in logs.items():
         log(f"[build] -Xptxas -v for {name}:")
         log(text.strip())
+    for line in ptxas_summary(logs):
+        log(line)
     check_wgmma()
 
 
 # kernels whose products run on the tensor cores: (library, kernel); each
 # instantiation (f32 and bf16, every template form) must issue wgmma
 WGMMA_KERNELS = [("flash_fwd", "flash_fwd_kernel"),
-                 ("flash_bwd", "flash_bwd_fused_kernel")]
+                 ("flash_bwd", "flash_bwd_fused_kernel"),
+                 ("flash_bwd", "flash_bwd_dkdv_kernel"),
+                 ("flash_bwd", "flash_bwd_dq_kernel")]
+
+
+def ptxas_summary(logs) -> list[str]:
+    """One line per instantiation of ``WGMMA_KERNELS`` from the build's
+    ``-Xptxas -v`` output: its registers, its spills, and whether ptxas
+    serialized its wgmma (warning C7512)."""
+    lines = []
+    for lib, kernel in WGMMA_KERNELS:
+        fn, info = None, {}
+        for line in logs.get(lib, "").splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if kernel in line else None
+                if fn:
+                    info[fn] = []
+            elif fn and ("spill" in line or "Used" in line):
+                info[fn].append(" ".join(line.replace("ptxas info    :",
+                                                      "").split()))
+            if "C7512" in line and kernel in line:
+                info.setdefault(line.split("'")[1], []).append(
+                    "wgmma serialized (C7512)")
+        for f, got in info.items():
+            lines.append(f"[build] {kernel} ({f}): {'; '.join(got)}")
+    return lines
 
 
 def check_wgmma():
@@ -819,7 +848,8 @@ def phase_kernels():
             "bench", [T_ATTN] * B_ATTN, T_ATTN, gen,
             fwd=[(dt, r) for dt in ("float32", "bfloat16")
                  for r in (0.0, ATTN_RATE)],
-            bwd=[(dt, ATTN_RATE) for dt in ("float32", "bfloat16")]).items():
+            bwd=[(dt, r) for dt in ("float32", "bfloat16")
+                 for r in (ATTN_RATE, 0.0)]).items():
         rows[name] = got
     log(f"[kernel] flash bench-shape checks in {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -834,7 +864,8 @@ def phase_kernels():
         for name, got in check_flash(
                 f"d={head_width(heads)}", WIDE_LENGTHS, WIDE_T, gen,
                 fwd=[(dt, ATTN_RATE) for dt in DTYPES],
-                bwd=[(dt, ATTN_RATE) for dt in DTYPES], heads=heads).items():
+                bwd=[(dt, r) for dt in DTYPES for r in (ATTN_RATE, 0.0)],
+                heads=heads).items():
             rows[name] += got
     log(f"[kernel] flash d=200 and d=400 checks in {time.time() - t0:.1f} s")
     t0 = time.time()

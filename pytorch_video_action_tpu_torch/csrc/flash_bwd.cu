@@ -59,19 +59,48 @@
 //    and dv of a slab take 128 registers a thread), each recomputing the
 //    score products over all of d.
 //  * split (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel, each its own entry
-//    point): one block per (key tile, b*h) walks the query tiles for dk
-//    and dv; one block per (query tile, b*h) walks the key tiles for dq.
-//    Twice the score step, no scratch; ops/flash.py::use_fused picks it
-//    for videos whose fused scratch would pass its budget.  Its products
-//    are SIMT f32 FMAs on 64 x 64 tiles in shared memory (flash_simt.cuh),
-//    a head wider than 128 walked in slabs of 128 columns, each output
-//    slab a pass of its own that recomputes the score step.
+//    point; ops/flash.py::use_fused picks it for videos whose fused scratch
+//    would pass its budget): twice the score step, no scratch, no
+//    reduction.  Its bound is the fused form's with the score products
+//    counted twice: 4 products for dk and dv, 3 for dq.  Both kernels are
+//    the forward's shape (flash_fwd.cu): a producer warpgroup and NC
+//    consumer warpgroups of 64 rows each, whose A operands (the rows'
+//    own tiles, raw: f32 is split as each k-step loads it) the producer
+//    writes into shared memory once, then streams the walked tiles' B
+//    chunks through the ring; every product is wgmma (3xTF32 or bf16).
+//    - flash_bwd_dq_kernel: queries as the M rows.  For every key tile
+//      with an attendable key, s = q k^T and dp = dout v^T (A the resident
+//      q and dout, B natural chunks of k and v), the score step on the
+//      accumulators (dropout included), ds rounded to T, and dq += ds k
+//      (A ds converted from the accumulator, B the slab's transposed k
+//      chunks, permuted for tf32).  dq stays in registers for the whole
+//      walk and is stored once.  Key tiles with no attendable key are
+//      skipped by producer and consumers alike (their ds is exactly 0).
+//    - flash_bwd_dkdv_kernel: keys as the M rows, as the fused form, each
+//      consumer its own key tile: s^T = k q^T and dp^T = v dout^T (A the
+//      resident k and v), so that p_drop^T and ds^T sit in the
+//      accumulator layout that dv += p_drop^T dout and dk += ds^T q take
+//      as their register A operand.  None of the fused form's dq work
+//      (no ds staging, no partial dq), and k and v are converted once a
+//      key tile, not with every query tile.  Two consumers (bf16) share
+//      every q and dout chunk the producer sends.  A block whose key
+//      tiles have no attendable key writes dk = dv = 0 and skips the
+//      query walk.
+//    - d <= 128: the dq kernel two consumers (128 rows a block), the dk/dv
+//      kernel two in bf16 and one in f32 (run_dkdv says why).  d > 128:
+//      one consumer, the dq kernel's output slab 256 columns (d = 200 one
+//      pass, 400 two), dk and dv slabs of 128 columns; each pass
+//      recomputes the score products over all of d.
+//    - Where the consumers' A operands do not fit beside a ring of two
+//      slots (f32 at d > 256), they come through the ring as raw chunks
+//      with each walked tile instead.  In bf16, when the ring holds a
+//      whole walked tile, the slab's products read the tile's natural
+//      chunks again (MN-major) instead of the producer sending them twice.
 //  * The head-major flat layout [B, T, H*d] differs only in where a head's
 //    rows start and their stride (BwdArgs::bthd, flash_common.cuh::
 //    head_base); a chunk's partial dq takes dq's layout, so the reduction
 //    is the same elementwise sum.
 
-#include "flash_simt.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -102,79 +131,6 @@ __device__ __forceinline__ size_t kv_base(const BwdArgs& a, int bh) {
 }
 __device__ __forceinline__ int ld(const BwdArgs& a) {
   return row_stride(a.bthd, a.H, a.d);
-}
-
-// The query tile at q0 of (b, h): lse and delta and, for a head of one
-// slab, q and dout into shared memory.
-template <typename T>
-__device__ __forceinline__ void load_query_tile(const BwdSmem& sm,
-                                                const BwdArgs& a, int bh,
-                                                int q0) {
-  if (n_slabs(a.d) == 1) {
-    const size_t off = q_base(a, bh);
-    load_tile(sm.q, static_cast<const T*>(a.q) + off, q0, a.Tn, ld(a), 0,
-              a.d);
-    load_tile(sm.dout, static_cast<const T*>(a.dout) + off, q0, a.Tn, ld(a),
-              0, a.d);
-  }
-  load_rows(sm.lse, a.lse + (size_t)bh * a.Tn, q0, a.Tn);
-  load_rows(sm.delta, a.delta + (size_t)bh * a.Tn, q0, a.Tn);
-}
-
-// The key tile at k0 of (b, h): the keys' validity and, for a head of one
-// slab, k and v.
-template <typename T>
-__device__ __forceinline__ void load_key_tile(const BwdSmem& sm,
-                                              int* key_valid,
-                                              const BwdArgs& a, int bh,
-                                              int k0) {
-  if (n_slabs(a.d) == 1) {
-    const size_t off = kv_base(a, bh);
-    load_tile(sm.k, static_cast<const T*>(a.k) + off, k0, a.Tkv, ld(a), 0,
-              a.d);
-    load_tile(sm.v, static_cast<const T*>(a.v) + off, k0, a.Tkv, ld(a), 0,
-              a.d);
-  }
-  load_key_valid(key_valid, a.mask + (size_t)(bh / a.H) * a.Tkv, k0, a.Tkv);
-}
-
-// The score step (flash_common.cuh::bwd_probs) of query tile q0 and key
-// tile k0 for output slab o.  A head of one slab has its tiles in shared
-// memory already; a wider head loads q, dout, k and v slab by slab, summing
-// q k^T and dout v^T, and ends with slab o in shared memory for the
-// products that follow.  The caller synchronises before and after.
-template <typename T>
-__device__ __forceinline__ void score_step(const BwdSmem& sm,
-                                           const int* key_valid,
-                                           const BwdArgs& a, int bh, int q0,
-                                           int k0, int o) {
-  const int ns = n_slabs(a.d);
-  float s[4][4], g[4][4];
-  zero_scores(s);
-  zero_scores(g);
-  const size_t q_off = q_base(a, bh);
-  const size_t kv_off = kv_base(a, bh);
-  const int lda = ld(a);
-  for (int i = 0; i < ns; ++i) {
-    const int e = (o + 1 + i) % ns;
-    const int w = slab_width(a.d, e);
-    if (ns > 1) {
-      const int c0 = e * kDMax;
-      __syncthreads();  // the previous slab is read
-      load_tile(sm.q, static_cast<const T*>(a.q) + q_off, q0, a.Tn, lda, c0,
-                w);
-      load_tile(sm.dout, static_cast<const T*>(a.dout) + q_off, q0, a.Tn,
-                lda, c0, w);
-      load_tile(sm.k, static_cast<const T*>(a.k) + kv_off, k0, a.Tkv, lda,
-                c0, w);
-      load_tile(sm.v, static_cast<const T*>(a.v) + kv_off, k0, a.Tkv, lda,
-                c0, w);
-      __syncthreads();
-    }
-    tile_abt(sm.q, sm.k, w, s);
-    tile_abt(sm.dout, sm.v, w, g);
-  }
-  bwd_probs<T>(sm, key_valid, q0, k0, a.Tn, a.Tkv, bh, a.dr, s, g);
 }
 
 // ------------------------------------------------------------------ fused
@@ -496,75 +452,6 @@ __global__ void flash_bwd_dq_reduce(const float* __restrict__ part,
   }
 }
 
-// ------------------------------------------------------------------ split
-
-// grid (key tiles, B*H): dk and dv of one key tile, walking the query
-// tiles, a pass per output slab.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkdv_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  const BwdSmem sm = bwd_smem(smem);
-  __shared__ int key_valid[kTile];
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const size_t kv_off = kv_base(a, bh);
-  for (int o = 0; o < n_slabs(a.d); ++o) {
-    float dk[4][8], dv[4][8];
-    zero_acc(dk);
-    zero_acc(dv);
-    __syncthreads();  // the previous pass's tiles are read
-    load_key_tile<T>(sm, key_valid, a, bh, k0);
-    for (int q0 = 0; q0 < a.Tn; q0 += kTile) {
-      __syncthreads();
-      load_query_tile<T>(sm, a, bh, q0);
-      __syncthreads();
-      score_step<T>(sm, key_valid, a, bh, q0, k0, o);
-      __syncthreads();
-      tile_ptb(sm.p, sm.dout, dv);
-      tile_ptb(sm.ds, sm.q, dk);
-    }
-    const int oc = o * kDMax;
-    const int ow = slab_width(a.d, o);
-    store_acc(static_cast<T*>(a.dk) + kv_off, dk, k0, a.Tkv, ld(a), oc, ow);
-    store_acc(static_cast<T*>(a.dv) + kv_off, dv, k0, a.Tkv, ld(a), oc, ow);
-  }
-}
-
-// grid (query tiles, B*H): dq of one query tile, walking the key tiles, a
-// pass per output slab.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  const BwdSmem sm = bwd_smem(smem);
-  __shared__ int key_valid[kTile];
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  load_query_tile<T>(sm, a, bh, q0);
-  for (int o = 0; o < n_slabs(a.d); ++o) {
-    float dq[4][8];
-    zero_acc(dq);
-    for (int k0 = 0; k0 < a.Tkv; k0 += kTile) {
-      __syncthreads();
-      load_key_tile<T>(sm, key_valid, a, bh, k0);
-      __syncthreads();
-      score_step<T>(sm, key_valid, a, bh, q0, k0, o);
-      __syncthreads();
-      tile_pb(sm.ds, sm.k, dq);
-    }
-    store_acc(a.dq + q_base(a, bh), dq, q0, a.Tn, ld(a), o * kDMax,
-              slab_width(a.d, o));
-  }
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)kBwdSmemBytes);
-}
-
 template <typename T>
 cudaError_t run_fused(const BwdArgs& a, int BH, float* part, int chunks,
                       cudaStream_t stream) {
@@ -598,28 +485,569 @@ cudaError_t run_fused(const BwdArgs& a, int BH, float* part, int chunks,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ split
+
+constexpr int kSplitStagesMax = 12;
+
+// A split kernel's shared memory, laid out on the host (split_plan): ring
+// slots; the side copy's bytes (0: read in place); whether the consumers'
+// A operands stay in shared memory for the whole walk (resident) or come
+// through the ring as raw chunks with each walked tile; whether bf16
+// chunks go straight into the ring (direct); whether the slab's products
+// read the walked tile's natural bf16 chunks again (reuse).
+struct SplitPlan {
+  int stages, side, resident, direct, reuse;
+};
+
+// The consumers' A operands: consumer c's chunk e of operand t (0: q or k,
+// 1: dout or v) at ((c * 2 + t) * ne + e) raw planes.
 template <typename T>
-cudaError_t run_dkdv(const BwdArgs& a, int BH, cudaStream_t stream) {
-  const cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<T>);
+__device__ __forceinline__ char* res_chunk(char* res, int c, int t, int ne,
+                                           int e) {
+  return res + (size_t)((c * 2 + t) * ne + e) * Op<T>::kPlaneBytes;
+}
+
+// A split kernel's dynamic shared memory from its aligned start: the
+// resident operands, the side copy, the producer's staging slots, then
+// the ring.  Thread 0 initialises the barriers (res_full: the producer's
+// 128 threads announce the resident operands and the side copy).
+struct SplitSmem {
+  char* res;
+  char* side;
+  char* stage;
+};
+template <typename T, int NC>
+__device__ __forceinline__ SplitSmem split_smem(char* smem_raw,
+                                                const SplitPlan& p, int ne,
+                                                uint64_t* full,
+                                                uint64_t* empty,
+                                                uint64_t* res_full) {
+  SplitSmem sm;
+  sm.res = aligned_smem(smem_raw);
+  sm.side = sm.res + (p.resident ? NC * 2 * ne * Op<T>::kPlaneBytes : 0);
+  sm.stage = sm.side + ((p.side + 127) & ~127);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(&full[i], kWg);
+      mbar_init(&empty[i], 4 * NC);
+    }
+    mbar_init(res_full, kWg);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// grid (ceil(T / (64 NC)), B*H), (NC + 1) warpgroups: dq of NC query tiles
+// of 64 rows, consumer c the rows [q0 + 64c, q0 + 64c + 64), its output
+// slab NCH chunks (64 NCH columns) a pass.  The producer writes each
+// consumer's q and dout (resident) and the video's key mask (side), then,
+// a pass, for each key tile with an attendable key the chunks k_e, v_e of
+// each 64 columns of d (each preceded by q_e or dout_e, raw, when those
+// are not resident) and, unless reused, the slab's transposed chunks of
+// k.
+template <typename T, int NCH, int NC>
+__global__ void __launch_bounds__(kWg * (NC + 1), 1)
+flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
+  constexpr int kBytes = chunk_bytes<T>();
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kSplitStagesMax], empty[kSplitStagesMax], res_full;
+  const int Tn = a.Tn, Tkv = a.Tkv, d = a.d;
+  const int ne = (d + kTile - 1) / kTile;  // 64-column chunks of d
+  const SplitSmem sm = split_smem<T, NC>(smem_raw, p, ne, full, empty,
+                                         &res_full);
+  Ring ring{sm.stage + kStageBytes, full, empty, p.stages, 0, 0};
+  unsigned char* mask_s = reinterpret_cast<unsigned char*>(sm.side);
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kTile * NC;
+  const int lda = ld(a);
+  const int n_kv = (Tkv + kTile - 1) / kTile;
+  const int passes = (d + NCH * kTile - 1) / (NCH * kTile);
+  const unsigned char* mask_b =
+      p.side ? mask_s : a.mask + (size_t)(bh / a.H) * Tkv;
+
+  // the warpgroup's role, broadcast so that the compiler sees it uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x / kWg), 0);
+  if (wg == 0) {  // the producer
+    const int tid = threadIdx.x;
+    const T* qb = static_cast<const T*>(a.q) + q_base(a, bh);
+    const T* dob = static_cast<const T*>(a.dout) + q_base(a, bh);
+    const T* kb = static_cast<const T*>(a.k) + kv_base(a, bh);
+    const T* vb = static_cast<const T*>(a.v) + kv_base(a, bh);
+    if (p.resident)
+      for (int c = 0; c < NC; ++c)
+        for (int e = 0; e < ne; ++e) {
+          const int c0 = e * kTile;
+          put_raw_chunk(res_chunk<T>(sm.res, c, 0, ne, e), sm.stage, qb, lda,
+                        q0 + c * kTile, Tn, c0, d - c0, tid);
+          put_raw_chunk(res_chunk<T>(sm.res, c, 1, ne, e), sm.stage, dob,
+                        lda, q0 + c * kTile, Tn, c0, d - c0, tid);
+        }
+    if (p.side) {
+      copy_side(mask_s, a.mask + (size_t)(bh / a.H) * Tkv, Tkv, tid);
+      named_sync(2, kWg);  // the producer reads the copy too
+    }
+    mbar_arrive(&res_full);
+    const int kind_t =
+        Op<T>::kPlanes == 2 ? kTransposedPermuted : kTransposed;
+    auto push = [&](const T* src, int r0, int rows, int c0, int kind) {
+      push_chunk(ring, sm.stage, src, lda, r0, rows, c0, d - c0, kind,
+                 p.direct, tid);
+    };
+    for (int o = 0; o < passes; ++o)
+      for (int j = 0; j < n_kv; ++j) {
+        if (!tile_has_key(mask_b, j, Tkv)) continue;
+        const int k0 = j * kTile;
+        for (int e = 0; e < ne; ++e) {
+          const int c0 = e * kTile;
+          if (!p.resident) push(qb, q0, Tn, c0, kRaw);
+          push(kb, k0, Tkv, c0, kNatural);
+          if (!p.resident) push(dob, q0, Tn, c0, kRaw);
+          push(vb, k0, Tkv, c0, kNatural);
+        }
+        if (!p.reuse)  // the slab's NCH chunks of k^T, zero past d
+          for (int c = 0; c < NCH; ++c)
+            push(kb, k0, Tkv, (o * NCH + c) * kTile, kind_t);
+      }
+    return;
+  }
+
+  // a consumer: rows row0 and row0 + 8 (queries), columns 8jj + cq + {0, 1}
+  // of each tile (keys; the slab's columns of d in dq)
+  const int cw = wg - 1;
+  const int row0 = q0 + cw * kTile + acc_row();
+  const int cq = acc_col();
+  bool q_in[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    q_in[i] = row < Tn;
+    lse_r[i] = q_in[i] ? a.lse[(size_t)bh * Tn + row] : 0.0f;
+    delta_r[i] = q_in[i] ? a.delta[(size_t)bh * Tn + row] : 0.0f;
+  }
+  const char* res_q = res_chunk<T>(sm.res, cw, 0, ne, 0);
+  const char* res_do = res_chunk<T>(sm.res, cw, 1, ne, 0);
+  float* dqb = a.dq + q_base(a, bh);
+  const Dropout dr = a.dr;
+  const float inv_keep = 1.0f / dr.keep;
+  auto take = [&](int& slot) -> const char* {
+    slot = ring.stage;
+    ring.wait_full();
+    const char* c = ring.slot(kBytes);
+    ring.advance();
+    return c;
+  };
+  mbar_wait(&res_full, 0);
+
+  for (int o = 0; o < passes; ++o) {
+    float dq[NCH][32];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[c][i] = 0.0f;
+
+    for (int j = 0; j < n_kv; ++j) {
+      if (!tile_has_key(mask_b, j, Tkv)) continue;
+      const int k0 = j * kTile;
+      const int start = ring.stage;  // the tile's first chunk (reuse)
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+      for (int e = 0; e < ne; ++e) {  // s = q k^T, dp = dout v^T
+        int sq, sk, sd, sv;
+        const char* qa = p.resident ? res_q + e * Op<T>::kPlaneBytes
+                                    : take(sq);
+        const char* kc = take(sk);
+        const char* da = p.resident ? res_do + e * Op<T>::kPlaneBytes
+                                    : take(sd);
+        const char* vc = take(sv);
+        mma_chunk<T>(s, qa, kc);
+        mma_chunk<T>(dp, da, vc);
+        wgmma_commit();
+        wgmma_wait();
+        if (!p.resident) {
+          ring.release(sq);
+          ring.release(sd);
+        }
+        ring.release(sv);
+        if (!(p.reuse && e / NCH == o)) ring.release(sk);
+      }
+      // the score step: p = exp(s - lse) (0 past T), the dropout on g =
+      // dout v^T, ds = p (g - delta) rounded to T, into s
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int key = k0 + 8 * jj + cq + c2;
+          const bool kv = key < Tkv && mask_b[key];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 4 * jj + 2 * i + c2;
+            const float sv = kv ? s[idx] : kNegInf;
+            const float pr = q_in[i] ? __expf(sv - lse_r[i]) : 0.0f;
+            float g = dp[idx];
+            if (dr.on)
+              g = g * (kept(dr, bh, Tn, Tkv, row0 + 8 * i, key) ? inv_keep
+                                                                : 0.0f);
+            s[idx] = rnd<T>(pr * (g - delta_r[i]));
+          }
+        }
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {  // dq += ds k, a chunk of k^T each
+        int slot;
+        const char* b;
+        if (p.reuse) {  // the tile's natural chunk of k, read MN-major
+          slot = (start + 2 * (o * NCH + c)) % p.stages;
+          b = ring.slots + (size_t)slot * kBytes;
+        } else {
+          b = take(slot);
+        }
+        mma_acc<T>(dq[c], s, b);
+        wgmma_commit();
+        wgmma_wait();
+        ring.release(slot);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= Tn) continue;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int col = (o * NCH + c) * kTile + 8 * jj + cq + c2;
+            if (col < d)
+              dqb[(size_t)row * lda + col] = dq[c][4 * jj + 2 * i + c2];
+          }
+    }
+  }
+}
+
+// grid (ceil(T_kv / (64 NC)), B*H), (NC + 1) warpgroups: dk and dv of NC
+// key tiles of 64 rows, consumer c the key tile blockIdx.x * NC + c, its
+// output slabs two chunks (128 columns) a pass.  The producer writes each
+// consumer's k and v (resident) and lse and delta (side); then, unless no
+// key tile of the block has an attendable key, a pass, for each query
+// tile the chunks q_e, dout_e of each 64 columns of d (each preceded by
+// k_e or v_e, raw, when those are not resident) and, unless reused, the
+// slab's transposed chunks of dout and q.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kWg * (NC + 1), 1)
+flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
+  constexpr int kBytes = chunk_bytes<T>();
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kSplitStagesMax], empty[kSplitStagesMax], res_full;
+  const int Tn = a.Tn, Tkv = a.Tkv, d = a.d;
+  const int ne = (d + kTile - 1) / kTile;  // 64-column chunks of d
+  const SplitSmem sm = split_smem<T, NC>(smem_raw, p, ne, full, empty,
+                                         &res_full);
+  Ring ring{sm.stage + kStageBytes, full, empty, p.stages, 0, 0};
+  float* lse_s = reinterpret_cast<float*>(sm.side);
+  float* delta_s = lse_s + Tn;
+
+  const int bh = blockIdx.y;
+  const int j0 = blockIdx.x * NC;  // the block's first key tile
+  const int lda = ld(a);
+  const int passes = (ne + 1) / 2;  // output slabs of two chunks
+  const unsigned char* mask_b = a.mask + (size_t)(bh / a.H) * Tkv;
+  const float* lse_b = p.side ? lse_s : a.lse + (size_t)bh * Tn;
+  const float* delta_b = p.side ? delta_s : a.delta + (size_t)bh * Tn;
+  bool any = false;  // whether a key tile of the block has a valid key
+#pragma unroll
+  for (int c = 0; c < NC; ++c) any = tile_has_key(mask_b, j0 + c, Tkv) || any;
+
+  // the warpgroup's role, broadcast so that the compiler sees it uniform
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x / kWg), 0);
+  if (wg == 0) {  // the producer
+    const int tid = threadIdx.x;
+    const T* qb = static_cast<const T*>(a.q) + q_base(a, bh);
+    const T* dob = static_cast<const T*>(a.dout) + q_base(a, bh);
+    const T* kb = static_cast<const T*>(a.k) + kv_base(a, bh);
+    const T* vb = static_cast<const T*>(a.v) + kv_base(a, bh);
+    if (p.resident && any)
+      for (int c = 0; c < NC; ++c)
+        for (int e = 0; e < ne; ++e) {
+          const int c0 = e * kTile;
+          const int k0 = (j0 + c) * kTile;
+          put_raw_chunk(res_chunk<T>(sm.res, c, 0, ne, e), sm.stage, kb, lda,
+                        k0, Tkv, c0, d - c0, tid);
+          put_raw_chunk(res_chunk<T>(sm.res, c, 1, ne, e), sm.stage, vb, lda,
+                        k0, Tkv, c0, d - c0, tid);
+        }
+    if (p.side && any) {
+      copy_side(lse_s, a.lse + (size_t)bh * Tn, Tn, tid);
+      copy_side(delta_s, a.delta + (size_t)bh * Tn, Tn, tid);
+    }
+    mbar_arrive(&res_full);
+    if (!any) return;
+    const int kind_t =
+        Op<T>::kPlanes == 2 ? kTransposedPermuted : kTransposed;
+    auto push = [&](const T* src, int r0, int rows, int c0, int kind) {
+      push_chunk(ring, sm.stage, src, lda, r0, rows, c0, d - c0, kind,
+                 p.direct, tid);
+    };
+    for (int o = 0; o < passes; ++o)
+      for (int q0 = 0; q0 < Tn; q0 += kTile) {
+        for (int e = 0; e < ne; ++e) {
+          const int c0 = e * kTile;
+          if (!p.resident) push(kb, j0 * kTile, Tkv, c0, kRaw);
+          push(qb, q0, Tn, c0, kNatural);
+          if (!p.resident) push(vb, j0 * kTile, Tkv, c0, kRaw);
+          push(dob, q0, Tn, c0, kNatural);
+        }
+        if (!p.reuse) {  // the slab's two chunks of each (zero past d)
+          for (int c = 0; c < 2; ++c)
+            push(dob, q0, Tn, (2 * o + c) * kTile, kind_t);
+          for (int c = 0; c < 2; ++c)
+            push(qb, q0, Tn, (2 * o + c) * kTile, kind_t);
+        }
+      }
+    return;
+  }
+
+  // a consumer: rows r and r + 8 of its key tile, columns 8jj + cq + {0,
+  // 1} of each tile (queries; the slab's columns of d in dk and dv)
+  const int cw = wg - 1;
+  const int k0 = (j0 + cw) * kTile;
+  const int r = acc_row();
+  const int cq = acc_col();
+  T* dkb = static_cast<T*>(a.dk) + kv_base(a, bh);
+  T* dvb = static_cast<T*>(a.dv) + kv_base(a, bh);
+  if (!any) {
+    // no attendable key in the block: p and ds are exactly 0, so dk = dv
+    // = 0
+    const int tid = threadIdx.x - kWg * wg;
+    for (int i = tid; i < kTile * d; i += kWg) {
+      const int row = k0 + i / d;
+      if (row < Tkv) {
+        dkb[(size_t)row * lda + i % d] = from_f<T>(0.0f);
+        dvb[(size_t)row * lda + i % d] = from_f<T>(0.0f);
+      }
+    }
+    return;
+  }
+  // a key tile with no valid key beside one with some computes p = ds = 0
+  // with it, and stores zeros
+  const bool own = tile_has_key(mask_b, j0 + cw, Tkv);
+  const bool kv_in[2] = {k0 + r < Tkv && mask_b[k0 + r],
+                         k0 + r + 8 < Tkv && mask_b[k0 + r + 8]};
+  const char* res_k = res_chunk<T>(sm.res, cw, 0, ne, 0);
+  const char* res_v = res_chunk<T>(sm.res, cw, 1, ne, 0);
+  const Dropout dr = a.dr;
+  const float inv_keep = 1.0f / dr.keep;
+  auto take = [&](int& slot) -> const char* {
+    slot = ring.stage;
+    ring.wait_full();
+    const char* c = ring.slot(kBytes);
+    ring.advance();
+    return c;
+  };
+  // the walked tile's natural chunk at `off` from its first (reuse)
+  auto again = [&](int start, int off, int& slot) -> const char* {
+    slot = (start + off) % p.stages;
+    return ring.slots + (size_t)slot * kBytes;
+  };
+  mbar_wait(&res_full, 0);
+
+  for (int o = 0; o < passes; ++o) {
+    float dk[2][32], dv[2][32];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.0f;
+
+    for (int q0 = 0; q0 < Tn; q0 += kTile) {
+      const int start = ring.stage;
+      float st[32], dp[32];  // s^T = k q^T and dp^T = v dout^T
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.0f;
+      for (int e = 0; e < ne; ++e) {
+        int sk, sq, sv, so;
+        const char* ka = p.resident ? res_k + e * Op<T>::kPlaneBytes
+                                    : take(sk);
+        const char* qc = take(sq);
+        const char* va = p.resident ? res_v + e * Op<T>::kPlaneBytes
+                                    : take(sv);
+        const char* oc = take(so);
+        mma_chunk<T>(st, ka, qc);
+        mma_chunk<T>(dp, va, oc);
+        wgmma_commit();
+        wgmma_wait();
+        if (!p.resident) {
+          ring.release(sk);
+          ring.release(sv);
+        }
+        if (!(p.reuse && e / 2 == o)) {
+          ring.release(sq);
+          ring.release(so);
+        }
+      }
+      // the score step: p = exp(s - lse) (0 past T), the dropout on p and
+      // on g = dout v^T, ds = p (g - delta) with the undropped p; p_drop
+      // into st and ds into dp, each rounded to T
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int c2 = 0; c2 < 2; ++c2) {
+          const int query = q0 + 8 * jj + cq + c2;
+          const bool q_in = query < Tn;
+          const float lse_q = q_in ? lse_b[query] : 0.0f;
+          const float delta_q = q_in ? delta_b[query] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int idx = 4 * jj + 2 * i + c2;
+            const float sv = kv_in[i] ? st[idx] : kNegInf;
+            const float pr = q_in ? __expf(sv - lse_q) : 0.0f;
+            float g = dp[idx];
+            float p_drop = pr;
+            if (dr.on) {
+              const float mm =
+                  kept(dr, bh, Tn, Tkv, query, k0 + r + 8 * i) ? inv_keep
+                                                               : 0.0f;
+              p_drop = pr * mm;
+              g = g * mm;
+            }
+            st[idx] = rnd<T>(p_drop);
+            dp[idx] = rnd<T>(pr * (g - delta_q));
+          }
+        }
+      {  // dv += p_drop^T dout, then dk += ds^T q, the slab's two chunks
+        int s1, s2;
+        const char* b1 = p.reuse ? again(start, 2 * (2 * o) + 1, s1)
+                                 : take(s1);
+        const char* b2 = p.reuse ? again(start, 2 * (2 * o + 1) + 1, s2)
+                                 : take(s2);
+        mma_acc<T>(dv[0], st, b1);
+        mma_acc<T>(dv[1], st, b2);
+        wgmma_commit();
+        wgmma_wait();
+        ring.release(s1);
+        ring.release(s2);
+        b1 = p.reuse ? again(start, 2 * (2 * o), s1) : take(s1);
+        b2 = p.reuse ? again(start, 2 * (2 * o + 1), s2) : take(s2);
+        mma_acc<T>(dk[0], dp, b1);
+        mma_acc<T>(dk[1], dp, b2);
+        wgmma_commit();
+        wgmma_wait();
+        ring.release(s1);
+        ring.release(s2);
+      }
+    }
+    // this slab of dk and dv
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + r + 8 * i;
+      if (row >= Tkv) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int col = (2 * o + c) * kTile + 8 * jj + cq + c2;
+            if (col >= d) continue;
+            dkb[(size_t)row * lda + col] =
+                from_f<T>(own ? dk[c][4 * jj + 2 * i + c2] : 0.0f);
+            dvb[(size_t)row * lda + col] =
+                from_f<T>(own ? dv[c][4 * jj + 2 * i + c2] : 0.0f);
+          }
+    }
+  }
+}
+
+// The layout of a split kernel with NC consumers and output slabs of NCH
+// chunks, wanting `side` bytes of side copy; false when not even the
+// streamed form's ring fits.  `bytes` gets the dynamic shared memory.
+template <typename T>
+bool split_plan(SplitPlan& p, int& bytes, const BwdArgs& a, int nc, int nch,
+                int side) {
+  constexpr int kStatic = 8 * (2 * kSplitStagesMax + 1);
+  const int chunk = chunk_bytes<T>();
+  const int ne = (a.d + kTile - 1) / kTile;
+  const int res = nc * 2 * ne * Op<T>::kPlaneBytes;
+  // resident while a ring of two slots (one walked chunk of each score
+  // product) fits beside; streamed, a consumer holds four at once
+  p.resident = ring_stages(kStatic + kStageBytes + kSmemAlign + res, chunk,
+                           kSplitStagesMax) >= 2;
+  if (!p.resident && nc > 1) return false;
+  const int least = p.resident ? 2 : 4;
+  const int base = kStageBytes + kSmemAlign + (p.resident ? res : 0);
+  p.side = side_within(side, kStatic + base, chunk, least);
+  const int fixed = base + ((p.side + 127) & ~127);
+  p.stages = ring_stages(kStatic + fixed, chunk, kSplitStagesMax);
+  p.direct = direct_rows(a.q, a.d, a.d, sizeof(T)) &&
+             direct_rows(a.k, a.d, a.d, sizeof(T)) &&
+             direct_rows(a.v, a.d, a.d, sizeof(T)) &&
+             direct_rows(a.dout, a.d, a.d, sizeof(T));
+  // the slab's chunks are the walked tile's own natural ones when each
+  // slab chunk is one and the ring holds a whole tile
+  p.reuse = sizeof(T) == 2 && p.resident && ne % nch == 0 &&
+            p.stages >= 2 * ne;
+  bytes = fixed + p.stages * chunk;
+  return p.stages >= least;
+}
+
+template <typename T, int NCH, int NC>
+cudaError_t launch_dq(const BwdArgs& a, int BH, cudaStream_t stream) {
+  SplitPlan p;
+  int bytes;
+  if (!split_plan<T>(p, bytes, a, NC, NCH, side_bytes(a.Tkv, 0)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, NCH, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T><<<dim3((a.Tkv + kTile - 1) / kTile, BH), kThreads,
-                             kBwdSmemBytes, stream>>>(a);
+  const dim3 grid((a.Tn + kTile * NC - 1) / (kTile * NC), BH);
+  flash_bwd_dq_kernel<T, NCH, NC><<<grid, kWg * (NC + 1), bytes, stream>>>(
+      a, p);
   return cudaGetLastError();
 }
 
+template <typename T, int NC>
+cudaError_t launch_dkdv(const BwdArgs& a, int BH, cudaStream_t stream) {
+  SplitPlan p;
+  int bytes;
+  if (!split_plan<T>(p, bytes, a, NC, 2, side_bytes(0, 2 * a.Tn)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<T, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tkv + kTile * NC - 1) / (kTile * NC), BH);
+  flash_bwd_dkdv_kernel<T, NC><<<grid, kWg * (NC + 1), bytes, stream>>>(a, p);
+  return cudaGetLastError();
+}
+
+// d <= 128: two consumers (the dq kernel's fit in 168 registers a
+// thread); a wider head one, its output slab 256 columns.
 template <typename T>
 cudaError_t run_dq(const BwdArgs& a, int BH, cudaStream_t stream) {
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<T>);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T><<<dim3((a.Tn + kTile - 1) / kTile, BH), kThreads,
-                           kBwdSmemBytes, stream>>>(a);
-  return cudaGetLastError();
+  if (a.d <= 2 * kTile) return launch_dq<T, 2, 2>(a, BH, stream);
+  return launch_dq<T, 4, 1>(a, BH, stream);
+}
+
+// Two consumers at d <= 128 in bf16 only.  A dk/dv consumer needs about
+// 250 registers (dk and dv of a slab, s^T and dp^T: 192 of them), so two
+// of them spill at 168; in bf16 that still beats one consumer, in f32
+// (whose producer converts every chunk) it does not.  Giving the
+// consumers the producer's registers (setmaxnreg) starved the producer:
+// slower in both, on an H100.
+template <typename T>
+cudaError_t run_dkdv(const BwdArgs& a, int BH, cudaStream_t stream) {
+  if (a.d <= 2 * kTile && sizeof(T) == 2)
+    return launch_dkdv<T, 2>(a, BH, stream);
+  return launch_dkdv<T, 1>(a, BH, stream);
 }
 
 bool bad_args(int BH, int H, int Tn, int Tkv, int d, float keep,
               int dropout) {
   return BH <= 0 || H <= 0 || BH % H || Tn <= 0 || Tkv <= 0 || d <= 0 ||
-         n_slabs(d) > kMaxSlabs || (dropout && !(keep > 0.0f));
+         d > kDHead || (dropout && !(keep > 0.0f));
 }
 
 // Checks the fused form's arguments and launches it in the layout bthd

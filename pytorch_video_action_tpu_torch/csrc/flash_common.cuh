@@ -1,8 +1,7 @@
 // Device code shared by every flash-attention kernel (flash_fwd.cu,
 // flash_bwd.cu): the tile height, the masked score, the dropout keep bit
 // (hash.cuh's fmix32) and the head layouts.  The tensor-core machinery of
-// the forward and the fused backward is flash_wgmma.cuh; the SIMT tiles of
-// the split backward are flash_simt.cuh.
+// every form is flash_wgmma.cuh.
 
 #pragma once
 

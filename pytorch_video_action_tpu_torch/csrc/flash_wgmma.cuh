@@ -1,5 +1,6 @@
 // The Hopper (sm_90a) machinery of the flash forward (flash_fwd.cu) and
-// the fused flash backward (flash_bwd.cu): warpgroup products (wgmma), the
+// the flash backward's fused and split forms (flash_bwd.cu): warpgroup
+// products (wgmma), the
 // ring of operand chunks that a producer warpgroup fills and the consumer
 // warpgroups drain (mbarriers), and the conversions between device memory,
 // the chunks, the accumulators and the register A operand.
@@ -31,7 +32,9 @@
 // or 4 bytes as the address allows, element loads for an odd head width in
 // bf16) and are converted into a free ring slot (the tf32 split, the
 // transpose, zeros past the edges), fenced for wgmma and announced on the
-// slot's full barrier.
+// slot's full barrier.  A raw chunk (kRaw) is an f32 chunk left unsplit,
+// one plane, for a consumer that splits it as a register A operand
+// (mma_chunk); in bf16 raw and natural are the same chunk.
 
 #pragma once
 
@@ -459,7 +462,7 @@ __device__ __forceinline__ void push_direct(Ring& ring,
 // the conversion (a deeper staging) measured slower on an H100: the
 // conversion's shared-memory accesses then queue behind them.  A bf16
 // chunk is always natural: the products read it transposed (MN-major).
-enum ChunkKind { kNatural, kTransposed, kTransposedPermuted };
+enum ChunkKind { kNatural, kTransposed, kTransposedPermuted, kRaw };
 template <typename T>
 __device__ __forceinline__ void push_chunk(Ring& ring, char* stage,
                                            const T* src, int ld, int r0,
@@ -484,6 +487,8 @@ __device__ __forceinline__ void push_chunk(Ring& ring, char* stage,
     unstage(stage, i, v, T());
     if (kind == kNatural) {
       put4<T, true>(chunk, unit_row(i), unit_group(i), v);
+    } else if (kind == kRaw) {
+      put4<T, false>(chunk, unit_row(i), unit_group(i), v);
     } else {
       const int k = unit_row(i);
       const int g = unit_group(i);
@@ -495,6 +500,27 @@ __device__ __forceinline__ void push_chunk(Ring& ring, char* stage,
     }
   }
   ring.fill();
+}
+
+// The raw chunk (f32 unsplit, or bf16) of rows [r0, r0 + 64) and columns
+// [c0, c0 + 64) of the row-major `src` at `chunk`, outside the ring: a
+// consumer's resident A operand, written by the producer through its
+// staging slots (zero past `rows` and `cols`); the caller announces it.
+template <typename T>
+__device__ __forceinline__ void put_raw_chunk(char* chunk, char* stage,
+                                              const T* src, int ld, int r0,
+                                              int rows, int c0, int cols,
+                                              int tid) {
+  stage_chunk(stage, src, ld, r0, rows, c0, cols, tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const int i = tid + kWg * it;
+    float v[4];
+    unstage(stage, i, v, T());
+    put4<T, false>(chunk, unit_row(i), unit_group(i), v);
+  }
 }
 
 // Whether a bf16 operand's chunks can take push_direct: every row's units

@@ -11,7 +11,6 @@ package's native gz parser is a host speed-up the port does not have yet.
 from __future__ import annotations
 
 import os
-import pickle
 
 import numpy as np
 
@@ -34,10 +33,13 @@ def cache_paths(cache_dir: str, part: str, split: int) -> tuple[str, str]:
 
 
 def load_cached(path: str):
-    """The cached list of arrays, or None when there is no readable cache."""
+    """The cached list of arrays, or None when there is no readable cache:
+    any failure to read or unpickle it (a missing file, a corrupt one, a
+    pickle naming a module that no longer imports) sends the caller back to
+    the gz files, as JAX's does."""
     try:
         return list(np.load(path, allow_pickle=True))
-    except (OSError, ValueError, EOFError, pickle.UnpicklingError):
+    except Exception:
         return None
 
 
@@ -47,5 +49,5 @@ def save_cache(path: str, arrays: list[np.ndarray]) -> None:
         for i, a in enumerate(arrays):
             obj[i] = a
         np.save(path, obj, allow_pickle=True)
-    except OSError as e:  # non-fatal, mirrors the reference's warning path
+    except Exception as e:  # non-fatal, mirrors the reference's warning path
         print("[WARNING] Failed to save data cache\n  > ", e)

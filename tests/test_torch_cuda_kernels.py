@@ -514,17 +514,28 @@ def test_flash_fwd_wide_head_long_keys(cuda_device, dtype):
     assert _rel_err(lse, want_lse) <= TOL[torch.float32]
 
 
+def _split_bwd(*args):
+    """The split backward's two kernels: ``(dq, dk, dv)``."""
+    return (F.flash_bwd_dq(*args), *F.flash_bwd_dkdv(*args))
+
+
+@pytest.mark.parametrize("form", ["fused", "split"])
 @pytest.mark.parametrize("sms", [132, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_skips_key_tiles_with_no_valid_key_exactly(cuda_device, dtype,
-                                                         sms, monkeypatch):
+                                                         sms, monkeypatch,
+                                                         form):
     """Key tiles 8-9 of T_kv = 640 masked in both videos, tiles 0-2 in the
     second: against the same calls on T_kv = 512 (those two tiles cut off),
-    out, lse, dk and dv bit for bit, dq (whose chunks follow T_kv) to the
-    f32 tolerance.  Dropout 0, as the keep bit's index holds T_kv.  On 8
+    out, lse, dk and dv bit for bit, dq (whose fused chunks follow T_kv)
+    to the f32 tolerance, the split's dq (it walks the key tiles in order)
+    bit for bit.  Dropout 0, as the keep bit's index holds T_kv.  On 8
     SMs the fused backward has 2 chunks a (b, h): the second video's first
     chunk starts on masked tiles, and every video's second chunk ends on
-    them; on 132, one chunk a tile, three of them fully masked."""
+    them; on 132, one chunk a tile, three of them fully masked.  The
+    split's dk/dv blocks take two key tiles each: tiles 8-9 are one block
+    with none valid, and tiles 2-3 of the second video pair a masked tile
+    with a valid one."""
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: type("P", (), {
                             "multi_processor_count": sms})())
@@ -536,18 +547,60 @@ def test_flash_skips_key_tiles_with_no_valid_key_exactly(cuda_device, dtype,
     out_c, lse_c = F.flash_fwd(q, *cut, mask[:, :512].contiguous())
     assert torch.equal(out, out_c) and torch.equal(lse, lse_c)
     delta = (dout.float() * out.float()).sum(dim=-1)
-    dq, dk, dv = F.flash_bwd_fused(q, k, v, mask, 0.0, None, lse, delta,
-                                   dout)
-    dq_c, dk_c, dv_c = F.flash_bwd_fused(q, *cut, mask[:, :512].contiguous(),
-                                         0.0, None, lse, delta, dout)
+    bwd = F.flash_bwd_fused if form == "fused" else _split_bwd
+    dq, dk, dv = bwd(q, k, v, mask, 0.0, None, lse, delta, dout)
+    dq_c, dk_c, dv_c = bwd(q, *cut, mask[:, :512].contiguous(), 0.0, None,
+                           lse, delta, dout)
     assert torch.equal(dk[:, :, :512], dk_c) and torch.equal(dv[:, :, :512],
                                                              dv_c)
     assert (dk[:, :, 512:] == 0).all() and (dv[:, :, 512:] == 0).all()
     assert dq.dtype == torch.float32  # the f32 sums, before any rounding
     assert _rel_err(dq, dq_c) <= TOL[torch.float32]
+    if form == "split":
+        assert torch.equal(dq, dq_c)
     want = F._bwd_ref(q, k, v, mask, 0.0, None, lse, delta, dout)
     for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert _rel_err(g, w) <= TOL[dtype], name
+
+
+# The split backward's own edges: key counts that are not a multiple of
+# its dk/dv kernel's two-consumer block of 128 keys (1000, 1088), T !=
+# T_kv, and the head widths of each of its forms (d <= 128: two consumers
+# a block; 200: one, the dq kernel's slab 256 columns; 400: two slabs, its
+# A operands streamed through the ring in f32).  bf16 rows of d = 100 are
+# 200 bytes: no TMA, the 8-byte cp.async path.
+SPLIT_CASES = [(700, 1000, [1000, 613]), (1088, 1088, [1088, 1000])]
+
+
+@pytest.mark.parametrize("d", [64, 100, 128, 200, 400])
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=["T700_Tkv1000", "T1088"])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_bwd_matches_plain(cuda_device, dtype, rate, case, d):
+    """The split's two kernels against the plain version, and a rerun of
+    each bit for bit."""
+    t, t_kv, lengths = case
+    rng = np.random.default_rng(12)
+    q, dout = (rng.normal(size=(2, 2, t, d)).astype(np.float32)
+               for _ in range(2))
+    k, v = (rng.normal(size=(2, 2, t_kv, d)).astype(np.float32)
+            for _ in range(2))
+    q /= np.sqrt(d)
+    mask = np.arange(t_kv)[None, :] < np.asarray(lengths)[:, None]
+    q, k, v, dout = (torch.from_numpy(a).to(cuda_device, dtype)
+                     for a in (q, k, v, dout))
+    mask = torch.from_numpy(mask).to(cuda_device)
+    out, lse = F.flash_fwd(q, k, v, mask, rate, 21)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, mask, rate, 21, lse, delta, dout)
+    got = _split_bwd(*args)
+    again = _split_bwd(*args)
+    want = F._bwd_ref(*args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("case", ["float64", "noncontiguous", "mask_uint8",

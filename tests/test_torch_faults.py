@@ -16,10 +16,19 @@ that showed it:
    ``1 / keep`` to bf16 before the product (a weakly typed scalar), the
    port multiplied by the f32 scale and rounded after it.  At keep 0.7 one
    output in eight differed by an ulp.
+6. ``data/features.py``: a stale or corrupt feature cache (here an object
+   array whose pickle names a module that no longer imports, which raises
+   ``ModuleNotFoundError``) made the port's ``load_cached`` and
+   ``VideoDataset`` raise, where JAX's catch ``Exception`` and re-parse the
+   gz files; ``save_cache`` likewise raised on what it could not pickle,
+   where JAX's prints its warning.
 
 f32: 1e-5 of each tensor's largest element (at least 1), the same sums in
 another order.
 """
+
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -28,10 +37,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pytorch_video_action_tpu.data import features as jfeat
+from pytorch_video_action_tpu.data.dataset import VideoDataset as JVideoDataset
 from pytorch_video_action_tpu.infer import loader as jloader
 from pytorch_video_action_tpu.models import build_model as jbuild
 from pytorch_video_action_tpu.ops import hashmask as jhash
 from pytorch_video_action_tpu.train import checkpoint as jckpt
+from pytorch_video_action_tpu_torch.data import features as pfeat
+from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
 from pytorch_video_action_tpu_torch.infer import loader as ploader
 from pytorch_video_action_tpu_torch.models import build_model
 from pytorch_video_action_tpu_torch.models.params import from_jax_params
@@ -199,3 +212,68 @@ def test_bf16_dropout_scale_matches_jax():
     assert got.dtype == torch.bfloat16
     assert np.array_equal(got.float().numpy(),
                           np.asarray(want.astype(jnp.float32)))
+
+
+# ------------------------------------------- 6. the feature cache
+
+
+def _stale_cache(path):
+    """An object-array ``.npy`` whose pickle names a module that is gone:
+    loading it raises ``ModuleNotFoundError``."""
+    name = "pva_feature_cache_gone"
+    mod = types.ModuleType(name)
+
+    class Feature:
+        pass
+
+    Feature.__module__ = name
+    Feature.__qualname__ = "Feature"
+    mod.Feature = Feature
+    sys.modules[name] = mod
+    try:
+        obj = np.empty(2, dtype=object)
+        obj[0], obj[1] = Feature(), Feature()
+        np.save(path, obj, allow_pickle=True)
+    finally:
+        del sys.modules[name]
+    with pytest.raises(ModuleNotFoundError):
+        np.load(path, allow_pickle=True)
+
+
+def test_stale_feature_cache_is_reparsed_as_in_jax(tmp_path, monkeypatch):
+    """Both packages' ``load_cached`` return None on the stale cache, and
+    both ``VideoDataset``s re-parse the gz files past it: equal features
+    and labels."""
+    from synthetic import make_synthetic_tree
+
+    root = tmp_path / "ds"
+    make_synthetic_tree(str(root), n_train=3, n_dev=2, n_test=2)
+    stale = tmp_path / "stale.npy"
+    _stale_cache(stale)
+    assert jfeat.load_cached(str(stale)) is None
+    assert pfeat.load_cached(str(stale)) is None
+    kw = dict(data_dir=str(root / "data"), annot_path=str(root),
+              part="dev", split=0, mode="active", verbose=False)
+    got = {}
+    for name, cls in (("jax", JVideoDataset), ("port", VideoDataset)):
+        cache_dir = tmp_path / f"cache_{name}"
+        cache_dir.mkdir()
+        for kind in ("features", "labels"):
+            _stale_cache(cache_dir / f"dev-0-{kind}.npy")
+        got[name] = cls(cache_dir=str(cache_dir), **kw)
+    assert len(got["port"].features) == len(got["jax"].features) == 2
+    for a, b in zip(got["jax"].features, got["port"].features):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got["jax"].labels, got["port"].labels):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_unpicklable_feature_cache_warns_as_in_jax(tmp_path, capsys):
+    """``save_cache`` of what pickle refuses (a local function) prints
+    JAX's warning in both packages and raises in neither."""
+    def local():
+        pass
+
+    for feat in (jfeat, pfeat):
+        feat.save_cache(str(tmp_path / "x.npy"), [np.zeros(3), local])
+        assert "[WARNING] Failed to save data cache" in capsys.readouterr().out
