@@ -70,8 +70,9 @@ Phases, in order; any failure exits non-zero:
    kernel); then serves the six checkpoints as one ensemble on the card.
 5. training: for bigru, bilstm and attn, repeats phase 3's train-form and
    backward checks at the largest train batch (attn's two backwards also
-   at each other padded length the dispatch sends to the split, f32;
-   1536 here), runs the port's train CLI
+   at each other padded length of its flash path, f32 and bf16: 1024 and
+   1152, which the dispatch sends to the fused form, and 1536, which it
+   sends to the split), runs the port's train CLI
    on the card (2 epochs, batch 8, f32 and bf16), checks the launch counts
    of every kernel (per step one train-form forward and one backward per
    layer and, for attn at padded T >= 1024, one flash forward and one
@@ -453,7 +454,7 @@ def ptxas_summary(logs) -> list[str]:
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if kernel in line else None
                 if fn:
-                    info[fn] = []
+                    info.setdefault(fn, [])
             elif fn and ("spill" in line or "Used" in line):
                 info[fn].append(" ".join(line.replace("ptxas info    :",
                                                       "").split()))
@@ -2154,7 +2155,8 @@ def phase_train(card: str, root: str, name: str):
     import torch
 
     from pytorch_video_action_tpu_torch.cli import inference_cli
-    from pytorch_video_action_tpu_torch.models import INFERENCE_NAMES
+    from pytorch_video_action_tpu_torch.models import (INFERENCE_NAMES,
+                                                       attention)
 
     cell = cell_of(name)
     t0 = time.time()
@@ -2174,22 +2176,23 @@ def phase_train(card: str, root: str, name: str):
         forms = [(dt, r) for r in (ATTN_RATE, 0.0) for dt in DTYPES]
         rows = check_flash("main path", lens, t_pad, gen, fwd=forms,
                            bwd=forms)
-        # the fused and the split backward at the other padded lengths
-        # whose batches the dispatch (use_fused) sends to the split (1536
-        # on the chip dataset): the times that place its threshold
-        split = {}
+        # the fused and the split backward at the flash path's other
+        # padded lengths (1024 and 1152 go to the fused form, 1536 to the
+        # split, on the chip dataset), f32 and bf16: the times that place
+        # the dispatch's (use_fused) threshold
+        others = {}
         for ix in train_feed.index_batches():
             t_len = train_feed.collate(ix)[0].shape[1]
-            if t_len != t_pad and not use_fused(len(ix), t_len):
-                split.setdefault(t_len, ix)
-        if not split:
+            if t_len != t_pad and t_len >= attention.BLOCKWISE_MIN_T:
+                others.setdefault(t_len, ix)
+        if all(use_fused(len(ix), t) for t, ix in others.items()):
             raise AssertionError("no train batch besides the largest goes "
                                  "to the split backward")
-        for t_len, ix in sorted(split.items()):
+        for t_len, ix in sorted(others.items()):
             lens_t = [len(train_feed.dataset.features[i]) for i in ix]
-            for k, got in check_flash("main path", lens_t, t_len, gen,
-                                      fwd=[], bwd=[("float32",
-                                                    ATTN_RATE)]).items():
+            for k, got in check_flash(
+                    "main path", lens_t, t_len, gen, fwd=[],
+                    bwd=[(dt, ATTN_RATE) for dt in DTYPES]).items():
                 rows[k] += got
     elif MODELS[name][0] == "scan":
         rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen)

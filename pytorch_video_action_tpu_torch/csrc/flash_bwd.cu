@@ -19,12 +19,14 @@
 // p_drop and ds are rounded to the input dtype before their products; the
 // sums are f32; dq is stored f32, dk and dv in the input dtype.
 //
-// What bounds it on an H100: 10*B*H*T*T_kv*d operations in every form (the
-// five products, counted once) -- 268 GFLOP at the bench shape (B=4, H=4,
-// T=4096, d=100): in bf16 0.27 ms at the tensor cores' 989 TFLOP/s; in
-// f32, as 3xTF32's three products, 1.63 ms at TF32's 495 TFLOP/s (4.0 ms
-// at f32's 67 TFLOP/s outside the tensor cores) -- against about 60 MB of
-// operands and gradients in f32 (18 us at 3.35 TB/s): operations.
+// What bounds it on an H100: operations.  The fused form does 10*B*H*T*
+// T_kv*d (the five products, counted once): 268 GFLOP at the bench shape
+// (B=4, H=4, T=4096, d=100), in bf16 0.27 ms at the tensor cores' 989
+// TFLOP/s, in f32, as 3xTF32's three products, 1.63 ms at TF32's 495
+// TFLOP/s (4.0 ms at f32's 67 TFLOP/s outside the tensor cores).  The
+// split does the score products twice, 14*B*H*T*T_kv*d: 0.38 ms bf16,
+// 2.28 ms f32 there.  About 60 MB of operands and gradients in f32 take
+// 18 us at 3.35 TB/s.
 //
 // What the design does about it:
 //  * fused (flash_bwd_fused_kernel): the score step -- s, p, g, the mask
@@ -81,16 +83,19 @@
 //      resident k and v), so that p_drop^T and ds^T sit in the
 //      accumulator layout that dv += p_drop^T dout and dk += ds^T q take
 //      as their register A operand.  None of the fused form's dq work
-//      (no ds staging, no partial dq), and k and v are converted once a
-//      key tile, not with every query tile.  Two consumers (bf16) share
-//      every q and dout chunk the producer sends.  A block whose key
-//      tiles have no attendable key writes dk = dv = 0 and skips the
-//      query walk.
-//    - d <= 128: the dq kernel two consumers (128 rows a block), the dk/dv
-//      kernel two in bf16 and one in f32 (run_dkdv says why).  d > 128:
-//      one consumer, the dq kernel's output slab 256 columns (d = 200 one
-//      pass, 400 two), dk and dv slabs of 128 columns; each pass
-//      recomputes the score products over all of d.
+//      (no ds staging, no partial dq), k and v converted once a key tile,
+//      not with every query tile, and two consumers share every q and
+//      dout chunk the producer converts: 4 chunks a key tile and query
+//      tile in f32 against the fused form's 14.  A block whose key tiles
+//      have no attendable key writes dk = dv = 0 and skips the query
+//      walk.
+//    - d <= 128: two consumers (128 rows a block), each with 240
+//      registers, the producer keeping 24 (setmaxnreg, flash_wgmma.cuh):
+//      a dk/dv consumer holds dk and dv of a 128-column slab, s^T and dp^T
+//      (192 registers).  d > 128: one consumer, the dq kernel's output
+//      slab 256 columns (d = 200 one pass, 400 two), dk and dv slabs of
+//      128 columns; each pass recomputes the score products over all of
+//      d.
 //    - Where the consumers' A operands do not fit beside a ring of two
 //      slots (f32 at d > 256), they come through the ring as raw chunks
 //      with each walked tile instead.  In bf16, when the ring holds a
@@ -550,6 +555,8 @@ template <typename T, int NCH, int NC>
 __global__ void __launch_bounds__(kWg * (NC + 1), 1)
 flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
   constexpr int kBytes = chunk_bytes<T>();
+  // two consumers take the producer's registers: its loops stay rolled
+  constexpr bool kLean = NC > 1;
   extern __shared__ char smem_raw[];
   __shared__ uint64_t full[kSplitStagesMax], empty[kSplitStagesMax], res_full;
   const int Tn = a.Tn, Tkv = a.Tkv, d = a.d;
@@ -570,6 +577,7 @@ flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
   // the warpgroup's role, broadcast so that the compiler sees it uniform
   const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x / kWg), 0);
   if (wg == 0) {  // the producer
+    if constexpr (NC > 1) regs_dec<kProducerRegs>();
     const int tid = threadIdx.x;
     const T* qb = static_cast<const T*>(a.q) + q_base(a, bh);
     const T* dob = static_cast<const T*>(a.dout) + q_base(a, bh);
@@ -579,10 +587,10 @@ flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
       for (int c = 0; c < NC; ++c)
         for (int e = 0; e < ne; ++e) {
           const int c0 = e * kTile;
-          put_raw_chunk(res_chunk<T>(sm.res, c, 0, ne, e), sm.stage, qb, lda,
-                        q0 + c * kTile, Tn, c0, d - c0, tid);
-          put_raw_chunk(res_chunk<T>(sm.res, c, 1, ne, e), sm.stage, dob,
-                        lda, q0 + c * kTile, Tn, c0, d - c0, tid);
+          put_raw_chunk<kLean>(res_chunk<T>(sm.res, c, 0, ne, e), sm.stage,
+                               qb, lda, q0 + c * kTile, Tn, c0, d - c0, tid);
+          put_raw_chunk<kLean>(res_chunk<T>(sm.res, c, 1, ne, e), sm.stage,
+                               dob, lda, q0 + c * kTile, Tn, c0, d - c0, tid);
         }
     if (p.side) {
       copy_side(mask_s, a.mask + (size_t)(bh / a.H) * Tkv, Tkv, tid);
@@ -592,8 +600,8 @@ flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
     const int kind_t =
         Op<T>::kPlanes == 2 ? kTransposedPermuted : kTransposed;
     auto push = [&](const T* src, int r0, int rows, int c0, int kind) {
-      push_chunk(ring, sm.stage, src, lda, r0, rows, c0, d - c0, kind,
-                 p.direct, tid);
+      push_chunk<kLean>(ring, sm.stage, src, lda, r0, rows, c0, d - c0, kind,
+                        p.direct, tid);
     };
     for (int o = 0; o < passes; ++o)
       for (int j = 0; j < n_kv; ++j) {
@@ -613,6 +621,7 @@ flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
     return;
   }
 
+  if constexpr (NC > 1) regs_inc<kConsumerRegs>();
   // a consumer: rows row0 and row0 + 8 (queries), columns 8jj + cq + {0, 1}
   // of each tile (keys; the slab's columns of d in dq)
   const int cw = wg - 1;
@@ -664,6 +673,8 @@ flash_bwd_dq_kernel(BwdArgs a, SplitPlan p) {
                                     : take(sd);
         const char* vc = take(sv);
         mma_chunk<T>(s, qa, kc);
+        wgmma_commit();
+        wgmma_wait();
         mma_chunk<T>(dp, da, vc);
         wgmma_commit();
         wgmma_wait();
@@ -740,6 +751,8 @@ template <typename T, int NC>
 __global__ void __launch_bounds__(kWg * (NC + 1), 1)
 flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
   constexpr int kBytes = chunk_bytes<T>();
+  // two consumers take the producer's registers: its loops stay rolled
+  constexpr bool kLean = NC > 1;
   extern __shared__ char smem_raw[];
   __shared__ uint64_t full[kSplitStagesMax], empty[kSplitStagesMax], res_full;
   const int Tn = a.Tn, Tkv = a.Tkv, d = a.d;
@@ -764,6 +777,7 @@ flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
   // the warpgroup's role, broadcast so that the compiler sees it uniform
   const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x / kWg), 0);
   if (wg == 0) {  // the producer
+    if constexpr (NC > 1) regs_dec<kProducerRegs>();
     const int tid = threadIdx.x;
     const T* qb = static_cast<const T*>(a.q) + q_base(a, bh);
     const T* dob = static_cast<const T*>(a.dout) + q_base(a, bh);
@@ -774,10 +788,10 @@ flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
         for (int e = 0; e < ne; ++e) {
           const int c0 = e * kTile;
           const int k0 = (j0 + c) * kTile;
-          put_raw_chunk(res_chunk<T>(sm.res, c, 0, ne, e), sm.stage, kb, lda,
-                        k0, Tkv, c0, d - c0, tid);
-          put_raw_chunk(res_chunk<T>(sm.res, c, 1, ne, e), sm.stage, vb, lda,
-                        k0, Tkv, c0, d - c0, tid);
+          put_raw_chunk<kLean>(res_chunk<T>(sm.res, c, 0, ne, e), sm.stage,
+                               kb, lda, k0, Tkv, c0, d - c0, tid);
+          put_raw_chunk<kLean>(res_chunk<T>(sm.res, c, 1, ne, e), sm.stage,
+                               vb, lda, k0, Tkv, c0, d - c0, tid);
         }
     if (p.side && any) {
       copy_side(lse_s, a.lse + (size_t)bh * Tn, Tn, tid);
@@ -788,8 +802,8 @@ flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
     const int kind_t =
         Op<T>::kPlanes == 2 ? kTransposedPermuted : kTransposed;
     auto push = [&](const T* src, int r0, int rows, int c0, int kind) {
-      push_chunk(ring, sm.stage, src, lda, r0, rows, c0, d - c0, kind,
-                 p.direct, tid);
+      push_chunk<kLean>(ring, sm.stage, src, lda, r0, rows, c0, d - c0, kind,
+                        p.direct, tid);
     };
     for (int o = 0; o < passes; ++o)
       for (int q0 = 0; q0 < Tn; q0 += kTile) {
@@ -810,6 +824,7 @@ flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
     return;
   }
 
+  if constexpr (NC > 1) regs_inc<kConsumerRegs>();
   // a consumer: rows r and r + 8 of its key tile, columns 8jj + cq + {0,
   // 1} of each tile (queries; the slab's columns of d in dk and dv)
   const int cw = wg - 1;
@@ -875,6 +890,8 @@ flash_bwd_dkdv_kernel(BwdArgs a, SplitPlan p) {
                                     : take(sv);
         const char* oc = take(so);
         mma_chunk<T>(st, ka, qc);
+        wgmma_commit();
+        wgmma_wait();
         mma_chunk<T>(dp, va, oc);
         wgmma_commit();
         wgmma_wait();
@@ -1023,24 +1040,19 @@ cudaError_t launch_dkdv(const BwdArgs& a, int BH, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// d <= 128: two consumers (the dq kernel's fit in 168 registers a
-// thread); a wider head one, its output slab 256 columns.
+// d <= 128: two consumers, which take the producer's spare registers
+// (setmaxnreg; at 168 a thread ptxas serialized their wgmma and a dk/dv
+// consumer spilled); a wider head one, the dq kernel's output slab 256
+// columns.
 template <typename T>
 cudaError_t run_dq(const BwdArgs& a, int BH, cudaStream_t stream) {
   if (a.d <= 2 * kTile) return launch_dq<T, 2, 2>(a, BH, stream);
   return launch_dq<T, 4, 1>(a, BH, stream);
 }
 
-// Two consumers at d <= 128 in bf16 only.  A dk/dv consumer needs about
-// 250 registers (dk and dv of a slab, s^T and dp^T: 192 of them), so two
-// of them spill at 168; in bf16 that still beats one consumer, in f32
-// (whose producer converts every chunk) it does not.  Giving the
-// consumers the producer's registers (setmaxnreg) starved the producer:
-// slower in both, on an H100.
 template <typename T>
 cudaError_t run_dkdv(const BwdArgs& a, int BH, cudaStream_t stream) {
-  if (a.d <= 2 * kTile && sizeof(T) == 2)
-    return launch_dkdv<T, 2>(a, BH, stream);
+  if (a.d <= 2 * kTile) return launch_dkdv<T, 2>(a, BH, stream);
   return launch_dkdv<T, 1>(a, BH, stream);
 }
 

@@ -113,20 +113,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kb = k + head_base(bthd, bh, H, Tkv, d);
     const T* vb = v + head_base(bthd, bh, H, Tkv, d);
     for (int c = 0; c < NC; ++c)
-      for (int e = 0; e < ne; ++e) {  // the q tiles, raw (f32 unsplit)
-        stage_chunk(stage_s, qb, ld, q0 + c * kTile, Tn, e * kTile,
-                    d - e * kTile, tid);
-        cp_async_commit();
-        cp_async_wait<0>();
-        char* qc = q_s + (c * ne + e) * kPlane;
-#pragma unroll
-        for (int it = 0; it < 8; ++it) {
-          const int i = tid + kWg * it;
-          float v[4];
-          unstage(stage_s, i, v, T());
-          put4<T, false>(qc, unit_row(i), unit_group(i), v);
-        }
-      }
+      for (int e = 0; e < ne; ++e)  // the q tiles, raw (f32 unsplit)
+        put_raw_chunk(q_s + (c * ne + e) * kPlane, stage_s, qb, ld,
+                      q0 + c * kTile, Tn, e * kTile, d - e * kTile, tid);
     if (side) {
       copy_side(mask_s, mask + (size_t)(bh / H) * Tkv, Tkv, tid);
       named_sync(2, kWg);  // the producer reads the copy too

@@ -1,9 +1,9 @@
 // The Hopper (sm_90a) machinery of the flash forward (flash_fwd.cu) and
 // the flash backward's fused and split forms (flash_bwd.cu): warpgroup
-// products (wgmma), the
-// ring of operand chunks that a producer warpgroup fills and the consumer
-// warpgroups drain (mbarriers), and the conversions between device memory,
-// the chunks, the accumulators and the register A operand.
+// products (wgmma), the ring of operand chunks that a producer warpgroup
+// fills and the consumer warpgroups drain (mbarriers), and the conversions
+// between device memory, the chunks, the accumulators and the register A
+// operand.
 //
 // Chunks.  Every shared-memory operand is a chunk: 64 rows by 64 columns
 // in wgmma's K-major layout without swizzle.  A row's 16-byte group g
@@ -206,6 +206,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// The warpgroup's registers a thread set to N (setmaxnreg): a block of a
+// producer and two consumer warpgroups starts at 168 each (384 threads),
+// and the producer, which holds no accumulator, hands the consumers all
+// but 24 of its own: 24 + 2 * 240 = 3 * 168.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 // A barrier of the `count` threads of named barrier `id` (1.. ; 0 is
 // __syncthreads).
 __device__ __forceinline__ void named_sync(int id, int count) {
@@ -276,7 +290,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 
 // The unit i (0..1023) of a chunk written by 4 elements: row and 4-column
 // group, 8 rows a warp's quarter so that a quarter's 16-byte stores hit
-// every bank once.
+// every bank once.  A producer that gives its registers to its consumers
+// (the split backward's, setmaxnreg) walks a thread's 8 units as a loop
+// (kLean); the others unroll it.
 __device__ __forceinline__ int unit_row(int i) {
   return (i & 7) | (((i >> 5) & 7) << 3);
 }
@@ -374,13 +390,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // bf16) where the address allows, two of half that, or, for an odd head
 // width in bf16 and the ragged edge, element loads; zero past `rows` and
 // at columns >= `cols` (relative to c0).
-template <typename T>
+template <bool kLean = false, typename T>
 __device__ __forceinline__ void stage_chunk(char* stage,
                                             const T* __restrict__ src,
                                             int ld, int r0, int rows, int c0,
                                             int cols, int tid) {
   constexpr int kB = 4 * sizeof(T);
-#pragma unroll
+#pragma unroll(kLean ? 1 : 8)
   for (int it = 0; it < 8; ++it) {
     const int i = tid + kWg * it;
     const int n = unit_row(i);
@@ -428,13 +444,14 @@ __device__ __forceinline__ void unstage(const char* stage, int i, float v[4],
 // the slot's full barrier takes each thread's arrival once its copies
 // land (cp.async.mbarrier.arrive.noinc): the producer never waits for
 // them, so every ring slot can have its loads in flight.
+template <bool kLean = false>
 __device__ __forceinline__ void push_direct(Ring& ring,
                                             const __nv_bfloat16* src, int ld,
                                             int r0, int rows, int c0,
                                             int cols, int tid) {
   ring.wait_empty();
   char* chunk = ring.slot(chunk_bytes<__nv_bfloat16>());
-#pragma unroll
+#pragma unroll(kLean ? 1 : 8)
   for (int it = 0; it < 8; ++it) {
     const int i = tid + kWg * it;
     const int n = unit_row(i);
@@ -463,7 +480,7 @@ __device__ __forceinline__ void push_direct(Ring& ring,
 // conversion's shared-memory accesses then queue behind them.  A bf16
 // chunk is always natural: the products read it transposed (MN-major).
 enum ChunkKind { kNatural, kTransposed, kTransposedPermuted, kRaw };
-template <typename T>
+template <bool kLean = false, typename T>
 __device__ __forceinline__ void push_chunk(Ring& ring, char* stage,
                                            const T* src, int ld, int r0,
                                            int rows, int c0, int cols,
@@ -471,16 +488,16 @@ __device__ __forceinline__ void push_chunk(Ring& ring, char* stage,
   if constexpr (Op<T>::kPlanes == 1) {
     kind = kNatural;
     if (direct) {
-      push_direct(ring, src, ld, r0, rows, c0, cols, tid);
+      push_direct<kLean>(ring, src, ld, r0, rows, c0, cols, tid);
       return;
     }
   }
-  stage_chunk(stage, src, ld, r0, rows, c0, cols, tid);
+  stage_chunk<kLean>(stage, src, ld, r0, rows, c0, cols, tid);
   cp_async_commit();
   cp_async_wait<0>();
   ring.wait_empty();
   char* chunk = ring.slot(chunk_bytes<T>());
-#pragma unroll
+#pragma unroll(kLean ? 1 : 8)
   for (int it = 0; it < 8; ++it) {
     const int i = tid + kWg * it;
     float v[4];
@@ -506,15 +523,15 @@ __device__ __forceinline__ void push_chunk(Ring& ring, char* stage,
 // [c0, c0 + 64) of the row-major `src` at `chunk`, outside the ring: a
 // consumer's resident A operand, written by the producer through its
 // staging slots (zero past `rows` and `cols`); the caller announces it.
-template <typename T>
+template <bool kLean = false, typename T>
 __device__ __forceinline__ void put_raw_chunk(char* chunk, char* stage,
                                               const T* src, int ld, int r0,
                                               int rows, int c0, int cols,
                                               int tid) {
-  stage_chunk(stage, src, ld, r0, rows, c0, cols, tid);
+  stage_chunk<kLean>(stage, src, ld, r0, rows, c0, cols, tid);
   cp_async_commit();
   cp_async_wait<0>();
-#pragma unroll
+#pragma unroll(kLean ? 1 : 8)
   for (int it = 0; it < 8; ++it) {
     const int i = tid + kWg * it;
     float v[4];

@@ -2,7 +2,9 @@
 least time the card could take for their work: the operations run on the
 tensor cores, bf16 at its peak and f32 as 3xTF32 (three TF32 products for
 each f32 one) at the TF32 peak; the bytes are each operand read and each
-output written once.  Arithmetic on shapes only: no card."""
+output written once.  Arithmetic on shapes only: no card.  And its
+summary of the build's ``-Xptxas -v`` output for the flash kernels that
+must run on wgmma (``ptxas_summary``), on a log of that form."""
 
 import importlib.util
 from pathlib import Path
@@ -36,3 +38,38 @@ def test_flash_bound_counts_each_byte_once():
     n_bytes = 4 * 2 * 3 * H * T * D + 3 * H * T * 4 + 3 * T
     assert by == "bytes"
     assert ms == pytest.approx(n_bytes / 3.35e12 * 1e3, rel=1e-12)
+
+
+# the shape of nvcc's -Xptxas -v output for two of the split's kernels
+_DQ = ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi2ELi2EEEvNS_7BwdArgsENS_9"
+       "SplitPlanE")
+_DKDV = ("_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelIfLi1EEEvNS_7BwdArgsENS_9"
+         "SplitPlanE")
+_PTXAS = f"""ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async \
+instructions are serialized due to insufficient register resources for the \
+function '{_DKDV}'
+ptxas info    : Compiling entry function '{_DQ}' for 'sm_90a'
+ptxas info    : Function properties for {_DQ}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 3 barriers, 208 bytes smem
+ptxas info    : Compiling entry function '{_DKDV}' for 'sm_90a'
+ptxas info    : Function properties for {_DKDV}
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 208 bytes smem
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("flash_bwd_dq_kernel", ["0 bytes spill stores", "Used 168 registers"]),
+    ("flash_bwd_dkdv_kernel", ["4 bytes spill stores", "Used 255 registers",
+                               "wgmma serialized (C7512)"])])
+def test_ptxas_summary_reads_registers_spills_and_serialization(kernel, want):
+    """One line for each instantiation of a wgmma kernel, holding its
+    spills, its registers and, where ptxas said so, that its wgmma were
+    serialized."""
+    lines = [line for line in CS.ptxas_summary({"flash_bwd": _PTXAS})
+             if f"] {kernel} (" in line]
+    assert len(lines) == 1
+    for text in want:
+        assert text in lines[0]
+    assert len(CS.ptxas_summary({"flash_bwd": _PTXAS})) == 2
