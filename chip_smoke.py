@@ -9,10 +9,12 @@ Phases, in order; any failure exits non-zero:
    and turns TF32 off for matmul and cuDNN.
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together) and
-   prints the build time and ``-Xptxas -v`` (and, for each flash kernel,
-   its registers and spills); checks with ``cuobjdump -sass`` that the
-   flash forward, the fused backward and the split backward's two kernels
-   issue wgmma (HGMMA) in every instantiation, f32 and bf16.
+   prints the build time and ``-Xptxas -v`` (and, for each flash kernel
+   and each of the GRU layer backward's product kernels, its registers,
+   spills and any wgmma serialization); checks with ``cuobjdump -sass``
+   that the flash forward, the fused backward, the split backward's two
+   kernels and the GRU backward's two product kernels issue wgmma (HGMMA)
+   in every instantiation, f32 and bf16.
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the bench shape (B=64, T=1024, where bench.py times bigru and
    bilstm), for layer 0 (W_in=400) and the later layers (256) in f32 and
@@ -20,7 +22,10 @@ Phases, in order; any failure exits non-zero:
    and its backward.  Times kernel, plain version and a one-call PyTorch
    yardstick (nn.GRU or nn.LSTM on a packed sequence: its forward, its
    forward with autograd on, and ``torch.autograd.grad`` through it) with
-   CUDA events, beside each kernel's bound.  Then the flash kernels at
+   CUDA events, beside each kernel's bound; the GRU backward (row 2) also
+   by part (its products, the slices' sum, the chain and the bias sums,
+   from ``torch.profiler``) and beside its bound counted as before its
+   products moved to the tensor cores.  Then the flash kernels at
    attn's bench shape (B=4, H=4, T=4096, d=100, bench.py): the forward in
    f32 and bf16 with dropout off and on, the fused and the split backward
    likewise, each against the plain version, the two backwards
@@ -122,7 +127,8 @@ Phases, in order; any failure exits non-zero:
    (rows 1 alt and 2 alt, W = 2H = 256) held at the main path's shapes,
    the eval form at the largest test forward batch (dropout off), the
    train form and the backward at the largest train batch at keep 0.5 and
-   0.7, f32 and bf16, each against its plain version and against rows 1-2
+   0.7 and at the bench shape at keep 0.5, f32 and bf16 (the backward also
+   by part), each against its plain version and against rows 1-2
    on the glue-built input (the halves' gradients against the glue's
    autograd; bit for bit), the backward rerun bit for bit, timed beside
    its plain version, nn.GRU packed, its bound and rows 1 or 2 plus the
@@ -264,11 +270,16 @@ class Cell:
         flops = 2 * t_len * b * (w_in + H) * self.n_gates * H * 2
         return _bound(n_bytes, flops, dt_name)
 
-    def bound_bwd(self, t_len, b, w_in, dt_name):
+    def bound_bwd(self, t_len, b, w_in, dt_name, simt=False):
         """Least time (ms) for one layer's backward: x, the weights, ys, the
         residuals (and the LSTM's f32 cell states) and dy read once, dx and
         the gradients written once; FLOPs 4*T*B*gH*(2*W_in + 2H) (dwi, dx,
-        dwh and the carry product, both directions)."""
+        dwh and the carry product, both directions).  The GRU's products
+        off the chain (dwi, dx, dwh: 4*T*B*gH*(2*W_in + H)) run on the
+        tensor cores (``tc_bound``), its chain's carry product (4*T*B*gH*H)
+        at the f32 SIMT peak; ``simt=True`` (and the LSTM) counts every
+        operation at the dtype's ``PEAK_FLOPS``, as before the GRU's
+        products moved to the tensor cores."""
         size = 4 if dt_name == "float32" else 2
         weights = self.weight_count(w_in)
         reads = (t_len * b * w_in + weights
@@ -277,8 +288,12 @@ class Cell:
         n_bytes = (reads + writes) * size + 4 * b
         if self.lstm:
             n_bytes += 2 * t_len * b * H * 4
-        flops = 4 * t_len * b * self.n_gates * H * (2 * w_in + 2 * H)
-        return _bound(n_bytes, flops, dt_name)
+        g = self.n_gates * H
+        flops = 4 * t_len * b * g * (2 * w_in + 2 * H)
+        if self.lstm or simt:
+            return _bound(n_bytes, flops, dt_name)
+        chain = 4 * t_len * b * g * H
+        return tc_bound(n_bytes, flops - chain, chain, dt_name)
 
     def bwd_args(self, x, ws, lengths, fwd, dys):
         return (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
@@ -440,7 +455,9 @@ def phase_build():
 WGMMA_KERNELS = [("flash_fwd", "flash_fwd_kernel"),
                  ("flash_bwd", "flash_bwd_fused_kernel"),
                  ("flash_bwd", "flash_bwd_dkdv_kernel"),
-                 ("flash_bwd", "flash_bwd_dq_kernel")]
+                 ("flash_bwd", "flash_bwd_dq_kernel"),
+                 ("gru_bidir_bwd", "wgrad_wgmma_kernel"),
+                 ("gru_bidir_bwd", "dx_wgmma_kernel")]
 
 
 def ptxas_summary(logs) -> list[str]:
@@ -467,9 +484,9 @@ def ptxas_summary(logs) -> list[str]:
 
 
 def check_wgmma():
-    """``cuobjdump -sass`` of the flash libraries: counts HGMMA (wgmma)
-    instructions in every instantiation of ``WGMMA_KERNELS`` and fails
-    unless each has some and both dtypes are there."""
+    """``cuobjdump -sass`` of the libraries of ``WGMMA_KERNELS``: counts
+    HGMMA (wgmma) instructions in every instantiation of its kernels and
+    fails unless each has some and both dtypes are there."""
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
     tool = os.path.join(os.path.dirname(cuda_lib.nvcc()), "cuobjdump")
@@ -551,6 +568,69 @@ def _bound(n_bytes, flops, dt_name):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dt_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bound(n_bytes, tc_flops, simt_flops, dt_name):
+    """Least time (ms) of work with ``tc_flops`` operations on the tensor
+    cores (bf16 at its peak; f32 as 3xTF32, three TF32 operations for each
+    f32 one, at ``TF32_FLOPS``) followed by ``simt_flops`` at the f32 SIMT
+    peak, against ``n_bytes`` at the memory rate."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    tc = (3 * tc_flops / TF32_FLOPS if dt_name == "float32"
+          else tc_flops / PEAK_FLOPS[dt_name])
+    t_ops = (tc + simt_flops / PEAK_FLOPS["float32"]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# the GRU layer backward's kernels (rows 2, 2 alt), each launched once a
+# call, by part of the call
+BWD_PARTS = {"wgrad_wgmma_kernel": "products", "dx_wgmma_kernel": "products",
+             "wgrad_reduce_kernel": "reduction", "bwd_recur_kernel": "chain",
+             "bias_reduce_kernel": "bias"}
+
+
+def part_ms(fn, iters: int = 5) -> dict:
+    """Device time (ms) one call of ``fn`` spends in each part of
+    ``BWD_PARTS`` (and in any other kernel), from ``torch.profiler``'s
+    kernel events over ``iters`` calls: each kernel's mean over the events
+    recorded, summed by part.  The tracing may start after the first
+    launches, so the calls begin after a short pause inside the profiler
+    and only complete events count; a session that misses a kernel of the
+    parts is run again, twice at most, and then raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us: dict[str, list[float]] = {}
+        for e in prof.events():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.is_user_annotation):
+                continue
+            name = next((k for k in BWD_PARTS if k in e.name), e.name)
+            us.setdefault(name, []).append(e.time_range.elapsed_us())
+        missing = [k for k in BWD_PARTS if k not in us]
+        if not missing:
+            break
+        log(f"[kernel] the profiler saw no event of {missing} "
+            f"(session {attempt + 1})")
+    if missing:
+        raise AssertionError(f"the profiler saw no event of {missing}")
+    parts = dict.fromkeys([*dict.fromkeys(BWD_PARTS.values()), "other"], 0.0)
+    for name, times in us.items():
+        parts[BWD_PARTS.get(name, "other")] += sum(times) / len(times) / 1e3
+    return parts
+
+
+def parts_text(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms"
 
 
 def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
@@ -668,11 +748,18 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
                "tol": tol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bit_identical_rerun": identical}
+    extra = ""
+    if not cell.lstm:  # the GRU's products on the tensor cores
+        bwd_row["bound_simt_ms"] = cell.bound_bwd(t_len, b, w_in, dt_name,
+                                                  simt=True)[0]
+        bwd_row["parts_ms"] = part_ms(lambda: cell.bwd(*bargs))
+        extra = (f" (SIMT count {bwd_row['bound_simt_ms']:.4f} ms); by "
+                 f"part {parts_text(bwd_row['parts_ms'])}")
     log(f"[kernel] {cell.bwd_name} {head}: max abs err {abs_err:.3g}, max "
         f"err / max(1, max|plain|) {err_bwd:.3g} (tol {tol}), rerun "
         f"bit-identical {identical}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, autograd.grad through {cell.library} packed "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}){extra}")
     if not err_bwd <= tol:
         raise AssertionError(f"backward disagrees with its plain version: "
                              f"{bwd_row}")
@@ -2918,13 +3005,19 @@ def check_bnd_train(where, lengths, t_len, dt_name, keep, gen):
                "equals_row_2_and_glue_autograd": same_bwd, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "row_2_and_glue_ms": glue_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bit_identical_rerun": identical}
+               "bound_by": bound_by,
+               "bound_simt_ms": GRU.bound_bwd(t_len, b, 2 * H, dt_name,
+                                              simt=True)[0],
+               "parts_ms": part_ms(lambda: GRU.bbwd(*bargs)),
+               "bit_identical_rerun": identical}
     log(f"[flags] gru_bidir_bnd_bwd {head}: max abs err {abs_err:.3g}, max "
         f"err / max(1, max|plain|) {err_bwd:.3g} (tol {tol}), equals row 2 "
         f"and the glue's autograd {same_bwd}, rerun bit-identical "
         f"{identical}, kernel {ms:.4f} ms, row 2 + glue {glue_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, autograd.grad through nn.GRU packed "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; SIMT count "
+        f"{bwd_row['bound_simt_ms']:.4f} ms); by part "
+        f"{parts_text(bwd_row['parts_ms'])}")
     if not (err_bwd <= tol and same_bwd and identical):
         raise AssertionError(f"fused-boundary backward disagrees: {bwd_row}")
     return fwd_row, bwd_row
@@ -3126,8 +3219,8 @@ def phase_flags(card: str, root: str):
 def _boundary_route(card, root):
     """Rows 1 alt and 2 alt at the main path's shapes (W = 2H = 256; the
     eval form at the largest test forward batch, dropout off; the train
-    form and the backward at the largest train batch at keep 0.5 and 0.7;
-    f32 and bf16); bigru trained 2 epochs by the train CLI (f32, bf16) and
+    form and the backward at the largest train batch at keep 0.5 and 0.7,
+    and at the bench shape at keep 0.5; f32 and bf16); bigru trained 2 epochs by the train CLI (f32, bf16) and
     served; the flag's invariance on the card (a bigru step, keep 0.5, bit
     for bit against the glue route); one step each of bigru and ctcloss
     against the CPU; frames/s with the flag on and off."""
@@ -3157,6 +3250,16 @@ def _boundary_route(card, root):
                                    keep, gen)
             rows["gru_bidir_bnd_fwd_train"].append(f)
             rows["gru_bidir_bnd_bwd"].append(b)
+    # and at the bench shape (B=64, T=1024; one video of 1 frame, one of
+    # T), as phase 3 holds row 2 there
+    bench_lens = torch.randint(1, T_BENCH + 1, (B_BENCH,),
+                               generator=gen).tolist()
+    bench_lens[0], bench_lens[1] = 1, T_BENCH
+    for dt_name in DTYPES:
+        f, b = check_bnd_train("bench", bench_lens, T_BENCH, dt_name,
+                               BND_KEEPS[0], gen)
+        rows["gru_bidir_bnd_fwd_train"].append(f)
+        rows["gru_bidir_bnd_bwd"].append(b)
     log(f"[flags] fused-boundary kernel checks in {time.time() - t0:.1f} s")
 
     steps, forwards = feed_shapes(train_feed), feed_shapes(dev_feed)
@@ -3268,12 +3371,15 @@ def kernel_entry(name, source, replaces, launches, rows):
     """One ``kernels`` entry: headline numbers from ``rows[0]`` (f32 at the
     main path's shape), every checked shape under ``shapes``."""
     head = rows[0]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": rows}
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+             "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
+    for key in ("bound_simt_ms", "parts_ms"):  # the GRU layer backward's
+        if key in head:
+            entry[key] = head[key]
+    return {**entry, "shapes": rows}
 
 
 def main() -> int:

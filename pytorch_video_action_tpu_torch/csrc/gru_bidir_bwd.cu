@@ -25,12 +25,12 @@
 // and the gradients are written in the weight dtype.
 //
 // What bounds it on an H100: at the bench shape (B=64, T=1024, H=128,
-// W=400) the work is 4*T*B*3H*(2W + 2H) = 106 GFLOP, about 1.6 ms at f32
-// without TF32 (67 TFLOP/s), and about 0.6 GB of traffic (0.2 ms).  Most
-// of it, the weight and input gradients, is large products off the chain;
-// the chain of T dependent steps holds only the [B, 3H] x [3H, H] carry
-// product.  A design that is right but simple is bound by that chain and
-// by SIMT throughput of the products.
+// W=400) the work is 4*T*B*3H*(2W + 2H) = 106 GFLOP and about 0.6 GB of
+// traffic (0.2 ms).  Most of it, the weight and input gradients, is large
+// products off the chain: 93 GFLOP, about 0.56 ms as 3xTF32 on the tensor
+// cores and 0.09 ms in bf16.  The chain of T dependent steps holds only
+// the [B, 3H] x [3H, H] carry product (13 GFLOP, 0.2 ms at the f32 SIMT
+// peak of 67 TFLOP/s).
 //
 // What the design does about it:
 //  * The chain runs one block per (batch row, direction), 3H threads,
@@ -44,20 +44,21 @@
 //    are loaded one step ahead, so their latency hides behind the current
 //    step.
 //  * The chain writes dxg and dhg ([2, T*B, 3H] f32 scratch) and per-row
-//    bias sums; everything else runs off the chain as tiled SIMT GEMMs
-//    over K = T*B (64x64 tiles; one launch for dwi and dwh of both
-//    directions) and one GEMM over K = 6H for dx (128x128 tiles).
-//  * No atomics: each output tile owns its whole K loop and the bias sums
-//    add the per-row partials in a fixed order, so two runs give
+//    bias sums; everything else runs off the chain on the tensor cores
+//    (rnn_wgmma.cuh): dwi and dwh of both directions over K = T*B split
+//    into slices whose f32 partials a second pass adds in order, and dx
+//    over K = 6H.
+//  * No atomics: each partial tile owns its slice, the slices and the bias
+//    sums' per-row partials are added in a fixed order, so two runs give
 //    bit-identical gradients.
-//  * The fused-boundary form (gru_bidir_bnd_bwd) runs the same chain; its
-//    weight-gradient tiles build dwi's x operand from the previous layer's
-//    halves as the forward did, and dx_kernel's store applies the
-//    boundary's VJP (mask, and dropout's keep bit and scale) and writes the
-//    two halves' gradients dxa and dxb directly (rnn_common.cuh).
-// wgmma, TMA and split-K with a fixed-order reduction are later work.
+//  * The fused-boundary form (gru_bidir_bnd_bwd) runs the same chain and
+//    the same product kernels; their producer builds dwi's x operand from
+//    the previous layer's halves as the forward did, and dx's store
+//    applies the boundary's VJP (mask, and dropout's keep bit and scale)
+//    and writes the two halves' gradients dxa and dxb directly
+//    (rnn_common.cuh's BoundaryOrRows and BoundaryStore).
 
-#include "rnn_common.cuh"
+#include "rnn_wgmma.cuh"
 
 namespace {
 
@@ -258,14 +259,16 @@ cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
                     const void* resb, const void* dyf, const void* dyb,
                     void* dx, void* dwif, void* dwib, void* dbif, void* dbib,
                     void* dwhf, void* dwhb, void* dbhf, void* dbhb,
-                    float* dxg, float* dhg, float* bias_part, int Tn, int B,
+                    float* dxg, float* dhg, float* bias_part,
+                    float* wgrad_part, int slice_chunks, int Tn, int B,
                     int W, int H, cudaStream_t stream) {
   const cudaError_t err =
       run_chain<T>(whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dbif,
                    dbib, dbhf, dbhb, dxg, dhg, bias_part, Tn, B, H, stream);
   if (err != cudaSuccess) return err;
-  return launch_products<T>(x, wif, wib, ysf, ysb, dxg, dhg, dx, dwif, dwib,
-                            dwhf, dwhb, Tn, B, W, H, 3 * H, stream);
+  return launch_wgmma_dense<T>(x, wif, wib, ysf, ysb, dxg, dhg, dx, dwif,
+                               dwib, dwhf, dwhb, wgrad_part, slice_chunks,
+                               Tn, B, W, H, stream);
 }
 
 // The fused-boundary form: the same chain, then the products with dwi read
@@ -278,9 +281,9 @@ cudaError_t run_bwd_boundary(
     const void* ysb, const void* resf, const void* resb, const void* dyf,
     const void* dyb, void* dxa, void* dxb, void* dwif, void* dwib,
     void* dbif, void* dbib, void* dwhf, void* dwhb, void* dbhf, void* dbhb,
-    float* dxg, float* dhg, float* bias_part, int Tn, int B, int Hx, int H,
-    uint32_t seed, uint32_t thresh, float scale, bool drop,
-    cudaStream_t stream) {
+    float* dxg, float* dhg, float* bias_part, float* wgrad_part,
+    int slice_chunks, int Tn, int B, int Hx, int H, uint32_t seed,
+    uint32_t thresh, float scale, bool drop, cudaStream_t stream) {
   const cudaError_t err =
       run_chain<T>(whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dbif,
                    dbib, dbhf, dbhb, dxg, dhg, bias_part, Tn, B, H, stream);
@@ -295,9 +298,9 @@ cudaError_t run_bwd_boundary(
                            thresh,
                            scale,
                            drop};
-  return launch_boundary_products<T>(bnd, wif, wib, ysf, ysb, dxg, dhg, dxa,
-                                     dxb, dwif, dwib, dwhf, dwhb, Tn, B, H,
-                                     3 * H, stream);
+  return launch_wgmma_boundary<T>(bnd, wif, wib, ysf, ysb, dxg, dhg, dxa,
+                                  dxb, dwif, dwib, dwhf, dwhb, wgrad_part,
+                                  slice_chunks, Tn, B, H, stream);
 }
 
 }  // namespace
@@ -308,29 +311,32 @@ extern "C" {
 // are device pointers of contiguous tensors: the inputs x, wif, wib, whf,
 // whb, lengths, ysf, ysb, resf, resb, dyf, dyb; the outputs dx [T, B, W],
 // dwif, dwib [W, 3H], dbif, dbib [3H], dwhf, dwhb [H, 3H], dbhf, dbhb [3H],
-// all in the dtype; f32 scratch dxg and dhg of 2*T*B*3H elements each and
-// bias_part of 4*B*3H.  Launches on `stream` and returns the first non-zero
-// cudaGetLastError() (0 on success).
+// all in the dtype; f32 scratch dxg and dhg of 2*T*B*3H elements each,
+// bias_part of 4*B*3H and wgrad_part of ceil(ceil(T*B / 64) /
+// slice_chunks) * 2*(W + H)*3H (the weight gradients' K slices of
+// slice_chunks 64-row chunks).  Launches on `stream` and returns the first
+// non-zero cudaGetLastError() (0 on success).
 int gru_bidir_bwd(int dtype, const void* x, const void* wif, const void* wib,
                   const void* whf, const void* whb, const int* lengths,
                   const void* ysf, const void* ysb, const void* resf,
                   const void* resb, const void* dyf, const void* dyb,
                   void* dx, void* dwif, void* dwib, void* dbif, void* dbib,
                   void* dwhf, void* dwhb, void* dbhf, void* dbhb, float* dxg,
-                  float* dhg, float* bias_part, int Tn, int B, int W, int H,
+                  float* dhg, float* bias_part, float* wgrad_part,
+                  int slice_chunks, int Tn, int B, int W, int H,
                   void* stream) {
   if (Tn <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)run_bwd<float>(x, wif, wib, whf, whb, lengths, ysf, ysb, resf,
                                resb, dyf, dyb, dx, dwif, dwib, dbif, dbib,
-                               dwhf, dwhb, dbhf, dbhb, dxg, dhg, bias_part, Tn,
-                               B, W, H, s);
+                               dwhf, dwhb, dbhf, dbhb, dxg, dhg, bias_part,
+                               wgrad_part, slice_chunks, Tn, B, W, H, s);
   if (dtype == 1)
     return (int)run_bwd<__nv_bfloat16>(
         x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb, dx,
         dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg, bias_part,
-        Tn, B, W, H, s);
+        wgrad_part, slice_chunks, Tn, B, W, H, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -345,7 +351,8 @@ int gru_bidir_bnd_bwd(int dtype, const void* xa, const void* xb,
                       const void* dyf, const void* dyb, void* dxa, void* dxb,
                       void* dwif, void* dwib, void* dbif, void* dbib,
                       void* dwhf, void* dwhb, void* dbhf, void* dbhb,
-                      float* dxg, float* dhg, float* bias_part, int Tn, int B,
+                      float* dxg, float* dhg, float* bias_part,
+                      float* wgrad_part, int slice_chunks, int Tn, int B,
                       int Hx, int H, unsigned int seed, unsigned int thresh,
                       float scale, int drop, void* stream) {
   if (Tn <= 0 || B <= 0 || Hx <= 0) return (int)cudaErrorInvalidValue;
@@ -354,12 +361,14 @@ int gru_bidir_bnd_bwd(int dtype, const void* xa, const void* xb,
     return (int)run_bwd_boundary<float>(
         xa, xb, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb,
         dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg,
-        bias_part, Tn, B, Hx, H, seed, thresh, scale, drop != 0, s);
+        bias_part, wgrad_part, slice_chunks, Tn, B, Hx, H, seed, thresh,
+        scale, drop != 0, s);
   if (dtype == 1)
     return (int)run_bwd_boundary<__nv_bfloat16>(
         xa, xb, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf, dyb,
         dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb, dxg, dhg,
-        bias_part, Tn, B, Hx, H, seed, thresh, scale, drop != 0, s);
+        bias_part, wgrad_part, slice_chunks, Tn, B, Hx, H, seed, thresh,
+        scale, drop != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

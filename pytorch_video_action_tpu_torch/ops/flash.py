@@ -489,6 +489,14 @@ def _heads(a, num_heads):
     return a.view(b, t, num_heads, hd // num_heads).transpose(1, 2)
 
 
+def _heads_dense(num_heads, *arrays):
+    """Each ``[B, T, H*d]`` array as a contiguous ``[B, H, T, d]`` copy.
+    Every head-major plain path runs the ``[B, H, T, d]`` plain versions on
+    these, so it does the same arithmetic as they do on contiguous inputs:
+    a CPU matmul's kernel and summation order depend on the strides."""
+    return tuple(_heads(a, num_heads).contiguous() for a in arrays)
+
+
 def _flat(a):
     """``[B, H, T, d]`` -> ``[B, T, H*d]``."""
     b, h, t, d = a.shape
@@ -497,22 +505,22 @@ def _flat(a):
 
 def flash_fwd_bthd_ref(q, k, v, key_mask, num_heads, rate=0.0, seed=None):
     """Plain version of the head-major forward: :func:`flash_fwd_ref` on
-    the ``[B, H, T, d]`` views.  Returns ``out [B, T, H*d]`` and ``lse
+    the ``[B, H, T, d]`` copies.  Returns ``out [B, T, H*d]`` and ``lse
     [B*H, T]``."""
-    out, lse, _ = flash_fwd_ref(_heads(q, num_heads), _heads(k, num_heads),
-                                _heads(v, num_heads), key_mask, rate, seed)
+    out, lse, _ = flash_fwd_ref(*_heads_dense(num_heads, q, k, v), key_mask,
+                                rate, seed)
     return _flat(out), lse.reshape(-1, q.shape[1])
 
 
 def _bwd_bthd_ref(q, k, v, key_mask, num_heads, rate, seed, lse, delta,
                   dout):
-    """:func:`_bwd_ref` on the ``[B, H, T, d]`` views, from ``delta [B*H,
+    """:func:`_bwd_ref` on the ``[B, H, T, d]`` copies, from ``delta [B*H,
     T]``: ``(dq f32, dk, dv)``, each ``[B, T, H*d]``."""
     b, t = q.shape[:2]
-    grads = _bwd_ref(_heads(q, num_heads), _heads(k, num_heads),
-                     _heads(v, num_heads), key_mask, rate, seed,
+    qh, kh, vh, douth = _heads_dense(num_heads, q, k, v, dout)
+    grads = _bwd_ref(qh, kh, vh, key_mask, rate, seed,
                      lse.view(b, num_heads, t), delta.view(b, num_heads, t),
-                     _heads(dout, num_heads))
+                     douth)
     return tuple(_flat(g) for g in grads)
 
 
@@ -628,8 +636,7 @@ def flash_bwd_bthd(q, k, v, key_mask, num_heads, rate, seed, out, lse, dout,
         dq, dk, dv = flash_bwd_fused_bthd(q, k, v, key_mask, num_heads, rate,
                                           seed, lse, delta, dout)
     else:
-        qh, kh, vh, douth = (_heads(a, num_heads).contiguous()
-                             for a in (q, k, v, dout))
+        qh, kh, vh, douth = _heads_dense(num_heads, q, k, v, dout)
         args = (qh, kh, vh, key_mask, rate, seed,
                 lse.view(b, num_heads, t), delta.view(b, num_heads, t), douth)
         dk, dv = (_flat(g) for g in flash_bwd_dkdv(*args))

@@ -240,8 +240,8 @@ def _check_bwd(xs, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf,
 _ARGTYPES = {
     "gru_bidir_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 15
                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-    "gru_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 24
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "gru_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 25
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_bidir_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 15
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 23
@@ -259,8 +259,8 @@ _ARGTYPES = {
     "gru_bidir_bnd_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 16
                           + [ctypes.c_int] * 5 + [ctypes.c_uint] * 2
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "gru_bidir_bnd_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 26
-                          + [ctypes.c_int] * 4 + [ctypes.c_uint] * 2
+    "gru_bidir_bnd_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 27
+                          + [ctypes.c_int] * 5 + [ctypes.c_uint] * 2
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
 # the entry points that live in another entry point's csrc/<name>.cu
@@ -339,6 +339,60 @@ gru_bidir_fwd.launches = 0
 gru_bidir_fwd.train_launches = 0
 
 
+# The GRU backward's weight-gradient products (csrc/rnn_wgmma.cuh) split K =
+# T*B into slices of whole 64-row chunks, one block a (64 x 128 tile,
+# slice), and add the slices' f32 partials in order afterwards.
+_CHUNK = 64
+_MAX_SLICES = 16
+_MIN_SLICE_CHUNKS = 4
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def wgrad_tiles(w_in, h):
+    """Blocks of one K slice of the weight gradients: 64 x 128 tiles of
+    dwif, dwib ``[W, 3H]`` and dwhf, dwhb ``[H, 3H]``."""
+    pairs = _ceil(_ceil(3 * h, _CHUNK), 2)
+    return 2 * (_ceil(w_in, _CHUNK) + _ceil(h, _CHUNK)) * pairs
+
+
+def wgrad_slice_chunks(rows, w_in, h, sms):
+    """Chunks of each K slice of the weight gradients, for K = ``rows`` (T*B)
+    on a card of ``sms`` SMs, one block an SM: of the slice counts up to
+    ``_MAX_SLICES`` that give every slice at least ``_MIN_SLICE_CHUNKS``
+    chunks (or the one slice), the one whose blocks finish soonest,
+    ``ceil(tiles * slices / sms)`` waves of a slice's chunks each; on a tie
+    the fewest slices, whose partials cost the least."""
+    chunks = _ceil(rows, _CHUNK)
+    tiles = wgrad_tiles(w_in, h)
+    best = None
+    for want in range(1, _MAX_SLICES + 1):
+        depth = _ceil(chunks, want)
+        if want > 1 and depth < _MIN_SLICE_CHUNKS:
+            break
+        slices = _ceil(chunks, depth)
+        cost = _ceil(tiles * slices, sms) * depth
+        if best is None or cost < best[0]:
+            best = (cost, depth)
+    return best[1]
+
+
+def _wgrad_scratch(t_len, b, w_in, h, device):
+    """``(slice_chunks, f32 partials)`` of the weight gradients' K slices."""
+    rows = t_len * b
+    depth = wgrad_slice_chunks(rows, w_in, h, _sms(device))
+    slices = _ceil(_ceil(rows, _CHUNK), depth)
+    part = torch.empty((slices, 2 * (w_in + h) * 3 * h), dtype=torch.float32,
+                       device=device)
+    return depth, part
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gru_bidir_bwd(x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf,
                   dyb):
     """The backward kernel's wrapper.  A CPU tensor takes the plain version;
@@ -366,12 +420,13 @@ def gru_bidir_bwd(x, wif, wib, whf, whb, lengths, ysf, ysb, resf, resb, dyf,
     dhg = torch.empty_like(dxg)
     bias_part = torch.empty((2, 2, b, g), dtype=torch.float32,
                             device=x.device)
+    depth, part = _wgrad_scratch(t_len, b, w_in, h, x.device)
     _launch("gru_bidir_bwd", x, _DTYPE_CODE[dt],
             *(t.data_ptr() for t in args),
             dx.data_ptr(), dwif.data_ptr(), dwib.data_ptr(), dbif.data_ptr(),
             dbib.data_ptr(), dwhf.data_ptr(), dwhb.data_ptr(),
             dbhf.data_ptr(), dbhb.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
-            bias_part.data_ptr(), t_len, b, w_in, h)
+            bias_part.data_ptr(), part.data_ptr(), depth, t_len, b, w_in, h)
     gru_bidir_bwd.launches += 1
     return dx, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb
 
@@ -562,13 +617,14 @@ def gru_bidir_bnd_bwd(xa, xb, wif, wib, whf, whb, lengths, ysf, ysb, resf,
     dhg = torch.empty_like(dxg)
     bias_part = torch.empty((2, 2, b, g), dtype=torch.float32,
                             device=xa.device)
+    depth, part = _wgrad_scratch(t_len, b, w_in, h, xa.device)
     _launch("gru_bidir_bnd_bwd", xa, _DTYPE_CODE[dt], xa.data_ptr(),
             xb.data_ptr(), *(t.data_ptr() for t in args), dxa.data_ptr(),
             dxb.data_ptr(), dwif.data_ptr(), dwib.data_ptr(), dbif.data_ptr(),
             dbib.data_ptr(), dwhf.data_ptr(), dwhb.data_ptr(),
             dbhf.data_ptr(), dbhb.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
-            bias_part.data_ptr(), t_len, b, w_in // 2, h,
-            *_dropout_args(seed, keep, dt))
+            bias_part.data_ptr(), part.data_ptr(), depth, t_len, b,
+            w_in // 2, h, *_dropout_args(seed, keep, dt))
     gru_bidir_bnd_bwd.launches += 1
     return dxa, dxb, dwif, dwib, dbif, dbib, dwhf, dwhb, dbhf, dbhb
 

@@ -40,6 +40,38 @@ def test_flash_bound_counts_each_byte_once():
     assert ms == pytest.approx(n_bytes / 3.35e12 * 1e3, rel=1e-12)
 
 
+# bigru's layer 0 in training: B=8, T=1920, W=400, H=128
+B8, T8, W0, H0 = 8, 1920, 400, 128
+
+
+@pytest.mark.parametrize("dt_name,rate", [("float32", 495e12 / 3),
+                                          ("bfloat16", 989e12)])
+def test_gru_bwd_bound_reads_the_tensor_cores_and_the_chain(dt_name, rate):
+    """Row 2's bound: its products off the chain (dwi, dx, dwh: 4*T*B*3H*
+    (2W + H)) at the tensor cores' rate for the dtype, plus the chain's
+    carry product (4*T*B*3H*H) at the f32 SIMT peak; the count with every
+    operation at the dtype's old peak stays beside it (``simt=True``), and
+    the LSTM's (row 4) is that one."""
+    gru, lstm = CS.Cell("gru"), CS.Cell("lstm")
+    g = 3 * H0
+    products = 4 * T8 * B8 * g * (2 * W0 + H0)
+    chain = 4 * T8 * B8 * g * H0
+    ms, by = gru.bound_bwd(T8, B8, W0, dt_name)
+    assert by == "operations"
+    assert ms == pytest.approx((products / rate + chain / 67e12) * 1e3,
+                               rel=1e-12)
+    old = (products + chain) / CS.PEAK_FLOPS[dt_name] * 1e3
+    simt, _ = gru.bound_bwd(T8, B8, W0, dt_name, simt=True)
+    assert simt >= old * (1 - 1e-12)  # the bytes may bound it in bf16
+    if dt_name == "float32":
+        assert simt == pytest.approx(old, rel=1e-12) and simt > ms
+    lflops = 4 * T8 * B8 * 4 * H0 * (2 * W0 + 2 * H0)
+    assert lstm.bound_bwd(T8, B8, W0, dt_name) == lstm.bound_bwd(
+        T8, B8, W0, dt_name, simt=True)
+    assert lstm.bound_bwd(T8, B8, W0, "float32")[0] == pytest.approx(
+        lflops / 67e12 * 1e3, rel=1e-12)
+
+
 # the shape of nvcc's -Xptxas -v output for two of the split's kernels
 _DQ = ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi2ELi2EEEvNS_7BwdArgsENS_9"
        "SplitPlanE")

@@ -185,6 +185,86 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
     assert P.gru_bidir_bwd.launches == before
 
 
+# The backward's products on the tensor cores (csrc/rnn_wgmma.cuh) split
+# K = T*B into slices of 64-row chunks (rnn_fused.wgrad_slice_chunks: 2 to
+# 12 slices here on an H100) whose partials are added in order.  (B, T, W,
+# H): T*B not a multiple of the slice's rows, and but for two not of 64,
+# every width the layer takes, a fully padded row wherever B > 1.
+WGMMA_CASES = [(8, 300, 400, 128), (1, 777, 400, 128), (64, 37, 256, 64),
+               (8, 301, 100, 32), (64, 45, 256, 16)]
+
+
+def _wgmma_case(cuda_device, dtype, b, t, w, h, seed):
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(h)
+    to = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    shapes = ([(w, 3 * h)] * 2 + [(3 * h,)] * 2 + [(h, 3 * h)] * 2
+              + [(3 * h,)] * 2)
+    ws = [to(rng.uniform(-k, k, s).astype(np.float32)) for s in shapes]
+    x = to(rng.normal(size=(t, b, w)).astype(np.float32))
+    dys = [to(rng.normal(size=(t, b, h)).astype(np.float32))
+           for _ in range(2)]
+    lengths = rng.integers(1, t + 1, b).astype(np.int32)
+    lengths[0] = t
+    if b > 1:
+        lengths[1] = 0
+    return x, ws, torch.from_numpy(lengths).to(cuda_device), dys
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=[f"B{c[0]}-T{c[1]}-W{c[2]}-H{c[3]}"
+                              for c in WGMMA_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_products_on_tensor_cores_match_plain(cuda_device, dtype, case):
+    """Row 2 against its plain version and a rerun bit for bit."""
+    b, t, w, h = case
+    x, ws, lengths, dys = _wgmma_case(cuda_device, dtype, *case, seed=t)
+    fwd = P.gru_bidir_fwd(x, *ws, lengths, train=True)
+    bargs = (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
+    got = P.gru_bidir_bwd(*bargs)
+    again = P.gru_bidir_bwd(*bargs)
+    torch.cuda.synchronize()
+    names = ["dx", "dwif", "dwib", "dbif", "dbib", "dwhf", "dwhb", "dbhf",
+             "dbhb"]
+    for name, g, want, a in zip(names, got, P.gru_bidir_layer_bwd_ref(*bargs),
+                                again):
+        assert g.dtype == dtype and g.shape == want.shape, name
+        assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=[f"B{c[0]}-T{c[1]}-W{c[2]}-H{c[3]}"
+                              for c in WGMMA_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bnd_bwd_products_on_tensor_cores_match_plain(cuda_device, dtype,
+                                                      case):
+    """Row 2 alt (boundary dropout at keep 0.7, halves of W/2 columns)
+    against its plain version and a rerun bit for bit, and against row 2
+    on the glue-built input with the glue's VJP of dx bit for bit."""
+    b, t, w, h = case
+    x, ws, lengths, dys = _wgmma_case(cuda_device, dtype, *case, seed=t + 1)
+    xa, xb = x[..., :w // 2].contiguous(), x[..., w // 2:].contiguous()
+    seed, keep = 77, 0.7
+    fwd = P.gru_bidir_bnd_fwd(xa, xb, *ws, lengths, seed, keep, train=True)
+    bargs = (xa, xb, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys, seed,
+             keep)
+    got = P.gru_bidir_bnd_bwd(*bargs)
+    again = P.gru_bidir_bnd_bwd(*bargs)
+    torch.cuda.synchronize()
+    mask_tb = P.time_mask(lengths, t, dtype)
+    xg = P.boundary_input(xa, xb, mask_tb, seed, keep)
+    dx, *grads = P.gru_bidir_bwd(xg, ws[0], ws[1], ws[4], ws[5], lengths,
+                                 *fwd, *dys)
+    glue = (*P.boundary_vjp(dx, mask_tb, seed, keep), *grads)
+    for name, g, want, a, gl in zip(BND_GRADS, got,
+                                    P.gru_bidir_bnd_layer_bwd_ref(*bargs),
+                                    again, glue):
+        assert g.dtype == dtype and g.shape == want.shape, name
+        assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
+        assert torch.equal(g, a) and torch.equal(g, gl), name
+
+
 def test_bigru_train_step_on_card_matches_cpu(cuda_device):
     """One f32 train step from the same parameters, batch and dropout seeds
     on the card and on the CPU.  The loss agrees to 1e-5 and each gradient

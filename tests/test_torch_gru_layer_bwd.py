@@ -276,3 +276,31 @@ def test_bwd_input_checks_raise(case):
         dyt[1] = dyt[1].transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises((TypeError, ValueError)):
         P._check_bwd(*_bwd_args(xt, wt, lt, fwd, dyt))
+
+
+# (T*B rows, W, H): bigru's layer 0 and later layers in training (B=8,
+# T=1920) and at the bench shape (B=64, T=1024); a short batch
+@pytest.mark.parametrize("rows,w,h", [(15360, 400, 128), (15360, 256, 128),
+                                      (65536, 400, 128), (65536, 256, 128),
+                                      (144, 400, 16)])
+def test_wgrad_slices_fill_the_card_and_cover_k(rows, w, h):
+    """The weight gradients' K slices (``wgrad_slice_chunks``) on an H100's
+    132 SMs: whole 64-row chunks, every slice non-empty and at least 4
+    chunks deep unless there is one; at the training and bench shapes
+    enough slices that the blocks fill the card; and the count whose waves
+    of blocks end soonest (fewest slices on a tie)."""
+    sms, chunks = 132, -(-rows // 64)
+    depth = P.wgrad_slice_chunks(rows, w, h, sms)
+    slices = -(-chunks // depth)
+    assert (slices - 1) * depth < chunks <= slices * depth
+    assert slices == 1 or depth >= 4
+    tiles = P.wgrad_tiles(w, h)
+    assert tiles == 2 * (-(-w // 64) + -(-h // 64)) * -(-(-(-3 * h // 64)) // 2)
+    if rows >= 15360:
+        assert tiles * slices >= sms
+    cost = -(-tiles * slices // sms) * depth
+    for n in range(1, 17):
+        d = -(-chunks // n)
+        if n > 1 and d < 4:
+            break
+        assert cost <= -(-tiles * -(-chunks // d) // sms) * d
