@@ -8,8 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. device: a CUDA card must be present; prints its name and power limit
    and turns TF32 off for matmul and cuDNN.
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
-   with nvcc for sm_90a (one nvcc per source, all started together) and
-   prints the build time and ``-Xptxas -v`` (and, for each flash kernel
+   with nvcc for sm_90a (one nvcc per source, all started together, beside
+   the LSTM scan forward's step-split builds of
+   ``tools/torch_lstm_scan_steps.py``) and prints the build time and
+   ``-Xptxas -v`` (and, for each flash kernel
    and each of the GRU layer backward's product kernels, its registers,
    spills and any wgmma serialization); checks with ``cuobjdump -sass``
    that the flash forward, the fused backward, the split backward's two
@@ -47,11 +49,14 @@ Phases, in order; any failure exits non-zero:
    on), each against the plain version.
    Then the LSTM scan's four kernels (the eval and saving forwards, the
    saved-gates and the recompute backward) at an odd width (W=100) and one
-   past a block's shared memory (W=512), B=8, T=1920, f32: each against
-   its plain version and a rerun, timed beside nn.LSTM (one direction,
-   packed) and its bound.  Then the GRU scan's four kernels the same way
-   (beside nn.GRU) at an odd width (W=96) and W=512, B=8, T=1920, and at
-   the serving shape B=3, T=1280, W=256, in f32 and bf16.
+   past a block's registers (W=512), B=8, T=1920, f32, and at the bench
+   shape (B=64, T=1024, W=256) in f32 and bf16: each against its plain
+   version and a rerun, timed beside nn.LSTM (one direction, packed) and
+   its bound; the two forwards at the bench shape, and at the training
+   and serving shapes in phases 4-5, also by step part (µs a step of each
+   step-split build, ``step_us``).  Then the GRU scan's four kernels the
+   same way (beside nn.GRU) at an odd width (W=96) and W=512, B=8, T=1920,
+   and at the serving shape B=3, T=1280, W=256, in f32 and bf16.
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
    test videos) and full-width bigru, bilstm and attn checkpoints into a
    temporary directory.  For each model: repeats phase 3's forward checks
@@ -436,12 +441,42 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the LSTM scan forward's step split (rows 13 and 14): the library of each
+# build of tools/torch_lstm_scan_steps.py (the kernel as it is and with one
+# part of its step taken out), built in phase 2 into a directory that lives
+# as long as the process
+SCAN_STEPS: dict = {}
+_STEPS_DIR = None
+
+
+def steps_tool():
+    """``tools/torch_lstm_scan_steps.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_lstm_scan_steps.py")
+    spec = importlib.util.spec_from_file_location("torch_lstm_scan_steps",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def phase_build():
+    from pathlib import Path
+
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
+    global _STEPS_DIR
     t0 = time.time()
+    _STEPS_DIR = tempfile.TemporaryDirectory()
+    tool = steps_tool()
+    jobs = tool.start_builds(cuda_lib.CSRC, Path(_STEPS_DIR.name))
     logs = cuda_lib.build_all(ptxas_verbose=True)
-    log(f"[build] {len(logs)} source(s) compiled in {time.time() - t0:.1f} s")
+    SCAN_STEPS.update(tool.finish_builds(jobs))
+    log(f"[build] {len(logs)} source(s) and the LSTM scan forward's "
+        f"{len(SCAN_STEPS)} step-split builds compiled in "
+        f"{time.time() - t0:.1f} s")
     for name, text in logs.items():
         log(f"[build] -Xptxas -v for {name}:")
         log(text.strip())
@@ -957,13 +992,16 @@ def phase_kernels():
             rows[name] += got
     log(f"[kernel] flash d=200 and d=400 checks in {time.time() - t0:.1f} s")
     t0 = time.time()
-    for where, b, t_len, w in SCAN_EXTRA:
+    for where, b, t_len, w, dtypes in SCAN_EXTRA:
         lengths = torch.randint(1, t_len + 1, (b,), generator=gen).tolist()
         lengths[0] = t_len
-        for name, got in check_scan(where, lengths, t_len, w, "float32",
-                                    gen).items():
-            rows.setdefault(name, []).extend(got)
-    log(f"[kernel] LSTM scan checks at W=100 and W=512 in "
+        if where == "bench":
+            lengths = [t_len] * b
+        for dt_name in dtypes:
+            for name, got in check_scan(where, lengths, t_len, w, dt_name,
+                                        gen, steps=where == "bench").items():
+                rows.setdefault(name, []).extend(got)
+    log(f"[kernel] LSTM scan checks at W=100, W=512 and the bench shape in "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
     for where, b, t_len, w, lengths in GSCAN_EXTRA:
@@ -1184,9 +1222,12 @@ SCAN = {"lstm_scan_fwd": ("lstm_scan_fwd.cu", "421"),
 VANILLA_SERVE = 1
 VANILLA_SERVE_FLAGS = ["--lstm_hidden1", "64", "--lstm_layer", "1",
                        "--lstm_dropout", "0"]
-# (where, B, T, W) beside the main paths' shapes: an odd width and one
-# whose weight slices pass a block's shared memory (f32)
-SCAN_EXTRA = [("odd width", 8, 1920, 100), ("wide", 8, 1920, 512)]
+# (where, B, T, W, dtypes) beside the main paths' shapes: an odd width and
+# one whose weight slices pass a block's registers (f32), and the bench
+# shape (B=64, T=1024, bench.py's, every frame valid; W=256, vanilla_lstm's)
+SCAN_EXTRA = [("odd width", 8, 1920, 100, ("float32",)),
+              ("wide", 8, 1920, 512, ("float32",)),
+              ("bench", B_BENCH, T_BENCH, 256, DTYPES)]
 # the GRU scan's entries of the kernels line, as SCAN's
 GSCAN = {"gru_scan_fwd": ("gru_scan_fwd.cu", "92"),
          "gru_scan_fwd_save": ("gru_scan_fwd.cu", "147"),
@@ -1314,11 +1355,14 @@ def _outputs(out):
     return (out,) if not isinstance(out, tuple) else out
 
 
-def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm") -> dict:
+def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
+               steps=False) -> dict:
     """Hold the four kernels of one scan (``cell`` lstm or gru) against
     their plain versions on one input (each also against a rerun, bit for
     bit) and time each beside its plain version, nn.LSTM or nn.GRU and its
-    bound: ``{entry: [row]}``."""
+    bound: ``{entry: [row]}``.  With ``steps`` the LSTM scan's forwards
+    (rows 13, 14) also by step part: µs a step of each build of
+    ``SCAN_STEPS`` (``step_us``)."""
     import torch
 
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
@@ -1348,14 +1392,29 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm") -> dict:
         ms = cuda_ms(lambda: fn(*args), 5, 1)
         plain_ms = cuda_ms(lambda: ref(*args), 1, 0)
         bound_ms, bound_by = scan_bound(name, t_len, b, w, dt_name)
+        if name.startswith("lstm_scan_fwd"):
+            geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(xg.device),
+                                       RS._cluster_fits(xg.device))
+            layout = geo._asdict()
+            shown = (f"chains of {geo.nc} blocks, {geo.rows} rows, "
+                     f"{geo.s} slices a column")
+        else:
+            layout = {"cluster": RS.cluster_size(w)}
+            shown = f"cluster of {RS.cluster_size(w)}"
         rows[name] = [{"where": where, "W": w, "dtype": dt_name, "B": b,
-                       "T": t_len, "cluster": RS.cluster_size(w),
+                       "T": t_len, **layout,
                        "max_abs_err": abs_err, "max_rel_err": err,
                        "tol": tol, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms[name], "bound_ms": bound_ms,
                        "bound_by": bound_by, "bit_identical_rerun": identical}]
+        if steps and name.startswith("lstm_scan_fwd"):
+            rows[name][0]["step_us"] = steps_tool().step_us(
+                SCAN_STEPS, fn, args, t_len)
+            log(f"[kernel] {name} {where} {dt_name} step split, us a step: "
+                + ", ".join(f"{k} {v:.4f}"
+                            for k, v in rows[name][0]["step_us"].items()))
         log(f"[kernel] {name} {where} B={b} T={t_len} W={w} {dt_name} "
-            f"(cluster of {RS.cluster_size(w)}): max abs err {abs_err:.3g}, "
+            f"({shown}): max abs err {abs_err:.3g}, "
             f"max err / max(1, max|plain|) {err:.3g} (tol {tol}), rerun "
             f"bit-identical {identical}, kernel {ms:.4f} ms "
             f"({ms / t_len * 1e3:.3f} us a step), plain {plain_ms:.4f} ms, "
@@ -1911,8 +1970,8 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
                            fwd=[(dt, r) for dt in DTYPES
                                 for r in (0.0, ATTN_RATE)], bwd=[])
     elif MODELS[name][0] == "scan":
-        rows = merge_rows(check_scan("main path", lens, t_pad, 64, dt, gen)
-                          for dt in DTYPES)
+        rows = merge_rows(check_scan("main path", lens, t_pad, 64, dt, gen,
+                                     steps=True) for dt in DTYPES)
     elif MODELS[name][0] == "conv":
         rows = check_conv("main path", lens, t_pad, gen, kinds=("stage",))
     elif cell is not None:
@@ -2282,8 +2341,8 @@ def phase_train(card: str, root: str, name: str):
                     bwd=[(dt, ATTN_RATE) for dt in DTYPES]).items():
                 rows[k] += got
     elif MODELS[name][0] == "scan":
-        rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen)
-                          for dt in DTYPES)
+        rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen,
+                                     steps=True) for dt in DTYPES)
     elif cell is not None and name != "ctcloss":
         train_rows, bwd_rows = check_train_layers(cell, "main path", lens,
                                                   t_pad, gen)
@@ -3376,7 +3435,8 @@ def kernel_entry(name, source, replaces, launches, rows):
              "max_abs_err": head["max_abs_err"], "ms": head["ms"],
              "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
              "bound_by": head["bound_by"], "library_ms": head["library_ms"]}
-    for key in ("bound_simt_ms", "parts_ms"):  # the GRU layer backward's
+    # the GRU layer backward's bound and parts; the LSTM scan forwards' split
+    for key in ("bound_simt_ms", "parts_ms", "step_us"):
         if key in head:
             entry[key] = head[key]
     return {**entry, "shapes": rows}

@@ -20,175 +20,563 @@
 // GB, 0.04 ms.  Neither binds: the chain of T dependent steps does, each a
 // [B, W] x [W, 4W] product, the gates and an exchange of h between SMs.
 //
-// What the design does about it:
-//  * One direction's wh is 1 MiB in f32 at W=256 (4 MiB at W=512): no SM
-//    holds it.  The chain runs on a cluster of NC blocks
-//    (scan_common.cuh): block r owns units [r*U, r*U + U) and all four gate
-//    columns of each, so the cell update stays in the block; its [W, 4U]
-//    slice of wh sits in shared memory, as far as the budget goes (at
-//    W=512 in f32 the rows past it are read through L2 every step).
-//  * A step: the block's product of the carried rows' h (all W, rounded,
-//    from its own shared memory) with its slice; the slices' sums and xg
-//    give the gates; the cell update writes ys, cs, res and the new h into
-//    every block of the cluster (distributed shared memory); one cluster
-//    barrier.  h is double-buffered, so that barrier is the step's only
-//    wait across blocks.
-//  * The cluster barrier is split: the new h goes to every block, the
-//    arrive, then the step's stores of ys, cs and res and the loads of the
-//    next step's xg into registers, then the wait.  So the arrive waits
-//    for no device-memory access, and the loads' latency hides behind the
-//    wait and the next step's product.
-//  * Up to 8 batch rows share a cluster and each weight read; more rows
-//    take more clusters.
-// wgmma and TMA are later work.
+// What bounded the first design (a cluster of W/16 blocks carrying up
+// to 8 rows, the weights read from shared memory every step by a
+// depth-sliced product whose partial sums and gates went through shared
+// memory, two block barriers, one scalar remote store a (row, unit) pair a
+// peer and a full cluster barrier a step), taken apart with edited copies
+// (tools/torch_lstm_scan_steps.py, PERF.md section 6; f32, us a step):
+// 5.70 at B=8, W=256, of it the product 2.0 (all 8 rows' sums, from shared
+// memory), the exchange 0.6, the gate math 0.5 and 2.5 in the rest (the
+// block barriers, the round trips through shared memory, xg's loads);
+// 3.11 at B=3, W=64 (the product 0.9 on a 4-block cluster whose whole wh
+// fits one block); 11.4 at B=64 (the product 7.2, the scalar peer stores
+// 4.7).  So this design:
+//  * Geometry from storage (ops/rnn_scan.py::lstm_fwd_geometry): the fewest
+//    blocks NC (up to 8) whose registers hold wh's slices, 128 values a
+//    thread, else the fewest (up to 16) whose registers and shared memory
+//    hold them; a depth past both streams through L2 every step (W > 512
+//    in f32).  W=64: one block, no cluster; W=256: 8 blocks.
+//  * bf16 weights sit in registers as f32: packed two a register they
+//    would halve the blocks at W=256, but unpacking them costs an
+//    instruction a weight a step, and the first build of that measured 2.5
+//    us a step against f32's 1.0 (shared memory keeps them packed).
+//  * Rows a chain (1, 2, 3, 4, 6 or 8) from B and the clusters the card
+//    runs at once (its occupancy query: 15 of 8 blocks on an H100, not
+//    132 / 8): one row a chain at B <= 15, so a block's product is one
+//    row's; more rows share a chain (and each weight read) only so that no
+//    chain waits for another to finish.
+//  * Thread (unit u, gate g, depth slice s) keeps its slice of wh's column
+//    g*W + u in registers.  A unit's 4*S threads are neighbouring lanes of
+//    one warp: the slices' sums meet by shuffles, and each lane gathers the
+//    four gates by shuffles and updates c (carried in registers) itself.
+//    No shared-memory round trip but h's, no block barrier in a step.
+//  * h is exchanged by st.async: each new h value goes to every block of
+//    the cluster as one remote store that also completes its bytes on the
+//    receiver's mbarrier, so a block waits only for its own h buffer to
+//    fill (a one-way latency), never for a cluster barrier.  h is double-
+//    buffered: a block writes a peer's buffer for step t+2 only after the
+//    peer sent its h of step t+1, which it does after reading the buffer at
+//    step t.  With one block the h values go to its own shared memory and
+//    one block barrier a step publishes them.  Wider writes (a block's
+//    slice gathered, then one bulk copy a peer) would add a block barrier
+//    a step to save an exchange that takes about 0.1 us of it (below).
+//  * xg of step t+1 is loaded at the end of step t, its rows prefetched
+//    into L2 four steps ahead; the stores of ys, cs and res follow the
+//    remote stores, off the chain.
+// Measured the same way, a step of this design at B=8, W=256 (f32) takes
+// about 1.0 us: the product about 0.4, the gate math 0.2, the exchange
+// 0.1 (PERF.md section 6).  The product stays SIMT: with one row a chain
+// (B <= 15 on 8-block chains) an mma.sync m16n8k16 would use one of its 8
+// columns and add a fragment shuffle a step, and 3xTF32 triples f32's
+// work; the bench's 6-row chains, where the product takes 1.9 of 4.5 us,
+// are where tensor cores could pay (ROADMAP section 2).  Widths past 1024
+// (more units than a block's threads) are refused.
 
-#include "scan_common.cuh"
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+#include "dtype.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-template <typename T, bool SAVE>
-__global__ void __launch_bounds__(kScanThreads, 1)
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+constexpr int kThreads = 256;       // threads a block, at most
+constexpr int kRegWords = 128;      // weights a thread keeps in registers, f32
+constexpr int kMaxNC = 16;          // blocks a chain (16: non-portable)
+constexpr int kAhead = 4;           // steps of xg prefetched into L2
+constexpr size_t kSmem = 225 * 1024;  // dynamic shared memory budget
+
+struct FwdArgs {
+  int Tn, B, W, G;
+  int NC;    // blocks a chain
+  int S;     // depth slices a gate column
+  int U;     // units a block
+  int L;     // depth a slice, a multiple of 8
+  int LP;    // its stride in h's rows, max(L, kRegWords) + 4: the product
+             // reads kRegWords of h a slice (zeros past L), and the 4 put
+             // the slices on distinct banks
+  int ldh;   // h's row stride, S * LP
+  int rows;  // batch rows a chain
+  int ls;    // depth a slice reads from shared memory after kRegWords
+  int nthr;  // threads a block
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The same shared-memory location in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_u32(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of remote stores this phase.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` completes; traps after 2^26
+// polls (seconds), so a broken exchange fails the launch, not the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) asm volatile("trap;");
+  }
+}
+
+// v into the cluster's shared memory at `addr`, completing 4 bytes on the
+// mbarrier at `bar` (both in the same block).
+__device__ __forceinline__ void send_h(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(__float_as_uint(v)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Weight words: f32 bits (registers hold bf16 weights as f32 too: the
+// product then needs no unpacking), or in shared memory two bf16 (the even
+// depth in the low half).
+template <typename T>
+__device__ __forceinline__ uint32_t load_word(const T* __restrict__ wh,
+                                              int d, int W, int G, int col,
+                                              bool on);
+template <>
+__device__ __forceinline__ uint32_t load_word<float>(
+    const float* __restrict__ wh, int d, int W, int G, int col, bool on) {
+  return on && d < W ? __float_as_uint(wh[(size_t)d * G + col]) : 0u;
+}
+template <>
+__device__ __forceinline__ uint32_t load_word<__nv_bfloat16>(
+    const __nv_bfloat16* __restrict__ wh, int d, int W, int G, int col,
+    bool on) {
+  const uint32_t lo =
+      on && d < W ? __bfloat16_as_ushort(wh[(size_t)d * G + col]) : 0u;
+  const uint32_t hi =
+      on && d + 1 < W ? __bfloat16_as_ushort(wh[(size_t)(d + 1) * G + col])
+                      : 0u;
+  return lo | (hi << 16);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t f32_word(const T* __restrict__ wh, int d,
+                                             int W, int G, int col, bool on) {
+  return on && d < W ? __float_as_uint(to_f(wh[(size_t)d * G + col])) : 0u;
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// acc += dot(h[0..3], w[0..3]), in that order.
+__device__ __forceinline__ float dot4(float acc, float4 h, float w0,
+                                      float w1, float w2, float w3) {
+  acc = fmaf(h.x, w0, acc);
+  acc = fmaf(h.y, w1, acc);
+  acc = fmaf(h.z, w2, acc);
+  return fmaf(h.w, w3, acc);
+}
+
+// The thread's part of the step's product for RM rows: its slice of its
+// gate column against h (rows of stride ldh from hs): registers for depth
+// [0, kRegWords) (weights past the slice's L are 0, so the loop needs no
+// bound and its loads of h go out ahead of the FMAs), shared memory for
+// [kRegWords, kRegWords + ls), L2 for the rest.  NA sums a row, added in a
+// fixed order.
+template <typename T, int RM>
+__device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
+                                        const uint4* __restrict__ ws,
+                                        const T* __restrict__ wh,
+                                        const float* hs, const FwdArgs& a,
+                                        int d0, int col, float (&out)[RM]) {
+  constexpr int NA = RM >= 4 ? 1 : 4 / RM;
+  float acc[RM][NA];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int k = 0; k < NA; ++k) acc[r][k] = 0.0f;
+  // registers
+#pragma unroll
+  for (int j = 0; j < kRegWords; j += 4) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const float4 h = *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
+      acc[r][(j / 4) % NA] =
+          dot4(acc[r][(j / 4) % NA], h, __uint_as_float(wr[j]),
+               __uint_as_float(wr[j + 1]), __uint_as_float(wr[j + 2]),
+               __uint_as_float(wr[j + 3]));
+    }
+  }
+  // shared memory: 16-byte chunks, the thread's own at stride nthr
+  constexpr int V = 16 / (int)sizeof(T);
+  const int nq = a.ls / V;
+#pragma unroll 2
+  for (int q = 0; q < nq; ++q) {
+    const uint4 c = ws[(size_t)q * a.nthr];
+    const int j = kRegWords + q * V;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 h =
+            *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
+        acc[r][0] = dot4(acc[r][0], h, __uint_as_float(c.x),
+                         __uint_as_float(c.y), __uint_as_float(c.z),
+                         __uint_as_float(c.w));
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 h0 =
+            *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
+        const float4 h1 =
+            *reinterpret_cast<const float4*>(hs + r * a.ldh + j + 4);
+        acc[r][0] = dot4(acc[r][0], h0, bf_lo(c.x), bf_hi(c.x), bf_lo(c.y),
+                         bf_hi(c.y));
+        acc[r][0] = dot4(acc[r][0], h1, bf_lo(c.z), bf_hi(c.z), bf_lo(c.w),
+                         bf_hi(c.w));
+      }
+    }
+  }
+  // L2: the depth past registers and shared memory, 8 loads in flight
+  int j = kRegWords + a.ls;
+  const int j1 = min(a.L, a.W - d0);
+  const T* __restrict__ wg = wh + col;
+  for (; j + 8 <= j1; j += 8) {
+    float w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = to_f(wg[(size_t)(d0 + j + k) * a.G]);
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        acc[r][0] = fmaf(hs[r * a.ldh + j + k], w[k], acc[r][0]);
+  }
+  for (; j < j1; ++j) {
+    const float w0 = to_f(wg[(size_t)(d0 + j) * a.G]);
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      acc[r][0] = fmaf(hs[r * a.ldh + j], w0, acc[r][0]);
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    float sum = acc[r][0];
+#pragma unroll
+    for (int k = 1; k < NA; ++k) sum += acc[r][k];
+    out[r] = sum;
+  }
+}
+
+// One chain of a.rows batch rows on a cluster of a.NC blocks.  Block rank
+// q owns units [q*U, q*U + ucnt); thread tid is depth slice s = tid % S of
+// gate g = (tid / S) % 4 of local unit tid / (4S).  h_s [2][RM][ldh] f32
+// (slice s of a row at s*LP), then two mbarriers (one an h buffer), then
+// the shared-memory weights [ls*sizeof(T)/16][nthr] 16-byte chunks.
+template <typename T, int RM, bool SAVE>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
                      T* __restrict__ ys, T* __restrict__ cs,
-                     T* __restrict__ res, ScanArgs a) {
+                     T* __restrict__ res, FwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const Chain ch = chain(cluster, a);
-  const int W = a.W;
-  const int G = 4 * W;
-  const int ld = row_ld(W);
-  const int C = 4 * ch.ucnt;
-  const int C4 = 4 * a.U;
-  // the layout, the same in every block
-  float* h_s = reinterpret_cast<float*>(smem_raw);  // [2][kMaxRows][ld]
-  float* part_s = h_s + 2 * kMaxRows * ld;
-  float* act_s = part_s + part_floats(C4);  // [kMaxRows][C]
-  float* c_s = act_s + kMaxRows * C4;       // [kMaxRows][U]
-  T* w_s = reinterpret_cast<T*>(c_s + kMaxRows * a.U);  // [rs][C]
+  float* h_s = reinterpret_cast<float*>(smem_raw);
+  const int hfloats = 2 * RM * a.ldh;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(h_s + hfloats);
+  uint4* w_s = reinterpret_cast<uint4*>(bars + 2);
 
-  const ColMap cm{ch.ucnt > 0 ? ch.ucnt : 1, W, ch.u0, G};
-  load_weights(w_s, wh, cm, a.rs, C);
-  for (int i = threadIdx.x; i < 2 * kMaxRows * ld; i += kScanThreads)
-    h_s[i] = 0.0f;
-  for (int i = threadIdx.x; i < kMaxRows * a.U; i += kScanThreads)
-    c_s[i] = 0.0f;
-  float* peer[kMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    if (q < a.NC) peer[q] = cluster.map_shared_rank(h_s, q);
+  const int tid = threadIdx.x;
+  const int rank = a.NC > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int chain = blockIdx.x / a.NC;
+  const int b0 = chain * a.rows;
+  const int nb = min(a.rows, a.B - b0);
+  const int u0 = rank * a.U;
+  const int ucnt = min(a.U, a.W - u0);
+  const int s = tid % a.S;
+  const int g = (tid / a.S) % 4;
+  const int ul = tid / (4 * a.S);
+  const bool on = ul < ucnt;
+  const int unit = u0 + ul;
+  const int col = g * a.W + (on ? unit : 0);  // a column to read, always
+  const int d0 = s * a.L;
+  const int k = tid % (4 * a.S);                 // lane in the unit's group
+  const int base = (tid & 31) - (tid & 31) % (4 * a.S);  // group's lane 0
+  const int uoff = on ? (unit / a.L) * a.LP + unit % a.L : 0;
 
-  // this thread's (row, column) items of the gate step, and their xg; its
-  // (row, unit) pairs of the cell update
-  const int n_items = ch.nb * C;
-  const int n_pairs = ch.nb * ch.ucnt;
-  float xv[kMaxItems];
+  // the weights: registers, then shared memory
+  uint32_t wr[kRegWords];
 #pragma unroll
-  for (int k = 0; k < kMaxItems; ++k) {
-    const int e = threadIdx.x + k * kScanThreads;
-    if (e < n_items)
-      xv[k] = to_f(xg[(size_t)(ch.b0 + e / C) * G + cm.col(e % C)]);
+  for (int w = 0; w < kRegWords; ++w)
+    wr[w] = w < a.L ? f32_word(wh, d0 + w, a.W, a.G, col, on) : 0u;
+  constexpr int VPW = 4 / (int)sizeof(T);
+  constexpr int V = 16 / (int)sizeof(T);
+  for (int q = 0; q < a.ls / V; ++q) {
+    const int d = d0 + kRegWords + q * V;
+    uint4 c;
+    c.x = load_word<T>(wh, d, a.W, a.G, col, on);
+    c.y = load_word<T>(wh, d + VPW, a.W, a.G, col, on);
+    c.z = load_word<T>(wh, d + 2 * VPW, a.W, a.G, col, on);
+    c.w = load_word<T>(wh, d + 3 * VPW, a.W, a.G, col, on);
+    w_s[(size_t)q * a.nthr + tid] = c;
   }
-  cluster.sync();  // every block has started and zeroed its h
+  for (int i = tid; i < hfloats; i += blockDim.x) h_s[i] = 0.0f;
+  const uint32_t bar0 = smem_u32(bars), h0 = smem_u32(h_s);
+  const uint32_t bytes = 4u * (uint32_t)a.W * (uint32_t)nb;
+  if (a.NC > 1) {
+    if (tid == 0) {
+      bar_init(bar0);
+      bar_init(bar0 + 8);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      // buffer 1 receives h of step 1, buffer 0 that of step 2
+      if (a.Tn > 1) bar_expect(bar0 + 8, bytes);
+      if (a.Tn > 2) bar_expect(bar0, bytes);
+    }
+    cg::this_cluster().sync();  // every block set up before any store
+    // a warp with no unit of this block has nothing to do
+    if (!__any_sync(0xffffffffu, on)) return;
+  } else {
+    __syncthreads();
+  }
+
+  const size_t ldx = (size_t)a.B * a.G;
+  float xv[RM], c[RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    xv[r] = r < nb ? to_f(xg[(size_t)(b0 + r) * a.G + col]) : 0.0f;
+    c[r] = 0.0f;
+  }
+  for (int t = 1; t < kAhead && t < a.Tn; ++t)
+    for (int r = 0; r < nb; ++r)
+      prefetch_l2(xg + t * ldx + (size_t)(b0 + r) * a.G + col);
 
   for (int t = 0; t < a.Tn; ++t) {
     const int cur = t & 1;
-    if (C > 0)
-      product(h_s + cur * kMaxRows * ld, ld, w_s, a.rs, wh, cm, C, W,
-              part_s);
-    __syncthreads();
-
-    // gates: the slices' sums, xg and the activation
+    if (a.NC > 1 && t > 0) {
+      bar_wait(bar0 + 8 * cur, ((t - 1) >> 1) & 1);
+      if (tid == 0 && t + 2 < a.Tn) bar_expect(bar0 + 8 * cur, bytes);
+    }
+    float pre[RM];
+    product<T, RM>(wr, w_s + tid, wh, h_s + cur * RM * a.ldh + s * a.LP, a,
+                   d0, col, pre);
+    // the slices' sums (the same in every slice's lane), the gate, the four
+    // gates of the unit from its lanes, and the cell update in every lane
+    float act[RM], tc[RM], hv[RM];
+    T hq[RM];
 #pragma unroll
-    for (int k = 0; k < kMaxItems; ++k) {
-      const int e = threadIdx.x + k * kScanThreads;
-      if (e < n_items) {
-        const int b = e / C;
-        const int c = e % C;
-        const float pre = xv[k] + reduce_slices(part_s, b, c, C, W);
-        const float act = c / ch.ucnt == 2 ? tanhf(pre) : sigmoid_f(pre);
-        act_s[b * C + c] = act;
-        if (SAVE)
-          res[((size_t)t * a.B + ch.b0 + b) * 5 * W + cm.col(c)] =
-              from_f<T>(act);
+    for (int r = 0; r < RM; ++r) {
+      float sum = pre[r];
+      for (int o = 1; o < a.S; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float p = xv[r] + sum;
+      act[r] = g == 2 ? tanhf(p) : sigmoid_f(p);
+      const int lane = base + s;
+      const float ig = __shfl_sync(0xffffffffu, act[r], lane);
+      const float fg = __shfl_sync(0xffffffffu, act[r], lane + a.S);
+      const float gg = __shfl_sync(0xffffffffu, act[r], lane + 2 * a.S);
+      const float og = __shfl_sync(0xffffffffu, act[r], lane + 3 * a.S);
+      c[r] = fmaf(fg, c[r], ig * gg);
+      tc[r] = tanhf(c[r]);
+      hq[r] = from_f<T>(og * tc[r]);
+      hv[r] = to_f(hq[r]);
+    }
+    // the new h to every block (or to this one), then the step's stores
+    // and the next step's xg
+    const int nxt = cur ^ 1;
+    if (t + 1 < a.Tn && on) {
+      const uint32_t slot = h0 + 4u * (uint32_t)(nxt * RM * a.ldh + uoff);
+      if (a.NC > 1) {
+        for (int q = k; q < a.NC; q += 4 * a.S) {
+          const uint32_t dst = peer_u32(slot, q);
+          const uint32_t bar = peer_u32(bar0 + 8 * nxt, q);
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+            if (r < nb) send_h(dst + 4u * r * a.ldh, hv[r], bar);
+        }
+      } else if (k == 3) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          if (r < nb) h_s[nxt * RM * a.ldh + r * a.ldh + uoff] = hv[r];
       }
     }
-    __syncthreads();
-
-    // the cell update of (row b, unit u), the new h to every block, and
-    // the barrier's arrive; then the step's stores and the next step's xg
-    T hq[kMaxPairs];
-    float cn[kMaxPairs], tc[kMaxPairs];
+    if (on) {
 #pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
-      const int e = threadIdx.x + k * kScanThreads;
-      if (e < n_pairs) {
-        const int b = e / ch.ucnt;
-        const int u = e % ch.ucnt;
-        const float* g = act_s + b * C;
-        const float ig = g[u], fg = g[ch.ucnt + u];
-        const float gg = g[2 * ch.ucnt + u], og = g[3 * ch.ucnt + u];
-        cn[k] = fg * c_s[b * a.U + u] + ig * gg;
-        c_s[b * a.U + u] = cn[k];
-        tc[k] = tanhf(cn[k]);
-        hq[k] = from_f<T>(og * tc[k]);
-        const float hv = to_f(hq[k]);
-        const int slot = ((cur ^ 1) * kMaxRows + b) * ld + ch.u0 + u;
-#pragma unroll
-        for (int q = 0; q < kMaxCluster; ++q)
-          if (q < a.NC) peer[q][slot] = hv;
-      }
-    }
-    cluster_arrive();
-#pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
-      const int e = threadIdx.x + k * kScanThreads;
-      if (e < n_pairs) {
-        const size_t row = (size_t)t * a.B + ch.b0 + e / ch.ucnt;
-        const int unit = ch.u0 + e % ch.ucnt;
-        ys[row * W + unit] = hq[k];
-        cs[row * W + unit] = from_f<T>(cn[k]);
-        if (SAVE) res[row * 5 * W + 4 * W + unit] = from_f<T>(tc[k]);
+      for (int r = 0; r < RM; ++r) {
+        if (r < nb) {
+          const size_t row = (size_t)t * a.B + b0 + r;
+          if (k == 0) ys[row * a.W + unit] = hq[r];
+          if (k == 1) cs[row * a.W + unit] = from_f<T>(c[r]);
+          if (SAVE && k == 2)
+            res[row * 5 * a.W + 4 * a.W + unit] = from_f<T>(tc[r]);
+          if (SAVE && s == 0) res[row * 5 * a.W + col] = from_f<T>(act[r]);
+        }
       }
     }
     if (t + 1 < a.Tn) {
 #pragma unroll
-      for (int k = 0; k < kMaxItems; ++k) {
-        const int e = threadIdx.x + k * kScanThreads;
-        if (e < n_items)
-          xv[k] = to_f(xg[((size_t)(t + 1) * a.B + ch.b0 + e / C) * G +
-                          cm.col(e % C)]);
-      }
+      for (int r = 0; r < RM; ++r)
+        xv[r] = r < nb ? to_f(xg[(t + 1) * ldx + (size_t)(b0 + r) * a.G +
+                                 col])
+                       : 0.0f;
+      if (t + kAhead < a.Tn)
+        for (int r = 0; r < nb; ++r)
+          prefetch_l2(xg + (t + kAhead) * ldx + (size_t)(b0 + r) * a.G + col);
     }
-    cluster_wait();
+    if (a.NC == 1) __syncthreads();
   }
 }
 
-// Bytes of the shared-memory buffers other than the resident weights.
-size_t fwd_fixed_bytes(const ScanArgs& a) {
-  const int ld = row_ld(a.W);
-  const int C4 = 4 * a.U;
-  return align16(sizeof(float) *
-                 (2 * kMaxRows * ld + part_floats(C4) + kMaxRows * C4 +
-                  kMaxRows * a.U));
+// Shared-memory bytes of a launch: h's two buffers, the mbarriers and the
+// weights read from shared memory.
+template <typename T>
+size_t fwd_smem(const FwdArgs& a, int rm) {
+  return sizeof(float) * 2 * rm * a.ldh + 16 +
+         (size_t)a.nthr * a.ls * sizeof(T);
+}
+
+template <typename T, int RM, bool SAVE>
+cudaError_t launch(const FwdArgs& a, size_t smem, cudaStream_t stream,
+                   const void* xg, const void* wh, void* ys, void* cs,
+                   void* res) {
+  auto kernel = lstm_scan_fwd_kernel<T, RM, SAVE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (a.NC > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  const int chains = (a.B + a.rows - 1) / a.rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(chains * a.NC);
+  cfg.blockDim = dim3(a.nthr);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(xg),
+                           static_cast<const T*>(wh), static_cast<T*>(ys),
+                           static_cast<T*>(cs), static_cast<T*>(res), a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of this launch's kind that the card holds at once.
+template <typename T, int RM>
+int max_clusters(const FwdArgs& a) {
+  auto kernel = lstm_scan_fwd_kernel<T, RM, true>;
+  const size_t smem = fwd_smem<T>(a, RM);
+  if (smem > kSmem ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      (a.NC > 8 &&
+       cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeNonPortableClusterSizeAllowed,
+                            1) != cudaSuccess))
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.NC);
+  cfg.blockDim = dim3(a.nthr);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.NC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess
+             ? n
+             : -1;
+}
+
+template <typename T, int RM>
+cudaError_t run_rows(const FwdArgs& a, bool save, cudaStream_t stream,
+                     const void* xg, const void* wh, void* ys, void* cs,
+                     void* res) {
+  const size_t smem = fwd_smem<T>(a, RM);
+  if (smem > kSmem) return cudaErrorInvalidValue;
+  if (save)
+    return launch<T, RM, true>(a, smem, stream, xg, wh, ys, cs, res);
+  return launch<T, RM, false>(a, smem, stream, xg, wh, ys, cs, res);
 }
 
 template <typename T>
-cudaError_t run_fwd(const void* xg, const void* wh, void* ys, void* cs,
-                    void* res, ScanArgs a, bool save, cudaStream_t stream) {
-  const size_t fixed = fwd_fixed_bytes(a);
-  const size_t row_bytes = sizeof(T) * 4 * a.U;
-  a.rs = resident_rows(fixed, row_bytes, a.W);
-  const size_t smem = fixed + row_bytes * a.rs;
-  const T* x = static_cast<const T*>(xg);
-  const T* w = static_cast<const T*>(wh);
-  T* y = static_cast<T*>(ys);
-  T* c = static_cast<T*>(cs);
-  T* r = static_cast<T*>(res);
-  if (save)
-    return launch_chain(lstm_scan_fwd_kernel<T, true>, a, smem, stream, x, w,
-                        y, c, r, a);
-  return launch_chain(lstm_scan_fwd_kernel<T, false>, a, smem, stream, x, w,
-                      y, c, r, a);
+cudaError_t run_fwd(const FwdArgs& a, bool save, cudaStream_t stream,
+                    const void* xg, const void* wh, void* ys, void* cs,
+                    void* res) {
+  switch (a.rows) {
+    case 1: return run_rows<T, 1>(a, save, stream, xg, wh, ys, cs, res);
+    case 2: return run_rows<T, 2>(a, save, stream, xg, wh, ys, cs, res);
+    case 3: return run_rows<T, 3>(a, save, stream, xg, wh, ys, cs, res);
+    case 4: return run_rows<T, 4>(a, save, stream, xg, wh, ys, cs, res);
+    case 6: return run_rows<T, 6>(a, save, stream, xg, wh, ys, cs, res);
+    case 8: return run_rows<T, 8>(a, save, stream, xg, wh, ys, cs, res);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The launch's arguments from the caller's geometry; false when it is not
+// one the kernel takes.
+bool fwd_args(int Tn, int B, int W, int nc, int s, int rows, int ls,
+              int chunk, FwdArgs* a) {
+  if (Tn <= 0 || B <= 0 || W <= 0 || nc < 1 || nc > kMaxNC ||
+      (s != 1 && s != 2 && s != 4 && s != 8) || ls < 0 || ls % chunk)
+    return false;
+  a->Tn = Tn;
+  a->B = B;
+  a->W = W;
+  a->G = 4 * W;
+  a->NC = nc;
+  a->S = s;
+  a->U = (W + nc - 1) / nc;
+  a->L = ((W + s - 1) / s + 7) & ~7;
+  a->LP = (a->L > kRegWords ? a->L : kRegWords) + 4;
+  a->ldh = s * a->LP;
+  a->rows = rows;
+  a->ls = ls;
+  a->nthr = (4 * a->U * s + 31) & ~31;
+  // every block owns a unit; a unit's 4S threads share a warp
+  return (nc - 1) * a->U < W && a->nthr <= kThreads &&
+         (ls == 0 || kRegWords + ls <= a->L);
 }
 
 }  // namespace
@@ -198,20 +586,40 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, the dtype of every tensor.  Device
 // pointers of contiguous tensors: xg [T, B, 4W], wh [W, 4W], ys and cs
 // [T, B, W] and, when save != 0, res [T, B, 5W] (ignored otherwise).
-// cluster: blocks a chain spreads W over, 1..16 and at most W.  Launches
-// on `stream` and returns the launch's error (0 on success).
+// The geometry (ops/rnn_scan.py::lstm_fwd_geometry): nc blocks a chain
+// (1..16, each owning a unit), s depth slices a gate column (1, 2, 4, 8;
+// 4 * ceil(W / nc) * s <= 256), rows batch rows a chain (1, 2, 3, 4, 6, 8) and
+// ls, the depth a slice reads from shared memory after its registers (a
+// multiple of 16 bytes' values).  Launches on `stream` and returns the
+// launch's error (0 on success).
 int lstm_scan_fwd(int dtype, const void* xg, const void* wh, void* ys,
                   void* cs, void* res, int Tn, int B, int W, int save,
-                  int cluster, void* stream) {
-  ScanArgs a;
-  if (!scan_geometry(Tn, B, W, cluster, &a) || (save && res == nullptr))
+                  int nc, int s, int rows, int ls, void* stream) {
+  FwdArgs a;
+  const int chunk = dtype == 0 ? 4 : 8;
+  if (!fwd_args(Tn, B, W, nc, s, rows, ls, chunk, &a) ||
+      (save && res == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)run_fwd<float>(xg, wh, ys, cs, res, a, save != 0, s);
+    return (int)run_fwd<float>(a, save != 0, st, xg, wh, ys, cs, res);
   if (dtype == 1)
-    return (int)run_fwd<__nv_bfloat16>(xg, wh, ys, cs, res, a, save != 0, s);
+    return (int)run_fwd<__nv_bfloat16>(a, save != 0, st, xg, wh, ys, cs,
+                                       res);
   return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of nc blocks (a geometry as lstm_scan_fwd takes it, rows 1)
+// that the card runs at once (cudaOccupancyMaxActiveClusters; a cluster
+// lies in one GPC, so fewer than SMs / nc), or -1 for one it refuses.
+int lstm_scan_fwd_clusters(int dtype, int W, int nc, int s, int rows,
+                           int ls) {
+  FwdArgs a;
+  if (!fwd_args(1, rows, W, nc, s, rows, ls, dtype == 0 ? 4 : 8, &a))
+    return -1;
+  if (rows != 1) return -1;  // every launch holds one block an SM
+  return dtype == 0 ? max_clusters<float, 1>(a)
+                    : max_clusters<__nv_bfloat16, 1>(a);
 }
 
 const char* lstm_scan_fwd_error_string(int err) {

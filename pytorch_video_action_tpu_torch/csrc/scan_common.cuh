@@ -1,5 +1,5 @@
-// Device code shared by the LSTM and GRU scan kernels (lstm_scan_fwd.cu,
-// lstm_scan_bwd.cu, gru_scan_fwd.cu, gru_scan_bwd.cu) for Hopper (sm_90a):
+// Device code shared by the LSTM scan's backwards and the GRU scan's kernels
+// (lstm_scan_bwd.cu, gru_scan_fwd.cu, gru_scan_bwd.cu) for Hopper (sm_90a):
 // the chain's geometry on a thread block cluster, its shared-memory
 // budget, the per-step product of a few batch rows with a weight slice,
 // and the cluster launch.

@@ -33,10 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import torch
 
-from .rnn_fused import _acc, _check_tensors, _DTYPE_CODE, _no_kernel
+from .rnn_fused import _acc, _check_tensors, _DTYPE_CODE, _no_kernel, _sms
 
 # the recompute backward (row 16) instead of the saved-gates one, read as
 # JAX reads ``rnn_pallas._RECOMPUTE_BWD``; assign the module global to flip
@@ -53,6 +54,88 @@ def cluster_size(w: int) -> int:
     while n < 16 and n * 16 < w and 2 * n <= w:
         n *= 2
     return n
+
+
+# The LSTM scan forward's geometry (csrc/lstm_scan_fwd.cu): threads a block
+# at most, weights a thread keeps in registers (as f32 in either dtype), the
+# dynamic shared memory a block may take, and the chains' block counts
+FWD_THREADS = 256
+FWD_REG_VALS = 128
+FWD_SMEM = 225 * 1024
+_FWD_NC = (1, 2, 4, 8, 16)
+_FWD_ROWS = (1, 2, 3, 4, 6, 8)
+
+
+class FwdGeometry(NamedTuple):
+    """A launch of the LSTM scan forward: ``nc`` blocks a chain, ``s``
+    depth slices a gate column (thread (unit, gate, slice), 4*U*s threads a
+    block, U = ceil(W / nc) units), ``rows`` batch rows a chain, ``depth``
+    of a slice (a multiple of 8), of it ``ls`` read from shared memory after
+    the registers' (the rest, if any, from L2), ``threads`` and ``smem``
+    bytes a block."""
+    nc: int
+    s: int
+    rows: int
+    depth: int
+    ls: int
+    threads: int
+    smem: int
+
+
+def _fwd_layout(w, nc):
+    """(units, slices, depth, threads) of ``nc`` blocks over ``w``, or None
+    when a block would own no unit or more than ``FWD_THREADS // 4``."""
+    u = -(-w // nc)
+    if (nc - 1) * u >= w or 4 * u > FWD_THREADS:
+        return None
+    s = 1
+    while s < 8 and 8 * u * s <= FWD_THREADS:
+        s *= 2
+    depth = (-(-w // s) + 7) // 8 * 8
+    return u, s, depth, (4 * u * s + 31) // 32 * 32
+
+
+def lstm_fwd_geometry(b, w, dtype, sms, fits=None) -> FwdGeometry:
+    """The LSTM scan forward's launch for ``b`` rows of width ``w`` in
+    ``dtype`` on a card of ``sms`` SMs, of which ``fits(nc)`` clusters of
+    ``nc`` blocks run at once (default ``sms // nc``; a cluster lies in one
+    GPC, so an H100 runs 15 of 8 blocks).  Blocks: the fewest (up to 8,
+    one portable cluster) whose registers hold wh's slices,
+    ``FWD_REG_VALS`` a thread (W=64: 1; W=256: 8); else the fewest (up to
+    16) whose registers and shared memory hold them (W=512: 16 in f32, 8
+    in bf16, whose shared-memory weights take half the bytes); else 16,
+    the depth past both read through L2.  Rows a chain: the fewest of 1,
+    2, 3, 4, 6, 8 whose chains all run at once (at most 8)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    chunk = 16 // size  # the shared-memory weights' 16-byte chunks
+    if fits is None:
+        fits = lambda nc: sms // nc  # noqa: E731
+
+    def launch(nc):
+        """The launch on ``nc`` blocks, the depth past the registers in
+        shared memory as far as it fits; None if no layout fits."""
+        lay = _fwd_layout(w, nc)
+        if lay is None:
+            return None
+        _, s, depth, threads = lay
+        rows = next((r for r in _FWD_ROWS if -(-b // r) <= fits(nc)), 8)
+        fixed = 4 * 2 * rows * s * (max(depth, FWD_REG_VALS) + 4) + 16
+        room = (FWD_SMEM - fixed) // (threads * size) // chunk * chunk
+        ls = min(max(depth - FWD_REG_VALS, 0), room)
+        return FwdGeometry(nc, s, rows, depth, ls, threads,
+                           fixed + threads * ls * size)
+
+    launches = {nc: launch(nc) for nc in _FWD_NC}
+    for nc, geo in launches.items():  # registers alone, nc <= 8
+        if geo and nc <= 8 and geo.depth <= FWD_REG_VALS:
+            return geo
+    for geo in launches.values():  # registers and shared memory
+        if geo and geo.depth <= FWD_REG_VALS + geo.ls:
+            return geo
+    if launches[_FWD_NC[-1]] is None:
+        raise ValueError(f"lstm_scan_fwd: W={w} is wider than the kernel "
+                         f"takes ({_FWD_NC[-1] * FWD_THREADS // 4})")
+    return launches[_FWD_NC[-1]]
 
 
 # ------------------------------------------------------------ plain versions
@@ -148,9 +231,9 @@ def lstm_scan_bwd_ref(xg, hp, cp, cs, dy, wh):
 # ------------------------------------------------------------------ kernels
 
 _ARGTYPES = {
-    # dtype; xg, wh, ys, cs, res; T, B, W, save, cluster; stream
+    # dtype; xg, wh, ys, cs, res; T, B, W, save, nc, s, rows, ls; stream
     "lstm_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     # dtype, recompute; xg or res, hp, cp, cs, dy, wh, wh^T, dxg, dwh;
     # T, B, W, cluster; stream
     "lstm_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
@@ -211,16 +294,44 @@ def _check(where, xg, wh, named, width, gates=_GATES, bh=None):
     return t_len, b, w
 
 
+_FITS: dict = {}
+
+
+def _cluster_fits(device):
+    """``fits(nc)`` of :func:`lstm_fwd_geometry` on ``device``: the
+    kernel's own occupancy query (``lstm_scan_fwd_clusters``) for blocks of
+    256 threads (W = 64 nc), which take an SM each, as every launch's
+    blocks of 160 or more threads do."""
+    from . import cuda_lib
+
+    def fits(nc):
+        key = (device.index, nc)
+        if key not in _FITS:
+            lib = cuda_lib.load("lstm_scan_fwd")
+            lib.lstm_scan_fwd_clusters.argtypes = [ctypes.c_int] * 6
+            with torch.cuda.device(device):
+                _FITS[key] = lib.lstm_scan_fwd_clusters(0, 64 * nc, nc, 1, 1,
+                                                        0)
+            if _FITS[key] < 1:
+                raise RuntimeError(f"lstm_scan_fwd: no cluster of {nc} "
+                                   f"blocks fits {device}")
+        return _FITS[key]
+
+    return fits
+
+
 def _fwd(xg, wh, save):
     t_len, b, w = _check("lstm_scan_fwd", xg, wh, (), _GATES)
     ys = torch.empty((t_len, b, w), dtype=xg.dtype, device=xg.device)
     cs = torch.empty_like(ys)
     res = (torch.empty((t_len, b, _RES * w), dtype=xg.dtype, device=xg.device)
            if save else None)
+    geo = lstm_fwd_geometry(b, w, xg.dtype, _sms(xg.device),
+                            _cluster_fits(xg.device))
     _launch("lstm_scan_fwd", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
             wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
             0 if res is None else res.data_ptr(), t_len, b, w, int(save),
-            cluster_size(w))
+            geo.nc, geo.s, geo.rows, geo.ls)
     return (ys, cs, res) if save else (ys, cs)
 
 

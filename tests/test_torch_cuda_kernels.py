@@ -1008,6 +1008,42 @@ def test_lstm_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
         assert _rel_err(got, want) <= TOL[dtype]
 
 
+# The forward's geometry (rnn_scan.lstm_fwd_geometry) at its edges: one
+# row; more rows than one chain carries, the last chain part full (on an
+# H100, 15 clusters of 8 blocks at once: B=40 at W=256 3 rows a chain,
+# B=70 6, B=100 8; B=141 at W=64 2); the bench's B=64; each width where
+# the blocks or the tiers change (65 two
+# blocks, 129 eight, 257 shared memory after the registers; f32: 385
+# sixteen, 513 depth past shared memory read through L2; bf16: 513 sixteen,
+# 713 L2); and W=1024, most of its depth through L2.
+SCAN_GEOMETRY_CASES = [(64, 1, 40), (256, 1, 40), (256, 40, 16),
+                       (256, 70, 16), (256, 100, 8),
+                       (64, 141, 16), (256, 64, 64), (65, 3, 24),
+                       (128, 3, 24), (129, 5, 24), (257, 3, 24),
+                       (384, 3, 16), (385, 3, 16), (513, 3, 16), (712, 3, 12),
+                       (713, 3, 12), (1024, 3, 8)]
+
+
+@pytest.mark.parametrize("w,b,t", SCAN_GEOMETRY_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_fwd_geometry_edges(cuda_device, dtype, w, b, t):
+    """Eval and saving forms equal bit for bit, a rerun of each too, and
+    the plain version within TOL, at each edge of the geometry."""
+    xg, wh, _ = _scan_case(cuda_device, dtype, w, b, t)
+    ys, cs = RS.lstm_scan_fwd(xg, wh)
+    ys2, cs2, res = RS.lstm_scan_fwd_save(xg, wh)
+    again = RS.lstm_scan_fwd(xg, wh)
+    again_save = RS.lstm_scan_fwd_save(xg, wh)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, ys2) and torch.equal(cs, cs2)
+    for got, rerun in zip((ys, cs, ys2, cs2, res), (*again, *again_save)):
+        assert torch.equal(got, rerun)
+    wys, wcs, wres = RS.lstm_scan_ref(xg, wh, save=True)
+    for got, want in ((ys, wys), (cs, wcs), (res, wres)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[dtype]
+
+
 @pytest.mark.parametrize("w,b,t", SCAN_CASES)
 @pytest.mark.parametrize("recompute", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -153,6 +153,47 @@ def test_cluster_size(w, n):
     assert S.cluster_size(w) == n
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_fwd_geometry_covers_w_and_fits_the_card(dtype):
+    """The forward's geometry at every width it takes: its blocks cover W,
+    each owning a unit; a unit's 4s threads fit one warp and a block's the
+    kernel's 256; the slices cover W, registers before shared memory; the
+    shared memory fits the budget; at B <= 8 and W <= 256 the chains, one
+    row each, take at most the card's 132 SMs.  Widths the design names:
+    one block at W=64, eight at W=256.  Rows a chain
+    follow the clusters the card runs at once."""
+    size = 4 if dtype == torch.float32 else 2
+    reg = S.FWD_REG_VALS
+    for w in range(1, 1025):
+        for b in (1, 3, 8, 11, 64, 141):
+            geo = S.lstm_fwd_geometry(b, w, dtype, 132)
+            u = -(-w // geo.nc)
+            assert geo.nc in (1, 2, 4, 8, 16) and (geo.nc - 1) * u < w
+            assert geo.s in (1, 2, 4, 8) and 32 % (4 * geo.s) == 0
+            assert 4 * u * geo.s <= geo.threads <= S.FWD_THREADS
+            assert geo.s * geo.depth >= w and geo.depth % 8 == 0
+            assert geo.ls % (16 // size) == 0
+            assert min(geo.depth, reg) + geo.ls <= geo.depth
+            assert geo.smem == (8 * geo.rows * geo.s
+                                * (max(geo.depth, reg) + 4) + 16
+                                + geo.threads * geo.ls * size)
+            assert geo.smem <= S.FWD_SMEM
+            assert geo.rows in (1, 2, 3, 4, 6, 8)
+            assert -(-b // geo.rows) * geo.nc <= 132 or geo.rows == 8
+            if w <= 256 and b <= 8:
+                assert geo.rows == 1 and b * geo.nc <= 132
+    assert S.lstm_fwd_geometry(3, 64, dtype, 132).nc == 1
+    assert S.lstm_fwd_geometry(8, 256, dtype, 132).nc == 8
+    # an H100 runs 15 clusters of 8 blocks at once (and 30 of 4): B=64
+    # takes 6 rows a chain (11 chains), not 4 (16 chains, one of them after
+    # the rest)
+    h100 = lambda nc: {4: 30, 8: 15}.get(nc, 132 // nc)  # noqa: E731
+    assert S.lstm_fwd_geometry(64, 256, torch.float32, 132, h100).rows == 6
+    assert S.lstm_fwd_geometry(64, 256, torch.float32, 132).rows == 4
+    with pytest.raises(ValueError, match="wider"):
+        S.lstm_fwd_geometry(3, 1025, dtype, 132)
+
+
 @pytest.mark.parametrize("shape", [(3, 7), (3, 7, 5), (2, 6, 2, 3)])
 def test_masked_reverse_matches_jax(shape):
     rng = np.random.default_rng(len(shape))

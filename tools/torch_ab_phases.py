@@ -9,7 +9,9 @@ call.
 ``DIR`` is the root of the other checkout (for example the parent commit
 unpacked with ``git archive`` into a directory ``.gitignore`` lists).  A
 PHASE is ``slice:<model>`` (phase 4's serving of ``model``: bigru, bilstm
-or attn) or ``train:<model>`` (phase 5's training of ``model``); the
+or attn; ``slice:vanilla_lstm`` is ``phase_vanilla_serving``, its training
+at the inference CLIs' widths and then its serving) or ``train:<model>``
+(phase 5's training of ``model``, vanilla_lstm among them); the
 default is ``slice:attn train:attn``.  Each turn is a process of its own
 that builds that checkout's kernels, writes the seeded dataset into a
 temporary directory and runs the phases as ``chip_smoke.main`` does, so
@@ -42,7 +44,9 @@ with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
     c.write_dataset(root)
     for phase in sys.argv[1:]:
         kind, name = phase.split(":")
-        if kind == "slice":
+        if kind == "slice" and name == "vanilla_lstm":
+            c.phase_vanilla_serving(card, root)
+        elif kind == "slice":
             c.phase_slice(card, root, name)
         else:
             c.phase_train(card, root, name)

@@ -2,14 +2,16 @@
 """Where the time of one train step of the PyTorch port goes, on one
 NVIDIA GPU.
 
-    python3 tools/torch_profile_train.py [--model bigru|bilstm|attn|ms_tcn]
+    python3 tools/torch_profile_train.py [--model bigru|bilstm|attn|ms_tcn|
+                                                  vanilla_lstm]
                                          [--dtype float32|bfloat16]
                                          [--trace trace.json]
 
 Writes the seeded Breakfast-shaped dataset of ``chip_smoke.py`` (48 train
 videos of 500-2500 frames) into a temporary directory, builds the train
 CLI's feed (batch 8, bucket 128, the frozen-composition sampler with seed
-0) and a full-width model (bigru by default) with seeded weights, runs one
+0) and a full-width model (bigru by default; vanilla_lstm at the train
+CLI's defaults, H=256, 2 layers) with seeded weights, runs one
 epoch of train steps to warm up and one more under ``torch.profiler``, and
 prints:
 
@@ -45,7 +47,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="bigru",
-                    choices=["bigru", "bilstm", "attn", "ms_tcn"])
+                    choices=["bigru", "bilstm", "attn", "ms_tcn",
+                             "vanilla_lstm"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--trace", default=None,
