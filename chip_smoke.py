@@ -51,7 +51,8 @@ Phases, in order; any failure exits non-zero:
    saved-gates and the recompute backward) at an odd width (W=100) and one
    past a block's registers (W=512), B=8, T=1920, f32, and at the bench
    shape (B=64, T=1024, W=256) in f32 and bf16: each against its plain
-   version and a rerun, timed beside nn.LSTM (one direction, packed) and
+   version and a rerun, the eval form's ys and cs against the saving
+   form's (bit for bit), timed beside nn.LSTM (one direction, packed) and
    its bound; the two forwards at the bench shape, and at the training
    and serving shapes in phases 4-5, also by step part (µs a step of each
    step-split build, ``step_us``).  Then the GRU scan's four kernels the
@@ -1381,9 +1382,9 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
     lib_ms[bwd] = lib_ms[bwd_saved]
     library = "nn.LSTM" if cell == "lstm" else "nn.GRU"
     tol = TOL[dt_name]
-    rows = {}
+    rows, outs = {}, {}
     for name, (fn, ref, args) in calls.items():
-        got = _outputs(fn(*args))
+        got = outs[name] = _outputs(fn(*args))
         again = _outputs(fn(*args))
         torch.cuda.synchronize()
         want = _outputs(ref(*args))
@@ -1423,6 +1424,14 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
         if not (err <= tol and identical):
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"or a rerun: {rows[name][0]}")
+    if cell == "lstm":  # rows 13 and 14: one template, the same ys and cs
+        same = all(torch.equal(a, c) for a, c in
+                   zip(outs[fwd], outs[fwd_save][:2]))
+        rows[fwd][0]["equals_saving_form"] = same
+        log(f"[kernel] {fwd} {where} {dt_name}: ys and cs bit for bit "
+            f"those of {fwd_save}: {same}")
+        if not same:
+            raise AssertionError(f"{fwd} and {fwd_save} differ")
     return rows
 
 
