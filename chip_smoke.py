@@ -1410,7 +1410,7 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
                        "bound_by": bound_by, "bit_identical_rerun": identical}]
         if steps and name.startswith("lstm_scan_fwd"):
             rows[name][0]["step_us"] = steps_tool().step_us(
-                SCAN_STEPS, fn, args, t_len)
+                SCAN_STEPS, fn, args, t_len, cuda_ms)
             log(f"[kernel] {name} {where} {dt_name} step split, us a step: "
                 + ", ".join(f"{k} {v:.4f}"
                             for k, v in rows[name][0]["step_us"].items()))

@@ -36,7 +36,12 @@
 //    blocks NC (up to 8) whose registers hold wh's slices, 128 values a
 //    thread, else the fewest (up to 16) whose registers and shared memory
 //    hold them; a depth past both streams through L2 every step (W > 512
-//    in f32).  W=64: one block, no cluster; W=256: 8 blocks.
+//    in f32).  W=64: one block, no cluster; W=256: 8 blocks.  Past 64
+//    units a block (W > 1024, or a chain the card cannot run wider) each
+//    thread takes R units a step in turn (rounds), every weight through L2
+//    and c in shared memory: a width no model of the repo uses by default,
+//    taken so that every width runs (vanilla_lstm's --lstm_hidden1, half of
+//    it for the bidirectional LSTM's scan route).
 //  * bf16 weights sit in registers as f32: packed two a register they
 //    would halve the blocks at W=256, but unpacking them costs an
 //    instruction a weight a step, and the first build of that measured 2.5
@@ -70,8 +75,7 @@
 // (B <= 15 on 8-block chains) an mma.sync m16n8k16 would use one of its 8
 // columns and add a fragment shuffle a step, and 3xTF32 triples f32's
 // work; the bench's 6-row chains, where the product takes 1.9 of 4.5 us,
-// are where tensor cores could pay (ROADMAP section 2).  Widths past 1024
-// (more units than a block's threads) are refused.
+// are where tensor cores could pay (ROADMAP section 2).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -97,6 +101,8 @@ struct FwdArgs {
   int NC;    // blocks a chain
   int S;     // depth slices a gate column
   int U;     // units a block
+  int R;     // rounds: units a thread takes in turn each step
+  int UT;    // units a round, ceil(U / R)
   int L;     // depth a slice, a multiple of 8
   int LP;    // its stride in h's rows, max(L, kRegWords) + 4: the product
              // reads kRegWords of h a slice (zeros past L), and the 4 put
@@ -215,9 +221,9 @@ __device__ __forceinline__ float dot4(float acc, float4 h, float w0,
 // gate column against h (rows of stride ldh from hs): registers for depth
 // [0, kRegWords) (weights past the slice's L are 0, so the loop needs no
 // bound and its loads of h go out ahead of the FMAs), shared memory for
-// [kRegWords, kRegWords + ls), L2 for the rest.  NA sums a row, added in a
-// fixed order.
-template <typename T, int RM>
+// [kRegWords, kRegWords + ls), L2 for the rest; with WIDE (rounds) all of
+// it through L2.  NA sums a row, added in a fixed order.
+template <typename T, int RM, bool WIDE>
 __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
                                         const uint4* __restrict__ ws,
                                         const T* __restrict__ wh,
@@ -229,52 +235,68 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
   for (int r = 0; r < RM; ++r)
 #pragma unroll
     for (int k = 0; k < NA; ++k) acc[r][k] = 0.0f;
-  // registers
+  if constexpr (!WIDE) {
+    // registers
 #pragma unroll
-  for (int j = 0; j < kRegWords; j += 4) {
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const float4 h = *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
-      acc[r][(j / 4) % NA] =
-          dot4(acc[r][(j / 4) % NA], h, __uint_as_float(wr[j]),
-               __uint_as_float(wr[j + 1]), __uint_as_float(wr[j + 2]),
-               __uint_as_float(wr[j + 3]));
-    }
-  }
-  // shared memory: 16-byte chunks, the thread's own at stride nthr
-  constexpr int V = 16 / (int)sizeof(T);
-  const int nq = a.ls / V;
-#pragma unroll 2
-  for (int q = 0; q < nq; ++q) {
-    const uint4 c = ws[(size_t)q * a.nthr];
-    const int j = kRegWords + q * V;
-    if constexpr (sizeof(T) == 4) {
+    for (int j = 0; j < kRegWords; j += 4) {
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
-        const float4 h =
-            *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
-        acc[r][0] = dot4(acc[r][0], h, __uint_as_float(c.x),
-                         __uint_as_float(c.y), __uint_as_float(c.z),
-                         __uint_as_float(c.w));
+        const float4 h = *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
+        acc[r][(j / 4) % NA] =
+            dot4(acc[r][(j / 4) % NA], h, __uint_as_float(wr[j]),
+                 __uint_as_float(wr[j + 1]), __uint_as_float(wr[j + 2]),
+                 __uint_as_float(wr[j + 3]));
       }
-    } else {
+    }
+    // shared memory: 16-byte chunks, the thread's own at stride nthr
+    constexpr int V = 16 / (int)sizeof(T);
+    const int nq = a.ls / V;
+#pragma unroll 2
+    for (int q = 0; q < nq; ++q) {
+      const uint4 c = ws[(size_t)q * a.nthr];
+      const int j = kRegWords + q * V;
+      if constexpr (sizeof(T) == 4) {
 #pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const float4 h0 =
-            *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
-        const float4 h1 =
-            *reinterpret_cast<const float4*>(hs + r * a.ldh + j + 4);
-        acc[r][0] = dot4(acc[r][0], h0, bf_lo(c.x), bf_hi(c.x), bf_lo(c.y),
-                         bf_hi(c.y));
-        acc[r][0] = dot4(acc[r][0], h1, bf_lo(c.z), bf_hi(c.z), bf_lo(c.w),
-                         bf_hi(c.w));
+        for (int r = 0; r < RM; ++r) {
+          const float4 h =
+              *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
+          acc[r][0] = dot4(acc[r][0], h, __uint_as_float(c.x),
+                           __uint_as_float(c.y), __uint_as_float(c.z),
+                           __uint_as_float(c.w));
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          const float4 h0 =
+              *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
+          const float4 h1 =
+              *reinterpret_cast<const float4*>(hs + r * a.ldh + j + 4);
+          acc[r][0] = dot4(acc[r][0], h0, bf_lo(c.x), bf_hi(c.x), bf_lo(c.y),
+                           bf_hi(c.y));
+          acc[r][0] = dot4(acc[r][0], h1, bf_lo(c.z), bf_hi(c.z), bf_lo(c.w),
+                           bf_hi(c.w));
+        }
       }
     }
   }
   // L2: the depth past registers and shared memory, 8 loads in flight
-  int j = kRegWords + a.ls;
+  // (with WIDE all of it, 32 in flight and NA sums a row)
+  int j = WIDE ? 0 : kRegWords + a.ls;
   const int j1 = min(a.L, a.W - d0);
   const T* __restrict__ wg = wh + col;
+  if constexpr (WIDE) {
+    for (; j + 32 <= j1; j += 32) {
+      float w[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        w[k] = to_f(wg[(size_t)(d0 + j + k) * a.G]);
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int k = 0; k < 32; ++k)
+          acc[r][k % NA] = fmaf(hs[r * a.ldh + j + k], w[k], acc[r][k % NA]);
+    }
+  }
   for (; j + 8 <= j1; j += 8) {
     float w[8];
 #pragma unroll
@@ -302,10 +324,12 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
 
 // One chain of a.rows batch rows on a cluster of a.NC blocks.  Block rank
 // q owns units [q*U, q*U + ucnt); thread tid is depth slice s = tid % S of
-// gate g = (tid / S) % 4 of local unit tid / (4S).  h_s [2][RM][ldh] f32
-// (slice s of a row at s*LP), then two mbarriers (one an h buffer), then
-// the shared-memory weights [ls*sizeof(T)/16][nthr] 16-byte chunks.
-template <typename T, int RM, bool SAVE>
+// gate g = (tid / S) % 4 of local unit tid / (4S) + i*UT in round i (one
+// round unless WIDE).  h_s [2][RM][ldh] f32 (slice s of a row at s*LP),
+// then two mbarriers (one an h buffer), then the shared-memory weights
+// [ls*sizeof(T)/16][nthr] 16-byte chunks or, with WIDE, each thread's c
+// [R][RM][nthr] f32.
+template <typename T, int RM, bool SAVE, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
                      T* __restrict__ ys, T* __restrict__ cs,
@@ -315,6 +339,7 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
   const int hfloats = 2 * RM * a.ldh;
   uint64_t* bars = reinterpret_cast<uint64_t*>(h_s + hfloats);
   uint4* w_s = reinterpret_cast<uint4*>(bars + 2);
+  float* c_s = reinterpret_cast<float*>(bars + 2);
 
   const int tid = threadIdx.x;
   const int rank = a.NC > 1 ? (int)cg::this_cluster().block_rank() : 0;
@@ -326,29 +351,37 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
   const int s = tid % a.S;
   const int g = (tid / a.S) % 4;
   const int ul = tid / (4 * a.S);
-  const bool on = ul < ucnt;
-  const int unit = u0 + ul;
-  const int col = g * a.W + (on ? unit : 0);  // a column to read, always
   const int d0 = s * a.L;
   const int k = tid % (4 * a.S);                 // lane in the unit's group
   const int base = (tid & 31) - (tid & 31) % (4 * a.S);  // group's lane 0
-  const int uoff = on ? (unit / a.L) * a.LP + unit % a.L : 0;
+  const int nr = WIDE ? a.R : 1;
+  // round 0's unit (the only one unless WIDE; threads past a round's UT
+  // units have none): whether the block has it, its column (a column to
+  // read, always) and its place in h's rows.  Round i's is i*UT further.
+  const bool on0 = ul < ucnt && (!WIDE || ul < a.UT);
+  const int unit0 = u0 + ul;
+  const int col0 = g * a.W + (on0 ? unit0 : 0);
+  const int uoff0 = on0 ? (unit0 / a.L) * a.LP + unit0 % a.L : 0;
 
-  // the weights: registers, then shared memory
+  // the weights: registers, then shared memory (WIDE: L2 only)
   uint32_t wr[kRegWords];
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int w = 0; w < kRegWords; ++w)
-    wr[w] = w < a.L ? f32_word(wh, d0 + w, a.W, a.G, col, on) : 0u;
-  constexpr int VPW = 4 / (int)sizeof(T);
-  constexpr int V = 16 / (int)sizeof(T);
-  for (int q = 0; q < a.ls / V; ++q) {
-    const int d = d0 + kRegWords + q * V;
-    uint4 c;
-    c.x = load_word<T>(wh, d, a.W, a.G, col, on);
-    c.y = load_word<T>(wh, d + VPW, a.W, a.G, col, on);
-    c.z = load_word<T>(wh, d + 2 * VPW, a.W, a.G, col, on);
-    c.w = load_word<T>(wh, d + 3 * VPW, a.W, a.G, col, on);
-    w_s[(size_t)q * a.nthr + tid] = c;
+    for (int w = 0; w < kRegWords; ++w)
+      wr[w] = w < a.L ? f32_word(wh, d0 + w, a.W, a.G, col0, on0) : 0u;
+    constexpr int VPW = 4 / (int)sizeof(T);
+    constexpr int V = 16 / (int)sizeof(T);
+    for (int q = 0; q < a.ls / V; ++q) {
+      const int d = d0 + kRegWords + q * V;
+      uint4 c;
+      c.x = load_word<T>(wh, d, a.W, a.G, col0, on0);
+      c.y = load_word<T>(wh, d + VPW, a.W, a.G, col0, on0);
+      c.z = load_word<T>(wh, d + 2 * VPW, a.W, a.G, col0, on0);
+      c.w = load_word<T>(wh, d + 3 * VPW, a.W, a.G, col0, on0);
+      w_s[(size_t)q * a.nthr + tid] = c;
+    }
+  } else {
+    for (int i = 0; i < a.R * RM; ++i) c_s[(size_t)i * a.nthr + tid] = 0.0f;
   }
   for (int i = tid; i < hfloats; i += blockDim.x) h_s[i] = 0.0f;
   const uint32_t bar0 = smem_u32(bars), h0 = smem_u32(h_s);
@@ -363,8 +396,9 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
       if (a.Tn > 2) bar_expect(bar0, bytes);
     }
     cg::this_cluster().sync();  // every block set up before any store
-    // a warp with no unit of this block has nothing to do
-    if (!__any_sync(0xffffffffu, on)) return;
+    // a warp with no unit of this block has nothing to do (round 0 holds
+    // a thread's lowest unit)
+    if (!__any_sync(0xffffffffu, on0)) return;
   } else {
     __syncthreads();
   }
@@ -373,102 +407,132 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
   float xv[RM], c[RM];
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
-    xv[r] = r < nb ? to_f(xg[(size_t)(b0 + r) * a.G + col]) : 0.0f;
+    xv[r] = r < nb ? to_f(xg[(size_t)(b0 + r) * a.G + col0]) : 0.0f;
     c[r] = 0.0f;
   }
-  for (int t = 1; t < kAhead && t < a.Tn; ++t)
-    for (int r = 0; r < nb; ++r)
-      prefetch_l2(xg + t * ldx + (size_t)(b0 + r) * a.G + col);
+  for (int i = 0; i < nr; ++i) {
+    const int col = on0 && ul + i * a.UT < ucnt ? col0 + i * a.UT : col0;
+    for (int t = 1; t < kAhead && t < a.Tn; ++t)
+      for (int r = 0; r < nb; ++r)
+        prefetch_l2(xg + t * ldx + (size_t)(b0 + r) * a.G + col);
+  }
 
   for (int t = 0; t < a.Tn; ++t) {
     const int cur = t & 1;
+    const int nxt = cur ^ 1;
     if (a.NC > 1 && t > 0) {
       bar_wait(bar0 + 8 * cur, ((t - 1) >> 1) & 1);
       if (tid == 0 && t + 2 < a.Tn) bar_expect(bar0 + 8 * cur, bytes);
     }
-    float pre[RM];
-    product<T, RM>(wr, w_s + tid, wh, h_s + cur * RM * a.ldh + s * a.LP, a,
-                   d0, col, pre);
-    // the slices' sums (the same in every slice's lane), the gate, the four
-    // gates of the unit from its lanes, and the cell update in every lane
-    float act[RM], tc[RM], hv[RM];
-    T hq[RM];
+    for (int i = 0; i < nr; ++i) {
+      bool on = on0;
+      int unit = unit0, col = col0, uoff = uoff0;
+      if constexpr (WIDE) {  // this round's unit, xg and c
+        unit = unit0 + i * a.UT;
+        on = on0 && ul + i * a.UT < ucnt;
+        col = g * a.W + (on ? unit : 0);
+        uoff = on ? (unit / a.L) * a.LP + unit % a.L : 0;
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      float sum = pre[r];
-      for (int o = 1; o < a.S; o <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float p = xv[r] + sum;
-      act[r] = g == 2 ? tanhf(p) : sigmoid_f(p);
-      const int lane = base + s;
-      const float ig = __shfl_sync(0xffffffffu, act[r], lane);
-      const float fg = __shfl_sync(0xffffffffu, act[r], lane + a.S);
-      const float gg = __shfl_sync(0xffffffffu, act[r], lane + 2 * a.S);
-      const float og = __shfl_sync(0xffffffffu, act[r], lane + 3 * a.S);
-      c[r] = fmaf(fg, c[r], ig * gg);
-      tc[r] = tanhf(c[r]);
-      hq[r] = from_f<T>(og * tc[r]);
-      hv[r] = to_f(hq[r]);
-    }
-    // the new h to every block (or to this one), then the step's stores
-    // and the next step's xg
-    const int nxt = cur ^ 1;
-    if (t + 1 < a.Tn && on) {
-      const uint32_t slot = h0 + 4u * (uint32_t)(nxt * RM * a.ldh + uoff);
-      if (a.NC > 1) {
-        for (int q = k; q < a.NC; q += 4 * a.S) {
-          const uint32_t dst = peer_u32(slot, q);
-          const uint32_t bar = peer_u32(bar0 + 8 * nxt, q);
-#pragma unroll
-          for (int r = 0; r < RM; ++r)
-            if (r < nb) send_h(dst + 4u * r * a.ldh, hv[r], bar);
+        for (int r = 0; r < RM; ++r) {
+          xv[r] = r < nb ? to_f(xg[t * ldx + (size_t)(b0 + r) * a.G + col])
+                         : 0.0f;
+          c[r] = c_s[(size_t)(i * RM + r) * a.nthr + tid];
         }
-      } else if (k == 3) {
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-          if (r < nb) h_s[nxt * RM * a.ldh + r * a.ldh + uoff] = hv[r];
       }
-    }
-    if (on) {
+      float pre[RM];
+      product<T, RM, WIDE>(wr, w_s + tid, wh,
+                           h_s + cur * RM * a.ldh + s * a.LP, a, d0, col,
+                           pre);
+      // the slices' sums (the same in every slice's lane), the gate, the four
+      // gates of the unit from its lanes, and the cell update in every lane
+      float act[RM], tc[RM], hv[RM];
+      T hq[RM];
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
-        if (r < nb) {
-          const size_t row = (size_t)t * a.B + b0 + r;
-          if (k == 0) ys[row * a.W + unit] = hq[r];
-          if (k == 1) cs[row * a.W + unit] = from_f<T>(c[r]);
-          if (SAVE && k == 2)
-            res[row * 5 * a.W + 4 * a.W + unit] = from_f<T>(tc[r]);
-          if (SAVE && s == 0) res[row * 5 * a.W + col] = from_f<T>(act[r]);
+        float sum = pre[r];
+        for (int o = 1; o < a.S; o <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float p = xv[r] + sum;
+        act[r] = g == 2 ? tanhf(p) : sigmoid_f(p);
+        const int lane = base + s;
+        const float ig = __shfl_sync(0xffffffffu, act[r], lane);
+        const float fg = __shfl_sync(0xffffffffu, act[r], lane + a.S);
+        const float gg = __shfl_sync(0xffffffffu, act[r], lane + 2 * a.S);
+        const float og = __shfl_sync(0xffffffffu, act[r], lane + 3 * a.S);
+        c[r] = fmaf(fg, c[r], ig * gg);
+        tc[r] = tanhf(c[r]);
+        hq[r] = from_f<T>(og * tc[r]);
+        hv[r] = to_f(hq[r]);
+      }
+      if constexpr (WIDE) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          c_s[(size_t)(i * RM + r) * a.nthr + tid] = c[r];
+      }
+      // the new h to every block (or to this one), then the step's stores
+      // and the next step's xg
+      if (t + 1 < a.Tn && on) {
+        const uint32_t slot = h0 + 4u * (uint32_t)(nxt * RM * a.ldh + uoff);
+        if (a.NC > 1) {
+          for (int q = k; q < a.NC; q += 4 * a.S) {
+            const uint32_t dst = peer_u32(slot, q);
+            const uint32_t bar = peer_u32(bar0 + 8 * nxt, q);
+#pragma unroll
+            for (int r = 0; r < RM; ++r)
+              if (r < nb) send_h(dst + 4u * r * a.ldh, hv[r], bar);
+          }
+        } else if (k == 3) {
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+            if (r < nb) h_s[nxt * RM * a.ldh + r * a.ldh + uoff] = hv[r];
         }
       }
-    }
-    if (t + 1 < a.Tn) {
+      if (on) {
 #pragma unroll
-      for (int r = 0; r < RM; ++r)
-        xv[r] = r < nb ? to_f(xg[(t + 1) * ldx + (size_t)(b0 + r) * a.G +
-                                 col])
-                       : 0.0f;
-      if (t + kAhead < a.Tn)
-        for (int r = 0; r < nb; ++r)
-          prefetch_l2(xg + (t + kAhead) * ldx + (size_t)(b0 + r) * a.G + col);
+        for (int r = 0; r < RM; ++r) {
+          if (r < nb) {
+            const size_t row = (size_t)t * a.B + b0 + r;
+            if (k == 0) ys[row * a.W + unit] = hq[r];
+            if (k == 1) cs[row * a.W + unit] = from_f<T>(c[r]);
+            if (SAVE && k == 2)
+              res[row * 5 * a.W + 4 * a.W + unit] = from_f<T>(tc[r]);
+            if (SAVE && s == 0) res[row * 5 * a.W + col] = from_f<T>(act[r]);
+          }
+        }
+      }
+      if (t + 1 < a.Tn) {
+        if constexpr (!WIDE) {
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+            xv[r] = r < nb ? to_f(xg[(t + 1) * ldx + (size_t)(b0 + r) * a.G +
+                                     col])
+                           : 0.0f;
+        }
+        if (t + kAhead < a.Tn)
+          for (int r = 0; r < nb; ++r)
+            prefetch_l2(xg + (t + kAhead) * ldx + (size_t)(b0 + r) * a.G +
+                        col);
+      }
     }
     if (a.NC == 1) __syncthreads();
   }
 }
 
 // Shared-memory bytes of a launch: h's two buffers, the mbarriers and the
-// weights read from shared memory.
+// weights read from shared memory or, with rounds, each thread's c.
 template <typename T>
 size_t fwd_smem(const FwdArgs& a, int rm) {
   return sizeof(float) * 2 * rm * a.ldh + 16 +
-         (size_t)a.nthr * a.ls * sizeof(T);
+         (a.R > 1 ? sizeof(float) * a.R * rm * a.nthr
+                  : (size_t)a.nthr * a.ls * sizeof(T));
 }
 
-template <typename T, int RM, bool SAVE>
-cudaError_t launch(const FwdArgs& a, size_t smem, cudaStream_t stream,
-                   const void* xg, const void* wh, void* ys, void* cs,
-                   void* res) {
-  auto kernel = lstm_scan_fwd_kernel<T, RM, SAVE>;
+template <typename T, int RM, bool SAVE, bool WIDE>
+cudaError_t launch(const FwdArgs& a, cudaStream_t stream, const void* xg,
+                   const void* wh, void* ys, void* cs, void* res) {
+  auto kernel = lstm_scan_fwd_kernel<T, RM, SAVE, WIDE>;
+  const size_t smem = fwd_smem<T>(a, RM);
+  if (smem > kSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -497,27 +561,21 @@ cudaError_t launch(const FwdArgs& a, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// Clusters of this launch's kind that the card holds at once.
-template <typename T, int RM>
-int max_clusters(const FwdArgs& a) {
-  auto kernel = lstm_scan_fwd_kernel<T, RM, true>;
-  const size_t smem = fwd_smem<T>(a, RM);
-  if (smem > kSmem ||
+// Clusters of nc blocks of 256 threads, one an SM, that the card holds at
+// once, or -1 when it refuses the query.
+int max_clusters(int nc) {
+  auto kernel = lstm_scan_fwd_kernel<float, 1, true, false>;
+  if (nc > 8 &&
       cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess ||
-      (a.NC > 8 &&
-       cudaFuncSetAttribute(kernel,
-                            cudaFuncAttributeNonPortableClusterSizeAllowed,
-                            1) != cudaSuccess))
+                           cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess)
     return -1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.NC);
-  cfg.blockDim = dim3(a.nthr);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = dim3(nc);
+  cfg.blockDim = dim3(kThreads);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.NC;
+  attr[0].val.clusterDim.x = nc;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -532,11 +590,16 @@ template <typename T, int RM>
 cudaError_t run_rows(const FwdArgs& a, bool save, cudaStream_t stream,
                      const void* xg, const void* wh, void* ys, void* cs,
                      void* res) {
-  const size_t smem = fwd_smem<T>(a, RM);
-  if (smem > kSmem) return cudaErrorInvalidValue;
-  if (save)
-    return launch<T, RM, true>(a, smem, stream, xg, wh, ys, cs, res);
-  return launch<T, RM, false>(a, smem, stream, xg, wh, ys, cs, res);
+  if (a.R > 1) {  // rounds: 1, 2 or 4 rows a chain
+    if constexpr (RM == 1 || RM == 2 || RM == 4) {
+      if (save)
+        return launch<T, RM, true, true>(a, stream, xg, wh, ys, cs, res);
+      return launch<T, RM, false, true>(a, stream, xg, wh, ys, cs, res);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (save) return launch<T, RM, true, false>(a, stream, xg, wh, ys, cs, res);
+  return launch<T, RM, false, false>(a, stream, xg, wh, ys, cs, res);
 }
 
 template <typename T>
@@ -557,9 +620,10 @@ cudaError_t run_fwd(const FwdArgs& a, bool save, cudaStream_t stream,
 // The launch's arguments from the caller's geometry; false when it is not
 // one the kernel takes.
 bool fwd_args(int Tn, int B, int W, int nc, int s, int rows, int ls,
-              int chunk, FwdArgs* a) {
+              int rounds, int chunk, FwdArgs* a) {
   if (Tn <= 0 || B <= 0 || W <= 0 || nc < 1 || nc > kMaxNC ||
-      (s != 1 && s != 2 && s != 4 && s != 8) || ls < 0 || ls % chunk)
+      (s != 1 && s != 2 && s != 4 && s != 8) || ls < 0 || ls % chunk ||
+      rounds < 1 || (rounds > 1 && ls != 0))
     return false;
   a->Tn = Tn;
   a->B = B;
@@ -568,15 +632,18 @@ bool fwd_args(int Tn, int B, int W, int nc, int s, int rows, int ls,
   a->NC = nc;
   a->S = s;
   a->U = (W + nc - 1) / nc;
+  a->R = rounds;
+  a->UT = (a->U + rounds - 1) / rounds;
   a->L = ((W + s - 1) / s + 7) & ~7;
   a->LP = (a->L > kRegWords ? a->L : kRegWords) + 4;
   a->ldh = s * a->LP;
   a->rows = rows;
   a->ls = ls;
-  a->nthr = (4 * a->U * s + 31) & ~31;
-  // every block owns a unit; a unit's 4S threads share a warp
-  return (nc - 1) * a->U < W && a->nthr <= kThreads &&
-         (ls == 0 || kRegWords + ls <= a->L);
+  a->nthr = (4 * a->UT * s + 31) & ~31;
+  // every block owns a unit, every round too; a unit's 4S threads share a
+  // warp
+  return (nc - 1) * a->U < W && (rounds - 1) * a->UT < a->U &&
+         a->nthr <= kThreads && (ls == 0 || kRegWords + ls <= a->L);
 }
 
 }  // namespace
@@ -587,17 +654,18 @@ extern "C" {
 // pointers of contiguous tensors: xg [T, B, 4W], wh [W, 4W], ys and cs
 // [T, B, W] and, when save != 0, res [T, B, 5W] (ignored otherwise).
 // The geometry (ops/rnn_scan.py::lstm_fwd_geometry): nc blocks a chain
-// (1..16, each owning a unit), s depth slices a gate column (1, 2, 4, 8;
-// 4 * ceil(W / nc) * s <= 256), rows batch rows a chain (1, 2, 3, 4, 6, 8) and
-// ls, the depth a slice reads from shared memory after its registers (a
-// multiple of 16 bytes' values).  Launches on `stream` and returns the
-// launch's error (0 on success).
+// (1..16, each owning a unit), s depth slices a gate column (1, 2, 4, 8),
+// rounds, the units a thread takes in turn each step (4 * ceil(ceil(W /
+// nc) / rounds) * s <= 256), rows batch rows a chain (1, 2, 3, 4, 6, 8;
+// with rounds 1, 2, 4) and ls, the depth a slice reads from shared memory
+// after its registers (a multiple of 16 bytes' values; 0 with rounds).
+// Launches on `stream` and returns the launch's error (0 on success).
 int lstm_scan_fwd(int dtype, const void* xg, const void* wh, void* ys,
                   void* cs, void* res, int Tn, int B, int W, int save,
-                  int nc, int s, int rows, int ls, void* stream) {
+                  int nc, int s, int rows, int ls, int rounds, void* stream) {
   FwdArgs a;
   const int chunk = dtype == 0 ? 4 : 8;
-  if (!fwd_args(Tn, B, W, nc, s, rows, ls, chunk, &a) ||
+  if (!fwd_args(Tn, B, W, nc, s, rows, ls, rounds, chunk, &a) ||
       (save && res == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -609,17 +677,11 @@ int lstm_scan_fwd(int dtype, const void* xg, const void* wh, void* ys,
   return (int)cudaErrorInvalidValue;
 }
 
-// The clusters of nc blocks (a geometry as lstm_scan_fwd takes it, rows 1)
-// that the card runs at once (cudaOccupancyMaxActiveClusters; a cluster
-// lies in one GPC, so fewer than SMs / nc), or -1 for one it refuses.
-int lstm_scan_fwd_clusters(int dtype, int W, int nc, int s, int rows,
-                           int ls) {
-  FwdArgs a;
-  if (!fwd_args(1, rows, W, nc, s, rows, ls, dtype == 0 ? 4 : 8, &a))
-    return -1;
-  if (rows != 1) return -1;  // every launch holds one block an SM
-  return dtype == 0 ? max_clusters<float, 1>(a)
-                    : max_clusters<__nv_bfloat16, 1>(a);
+// The clusters of nc blocks (1..16) that the card runs at once
+// (cudaOccupancyMaxActiveClusters; a cluster lies in one GPC, so fewer
+// than SMs / nc), or -1 for a size it refuses.
+int lstm_scan_fwd_clusters(int nc) {
+  return nc >= 1 && nc <= kMaxNC ? max_clusters(nc) : -1;
 }
 
 const char* lstm_scan_fwd_error_string(int err) {

@@ -8,6 +8,7 @@ rebuilds) at its first use, and loaded with ``ctypes``.  Nothing is built or loa
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -102,3 +103,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def replaced(name: str, lib: ctypes.CDLL):
+    """Within the block, ``load(name)`` returns ``lib`` (another build of
+    ``csrc/<name>.cu``, for example an edited copy being timed); the loaded
+    library, if any, is put back after."""
+    before = _LIBS.get(name)
+    _LIBS[name] = lib
+    try:
+        yield lib
+    finally:
+        if before is None:
+            _LIBS.pop(name, None)
+        else:
+            _LIBS[name] = before

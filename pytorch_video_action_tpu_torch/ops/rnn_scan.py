@@ -56,23 +56,28 @@ def cluster_size(w: int) -> int:
     return n
 
 
-# The LSTM scan forward's geometry (csrc/lstm_scan_fwd.cu): threads a block
-# at most, weights a thread keeps in registers (as f32 in either dtype), the
-# dynamic shared memory a block may take, and the chains' block counts
+# The LSTM scan forward's geometry (csrc/lstm_scan_fwd.cu, which checks what
+# it is given against its own kThreads, kRegWords and kSmem): threads a
+# block at most, weights a thread keeps in registers (as f32 in either
+# dtype), the dynamic shared memory a block may take, the chains' block
+# counts and rows, and the rows a chain whose threads take units in rounds
 FWD_THREADS = 256
 FWD_REG_VALS = 128
 FWD_SMEM = 225 * 1024
 _FWD_NC = (1, 2, 4, 8, 16)
 _FWD_ROWS = (1, 2, 3, 4, 6, 8)
+_FWD_ROWS_ROUNDS = (1, 2, 4)
 
 
 class FwdGeometry(NamedTuple):
     """A launch of the LSTM scan forward: ``nc`` blocks a chain, ``s``
-    depth slices a gate column (thread (unit, gate, slice), 4*U*s threads a
-    block, U = ceil(W / nc) units), ``rows`` batch rows a chain, ``depth``
-    of a slice (a multiple of 8), of it ``ls`` read from shared memory after
-    the registers' (the rest, if any, from L2), ``threads`` and ``smem``
-    bytes a block."""
+    depth slices a gate column (thread (unit, gate, slice), U = ceil(W /
+    nc) units a block, ceil(U / rounds) of them a round, 4 threads a unit's
+    slice), ``rows`` batch rows a chain, ``depth`` of a slice (a multiple
+    of 8), of it ``ls`` read from shared memory after the registers' (the
+    rest, if any, from L2), ``threads`` and ``smem`` bytes a block, and
+    ``rounds``, the units a thread takes in turn each step (past 1, every
+    weight is read through L2 and c is kept in shared memory)."""
     nc: int
     s: int
     rows: int
@@ -80,62 +85,99 @@ class FwdGeometry(NamedTuple):
     ls: int
     threads: int
     smem: int
+    rounds: int = 1
 
 
-def _fwd_layout(w, nc):
-    """(units, slices, depth, threads) of ``nc`` blocks over ``w``, or None
-    when a block would own no unit or more than ``FWD_THREADS // 4``."""
+def _fwd_layout(w, nc, rounds=1):
+    """(slices, depth, threads) of ``nc`` blocks over ``w`` in ``rounds``,
+    or None when a block would own no unit or a round more than
+    ``FWD_THREADS // 4``."""
     u = -(-w // nc)
-    if (nc - 1) * u >= w or 4 * u > FWD_THREADS:
+    ut = -(-u // rounds)
+    if (nc - 1) * u >= w or (rounds - 1) * ut >= u or 4 * ut > FWD_THREADS:
         return None
     s = 1
-    while s < 8 and 8 * u * s <= FWD_THREADS:
+    while rounds == 1 and s < 8 and 8 * u * s <= FWD_THREADS:
         s *= 2
     depth = (-(-w // s) + 7) // 8 * 8
-    return u, s, depth, (4 * u * s + 31) // 32 * 32
+    return s, depth, (4 * ut * s + 31) // 32 * 32
 
 
-def lstm_fwd_geometry(b, w, dtype, sms, fits=None) -> FwdGeometry:
+def _fwd_smem(rows, s, depth, threads, ls, rounds, size):
+    """The kernel's shared memory (``fwd_smem``): h's two buffers and the
+    mbarriers, then the weights' ``ls`` or, in rounds, each thread's c."""
+    fixed = 4 * 2 * rows * s * (max(depth, FWD_REG_VALS) + 4) + 16
+    return fixed + (threads * ls * size if rounds == 1
+                    else 4 * rounds * rows * threads)
+
+
+def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
     """The LSTM scan forward's launch for ``b`` rows of width ``w`` in
     ``dtype`` on a card of ``sms`` SMs, of which ``fits(nc)`` clusters of
-    ``nc`` blocks run at once (default ``sms // nc``; a cluster lies in one
-    GPC, so an H100 runs 15 of 8 blocks).  Blocks: the fewest (up to 8,
-    one portable cluster) whose registers hold wh's slices,
-    ``FWD_REG_VALS`` a thread (W=64: 1; W=256: 8); else the fewest (up to
-    16) whose registers and shared memory hold them (W=512: 16 in f32, 8
-    in bf16, whose shared-memory weights take half the bytes); else 16,
-    the depth past both read through L2.  Rows a chain: the fewest of 1,
-    2, 3, 4, 6, 8 whose chains all run at once (at most 8)."""
+    ``nc`` blocks run at once (below 1: not at all; a cluster lies in one
+    GPC, so fewer than ``sms // nc``); ``fits`` is asked only of the block
+    counts the pick weighs.  Blocks: the fewest (up to 8, one portable
+    cluster) whose registers hold wh's slices, ``FWD_REG_VALS`` a thread
+    (W=64: 1; W=256: 8); else the fewest (up to 16) whose registers and
+    shared memory hold them (W=512: 16 in f32, 8 in bf16, whose
+    shared-memory weights take half the bytes); else the most, the depth
+    past both read through L2 (W <= 1024); else the most, each thread
+    taking its units in rounds, every weight through L2.  Rows a chain: the
+    fewest whose chains all run at once (at most 8; 4 in rounds, and fewer
+    where h's buffers would pass the shared memory)."""
     size = torch.tensor([], dtype=dtype).element_size()
     chunk = 16 // size  # the shared-memory weights' 16-byte chunks
-    if fits is None:
-        fits = lambda nc: sms // nc  # noqa: E731
+    counts = {}
 
-    def launch(nc):
-        """The launch on ``nc`` blocks, the depth past the registers in
-        shared memory as far as it fits; None if no layout fits."""
+    def n_fit(nc):
+        if nc not in counts:
+            counts[nc] = fits(nc)
+        return counts[nc]
+
+    def rows_for(nc, choices):
+        return next((r for r in choices if -(-b // r) <= n_fit(nc)),
+                    choices[-1])
+
+    def resident(nc):
+        """The launch on ``nc`` blocks, one unit a thread, the depth past
+        the registers in shared memory as far as it fits; None if no
+        layout fits or the card runs no such cluster."""
         lay = _fwd_layout(w, nc)
-        if lay is None:
+        if lay is None or n_fit(nc) < 1:
             return None
-        _, s, depth, threads = lay
-        rows = next((r for r in _FWD_ROWS if -(-b // r) <= fits(nc)), 8)
-        fixed = 4 * 2 * rows * s * (max(depth, FWD_REG_VALS) + 4) + 16
+        s, depth, threads = lay
+        rows = rows_for(nc, _FWD_ROWS)
+        fixed = _fwd_smem(rows, s, depth, threads, 0, 1, size)
         room = (FWD_SMEM - fixed) // (threads * size) // chunk * chunk
         ls = min(max(depth - FWD_REG_VALS, 0), room)
         return FwdGeometry(nc, s, rows, depth, ls, threads,
                            fixed + threads * ls * size)
 
-    launches = {nc: launch(nc) for nc in _FWD_NC}
-    for nc, geo in launches.items():  # registers alone, nc <= 8
-        if geo and nc <= 8 and geo.depth <= FWD_REG_VALS:
+    for nc in _FWD_NC[:-1]:  # registers alone
+        lay = _fwd_layout(w, nc)
+        if lay and lay[1] <= FWD_REG_VALS and (geo := resident(nc)):
             return geo
-    for geo in launches.values():  # registers and shared memory
+    for nc in _FWD_NC:  # registers and shared memory
+        geo = resident(nc)
         if geo and geo.depth <= FWD_REG_VALS + geo.ls:
             return geo
-    if launches[_FWD_NC[-1]] is None:
-        raise ValueError(f"lstm_scan_fwd: W={w} is wider than the kernel "
-                         f"takes ({_FWD_NC[-1] * FWD_THREADS // 4})")
-    return launches[_FWD_NC[-1]]
+    for nc in reversed(_FWD_NC):  # the rest through L2
+        if geo := resident(nc):
+            return geo
+    for nc in reversed(_FWD_NC):  # rounds
+        u = -(-w // nc)
+        rounds = -(-u // (FWD_THREADS // 4))
+        lay = _fwd_layout(w, nc, rounds)
+        if lay is None or n_fit(nc) < 1:
+            continue
+        s, depth, threads = lay
+        most = _FWD_ROWS_ROUNDS.index(rows_for(nc, _FWD_ROWS_ROUNDS))
+        for rows in reversed(_FWD_ROWS_ROUNDS[:most + 1]):
+            smem = _fwd_smem(rows, s, depth, threads, 0, rounds, size)
+            if smem <= FWD_SMEM:
+                return FwdGeometry(nc, s, rows, depth, 0, threads, smem,
+                                   rounds)
+    raise ValueError(f"lstm_scan_fwd: no launch takes W={w} on this card")
 
 
 # ------------------------------------------------------------ plain versions
@@ -231,9 +273,10 @@ def lstm_scan_bwd_ref(xg, hp, cp, cs, dy, wh):
 # ------------------------------------------------------------------ kernels
 
 _ARGTYPES = {
-    # dtype; xg, wh, ys, cs, res; T, B, W, save, nc, s, rows, ls; stream
+    # dtype; xg, wh, ys, cs, res; T, B, W, save, nc, s, rows, ls, rounds;
+    # stream
     "lstm_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+                      + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     # dtype, recompute; xg or res, hp, cp, cs, dy, wh, wh^T, dxg, dwh;
     # T, B, W, cluster; stream
     "lstm_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
@@ -300,21 +343,17 @@ _FITS: dict = {}
 def _cluster_fits(device):
     """``fits(nc)`` of :func:`lstm_fwd_geometry` on ``device``: the
     kernel's own occupancy query (``lstm_scan_fwd_clusters``) for blocks of
-    256 threads (W = 64 nc), which take an SM each, as every launch's
-    blocks of 160 or more threads do."""
+    256 threads, which take an SM each, as every launch's blocks of 160 or
+    more threads do; -1 where the card refuses the size."""
     from . import cuda_lib
 
     def fits(nc):
         key = (device.index, nc)
         if key not in _FITS:
             lib = cuda_lib.load("lstm_scan_fwd")
-            lib.lstm_scan_fwd_clusters.argtypes = [ctypes.c_int] * 6
+            lib.lstm_scan_fwd_clusters.argtypes = [ctypes.c_int]
             with torch.cuda.device(device):
-                _FITS[key] = lib.lstm_scan_fwd_clusters(0, 64 * nc, nc, 1, 1,
-                                                        0)
-            if _FITS[key] < 1:
-                raise RuntimeError(f"lstm_scan_fwd: no cluster of {nc} "
-                                   f"blocks fits {device}")
+                _FITS[key] = lib.lstm_scan_fwd_clusters(nc)
         return _FITS[key]
 
     return fits
@@ -331,7 +370,7 @@ def _fwd(xg, wh, save):
     _launch("lstm_scan_fwd", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
             wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
             0 if res is None else res.data_ptr(), t_len, b, w, int(save),
-            geo.nc, geo.s, geo.rows, geo.ls)
+            geo.nc, geo.s, geo.rows, geo.ls, geo.rounds)
     return (ys, cs, res) if save else (ys, cs)
 
 

@@ -1015,13 +1015,16 @@ def test_lstm_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
 # the blocks or the tiers change (65 two
 # blocks, 129 eight, 257 shared memory after the registers; f32: 385
 # sixteen, 513 depth past shared memory read through L2; bf16: 513 sixteen,
-# 713 L2); and W=1024, most of its depth through L2.
+# 713 L2); W=1024, most of its depth through L2; and past it, each thread
+# taking its units in rounds (1025 two rounds of 33 units, 2048 two of 64
+# at 1 and 9 rows, 4 rows a chain, 4096 four).
 SCAN_GEOMETRY_CASES = [(64, 1, 40), (256, 1, 40), (256, 40, 16),
                        (256, 70, 16), (256, 100, 8),
                        (64, 141, 16), (256, 64, 64), (65, 3, 24),
                        (128, 3, 24), (129, 5, 24), (257, 3, 24),
                        (384, 3, 16), (385, 3, 16), (513, 3, 16), (712, 3, 12),
-                       (713, 3, 12), (1024, 3, 8)]
+                       (713, 3, 12), (1024, 3, 8), (1025, 3, 8),
+                       (2048, 1, 8), (2048, 9, 6), (4096, 2, 4)]
 
 
 @pytest.mark.parametrize("w,b,t", SCAN_GEOMETRY_CASES)
@@ -1042,6 +1045,26 @@ def test_lstm_scan_fwd_geometry_edges(cuda_device, dtype, w, b, t):
     for got, want in ((ys, wys), (cs, wcs), (res, wres)):
         assert got.dtype == dtype and got.shape == want.shape
         assert _rel_err(got, want) <= TOL[dtype]
+
+
+# A card that runs no 16-block cluster, or no cluster at all (the
+# occupancy query answered 0): the forward takes 8-block chains (W=512
+# with its tail through L2, W=1024 in rounds) or one block a chain, each
+# thread's units in rounds (W=256 four, W=1024 sixteen).
+@pytest.mark.parametrize("w,b,t", [(256, 3, 24), (512, 8, 16),
+                                   (1024, 5, 8)])
+@pytest.mark.parametrize("most", [8, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_fwd_on_fewer_cluster_sizes(cuda_device, monkeypatch, dtype,
+                                              most, w, b, t):
+    real = RS._cluster_fits(cuda_device)
+    monkeypatch.setattr(RS, "_cluster_fits",
+                        lambda device: lambda nc: real(nc) if nc <= most
+                        else 0)
+    geo = RS.lstm_fwd_geometry(b, w, dtype, RS._sms(cuda_device),
+                               RS._cluster_fits(cuda_device))
+    assert geo.nc <= most
+    test_lstm_scan_fwd_geometry_edges(cuda_device, dtype, w, b, t)
 
 
 @pytest.mark.parametrize("w,b,t", SCAN_CASES)

@@ -153,45 +153,124 @@ def test_cluster_size(w, n):
     assert S.cluster_size(w) == n
 
 
+# ``fits`` of lstm_fwd_geometry for a card of 132 SMs: every SM usable by
+# clusters of any size, or GPCs that hold fewer (15 of 8 blocks, 7 of 16)
+def _all_sms(nc):
+    return 132 // nc
+
+
+def _gpcs(nc):
+    return {4: 30, 8: 15, 16: 7}.get(nc, 132 // nc)
+
+
+def _check_fwd_geometry(geo, b, w, size):
+    """What every launch of the forward must hold: its blocks cover W,
+    each owning a unit, and its rounds a block's units; a unit's 4s
+    threads fit one warp and a block's the kernel's 256; the slices cover
+    W, registers before shared memory (none with rounds); the shared memory
+    fits the budget."""
+    reg = S.FWD_REG_VALS
+    u = -(-w // geo.nc)
+    ut = -(-u // geo.rounds)
+    assert geo.nc in (1, 2, 4, 8, 16) and (geo.nc - 1) * u < w
+    assert geo.rounds >= 1 and (geo.rounds - 1) * ut < u
+    assert geo.s in (1, 2, 4, 8) and 32 % (4 * geo.s) == 0
+    assert 4 * ut * geo.s <= geo.threads <= S.FWD_THREADS
+    assert geo.threads % 32 == 0
+    assert geo.s * geo.depth >= w and geo.depth % 8 == 0
+    assert geo.ls % (16 // size) == 0
+    assert min(geo.depth, reg) + geo.ls <= geo.depth
+    own = (geo.threads * geo.ls * size if geo.rounds == 1
+           else 4 * geo.rounds * geo.rows * geo.threads)
+    assert geo.smem == (8 * geo.rows * geo.s * (max(geo.depth, reg) + 4)
+                        + 16 + own)
+    assert geo.smem <= S.FWD_SMEM
+    if geo.rounds > 1:
+        assert geo.ls == 0 and geo.rows in (1, 2, 4)
+    else:
+        assert geo.rows in (1, 2, 3, 4, 6, 8)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_fwd_geometry_covers_w_and_fits_the_card(dtype):
-    """The forward's geometry at every width it takes: its blocks cover W,
-    each owning a unit; a unit's 4s threads fit one warp and a block's the
-    kernel's 256; the slices cover W, registers before shared memory; the
-    shared memory fits the budget; at B <= 8 and W <= 256 the chains, one
-    row each, take at most the card's 132 SMs.  Widths the design names:
-    one block at W=64, eight at W=256.  Rows a chain
-    follow the clusters the card runs at once."""
+    """The forward's geometry at every width up to 1024 (one unit a
+    thread): ``_check_fwd_geometry``; at B <= 8 and W <= 256 the chains,
+    one row each, take at most the card's 132 SMs.  Widths the design
+    names: one block at W=64, eight at W=256.  Rows a chain follow the
+    clusters the card runs at once."""
     size = 4 if dtype == torch.float32 else 2
-    reg = S.FWD_REG_VALS
     for w in range(1, 1025):
         for b in (1, 3, 8, 11, 64, 141):
-            geo = S.lstm_fwd_geometry(b, w, dtype, 132)
-            u = -(-w // geo.nc)
-            assert geo.nc in (1, 2, 4, 8, 16) and (geo.nc - 1) * u < w
-            assert geo.s in (1, 2, 4, 8) and 32 % (4 * geo.s) == 0
-            assert 4 * u * geo.s <= geo.threads <= S.FWD_THREADS
-            assert geo.s * geo.depth >= w and geo.depth % 8 == 0
-            assert geo.ls % (16 // size) == 0
-            assert min(geo.depth, reg) + geo.ls <= geo.depth
-            assert geo.smem == (8 * geo.rows * geo.s
-                                * (max(geo.depth, reg) + 4) + 16
-                                + geo.threads * geo.ls * size)
-            assert geo.smem <= S.FWD_SMEM
-            assert geo.rows in (1, 2, 3, 4, 6, 8)
+            geo = S.lstm_fwd_geometry(b, w, dtype, 132, _all_sms)
+            _check_fwd_geometry(geo, b, w, size)
+            assert geo.rounds == 1
             assert -(-b // geo.rows) * geo.nc <= 132 or geo.rows == 8
             if w <= 256 and b <= 8:
                 assert geo.rows == 1 and b * geo.nc <= 132
-    assert S.lstm_fwd_geometry(3, 64, dtype, 132).nc == 1
-    assert S.lstm_fwd_geometry(8, 256, dtype, 132).nc == 8
-    # an H100 runs 15 clusters of 8 blocks at once (and 30 of 4): B=64
-    # takes 6 rows a chain (11 chains), not 4 (16 chains, one of them after
-    # the rest)
-    h100 = lambda nc: {4: 30, 8: 15}.get(nc, 132 // nc)  # noqa: E731
-    assert S.lstm_fwd_geometry(64, 256, torch.float32, 132, h100).rows == 6
-    assert S.lstm_fwd_geometry(64, 256, torch.float32, 132).rows == 4
-    with pytest.raises(ValueError, match="wider"):
-        S.lstm_fwd_geometry(3, 1025, dtype, 132)
+    assert S.lstm_fwd_geometry(3, 64, dtype, 132, _all_sms).nc == 1
+    assert S.lstm_fwd_geometry(8, 256, dtype, 132, _all_sms).nc == 8
+    # 15 clusters of 8 blocks at once: B=64 takes 6 rows a chain (11
+    # chains), not 4 (16 chains, one of them after the rest)
+    bench = lambda fits: S.lstm_fwd_geometry(  # noqa: E731
+        64, 256, torch.float32, 132, fits)
+    assert bench(_all_sms).rows == 4 and bench(_gpcs).rows == 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_fwd_geometry_takes_wide_widths_in_rounds(dtype):
+    """Past 64 units a block (W > 1024) each thread takes its units in
+    rounds on 16-block chains: vanilla_lstm's --lstm_hidden1 2048 and the
+    bidirectional LSTM's scan route at --lstm_hidden1 4096 (W = 2048) run;
+    h's buffers cut the rows a chain where they would pass the shared
+    memory; a width whose one row does not fit is refused."""
+    size = 4 if dtype == torch.float32 else 2
+    for w in (1025, 1100, 1500, 2047, 2048, 3000, 4096, 8192, 16384):
+        for b in (1, 3, 8, 64):
+            geo = S.lstm_fwd_geometry(b, w, dtype, 132, _gpcs)
+            _check_fwd_geometry(geo, b, w, size)
+            units = -(-w // 16)
+            assert geo.nc == 16 and geo.rounds == -(-units // 64)
+    assert S.lstm_fwd_geometry(3, 2048, dtype, 132, _gpcs).rows == 1
+    assert S.lstm_fwd_geometry(8, 2048, dtype, 132, _gpcs).rows == 2
+    assert S.lstm_fwd_geometry(64, 2048, dtype, 132, _gpcs).rows == 4
+    # at 8192 four rows' h would pass the shared memory: two
+    assert S.lstm_fwd_geometry(64, 8192, dtype, 132, _gpcs).rows == 2
+    with pytest.raises(ValueError, match="no launch takes W=30000"):
+        S.lstm_fwd_geometry(3, 30000, dtype, 132, _gpcs)
+
+
+def test_lstm_fwd_geometry_asks_fits_only_of_the_counts_it_weighs():
+    """A card that runs no 16-block cluster: W=64 and W=256 take their
+    launch without asking about 16 blocks at all (a query that would raise
+    is never made); wider widths take 8-block chains (W=512 f32 with its
+    tail through L2, W=1024 and 2048 in rounds); a card that runs no
+    cluster at all is refused."""
+    asked = []
+
+    def no16(nc):
+        asked.append(nc)
+        if nc == 16:
+            raise RuntimeError("no cluster of 16 blocks")
+        return _gpcs(nc)
+
+    for w, b in ((64, 3), (64, 64), (256, 8), (256, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            geo = S.lstm_fwd_geometry(b, w, dtype, 132, no16)
+            assert geo == S.lstm_fwd_geometry(b, w, dtype, 132, _gpcs)
+    assert 16 not in asked and set(asked) == {1, 8}
+
+    def none16(nc):
+        return 0 if nc == 16 else _gpcs(nc)
+
+    for w, rounds in ((512, 1), (1024, 2), (2048, 4)):
+        for b in (3, 8, 64):
+            geo = S.lstm_fwd_geometry(b, w, torch.float32, 132, none16)
+            _check_fwd_geometry(geo, b, w, 4)
+            assert (geo.nc, geo.rounds) == (8, rounds)
+    geo = S.lstm_fwd_geometry(8, 512, torch.float32, 132, none16)
+    assert geo.depth > S.FWD_REG_VALS + geo.ls  # the tail through L2
+    with pytest.raises(ValueError, match="no launch"):
+        S.lstm_fwd_geometry(3, 64, torch.float32, 132, lambda nc: -1)
 
 
 @pytest.mark.parametrize("shape", [(3, 7), (3, 7, 5), (2, 6, 2, 3)])

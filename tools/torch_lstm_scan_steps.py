@@ -7,23 +7,22 @@ copies with one part of the step taken out.  On one NVIDIA GPU:
                                            [--builds NAME ...]
 
 Builds ``lstm_scan_fwd.cu`` from copies of ``DIR/pytorch_video_action_tpu_
-torch/csrc/`` (``DIR`` defaults to this checkout; give another checkout,
-for example an earlier commit unpacked with ``git archive``, to take its
-kernel apart) in a temporary directory: as it is, and once for each entry
-of the edit set that matches the source (``EDITS``: the product taken
-out, the gates and cell update taken out, the exchange of ``h`` between
-blocks taken out, the cluster's wait replaced by the block's, ...).  Each
+torch/csrc/`` (``DIR`` defaults to this checkout; another checkout of the
+same design, for example an earlier commit unpacked with ``git archive``,
+may be given) in a temporary directory: as it is, and once for each
+entry of ``EDITS`` (the product taken out, the gates and cell update taken
+out, the exchange of ``h`` between blocks taken out, all three).  Each
 build runs ``DIR``'s ``ops/rnn_scan.lstm_scan_fwd`` on the same seeded
 inputs at each shape (default: the training shape B=8, T=1920, W=256, the
 serving shape B=3, T=1280, W=64 and the bench shape B=64, T=1024, W=256),
 f32 and bf16, and prints its device time (CUDA events, ``chip_smoke.
-cuda_ms``) as µs a step, with the card's name and power limit (and, for
-the register-resident design, each shape's launch from
-``lstm_fwd_geometry`` and the clusters the card runs at once).  The
-edited builds compute wrong values and are timed only.  Exits non-zero
-without a card, or when the source holds neither edit set's lines.
-``chip_smoke.py`` takes rows 13 and 14 apart with ``start_builds``,
-``finish_builds`` and ``step_us``.  Imports nothing of JAX.
+cuda_ms``) as µs a step, with the card's name and power limit and each
+shape's launch from ``lstm_fwd_geometry`` and the clusters the card runs
+at once.  The edited builds compute wrong values and are timed only.
+Exits non-zero without a card, or when the source no longer holds an
+edit's lines.  ``chip_smoke.py`` takes rows 13 and 14 apart with
+``start_builds``, ``finish_builds`` and ``step_us``.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -38,87 +37,45 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# The first design (one scalar remote store a (row, unit) pair a peer and
-# a cluster barrier a step; a depth-sliced SIMT product from shared memory
-# and its slices' sums through part_s; the gates through act_s).
-_OLD_PRODUCT = ("    if (C > 0)\n"
-                "      product(h_s + cur * kMaxRows * ld, ld, w_s, a.rs, wh, "
-                "cm, C, W,\n"
-                "              part_s);\n", "")
-_OLD_GATES = [("        const float act = c / ch.ucnt == 2 ? tanhf(pre) : "
-               "sigmoid_f(pre);\n", "        const float act = pre;\n"),
-              ("        cn[k] = fg * c_s[b * a.U + u] + ig * gg;\n"
-               "        c_s[b * a.U + u] = cn[k];\n"
-               "        tc[k] = tanhf(cn[k]);\n"
-               "        hq[k] = from_f<T>(og * tc[k]);\n",
-               "        cn[k] = ig + fg + gg + og;\n"
-               "        tc[k] = cn[k];\n"
-               "        hq[k] = from_f<T>(cn[k]);\n")]
-_OLD_PEERS = ("#pragma unroll\n"
-              "        for (int q = 0; q < kMaxCluster; ++q)\n"
-              "          if (q < a.NC) peer[q][slot] = hv;\n",
-              "        h_s[slot] = hv;\n")
-# (a block may not leave while its peers still store into it: one cluster
-# barrier after the last step)
-_OLD_BLOCK = [("    cluster_arrive();\n", "    __syncthreads();\n"),
-              ("    cluster_wait();\n  }\n}\n", "  }\n  cluster.sync();\n}\n")]
-OLD = {"no product": [_OLD_PRODUCT],
-       "no gates": _OLD_GATES,
-       "no peer stores": [_OLD_PEERS],
-       "block barrier": _OLD_BLOCK,
-       "no exchange": [_OLD_PEERS, *_OLD_BLOCK],
-       "skeleton": [_OLD_PRODUCT, *_OLD_GATES, _OLD_PEERS, *_OLD_BLOCK]}
-
-# The current design (weights in registers, gates by shuffles, h sent by
-# st.async onto the receiver's mbarrier, one block barrier a step only when
-# a chain is one block).
-_NEW_PRODUCT = ("    product<T, RM>(wr, w_s + tid, wh, h_s + cur * RM * a.ldh + "
-                "s * a.LP, a,\n                   d0, col, pre);\n",
-                "#pragma unroll\n    for (int r = 0; r < RM; ++r) pre[r] = "
-                "h_s[r];\n")
-_NEW_GATES = [("      act[r] = g == 2 ? tanhf(p) : sigmoid_f(p);\n",
-               "      act[r] = p;\n"),
-              ("      c[r] = fmaf(fg, c[r], ig * gg);\n"
-               "      tc[r] = tanhf(c[r]);\n"
-               "      hq[r] = from_f<T>(og * tc[r]);\n",
-               "      c[r] = ig + fg + gg + og;\n"
-               "      tc[r] = c[r];\n"
-               "      hq[r] = from_f<T>(c[r]);\n")]
+# The edits (weights in registers, gates by shuffles, h sent by st.async
+# onto the receiver's mbarrier, one block barrier a step only when a chain
+# is one block)
+_PRODUCT = ("      product<T, RM, WIDE>(wr, w_s + tid, wh,\n"
+            "                           h_s + cur * RM * a.ldh + s * a.LP, a, "
+            "d0, col,\n                           pre);\n",
+            "#pragma unroll\n      for (int r = 0; r < RM; ++r) pre[r] = "
+            "h_s[r];\n")
+_GATES = [("        act[r] = g == 2 ? tanhf(p) : sigmoid_f(p);\n",
+           "        act[r] = p;\n"),
+          ("        c[r] = fmaf(fg, c[r], ig * gg);\n"
+           "        tc[r] = tanhf(c[r]);\n"
+           "        hq[r] = from_f<T>(og * tc[r]);\n",
+           "        c[r] = ig + fg + gg + og;\n"
+           "        tc[r] = c[r];\n"
+           "        hq[r] = from_f<T>(c[r]);\n")]
 # no wait, no remote store and no block barrier: the blocks run unpaced
-_NEW_EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((t - 1) >> 1) & 1);\n"
-                  "      if (tid == 0 && t + 2 < a.Tn) bar_expect(bar0 + 8 * "
-                  "cur, bytes);\n", ""),
-                 ("            if (r < nb) send_h(dst + 4u * r * a.ldh, "
-                  "hv[r], bar);\n", "            (void)dst, (void)bar;\n"),
-                 ("    if (a.NC == 1) __syncthreads();\n", "")]
-NEW = {"no product": [_NEW_PRODUCT],
-       "no gates": _NEW_GATES,
-       "no exchange": _NEW_EXCHANGE,
-       "skeleton": [_NEW_PRODUCT, *_NEW_GATES, *_NEW_EXCHANGE]}
-
-# (marker in the source, its edit set)
-EDITS = [("part_s = h_s + 2 * kMaxRows * ld", OLD),
-         ("send_h(dst + 4u * r * a.ldh", NEW)]
+_EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((t - 1) >> 1) & 1);\n"
+              "      if (tid == 0 && t + 2 < a.Tn) bar_expect(bar0 + 8 * "
+              "cur, bytes);\n", ""),
+             ("              if (r < nb) send_h(dst + 4u * r * a.ldh, "
+              "hv[r], bar);\n", "              (void)dst, (void)bar;\n"),
+             ("    if (a.NC == 1) __syncthreads();\n", "")]
+EDITS = {"no product": [_PRODUCT],
+         "no gates": _GATES,
+         "no exchange": _EXCHANGE,
+         "skeleton": [_PRODUCT, *_GATES, *_EXCHANGE]}
 SHAPES = ["8,1920,256", "3,1280,64", "64,1024,256"]
 
 
-def edit_set(text: str) -> dict:
-    for marker, eds in EDITS:
-        if marker in text:
-            return eds
-    raise SystemExit("torch_lstm_scan_steps: lstm_scan_fwd.cu holds neither "
-                     "edit set's lines")
-
-
 def start_builds(csrc: Path, tmp: Path, names=None) -> dict:
-    """Start one nvcc a build of ``lstm_scan_fwd.cu`` (every build of the
-    source's edit set, or those named), each on an edited copy of ``csrc``
-    under ``tmp``: ``{name: (process, library)}``."""
+    """Start one nvcc a build of ``lstm_scan_fwd.cu`` (every build of
+    ``EDITS``, or those named), each on an edited copy of ``csrc`` under
+    ``tmp``: ``{name: (process, library)}``."""
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
     text = (csrc / "lstm_scan_fwd.cu").read_text()
     jobs = {}
-    for name, eds in {"as is": [], **edit_set(text)}.items():
+    for name, eds in {"as is": [], **EDITS}.items():
         if names is not None and name not in names:
             continue
         d = tmp / name.replace(" ", "_")
@@ -151,25 +108,17 @@ def finish_builds(jobs: dict) -> dict:
     return libs
 
 
-def step_us(libs: dict, fn, args, t_len: int, iters: int = 3) -> dict:
+def step_us(libs: dict, fn, args, t_len: int, timer, iters: int = 3) -> dict:
     """µs a step of ``fn(*args)`` (a wrapper of ``ops/rnn_scan.py`` that
-    launches ``lstm_scan_fwd.cu``) with each build's library in place of
-    the loaded one, which is put back after."""
-    import chip_smoke
+    launches ``lstm_scan_fwd.cu``) with each build's library in its place:
+    ``timer(call, iters, warmup)`` gives a call's device ms
+    (``chip_smoke.cuda_ms``)."""
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
-    loaded = cuda_lib._LIBS.get("lstm_scan_fwd")
     out = {}
-    try:
-        for name, lib in libs.items():
-            cuda_lib._LIBS["lstm_scan_fwd"] = lib
-            out[name] = chip_smoke.cuda_ms(lambda: fn(*args), iters,
-                                           1) / t_len * 1e3
-    finally:
-        if loaded is None:
-            cuda_lib._LIBS.pop("lstm_scan_fwd", None)
-        else:
-            cuda_lib._LIBS["lstm_scan_fwd"] = loaded
+    for name, lib in libs.items():
+        with cuda_lib.replaced("lstm_scan_fwd", lib):
+            out[name] = timer(lambda: fn(*args), iters, 1) / t_len * 1e3
     return out
 
 
@@ -192,7 +141,6 @@ def main(argv=None) -> int:
         print("torch_lstm_scan_steps: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
-    from pytorch_video_action_tpu_torch.ops import cuda_lib
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
     print(chip_smoke.card_line(), flush=True)
@@ -206,19 +154,18 @@ def main(argv=None) -> int:
             xg, wh, *_ = chip_smoke.scan_inputs([t_len] * b, t_len, w, dt,
                                                 gen)
             inputs[(b, t_len, w, dt)] = (xg, wh)
-    if hasattr(RS, "lstm_fwd_geometry"):  # the current design: its launches
-        for (b, t_len, w, dt), (xg, _) in inputs.items():
-            fits = RS._cluster_fits(xg.device)
-            geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(xg.device), fits)
-            print(f"{str(dt)[6:]} B={b} W={w}: {geo}, {-(-b // geo.rows)} "
-                  f"chains, {fits(geo.nc)} clusters of {geo.nc} fit the card "
-                  f"at once", flush=True)
+    for (b, t_len, w, dt), (xg, _) in inputs.items():
+        fits = RS._cluster_fits(xg.device)
+        geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(xg.device), fits)
+        print(f"{str(dt)[6:]} B={b} W={w}: {geo}, {-(-b // geo.rows)} "
+              f"chains, {fits(geo.nc)} clusters of {geo.nc} fit the card at "
+              f"once", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = finish_builds(start_builds(csrc, Path(tmp), args.builds))
         for (b, t_len, w, dt), (xg, wh) in inputs.items():
             got = step_us(libs, RS.lstm_scan_fwd, (xg, wh), t_len,
-                          args.iters)
+                          chip_smoke.cuda_ms, args.iters)
             for name, us in got.items():
                 print(f"{name}: {str(dt)[6:]} B={b} T={t_len} W={w}: "
                       f"{us * t_len / 1e3:.4f} ms, {us:.4f} us a step",
