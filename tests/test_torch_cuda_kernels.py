@@ -1092,6 +1092,17 @@ def test_lstm_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
         assert torch.equal(g, a), name
 
 
+# Fault 8: both backwards at widths the forward takes and vanilla_lstm
+# trains at (--lstm_hidden1 past 870), where a chain's double-buffered gate
+# gradients once passed a block's shared memory ([2][8][4W] f32).
+@pytest.mark.parametrize("w", [1024, 2048])
+@pytest.mark.parametrize("recompute", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_bwd_at_wide_widths(cuda_device, dtype, recompute, w):
+    test_lstm_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
+                                                w, 3, 64)
+
+
 @pytest.mark.parametrize("case", ["float64", "noncontiguous", "wh_bf16"])
 def test_lstm_scan_kernels_refuse_what_they_do_not_take(cuda_device, case):
     xg, wh, _ = _scan_case(cuda_device, torch.float32, 64, 3, 8)

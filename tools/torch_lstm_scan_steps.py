@@ -1,28 +1,30 @@
 #!/usr/bin/env python3
-"""Where a step of the LSTM scan's eval forward (row 13,
-``csrc/lstm_scan_fwd.cu``) goes: µs a step of the kernel as built and of
-copies with one part of the step taken out.  On one NVIDIA GPU:
+"""Where a step of a scan kernel goes: µs a step of the kernel as built and
+of copies with one part of the step taken out.  On one NVIDIA GPU:
 
-    python3 tools/torch_lstm_scan_steps.py [--root DIR] [--shapes B,T,W ...]
+    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15] [--root DIR]
+                                           [--shapes B,T,W ...]
                                            [--builds NAME ...]
 
-Builds ``lstm_scan_fwd.cu`` from copies of ``DIR/pytorch_video_action_tpu_
-torch/csrc/`` (``DIR`` defaults to this checkout; another checkout of the
-same design, for example an earlier commit unpacked with ``git archive``,
-may be given) in a temporary directory: as it is, and once for each
-entry of ``EDITS`` (the product taken out, the gates and cell update taken
-out, the exchange of ``h`` between blocks taken out, all three).  Each
-build runs ``DIR``'s ``ops/rnn_scan.lstm_scan_fwd`` on the same seeded
-inputs at each shape (default: the training shape B=8, T=1920, W=256, the
-serving shape B=3, T=1280, W=64 and the bench shape B=64, T=1024, W=256),
-f32 and bf16, and prints its device time (CUDA events, ``chip_smoke.
-cuda_ms``) as µs a step, with the card's name and power limit and each
-shape's launch from ``lstm_fwd_geometry`` and the clusters the card runs
-at once.  The edited builds compute wrong values and are timed only.
-Exits non-zero without a card, or when the source no longer holds an
-edit's lines.  ``chip_smoke.py`` takes rows 13 and 14 apart with
-``start_builds``, ``finish_builds`` and ``step_us``.  Imports nothing of
-JAX.
+``--kernel`` picks the scan kernel by its row in ``PERF.md``: 13, the LSTM
+scan's eval forward (``csrc/lstm_scan_fwd.cu``, the default); 9, the GRU
+scan's eval forward (``csrc/gru_scan_fwd.cu``); 15, the LSTM scan's
+saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh).
+Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
+csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
+design, for example an earlier commit unpacked with ``git archive``, may be
+given) in a temporary directory: as it is, and once for each entry of the
+kernel's ``EDITS`` (the product taken out, the gate math taken out, the
+exchange between blocks taken out, all of them; row 15 also dwh's launch
+taken out).  Each build runs ``DIR``'s wrapper of the kernel
+(``ops/rnn_scan.py``) on the same seeded inputs at each shape (defaults in
+``KERNELS``), f32 and bf16, and prints its device time (CUDA events,
+``chip_smoke.cuda_ms``) as µs a step, with the card's name and power limit
+and each shape's launch.  The edited builds compute wrong values and are
+timed only.  Exits non-zero without a card, or when the source no longer
+holds an edit's lines.  ``chip_smoke.py`` takes rows 9, 13, 14 and 15
+apart with ``start_builds``, ``finish_builds`` and ``step_us``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,15 +36,16 @@ import subprocess
 import sys
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# The edits (weights in registers, gates by shuffles, h sent by st.async
-# onto the receiver's mbarrier, one block barrier a step only when a chain
-# is one block)
-_PRODUCT = ("      product<T, RM, WIDE>(wr, w_s + tid, wh,\n"
+# Row 13 (weights in registers, gates by shuffles, h sent by st.async onto
+# the receiver's mbarrier, one block barrier a step only when a chain is
+# one block)
+_PRODUCT = ("      product<T, RM, WIDE>(wr, w_s + tid, wh + col, a.G,\n"
             "                           h_s + cur * RM * a.ldh + s * a.LP, a, "
-            "d0, col,\n                           pre);\n",
+            "d0, pre);\n",
             "#pragma unroll\n      for (int r = 0; r < RM; ++r) pre[r] = "
             "h_s[r];\n")
 _GATES = [("        act[r] = g == 2 ? tanhf(p) : sigmoid_f(p);\n",
@@ -60,36 +63,118 @@ _EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((t - 1) >> 1) & 1);\n"
              ("              if (r < nb) send_h(dst + 4u * r * a.ldh, "
               "hv[r], bar);\n", "              (void)dst, (void)bar;\n"),
              ("    if (a.NC == 1) __syncthreads();\n", "")]
-EDITS = {"no product": [_PRODUCT],
-         "no gates": _GATES,
-         "no exchange": _EXCHANGE,
-         "skeleton": [_PRODUCT, *_GATES, *_EXCHANGE]}
-SHAPES = ["8,1920,256", "3,1280,64", "64,1024,256"]
+
+# Row 9 (scan_common.cuh's chain: the block's product of all rows from
+# shared memory into partial sums, a block barrier, (row, unit) threads
+# for the gates, h written into every block, one cluster barrier a step)
+_G9_PRODUCT = [("    if (C > 0)\n"
+                "      product(h_s + cur * kMaxRows * ld, ld, w_s, a.rs, wh, "
+                "cm, C, W,\n              part_s);\n", "")]
+_G9_GATES = [("        const float r = sigmoid_f(xv[k][0] + hr);\n"
+              "        const float z = sigmoid_f(xv[k][1] + hz);\n"
+              "        const float n = tanhf(xv[k][2] + r * hn);\n",
+              "        const float r = xv[k][0] + hr;\n"
+              "        const float z = xv[k][1] + hz;\n"
+              "        const float n = xv[k][2] + hn;\n"),
+             ("        const float h = (1.0f - z) * n + z * *hc;\n",
+              "        const float h = r + z + n + *hc;\n")]
+_G9_EXCHANGE = [("          if (q < a.NC) peer[q][slot] = hv;\n",
+                 "          if (q < a.NC) (void)hv;\n"),
+                ("    cluster_arrive();\n", ""),
+                ("    cluster_wait();\n", "")]
+
+# Row 15 (the same chain: gate gradients written into every block, one
+# cluster barrier, then each block's carry product from shared memory; dwh
+# a SIMT GEMM after it)
+_L15_PRODUCT = [("    if (ch.ucnt > 0)\n"
+                 "      product(dg_s + cur * kMaxRows * G, G, wT_s, a.rs, "
+                 "whT, cmT, ch.ucnt,\n              G, part_s);\n", "")]
+_L15_GATES = [("        const float dc = dh * x.o * (1.0f - x.tc * x.tc) + "
+               "dc_s[p];\n"
+               "        dc_s[p] = dc * x.f;\n"
+               "        d[k][0] = dc * x.g * x.i * (1.0f - x.i);\n"
+               "        d[k][1] = dc * x.cp * x.f * (1.0f - x.f);\n"
+               "        d[k][2] = dc * x.i * (1.0f - x.g * x.g);\n"
+               "        d[k][3] = dh * x.tc * x.o * (1.0f - x.o);\n",
+               "        const float dc = dh + x.o + x.tc + dc_s[p];\n"
+               "        dc_s[p] = dc + x.f;\n"
+               "        d[k][0] = dc + x.g + x.i;\n"
+               "        d[k][1] = dc + x.cp;\n"
+               "        d[k][2] = dc;\n"
+               "        d[k][3] = dh;\n")]
+_L15_EXCHANGE = [("            if (r < a.NC) peer[r][slot + q * W] = "
+                  "d[k][q];\n", "            if (r < a.NC) (void)slot;\n"),
+                 ("    cluster_arrive();\n", ""),
+                 ("    cluster_wait();\n", "")]
+_L15_DWH = [("  dwh_kernel<T><<<grid, kThreads, 0, stream>>>(\n"
+             "      ShiftedRowsT<T>{h, a.W, 0, M}, RowsT<T>{dx, G},\n"
+             "      Store<T>{static_cast<T*>(dwh), G}, a.W, G, M);\n",
+             "  (void)grid;\n")]
 
 
-def start_builds(csrc: Path, tmp: Path, names=None) -> dict:
-    """Start one nvcc a build of ``lstm_scan_fwd.cu`` (every build of
-    ``EDITS``, or those named), each on an edited copy of ``csrc`` under
-    ``tmp``: ``{name: (process, library)}``."""
+class Kernel(NamedTuple):
+    """A scan kernel the tool takes apart: its source (and library) name
+    under ``csrc/``, its wrapper in ``ops/rnn_scan.py``, the edited builds
+    and the default shapes (``B,T,W``)."""
+    source: str
+    wrapper: str
+    edits: dict
+    shapes: list
+
+
+KERNELS = {
+    "13": Kernel("lstm_scan_fwd", "lstm_scan_fwd",
+                 {"no product": [_PRODUCT], "no gates": _GATES,
+                  "no exchange": _EXCHANGE,
+                  "skeleton": [_PRODUCT, *_GATES, *_EXCHANGE]},
+                 ["8,1920,256", "3,1280,64", "64,1024,256"]),
+    "9": Kernel("gru_scan_fwd", "gru_scan_fwd",
+                {"no product": _G9_PRODUCT, "no gates": _G9_GATES,
+                 "no exchange": _G9_EXCHANGE,
+                 "skeleton": [*_G9_PRODUCT, *_G9_GATES, *_G9_EXCHANGE]},
+                ["8,1920,256", "3,1280,256"]),
+    "15": Kernel("lstm_scan_bwd", "lstm_scan_bwd_saved",
+                 {"no product": _L15_PRODUCT, "no gates": _L15_GATES,
+                  "no exchange": _L15_EXCHANGE, "no dwh": _L15_DWH,
+                  "skeleton": [*_L15_PRODUCT, *_L15_GATES, *_L15_EXCHANGE,
+                               *_L15_DWH]},
+                 ["8,1920,256", "64,1024,256"]),
+}
+# row 13's, under the names chip_smoke.py and earlier checkouts read
+EDITS = KERNELS["13"].edits
+SHAPES = KERNELS["13"].shapes
+
+
+def edited_source(text: str, kernel: str, name: str) -> str:
+    """``text`` (the kernel's source) with the edits of build ``name``;
+    raises SystemExit when an edit's lines are not in it."""
+    for old, new in KERNELS[kernel].edits.get(name, []):
+        if old not in text:
+            raise SystemExit(f"torch_lstm_scan_steps: "
+                             f"{KERNELS[kernel].source}.cu no longer holds "
+                             f"the lines the {name!r} build edits")
+        text = text.replace(old, new)
+    return text
+
+
+def start_builds(csrc: Path, tmp: Path, names=None, kernel: str = "13"
+                 ) -> dict:
+    """Start one nvcc a build of the kernel's source (as it is and every
+    build of its ``EDITS``, or those named), each on an edited copy of
+    ``csrc`` under ``tmp``: ``{name: (process, library)}``."""
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
-    text = (csrc / "lstm_scan_fwd.cu").read_text()
+    source = KERNELS[kernel].source
+    text = (csrc / f"{source}.cu").read_text()
     jobs = {}
-    for name, eds in {"as is": [], **EDITS}.items():
+    for name in ["as is", *KERNELS[kernel].edits]:
         if names is not None and name not in names:
             continue
-        d = tmp / name.replace(" ", "_")
+        d = tmp / f"{kernel}_{name.replace(' ', '_')}"
         shutil.copytree(csrc, d)
-        src = d / "lstm_scan_fwd.cu"
-        edited = text
-        for old, new in eds:
-            if old not in edited:
-                raise SystemExit(f"torch_lstm_scan_steps: lstm_scan_fwd.cu no "
-                                 f"longer holds the lines the {name!r} build "
-                                 f"edits")
-            edited = edited.replace(old, new)
-        src.write_text(edited)
-        out = d / "liblstm_scan_fwd.so"
+        src = d / f"{source}.cu"
+        src.write_text(edited_source(text, kernel, name))
+        out = d / f"lib{source}.so"
         jobs[name] = (subprocess.Popen(
             [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
@@ -108,32 +193,54 @@ def finish_builds(jobs: dict) -> dict:
     return libs
 
 
-def step_us(libs: dict, fn, args, t_len: int, timer, iters: int = 3) -> dict:
+def step_us(libs: dict, fn, args, t_len: int, timer, iters: int = 3,
+            kernel: str = "13") -> dict:
     """µs a step of ``fn(*args)`` (a wrapper of ``ops/rnn_scan.py`` that
-    launches ``lstm_scan_fwd.cu``) with each build's library in its place:
+    launches the kernel's source) with each build's library in its place:
     ``timer(call, iters, warmup)`` gives a call's device ms
     (``chip_smoke.cuda_ms``)."""
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
     out = {}
     for name, lib in libs.items():
-        with cuda_lib.replaced("lstm_scan_fwd", lib):
+        with cuda_lib.replaced(KERNELS[kernel].source, lib):
             out[name] = timer(lambda: fn(*args), iters, 1) / t_len * 1e3
     return out
 
 
+def kernel_args(kernel, chip_smoke, b, t_len, w, dt):
+    """The wrapper's seeded arguments on the card at one shape."""
+    import torch
+
+    from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
+
+    gen = torch.Generator().manual_seed(0)
+    cell = "gru" if kernel == "9" else "lstm"
+    xg, wh, bh, dy, _ = chip_smoke.scan_inputs([t_len] * b, t_len, w, dt,
+                                               gen, cell)
+    if kernel == "9":
+        return xg, wh, bh
+    if kernel == "13":
+        return xg, wh
+    ys, cs, res = RS.lstm_scan_fwd_save(xg, wh)
+    return res, RS._shift(ys), RS._shift(cs), dy, wh
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
+                    help="the kernel's row: 13, 9 or 15")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
-    ap.add_argument("--shapes", nargs="*", default=SHAPES,
-                    help="B,T,W of each shape")
+    ap.add_argument("--shapes", nargs="*",
+                    help="B,T,W of each shape (default: the kernel's)")
     ap.add_argument("--builds", nargs="*",
                     help="names of the builds to time (default: all)")
     ap.add_argument("--iters", type=int, default=5)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
+    kern = KERNELS[args.kernel]
 
     import torch
 
@@ -144,28 +251,32 @@ def main(argv=None) -> int:
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
     print(chip_smoke.card_line(), flush=True)
-    print(f"kernel and wrapper of {root}", flush=True)
+    print(f"row {args.kernel} ({kern.source}.cu): kernel and wrapper of "
+          f"{root}", flush=True)
     csrc = root / "pytorch_video_action_tpu_torch" / "csrc"
-    shapes = [tuple(int(v) for v in s.split(",")) for s in args.shapes]
+    shapes = [tuple(int(v) for v in s.split(","))
+              for s in (args.shapes or kern.shapes)]
     inputs = {}
     for b, t_len, w in shapes:
         for dt in (torch.float32, torch.bfloat16):
-            gen = torch.Generator().manual_seed(0)
-            xg, wh, *_ = chip_smoke.scan_inputs([t_len] * b, t_len, w, dt,
-                                                gen)
-            inputs[(b, t_len, w, dt)] = (xg, wh)
-    for (b, t_len, w, dt), (xg, _) in inputs.items():
-        fits = RS._cluster_fits(xg.device)
-        geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(xg.device), fits)
-        print(f"{str(dt)[6:]} B={b} W={w}: {geo}, {-(-b // geo.rows)} "
-              f"chains, {fits(geo.nc)} clusters of {geo.nc} fit the card at "
-              f"once", flush=True)
+            inputs[(b, t_len, w, dt)] = kernel_args(args.kernel, chip_smoke,
+                                                    b, t_len, w, dt)
+            launch = getattr(RS, "scan_launch", None)
+            geo = (launch(kern.wrapper, b, w, dt, inputs[(b, t_len, w, dt)][0]
+                          .device) if launch else
+                   RS.lstm_fwd_geometry(b, w, dt, RS._sms(torch.device(
+                       "cuda")), RS._cluster_fits(torch.device("cuda")))
+                   if args.kernel == "13" else
+                   f"cluster of {RS.cluster_size(w)}")
+            print(f"{str(dt)[6:]} B={b} W={w}: {geo}", flush=True)
 
+    fn = getattr(RS, kern.wrapper)
     with tempfile.TemporaryDirectory() as tmp:
-        libs = finish_builds(start_builds(csrc, Path(tmp), args.builds))
-        for (b, t_len, w, dt), (xg, wh) in inputs.items():
-            got = step_us(libs, RS.lstm_scan_fwd, (xg, wh), t_len,
-                          chip_smoke.cuda_ms, args.iters)
+        libs = finish_builds(start_builds(csrc, Path(tmp), args.builds,
+                                          args.kernel))
+        for (b, t_len, w, dt), call_args in inputs.items():
+            got = step_us(libs, fn, call_args, t_len, chip_smoke.cuda_ms,
+                          args.iters, args.kernel)
             for name, us in got.items():
                 print(f"{name}: {str(dt)[6:]} B={b} T={t_len} W={w}: "
                       f"{us * t_len / 1e3:.4f} ms, {us:.4f} us a step",
