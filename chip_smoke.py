@@ -9,14 +9,15 @@ Phases, in order; any failure exits non-zero:
    and turns TF32 off for matmul and cuDNN.
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together, beside
-   the LSTM scan forward's step-split builds of
-   ``tools/torch_lstm_scan_steps.py``) and prints the build time and
+   the step-split builds of ``tools/torch_lstm_scan_steps.py`` for rows 13,
+   9 and 15) and prints the build time and
    ``-Xptxas -v`` (and, for each flash kernel
    and each of the GRU layer backward's product kernels, its registers,
    spills and any wgmma serialization); checks with ``cuobjdump -sass``
    that the flash forward, the fused backward, the split backward's two
-   kernels and the GRU backward's two product kernels issue wgmma (HGMMA)
-   in every instantiation, f32 and bf16.
+   kernels, the GRU backward's two product kernels and the LSTM scan
+   backward's dwh issue wgmma (HGMMA) in every instantiation, f32 and
+   bf16.
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the bench shape (B=64, T=1024, where bench.py times bigru and
    bilstm), for layer 0 (W_in=400) and the later layers (256) in f32 and
@@ -53,9 +54,12 @@ Phases, in order; any failure exits non-zero:
    shape (B=64, T=1024, W=256) in f32 and bf16: each against its plain
    version and a rerun, the eval form's ys and cs against the saving
    form's (bit for bit), timed beside nn.LSTM (one direction, packed) and
-   its bound; the two forwards at the bench shape, and at the training
-   and serving shapes in phases 4-5, also by step part (µs a step of each
-   step-split build, ``step_us``).  Then the GRU scan's four kernels the
+   its bound (the saved-gates backward's with dwh on the tensor cores,
+   ``tc_bound``, its SIMT count beside), each chain kernel's geometry
+   logged; the two forwards and the saved-gates backward at the bench
+   shape, and at the training and serving shapes in phases 4-5, also by
+   step part (µs a step of each step-split build, ``step_us``).  Then the
+   GRU scan's four kernels the
    same way (beside nn.GRU) at an odd width (W=96) and W=512, B=8, T=1920,
    and at the serving shape B=3, T=1280, W=256, in f32 and bf16.
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
@@ -73,7 +77,8 @@ Phases, in order; any failure exits non-zero:
    the others, at the train CLI's defaults: H=256, 2 layers, dropout 0.5;
    its scan kernels held first at the largest train batch, B=8, T=1920;
    plus one step with the recompute backward, its gradients against the
-   saved-gates step's), trains it again at the inference CLIs' defaults
+   saved-gates step's, and one step at ``--lstm_hidden1 1024``, its
+   gradients against the CPU), trains it again at the inference CLIs' defaults
    (H=64, 1 layer, dropout 0), serves that checkpoint the same way (the
    eval form held at the largest forward batch, B=3, T=1280); trains
    simple_fc (as phase 5 does the others; its f32 run without ``--model``,
@@ -107,7 +112,8 @@ Phases, in order; any failure exits non-zero:
    dev accuracy rises above 0, loads).  Last, the bidirectional GRU at
    widths the fused layer kernel refuses, on the GRU scan: its four
    kernels held at the largest train batch (W=256, the batch's own
-   lengths, f32 and bf16); one Trainer step each of BiGRU at
+   lengths, f32 and bf16; the eval form also by step part); one Trainer
+   step each of BiGRU at
    ``hidden_dim_1`` 512 and 192 and attn at ``hidden_dim`` 192 (launch
    counts, gradients against the CPU, frames/s), one BiGRU 512 step with
    the recompute backward against the saved-gates step, and the BiGRU
@@ -442,11 +448,14 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the LSTM scan forward's step split (rows 13 and 14): the library of each
-# build of tools/torch_lstm_scan_steps.py (the kernel as it is and with one
-# part of its step taken out), built in phase 2 into a directory that lives
-# as long as the process
+# the scan kernels' step splits: {row of tools/torch_lstm_scan_steps.py
+# (13, 9, 15): {build: library}}, each build the kernel as it is or with
+# one part of its step taken out, built in phase 2 into a directory that
+# lives as long as the process; STEP_ROWS maps a wrapper to its row (row 14
+# is row 13's template)
 SCAN_STEPS: dict = {}
+STEP_ROWS = {"lstm_scan_fwd": "13", "lstm_scan_fwd_save": "13",
+             "gru_scan_fwd": "9", "lstm_scan_bwd_saved": "15"}
 _STEPS_DIR = None
 
 
@@ -472,11 +481,15 @@ def phase_build():
     t0 = time.time()
     _STEPS_DIR = tempfile.TemporaryDirectory()
     tool = steps_tool()
-    jobs = tool.start_builds(cuda_lib.CSRC, Path(_STEPS_DIR.name))
+    jobs = {row: tool.start_builds(cuda_lib.CSRC, Path(_STEPS_DIR.name),
+                                   kernel=row)
+            for row in tool.KERNELS}
     logs = cuda_lib.build_all(ptxas_verbose=True)
-    SCAN_STEPS.update(tool.finish_builds(jobs))
-    log(f"[build] {len(logs)} source(s) and the LSTM scan forward's "
-        f"{len(SCAN_STEPS)} step-split builds compiled in "
+    for row, got in jobs.items():
+        SCAN_STEPS[row] = tool.finish_builds(got)
+    log(f"[build] {len(logs)} source(s) and the step-split builds of rows "
+        f"{', '.join(SCAN_STEPS)} ("
+        f"{sum(len(v) for v in SCAN_STEPS.values())}) compiled in "
         f"{time.time() - t0:.1f} s")
     for name, text in logs.items():
         log(f"[build] -Xptxas -v for {name}:")
@@ -493,7 +506,8 @@ WGMMA_KERNELS = [("flash_fwd", "flash_fwd_kernel"),
                  ("flash_bwd", "flash_bwd_dkdv_kernel"),
                  ("flash_bwd", "flash_bwd_dq_kernel"),
                  ("gru_bidir_bwd", "wgrad_wgmma_kernel"),
-                 ("gru_bidir_bwd", "dx_wgmma_kernel")]
+                 ("gru_bidir_bwd", "dx_wgmma_kernel"),
+                 ("lstm_scan_bwd", "dwh_wgmma_kernel")]
 
 
 def ptxas_summary(logs) -> list[str]:
@@ -1265,7 +1279,7 @@ def scan_inputs(lengths, t_len, w, dt, gen, cell="lstm"):
             torch.as_tensor(lengths, dtype=torch.int64))
 
 
-def scan_bound(name, t_len, b, w, dt_name):
+def scan_bound(name, t_len, b, w, dt_name, simt=False):
     """Least time (ms) of one scan kernel on this input.  Per frame row,
     in W: the LSTM forward reads xg (4) and writes ys and cs (the saving
     form also res, 5); its backwards read res (5; recompute: xg 4 and cs)
@@ -1274,7 +1288,9 @@ def scan_bound(name, t_len, b, w, dt_name):
     recompute: xg 3) and hp, dy and write dxg (3).  wh (and the GRU's bh)
     read once, dwh (and dbh) written once.  Operations: 2*T*B*W*gW a
     product -- the hidden product forward, the carry product and dwh
-    backward, and the recomputed gates."""
+    backward, and the recomputed gates -- at the dtype's peak; the
+    saved-gates LSTM backward (row 15) with dwh on the tensor cores and its
+    carry product at the f32 SIMT peak (``tc_bound``), unless ``simt``."""
     size = 4 if dt_name == "float32" else 2
     per_row = {"lstm_scan_fwd": 6, "lstm_scan_fwd_save": 11,
                "lstm_scan_bwd_saved": 12, "lstm_scan_bwd": 12,
@@ -1287,6 +1303,8 @@ def scan_bound(name, t_len, b, w, dt_name):
     products = {"fwd": 1, "fwd_save": 1, "bwd_saved": 2, "bwd": 3}[kind]
     n_bytes = (t_len * b * w * per_row + weights) * size
     flops = products * 2 * t_len * b * w * g * w
+    if name == "lstm_scan_bwd_saved" and not simt:
+        return tc_bound(n_bytes, flops / 2, flops / 2, dt_name)
     return _bound(n_bytes, flops, dt_name)
 
 
@@ -1361,9 +1379,9 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
     """Hold the four kernels of one scan (``cell`` lstm or gru) against
     their plain versions on one input (each also against a rerun, bit for
     bit) and time each beside its plain version, nn.LSTM or nn.GRU and its
-    bound: ``{entry: [row]}``.  With ``steps`` the LSTM scan's forwards
-    (rows 13, 14) also by step part: µs a step of each build of
-    ``SCAN_STEPS`` (``step_us``)."""
+    bound: ``{entry: [row]}``; the chain kernels' geometry logged.  With
+    ``steps`` the kernels of ``STEP_ROWS`` (rows 9, 13, 14, 15) also by
+    step part: µs a step of each build of ``SCAN_STEPS`` (``step_us``)."""
     import torch
 
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
@@ -1389,34 +1407,42 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
         torch.cuda.synchronize()
         want = _outputs(ref(*args))
         abs_err, err = rel_err(got, want)
+        each = [rel_err((g,), (v,))[1] for g, v in zip(got, want)]
         identical = all(torch.equal(a, c) for a, c in zip(got, again))
         ms = cuda_ms(lambda: fn(*args), 5, 1)
         plain_ms = cuda_ms(lambda: ref(*args), 1, 0)
         bound_ms, bound_by = scan_bound(name, t_len, b, w, dt_name)
-        if name.startswith("lstm_scan_fwd"):
-            geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(xg.device),
-                                       RS._cluster_fits(xg.device))
+        geo = RS.scan_launch(name, b, w, dt, xg.device)
+        if isinstance(geo, dict):
+            layout = geo
+            shown = f"cluster of {geo['cluster']}"
+        else:
             layout = geo._asdict()
             shown = (f"chains of {geo.nc} blocks, {geo.rows} rows, "
-                     f"{geo.s} slices a column")
-        else:
-            layout = {"cluster": RS.cluster_size(w)}
-            shown = f"cluster of {RS.cluster_size(w)}"
+                     f"{geo.s} slices, {geo.rounds} rounds, "
+                     f"{geo.smem} bytes of shared memory")
         rows[name] = [{"where": where, "W": w, "dtype": dt_name, "B": b,
                        "T": t_len, **layout,
                        "max_abs_err": abs_err, "max_rel_err": err,
                        "tol": tol, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms[name], "bound_ms": bound_ms,
                        "bound_by": bound_by, "bit_identical_rerun": identical}]
-        if steps and name.startswith("lstm_scan_fwd"):
+        if name == "lstm_scan_bwd_saved":
+            rows[name][0]["bound_simt_ms"] = scan_bound(
+                name, t_len, b, w, dt_name, simt=True)[0]
+            shown += (f"; bound counted SIMT "
+                      f"{rows[name][0]['bound_simt_ms']:.4f} ms")
+        if steps and name in STEP_ROWS:
+            kernel = STEP_ROWS[name]
             rows[name][0]["step_us"] = steps_tool().step_us(
-                SCAN_STEPS, fn, args, t_len, cuda_ms)
+                SCAN_STEPS[kernel], fn, args, t_len, cuda_ms, kernel=kernel)
             log(f"[kernel] {name} {where} {dt_name} step split, us a step: "
                 + ", ".join(f"{k} {v:.4f}"
                             for k, v in rows[name][0]["step_us"].items()))
         log(f"[kernel] {name} {where} B={b} T={t_len} W={w} {dt_name} "
             f"({shown}): max abs err {abs_err:.3g}, "
-            f"max err / max(1, max|plain|) {err:.3g} (tol {tol}), rerun "
+            f"max err / max(1, max|plain|) {err:.3g} (tol {tol}; by "
+            f"output {', '.join(f'{e:.3g}' for e in each)}), rerun "
             f"bit-identical {identical}, kernel {ms:.4f} ms "
             f"({ms / t_len * 1e3:.3f} us a step), plain {plain_ms:.4f} ms, "
             f"{library} packed (with its input projection) "
@@ -2416,6 +2442,7 @@ def phase_train(card: str, root: str, name: str):
         check_mstcn_grad_f64(batch, grads)
     if name == "vanilla_lstm":
         add_launches(launches, recompute_step(train_feed))
+        add_launches(launches, vanilla_wide_step(train_feed))
     if name == "bilstm":
         add_launches(launches, bilstm_wide_step(train_feed))
     for dt_name in dtypes:
@@ -2535,6 +2562,24 @@ def bilstm_wide_step(train_feed) -> dict:
     return got
 
 
+def vanilla_wide_step(train_feed) -> dict:
+    """vanilla_lstm at ``--lstm_hidden1 1024`` (the scan at W=1024, past
+    the width where the saved-gates backward's gradient buffers once passed
+    the shared memory): one step on the largest train batch, a saving
+    forward and a saved-gates backward a layer, and one step's gradients
+    against the CPU.  Returns the card step's launches."""
+    batch = largest_batch(train_feed)
+    got, _ = one_step("vanilla_lstm", batch, {"lstm_scan_fwd_save": 2,
+                                              "lstm_scan_bwd_saved": 2},
+                      lstm_hidden1=1024)
+    small = (batch[0][:3, :300], np.minimum(batch[1][:3], 300),
+             batch[2].reshape(len(batch[1]), -1)[:3, :300].reshape(-1),
+             batch[3][:3, :300])
+    check_grads_against_cpu("vanilla_lstm", small, " --lstm_hidden1 1024",
+                            lstm_hidden1=1024)
+    return got
+
+
 def phase_gru_wide(card: str, root: str):
     """The bidirectional GRU at widths the fused layer kernel refuses, on the
     GRU scan (rows 9-12): its four kernels held at the largest train batch
@@ -2561,7 +2606,8 @@ def phase_gru_wide(card: str, root: str):
     b, t_pad = batch[0].shape[:2]
     gen = torch.Generator().manual_seed(8)
     rows = merge_rows(check_scan("main path", batch[1].tolist(), t_pad, 256,
-                                 dt, gen, cell="gru") for dt in DTYPES)
+                                 dt, gen, cell="gru", steps=True)
+                      for dt in DTYPES)
     launches = {}
     small = (batch[0][:3, :300], np.minimum(batch[1][:3], 300),
              batch[2].reshape(b, -1)[:3, :300].reshape(-1),

@@ -9,7 +9,8 @@
 // Inputs [T, B, *] in one dtype: the residuals res [5W] = [i, f, g, o,
 // tanh c] of the saving forward, or (recompute) xg [4W] and cs [W]; hp and
 // cp [W], the forward's ys and cs one step earlier (0 at t = 0); dy [W];
-// wh [W, 4W] and its transpose whT [4W, W].  Per step t = T-1 .. 0, in f32:
+// wh [W, 4W] (and, recompute, its transpose whT [4W, W]).  Per step t =
+// T-1 .. 0, in f32:
 //   (recompute) a = xg[t] + hp[t] @ wh, i, f, g, o from a, tanh c from cs[t]
 //   dh = dy[t] + dh_c;  dc = dh * o * (1 - tanh_c^2) + dc_c
 //   dg = [dc g i (1-i), dc cp f (1-f), dc i (1-g^2), dh tanh_c o (1-o)]
@@ -18,69 +19,336 @@
 // rnd rounds to wh's dtype, the same as the inputs'.
 //
 // What bounds it on an H100: at vanilla_lstm's training shape (B=8,
-// T=1920, W=256) the carry products and dwh are 2 * 2*T*B*W*4W = 16.1
-// GFLOP, 0.24 ms at f32's 67 TFLOP/s (the recompute form a third more);
-// the bytes about 0.2 GB, 0.06 ms.  The chain of T dependent steps binds.
+// T=1920, W=256) the carry product is 2*T*B*W*4W = 8.05 GFLOP, 0.12 ms at
+// f32's 67 TFLOP/s, and dwh as many, 0.05 ms as 3xTF32 on the tensor cores
+// (the recompute form's gates a third more, SIMT); the bytes about 0.2 GB,
+// 0.06 ms.  The chain of T dependent steps binds.
 //
-// What the design does about it:
-//  * The chain runs on a cluster of NC blocks (scan_common.cuh); block r
-//    owns units [r*U, r*U + U).  A step: the cell threads form their units'
-//    gate gradients (all four gates of a unit are the block's), write dxg
-//    and put the rounded gradients into every block's shared memory
-//    (distributed shared memory); one cluster barrier; then each block
-//    forms dh_c of its own units, a product of all 4W gradients with its
-//    rows of wh, held as the [4W, U] slice of whT in shared memory (rows
-//    past the budget read through L2).  The gradients are double-buffered,
-//    so that barrier is the step's only wait across blocks.
-//  * The cluster barrier is split: the gate gradients go to every block,
-//    the arrive, then the stores of dxg and the loads of the next step's
-//    inputs into registers, then the wait; so the arrive waits for no
-//    device-memory access and the loads' latency hides behind the wait and
-//    the carry product.
-//  * The recompute form first forms its units' gates from hp[t], a
-//    product with its [W, 4U] slice of wh, as the forward does.
-//  * dwh is off the chain: a tiled SIMT GEMM (rnn_common.cuh) over K =
-//    T*B after it, each output tile summing its whole K in order.  No
-//    atomics: reruns are bit-identical.
-// wgmma, TMA and a split-K dwh with a fixed-order reduction are later work.
+// The saved-gates form (row 15), on the register-resident chain of
+// scan_chain.cuh.  The first design (scan_common.cuh's chain, as the
+// recompute form below still runs) took 6.4 us a step at B=8, W=256, of it
+// the carry product and the cluster barrier most (PERF.md section 6, the
+// step split of tools/torch_lstm_scan_steps.py --kernel 15), and its
+// [2][8][4W] f32 gradient buffers passed the shared memory past W = 870.
+// Where the weights sit and what crosses the cluster:
+//  * (a) a block keeps the rows of wh of its own units, [U, 4W], and
+//    receives every block's rounded gate gradients, 4W values a row; or
+//    (b) it keeps the forward's columns of its own gates, [W, 4U], forms a
+//    partial dh_c of all W units from its own gradients and sends each peer
+//    the U partials of its units, a quarter of the values, to be added in
+//    rank order.  (a) is taken: its thread (unit u, column chunk g, depth
+//    slice s) keeps wh[u, g*W + s*L ..] in registers, the forward's thread
+//    layout with a row of wh for a column, so the forward's geometry,
+//    product, weight tiers and exchange serve it unchanged, and a unit's 4S
+//    lanes end the step's product with dh_c by shuffles, with no block
+//    barrier.  (b) needs a second thread layout for its product (one lane
+//    an output unit of all W) and a block barrier a step between the unit
+//    lanes that form the gradients and the product lanes that read them,
+//    the cost that the forward's redesign took out (the first design's
+//    barriers and shared-memory round trips were 2.5 of 5.7 us a step),
+//    to save stores that are a one-way latency each: in the forward the
+//    exchange took about 0.1 of 1.0 us a step.
+//  * A step: wait for the buffer of the previous step's gradients, the
+//    carry product (dh_c of the unit in all its lanes), the cell in every
+//    lane (dc_c carried in f32 in registers), then lane group g rounds its
+//    gate's gradient, sends it to every block (st.async onto the
+//    receiver's mbarrier, lanes s, s + S, .. of the peers), stores dxg, and
+//    loads the next step's res, cp and dy, whose rows are prefetched into
+//    L2 four steps ahead.
+//  * dwh is off the chain: hp^T dxg (dxg is rnd(dg) as stored) on the
+//    tensor cores, rnn_wgmma.cuh's producer ring and wgmma products (row
+//    2's dwh_d, ShiftedRowsT operands), K = T*B split into slices of whole
+//    64-row chunks (ops/rnn_fused.py::slice_chunks), the slices' f32
+//    partials added in order after: no atomics, reruns are bit-identical.
+//
+// The recompute form (row 16) keeps scan_common.cuh's chain: the cell
+// threads form their units' gate gradients, write dxg and put the rounded
+// gradients into every block's shared memory; one cluster barrier; each
+// block forms dh_c of its own units from all 4W gradients with its [4W, U]
+// slice of whT; first it forms its units' gates from hp[t], a product with
+// its [W, 4U] slice of wh.  Its buffers hold RM rows: 8, or 1 where 8 would
+// pass the shared memory (W past about 850).
 
+#include "rnn_wgmma.cuh"
+#include "scan_chain.cuh"
 #include "scan_common.cuh"
 
 namespace {
+namespace rc {
 
-// One (row, unit) step's inputs: gates (saved form), tanh c or c, c_prev, dy.
+// One (row, unit) step's inputs from the saved gates.
 struct StepIn {
   float i, f, g, o, tc, cp, dy;
 };
 
-template <typename T, bool RECOMPUTE>
-__device__ __forceinline__ void load_step(StepIn& in, const T* __restrict__ first,
-                                          const T* __restrict__ cp,
-                                          const T* __restrict__ cs,
-                                          const T* __restrict__ dy,
-                                          size_t row, int W, int unit) {
-  if (RECOMPUTE) {
-    in.tc = to_f(cs[row * W + unit]);  // c; its tanh is taken when used
-  } else {
-    const T* r = first + row * 5 * W;
-    in.i = to_f(r[unit]);
-    in.f = to_f(r[W + unit]);
-    in.g = to_f(r[2 * W + unit]);
-    in.o = to_f(r[3 * W + unit]);
-    in.tc = to_f(r[4 * W + unit]);
-  }
+template <typename T>
+__device__ __forceinline__ void load_in(StepIn& in, const T* __restrict__ res,
+                                        const T* __restrict__ cp,
+                                        const T* __restrict__ dy, size_t row,
+                                        int W, int unit) {
+  const T* r = res + row * 5 * W + unit;
+  in.i = to_f(r[0]);
+  in.f = to_f(r[W]);
+  in.g = to_f(r[2 * W]);
+  in.o = to_f(r[3 * W]);
+  in.tc = to_f(r[4 * W]);
   in.cp = to_f(cp[row * W + unit]);
   in.dy = to_f(dy[row * W + unit]);
 }
 
-template <typename T, bool RECOMPUTE>
+// The seven inputs of a (row, unit) into L2, lane k's share of them.
+template <typename T>
+__device__ __forceinline__ void prefetch_in(const T* res, const T* cp,
+                                            const T* dy, size_t row, int W,
+                                            int unit, int k, int lanes) {
+  for (int q = k; q < 7; q += lanes)
+    prefetch_l2(q < 5 ? res + row * 5 * W + q * W + unit
+                      : (q == 5 ? cp : dy) + row * W + unit);
+}
+
+// One chain of a.rows batch rows on a cluster of a.NC blocks, steps in
+// reverse.  Block rank q owns units [q*U, q*U + ucnt); thread tid is depth
+// slice s = tid % S of column chunk g = (tid / S) % 4 (wh's columns
+// [g*W, g*W + W), the gradients of gate g) of local unit tid / (4S) + i*UT
+// in round i (one round unless WIDE).  dg_s [2][RM][ldh] f32, a row's
+// 4W rounded gradients (column g*W + d of a row at (g*S + d / L)*LP +
+// d % L), then two mbarriers (one a buffer), then the shared-memory
+// weights [ls*sizeof(T)/16][nthr] 16-byte chunks or, with WIDE, each
+// thread's dc carry [R][RM][nthr] f32.
+template <typename T, int RM, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
+                           const T* __restrict__ cp,
+                           const T* __restrict__ dy,
+                           const T* __restrict__ wh, T* __restrict__ dxg,
+                           ChainArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* dg_s = reinterpret_cast<float*>(smem_raw);
+  const int dfloats = 2 * RM * a.ldh;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dg_s + dfloats);
+  uint4* w_s = reinterpret_cast<uint4*>(bars + 2);
+  float* c_s = reinterpret_cast<float*>(bars + 2);
+
+  const int tid = threadIdx.x;
+  const int rank = a.NC > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int chain = blockIdx.x / a.NC;
+  const int b0 = chain * a.rows;
+  const int nb = min(a.rows, a.B - b0);
+  const int u0 = rank * a.U;
+  const int ucnt = min(a.U, a.W - u0);
+  const int s = tid % a.S;
+  const int g = (tid / a.S) % 4;
+  const int ul = tid / (4 * a.S);
+  const int d0 = s * a.L;
+  const int lanes = 4 * a.S;
+  const int k = tid % lanes;  // lane in the unit's group
+  const int nr = WIDE ? a.R : 1;
+  // round 0's unit (the only one unless WIDE; threads past a round's UT
+  // units have none): whether the block has it and its gradient's place
+  // in the rows of dg_s.  Round i's unit is i*UT further.
+  const bool on0 = ul < ucnt && (!WIDE || ul < a.UT);
+  const int unit0 = u0 + (on0 ? ul : 0);
+  const int goff = (g * a.S) * a.LP;  // chunk g's slices in a row
+
+  // the weights wh[unit, g*W + d0 ..]: registers, then shared memory
+  // (WIDE: L2 only)
+  uint32_t wr[kRegWords];
+  if constexpr (!WIDE) {
+    load_resident(wr, w_s, wh + (size_t)unit0 * a.G + g * a.W, 1, a, d0,
+                  on0, tid);
+  } else {
+    for (int i = 0; i < a.R * RM; ++i) c_s[(size_t)i * a.nthr + tid] = 0.0f;
+  }
+  for (int i = tid; i < dfloats; i += blockDim.x) dg_s[i] = 0.0f;
+  const uint32_t bar0 = smem_u32(bars), d0s = smem_u32(dg_s);
+  const uint32_t bytes = 16u * (uint32_t)a.W * (uint32_t)nb;
+  if (a.NC > 1) {
+    if (tid == 0) {
+      bar_init(bar0);
+      bar_init(bar0 + 8);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      // buffer 1 receives the gradients of step 1, buffer 0 those of 2
+      if (a.Tn > 1) bar_expect(bar0 + 8, bytes);
+      if (a.Tn > 2) bar_expect(bar0, bytes);
+    }
+    cg::this_cluster().sync();  // every block set up before any store
+    if (!__any_sync(0xffffffffu, on0)) return;
+  } else {
+    __syncthreads();
+  }
+
+  StepIn in[RM];
+  float dcc[RM];
+  const size_t last = (size_t)(a.Tn - 1) * a.B + b0;
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    in[r] = StepIn{};  // rows past the chain's stay 0
+    if (!WIDE && r < nb) load_in(in[r], res, cp, dy, last + r, a.W, unit0);
+    dcc[r] = 0.0f;
+  }
+  for (int i = 0; i < nr; ++i) {
+    const int unit = on0 && ul + i * a.UT < ucnt ? unit0 + i * a.UT : unit0;
+    for (int st = 1; st < kAhead && st < a.Tn; ++st)
+      for (int r = 0; r < nb; ++r)
+        prefetch_in(res, cp, dy, last - (size_t)st * a.B + r, a.W, unit, k,
+                    lanes);
+  }
+
+  for (int st = 0; st < a.Tn; ++st) {
+    const int t = a.Tn - 1 - st;
+    const int cur = st & 1;
+    const int nxt = cur ^ 1;
+    const size_t row0 = (size_t)t * a.B + b0;
+    if (a.NC > 1 && st > 0) {
+      bar_wait(bar0 + 8 * cur, ((st - 1) >> 1) & 1);
+      if (tid == 0 && st + 2 < a.Tn) bar_expect(bar0 + 8 * cur, bytes);
+    }
+    for (int i = 0; i < nr; ++i) {
+      bool on = on0;
+      int unit = unit0;
+      if constexpr (WIDE) {  // this round's unit, inputs and dc carry
+        unit = unit0 + i * a.UT;
+        on = on0 && ul + i * a.UT < ucnt;
+        if (!on) unit = unit0;
+#pragma unroll
+        for (int r = 0; r < RM; ++r) {
+          if (r < nb) load_in(in[r], res, cp, dy, row0 + r, a.W, unit);
+          dcc[r] = c_s[(size_t)(i * RM + r) * a.nthr + tid];
+        }
+      }
+      float pre[RM];
+      product<T, RM, WIDE>(wr, w_s + tid, wh + (size_t)unit * a.G + g * a.W,
+                           1, dg_s + cur * RM * a.ldh + goff + s * a.LP, a,
+                           d0, pre);
+      // dh_c of the unit (the sum of its 4S lanes, the same in each), the
+      // cell in every lane, and gate g's gradient in lane group g
+      float dv[RM];
+      T dq[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        float dhc = pre[r];
+        for (int o = 1; o < lanes; o <<= 1)
+          dhc += __shfl_xor_sync(0xffffffffu, dhc, o);
+        const StepIn x = in[r];
+        const float dh = x.dy + dhc;
+        const float dc = dh * x.o * (1.0f - x.tc * x.tc) + dcc[r];
+        dcc[r] = dc * x.f;
+        const float d = g == 0   ? dc * x.g * x.i * (1.0f - x.i)
+                        : g == 1 ? dc * x.cp * x.f * (1.0f - x.f)
+                        : g == 2 ? dc * x.i * (1.0f - x.g * x.g)
+                                 : dh * x.tc * x.o * (1.0f - x.o);
+        dq[r] = from_f<T>(d);
+        dv[r] = to_f(dq[r]);
+      }
+      if constexpr (WIDE) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          c_s[(size_t)(i * RM + r) * a.nthr + tid] = dcc[r];
+      }
+      // the rounded gradient to every block (or to this one), then dxg
+      // and the next step's inputs
+      if (st + 1 < a.Tn && on) {
+        const uint32_t slot =
+            d0s + 4u * (uint32_t)(nxt * RM * a.ldh + goff +
+                                  (unit / a.L) * a.LP + unit % a.L);
+        if (a.NC > 1) {
+          for (int q = s; q < a.NC; q += a.S) {
+            const uint32_t dst = peer_u32(slot, q);
+            const uint32_t bar = peer_u32(bar0 + 8 * nxt, q);
+#pragma unroll
+            for (int r = 0; r < RM; ++r)
+              if (r < nb) send_h(dst + 4u * r * a.ldh, dv[r], bar);
+          }
+        } else if (s == 0) {
+          float* dst = dg_s + (slot - d0s) / 4;
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+            if (r < nb) dst[r * a.ldh] = dv[r];
+        }
+      }
+      if (on && s == 0) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          if (r < nb) dxg[(row0 + r) * a.G + g * a.W + unit] = dq[r];
+      }
+      if (t > 0) {
+        if constexpr (!WIDE) {
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+            if (r < nb) load_in(in[r], res, cp, dy, row0 - a.B + r, a.W, unit);
+        }
+        if (t >= kAhead)
+          for (int r = 0; r < nb; ++r)
+            prefetch_in(res, cp, dy, row0 - (size_t)kAhead * a.B + r, a.W,
+                        unit, k, lanes);
+      }
+    }
+    if (a.NC == 1) __syncthreads();
+  }
+}
+
+template <typename T, int RM, bool WIDE>
+cudaError_t launch_saved(const ChainArgs& a, cudaStream_t stream,
+                         const void* res, const void* cp, const void* dy,
+                         const void* wh, void* dxg) {
+  return launch_chain(lstm_scan_bwd_saved_kernel<T, RM, WIDE>, a,
+                      chain_smem<T>(a, RM), stream,
+                      static_cast<const T*>(res), static_cast<const T*>(cp),
+                      static_cast<const T*>(dy), static_cast<const T*>(wh),
+                      static_cast<T*>(dxg), a);
+}
+
+template <typename T, int RM>
+cudaError_t saved_rows(const ChainArgs& a, cudaStream_t stream,
+                       const void* res, const void* cp, const void* dy,
+                       const void* wh, void* dxg) {
+  if (a.R > 1) {  // rounds: 1, 2 or 4 rows a chain
+    if constexpr (RM == 1 || RM == 2 || RM == 4)
+      return launch_saved<T, RM, true>(a, stream, res, cp, dy, wh, dxg);
+    return cudaErrorInvalidValue;
+  }
+  return launch_saved<T, RM, false>(a, stream, res, cp, dy, wh, dxg);
+}
+
+template <typename T>
+cudaError_t run_saved(const ChainArgs& a, cudaStream_t stream,
+                      const void* res, const void* cp, const void* dy,
+                      const void* wh, void* dxg) {
+  switch (a.rows) {
+    case 1: return saved_rows<T, 1>(a, stream, res, cp, dy, wh, dxg);
+    case 2: return saved_rows<T, 2>(a, stream, res, cp, dy, wh, dxg);
+    case 3: return saved_rows<T, 3>(a, stream, res, cp, dy, wh, dxg);
+    case 4: return saved_rows<T, 4>(a, stream, res, cp, dy, wh, dxg);
+    case 6: return saved_rows<T, 6>(a, stream, res, cp, dy, wh, dxg);
+    case 8: return saved_rows<T, 8>(a, stream, res, cp, dy, wh, dxg);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace rc
+
+// One (row, unit) step's inputs of the recompute form: c, c_prev, dy.
+template <typename T>
+__device__ __forceinline__ void load_cell(float& c, float& cpv, float& dyv,
+                                          const T* __restrict__ cs,
+                                          const T* __restrict__ cp,
+                                          const T* __restrict__ dy,
+                                          size_t row, int W, int unit) {
+  c = to_f(cs[row * W + unit]);
+  cpv = to_f(cp[row * W + unit]);
+  dyv = to_f(dy[row * W + unit]);
+}
+
+// The recompute form (row 16) on scan_common.cuh's chain, RM rows a chain.
+template <typename T, int RM>
 __global__ void __launch_bounds__(kScanThreads, 1)
-lstm_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
+lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
                      const T* __restrict__ cp, const T* __restrict__ cs,
                      const T* __restrict__ dy, const T* __restrict__ wh,
                      const T* __restrict__ whT, T* __restrict__ dxg,
                      ScanArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // (rnn_wgmma.cuh's kernels name theirs smem_raw, as char)
+  extern __shared__ __align__(16) unsigned char smem_scan[];
   cg::cluster_group cluster = cg::this_cluster();
   const Chain ch = chain(cluster, a);
   const int W = a.W;
@@ -89,45 +357,45 @@ lstm_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
   const int C = 4 * ch.ucnt;
   const int C4 = 4 * a.U;
   // the layout, the same in every block
-  float* dg_s = reinterpret_cast<float*>(smem_raw);  // [2][kMaxRows][G]
-  float* part_s = dg_s + 2 * kMaxRows * G;
-  float* dh_s = part_s + part_floats(C4);   // [kMaxRows][U]
-  float* dc_s = dh_s + kMaxRows * a.U;      // [kMaxRows][U]
-  float* hp_s = dc_s + kMaxRows * a.U;      // recompute: [kMaxRows][ldh]
-  float* act_s = hp_s + (RECOMPUTE ? kMaxRows * ldh : 0);  // [kMaxRows][C]
-  T* wT_s = reinterpret_cast<T*>(act_s + (RECOMPUTE ? kMaxRows * C4 : 0));
-  T* w_s = wT_s + (size_t)a.rs * a.U;  // recompute: [rs2][C]
+  float* dg_s = reinterpret_cast<float*>(smem_scan);  // [2][RM][G]
+  float* part_s = dg_s + 2 * RM * G;
+  float* dh_s = part_s + part_floats(C4, RM);  // [RM][U]
+  float* dc_s = dh_s + RM * a.U;               // [RM][U]
+  float* hp_s = dc_s + RM * a.U;               // [RM][ldh]
+  float* act_s = hp_s + RM * ldh;              // [RM][C]
+  T* wT_s = reinterpret_cast<T*>(act_s + RM * C4);
+  T* w_s = wT_s + (size_t)a.rs * a.U;  // [rs2][C]
 
   // whT rows are gate columns, its columns units: slice [4W, ucnt]
   const int uc = ch.ucnt > 0 ? ch.ucnt : 1;
   const ColMap cmT{uc, 0, ch.u0, W};
   const ColMap cm{uc, W, ch.u0, G};
   load_weights(wT_s, whT, cmT, a.rs, ch.ucnt);
-  if (RECOMPUTE) load_weights(w_s, wh, cm, a.rs2, C);
-  for (int i = threadIdx.x; i < kMaxRows * a.U; i += kScanThreads) {
+  load_weights(w_s, wh, cm, a.rs2, C);
+  for (int i = threadIdx.x; i < RM * a.U; i += kScanThreads) {
     dh_s[i] = 0.0f;
     dc_s[i] = 0.0f;
   }
   // the rows past the chain's stay 0: the carry product sums them
-  for (int i = threadIdx.x; i < 2 * kMaxRows * G; i += kScanThreads)
+  for (int i = threadIdx.x; i < 2 * RM * G; i += kScanThreads)
     dg_s[i] = 0.0f;
-  if (RECOMPUTE)
-    for (int i = threadIdx.x; i < kMaxRows * ldh; i += kScanThreads)
-      hp_s[i] = 0.0f;
+  for (int i = threadIdx.x; i < RM * ldh; i += kScanThreads) hp_s[i] = 0.0f;
   float* peer[kMaxCluster];
 #pragma unroll
   for (int q = 0; q < kMaxCluster; ++q)
     if (q < a.NC) peer[q] = cluster.map_shared_rank(dg_s, q);
 
+  // one (row, unit) step's inputs: c (its tanh is taken when used),
+  // c_prev, dy
   const int n_pairs = ch.nb * ch.ucnt;
-  StepIn in[kMaxPairs];
+  float cv[kMaxPairs], cpv[kMaxPairs], dyv[kMaxPairs];
 #pragma unroll
   for (int k = 0; k < kMaxPairs; ++k) {
     const int e = threadIdx.x + k * kScanThreads;
     if (e < n_pairs)
-      load_step<T, RECOMPUTE>(in[k], first, cp, cs, dy,
-                              (size_t)(a.Tn - 1) * a.B + ch.b0 + e / ch.ucnt,
-                              W, ch.u0 + e % ch.ucnt);
+      load_cell(cv[k], cpv[k], dyv[k], cs, cp, dy,
+                (size_t)(a.Tn - 1) * a.B + ch.b0 + e / ch.ucnt, W,
+                ch.u0 + e % ch.ucnt);
   }
   cluster.sync();  // every block has started
 
@@ -135,22 +403,20 @@ lstm_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
     const int t = a.Tn - 1 - s;
     const int cur = s & 1;
     const size_t row0 = (size_t)t * a.B + ch.b0;
-    if (RECOMPUTE) {  // this block's gates of step t from hp[t]
-      for (int i = threadIdx.x; i < ch.nb * W; i += kScanThreads)
-        hp_s[(i / W) * ldh + i % W] = to_f(hp[(row0 + i / W) * W + i % W]);
-      __syncthreads();
-      if (C > 0)
-        product(hp_s, ldh, w_s, a.rs2, wh, cm, C, W, part_s);
-      __syncthreads();
-      for (int e = threadIdx.x; e < ch.nb * C; e += kScanThreads) {
-        const int b = e / C;
-        const int c = e % C;
-        const float pre = to_f(first[(row0 + b) * G + cm.col(c)]) +
-                          reduce_slices(part_s, b, c, C, W);
-        act_s[b * C + c] = c / uc == 2 ? tanhf(pre) : sigmoid_f(pre);
-      }
-      __syncthreads();
+    // this block's gates of step t from hp[t]
+    for (int i = threadIdx.x; i < ch.nb * W; i += kScanThreads)
+      hp_s[(i / W) * ldh + i % W] = to_f(hp[(row0 + i / W) * W + i % W]);
+    __syncthreads();
+    if (C > 0) product<T, RM>(hp_s, ldh, w_s, a.rs2, wh, cm, C, W, part_s);
+    __syncthreads();
+    for (int e = threadIdx.x; e < ch.nb * C; e += kScanThreads) {
+      const int b = e / C;
+      const int c = e % C;
+      const float pre = to_f(xg[(row0 + b) * G + cm.col(c)]) +
+                        reduce_slices<RM>(part_s, b, c, C, W);
+      act_s[b * C + c] = c / uc == 2 ? tanhf(pre) : sigmoid_f(pre);
     }
+    __syncthreads();
 
     // the cell threads' gate gradients to every block, the barrier's
     // arrive; then their stores to dxg and the next step's inputs
@@ -161,24 +427,18 @@ lstm_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
       if (e < n_pairs) {
         const int b = e / ch.ucnt;
         const int u = e % ch.ucnt;
-        StepIn x = in[k];
-        if (RECOMPUTE) {
-          const float* g = act_s + b * C;
-          x.i = g[u];
-          x.f = g[ch.ucnt + u];
-          x.g = g[2 * ch.ucnt + u];
-          x.o = g[3 * ch.ucnt + u];
-          x.tc = tanhf(x.tc);
-        }
+        const float* gt = act_s + b * C;
+        const float i = gt[u], f = gt[ch.ucnt + u], gg = gt[2 * ch.ucnt + u];
+        const float o = gt[3 * ch.ucnt + u], tc = tanhf(cv[k]);
         const int p = b * a.U + u;
-        const float dh = x.dy + dh_s[p];
-        const float dc = dh * x.o * (1.0f - x.tc * x.tc) + dc_s[p];
-        dc_s[p] = dc * x.f;
-        d[k][0] = dc * x.g * x.i * (1.0f - x.i);
-        d[k][1] = dc * x.cp * x.f * (1.0f - x.f);
-        d[k][2] = dc * x.i * (1.0f - x.g * x.g);
-        d[k][3] = dh * x.tc * x.o * (1.0f - x.o);
-        const int slot = (cur * kMaxRows + b) * G + ch.u0 + u;
+        const float dh = dyv[k] + dh_s[p];
+        const float dc = dh * o * (1.0f - tc * tc) + dc_s[p];
+        dc_s[p] = dc * f;
+        d[k][0] = dc * gg * i * (1.0f - i);
+        d[k][1] = dc * cpv[k] * f * (1.0f - f);
+        d[k][2] = dc * i * (1.0f - gg * gg);
+        d[k][3] = dh * tc * o * (1.0f - o);
+        const int slot = (cur * RM + b) * G + ch.u0 + u;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           d[k][q] = rnd<T>(d[k][q]);
@@ -203,89 +463,116 @@ lstm_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
       for (int k = 0; k < kMaxPairs; ++k) {
         const int e = threadIdx.x + k * kScanThreads;
         if (e < n_pairs)
-          load_step<T, RECOMPUTE>(in[k], first, cp, cs, dy,
-                                  row0 - a.B + e / ch.ucnt, W,
-                                  ch.u0 + e % ch.ucnt);
+          load_cell(cv[k], cpv[k], dyv[k], cs, cp, dy,
+                    row0 - a.B + e / ch.ucnt, W, ch.u0 + e % ch.ucnt);
       }
     }
     cluster_wait();
 
     // dh_c of this block's units
     if (ch.ucnt > 0)
-      product(dg_s + cur * kMaxRows * G, G, wT_s, a.rs, whT, cmT, ch.ucnt,
-              G, part_s);
+      product<T, RM>(dg_s + cur * RM * G, G, wT_s, a.rs, whT, cmT, ch.ucnt,
+                     G, part_s);
     __syncthreads();
     for (int e = threadIdx.x; e < n_pairs; e += kScanThreads) {
       const int b = e / ch.ucnt;
       const int u = e % ch.ucnt;
-      dh_s[b * a.U + u] = reduce_slices(part_s, b, u, ch.ucnt, G);
+      dh_s[b * a.U + u] = reduce_slices<RM>(part_s, b, u, ch.ucnt, G);
     }
     __syncthreads();
   }
 }
 
-// dwh's B operand: B(k, n) = p[k * ld + n], the gate gradients as stored
-template <typename T>
-struct RowsT {
-  static constexpr bool kContigK = false;
-  const T* p;
-  int ld;
-  __device__ float operator()(int k, int n) const {
-    return to_f(p[(size_t)k * ld + n]);
-  }
-};
-
-// dwh [W, 4W] = hp^T dxg over K = T*B rows, one 64 x 64 tile a block
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dwh_kernel(const ShiftedRowsT<T> a, const RowsT<T> b, const Store<T> c,
-           int M, int N, int K) {
-  gemm_tile<kWT, kWT>(a, b, c, M, N, K, blockIdx.x * kWT, blockIdx.y * kWT);
-}
-
-size_t bwd_fixed_bytes(const ScanArgs& a, bool recompute) {
+size_t bwd_fixed_bytes(const ScanArgs& a, int rm) {
   const int C4 = 4 * a.U;
-  size_t floats = 2 * kMaxRows * 4 * (size_t)a.W + part_floats(C4) +
-                  2 * kMaxRows * a.U;
-  if (recompute) floats += kMaxRows * row_ld(a.W) + kMaxRows * C4;
+  const size_t floats = 2 * rm * 4 * (size_t)a.W + part_floats(C4, rm) +
+                        2 * rm * a.U + rm * row_ld(a.W) + rm * C4;
   return align16(sizeof(float) * floats);
 }
 
-template <typename T>
-cudaError_t run_bwd(bool recompute, const void* first, const void* hp,
-                    const void* cp, const void* cs, const void* dy,
-                    const void* wh, const void* whT, void* dxg, void* dwh,
-                    ScanArgs a, cudaStream_t stream) {
-  const size_t fixed = bwd_fixed_bytes(a, recompute);
-  // the carry product's slice [4W, U] first; recompute: then [W, 4U]
+template <typename T, int RM>
+cudaError_t launch_recompute(const void* xg, const void* hp, const void* cp,
+                             const void* cs, const void* dy, const void* wh,
+                             const void* whT, void* dxg, ScanArgs a,
+                             cudaStream_t stream) {
+  a.rows = a.rows < RM ? a.rows : RM;
+  const size_t fixed = bwd_fixed_bytes(a, RM);
+  if (fixed > kScanSmem) return cudaErrorInvalidValue;
+  // the carry product's slice [4W, U] first, then [W, 4U]
   const size_t rowT = sizeof(T) * a.U;
   a.rs = resident_rows(fixed, rowT, 4 * a.W);
   size_t smem = fixed + rowT * a.rs;
-  if (recompute) {
-    const size_t row = sizeof(T) * 4 * a.U;
-    a.rs2 = resident_rows(smem, row, a.W);
-    smem += row * a.rs2;
-  }
-  const T* f = static_cast<const T*>(first);
-  const T* h = static_cast<const T*>(hp);
-  const T* c = static_cast<const T*>(cp);
-  const T* s = static_cast<const T*>(cs);
-  const T* d = static_cast<const T*>(dy);
-  const T* w = static_cast<const T*>(wh);
-  const T* wt = static_cast<const T*>(whT);
-  T* dx = static_cast<T*>(dxg);
-  cudaError_t err =
-      recompute ? launch_chain(lstm_scan_bwd_kernel<T, true>, a, smem, stream,
-                               f, h, c, s, d, w, wt, dx, a)
-                : launch_chain(lstm_scan_bwd_kernel<T, false>, a, smem,
-                               stream, f, h, c, s, d, w, wt, dx, a);
+  const size_t row = sizeof(T) * 4 * a.U;
+  a.rs2 = resident_rows(smem, row, a.W);
+  smem += row * a.rs2;
+  return launch_chain(lstm_scan_bwd_kernel<T, RM>, a, smem, stream,
+                      static_cast<const T*>(xg), static_cast<const T*>(hp),
+                      static_cast<const T*>(cp), static_cast<const T*>(cs),
+                      static_cast<const T*>(dy), static_cast<const T*>(wh),
+                      static_cast<const T*>(whT), static_cast<T*>(dxg), a);
+}
+
+// dwh's K-slice partials: block (x, y) is the 64 x 128 tile x (row tile
+// x / pairs, column pair x % pairs) of hp^T dxg [W, G] over the K chunks
+// of slice y, into part + y * W * G.
+template <typename T>
+__global__ void __launch_bounds__(kProdThreads, 1)
+dwh_wgmma_kernel(const ShiftedRowsT<T> hp, const ShiftedRowsT<T> dg,
+                 float* __restrict__ part, int W, int G, int K, int pairs,
+                 int slice_chunks) {
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kProdStagesMax], empty[kProdStagesMax];
+  char* smem = prod_smem_init<T>(smem_raw, full, empty);
+  const int m0 = (blockIdx.x / pairs) * kTile;
+  const int n0 = (blockIdx.x % pairs) * 2 * kTile;
+  const int chunks = (K + kTile - 1) / kTile;
+  const int c0 = blockIdx.y * slice_chunks;
+  const int c1 = min(c0 + slice_chunks, chunks);
+  float* out = part + (size_t)blockIdx.y * W * G;
+  const auto epi = [&](int cw, const float* acc) {
+    const int n = n0 + cw * kTile + acc_col();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + acc_row() + 8 * i;
+      if (m >= W) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (n + 8 * j < G)
+          *reinterpret_cast<float2*>(out + (size_t)m * G + n + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  };
+  run_products<T, true, true>(smem, full, empty, hp, m0, W, dg, n0, G, c0,
+                              c1, K, epi);
+}
+
+// dwh [W, 4W] = hp^T dxg over K = T*B rows, f32 partials of `slice_chunks`
+// chunks a slice in `part`, added in order into dwh.
+template <typename T>
+cudaError_t launch_dwh(const void* hp, const void* dxg, void* dwh,
+                       float* part, int slice_chunks, int Tn, int B, int W,
+                       cudaStream_t stream) {
+  const int K = Tn * B;
+  const int G = 4 * W;
+  const int chunks = (K + kTile - 1) / kTile;
+  if (slice_chunks <= 0) return cudaErrorInvalidValue;
+  const int slices = (chunks + slice_chunks - 1) / slice_chunks;
+  const int pairs = ((G + kTile - 1) / kTile + 1) / 2;
+  const int tiles = (W + kTile - 1) / kTile * pairs;
+  const int smem = prod_smem<T>();
+  cudaError_t err = set_smem(dwh_wgmma_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  const int M = a.Tn * a.B;
-  const int G = 4 * a.W;
-  const dim3 grid((a.W + kWT - 1) / kWT, (G + kWT - 1) / kWT);
-  dwh_kernel<T><<<grid, kThreads, 0, stream>>>(
-      ShiftedRowsT<T>{h, a.W, 0, M}, RowsT<T>{dx, G},
-      Store<T>{static_cast<T*>(dwh), G}, a.W, G, M);
+  dwh_wgmma_kernel<T><<<dim3(tiles, slices), kProdThreads, smem, stream>>>(
+      ShiftedRowsT<T>{static_cast<const T*>(hp), W, 0, K},
+      ShiftedRowsT<T>{static_cast<const T*>(dxg), G, 0, K}, part, W, G, K,
+      pairs, slice_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)W * G;
+  const WgradOuts<T> outs = {{static_cast<T*>(dwh), nullptr, nullptr, nullptr},
+                             {0, n, n, n, n}};
+  wgrad_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, outs, slices);
   return cudaGetLastError();
 }
 
@@ -294,27 +581,69 @@ cudaError_t run_bwd(bool recompute, const void* first, const void* hp,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, the dtype of every tensor.  Device
-// pointers of contiguous tensors: first = res [T, B, 5W] (recompute == 0)
-// or xg [T, B, 4W] (recompute != 0); hp, cp, dy [T, B, W]; cs [T, B, W]
-// (recompute only, ignored otherwise); wh [W, 4W] and whT = wh^T [4W, W];
-// outputs dxg [T, B, 4W] and dwh [W, 4W].  cluster as lstm_scan_fwd's.
-// Launches on `stream` and returns the launches' error (0 on success).
-int lstm_scan_bwd(int dtype, int recompute, const void* first,
-                  const void* hp, const void* cp, const void* cs,
-                  const void* dy, const void* wh, const void* whT, void* dxg,
-                  void* dwh, int Tn, int B, int W, int cluster,
-                  void* stream) {
-  ScanArgs a;
-  if (!scan_geometry(Tn, B, W, cluster, &a) || (recompute && cs == nullptr))
+// pointers of contiguous tensors: res [T, B, 5W]; hp, cp, dy [T, B, W];
+// wh [W, 4W]; outputs dxg [T, B, 4W] and dwh [W, 4W]; part, dwh's f32
+// partials, ceil(ceil(T*B / 64) / slice_chunks) slices of W * 4W.  The
+// chain's geometry (ops/rnn_scan.py::lstm_bwd_geometry) as lstm_scan_fwd's:
+// nc blocks a chain, s depth slices a column chunk, rows a chain, ls of
+// shared-memory depth, rounds.  Launches on `stream` (the chain, dwh's
+// partials, their sum) and returns the launches' error (0 on success).
+int lstm_scan_bwd_saved(int dtype, const void* res, const void* hp,
+                        const void* cp, const void* dy, const void* wh,
+                        void* dxg, void* dwh, void* part, int Tn, int B,
+                        int W, int nc, int s, int rows, int ls, int rounds,
+                        int slice_chunks, void* stream) {
+  rc::ChainArgs a;
+  const int chunk = dtype == 0 ? 4 : 8;
+  if (!rc::chain_args(Tn, B, W, 4, 4, nc, s, rows, ls, rounds, chunk, &a))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)run_bwd<float>(recompute != 0, first, hp, cp, cs, dy, wh,
-                               whT, dxg, dwh, a, s);
-  if (dtype == 1)
-    return (int)run_bwd<__nv_bfloat16>(recompute != 0, first, hp, cp, cs, dy,
-                                       wh, whT, dxg, dwh, a, s);
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = rc::run_saved<float>(a, st, res, cp, dy, wh, dxg);
+    if (err == cudaSuccess)
+      err = launch_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B, W, st);
+  } else if (dtype == 1) {
+    err = rc::run_saved<__nv_bfloat16>(a, st, res, cp, dy, wh, dxg);
+    if (err == cudaSuccess)
+      err = launch_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn, B, W,
+                                      st);
+  }
+  return (int)err;
+}
+
+// The recompute form: xg [T, B, 4W]; hp, cp, cs, dy [T, B, W]; wh [W, 4W]
+// and whT = wh^T [4W, W]; dxg, dwh and part as above.  cluster: blocks a
+// chain spreads W over (ops/rnn_scan.py::cluster_size), 1..16.
+int lstm_scan_bwd(int dtype, const void* xg, const void* hp, const void* cp,
+                  const void* cs, const void* dy, const void* wh,
+                  const void* whT, void* dxg, void* dwh, void* part, int Tn,
+                  int B, int W, int cluster, int slice_chunks, void* stream) {
+  ScanArgs a;
+  if (!scan_geometry(Tn, B, W, cluster, &a)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  // 8 rows a chain where their buffers fit, else 1
+  const bool wide = bwd_fixed_bytes(a, kMaxRows) > kScanSmem;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = wide ? launch_recompute<float, 1>(xg, hp, cp, cs, dy, wh, whT, dxg,
+                                            a, st)
+               : launch_recompute<float, kMaxRows>(xg, hp, cp, cs, dy, wh,
+                                                   whT, dxg, a, st);
+    if (err == cudaSuccess)
+      err = launch_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B, W, st);
+  } else if (dtype == 1) {
+    err = wide ? launch_recompute<__nv_bfloat16, 1>(xg, hp, cp, cs, dy, wh,
+                                                    whT, dxg, a, st)
+               : launch_recompute<__nv_bfloat16, kMaxRows>(
+                     xg, hp, cp, cs, dy, wh, whT, dxg, a, st);
+    if (err == cudaSuccess)
+      err = launch_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn, B, W,
+                                      st);
+  }
+  return (int)err;
 }
 
 const char* lstm_scan_bwd_error_string(int err) {

@@ -76,251 +76,17 @@
 // columns and add a fragment shuffle a step, and 3xTF32 triples f32's
 // work; the bench's 6-row chains, where the product takes 1.9 of 4.5 us,
 // are where tensor cores could pay (ROADMAP section 2).
+//
+// The chain's pieces (geometry arguments, weight tiers and product,
+// mbarrier exchange, L2 prefetch, occupancy query, cluster launch) live in
+// scan_chain.cuh, shared with the GRU scan's eval forward and the LSTM
+// scan's saved-gates backward; the step itself is this kernel's.
 
-#include <cooperative_groups.h>
-#include <stdint.h>
-
-#include "dtype.cuh"
-
-namespace cg = cooperative_groups;
+#include "scan_chain.cuh"
 
 namespace {
 
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-constexpr int kThreads = 256;       // threads a block, at most
-constexpr int kRegWords = 128;      // weights a thread keeps in registers, f32
-constexpr int kMaxNC = 16;          // blocks a chain (16: non-portable)
-constexpr int kAhead = 4;           // steps of xg prefetched into L2
-constexpr size_t kSmem = 225 * 1024;  // dynamic shared memory budget
-
-struct FwdArgs {
-  int Tn, B, W, G;
-  int NC;    // blocks a chain
-  int S;     // depth slices a gate column
-  int U;     // units a block
-  int R;     // rounds: units a thread takes in turn each step
-  int UT;    // units a round, ceil(U / R)
-  int L;     // depth a slice, a multiple of 8
-  int LP;    // its stride in h's rows, max(L, kRegWords) + 4: the product
-             // reads kRegWords of h a slice (zeros past L), and the 4 put
-             // the slices on distinct banks
-  int ldh;   // h's row stride, S * LP
-  int rows;  // batch rows a chain
-  int ls;    // depth a slice reads from shared memory after kRegWords
-  int nthr;  // threads a block
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The same shared-memory location in block `rank` of the cluster.
-__device__ __forceinline__ uint32_t peer_u32(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-
-// One arrival that also expects `bytes` of remote stores this phase.
-__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the phase of parity `parity` completes; traps after 2^26
-// polls (seconds), so a broken exchange fails the launch, not the card.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) asm volatile("trap;");
-  }
-}
-
-// v into the cluster's shared memory at `addr`, completing 4 bytes on the
-// mbarrier at `bar` (both in the same block).
-__device__ __forceinline__ void send_h(uint32_t addr, float v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];\n" ::"r"(addr),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-// Weight words: f32 bits (registers hold bf16 weights as f32 too: the
-// product then needs no unpacking), or in shared memory two bf16 (the even
-// depth in the low half).
-template <typename T>
-__device__ __forceinline__ uint32_t load_word(const T* __restrict__ wh,
-                                              int d, int W, int G, int col,
-                                              bool on);
-template <>
-__device__ __forceinline__ uint32_t load_word<float>(
-    const float* __restrict__ wh, int d, int W, int G, int col, bool on) {
-  return on && d < W ? __float_as_uint(wh[(size_t)d * G + col]) : 0u;
-}
-template <>
-__device__ __forceinline__ uint32_t load_word<__nv_bfloat16>(
-    const __nv_bfloat16* __restrict__ wh, int d, int W, int G, int col,
-    bool on) {
-  const uint32_t lo =
-      on && d < W ? __bfloat16_as_ushort(wh[(size_t)d * G + col]) : 0u;
-  const uint32_t hi =
-      on && d + 1 < W ? __bfloat16_as_ushort(wh[(size_t)(d + 1) * G + col])
-                      : 0u;
-  return lo | (hi << 16);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t f32_word(const T* __restrict__ wh, int d,
-                                             int W, int G, int col, bool on) {
-  return on && d < W ? __float_as_uint(to_f(wh[(size_t)d * G + col])) : 0u;
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// acc += dot(h[0..3], w[0..3]), in that order.
-__device__ __forceinline__ float dot4(float acc, float4 h, float w0,
-                                      float w1, float w2, float w3) {
-  acc = fmaf(h.x, w0, acc);
-  acc = fmaf(h.y, w1, acc);
-  acc = fmaf(h.z, w2, acc);
-  return fmaf(h.w, w3, acc);
-}
-
-// The thread's part of the step's product for RM rows: its slice of its
-// gate column against h (rows of stride ldh from hs): registers for depth
-// [0, kRegWords) (weights past the slice's L are 0, so the loop needs no
-// bound and its loads of h go out ahead of the FMAs), shared memory for
-// [kRegWords, kRegWords + ls), L2 for the rest; with WIDE (rounds) all of
-// it through L2.  NA sums a row, added in a fixed order.
-template <typename T, int RM, bool WIDE>
-__device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
-                                        const uint4* __restrict__ ws,
-                                        const T* __restrict__ wh,
-                                        const float* hs, const FwdArgs& a,
-                                        int d0, int col, float (&out)[RM]) {
-  constexpr int NA = RM >= 4 ? 1 : 4 / RM;
-  float acc[RM][NA];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int k = 0; k < NA; ++k) acc[r][k] = 0.0f;
-  if constexpr (!WIDE) {
-    // registers
-#pragma unroll
-    for (int j = 0; j < kRegWords; j += 4) {
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const float4 h = *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
-        acc[r][(j / 4) % NA] =
-            dot4(acc[r][(j / 4) % NA], h, __uint_as_float(wr[j]),
-                 __uint_as_float(wr[j + 1]), __uint_as_float(wr[j + 2]),
-                 __uint_as_float(wr[j + 3]));
-      }
-    }
-    // shared memory: 16-byte chunks, the thread's own at stride nthr
-    constexpr int V = 16 / (int)sizeof(T);
-    const int nq = a.ls / V;
-#pragma unroll 2
-    for (int q = 0; q < nq; ++q) {
-      const uint4 c = ws[(size_t)q * a.nthr];
-      const int j = kRegWords + q * V;
-      if constexpr (sizeof(T) == 4) {
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const float4 h =
-              *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
-          acc[r][0] = dot4(acc[r][0], h, __uint_as_float(c.x),
-                           __uint_as_float(c.y), __uint_as_float(c.z),
-                           __uint_as_float(c.w));
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const float4 h0 =
-              *reinterpret_cast<const float4*>(hs + r * a.ldh + j);
-          const float4 h1 =
-              *reinterpret_cast<const float4*>(hs + r * a.ldh + j + 4);
-          acc[r][0] = dot4(acc[r][0], h0, bf_lo(c.x), bf_hi(c.x), bf_lo(c.y),
-                           bf_hi(c.y));
-          acc[r][0] = dot4(acc[r][0], h1, bf_lo(c.z), bf_hi(c.z), bf_lo(c.w),
-                           bf_hi(c.w));
-        }
-      }
-    }
-  }
-  // L2: the depth past registers and shared memory, 8 loads in flight
-  // (with WIDE all of it, 32 in flight and NA sums a row)
-  int j = WIDE ? 0 : kRegWords + a.ls;
-  const int j1 = min(a.L, a.W - d0);
-  const T* __restrict__ wg = wh + col;
-  if constexpr (WIDE) {
-    for (; j + 32 <= j1; j += 32) {
-      float w[32];
-#pragma unroll
-      for (int k = 0; k < 32; ++k)
-        w[k] = to_f(wg[(size_t)(d0 + j + k) * a.G]);
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int k = 0; k < 32; ++k)
-          acc[r][k % NA] = fmaf(hs[r * a.ldh + j + k], w[k], acc[r][k % NA]);
-    }
-  }
-  for (; j + 8 <= j1; j += 8) {
-    float w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = to_f(wg[(size_t)(d0 + j + k) * a.G]);
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        acc[r][0] = fmaf(hs[r * a.ldh + j + k], w[k], acc[r][0]);
-  }
-  for (; j < j1; ++j) {
-    const float w0 = to_f(wg[(size_t)(d0 + j) * a.G]);
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-      acc[r][0] = fmaf(hs[r * a.ldh + j], w0, acc[r][0]);
-  }
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    float sum = acc[r][0];
-#pragma unroll
-    for (int k = 1; k < NA; ++k) sum += acc[r][k];
-    out[r] = sum;
-  }
-}
+using namespace rc;
 
 // One chain of a.rows batch rows on a cluster of a.NC blocks.  Block rank
 // q owns units [q*U, q*U + ucnt); thread tid is depth slice s = tid % S of
@@ -333,7 +99,7 @@ template <typename T, int RM, bool SAVE, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
                      T* __restrict__ ys, T* __restrict__ cs,
-                     T* __restrict__ res, FwdArgs a) {
+                     T* __restrict__ res, ChainArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* h_s = reinterpret_cast<float*>(smem_raw);
   const int hfloats = 2 * RM * a.ldh;
@@ -366,20 +132,7 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
   // the weights: registers, then shared memory (WIDE: L2 only)
   uint32_t wr[kRegWords];
   if constexpr (!WIDE) {
-#pragma unroll
-    for (int w = 0; w < kRegWords; ++w)
-      wr[w] = w < a.L ? f32_word(wh, d0 + w, a.W, a.G, col0, on0) : 0u;
-    constexpr int VPW = 4 / (int)sizeof(T);
-    constexpr int V = 16 / (int)sizeof(T);
-    for (int q = 0; q < a.ls / V; ++q) {
-      const int d = d0 + kRegWords + q * V;
-      uint4 c;
-      c.x = load_word<T>(wh, d, a.W, a.G, col0, on0);
-      c.y = load_word<T>(wh, d + VPW, a.W, a.G, col0, on0);
-      c.z = load_word<T>(wh, d + 2 * VPW, a.W, a.G, col0, on0);
-      c.w = load_word<T>(wh, d + 3 * VPW, a.W, a.G, col0, on0);
-      w_s[(size_t)q * a.nthr + tid] = c;
-    }
+    load_resident(wr, w_s, wh + col0, a.G, a, d0, on0, tid);
   } else {
     for (int i = 0; i < a.R * RM; ++i) c_s[(size_t)i * a.nthr + tid] = 0.0f;
   }
@@ -440,9 +193,8 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
         }
       }
       float pre[RM];
-      product<T, RM, WIDE>(wr, w_s + tid, wh,
-                           h_s + cur * RM * a.ldh + s * a.LP, a, d0, col,
-                           pre);
+      product<T, RM, WIDE>(wr, w_s + tid, wh + col, a.G,
+                           h_s + cur * RM * a.ldh + s * a.LP, a, d0, pre);
       // the slices' sums (the same in every slice's lane), the gate, the four
       // gates of the unit from its lanes, and the cell update in every lane
       float act[RM], tc[RM], hv[RM];
@@ -518,76 +270,17 @@ lstm_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
   }
 }
 
-// Shared-memory bytes of a launch: h's two buffers, the mbarriers and the
-// weights read from shared memory or, with rounds, each thread's c.
-template <typename T>
-size_t fwd_smem(const FwdArgs& a, int rm) {
-  return sizeof(float) * 2 * rm * a.ldh + 16 +
-         (a.R > 1 ? sizeof(float) * a.R * rm * a.nthr
-                  : (size_t)a.nthr * a.ls * sizeof(T));
-}
-
 template <typename T, int RM, bool SAVE, bool WIDE>
-cudaError_t launch(const FwdArgs& a, cudaStream_t stream, const void* xg,
+cudaError_t launch(const ChainArgs& a, cudaStream_t stream, const void* xg,
                    const void* wh, void* ys, void* cs, void* res) {
-  auto kernel = lstm_scan_fwd_kernel<T, RM, SAVE, WIDE>;
-  const size_t smem = fwd_smem<T>(a, RM);
-  if (smem > kSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  if (a.NC > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  const int chains = (a.B + a.rows - 1) / a.rows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(chains * a.NC);
-  cfg.blockDim = dim3(a.nthr);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.NC;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(xg),
-                           static_cast<const T*>(wh), static_cast<T*>(ys),
-                           static_cast<T*>(cs), static_cast<T*>(res), a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-// Clusters of nc blocks of 256 threads, one an SM, that the card holds at
-// once, or -1 when it refuses the query.
-int max_clusters(int nc) {
-  auto kernel = lstm_scan_fwd_kernel<float, 1, true, false>;
-  if (nc > 8 &&
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed,
-                           1) != cudaSuccess)
-    return -1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nc);
-  cfg.blockDim = dim3(kThreads);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nc;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  return cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess
-             ? n
-             : -1;
+  return launch_chain(lstm_scan_fwd_kernel<T, RM, SAVE, WIDE>, a,
+                      chain_smem<T>(a, RM), stream, static_cast<const T*>(xg),
+                      static_cast<const T*>(wh), static_cast<T*>(ys),
+                      static_cast<T*>(cs), static_cast<T*>(res), a);
 }
 
 template <typename T, int RM>
-cudaError_t run_rows(const FwdArgs& a, bool save, cudaStream_t stream,
+cudaError_t run_rows(const ChainArgs& a, bool save, cudaStream_t stream,
                      const void* xg, const void* wh, void* ys, void* cs,
                      void* res) {
   if (a.R > 1) {  // rounds: 1, 2 or 4 rows a chain
@@ -603,7 +296,7 @@ cudaError_t run_rows(const FwdArgs& a, bool save, cudaStream_t stream,
 }
 
 template <typename T>
-cudaError_t run_fwd(const FwdArgs& a, bool save, cudaStream_t stream,
+cudaError_t run_fwd(const ChainArgs& a, bool save, cudaStream_t stream,
                     const void* xg, const void* wh, void* ys, void* cs,
                     void* res) {
   switch (a.rows) {
@@ -615,35 +308,6 @@ cudaError_t run_fwd(const FwdArgs& a, bool save, cudaStream_t stream,
     case 8: return run_rows<T, 8>(a, save, stream, xg, wh, ys, cs, res);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// The launch's arguments from the caller's geometry; false when it is not
-// one the kernel takes.
-bool fwd_args(int Tn, int B, int W, int nc, int s, int rows, int ls,
-              int rounds, int chunk, FwdArgs* a) {
-  if (Tn <= 0 || B <= 0 || W <= 0 || nc < 1 || nc > kMaxNC ||
-      (s != 1 && s != 2 && s != 4 && s != 8) || ls < 0 || ls % chunk ||
-      rounds < 1 || (rounds > 1 && ls != 0))
-    return false;
-  a->Tn = Tn;
-  a->B = B;
-  a->W = W;
-  a->G = 4 * W;
-  a->NC = nc;
-  a->S = s;
-  a->U = (W + nc - 1) / nc;
-  a->R = rounds;
-  a->UT = (a->U + rounds - 1) / rounds;
-  a->L = ((W + s - 1) / s + 7) & ~7;
-  a->LP = (a->L > kRegWords ? a->L : kRegWords) + 4;
-  a->ldh = s * a->LP;
-  a->rows = rows;
-  a->ls = ls;
-  a->nthr = (4 * a->UT * s + 31) & ~31;
-  // every block owns a unit, every round too; a unit's 4S threads share a
-  // warp
-  return (nc - 1) * a->U < W && (rounds - 1) * a->UT < a->U &&
-         a->nthr <= kThreads && (ls == 0 || kRegWords + ls <= a->L);
 }
 
 }  // namespace
@@ -663,9 +327,9 @@ extern "C" {
 int lstm_scan_fwd(int dtype, const void* xg, const void* wh, void* ys,
                   void* cs, void* res, int Tn, int B, int W, int save,
                   int nc, int s, int rows, int ls, int rounds, void* stream) {
-  FwdArgs a;
+  ChainArgs a;
   const int chunk = dtype == 0 ? 4 : 8;
-  if (!fwd_args(Tn, B, W, nc, s, rows, ls, rounds, chunk, &a) ||
+  if (!chain_args(Tn, B, W, 4, 1, nc, s, rows, ls, rounds, chunk, &a) ||
       (save && res == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -681,7 +345,9 @@ int lstm_scan_fwd(int dtype, const void* xg, const void* wh, void* ys,
 // (cudaOccupancyMaxActiveClusters; a cluster lies in one GPC, so fewer
 // than SMs / nc), or -1 for a size it refuses.
 int lstm_scan_fwd_clusters(int nc) {
-  return nc >= 1 && nc <= kMaxNC ? max_clusters(nc) : -1;
+  return nc >= 1 && nc <= kMaxNC
+             ? max_clusters(lstm_scan_fwd_kernel<float, 1, true, false>, nc)
+             : -1;
 }
 
 const char* lstm_scan_fwd_error_string(int err) {

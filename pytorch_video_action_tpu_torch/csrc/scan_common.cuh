@@ -1,10 +1,12 @@
-// Device code shared by the LSTM scan's backwards and the GRU scan's kernels
-// (lstm_scan_bwd.cu, gru_scan_fwd.cu, gru_scan_bwd.cu) for Hopper (sm_90a):
+// Device code shared by the LSTM scan's recompute backward and the GRU
+// scan's saving forward and backwards (lstm_scan_bwd.cu, gru_scan_fwd.cu,
+// gru_scan_bwd.cu) for Hopper (sm_90a):
 // the chain's geometry on a thread block cluster, its shared-memory
 // budget, the per-step product of a few batch rows with a weight slice,
 // and the cluster launch.
 //
-// A chain carries up to kMaxRows batch rows through T steps on a cluster
+// A chain carries up to kMaxRows batch rows (a kernel may take fewer, RM,
+// to fit a wide W) through T steps on a cluster
 // of NC blocks.  Block r owns hidden units [r*U, r*U + ucnt), U =
 // ceil(W / NC), and the gate columns of each (four LSTM, three GRU); a step's per-unit
 // values (the new h forward, the gate gradients backward) are written into
@@ -73,9 +75,10 @@ __host__ __device__ inline Slices slices(int C, int depth) {
   return Slices{s < 1 ? 1 : s, L};
 }
 
-// f32 floats of the partial-sum buffer of a product over Cmax columns.
-__host__ __device__ inline size_t part_floats(int Cmax) {
-  return (size_t)kMaxRows * (Cmax > kScanThreads ? Cmax : kScanThreads);
+// f32 floats of the partial-sum buffer of a product of `rm` rows over
+// Cmax columns.
+__host__ __device__ inline size_t part_floats(int Cmax, int rm = kMaxRows) {
+  return (size_t)rm * (Cmax > kScanThreads ? Cmax : kScanThreads);
 }
 
 // Where a block's weight column c lies in a row-major global matrix:
@@ -100,11 +103,11 @@ __device__ __forceinline__ void load_weights(T* w_s,
   }
 }
 
-// part_s[(s * kMaxRows + b) * C + c] = sum over j in slice s of
-// in_s[b * ld + j] * Wt(j, c) for all kMaxRows rows b (rows past the chain's
+// part_s[(s * RM + b) * C + c] = sum over j in slice s of
+// in_s[b * ld + j] * Wt(j, c) for all RM rows b (rows past the chain's
 // are 0 in in_s: summing them costs less than branching on them); Wt from
 // w_s [rs][C] for j < rs, else from w_g through the column map.
-template <typename T>
+template <typename T, int RM = kMaxRows>
 __device__ __forceinline__ void product(const float* in_s, int ld,
                                         const T* w_s, int rs,
                                         const T* __restrict__ w_g,
@@ -117,9 +120,9 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
     const int j0 = s * sl.L;
     const int j1 = min(j0 + sl.L, depth);
     const int jr = max(j0, min(j1, rs));
-    float acc[kMaxRows];
+    float acc[RM];
 #pragma unroll
-    for (int b = 0; b < kMaxRows; ++b) acc[b] = 0.0f;
+    for (int b = 0; b < RM; ++b) acc[b] = 0.0f;
     int j = j0;
     for (; j + 4 <= jr; j += 4) {
       const T* wp = w_s + j * C + c;
@@ -128,7 +131,7 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
       const float w2 = to_f(wp[2 * C]);
       const float w3 = to_f(wp[3 * C]);
 #pragma unroll
-      for (int b = 0; b < kMaxRows; ++b) {
+      for (int b = 0; b < RM; ++b) {
         const float4 h = *reinterpret_cast<const float4*>(&in_s[b * ld + j]);
         acc[b] = fmaf(h.x, w0, acc[b]);
         acc[b] = fmaf(h.y, w1, acc[b]);
@@ -139,7 +142,7 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
     for (; j < jr; ++j) {
       const float w0 = to_f(w_s[j * C + c]);
 #pragma unroll
-      for (int b = 0; b < kMaxRows; ++b)
+      for (int b = 0; b < RM; ++b)
         acc[b] = fmaf(in_s[b * ld + j], w0, acc[b]);
     }
     // rows past the resident ones, through L2: eight loads in flight
@@ -150,7 +153,7 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
 #pragma unroll
       for (int q = 0; q < 8; ++q) w[q] = to_f(wg[(size_t)(j + q) * cm.ldg]);
 #pragma unroll
-      for (int b = 0; b < kMaxRows; ++b)
+      for (int b = 0; b < RM; ++b)
 #pragma unroll
         for (int q = 0; q < 8; ++q)
           acc[b] = fmaf(in_s[b * ld + j + q], w[q], acc[b]);
@@ -158,21 +161,22 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
     for (; j < j1; ++j) {
       const float w0 = to_f(wg[(size_t)j * cm.ldg]);
 #pragma unroll
-      for (int b = 0; b < kMaxRows; ++b)
+      for (int b = 0; b < RM; ++b)
         acc[b] = fmaf(in_s[b * ld + j], w0, acc[b]);
     }
 #pragma unroll
-    for (int b = 0; b < kMaxRows; ++b)
-      part_s[((size_t)s * kMaxRows + b) * C + c] = acc[b];
+    for (int b = 0; b < RM; ++b)
+      part_s[((size_t)s * RM + b) * C + c] = acc[b];
   }
 }
 
 // The product's output (b, c): its slices' sums in slice order.
+template <int RM = kMaxRows>
 __device__ __forceinline__ float reduce_slices(const float* part_s, int b,
                                                int c, int C, int depth) {
   const Slices sl = slices(C, depth);
   float sum = 0.0f;
-  for (int s = 0; s < sl.S; ++s) sum += part_s[((size_t)s * kMaxRows + b) * C + c];
+  for (int s = 0; s < sl.S; ++s) sum += part_s[((size_t)s * RM + b) * C + c];
   return sum;
 }
 

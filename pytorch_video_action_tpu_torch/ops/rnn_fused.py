@@ -360,13 +360,19 @@ def wgrad_tiles(w_in, h):
 
 def wgrad_slice_chunks(rows, w_in, h, sms):
     """Chunks of each K slice of the weight gradients, for K = ``rows`` (T*B)
-    on a card of ``sms`` SMs, one block an SM: of the slice counts up to
-    ``_MAX_SLICES`` that give every slice at least ``_MIN_SLICE_CHUNKS``
-    chunks (or the one slice), the one whose blocks finish soonest,
-    ``ceil(tiles * slices / sms)`` waves of a slice's chunks each; on a tie
-    the fewest slices, whose partials cost the least."""
+    on a card of ``sms`` SMs: :func:`slice_chunks` of their tiles."""
+    return slice_chunks(rows, wgrad_tiles(w_in, h), sms)
+
+
+def slice_chunks(rows, tiles, sms):
+    """Chunks of each K slice of a weight gradient of ``tiles`` 64 x 128
+    tiles (csrc/rnn_wgmma.cuh's products; also the LSTM scan's dwh), for K =
+    ``rows`` (T*B) on a card of ``sms`` SMs, one block an SM: of the slice
+    counts up to ``_MAX_SLICES`` that give every slice at least
+    ``_MIN_SLICE_CHUNKS`` chunks (or the one slice), the one whose blocks
+    finish soonest, ``ceil(tiles * slices / sms)`` waves of a slice's chunks
+    each; on a tie the fewest slices, whose partials cost the least."""
     chunks = _ceil(rows, _CHUNK)
-    tiles = wgrad_tiles(w_in, h)
     best = None
     for want in range(1, _MAX_SLICES + 1):
         depth = _ceil(chunks, want)

@@ -37,7 +37,8 @@ from typing import NamedTuple
 
 import torch
 
-from .rnn_fused import _acc, _check_tensors, _DTYPE_CODE, _no_kernel, _sms
+from .rnn_fused import (_acc, _ceil, _check_tensors, _CHUNK, _DTYPE_CODE,
+                        _no_kernel, _sms, slice_chunks)
 
 # the recompute backward (row 16) instead of the saved-gates one, read as
 # JAX reads ``rnn_pallas._RECOMPUTE_BWD``; assign the module global to flip
@@ -56,11 +57,13 @@ def cluster_size(w: int) -> int:
     return n
 
 
-# The LSTM scan forward's geometry (csrc/lstm_scan_fwd.cu, which checks what
-# it is given against its own kThreads, kRegWords and kSmem): threads a
-# block at most, weights a thread keeps in registers (as f32 in either
-# dtype), the dynamic shared memory a block may take, the chains' block
-# counts and rows, and the rows a chain whose threads take units in rounds
+# The register-resident chain's geometry (csrc/scan_chain.cuh, which checks
+# what it is given against its own kThreads, kRegWords and kSmem), shared by
+# the LSTM scan's forwards, the GRU scan's eval forward and the LSTM scan's
+# saved-gates backward: threads a block at most, weights a thread keeps in
+# registers (as f32 in either dtype), the dynamic shared memory a block may
+# take, the chains' block counts and rows, and the rows a chain whose
+# threads take units in rounds
 FWD_THREADS = 256
 FWD_REG_VALS = 128
 FWD_SMEM = 225 * 1024
@@ -70,14 +73,16 @@ _FWD_ROWS_ROUNDS = (1, 2, 4)
 
 
 class FwdGeometry(NamedTuple):
-    """A launch of the LSTM scan forward: ``nc`` blocks a chain, ``s``
-    depth slices a gate column (thread (unit, gate, slice), U = ceil(W /
-    nc) units a block, ceil(U / rounds) of them a round, 4 threads a unit's
-    slice), ``rows`` batch rows a chain, ``depth`` of a slice (a multiple
-    of 8), of it ``ls`` read from shared memory after the registers' (the
-    rest, if any, from L2), ``threads`` and ``smem`` bytes a block, and
-    ``rounds``, the units a thread takes in turn each step (past 1, every
-    weight is read through L2 and c is kept in shared memory)."""
+    """A launch of a chain kernel: ``nc`` blocks a chain, ``s`` depth
+    slices a weight vector (thread (unit, lane group, slice), U = ceil(W /
+    nc) units a block, ceil(U / rounds) of them a round, 4 lane groups a
+    unit: the LSTM's gates, the GRU's three and an idle one, the LSTM
+    backward's column chunks of wh's row), ``rows`` batch rows a chain,
+    ``depth`` of a slice (a multiple of 8), of it ``ls`` read from shared
+    memory after the registers' (the rest, if any, from L2), ``threads`` and
+    ``smem`` bytes a block, and ``rounds``, the units a thread takes in turn
+    each step (past 1, every weight is read through L2 and the carry is
+    kept in shared memory)."""
     nc: int
     s: int
     rows: int
@@ -103,16 +108,19 @@ def _fwd_layout(w, nc, rounds=1):
     return s, depth, (4 * ut * s + 31) // 32 * 32
 
 
-def _fwd_smem(rows, s, depth, threads, ls, rounds, size):
-    """The kernel's shared memory (``fwd_smem``): h's two buffers and the
-    mbarriers, then the weights' ``ls`` or, in rounds, each thread's c."""
-    fixed = 4 * 2 * rows * s * (max(depth, FWD_REG_VALS) + 4) + 16
+def _fwd_smem(rows, s, depth, threads, ls, rounds, size, inputs=1):
+    """The kernel's shared memory (``chain_smem``): the input's two buffers
+    (``inputs`` vectors of W a row) and the mbarriers, then the weights'
+    ``ls`` or, in rounds, each thread's carry."""
+    fixed = 4 * 2 * rows * inputs * s * (max(depth, FWD_REG_VALS) + 4) + 16
     return fixed + (threads * ls * size if rounds == 1
                     else 4 * rounds * rows * threads)
 
 
-def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
-    """The LSTM scan forward's launch for ``b`` rows of width ``w`` in
+def chain_geometry(b, w, dtype, sms, fits, inputs=1) -> FwdGeometry:
+    """A chain kernel's launch (the LSTM scan forward's, whose numbers
+    follow; with ``inputs`` 4 the saved-gates backward's, whose input a row
+    is 4W gate gradients) for ``b`` rows of width ``w`` in
     ``dtype`` on a card of ``sms`` SMs, of which ``fits(nc)`` clusters of
     ``nc`` blocks run at once (below 1: not at all; a cluster lies in one
     GPC, so fewer than ``sms // nc``); ``fits`` is asked only of the block
@@ -124,7 +132,7 @@ def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
     past both read through L2 (W <= 1024); else the most, each thread
     taking its units in rounds, every weight through L2.  Rows a chain: the
     fewest whose chains all run at once (at most 8; 4 in rounds, and fewer
-    where h's buffers would pass the shared memory)."""
+    where the input's buffers would pass the shared memory)."""
     size = torch.tensor([], dtype=dtype).element_size()
     chunk = 16 // size  # the shared-memory weights' 16-byte chunks
     counts = {}
@@ -146,8 +154,13 @@ def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
         if lay is None or n_fit(nc) < 1:
             return None
         s, depth, threads = lay
-        rows = rows_for(nc, _FWD_ROWS)
-        fixed = _fwd_smem(rows, s, depth, threads, 0, 1, size)
+        most = _FWD_ROWS.index(rows_for(nc, _FWD_ROWS))
+        rows = next((r for r in reversed(_FWD_ROWS[:most + 1])
+                     if _fwd_smem(r, s, depth, threads, 0, 1, size, inputs)
+                     <= FWD_SMEM), None)
+        if rows is None:
+            return None
+        fixed = _fwd_smem(rows, s, depth, threads, 0, 1, size, inputs)
         room = (FWD_SMEM - fixed) // (threads * size) // chunk * chunk
         ls = min(max(depth - FWD_REG_VALS, 0), room)
         return FwdGeometry(nc, s, rows, depth, ls, threads,
@@ -173,11 +186,31 @@ def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
         s, depth, threads = lay
         most = _FWD_ROWS_ROUNDS.index(rows_for(nc, _FWD_ROWS_ROUNDS))
         for rows in reversed(_FWD_ROWS_ROUNDS[:most + 1]):
-            smem = _fwd_smem(rows, s, depth, threads, 0, rounds, size)
+            smem = _fwd_smem(rows, s, depth, threads, 0, rounds, size,
+                             inputs)
             if smem <= FWD_SMEM:
                 return FwdGeometry(nc, s, rows, depth, 0, threads, smem,
                                    rounds)
-    raise ValueError(f"lstm_scan_fwd: no launch takes W={w} on this card")
+    raise ValueError(f"chain kernel: no launch takes W={w} on this card")
+
+
+def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
+    """The LSTM scan forward's launch (rows 13, 14): :func:`chain_geometry`."""
+    return chain_geometry(b, w, dtype, sms, fits)
+
+
+def gru_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
+    """The GRU scan eval forward's launch (row 9): the LSTM forward's, its
+    r, z and n columns on three of a unit's four lane groups (the fourth
+    idle, so a unit's lanes divide a warp), bh beside."""
+    return chain_geometry(b, w, dtype, sms, fits)
+
+
+def lstm_bwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
+    """The LSTM scan saved-gates backward's launch (row 15): a thread keeps
+    a slice of a row of wh where the forward keeps one of a column, the same
+    count, and its input a row is the 4W rounded gate gradients."""
+    return chain_geometry(b, w, dtype, sms, fits, inputs=4)
 
 
 # ------------------------------------------------------------ plain versions
@@ -277,13 +310,20 @@ _ARGTYPES = {
     # stream
     "lstm_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                       + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
-    # dtype, recompute; xg or res, hp, cp, cs, dy, wh, wh^T, dxg, dwh;
-    # T, B, W, cluster; stream
-    "lstm_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-    # dtype; xg, wh, bh, ys, res; T, B, W, save, cluster; stream
+    # dtype; res, hp, cp, dy, wh, dxg, dwh, dwh's partials; T, B, W, nc,
+    # s, rows, ls, rounds, slice_chunks; stream
+    "lstm_scan_bwd_saved": ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                            + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    # dtype; xg, hp, cp, cs, dy, wh, wh^T, dxg, dwh, dwh's partials; T, B,
+    # W, cluster, slice_chunks; stream
+    "lstm_scan_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    # dtype; xg, wh, bh, ys, res; T, B, W, cluster; stream
     "gru_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    # dtype; xg, wh, bh, ys; T, B, W, nc, s, rows, ls, rounds; stream
+    "gru_scan_eval": ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     # dtype, recompute; xg or res, hp, dy, wh, wh^T, bh, dxg, dhg,
     # bias_part, dwh, dbh; T, B, W, cluster; stream
     "gru_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
@@ -291,14 +331,20 @@ _ARGTYPES = {
 }
 
 
+# entry points whose library (csrc/<library>.cu) has another name
+_LIBRARY = {"lstm_scan_bwd_saved": "lstm_scan_bwd",
+            "gru_scan_eval": "gru_scan_fwd"}
+
+
 def _launch(name, x, *args):
     """Call one library's entry point on ``x``'s device and current stream;
     raise when the launch was refused."""
     from . import cuda_lib
 
-    lib = cuda_lib.load(name)
+    library = _LIBRARY.get(name, name)
+    lib = cuda_lib.load(library)
     fn = getattr(lib, name)
-    err_string = getattr(lib, f"{name}_error_string")
+    err_string = getattr(lib, f"{library}_error_string")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[name]
@@ -405,7 +451,46 @@ def lstm_scan_fwd_save(xg, wh):
 lstm_scan_fwd_save.launches = 0
 
 
-def _bwd(where, first, width, hp, cp, cs, dy, wh, recompute):
+# dwh's K slices on the tensor cores: at most this many 64-row chunks a
+# slice, and past it as many slices as this many bytes of f32 partials
+# hold (at least DWH_MIN_SLICES): the f32 sums inside the tensor cores lose
+# precision with the chunks a slice sums (1.3e-4 of dwh's largest element
+# at 240 chunks, W=512, 7e-6 at 15; tools/torch_lstm_scan_dwh_error.py),
+# the slices' sum in order on the CUDA cores does not
+DWH_SLICE_CHUNKS = 8
+DWH_PART_BYTES = 256 << 20
+DWH_MIN_SLICES = 2
+
+
+def dwh_slices(t_len, b, w, sms):
+    """``(chunks a K slice, slices)`` of the LSTM scan's dwh ``[W, 4W]``
+    over K = T*B on the tensor cores (csrc/lstm_scan_bwd.cu): its 64 x 128
+    tiles' :func:`~.rnn_fused.slice_chunks`, at most ``DWH_SLICE_CHUNKS``
+    a slice, but no more slices than ``DWH_PART_BYTES`` of partials hold
+    (or ``DWH_MIN_SLICES``)."""
+    rows = t_len * b
+    chunks = _ceil(rows, _CHUNK)
+    tiles = _ceil(w, _CHUNK) * _ceil(_ceil(_GATES * w, _CHUNK), 2)
+    most = max(DWH_MIN_SLICES, DWH_PART_BYTES // (4 * w * _GATES * w))
+    depth = max(min(slice_chunks(rows, tiles, sms), DWH_SLICE_CHUNKS),
+                _ceil(chunks, most))
+    return depth, _ceil(chunks, depth)
+
+
+def scan_launch(entry, b, w, dtype, device):
+    """The launch of a scan kernel's wrapper ``entry`` on ``device``: the
+    chain's :class:`FwdGeometry` (rows 9, 13, 14, 15), else the cluster
+    scan_common.cuh's chain takes."""
+    geometry = {"lstm_scan_fwd": lstm_fwd_geometry,
+                "lstm_scan_fwd_save": lstm_fwd_geometry,
+                "gru_scan_fwd": gru_fwd_geometry,
+                "lstm_scan_bwd_saved": lstm_bwd_geometry}.get(entry)
+    if geometry is None:
+        return {"cluster": cluster_size(w)}
+    return geometry(b, w, dtype, _sms(device), _cluster_fits(device))
+
+
+def _bwd(where, first, width, hp, cp, cs, dy, wh):
     named = [("hp", hp), ("cp", cp), ("dy", dy)]
     if cs is not None:
         named.append(("cs", cs))
@@ -413,12 +498,23 @@ def _bwd(where, first, width, hp, cp, cs, dy, wh, recompute):
     dxg = torch.empty((t_len, b, _GATES * w), dtype=first.dtype,
                       device=first.device)
     dwh = torch.empty_like(wh)
+    depth, slices = dwh_slices(t_len, b, w, _sms(first.device))
+    part = torch.empty((slices, w * _GATES * w), dtype=torch.float32,
+                       device=first.device)  # dwh's K-slice partials
+    code = _DTYPE_CODE[first.dtype]
+    if cs is None:  # the saved gates, on the chain of lstm_bwd_geometry
+        geo = lstm_bwd_geometry(b, w, first.dtype, _sms(first.device),
+                                _cluster_fits(first.device))
+        _launch("lstm_scan_bwd_saved", first, code, first.data_ptr(),
+                hp.data_ptr(), cp.data_ptr(), dy.data_ptr(), wh.data_ptr(),
+                dxg.data_ptr(), dwh.data_ptr(), part.data_ptr(), t_len, b, w,
+                geo.nc, geo.s, geo.rows, geo.ls, geo.rounds, depth)
+        return dxg, dwh
     wh_t = wh.t().contiguous()  # [4W, W]: the carry product's operand
-    _launch("lstm_scan_bwd", first, _DTYPE_CODE[first.dtype], int(recompute),
-            first.data_ptr(), hp.data_ptr(), cp.data_ptr(),
-            0 if cs is None else cs.data_ptr(), dy.data_ptr(), wh.data_ptr(),
-            wh_t.data_ptr(), dxg.data_ptr(), dwh.data_ptr(), t_len, b, w,
-            cluster_size(w))
+    _launch("lstm_scan_bwd", first, code, first.data_ptr(), hp.data_ptr(),
+            cp.data_ptr(), cs.data_ptr(), dy.data_ptr(), wh.data_ptr(),
+            wh_t.data_ptr(), dxg.data_ptr(), dwh.data_ptr(), part.data_ptr(),
+            t_len, b, w, cluster_size(w), depth)
     return dxg, dwh
 
 
@@ -430,7 +526,7 @@ def lstm_scan_bwd_saved(res, hp, cp, dy, wh):
         return lstm_scan_bwd_saved_ref(res, hp, cp, dy, wh)
     if res.device.type != "cuda":
         raise _no_kernel("lstm_scan_bwd_saved", res)
-    out = _bwd("lstm_scan_bwd_saved", res, _RES, hp, cp, None, dy, wh, False)
+    out = _bwd("lstm_scan_bwd_saved", res, _RES, hp, cp, None, dy, wh)
     lstm_scan_bwd_saved.launches += 1
     return out
 
@@ -445,7 +541,7 @@ def lstm_scan_bwd(xg, hp, cp, cs, dy, wh):
         return lstm_scan_bwd_ref(xg, hp, cp, cs, dy, wh)
     if xg.device.type != "cuda":
         raise _no_kernel("lstm_scan_bwd", xg)
-    out = _bwd("lstm_scan_bwd", xg, _GATES, hp, cp, cs, dy, wh, True)
+    out = _bwd("lstm_scan_bwd", xg, _GATES, hp, cp, cs, dy, wh)
     lstm_scan_bwd.launches += 1
     return out
 
@@ -628,13 +724,19 @@ def _gru_fwd(xg, wh, bh, save):
     where = "gru_scan_fwd_save" if save else "gru_scan_fwd"
     t_len, b, w = _gru_check(where, xg, _GRU_GATES, wh, bh, ())
     ys = torch.empty((t_len, b, w), dtype=xg.dtype, device=xg.device)
-    res = (torch.empty((t_len, b, _GRU_RES * w), dtype=xg.dtype,
-                       device=xg.device) if save else None)
+    if not save:  # the eval form, on the chain of gru_fwd_geometry
+        geo = gru_fwd_geometry(b, w, xg.dtype, _sms(xg.device),
+                               _cluster_fits(xg.device))
+        _launch("gru_scan_eval", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
+                wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), t_len, b, w,
+                geo.nc, geo.s, geo.rows, geo.ls, geo.rounds)
+        return ys
+    res = torch.empty((t_len, b, _GRU_RES * w), dtype=xg.dtype,
+                      device=xg.device)
     _launch("gru_scan_fwd", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
-            wh.data_ptr(), bh.data_ptr(), ys.data_ptr(),
-            0 if res is None else res.data_ptr(), t_len, b, w, int(save),
-            cluster_size(w))
-    return (ys, res) if save else ys
+            wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), res.data_ptr(),
+            t_len, b, w, cluster_size(w))
+    return ys, res
 
 
 def gru_scan_fwd(xg, wh, bh):

@@ -1095,7 +1095,7 @@ def test_lstm_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
 # Fault 8: both backwards at widths the forward takes and vanilla_lstm
 # trains at (--lstm_hidden1 past 870), where a chain's double-buffered gate
 # gradients once passed a block's shared memory ([2][8][4W] f32).
-@pytest.mark.parametrize("w", [1024, 2048])
+@pytest.mark.parametrize("w", [1024, 2048, 4096])
 @pytest.mark.parametrize("recompute", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_scan_bwd_at_wide_widths(cuda_device, dtype, recompute, w):
@@ -1208,9 +1208,10 @@ def test_gru_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
     ys2, res = RS.gru_scan_fwd_save(xg, wh, bh)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 1)
-    assert torch.equal(ys, ys2)
+    # the eval form (row 9) runs its own chain since PR 15, so the two
+    # forms sum in other orders: each is held against the plain version
     wys, wres = RS.gru_scan_ref(xg, wh, bh, save=True)
-    for got, want in ((ys, wys), (res, wres)):
+    for got, want in ((ys, wys), (ys2, wys), (res, wres)):
         assert got.dtype == dtype and got.shape == want.shape
         assert _rel_err(got, want) <= TOL[dtype]
 
@@ -1239,6 +1240,47 @@ def test_gru_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
         assert g.dtype == dtype and g.shape == want.shape, name
         assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
         assert torch.equal(g, a), name
+
+
+# Rows 9 and 15 on the register-resident chain (csrc/scan_chain.cuh)
+# against their plain versions and a rerun (bit for bit), at widths where
+# the geometry changes (64: one block; 96, 100: two, odd depths; 256: 8
+# blocks, registers; 512: shared memory; 768: L2; 1024, 2048: the
+# backward's L2 and rounds) and batches of 1, 3, 8 and 64 rows (B=64:
+# rows shared by a chain).
+CHAIN_CASES = {
+    "gru_scan_fwd": [(64, 1, 24), (96, 3, 40), (100, 64, 16), (256, 8, 40),
+                     (256, 64, 16), (512, 3, 16), (768, 8, 12),
+                     (768, 1, 8)],
+    "lstm_scan_bwd_saved": [(64, 1, 24), (100, 3, 33), (96, 8, 20),
+                            (256, 8, 40), (256, 64, 16), (512, 8, 16),
+                            (1024, 3, 16), (2048, 1, 8), (2048, 64, 4)]}
+
+
+@pytest.mark.parametrize("row,w,b,t", [(r, *c) for r, cs in
+                                       CHAIN_CASES.items() for c in cs])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernels_match_plain_and_rerun(cuda_device, dtype, row, w, b,
+                                             t):
+    if row == "gru_scan_fwd":
+        xg, wh, bh, _ = _gru_scan_case(cuda_device, dtype, w, b, t)
+        fn, ref, args = RS.gru_scan_fwd, RS.gru_scan_ref, (xg, wh, bh)
+    else:
+        xg, wh, dy = _scan_case(cuda_device, dtype, w, b, t, seed=2)
+        ys, cs, res = RS.lstm_scan_ref(xg, wh, save=True)
+        fn, ref = RS.lstm_scan_bwd_saved, RS.lstm_scan_bwd_saved_ref
+        args = (res, RS._shift(ys), RS._shift(cs), dy, wh)
+    before = fn.launches
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    want = ref(*args)
+    if row == "gru_scan_fwd":
+        got, again, want = (got,), (again,), (want,)
+    for g, a, w_ in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w_.shape
+        assert _rel_err(g, w_) <= TOL[dtype], _rel_err(g, w_)
+        assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("case", ["float64", "noncontiguous", "bh_bf16",

@@ -173,6 +173,64 @@ def test_wrappers_refuse_other_devices_and_widths():
                      torch.zeros(w, 3 * w), torch.zeros(3 * w), ())
 
 
+# The eval form's chain geometry (row 9, csrc/gru_scan_fwd.cu on
+# scan_chain.cuh): ``fits`` of a card of 132 SMs whose GPCs hold 30
+# clusters of 4 blocks, 15 of 8 and 7 of 16, or one that runs no 16-block
+# cluster.
+def _gpcs(nc):
+    return {4: 30, 8: 15, 16: 7}.get(nc, 132 // nc)
+
+
+def _no16(nc):
+    return 0 if nc == 16 else _gpcs(nc)
+
+
+def _check_chain(geo, w, size):
+    """A unit's four lane groups of s slices fit one warp and the block's
+    threads the kernel's 256; every block owns a unit, every round too;
+    the slices cover W, the registers' FWD_REG_VALS first, then ``ls`` of
+    shared memory (none in rounds), the rest through L2; h's two buffers,
+    the mbarriers and the weights or carries fit the shared memory."""
+    u = -(-w // geo.nc)
+    ut = -(-u // geo.rounds)
+    assert (geo.nc - 1) * u < w and (geo.rounds - 1) * ut < u
+    assert 32 % (4 * geo.s) == 0
+    assert 4 * ut * geo.s <= geo.threads <= S.FWD_THREADS
+    assert geo.s * geo.depth >= w and geo.ls % (16 // size) == 0
+    assert min(geo.depth, S.FWD_REG_VALS) + geo.ls <= geo.depth
+    assert geo.smem <= S.FWD_SMEM
+    assert geo.rounds == 1 or geo.ls == 0
+
+
+@pytest.mark.parametrize("fits", [_gpcs, _no16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_fwd_geometry_covers_every_width(dtype, fits):
+    """Every W the GRU scan takes (1..GRU_W_MAX) has a launch within the
+    register and shared-memory budgets, at serving, training and bench
+    batches; two blocks at W=96 (attn's and BiGRU 192's scan), eight at
+    W=256 (BiGRU 512's) whose registers hold wh; W=768 through L2 or in
+    rounds."""
+    size = 4 if dtype == torch.float32 else 2
+    for w in range(1, S.GRU_W_MAX + 1):
+        for b in (1, 3, 8, 64):
+            _check_chain(S.gru_fwd_geometry(b, w, dtype, 132, fits), w, size)
+    geo = S.gru_fwd_geometry(3, 96, dtype, 132, fits)
+    assert geo.nc == 2 and geo.depth <= S.FWD_REG_VALS
+    geo = S.gru_fwd_geometry(8, 256, dtype, 132, fits)
+    assert (geo.nc, geo.rows) == (8, 1) and geo.depth <= S.FWD_REG_VALS
+    geo = S.gru_fwd_geometry(8, 768, dtype, 132, fits)
+    assert geo.depth > S.FWD_REG_VALS + geo.ls or geo.rounds > 1
+
+
+def test_gru_fwd_geometry_takes_wide_widths_in_rounds():
+    """On a card that runs no 16-block cluster, widths past 64 units of an
+    8-block chain (W > 512) take rounds, every weight through L2."""
+    for w in (513, 640, 768):
+        for dtype in (torch.float32, torch.bfloat16):
+            geo = S.gru_fwd_geometry(8, w, dtype, 132, _no16)
+            assert geo.nc == 8 and geo.rounds == 2 and geo.ls == 0
+
+
 # ------------------------------------------------ the stack on the scan
 
 

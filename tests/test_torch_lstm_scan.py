@@ -163,12 +163,13 @@ def _gpcs(nc):
     return {4: 30, 8: 15, 16: 7}.get(nc, 132 // nc)
 
 
-def _check_fwd_geometry(geo, b, w, size):
-    """What every launch of the forward must hold: its blocks cover W,
+def _check_fwd_geometry(geo, b, w, size, inputs=1):
+    """What every launch of a chain kernel must hold: its blocks cover W,
     each owning a unit, and its rounds a block's units; a unit's 4s
     threads fit one warp and a block's the kernel's 256; the slices cover
     W, registers before shared memory (none with rounds); the shared memory
-    fits the budget."""
+    (the input's buffers, ``inputs`` vectors of W a row) fits the
+    budget."""
     reg = S.FWD_REG_VALS
     u = -(-w // geo.nc)
     ut = -(-u // geo.rounds)
@@ -182,8 +183,8 @@ def _check_fwd_geometry(geo, b, w, size):
     assert min(geo.depth, reg) + geo.ls <= geo.depth
     own = (geo.threads * geo.ls * size if geo.rounds == 1
            else 4 * geo.rounds * geo.rows * geo.threads)
-    assert geo.smem == (8 * geo.rows * geo.s * (max(geo.depth, reg) + 4)
-                        + 16 + own)
+    assert geo.smem == (8 * geo.rows * inputs * geo.s
+                        * (max(geo.depth, reg) + 4) + 16 + own)
     assert geo.smem <= S.FWD_SMEM
     if geo.rounds > 1:
         assert geo.ls == 0 and geo.rows in (1, 2, 4)
@@ -284,3 +285,98 @@ def test_masked_reverse_matches_jax(shape):
     twice = PM.masked_reverse(got, torch.from_numpy(lengths)).numpy()
     valid = np.arange(shape[1])[None, :] < lengths[:, None]
     assert np.array_equal(twice[valid], x[valid])
+
+
+@pytest.mark.parametrize("fits", [_all_sms, _gpcs])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_geometry_covers_w_and_fits_the_card(dtype, fits):
+    """The saved-gates backward's chain (row 15) at every width up to 4096:
+    ``_check_fwd_geometry`` with its input of 4W gradients a row; at least
+    the forward's blocks (a thread keeps as many weights, a row's where the
+    forward keeps a column's, but the larger input leaves less shared
+    memory for them), the same where registers alone hold them; one unit a
+    thread up to W=1024, rounds past it."""
+    size = 4 if dtype == torch.float32 else 2
+    for w in range(1, 4097):
+        for b in (1, 8, 64):
+            geo = S.lstm_bwd_geometry(b, w, dtype, 132, fits)
+            _check_fwd_geometry(geo, b, w, size, inputs=4)
+            fwd = S.lstm_fwd_geometry(b, w, dtype, 132, fits)
+            assert geo.nc >= fwd.nc
+            if fwd.depth <= S.FWD_REG_VALS:
+                assert (geo.nc, geo.s) == (fwd.nc, fwd.s)
+            assert (geo.rounds > 1) == (w > 1024)
+    assert S.lstm_bwd_geometry(8, 256, dtype, 132, _gpcs)[:3] == (8, 2, 1)
+    assert S.lstm_bwd_geometry(64, 256, dtype, 132, _gpcs).rows == 6
+
+
+@pytest.mark.parametrize("w", [1025, 2048, 4096, 6000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_geometry_takes_wide_widths_in_rounds(dtype, w):
+    """Past 64 units a block each thread of the backward takes its units in
+    rounds on 16-block chains, every weight through L2, rows cut where the
+    4W gradients' buffers would pass the shared memory (at 6000 one); one
+    row's buffers pass it past W = 6968, which is refused."""
+    for b in (1, 3, 8, 64):
+        geo = S.lstm_bwd_geometry(b, w, dtype, 132, _gpcs)
+        _check_fwd_geometry(geo, b, w, 4 if dtype == torch.float32 else 2,
+                            inputs=4)
+        assert geo.nc == 16 and geo.rounds == -(-(-(-w // 16)) // 64)
+        assert geo.ls == 0
+    assert S.lstm_bwd_geometry(64, 6000, dtype, 132, _gpcs).rows == 1
+    assert S.lstm_bwd_geometry(3, 6968, dtype, 132, _gpcs).rows == 1
+    with pytest.raises(ValueError, match="no launch takes W=6969"):
+        S.lstm_bwd_geometry(3, 6969, dtype, 132, _gpcs)
+
+
+def _steps_tool():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_lstm_scan_steps.py"
+    spec = importlib.util.spec_from_file_location("torch_lstm_scan_steps",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("kernel", ["13", "9", "15"])
+def test_step_tool_edits_hold_their_sources_lines(kernel):
+    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15)
+    finds its lines once in its kernel's source, so a changed kernel fails
+    here rather than on the card; each build changes the source."""
+    from pytorch_video_action_tpu_torch.ops import cuda_lib
+
+    tool = _steps_tool()
+    kern = tool.KERNELS[kernel]
+    text = (cuda_lib.CSRC / f"{kern.source}.cu").read_text()
+    assert hasattr(S, kern.wrapper)
+    assert {"no product", "no gates", "no exchange", "skeleton"} <= set(
+        kern.edits)
+    for name, edits in kern.edits.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)
+        assert tool.edited_source(text, kernel, name) != text
+
+
+@pytest.mark.parametrize("t,b,w", [(1920, 8, 256), (1920, 8, 512),
+                                   (1024, 64, 256), (1920, 8, 1024),
+                                   (1920, 8, 4096), (64, 3, 4096), (40, 8, 64)])
+def test_dwh_slices_bound_the_chunks_a_slice_and_the_scratch(t, b, w):
+    """dwh's K slices (``dwh_slices``) cover T*B in whole 64-row chunks, sum
+    at most ``DWH_SLICE_CHUNKS`` chunks a slice on the tensor cores, and
+    keep their f32 partials within ``DWH_PART_BYTES`` (or
+    ``DWH_MIN_SLICES`` slices, past it)."""
+    depth, slices = S.dwh_slices(t, b, w, 132)
+    chunks = -(-(t * b) // 64)
+    assert slices == -(-chunks // depth) and (slices - 1) * depth < chunks
+    part = slices * 4 * w * 4 * w
+    assert part <= S.DWH_PART_BYTES or slices <= S.DWH_MIN_SLICES
+    if depth > S.DWH_SLICE_CHUNKS:
+        # only where shorter slices' partials would pass the budget
+        assert -(-chunks // S.DWH_SLICE_CHUNKS) * 16 * w * w > \
+            S.DWH_PART_BYTES
+    if (t, b, w) == (1920, 8, 256):
+        assert (depth, slices) == (8, 30)

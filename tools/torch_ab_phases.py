@@ -11,8 +11,11 @@ unpacked with ``git archive`` into a directory ``.gitignore`` lists).  A
 PHASE is ``slice:<model>`` (phase 4's serving of ``model``: bigru, bilstm
 or attn; ``slice:vanilla_lstm`` is ``phase_vanilla_serving``, its training
 at the inference CLIs' widths and then its serving) or ``train:<model>``
-(phase 5's training of ``model``, vanilla_lstm among them); the
-default is ``slice:attn train:attn``.  Each turn is a process of its own
+(phase 5's training of ``model``, vanilla_lstm among them) or
+``wide:gru`` (phase 5's bidirectional GRU on the GRU scan: BiGRU at
+``hidden_dim_1`` 512 and 192 and attn at ``hidden_dim`` 192 a Trainer
+step each, the BiGRU 512 serving forward); the default is ``slice:attn
+train:attn``.  Each turn is a process of its own
 that builds that checkout's kernels, writes the seeded dataset into a
 temporary directory and runs the phases as ``chip_smoke.main`` does, so
 each phase's own checks hold in both.  Exits non-zero without a card or
@@ -44,7 +47,9 @@ with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
     c.write_dataset(root)
     for phase in sys.argv[1:]:
         kind, name = phase.split(":")
-        if kind == "slice" and name == "vanilla_lstm":
+        if kind == "wide":
+            c.phase_gru_wide(card, root)
+        elif kind == "slice" and name == "vanilla_lstm":
             c.phase_vanilla_serving(card, root)
         elif kind == "slice":
             c.phase_slice(card, root, name)

@@ -9,14 +9,16 @@ of copies with one part of the step taken out.  On one NVIDIA GPU:
 ``--kernel`` picks the scan kernel by its row in ``PERF.md``: 13, the LSTM
 scan's eval forward (``csrc/lstm_scan_fwd.cu``, the default); 9, the GRU
 scan's eval forward (``csrc/gru_scan_fwd.cu``); 15, the LSTM scan's
-saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh).
+saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh); 14
+and 16, the saving forward and the recompute backward, as built only
+(their time beside another checkout's).
 Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
 csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
 design, for example an earlier commit unpacked with ``git archive``, may be
-given) in a temporary directory: as it is, and once for each entry of the
-kernel's ``EDITS`` (the product taken out, the gate math taken out, the
-exchange between blocks taken out, all of them; row 15 also dwh's launch
-taken out).  Each build runs ``DIR``'s wrapper of the kernel
+given) in a temporary directory: as it is, and once for each of the
+kernel's edited builds in ``KERNELS`` (the product taken out, the gate
+math taken out, the exchange between blocks taken out, all of them; row 15
+also dwh's launch taken out).  Each build runs ``DIR``'s wrapper of the kernel
 (``ops/rnn_scan.py``) on the same seeded inputs at each shape (defaults in
 ``KERNELS``), f32 and bf16, and prints its device time (CUDA events,
 ``chip_smoke.cuda_ms``) as µs a step, with the card's name and power limit
@@ -64,52 +66,48 @@ _EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((t - 1) >> 1) & 1);\n"
               "hv[r], bar);\n", "              (void)dst, (void)bar;\n"),
              ("    if (a.NC == 1) __syncthreads();\n", "")]
 
-# Row 9 (scan_common.cuh's chain: the block's product of all rows from
-# shared memory into partial sums, a block barrier, (row, unit) threads
-# for the gates, h written into every block, one cluster barrier a step)
-_G9_PRODUCT = [("    if (C > 0)\n"
-                "      product(h_s + cur * kMaxRows * ld, ld, w_s, a.rs, wh, "
-                "cm, C, W,\n              part_s);\n", "")]
-_G9_GATES = [("        const float r = sigmoid_f(xv[k][0] + hr);\n"
-              "        const float z = sigmoid_f(xv[k][1] + hz);\n"
-              "        const float n = tanhf(xv[k][2] + r * hn);\n",
-              "        const float r = xv[k][0] + hr;\n"
-              "        const float z = xv[k][1] + hz;\n"
-              "        const float n = xv[k][2] + hn;\n"),
-             ("        const float h = (1.0f - z) * n + z * *hc;\n",
-              "        const float h = r + z + n + *hc;\n")]
-_G9_EXCHANGE = [("          if (q < a.NC) peer[q][slot] = hv;\n",
-                 "          if (q < a.NC) (void)hv;\n"),
-                ("    cluster_arrive();\n", ""),
-                ("    cluster_wait();\n", "")]
+# Row 9 (row 13's chain: its product and exchange are row 13's lines)
+_G9_GATES = [("        const float act = g < 2 ? sigmoid_f(xv[r] + hg) : hg;\n",
+              "        const float act = xv[r] + hg;\n"),
+             ("        const float n = tanhf(xn + rg * hn);\n"
+              "        hc[r] = (1.0f - zg) * n + zg * hc[r];\n",
+              "        const float n = xn + rg + hn;\n"
+              "        hc[r] = zg + n + hc[r];\n")]
 
-# Row 15 (the same chain: gate gradients written into every block, one
-# cluster barrier, then each block's carry product from shared memory; dwh
-# a SIMT GEMM after it)
-_L15_PRODUCT = [("    if (ch.ucnt > 0)\n"
-                 "      product(dg_s + cur * kMaxRows * G, G, wT_s, a.rs, "
-                 "whT, cmT, ch.ucnt,\n              G, part_s);\n", "")]
+# Row 15 (row 13's chain, a row of wh a thread; dwh on the tensor cores
+# after the chain)
+_L15_PRODUCT = [("      product<T, RM, WIDE>(wr, w_s + tid, wh + (size_t)unit * "
+                 "a.G + g * a.W,\n"
+                 "                           1, dg_s + cur * RM * a.ldh + goff "
+                 "+ s * a.LP, a,\n"
+                 "                           d0, pre);\n",
+                 "#pragma unroll\n      for (int r = 0; r < RM; ++r) pre[r] "
+                 "= dg_s[r];\n")]
 _L15_GATES = [("        const float dc = dh * x.o * (1.0f - x.tc * x.tc) + "
-               "dc_s[p];\n"
-               "        dc_s[p] = dc * x.f;\n"
-               "        d[k][0] = dc * x.g * x.i * (1.0f - x.i);\n"
-               "        d[k][1] = dc * x.cp * x.f * (1.0f - x.f);\n"
-               "        d[k][2] = dc * x.i * (1.0f - x.g * x.g);\n"
-               "        d[k][3] = dh * x.tc * x.o * (1.0f - x.o);\n",
-               "        const float dc = dh + x.o + x.tc + dc_s[p];\n"
-               "        dc_s[p] = dc + x.f;\n"
-               "        d[k][0] = dc + x.g + x.i;\n"
-               "        d[k][1] = dc + x.cp;\n"
-               "        d[k][2] = dc;\n"
-               "        d[k][3] = dh;\n")]
-_L15_EXCHANGE = [("            if (r < a.NC) peer[r][slot + q * W] = "
-                  "d[k][q];\n", "            if (r < a.NC) (void)slot;\n"),
-                 ("    cluster_arrive();\n", ""),
-                 ("    cluster_wait();\n", "")]
-_L15_DWH = [("  dwh_kernel<T><<<grid, kThreads, 0, stream>>>(\n"
-             "      ShiftedRowsT<T>{h, a.W, 0, M}, RowsT<T>{dx, G},\n"
-             "      Store<T>{static_cast<T*>(dwh), G}, a.W, G, M);\n",
-             "  (void)grid;\n")]
+               "dcc[r];\n"
+               "        dcc[r] = dc * x.f;\n"
+               "        const float d = g == 0   ? dc * x.g * x.i * (1.0f - "
+               "x.i)\n"
+               "                        : g == 1 ? dc * x.cp * x.f * (1.0f - "
+               "x.f)\n"
+               "                        : g == 2 ? dc * x.i * (1.0f - x.g * "
+               "x.g)\n"
+               "                                 : dh * x.tc * x.o * (1.0f - "
+               "x.o);\n",
+               "        const float dc = dh + x.o + x.tc + dcc[r];\n"
+               "        dcc[r] = dc + x.f;\n"
+               "        const float d = dc + x.g + x.i + x.cp;\n")]
+_L15_EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((st - 1) >> 1) & 1);\n"
+                  "      if (tid == 0 && st + 2 < a.Tn) bar_expect(bar0 + 8 * "
+                  "cur, bytes);\n", ""),
+                 ("              if (r < nb) send_h(dst + 4u * r * a.ldh, "
+                  "dv[r], bar);\n", "              (void)dst, (void)bar;\n"),
+                 ("    if (a.NC == 1) __syncthreads();\n", "")]
+_L15_DWH = [("                       cudaStream_t stream) {\n"
+             "  const int K = Tn * B;\n",
+             "                       cudaStream_t stream) {\n"
+             "  if (Tn > 0) return cudaSuccess;\n"
+             "  const int K = Tn * B;\n")]
 
 
 class Kernel(NamedTuple):
@@ -129,9 +127,9 @@ KERNELS = {
                   "skeleton": [_PRODUCT, *_GATES, *_EXCHANGE]},
                  ["8,1920,256", "3,1280,64", "64,1024,256"]),
     "9": Kernel("gru_scan_fwd", "gru_scan_fwd",
-                {"no product": _G9_PRODUCT, "no gates": _G9_GATES,
-                 "no exchange": _G9_EXCHANGE,
-                 "skeleton": [*_G9_PRODUCT, *_G9_GATES, *_G9_EXCHANGE]},
+                {"no product": [_PRODUCT], "no gates": _G9_GATES,
+                 "no exchange": _EXCHANGE,
+                 "skeleton": [_PRODUCT, *_G9_GATES, *_EXCHANGE]},
                 ["8,1920,256", "3,1280,256"]),
     "15": Kernel("lstm_scan_bwd", "lstm_scan_bwd_saved",
                  {"no product": _L15_PRODUCT, "no gates": _L15_GATES,
@@ -139,10 +137,12 @@ KERNELS = {
                   "skeleton": [*_L15_PRODUCT, *_L15_GATES, *_L15_EXCHANGE,
                                *_L15_DWH]},
                  ["8,1920,256", "64,1024,256"]),
+    # the kernel as built only: the saving forward (row 13's template) and
+    # the recompute backward
+    "14": Kernel("lstm_scan_fwd", "lstm_scan_fwd_save", {},
+                 ["8,1920,256", "64,1024,256"]),
+    "16": Kernel("lstm_scan_bwd", "lstm_scan_bwd", {}, ["8,1920,256"]),
 }
-# row 13's, under the names chip_smoke.py and earlier checkouts read
-EDITS = KERNELS["13"].edits
-SHAPES = KERNELS["13"].shapes
 
 
 def edited_source(text: str, kernel: str, name: str) -> str:
@@ -160,7 +160,7 @@ def edited_source(text: str, kernel: str, name: str) -> str:
 def start_builds(csrc: Path, tmp: Path, names=None, kernel: str = "13"
                  ) -> dict:
     """Start one nvcc a build of the kernel's source (as it is and every
-    build of its ``EDITS``, or those named), each on an edited copy of
+    build of its edits, or those named), each on an edited copy of
     ``csrc`` under ``tmp``: ``{name: (process, library)}``."""
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
@@ -220,16 +220,18 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt):
                                                gen, cell)
     if kernel == "9":
         return xg, wh, bh
-    if kernel == "13":
+    if kernel in ("13", "14"):
         return xg, wh
     ys, cs, res = RS.lstm_scan_fwd_save(xg, wh)
+    if kernel == "16":
+        return xg, RS._shift(ys), RS._shift(cs), cs, dy, wh
     return res, RS._shift(ys), RS._shift(cs), dy, wh
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
-                    help="the kernel's row: 13, 9 or 15")
+                    help="the kernel's row: 13, 9, 15, 14 or 16")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
     ap.add_argument("--shapes", nargs="*",
@@ -261,13 +263,14 @@ def main(argv=None) -> int:
         for dt in (torch.float32, torch.bfloat16):
             inputs[(b, t_len, w, dt)] = kernel_args(args.kernel, chip_smoke,
                                                     b, t_len, w, dt)
-            launch = getattr(RS, "scan_launch", None)
-            geo = (launch(kern.wrapper, b, w, dt, inputs[(b, t_len, w, dt)][0]
-                          .device) if launch else
-                   RS.lstm_fwd_geometry(b, w, dt, RS._sms(torch.device(
-                       "cuda")), RS._cluster_fits(torch.device("cuda")))
-                   if args.kernel == "13" else
-                   f"cluster of {RS.cluster_size(w)}")
+            device = inputs[(b, t_len, w, dt)][0].device
+            if hasattr(RS, "scan_launch"):
+                geo = RS.scan_launch(kern.wrapper, b, w, dt, device)
+            elif kern.wrapper.startswith("lstm_scan_fwd"):
+                geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(device),
+                                           RS._cluster_fits(device))
+            else:  # a checkout from before the chains took these rows
+                geo = f"cluster of {RS.cluster_size(w)}"
             print(f"{str(dt)[6:]} B={b} W={w}: {geo}", flush=True)
 
     fn = getattr(RS, kern.wrapper)
