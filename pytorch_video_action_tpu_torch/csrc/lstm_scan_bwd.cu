@@ -58,8 +58,13 @@
 //  * dwh is off the chain: hp^T dxg (dxg is rnd(dg) as stored) on the
 //    tensor cores, rnn_wgmma.cuh's producer ring and wgmma products (row
 //    2's dwh_d, ShiftedRowsT operands), K = T*B split into slices of whole
-//    64-row chunks (ops/rnn_fused.py::slice_chunks), the slices' f32
-//    partials added in order after: no atomics, reruns are bit-identical.
+//    64-row chunks (ops/rnn_scan.py::dwh_slices), the slices' f32 partials
+//    added in order after: no atomics, reruns are bit-identical.  A slice
+//    sums at most 8 chunks: the f32 sums inside the tensor cores lose
+//    precision with the chunks they add (in f32 1.3e-4 of dwh's largest
+//    element at 240 chunks a slice, 4e-6 at 8;
+//    tools/torch_lstm_scan_dwh_error.py), the ordered sum of the slices
+//    does not.
 //
 // The recompute form (row 16) keeps scan_common.cuh's chain: the cell
 // threads form their units' gate gradients, write dxg and put the rounded

@@ -17,7 +17,8 @@
 //
 // The per-step product out[b][c] = sum_j in[b][j] * Wt(j, c) over a block's
 // C columns is SIMT f32: thread (s, c) takes column c over depth slice s,
-// keeps a running sum for each of the kMaxRows rows in registers, reads in[b][j..j+3] as one float4
+// keeps a running sum for each of the RM rows (kMaxRows unless the kernel
+// says fewer) in registers, reads in[b][j..j+3] as one float4
 // broadcast and Wt(j, c) with neighbouring threads on neighbouring columns.
 // The first `rs` rows of the block's weight slice sit in shared memory in
 // the weights' dtype, loaded once; rows past it (a slice larger than the

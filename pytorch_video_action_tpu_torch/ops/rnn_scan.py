@@ -199,11 +199,10 @@ def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
     return chain_geometry(b, w, dtype, sms, fits)
 
 
-def gru_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
-    """The GRU scan eval forward's launch (row 9): the LSTM forward's, its
-    r, z and n columns on three of a unit's four lane groups (the fourth
-    idle, so a unit's lanes divide a warp), bh beside."""
-    return chain_geometry(b, w, dtype, sms, fits)
+# The GRU scan eval forward's launch (row 9) is the LSTM forward's: its r,
+# z and n columns take three of a unit's four lane groups (the fourth idle,
+# so that a unit's lanes divide a warp), bh beside.
+gru_fwd_geometry = lstm_fwd_geometry
 
 
 def lstm_bwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
