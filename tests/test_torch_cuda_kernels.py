@@ -1208,7 +1208,7 @@ def test_gru_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
     ys2, res = RS.gru_scan_fwd_save(xg, wh, bh)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 1)
-    # the eval form (row 9) runs its own chain since PR 15, so the two
+    # the eval form (row 9) runs its own chain, so the two
     # forms sum in other orders: each is held against the plain version
     wys, wres = RS.gru_scan_ref(xg, wh, bh, save=True)
     for got, want in ((ys, wys), (ys2, wys), (res, wres)):
