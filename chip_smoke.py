@@ -1288,9 +1288,12 @@ def scan_bound(name, t_len, b, w, dt_name, simt=False):
     recompute: xg 3) and hp, dy and write dxg (3).  wh (and the GRU's bh)
     read once, dwh (and dbh) written once.  Operations: 2*T*B*W*gW a
     product -- the hidden product forward, the carry product and dwh
-    backward, and the recomputed gates -- at the dtype's peak; the
-    saved-gates LSTM backward (row 15) with dwh on the tensor cores and its
-    carry product at the f32 SIMT peak (``tc_bound``), unless ``simt``."""
+    backward, and the recomputed gates -- at the dtype's peak; in f32 the
+    saved-gates LSTM backward (row 15) with dwh on the tensor cores (3xTF32)
+    and its carry product at the f32 SIMT peak (``tc_bound``), unless
+    ``simt`` (in bf16 both products are at bf16's tensor-core peak either
+    way: the kernel's f32 carry product is its design, not the card's
+    limit)."""
     size = 4 if dt_name == "float32" else 2
     per_row = {"lstm_scan_fwd": 6, "lstm_scan_fwd_save": 11,
                "lstm_scan_bwd_saved": 12, "lstm_scan_bwd": 12,
@@ -1303,7 +1306,7 @@ def scan_bound(name, t_len, b, w, dt_name, simt=False):
     products = {"fwd": 1, "fwd_save": 1, "bwd_saved": 2, "bwd": 3}[kind]
     n_bytes = (t_len * b * w * per_row + weights) * size
     flops = products * 2 * t_len * b * w * g * w
-    if name == "lstm_scan_bwd_saved" and not simt:
+    if name == "lstm_scan_bwd_saved" and dt_name == "float32" and not simt:
         return tc_bound(n_bytes, flops / 2, flops / 2, dt_name)
     return _bound(n_bytes, flops, dt_name)
 

@@ -28,7 +28,7 @@
 // barrier 0.8, the gate math 0.2, the rest (block barriers, round trips
 // through shared memory, xg's loads) 1.5 (PERF.md section 6, the step
 // split of tools/torch_lstm_scan_steps.py --kernel 9).  So:
-//  * Geometry from storage (ops/rnn_scan.py::gru_fwd_geometry): the
+//  * Geometry from storage (ops/rnn_scan.py::chain_geometry): the
 //    LSTM's, a unit's three gate columns on three of its four lane groups
 //    of S depth slices; the fourth group holds no weights (it reads n's
 //    column in the L2 tier, the same addresses as n's lanes) and its sums
@@ -456,7 +456,7 @@ int gru_scan_fwd(int dtype, const void* xg, const void* wh, const void* bh,
 }
 
 // The eval form (row 9) on scan_chain.cuh's chain: xg, wh, bh and ys as
-// above; the geometry (ops/rnn_scan.py::gru_fwd_geometry) as
+// above; the geometry (ops/rnn_scan.py::chain_geometry) as
 // lstm_scan_fwd's: nc blocks a chain, s depth slices a column, rows a
 // chain, ls of shared-memory depth, rounds.
 int gru_scan_eval(int dtype, const void* xg, const void* wh, const void* bh,

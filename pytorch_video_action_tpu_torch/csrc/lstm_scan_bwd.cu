@@ -59,12 +59,12 @@
 //    tensor cores, rnn_wgmma.cuh's producer ring and wgmma products (row
 //    2's dwh_d, ShiftedRowsT operands), K = T*B split into slices of whole
 //    64-row chunks (ops/rnn_scan.py::dwh_slices), the slices' f32 partials
-//    added in order after: no atomics, reruns are bit-identical.  A slice
-//    sums at most 8 chunks: the f32 sums inside the tensor cores lose
-//    precision with the chunks they add (in f32 1.3e-4 of dwh's largest
-//    element at 240 chunks a slice, 4e-6 at 8;
-//    tools/torch_lstm_scan_dwh_error.py), the ordered sum of the slices
-//    does not.
+//    added in order after: no atomics, reruns are bit-identical.  Inside a
+//    slice the accumulators restart every 8 chunks (run_products' sums):
+//    the f32 sums inside the tensor cores lose precision with the chunks
+//    they add (in f32 1.06e-4 of dwh's largest element at 240 chunks,
+//    past the 1e-4 gate, against 3.6e-6 at 8), the CUDA cores' ordered sum
+//    of the runs does not.
 //
 // The recompute form (row 16) keeps scan_common.cuh's chain: the cell
 // threads form their units' gate gradients, write dxg and put the rounded
@@ -519,7 +519,8 @@ cudaError_t launch_recompute(const void* xg, const void* hp, const void* cp,
 
 // dwh's K-slice partials: block (x, y) is the 64 x 128 tile x (row tile
 // x / pairs, column pair x % pairs) of hp^T dxg [W, G] over the K chunks
-// of slice y, into part + y * W * G.
+// of slice y, into part + y * W * G; each block's accumulators restart
+// every kRestartChunks chunks into its sums, behind the ring.
 template <typename T>
 __global__ void __launch_bounds__(kProdThreads, 1)
 dwh_wgmma_kernel(const ShiftedRowsT<T> hp, const ShiftedRowsT<T> dg,
@@ -547,8 +548,10 @@ dwh_wgmma_kernel(const ShiftedRowsT<T> hp, const ShiftedRowsT<T> dg,
               make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
   };
+  float* sums = reinterpret_cast<float*>(smem + prod_stages<T>() *
+                                                   slot_bytes<T>());
   run_products<T, true, true>(smem, full, empty, hp, m0, W, dg, n0, G, c0,
-                              c1, K, epi);
+                              c1, K, epi, sums);
 }
 
 // dwh [W, 4W] = hp^T dxg over K = T*B rows, f32 partials of `slice_chunks`
@@ -564,7 +567,9 @@ cudaError_t launch_dwh(const void* hp, const void* dxg, void* dwh,
   const int slices = (chunks + slice_chunks - 1) / slice_chunks;
   const int pairs = ((G + kTile - 1) / kTile + 1) / 2;
   const int tiles = (W + kTile - 1) / kTile * pairs;
-  const int smem = prod_smem<T>();
+  constexpr int smem = prod_smem<T>() + kRestartBytes;
+  static_assert(smem + 2 * 8 * kProdStagesMax <= kSmemMax,
+                "dwh's ring and sums pass a block's shared memory");
   cudaError_t err = set_smem(dwh_wgmma_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   dwh_wgmma_kernel<T><<<dim3(tiles, slices), kProdThreads, smem, stream>>>(
@@ -589,7 +594,7 @@ extern "C" {
 // pointers of contiguous tensors: res [T, B, 5W]; hp, cp, dy [T, B, W];
 // wh [W, 4W]; outputs dxg [T, B, 4W] and dwh [W, 4W]; part, dwh's f32
 // partials, ceil(ceil(T*B / 64) / slice_chunks) slices of W * 4W.  The
-// chain's geometry (ops/rnn_scan.py::lstm_bwd_geometry) as lstm_scan_fwd's:
+// chain's geometry (ops/rnn_scan.py::chain_geometry) as lstm_scan_fwd's:
 // nc blocks a chain, s depth slices a column chunk, rows a chain, ls of
 // shared-memory depth, rounds.  Launches on `stream` (the chain, dwh's
 // partials, their sum) and returns the launches' error (0 on success).

@@ -32,7 +32,7 @@
 // 3.11 at B=3, W=64 (the product 0.9 on a 4-block cluster whose whole wh
 // fits one block); 11.4 at B=64 (the product 7.2, the scalar peer stores
 // 4.7).  So this design:
-//  * Geometry from storage (ops/rnn_scan.py::lstm_fwd_geometry): the fewest
+//  * Geometry from storage (ops/rnn_scan.py::chain_geometry): the fewest
 //    blocks NC (up to 8) whose registers hold wh's slices, 128 values a
 //    thread, else the fewest (up to 16) whose registers and shared memory
 //    hold them; a depth past both streams through L2 every step (W > 512
@@ -317,7 +317,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16, the dtype of every tensor.  Device
 // pointers of contiguous tensors: xg [T, B, 4W], wh [W, 4W], ys and cs
 // [T, B, W] and, when save != 0, res [T, B, 5W] (ignored otherwise).
-// The geometry (ops/rnn_scan.py::lstm_fwd_geometry): nc blocks a chain
+// The geometry (ops/rnn_scan.py::chain_geometry): nc blocks a chain
 // (1..16, each owning a unit), s depth slices a gate column (1, 2, 4, 8),
 // rounds, the units a thread takes in turn each step (4 * ceil(ceil(W /
 // nc) / rounds) * s <= 256), rows batch rows a chain (1, 2, 3, 4, 6, 8;

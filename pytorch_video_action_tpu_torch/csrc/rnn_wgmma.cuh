@@ -374,14 +374,22 @@ __device__ __forceinline__ void mma_slot(float (*acc)[32], const char* s,
 // transposed (gather_t), else natural (gather_n).  The consumer multiplies
 // X by Y_0 and by Y_1: X is the A operand (kSharedA; the output's rows are
 // X's) or the B one (the rows are Y_c's), and then calls epi(c, acc) with
-// each m64n64 accumulator.  Thread 0 has initialised the barriers.
+// each m64n64 accumulator.  Thread 0 has initialised the barriers.  With
+// `sums` (kRestartBytes of shared memory) the accumulators restart every
+// kRestartChunks chunks, each run added in order into the consumer thread's
+// own f32 sums there: the tensor cores' f32 sums lose precision with the
+// chunks a run adds (their error of the largest element grows about as
+// the chunks do), the CUDA cores' ordered sum of the runs does not.
+constexpr int kRestartChunks = 8;
+constexpr int kRestartBytes = 2 * 32 * kWg * 4;
 template <typename T, bool kTrans, bool kSharedA, typename LX, typename LY,
           typename Epi>
 __device__ __forceinline__ void run_products(char* smem, uint64_t* full,
                                              uint64_t* empty, const LX& lx,
                                              int x0, int xrows, const LY& ly,
                                              int y0, int yrows, int c0,
-                                             int c1, int kn, const Epi& epi) {
+                                             int c1, int kn, const Epi& epi,
+                                             float* sums = nullptr) {
   constexpr int kChunk = chunk_bytes<T>();
   constexpr int kSlot = slot_bytes<T>();
   Ring ring{smem, full, empty, prod_stages<T>(), 0, 0};
@@ -437,13 +445,33 @@ __device__ __forceinline__ void run_products(char* smem, uint64_t* full,
   float acc[2][32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.0f;
+  // the thread's sums, [64][kWg] so that a warp's accesses take 32 banks
+  const int ct = threadIdx.x - kProducers * kWg;
+  bool summed = false;
   for (int c = c0; c < c1; ++c) {
     const int slot = ring.stage;
     ring.wait_full();
     const char* s = ring.slot(kSlot);
     ring.advance();
-    mma_slot<T, kSharedA>(acc, s, kChunk);
+    mma_slot<T, kSharedA>(acc, s, kChunk);  // ends with its wgmmas done
     ring.release(slot);
+    if (sums != nullptr && (c - c0) % kRestartChunks == kRestartChunks - 1 &&
+        c + 1 < c1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float& a = acc[i / 32][i % 32];
+        sums[i * kWg + ct] = summed ? sums[i * kWg + ct] + a : a;
+        a = 0.0f;
+      }
+      summed = true;
+    }
+  }
+  if (summed) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float& a = acc[i / 32][i % 32];
+      a = sums[i * kWg + ct] + a;
+    }
   }
   epi(0, acc[0]);
   epi(1, acc[1]);

@@ -194,24 +194,6 @@ def chain_geometry(b, w, dtype, sms, fits, inputs=1) -> FwdGeometry:
     raise ValueError(f"chain kernel: no launch takes W={w} on this card")
 
 
-def lstm_fwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
-    """The LSTM scan forward's launch (rows 13, 14): :func:`chain_geometry`."""
-    return chain_geometry(b, w, dtype, sms, fits)
-
-
-# The GRU scan eval forward's launch (row 9) is the LSTM forward's: its r,
-# z and n columns take three of a unit's four lane groups (the fourth idle,
-# so that a unit's lanes divide a warp), bh beside.
-gru_fwd_geometry = lstm_fwd_geometry
-
-
-def lstm_bwd_geometry(b, w, dtype, sms, fits) -> FwdGeometry:
-    """The LSTM scan saved-gates backward's launch (row 15): a thread keeps
-    a slice of a row of wh where the forward keeps one of a column, the same
-    count, and its input a row is the 4W rounded gate gradients."""
-    return chain_geometry(b, w, dtype, sms, fits, inputs=4)
-
-
 # ------------------------------------------------------------ plain versions
 
 
@@ -386,7 +368,7 @@ _FITS: dict = {}
 
 
 def _cluster_fits(device):
-    """``fits(nc)`` of :func:`lstm_fwd_geometry` on ``device``: the
+    """``fits(nc)`` of :func:`chain_geometry` on ``device``: the
     kernel's own occupancy query (``lstm_scan_fwd_clusters``) for blocks of
     256 threads, which take an SM each, as every launch's blocks of 160 or
     more threads do; -1 where the card refuses the size."""
@@ -410,8 +392,7 @@ def _fwd(xg, wh, save):
     cs = torch.empty_like(ys)
     res = (torch.empty((t_len, b, _RES * w), dtype=xg.dtype, device=xg.device)
            if save else None)
-    geo = lstm_fwd_geometry(b, w, xg.dtype, _sms(xg.device),
-                            _cluster_fits(xg.device))
+    geo = scan_launch("lstm_scan_fwd", b, w, xg.dtype, xg.device)
     _launch("lstm_scan_fwd", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
             wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
             0 if res is None else res.data_ptr(), t_len, b, w, int(save),
@@ -450,43 +431,37 @@ def lstm_scan_fwd_save(xg, wh):
 lstm_scan_fwd_save.launches = 0
 
 
-# dwh's K slices on the tensor cores: at most this many 64-row chunks a
-# slice, and past it as many slices as this many bytes of f32 partials
-# hold (at least DWH_MIN_SLICES): the f32 sums inside the tensor cores lose
-# precision with the chunks a slice sums (1.3e-4 of dwh's largest element
-# at 240 chunks, W=512, 7e-6 at 15; tools/torch_lstm_scan_dwh_error.py),
-# the slices' sum in order on the CUDA cores does not
-DWH_SLICE_CHUNKS = 8
-DWH_PART_BYTES = 256 << 20
-DWH_MIN_SLICES = 2
-
-
 def dwh_slices(t_len, b, w, sms):
     """``(chunks a K slice, slices)`` of the LSTM scan's dwh ``[W, 4W]``
-    over K = T*B on the tensor cores (csrc/lstm_scan_bwd.cu): its 64 x 128
-    tiles' :func:`~.rnn_fused.slice_chunks`, at most ``DWH_SLICE_CHUNKS``
-    a slice, but no more slices than ``DWH_PART_BYTES`` of partials hold
-    (or ``DWH_MIN_SLICES``)."""
+    over K = T*B on the tensor cores (csrc/lstm_scan_bwd.cu, whose blocks
+    restart their accumulators every 8 chunks of a slice): one slice where
+    its 64 x 128 tiles alone fill the card's ``sms`` (more would only trim
+    the last wave, at W*4W f32 of partials a slice: 4 GiB for 16 slices at
+    W=4096), else the tiles' :func:`~.rnn_fused.slice_chunks`."""
     rows = t_len * b
     chunks = _ceil(rows, _CHUNK)
     tiles = _ceil(w, _CHUNK) * _ceil(_ceil(_GATES * w, _CHUNK), 2)
-    most = max(DWH_MIN_SLICES, DWH_PART_BYTES // (4 * w * _GATES * w))
-    depth = max(min(slice_chunks(rows, tiles, sms), DWH_SLICE_CHUNKS),
-                _ceil(chunks, most))
+    depth = chunks if tiles >= sms else slice_chunks(rows, tiles, sms)
     return depth, _ceil(chunks, depth)
+
+
+# the chain kernels' entry points (csrc/scan_chain.cuh), each with its
+# input vectors of W a row: the saved-gates backward's are the 4W gate
+# gradients; the GRU's eval forward takes the LSTM forward's launch, its
+# r, z and n columns on three of a unit's four lane groups (the fourth
+# idle, so that a unit's lanes divide a warp), bh beside
+_CHAIN_INPUTS = {"lstm_scan_fwd": 1, "lstm_scan_fwd_save": 1,
+                 "gru_scan_fwd": 1, "lstm_scan_bwd_saved": 4}
 
 
 def scan_launch(entry, b, w, dtype, device):
     """The launch of a scan kernel's wrapper ``entry`` on ``device``: the
     chain's :class:`FwdGeometry` (rows 9, 13, 14, 15), else the cluster
     scan_common.cuh's chain takes."""
-    geometry = {"lstm_scan_fwd": lstm_fwd_geometry,
-                "lstm_scan_fwd_save": lstm_fwd_geometry,
-                "gru_scan_fwd": gru_fwd_geometry,
-                "lstm_scan_bwd_saved": lstm_bwd_geometry}.get(entry)
-    if geometry is None:
+    if entry not in _CHAIN_INPUTS:
         return {"cluster": cluster_size(w)}
-    return geometry(b, w, dtype, _sms(device), _cluster_fits(device))
+    return chain_geometry(b, w, dtype, _sms(device), _cluster_fits(device),
+                          _CHAIN_INPUTS[entry])
 
 
 def _bwd(where, first, width, hp, cp, cs, dy, wh):
@@ -501,9 +476,8 @@ def _bwd(where, first, width, hp, cp, cs, dy, wh):
     part = torch.empty((slices, w * _GATES * w), dtype=torch.float32,
                        device=first.device)  # dwh's K-slice partials
     code = _DTYPE_CODE[first.dtype]
-    if cs is None:  # the saved gates, on the chain of lstm_bwd_geometry
-        geo = lstm_bwd_geometry(b, w, first.dtype, _sms(first.device),
-                                _cluster_fits(first.device))
+    if cs is None:  # the saved gates, on their chain
+        geo = scan_launch(where, b, w, first.dtype, first.device)
         _launch("lstm_scan_bwd_saved", first, code, first.data_ptr(),
                 hp.data_ptr(), cp.data_ptr(), dy.data_ptr(), wh.data_ptr(),
                 dxg.data_ptr(), dwh.data_ptr(), part.data_ptr(), t_len, b, w,
@@ -723,9 +697,8 @@ def _gru_fwd(xg, wh, bh, save):
     where = "gru_scan_fwd_save" if save else "gru_scan_fwd"
     t_len, b, w = _gru_check(where, xg, _GRU_GATES, wh, bh, ())
     ys = torch.empty((t_len, b, w), dtype=xg.dtype, device=xg.device)
-    if not save:  # the eval form, on the chain of gru_fwd_geometry
-        geo = gru_fwd_geometry(b, w, xg.dtype, _sms(xg.device),
-                               _cluster_fits(xg.device))
+    if not save:  # the eval form, on its chain
+        geo = scan_launch(where, b, w, xg.dtype, xg.device)
         _launch("gru_scan_eval", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
                 wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), t_len, b, w,
                 geo.nc, geo.s, geo.rows, geo.ls, geo.rounds)

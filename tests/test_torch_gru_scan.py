@@ -213,12 +213,12 @@ def test_gru_fwd_geometry_covers_every_width(dtype, fits):
     size = 4 if dtype == torch.float32 else 2
     for w in range(1, S.GRU_W_MAX + 1):
         for b in (1, 3, 8, 64):
-            _check_chain(S.gru_fwd_geometry(b, w, dtype, 132, fits), w, size)
-    geo = S.gru_fwd_geometry(3, 96, dtype, 132, fits)
+            _check_chain(S.chain_geometry(b, w, dtype, 132, fits), w, size)
+    geo = S.chain_geometry(3, 96, dtype, 132, fits)
     assert geo.nc == 2 and geo.depth <= S.FWD_REG_VALS
-    geo = S.gru_fwd_geometry(8, 256, dtype, 132, fits)
+    geo = S.chain_geometry(8, 256, dtype, 132, fits)
     assert (geo.nc, geo.rows) == (8, 1) and geo.depth <= S.FWD_REG_VALS
-    geo = S.gru_fwd_geometry(8, 768, dtype, 132, fits)
+    geo = S.chain_geometry(8, 768, dtype, 132, fits)
     assert geo.depth > S.FWD_REG_VALS + geo.ls or geo.rounds > 1
 
 
@@ -227,7 +227,7 @@ def test_gru_fwd_geometry_takes_wide_widths_in_rounds():
     8-block chain (W > 512) take rounds, every weight through L2."""
     for w in (513, 640, 768):
         for dtype in (torch.float32, torch.bfloat16):
-            geo = S.gru_fwd_geometry(8, w, dtype, 132, _no16)
+            geo = S.chain_geometry(8, w, dtype, 132, _no16)
             assert geo.nc == 8 and geo.rounds == 2 and geo.ls == 0
 
 

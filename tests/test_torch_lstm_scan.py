@@ -153,7 +153,7 @@ def test_cluster_size(w, n):
     assert S.cluster_size(w) == n
 
 
-# ``fits`` of lstm_fwd_geometry for a card of 132 SMs: every SM usable by
+# ``fits`` of chain_geometry for a card of 132 SMs: every SM usable by
 # clusters of any size, or GPCs that hold fewer (15 of 8 blocks, 7 of 16)
 def _all_sms(nc):
     return 132 // nc
@@ -202,17 +202,17 @@ def test_lstm_fwd_geometry_covers_w_and_fits_the_card(dtype):
     size = 4 if dtype == torch.float32 else 2
     for w in range(1, 1025):
         for b in (1, 3, 8, 11, 64, 141):
-            geo = S.lstm_fwd_geometry(b, w, dtype, 132, _all_sms)
+            geo = S.chain_geometry(b, w, dtype, 132, _all_sms)
             _check_fwd_geometry(geo, b, w, size)
             assert geo.rounds == 1
             assert -(-b // geo.rows) * geo.nc <= 132 or geo.rows == 8
             if w <= 256 and b <= 8:
                 assert geo.rows == 1 and b * geo.nc <= 132
-    assert S.lstm_fwd_geometry(3, 64, dtype, 132, _all_sms).nc == 1
-    assert S.lstm_fwd_geometry(8, 256, dtype, 132, _all_sms).nc == 8
+    assert S.chain_geometry(3, 64, dtype, 132, _all_sms).nc == 1
+    assert S.chain_geometry(8, 256, dtype, 132, _all_sms).nc == 8
     # 15 clusters of 8 blocks at once: B=64 takes 6 rows a chain (11
     # chains), not 4 (16 chains, one of them after the rest)
-    bench = lambda fits: S.lstm_fwd_geometry(  # noqa: E731
+    bench = lambda fits: S.chain_geometry(  # noqa: E731
         64, 256, torch.float32, 132, fits)
     assert bench(_all_sms).rows == 4 and bench(_gpcs).rows == 6
 
@@ -227,17 +227,17 @@ def test_lstm_fwd_geometry_takes_wide_widths_in_rounds(dtype):
     size = 4 if dtype == torch.float32 else 2
     for w in (1025, 1100, 1500, 2047, 2048, 3000, 4096, 8192, 16384):
         for b in (1, 3, 8, 64):
-            geo = S.lstm_fwd_geometry(b, w, dtype, 132, _gpcs)
+            geo = S.chain_geometry(b, w, dtype, 132, _gpcs)
             _check_fwd_geometry(geo, b, w, size)
             units = -(-w // 16)
             assert geo.nc == 16 and geo.rounds == -(-units // 64)
-    assert S.lstm_fwd_geometry(3, 2048, dtype, 132, _gpcs).rows == 1
-    assert S.lstm_fwd_geometry(8, 2048, dtype, 132, _gpcs).rows == 2
-    assert S.lstm_fwd_geometry(64, 2048, dtype, 132, _gpcs).rows == 4
+    assert S.chain_geometry(3, 2048, dtype, 132, _gpcs).rows == 1
+    assert S.chain_geometry(8, 2048, dtype, 132, _gpcs).rows == 2
+    assert S.chain_geometry(64, 2048, dtype, 132, _gpcs).rows == 4
     # at 8192 four rows' h would pass the shared memory: two
-    assert S.lstm_fwd_geometry(64, 8192, dtype, 132, _gpcs).rows == 2
+    assert S.chain_geometry(64, 8192, dtype, 132, _gpcs).rows == 2
     with pytest.raises(ValueError, match="no launch takes W=30000"):
-        S.lstm_fwd_geometry(3, 30000, dtype, 132, _gpcs)
+        S.chain_geometry(3, 30000, dtype, 132, _gpcs)
 
 
 def test_lstm_fwd_geometry_asks_fits_only_of_the_counts_it_weighs():
@@ -256,8 +256,8 @@ def test_lstm_fwd_geometry_asks_fits_only_of_the_counts_it_weighs():
 
     for w, b in ((64, 3), (64, 64), (256, 8), (256, 64)):
         for dtype in (torch.float32, torch.bfloat16):
-            geo = S.lstm_fwd_geometry(b, w, dtype, 132, no16)
-            assert geo == S.lstm_fwd_geometry(b, w, dtype, 132, _gpcs)
+            geo = S.chain_geometry(b, w, dtype, 132, no16)
+            assert geo == S.chain_geometry(b, w, dtype, 132, _gpcs)
     assert 16 not in asked and set(asked) == {1, 8}
 
     def none16(nc):
@@ -265,13 +265,13 @@ def test_lstm_fwd_geometry_asks_fits_only_of_the_counts_it_weighs():
 
     for w, rounds in ((512, 1), (1024, 2), (2048, 4)):
         for b in (3, 8, 64):
-            geo = S.lstm_fwd_geometry(b, w, torch.float32, 132, none16)
+            geo = S.chain_geometry(b, w, torch.float32, 132, none16)
             _check_fwd_geometry(geo, b, w, 4)
             assert (geo.nc, geo.rounds) == (8, rounds)
-    geo = S.lstm_fwd_geometry(8, 512, torch.float32, 132, none16)
+    geo = S.chain_geometry(8, 512, torch.float32, 132, none16)
     assert geo.depth > S.FWD_REG_VALS + geo.ls  # the tail through L2
     with pytest.raises(ValueError, match="no launch"):
-        S.lstm_fwd_geometry(3, 64, torch.float32, 132, lambda nc: -1)
+        S.chain_geometry(3, 64, torch.float32, 132, lambda nc: -1)
 
 
 @pytest.mark.parametrize("shape", [(3, 7), (3, 7, 5), (2, 6, 2, 3)])
@@ -299,15 +299,16 @@ def test_lstm_bwd_geometry_covers_w_and_fits_the_card(dtype, fits):
     size = 4 if dtype == torch.float32 else 2
     for w in range(1, 4097):
         for b in (1, 8, 64):
-            geo = S.lstm_bwd_geometry(b, w, dtype, 132, fits)
+            geo = S.chain_geometry(b, w, dtype, 132, fits, inputs=4)
             _check_fwd_geometry(geo, b, w, size, inputs=4)
-            fwd = S.lstm_fwd_geometry(b, w, dtype, 132, fits)
+            fwd = S.chain_geometry(b, w, dtype, 132, fits)
             assert geo.nc >= fwd.nc
             if fwd.depth <= S.FWD_REG_VALS:
                 assert (geo.nc, geo.s) == (fwd.nc, fwd.s)
             assert (geo.rounds > 1) == (w > 1024)
-    assert S.lstm_bwd_geometry(8, 256, dtype, 132, _gpcs)[:3] == (8, 2, 1)
-    assert S.lstm_bwd_geometry(64, 256, dtype, 132, _gpcs).rows == 6
+    geo = S.chain_geometry(8, 256, dtype, 132, _gpcs, inputs=4)
+    assert geo[:3] == (8, 2, 1)
+    assert S.chain_geometry(64, 256, dtype, 132, _gpcs, inputs=4).rows == 6
 
 
 @pytest.mark.parametrize("w", [1025, 2048, 4096, 6000])
@@ -318,15 +319,15 @@ def test_lstm_bwd_geometry_takes_wide_widths_in_rounds(dtype, w):
     4W gradients' buffers would pass the shared memory (at 6000 one); one
     row's buffers pass it past W = 6968, which is refused."""
     for b in (1, 3, 8, 64):
-        geo = S.lstm_bwd_geometry(b, w, dtype, 132, _gpcs)
+        geo = S.chain_geometry(b, w, dtype, 132, _gpcs, inputs=4)
         _check_fwd_geometry(geo, b, w, 4 if dtype == torch.float32 else 2,
                             inputs=4)
         assert geo.nc == 16 and geo.rounds == -(-(-(-w // 16)) // 64)
         assert geo.ls == 0
-    assert S.lstm_bwd_geometry(64, 6000, dtype, 132, _gpcs).rows == 1
-    assert S.lstm_bwd_geometry(3, 6968, dtype, 132, _gpcs).rows == 1
+    assert S.chain_geometry(64, 6000, dtype, 132, _gpcs, inputs=4).rows == 1
+    assert S.chain_geometry(3, 6968, dtype, 132, _gpcs, inputs=4).rows == 1
     with pytest.raises(ValueError, match="no launch takes W=6969"):
-        S.lstm_bwd_geometry(3, 6969, dtype, 132, _gpcs)
+        S.chain_geometry(3, 6969, dtype, 132, _gpcs, inputs=4)
 
 
 def _steps_tool():
@@ -364,19 +365,21 @@ def test_step_tool_edits_hold_their_sources_lines(kernel):
 @pytest.mark.parametrize("t,b,w", [(1920, 8, 256), (1920, 8, 512),
                                    (1024, 64, 256), (1920, 8, 1024),
                                    (1920, 8, 4096), (64, 3, 4096), (40, 8, 64)])
-def test_dwh_slices_bound_the_chunks_a_slice_and_the_scratch(t, b, w):
-    """dwh's K slices (``dwh_slices``) cover T*B in whole 64-row chunks, sum
-    at most ``DWH_SLICE_CHUNKS`` chunks a slice on the tensor cores, and
-    keep their f32 partials within ``DWH_PART_BYTES`` (or
-    ``DWH_MIN_SLICES`` slices, past it)."""
+def test_dwh_slices_cover_k_in_the_tiles_slices(t, b, w):
+    """dwh's K slices (``dwh_slices``) cover T*B in whole 64-row chunks:
+    one slice where its 64 x 128 tiles fill the card's 132 SMs, else the
+    depth ``rnn_fused.slice_chunks`` gives the tiles.  The kernel, not the
+    slice depth, bounds the chunks its tensor cores sum (it restarts them
+    every 8 chunks), so a slice may be the whole of K."""
+    from pytorch_video_action_tpu_torch.ops.rnn_fused import slice_chunks
+
     depth, slices = S.dwh_slices(t, b, w, 132)
     chunks = -(-(t * b) // 64)
     assert slices == -(-chunks // depth) and (slices - 1) * depth < chunks
-    part = slices * 4 * w * 4 * w
-    assert part <= S.DWH_PART_BYTES or slices <= S.DWH_MIN_SLICES
-    if depth > S.DWH_SLICE_CHUNKS:
-        # only where shorter slices' partials would pass the budget
-        assert -(-chunks // S.DWH_SLICE_CHUNKS) * 16 * w * w > \
-            S.DWH_PART_BYTES
+    tiles = -(-w // 64) * -(-(4 * w) // 128)
+    if tiles >= 132:
+        assert slices == 1 and w >= 512
+    else:
+        assert depth == slice_chunks(t * b, tiles, 132)
     if (t, b, w) == (1920, 8, 256):
-        assert (depth, slices) == (8, 30)
+        assert (depth, slices) == (60, 4)

@@ -9,9 +9,7 @@ of copies with one part of the step taken out.  On one NVIDIA GPU:
 ``--kernel`` picks the scan kernel by its row in ``PERF.md``: 13, the LSTM
 scan's eval forward (``csrc/lstm_scan_fwd.cu``, the default); 9, the GRU
 scan's eval forward (``csrc/gru_scan_fwd.cu``); 15, the LSTM scan's
-saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh); 14
-and 16, the saving forward and the recompute backward, as built only
-(their time beside another checkout's).
+saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh).
 Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
 csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
 design, for example an earlier commit unpacked with ``git archive``, may be
@@ -137,11 +135,6 @@ KERNELS = {
                   "skeleton": [*_L15_PRODUCT, *_L15_GATES, *_L15_EXCHANGE,
                                *_L15_DWH]},
                  ["8,1920,256", "64,1024,256"]),
-    # the kernel as built only: the saving forward (row 13's template) and
-    # the recompute backward
-    "14": Kernel("lstm_scan_fwd", "lstm_scan_fwd_save", {},
-                 ["8,1920,256", "64,1024,256"]),
-    "16": Kernel("lstm_scan_bwd", "lstm_scan_bwd", {}, ["8,1920,256"]),
 }
 
 
@@ -220,18 +213,16 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt):
                                                gen, cell)
     if kernel == "9":
         return xg, wh, bh
-    if kernel in ("13", "14"):
+    if kernel == "13":
         return xg, wh
     ys, cs, res = RS.lstm_scan_fwd_save(xg, wh)
-    if kernel == "16":
-        return xg, RS._shift(ys), RS._shift(cs), cs, dy, wh
     return res, RS._shift(ys), RS._shift(cs), dy, wh
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
-                    help="the kernel's row: 13, 9, 15, 14 or 16")
+                    help="the kernel's row: 13, 9 or 15")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
     ap.add_argument("--shapes", nargs="*",
@@ -266,10 +257,10 @@ def main(argv=None) -> int:
             device = inputs[(b, t_len, w, dt)][0].device
             if hasattr(RS, "scan_launch"):
                 geo = RS.scan_launch(kern.wrapper, b, w, dt, device)
-            elif kern.wrapper.startswith("lstm_scan_fwd"):
+            elif kern.wrapper.startswith("lstm_scan_fwd"):  # an older tree
                 geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(device),
                                            RS._cluster_fits(device))
-            else:  # a checkout from before the chains took these rows
+            else:  # a checkout from before the chains took rows 9 and 15
                 geo = f"cluster of {RS.cluster_size(w)}"
             print(f"{str(dt)[6:]} B={b} W={w}: {geo}", flush=True)
 
