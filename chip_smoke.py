@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together, beside
    the step-split builds of ``tools/torch_lstm_scan_steps.py`` for rows 13,
-   9 and 15) and prints the build time and
+   9, 15 and 1) and prints the build time and
    ``-Xptxas -v`` (and, for each flash kernel
    and each of the GRU layer backward's product kernels, its registers,
    spills and any wgmma serialization); checks with ``cuobjdump -sass``
@@ -50,8 +50,10 @@ Phases, in order; any failure exits non-zero:
    on), each against the plain version.
    Then the LSTM scan's four kernels (the eval and saving forwards, the
    saved-gates and the recompute backward) at an odd width (W=100) and one
-   past a block's registers (W=512), B=8, T=1920, f32, and at the bench
-   shape (B=64, T=1024, W=256) in f32 and bf16: each against its plain
+   past a block's registers (W=512), B=8, T=1920, f32, at the bench
+   shape (B=64, T=1024, W=256) in f32 and bf16, and at W=8192 (B=3,
+   T=32, f32: the backwards' gradients in device memory, past where one
+   row's pass the shared memory): each against its plain
    version and a rerun, the eval form's ys and cs against the saving
    form's (bit for bit), timed beside nn.LSTM (one direction, packed) and
    its bound (the saved-gates backward's with dwh on the tensor cores,
@@ -61,7 +63,13 @@ Phases, in order; any failure exits non-zero:
    step part (µs a step of each step-split build, ``step_us``).  Then the
    GRU scan's four kernels the
    same way (beside nn.GRU) at an odd width (W=96) and W=512, B=8, T=1920,
-   and at the serving shape B=3, T=1280, W=256, in f32 and bf16.
+   at the serving shape B=3, T=1280, W=256, at W=2048 (B=3, T=128: the
+   backwards' one-row chains), in f32 and bf16, and at W=12000 (B=2,
+   T=16, f32: their gradients in device memory).  The GRU layer forward
+   (row 1, eval
+   and train forms) is also timed by kernel (its input projection and its
+   recurrence, ``part_ms``) wherever it is held, and at bigru's serving
+   and training shapes in phases 4-5 also by step part (``step_us``).
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
    test videos) and full-width bigru, bilstm and attn checkpoints into a
    temporary directory.  For each model: repeats phase 3's forward checks
@@ -114,8 +122,10 @@ Phases, in order; any failure exits non-zero:
    kernels held at the largest train batch (W=256, the batch's own
    lengths, f32 and bf16; the eval form also by step part); one Trainer
    step each of BiGRU at
-   ``hidden_dim_1`` 512 and 192 and attn at ``hidden_dim`` 192 (launch
-   counts, gradients against the CPU, frames/s), one BiGRU 512 step with
+   ``hidden_dim_1`` 512, 192 and 2048 (H=1024, the scan past the 768 it
+   once stopped at) and attn at ``hidden_dim`` 192 (launch counts,
+   gradients against the CPU within 1e-3 of each tensor's largest
+   element, frames/s), one BiGRU 512 step with
    the recompute backward against the saved-gates step, and the BiGRU
    512 eval forward over the test videos (launch counts, frames/s).
 6. the ``PVA_RNN_SPLIT=0`` route (``rnn_fused.SPLIT`` set to False for
@@ -481,15 +491,17 @@ def phase_build():
     t0 = time.time()
     _STEPS_DIR = tempfile.TemporaryDirectory()
     tool = steps_tool()
+    # the edited copies; each kernel as it is is the build below
     jobs = {row: tool.start_builds(cuda_lib.CSRC, Path(_STEPS_DIR.name),
-                                   kernel=row)
-            for row in tool.KERNELS}
+                                   names=list(kern.edits), kernel=row)
+            for row, kern in tool.KERNELS.items()}
     logs = cuda_lib.build_all(ptxas_verbose=True)
     for row, got in jobs.items():
-        SCAN_STEPS[row] = tool.finish_builds(got)
+        SCAN_STEPS[row] = {"as is": cuda_lib.load(tool.KERNELS[row].source),
+                           **tool.finish_builds(got)}
     log(f"[build] {len(logs)} source(s) and the step-split builds of rows "
         f"{', '.join(SCAN_STEPS)} ("
-        f"{sum(len(v) for v in SCAN_STEPS.values())}) compiled in "
+        f"{sum(len(v) - 1 for v in SCAN_STEPS.values())}) compiled in "
         f"{time.time() - t0:.1f} s")
     for name, text in logs.items():
         log(f"[build] -Xptxas -v for {name}:")
@@ -639,9 +651,10 @@ BWD_PARTS = {"wgrad_wgmma_kernel": "products", "dx_wgmma_kernel": "products",
              "bias_reduce_kernel": "bias"}
 
 
-def part_ms(fn, iters: int = 5) -> dict:
-    """Device time (ms) one call of ``fn`` spends in each part of
-    ``BWD_PARTS`` (and in any other kernel), from ``torch.profiler``'s
+def part_ms(fn, iters: int = 5, parts=None) -> dict:
+    """Device time (ms) one call of ``fn`` spends in each part of ``parts``
+    (``{kernel name: part}``, ``BWD_PARTS`` unless given; and in any other
+    kernel), from ``torch.profiler``'s
     kernel events over ``iters`` calls: each kernel's mean over the events
     recorded, summed by part.  The tracing may start after the first
     launches, so the calls begin after a short pause inside the profiler
@@ -650,6 +663,7 @@ def part_ms(fn, iters: int = 5) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    parts = BWD_PARTS if parts is None else parts
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -664,29 +678,57 @@ def part_ms(fn, iters: int = 5) -> dict:
             if (e.device_type != torch.autograd.DeviceType.CUDA
                     or e.is_user_annotation):
                 continue
-            name = next((k for k in BWD_PARTS if k in e.name), e.name)
+            name = next((k for k in parts if k in e.name), e.name)
             us.setdefault(name, []).append(e.time_range.elapsed_us())
-        missing = [k for k in BWD_PARTS if k not in us]
+        missing = [k for k in parts if k not in us]
         if not missing:
             break
         log(f"[kernel] the profiler saw no event of {missing} "
             f"(session {attempt + 1})")
     if missing:
         raise AssertionError(f"the profiler saw no event of {missing}")
-    parts = dict.fromkeys([*dict.fromkeys(BWD_PARTS.values()), "other"], 0.0)
+    out = dict.fromkeys([*dict.fromkeys(parts.values()), "other"], 0.0)
     for name, times in us.items():
-        parts[BWD_PARTS.get(name, "other")] += sum(times) / len(times) / 1e3
-    return parts
+        out[parts.get(name, "other")] += sum(times) / len(times) / 1e3
+    return out
 
 
 def parts_text(parts: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms"
 
 
-def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
+def layer_split(cell, fn, args, t_len, steps):
+    """The GRU layer forward's (row 1's) device time by kernel, its input
+    projection and its recurrence (``part_ms``), and with ``steps`` its
+    recurrence by step part (µs a step of each build of ``SCAN_STEPS["1"]``,
+    ``step_us``): the keys to add to its row; none for the LSTM's."""
+    if cell.lstm:
+        return {}
+    tool = steps_tool()
+    out = {"parts_ms": part_ms(lambda: fn(*args), parts=tool.LAYER_PARTS)}
+    if steps:
+        out["step_us"] = tool.step_us(SCAN_STEPS["1"], fn, args, t_len,
+                                      cuda_ms, kernel="1")
+    return out
+
+
+def split_text(row) -> str:
+    """``layer_split``'s keys of a row, as a log's tail."""
+    text = ""
+    if "parts_ms" in row:
+        text += f"; by kernel {parts_text(row['parts_ms'])}"
+    if "step_us" in row:
+        text += "; step split, us a step: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in row["step_us"].items())
+    return text
+
+
+def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
+                steps=False):
     """Hold the eval-form kernel against its plain version on one input and
-    time the kernel, the plain version and the library yardstick.  Raises
-    when they disagree.  Returns the row for the ``kernels`` line."""
+    time the kernel, the plain version and the library yardstick (the GRU's
+    also by kernel and, with ``steps``, by step part: ``layer_split``).
+    Raises when they disagree.  Returns the row for the ``kernels`` line."""
     import torch
 
     dt = getattr(torch, dt_name)
@@ -709,13 +751,14 @@ def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
            "T": t_len, "max_abs_err": max(err_f, err_b), "tol": TOL[dt_name],
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           **layer_split(cell, cell.fwd, (x, *ws, lengths), t_len, steps)}
     log(f"[kernel] {cell.fwd_name} {where} B={b} T={t_len} W_in={w_in} "
         f"{dt_name}: max|ysf-ref|={err_f:.3g} max|ysb-ref|={err_b:.3g} "
         f"(tol {TOL[dt_name]}), max|ysb| on padding={pad_b:.3g}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"{cell.library} packed {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
+        f"({bound_by}){split_text(row)}")
     if not (err_f <= TOL[dt_name] and err_b <= TOL[dt_name]):
         raise AssertionError(f"kernel disagrees with its plain version: {row}")
     if pad_b != 0.0:
@@ -723,10 +766,11 @@ def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     return row
 
 
-def check_layers(cell, where, lengths, t_len, gen):
+def check_layers(cell, where, lengths, t_len, gen, steps=False):
     """``check_layer`` for layer 0 (W_in=400) and the later layers (256), in
-    f32 and bf16."""
-    return [check_layer(cell, where, lengths, t_len, w_in, dt_name, gen)
+    f32 and bf16; with ``steps`` layer 0's also by step part."""
+    return [check_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
+                        steps and w_in == 400)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
 
 
@@ -741,11 +785,16 @@ def rel_err(got, want):
     return abs_err, rel
 
 
-def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
+def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
+                      steps=False):
     """Hold the train-form forward and the backward against their plain
     versions on one input, and time each beside its plain version, the
-    library yardstick and its bound.  Raises when they disagree.  Returns
-    the rows ``(train_form, backward)`` for the ``kernels`` line."""
+    library yardstick and its bound (the GRU's train form also by kernel
+    and, with ``steps``, by step part: ``layer_split``).  Raises when they
+    disagree.  Returns the rows ``(train_form, backward)`` for the
+    ``kernels`` line."""
+    import functools
+
     import torch
 
     dt = getattr(torch, dt_name)
@@ -773,11 +822,14 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     fwd_row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
                "T": t_len, "max_abs_err": err_fwd, "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **layer_split(cell, functools.partial(cell.fwd, train=True),
+                             (x, *ws, lengths), t_len, steps)}
     log(f"[kernel] {cell.fwd_name} train form {head}: max|out-ref|="
         f"{abs_fwd:.3g}, error {err_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, {cell.library} packed with autograd "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+        f"{split_text(fwd_row)}")
     if not err_fwd <= tol:
         raise AssertionError(f"train form disagrees with its plain version: "
                              f"{fwd_row}")
@@ -818,11 +870,12 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     return fwd_row, bwd_row
 
 
-def check_train_layers(cell, where, lengths, t_len, gen):
-    """``check_train_layer`` for W_in 400 and 256, f32 and bf16: lists of
-    train-form rows and of backward rows."""
+def check_train_layers(cell, where, lengths, t_len, gen, steps=False):
+    """``check_train_layer`` for W_in 400 and 256, f32 and bf16 (with
+    ``steps`` W_in 400's train form also by step part): lists of train-form
+    rows and of backward rows."""
     rows = [check_train_layer(cell, where, lengths, t_len, w_in, dt_name,
-                              gen)
+                              gen, steps and w_in == 400)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
     return [r[0] for r in rows], [r[1] for r in rows]
 
@@ -1013,21 +1066,24 @@ def phase_kernels():
         if where == "bench":
             lengths = [t_len] * b
         for dt_name in dtypes:
-            for name, got in check_scan(where, lengths, t_len, w, dt_name,
-                                        gen, steps=where == "bench").items():
+            for name, got in check_scan(
+                    where, lengths, t_len, w, dt_name, gen,
+                    steps=where == "bench").items():
                 rows.setdefault(name, []).extend(got)
-    log(f"[kernel] LSTM scan checks at W=100, W=512 and the bench shape in "
+    log(f"[kernel] LSTM scan checks at W=100, W=512, the bench shape and "
+        f"W=8192 in "
         f"{time.time() - t0:.1f} s")
     t0 = time.time()
-    for where, b, t_len, w, lengths in GSCAN_EXTRA:
+    for where, b, t_len, w, lengths, dtypes in GSCAN_EXTRA:
         if lengths is None:
             lengths = torch.randint(1, t_len + 1, (b,), generator=gen).tolist()
             lengths[0] = t_len
-        for dt_name in DTYPES:
-            for name, got in check_scan(where, lengths, t_len, w, dt_name,
-                                        gen, cell="gru").items():
+        for dt_name in dtypes:
+            for name, got in check_scan(
+                    where, lengths, t_len, w, dt_name, gen, cell="gru").items():
                 rows.setdefault(name, []).extend(got)
-    log(f"[kernel] GRU scan checks at W=96, W=512 and the serving shape in "
+    log(f"[kernel] GRU scan checks at W=96, W=512, the serving shape, "
+        f"W=2048 and W=12000 in "
         f"{time.time() - t0:.1f} s")
     return rows
 
@@ -1238,26 +1294,38 @@ VANILLA_SERVE = 1
 VANILLA_SERVE_FLAGS = ["--lstm_hidden1", "64", "--lstm_layer", "1",
                        "--lstm_dropout", "0"]
 # (where, B, T, W, dtypes) beside the main paths' shapes: an odd width and
-# one whose weight slices pass a block's registers (f32), and the bench
-# shape (B=64, T=1024, bench.py's, every frame valid; W=256, vanilla_lstm's)
+# one whose weight slices pass a block's registers (f32), the bench shape
+# (B=64, T=1024, bench.py's, every frame valid; W=256, vanilla_lstm's), and
+# a width past where one row's gate gradients fit the shared memory (the
+# backwards' device-memory forms)
 SCAN_EXTRA = [("odd width", 8, 1920, 100, ("float32",)),
               ("wide", 8, 1920, 512, ("float32",)),
-              ("bench", B_BENCH, T_BENCH, 256, DTYPES)]
+              ("bench", B_BENCH, T_BENCH, 256, DTYPES),
+              ("gradients in device memory", 3, 32, 8192, ("float32",))]
 # the GRU scan's entries of the kernels line, as SCAN's
 GSCAN = {"gru_scan_fwd": ("gru_scan_fwd.cu", "92"),
          "gru_scan_fwd_save": ("gru_scan_fwd.cu", "147"),
          "gru_scan_bwd_saved": ("gru_scan_bwd.cu", "202"),
          "gru_scan_bwd": ("gru_scan_bwd.cu", "282")}
-# BiGRU at hidden_dim_1 512 and 192 (H=256 and 96 a direction) and attn at
-# hidden_dim 192 (H=96): widths the fused layer kernel refuses, so their
-# GRU runs the scan, as JAX's does there
-GRU_WIDE = {"bigru": [{"hidden_dim_1": 512}, {"hidden_dim_1": 192}],
+# BiGRU at hidden_dim_1 512, 192 and 2048 (H=256, 96 and 1024 a direction)
+# and attn at hidden_dim 192 (H=96): widths the fused layer kernel refuses,
+# so their GRU runs the scan, as JAX's does there (2048: past the 768 the
+# GRU scan's kernels once stopped at)
+GRU_WIDE = {"bigru": [{"hidden_dim_1": 512}, {"hidden_dim_1": 192},
+                      {"hidden_dim_1": 2048}],
             "attn": [{"hidden_dim": 192}]}
-# (where, B, T, W, lengths or None for random ones) of the GRU scan beside
-# the training main path's: an odd width, one whose weight slices pass a
-# block's shared memory, and the serving shape of attn's flash path
-GSCAN_EXTRA = [("odd width", 8, 1920, 96, None), ("wide", 8, 1920, 512, None),
-               ("serving", 3, WIDE_T, 256, WIDE_LENGTHS)]
+# (where, B, T, W, lengths or None for random ones, dtypes) of the GRU scan
+# beside the training main path's: an odd width, one whose weight slices
+# pass a block's shared memory, the serving shape of attn's flash path,
+# and the backwards' wide forms: one row a chain (W=2048) and the
+# gradients in device memory (W=12000, where even one row's pass the
+# shared memory)
+GSCAN_EXTRA = [("odd width", 8, 1920, 96, None, DTYPES),
+               ("wide", 8, 1920, 512, None, DTYPES),
+               ("serving", 3, WIDE_T, 256, WIDE_LENGTHS, DTYPES),
+               ("one row", 3, 128, 2048, None, DTYPES),
+               ("gradients in device memory", 2, 16, 12000, None,
+                ("float32",))]
 # the two scans: gates per hidden unit and residuals a step, in W
 SCAN_GATES = {"lstm": (4, 5), "gru": (3, 4)}
 
@@ -1319,8 +1387,9 @@ def library_rnn(cell, x, lengths, w):
     callables; timed here only."""
     import torch
 
-    net = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(w, w).to(
-        "cuda", x.dtype)
+    net = (torch.nn.LSTM if cell == "lstm" else torch.nn.GRU)(
+        w, w, device="cuda", dtype=x.dtype)
+    net.flatten_parameters()
     packed = torch.nn.utils.rnn.pack_padded_sequence(
         x, lengths, enforce_sorted=False)
 
@@ -1393,14 +1462,15 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
     b = len(lengths)
     xg, wh, bh, dy, lens = scan_inputs(lengths, t_len, w, dt, gen, cell)
     calls = scan_calls(cell, xg, wh, bh, dy)
+    fwd, fwd_save, bwd_saved, bwd = calls
     x = torch.randn(t_len, b, w, generator=gen).to("cuda", dt)
     lib_fwd, lib_train, lib_bwd = library_rnn(cell, x, lens, w)
+    lib_ms = {}
     with torch.no_grad():
-        lib_eval_ms = cuda_ms(lib_fwd, 5, 1)
-    fwd, fwd_save, bwd_saved, bwd = calls
-    lib_ms = {fwd: lib_eval_ms, fwd_save: cuda_ms(lib_train, 5, 1),
-              bwd_saved: cuda_ms(lib_bwd, 5, 1)}
-    lib_ms[bwd] = lib_ms[bwd_saved]
+        lib_ms[fwd] = cuda_ms(lib_fwd, 5, 1)
+    lib_ms[fwd_save] = cuda_ms(lib_train, 5, 1)
+    lib_ms[bwd_saved] = lib_ms[bwd] = cuda_ms(lib_bwd, 5, 1)
+    del lib_fwd, lib_train, lib_bwd
     library = "nn.LSTM" if cell == "lstm" else "nn.GRU"
     tol = TOL[dt_name]
     rows, outs = {}, {}
@@ -1416,14 +1486,15 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
         plain_ms = cuda_ms(lambda: ref(*args), 1, 0)
         bound_ms, bound_by = scan_bound(name, t_len, b, w, dt_name)
         geo = RS.scan_launch(name, b, w, dt, xg.device)
-        if isinstance(geo, dict):
-            layout = geo
-            shown = f"cluster of {geo['cluster']}"
+        layout = geo._asdict()
+        if isinstance(geo, RS.ScanForm):
+            shown = (f"cluster of {geo.cluster}, {geo.rows} rows, the "
+                     f"{geo.form!r} form")
         else:
-            layout = geo._asdict()
             shown = (f"chains of {geo.nc} blocks, {geo.rows} rows, "
                      f"{geo.s} slices, {geo.rounds} rounds, "
-                     f"{geo.smem} bytes of shared memory")
+                     f"{geo.smem} bytes of shared memory"
+                     f"{', gradients in device memory' if geo.gx else ''}")
         rows[name] = [{"where": where, "W": w, "dtype": dt_name, "B": b,
                        "T": t_len, **layout,
                        "max_abs_err": abs_err, "max_rel_err": err,
@@ -1453,14 +1524,16 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
         if not (err <= tol and identical):
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"or a rerun: {rows[name][0]}")
-    if cell == "lstm":  # rows 13 and 14: one template, the same ys and cs
-        same = all(torch.equal(a, c) for a, c in
-                   zip(outs[fwd], outs[fwd_save][:2]))
-        rows[fwd][0]["equals_saving_form"] = same
-        log(f"[kernel] {fwd} {where} {dt_name}: ys and cs bit for bit "
-            f"those of {fwd_save}: {same}")
-        if not same:
-            raise AssertionError(f"{fwd} and {fwd_save} differ")
+    # one kernel a scan's two forwards (rows 13 and 14, rows 9 and 10): the
+    # same ys (and the LSTM's cs)
+    same = all(torch.equal(a, c) for a, c in
+               zip(outs[fwd], outs[fwd_save][:len(outs[fwd])]))
+    rows[fwd][0]["equals_saving_form"] = same
+    log(f"[kernel] {fwd} {where} {dt_name}: "
+        f"{'ys and cs' if cell == 'lstm' else 'ys'} bit for bit those of "
+        f"{fwd_save}: {same}")
+    if not same:
+        raise AssertionError(f"{fwd} and {fwd_save} differ")
     return rows
 
 
@@ -2014,7 +2087,7 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
         rows = check_conv("main path", lens, t_pad, gen, kinds=("stage",))
     elif cell is not None:
         rows = {cell.fwd_name: check_layers(cell, "main path", lens, t_pad,
-                                            gen)}
+                                            gen, steps=name == "bigru")}
     else:  # simple_fc: no kernel
         rows = {}
 
@@ -2383,7 +2456,8 @@ def phase_train(card: str, root: str, name: str):
                                      steps=True) for dt in DTYPES)
     elif cell is not None and name != "ctcloss":
         train_rows, bwd_rows = check_train_layers(cell, "main path", lens,
-                                                  t_pad, gen)
+                                                  t_pad, gen,
+                                                  steps=name == "bigru")
         rows = {cell.fwd_name + "_train": train_rows,
                 cell.bwd_name: bwd_rows}
     elif MODELS[name][0] == "conv":
@@ -2588,8 +2662,9 @@ def phase_gru_wide(card: str, root: str):
     GRU scan (rows 9-12): its four kernels held at the largest train batch
     (the BiGRU at hidden_dim_1 512, W=256, the batch's own lengths, f32 and
     bf16); one Trainer step of each model of GRU_WIDE on that batch
-    (launch counts: a saving forward and a saved-gates backward a
-    direction a layer; attn's flash kernels besides), and one more of the
+    (BiGRU at hidden_dim_1 512, 192 and 2048; launch counts: a saving
+    forward and a saved-gates backward a direction a layer; attn's flash
+    kernels besides), and one more of the
     BiGRU at 512 with the recompute backward (an eval-form forward and a
     recompute backward a direction a layer), its gradients against the
     saved-gates step's; each model's step against the CPU on a small

@@ -35,20 +35,40 @@
 //    (128x128 tile, 8x8 per thread, f32 accumulation) computes
 //    xg [2, T*B, 3H] f32 for both directions before the recurrence.
 //  * The recurrence runs one block per (direction, batch row) and loops
-//    over T, so the 2B chains run side by side on the SMs.  Each of the 3H
-//    threads owns one gate column of the hidden product and keeps that
-//    column of wh in registers for the whole layer (128 floats a thread
-//    at H=128).  A step then reads from shared memory only the carry, as
-//    a broadcast.  With wh in shared memory instead, the 128 loads a
-//    thread makes each step, not the arithmetic, set the step time.
-//  * A step's input gates are loaded into registers before the hidden
-//    product, so their global-memory latency hides behind it.
+//    over T, so the 2B chains run side by side on the SMs.  The 3H
+//    threads keep wh in registers for the whole layer (128 floats a thread
+//    at H=128), so a step reads from shared memory only the carry, as a
+//    broadcast.  With wh in shared memory instead, the 128 loads a thread
+//    makes each step, not the arithmetic, set the step time.
+//  * The step, taken apart (PERF.md section 6, tools/
+//    torch_lstm_scan_steps.py --kernel 1): the first recurrence took 0.75
+//    us a step at the serving shape (B=3, T=1280, f32), of it the product
+//    0.29, the gate math 0.16, the rest with both barriers 0.30, and 0.94
+//    at the training shape (B=8, T=1920), where the rest was 0.49: each
+//    step's xg was loaded at the step's start and waited on after the
+//    product, from a 47 MB xg that no longer sits whole in L2.  Spreading
+//    the product over more SMs did not pay: the GRU scan's cluster chain
+//    took 0.93 us a step at W=128, and a cluster of two blocks a (row,
+//    direction), h through distributed shared memory and a cluster
+//    barrier a step, was slower still.  So, on one SM:
+//  * Every thread loads its own column's xg (3H threads, one value each),
+//    kXgAhead - 1 steps ahead, by cp.async into its own slots of shared
+//    memory, and waits on the step's group only after the product.
+//  * r's and z's lanes form their gates, sigmoid(xg + hg), themselves,
+//    before the step's first barrier, side by side; n's lane of a unit
+//    then needs only tanh(xg_n + r hg_n) and the carry update, which it
+//    keeps in its registers.
+//  * The product was bound by its broadcast loads of h from shared memory
+//    (one float4 for four FMAs) as much as by the FMAs: each lane now keeps
+//    two columns over half the depth, so a load feeds eight FMAs, and one
+//    shuffle adds the halves; the carry's two halves lie 16 bytes apart in
+//    banks, so a pair's loads do not conflict.
 //  * The backward direction reads xg at T-1-s; no flipped copy of x exists.
 //  * At H=128 one block fills an SM's registers, so for B > 66 the blocks
 //    run in more than one wave.
-//  * The train form is a template flag: the H threads that update the
-//    carry also store their column's four residuals, off the chain (stores
-//    are not waited on).  The eval form compiles without them.
+//  * The train form is a template flag: each lane stores its column's
+//    residual (r, z; n's lane n and hg_n), off the chain (stores are not
+//    waited on).  The eval form compiles without them.
 //  * The fused-boundary form (gru_bidir_bnd_fwd, the layers after the
 //    first under PVA_RNN_FUSED_BOUNDARY=1) builds its layer input in the
 //    projection's tile loads (rnn_common.cuh::Boundary): the previous
@@ -56,7 +76,6 @@
 //    the stack writes no [T, B, 2H] boundary tensor.  Each element is
 //    hashed once a product; the TPU form hashed it once a direction.  The
 //    recurrence does not read x and is the same kernel.
-// wgmma, TMA and spreading H across SMs are later work.
 
 #include "rnn_common.cuh"
 
@@ -64,10 +83,43 @@ namespace {
 
 // ------------------------------------------------------------- recurrence
 
-// One block per (batch row, direction); blockDim.x == 3H.  Thread c owns
-// gate column c of the hidden product and keeps that column of wh in
-// registers for the whole layer, so a step reads only the carry (one
-// broadcast) from shared memory.  TRAIN also stores the residuals.
+// Steps of xg a thread has in flight into shared memory (cp.async).
+constexpr int kXgAhead = 4;
+
+// 4 bytes of global memory into shared memory, asynchronously (cp.async),
+// in the thread's current group.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of the thread's most recent groups are in flight.
+template <int N>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One block per (batch row, direction); blockDim.x == 3H.  Threads [0, 2H)
+// take the r and z columns, threads [2H, 3H) the n columns, in pairs of
+// neighbouring lanes: pair p of r and z holds the r and z columns of unit
+// p, pair p of n the n columns of units p and p + H/2.  Lane `half` of a
+// pair keeps that half of the depth, H/2 deep, of both of the pair's
+// columns in registers, so a broadcast load of h feeds eight FMAs (one
+// column a lane over the whole depth, and four over a quarter, whose
+// shuffles cost more than the loads they save, were both slower on an
+// H100); one shuffle adds the halves, and lane
+// `half` then owns column `half` of the pair.  Each thread also has its
+// column's xg of the next kXgAhead - 1 steps in flight into its own slots
+// of xg_s.  A step: the product; r's and z's lanes form sigmoid(xg + hg)
+// into act_s; a barrier; n's lane of each unit forms n and the new carry
+// (kept in its registers, rounded into hq_s), stores ys and, TRAIN, n and
+// hg_n, while r's and z's lanes store their gates; a barrier.
 template <typename T, int H, bool TRAIN>
 __global__ void __launch_bounds__(3 * H, 1)
 recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
@@ -76,74 +128,112 @@ recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
              T* __restrict__ ys_f, T* __restrict__ ys_b,
              T* __restrict__ res_f, T* __restrict__ res_b, int Tn, int B) {
   constexpr int G = 3 * H;
-  __shared__ __align__(16) float h_s[H];   // f32 carry
-  __shared__ __align__(16) float hq_s[H];  // carry rounded to T
-  __shared__ float hg_s[G];                // hidden gates
+  constexpr int D = H / 2;  // depth of a lane's half
+  // the carry rounded to T, its second half at D + 4: the four floats
+  // between the halves put a pair's broadcast loads on distinct banks
+  __shared__ __align__(16) float hq_s[2 * (D + 4)];
+  __shared__ float act_s[2 * H];       // the step's r and z
+  __shared__ float xg_s[kXgAhead][G];  // each thread's xg, steps ahead
   const int dir = blockIdx.y;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int half = tid & 1;
+  const bool rz = tid < 2 * H;
+  const int pair = (rz ? tid : tid - 2 * H) / 2;
+  auto column = [&](int j) {  // column j of the pair
+    return rz ? j * H + pair : 2 * H + pair + j * (H / 2);
+  };
+  const int col = column(half);
+  const int gate = col / H;  // 0 r, 1 z, 2 n
+  const int u = col % H;
   const T* __restrict__ wh = dir ? wh_b : wh_f;
   T* __restrict__ ys = dir ? ys_b : ys_f;
+  T* __restrict__ res = dir ? res_b : res_f;
 
-  float w[H];
+  float w[2][D];
 #pragma unroll
-  for (int k = 0; k < H; ++k) w[k] = to_f(wh[k * G + tid]);
-  const float bh_c = to_f((dir ? bh_b : bh_f)[tid]);
-  if (tid < H) {
-    h_s[tid] = 0.0f;
-    hq_s[tid] = 0.0f;
-  }
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      w[j][k] = to_f(wh[(half * D + k) * G + column(j)]);
+  const float bh_c = to_f((dir ? bh_b : bh_f)[col]);
+  float hc = 0.0f;  // the f32 carry, in n's lane of the unit
+  const int hslot = (u / D) * (D + 4) + u % D;  // the unit's place in hq_s
+  for (int i = tid; i < 2 * (D + 4); i += 3 * H) hq_s[i] = 0.0f;
   const int len = lengths[b];
+  // the lanes of this thread's warp that exist: 3H need not fill the last
+  // warp (H=16); where it does, the mask is a constant, as a mask held in
+  // a register cost the step about 11 % at H=128 on an H100
+  const unsigned lanes = G % 32 == 0 || G - (tid & ~31) >= 32
+                             ? 0xffffffffu
+                             : (1u << (G % 32)) - 1u;
+
+  // the next step's xg of this lane's column to fetch (the backward chain
+  // walks t = T-1 .. 0)
+  const ptrdiff_t step = dir ? -(ptrdiff_t)B * G : (ptrdiff_t)B * G;
+  const float* xnext = xg + (size_t)dir * Tn * B * G + (size_t)b * G + col +
+                       (dir ? (size_t)(Tn - 1) * B * G : 0);
+#pragma unroll
+  for (int j = 0; j < kXgAhead - 1; ++j) {
+    if (j < Tn) copy_async4(&xg_s[j][tid], xnext);
+    commit_async();
+    xnext += step;
+  }
   __syncthreads();
 
-  const float* __restrict__ xg_dir = xg + (size_t)dir * Tn * B * G;
   for (int s = 0; s < Tn; ++s) {
     const int t = dir ? Tn - 1 - s : s;
+    if (s + kXgAhead - 1 < Tn)
+      copy_async4(&xg_s[(s + kXgAhead - 1) % kXgAhead][tid], xnext);
+    commit_async();
+    xnext += step;
 
-    // this step's input gates, loaded before the hidden product so their
-    // latency hides behind it
-    float gr = 0.0f, gz = 0.0f, gn = 0.0f;
-    if (tid < H) {
-      const float* g = xg_dir + ((size_t)t * B + b) * G;
-      gr = g[tid];
-      gz = g[H + tid];
-      gn = g[2 * H + tid];
-    }
-
-    // hidden product, column tid: two independent FMA chains
+    // the pair's two columns over this lane's half, then the halves' sum
     float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
-    for (int k = 0; k < H; k += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(&hq_s[k]);
-      a0 = fmaf(hv.x, w[k], a0);
-      a1 = fmaf(hv.y, w[k + 1], a1);
-      a0 = fmaf(hv.z, w[k + 2], a0);
-      a1 = fmaf(hv.w, w[k + 3], a1);
+    for (int k = 0; k < D; k += 4) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(&hq_s[half * (D + 4) + k]);
+      a0 = fmaf(hv.x, w[0][k], a0);
+      a0 = fmaf(hv.y, w[0][k + 1], a0);
+      a0 = fmaf(hv.z, w[0][k + 2], a0);
+      a0 = fmaf(hv.w, w[0][k + 3], a0);
+      a1 = fmaf(hv.x, w[1][k], a1);
+      a1 = fmaf(hv.y, w[1][k + 1], a1);
+      a1 = fmaf(hv.z, w[1][k + 2], a1);
+      a1 = fmaf(hv.w, w[1][k + 3], a1);
     }
-    hg_s[tid] = a0 + a1 + bh_c;
-    __syncthreads();
+    a0 += __shfl_xor_sync(lanes, a0, 1);
+    a1 += __shfl_xor_sync(lanes, a1, 1);
+    const float hg = (half ? a1 : a0) + bh_c;
+    wait_async<kXgAhead - 1>();  // this step's xg has landed
+    const float xv = xg_s[s % kXgAhead][tid];
+    float act = 0.0f;
+    if (gate < 2) {
+      act = sigmoid_f(xv + hg);
+      act_s[col] = act;
+    }
+    __syncthreads();  // r and z in act_s; every product has read hq_s
 
-    // gates and carry update
-    if (tid < H) {
-      const float r = sigmoid_f(gr + hg_s[tid]);
-      const float z = sigmoid_f(gz + hg_s[H + tid]);
-      const float n = tanhf(gn + r * hg_s[2 * H + tid]);
-      const float hp = h_s[tid];
-      float hn = (1.0f - z) * n + z * hp;
-      if (dir && t >= len) hn = hp;  // backward chain: frozen on padding
+    const size_t row = (size_t)t * B + b;
+    if (gate == 2) {
+      const float r = act_s[u];
+      const float z = act_s[H + u];
+      const float n = tanhf(xv + r * hg);
+      float hn = (1.0f - z) * n + z * hc;
+      if (dir && t >= len) hn = hc;  // backward chain: frozen on padding
+      hc = hn;
       const T hq = from_f<T>(hn);
-      h_s[tid] = hn;
-      hq_s[tid] = to_f(hq);
-      ys[((size_t)t * B + b) * H + tid] = hq;
+      hq_s[hslot] = to_f(hq);
+      ys[row * H + u] = hq;
       if (TRAIN) {
-        T* res = (dir ? res_b : res_f) + ((size_t)t * B + b) * 4 * H;
-        res[tid] = from_f<T>(r);
-        res[H + tid] = from_f<T>(z);
-        res[2 * H + tid] = from_f<T>(n);
-        res[3 * H + tid] = from_f<T>(hg_s[2 * H + tid]);
+        res[row * 4 * H + 2 * H + u] = from_f<T>(n);
+        res[row * 4 * H + 3 * H + u] = from_f<T>(hg);
       }
+    } else if (TRAIN) {
+      res[row * 4 * H + col] = from_f<T>(act);  // r or z
     }
-    __syncthreads();
+    __syncthreads();  // the new carry in hq_s
   }
 }
 

@@ -73,28 +73,34 @@ __device__ __forceinline__ void load_step(StepIn& in,
   in.dy = to_f(dy[row * W + unit]);
 }
 
-template <typename T, bool RECOMPUTE>
+// RM rows a chain (kMaxRows, or 1 in the one-row forms), P (row, unit)
+// pairs a thread, and with GX the gate gradients crossing the cluster in
+// device memory (xbuf [chains][2][RM][ldg] f32) instead of shared memory.
+template <typename T, bool RECOMPUTE, int RM, int P, bool GX>
 __global__ void __launch_bounds__(kScanThreads, 1)
 gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
                     const T* __restrict__ dy, const T* __restrict__ wh,
                     const T* __restrict__ whT, const T* __restrict__ bh,
                     T* __restrict__ dxg, float* __restrict__ dhg,
-                    float* __restrict__ bias_part, ScanArgs a) {
+                    float* __restrict__ bias_part, float* __restrict__ xbuf,
+                    ScanArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const Chain ch = chain(cluster, a);
   const int W = a.W;
   const int G = 3 * W;
+  const int ldg = row_ld(G);
   const int ldh = row_ld(W);
   const int C = 3 * ch.ucnt;
   // the layout, the same in every block
-  float* dg_s = reinterpret_cast<float*>(smem_raw);  // [2][kMaxRows][G]
-  float* part_s = dg_s + 2 * kMaxRows * G;
-  float* dh_s = part_s + part_floats(3 * a.U);  // [kMaxRows][U]
-  float* dz_s = dh_s + kMaxRows * a.U;          // [kMaxRows][U]: dh z
-  float* hp_s = dz_s + kMaxRows * a.U;          // recompute: [kMaxRows][ldh]
-  T* wT_s = reinterpret_cast<T*>(hp_s + (RECOMPUTE ? kMaxRows * ldh : 0));
+  float* dg_s = reinterpret_cast<float*>(smem_raw);  // [2][RM][ldg]
+  float* part_s = dg_s + (GX ? 0 : 2 * RM * ldg);
+  float* dh_s = part_s + part_floats(3 * a.U, RM);  // [RM][U]
+  float* dz_s = dh_s + RM * a.U;                    // [RM][U]: dh z
+  float* hp_s = dz_s + RM * a.U;                    // recompute: [RM][ldh]
+  T* wT_s = reinterpret_cast<T*>(hp_s + (RECOMPUTE ? RM * ldh : 0));
   T* w_s = wT_s + (size_t)a.rs * a.U;  // recompute: [rs2][C]
+  float* dg = GX ? xbuf + (size_t)(blockIdx.x / a.NC) * 2 * RM * ldg : dg_s;
 
   // whT rows are gate columns, its columns units: slice [3W, ucnt]
   const int uc = ch.ucnt > 0 ? ch.ucnt : 1;
@@ -102,26 +108,30 @@ gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
   const ColMap cm{uc, W, ch.u0, G};
   load_weights(wT_s, whT, cmT, a.rs, ch.ucnt);
   if (RECOMPUTE) load_weights(w_s, wh, cm, a.rs2, C);
-  for (int i = threadIdx.x; i < kMaxRows * a.U; i += kScanThreads) {
+  for (int i = threadIdx.x; i < RM * a.U; i += kScanThreads) {
     dh_s[i] = 0.0f;
     dz_s[i] = 0.0f;
   }
-  // the rows past the chain's stay 0: the products sum them
-  for (int i = threadIdx.x; i < 2 * kMaxRows * G; i += kScanThreads)
-    dg_s[i] = 0.0f;
+  // the rows past the chain's stay 0: the products sum them (GX: one row,
+  // the chain's)
+  if (!GX)
+    for (int i = threadIdx.x; i < 2 * RM * ldg; i += kScanThreads)
+      dg_s[i] = 0.0f;
   if (RECOMPUTE)
-    for (int i = threadIdx.x; i < kMaxRows * ldh; i += kScanThreads)
+    for (int i = threadIdx.x; i < RM * ldh; i += kScanThreads)
       hp_s[i] = 0.0f;
   float* peer[kMaxCluster];
+  if (!GX) {
 #pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    if (q < a.NC) peer[q] = cluster.map_shared_rank(dg_s, q);
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < a.NC) peer[q] = cluster.map_shared_rank(dg_s, q);
+  }
 
   const int n_pairs = ch.nb * ch.ucnt;
-  StepIn in[kMaxPairs];
-  float bv[kMaxPairs][3], bsum[kMaxPairs][3];
+  StepIn in[P];
+  float bv[P][3], bsum[P][3];
 #pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
+  for (int k = 0; k < P; ++k) {
     const int e = threadIdx.x + k * kScanThreads;
 #pragma unroll
     for (int q = 0; q < 3; ++q) bsum[k][q] = 0.0f;
@@ -145,15 +155,15 @@ gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
       for (int i = threadIdx.x; i < ch.nb * W; i += kScanThreads)
         hp_s[(i / W) * ldh + i % W] = to_f(hp[(row0 + i / W) * W + i % W]);
       __syncthreads();
-      if (C > 0) product(hp_s, ldh, w_s, a.rs2, wh, cm, C, W, part_s);
+      if (C > 0) product<T, RM>(hp_s, ldh, w_s, a.rs2, wh, cm, C, W, part_s);
       __syncthreads();
     }
 
     // each pair's gate gradients to every block, the barrier's arrive;
     // then their stores and the next step's inputs
-    float dx[kMaxPairs][3], d[kMaxPairs][3];
+    float dx[P][3], d[P][3];
 #pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
+    for (int k = 0; k < P; ++k) {
       const int e = threadIdx.x + k * kScanThreads;
       if (e < n_pairs) {
         const int b = e / uc;
@@ -161,9 +171,10 @@ gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
         const StepIn& x = in[k];
         float r = x.g0, z = x.g1, n = x.g2, hn = x.hn;
         if (RECOMPUTE) {
-          const float hr = reduce_slices(part_s, b, u, C, W) + bv[k][0];
-          const float hz = reduce_slices(part_s, b, uc + u, C, W) + bv[k][1];
-          hn = reduce_slices(part_s, b, 2 * uc + u, C, W) + bv[k][2];
+          const float hr = reduce_slices<RM>(part_s, b, u, C, W) + bv[k][0];
+          const float hz =
+              reduce_slices<RM>(part_s, b, uc + u, C, W) + bv[k][1];
+          hn = reduce_slices<RM>(part_s, b, 2 * uc + u, C, W) + bv[k][2];
           r = sigmoid_f(x.g0 + hr);
           z = sigmoid_f(x.g1 + hz);
           n = tanhf(x.g2 + r * hn);
@@ -177,20 +188,25 @@ gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
         dx[k][2] = dn;
         dz_s[p] = dh * z;
         const float dhg_v[3] = {dx[k][0], dx[k][1], dn * r};
-        const int slot = (cur * kMaxRows + b) * G + ch.u0 + u;
+        const int slot = (cur * RM + b) * ldg + ch.u0 + u;
 #pragma unroll
         for (int q = 0; q < 3; ++q) {
           bsum[k][q] += dhg_v[q];
           d[k][q] = rnd<T>(dhg_v[q]);
+          if (GX) {
+            dg[slot + q * W] = d[k][q];
+          } else {
 #pragma unroll
-          for (int c = 0; c < kMaxCluster; ++c)
-            if (c < a.NC) peer[c][slot + q * W] = d[k][q];
+            for (int c = 0; c < kMaxCluster; ++c)
+              if (c < a.NC) peer[c][slot + q * W] = d[k][q];
+          }
         }
       }
     }
+    if (GX) __threadfence();
     cluster_arrive();
 #pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
+    for (int k = 0; k < P; ++k) {
       const int e = threadIdx.x + k * kScanThreads;
       if (e < n_pairs) {
         const size_t off = (row0 + e / uc) * G + ch.u0 + e % uc;
@@ -203,7 +219,7 @@ gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
     }
     if (t > 0) {
 #pragma unroll
-      for (int k = 0; k < kMaxPairs; ++k) {
+      for (int k = 0; k < P; ++k) {
         const int e = threadIdx.x + k * kScanThreads;
         if (e < n_pairs)
           load_step<T, RECOMPUTE>(in[k], first, hp, dy, row0 - a.B + e / uc,
@@ -214,19 +230,20 @@ gru_scan_bwd_kernel(const T* __restrict__ first, const T* __restrict__ hp,
 
     // dh_c of this block's units: dh z plus the carry product
     if (ch.ucnt > 0)
-      product(dg_s + cur * kMaxRows * G, G, wT_s, a.rs, whT, cmT, ch.ucnt,
-              G, part_s);
+      product<T, RM, GX>(dg + cur * RM * ldg, ldg, wT_s, a.rs, whT, cmT,
+                         ch.ucnt, G, part_s);
     __syncthreads();
     for (int e = threadIdx.x; e < n_pairs; e += kScanThreads) {
       const int p = (e / uc) * a.U + e % uc;
-      dh_s[p] = dz_s[p] + reduce_slices(part_s, e / uc, e % uc, ch.ucnt, G);
+      dh_s[p] = dz_s[p] +
+                reduce_slices<RM>(part_s, e / uc, e % uc, ch.ucnt, G);
     }
     __syncthreads();
   }
 
   // each row's dbh sums over t, for the fixed-order sum over the rows
 #pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
+  for (int k = 0; k < P; ++k) {
     const int e = threadIdx.x + k * kScanThreads;
     if (e < n_pairs) {
       float* out = bias_part + (size_t)(ch.b0 + e / uc) * G + ch.u0 + e % uc;
@@ -244,20 +261,23 @@ dwh_kernel(const ShiftedRowsT<T> a, const RoundedRows<T> b, const Store<T> c,
   gemm_tile<kWT, kWT>(a, b, c, M, N, K, blockIdx.x * kWT, blockIdx.y * kWT);
 }
 
-size_t bwd_fixed_bytes(const ScanArgs& a, bool recompute) {
-  size_t floats = 2 * kMaxRows * 3 * (size_t)a.W + part_floats(3 * a.U) +
-                  2 * kMaxRows * a.U;
-  if (recompute) floats += kMaxRows * row_ld(a.W);
+// Bytes of a form's shared-memory buffers other than the resident
+// weights: rm rows, the gradients' two buffers unless gx.
+size_t bwd_fixed_bytes(const ScanArgs& a, bool recompute, int rm, bool gx) {
+  size_t floats = (gx ? 0 : 2 * rm * (size_t)row_ld(3 * a.W)) +
+                  part_floats(3 * a.U, rm) + 2 * rm * a.U;
+  if (recompute) floats += rm * row_ld(a.W);
   return align16(sizeof(float) * floats);
 }
 
-template <typename T>
-cudaError_t run_bwd(bool recompute, const void* first, const void* hp,
-                    const void* dy, const void* wh, const void* whT,
-                    const void* bh, void* dxg, float* dhg, float* bias_part,
-                    void* dwh, void* dbh, ScanArgs a, cudaStream_t stream) {
-  const size_t fixed = bwd_fixed_bytes(a, recompute);
-  if (fixed > kScanSmem) return cudaErrorInvalidValue;
+template <typename T, int RM, int P, bool GX>
+cudaError_t launch_bwd(bool recompute, const void* first, const void* hp,
+                       const void* dy, const void* wh, const void* whT,
+                       const void* bh, void* dxg, float* dhg,
+                       float* bias_part, float* xbuf, ScanArgs a,
+                       cudaStream_t stream) {
+  const size_t fixed = bwd_fixed_bytes(a, recompute, RM, GX);
+  if (!form_fits<RM, P>(a, fixed)) return cudaErrorInvalidValue;
   // the carry product's slice [3W, U] first; recompute: then [W, 3U]
   const size_t rowT = sizeof(T) * a.U;
   a.rs = resident_rows(fixed, rowT, 3 * a.W);
@@ -274,12 +294,36 @@ cudaError_t run_bwd(bool recompute, const void* first, const void* hp,
   const T* wt = static_cast<const T*>(whT);
   const T* bb = static_cast<const T*>(bh);
   T* dx = static_cast<T*>(dxg);
-  cudaError_t err =
-      recompute ? launch_chain(gru_scan_bwd_kernel<T, true>, a, smem, stream,
-                               f, h, d, w, wt, bb, dx, dhg, bias_part, a)
-                : launch_chain(gru_scan_bwd_kernel<T, false>, a, smem, stream,
-                               f, h, d, w, wt, bb, dx, dhg, bias_part, a);
+  return recompute
+             ? launch_chain(gru_scan_bwd_kernel<T, true, RM, P, GX>, a, smem,
+                            stream, f, h, d, w, wt, bb, dx, dhg, bias_part,
+                            xbuf, a)
+             : launch_chain(gru_scan_bwd_kernel<T, false, RM, P, GX>, a,
+                            smem, stream, f, h, d, w, wt, bb, dx, dhg,
+                            bias_part, xbuf, a);
+}
+
+template <typename T>
+cudaError_t run_bwd(bool recompute, int form, const void* first,
+                    const void* hp, const void* dy, const void* wh,
+                    const void* whT, const void* bh, void* dxg, float* dhg,
+                    float* bias_part, float* xbuf, void* dwh, void* dbh,
+                    ScanArgs a, cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (form == kFull)
+    err = launch_bwd<T, kMaxRows, kMaxPairs, false>(
+        recompute, first, hp, dy, wh, whT, bh, dxg, dhg, bias_part, xbuf, a,
+        stream);
+  else if (form == kOne)
+    err = launch_bwd<T, 1, kWidePairs, false>(recompute, first, hp, dy, wh,
+                                              whT, bh, dxg, dhg, bias_part,
+                                              xbuf, a, stream);
+  else if (form == kGx && xbuf != nullptr)
+    err = launch_bwd<T, 1, kWidePairs, true>(recompute, first, hp, dy, wh,
+                                             whT, bh, dxg, dhg, bias_part,
+                                             xbuf, a, stream);
   if (err != cudaSuccess) return err;
+  const T* h = static_cast<const T*>(hp);
   const int M = a.Tn * a.B;
   const int G = 3 * a.W;
   const dim3 grid((a.W + kWT - 1) / kWT, (G + kWT - 1) / kWT);
@@ -300,24 +344,30 @@ extern "C" {
 // (recompute == 0) or xg [T, B, 3W] (recompute != 0); hp, dy [T, B, W];
 // wh [W, 3W] and whT = wh^T [3W, W]; bh [3W] (recompute only, ignored
 // otherwise); outputs dxg [T, B, 3W], dwh [W, 3W] and dbh [3W]; f32
-// scratch dhg [T, B, 3W] and bias_part [B, 3W].  cluster as gru_scan_fwd's.
+// scratch dhg [T, B, 3W], bias_part [B, 3W] and, the Gx form, xbuf
+// [B][2][round4(3W)] (the gradients' exchange in device memory).  The
+// launch (ops/rnn_scan.py::scan_form): cluster, the blocks a chain spreads
+// W over, 1..16 and at most W; rows a chain; form, where the gradients
+// cross the cluster (scan_common.cuh's Form: 0 Full, 1 One, 2 Gx).
 // Launches on `stream` and returns the launches' error (0 on success).
 int gru_scan_bwd(int dtype, int recompute, const void* first, const void* hp,
                  const void* dy, const void* wh, const void* whT,
                  const void* bh, void* dxg, float* dhg, float* bias_part,
-                 void* dwh, void* dbh, int Tn, int B, int W, int cluster,
-                 void* stream) {
+                 float* xbuf, void* dwh, void* dbh, int Tn, int B, int W,
+                 int cluster, int rows, int form, void* stream) {
   ScanArgs a;
-  if (!scan_geometry(Tn, B, W, cluster, &a) || (recompute && bh == nullptr))
+  if (!scan_geometry(Tn, B, W, cluster, rows, &a) ||
+      (recompute && bh == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)run_bwd<float>(recompute != 0, first, hp, dy, wh, whT, bh,
-                               dxg, dhg, bias_part, dwh, dbh, a, s);
+    return (int)run_bwd<float>(recompute != 0, form, first, hp, dy, wh, whT,
+                               bh, dxg, dhg, bias_part, xbuf, dwh, dbh, a,
+                               s);
   if (dtype == 1)
-    return (int)run_bwd<__nv_bfloat16>(recompute != 0, first, hp, dy, wh,
-                                       whT, bh, dxg, dhg, bias_part, dwh, dbh,
-                                       a, s);
+    return (int)run_bwd<__nv_bfloat16>(recompute != 0, form, first, hp, dy,
+                                       wh, whT, bh, dxg, dhg, bias_part, xbuf,
+                                       dwh, dbh, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

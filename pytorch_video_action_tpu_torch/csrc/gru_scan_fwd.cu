@@ -21,9 +21,13 @@
 // T dependent steps does, each a [B, W] x [W, 3W] product, the gates and
 // an exchange of h between SMs.
 //
-// The eval form (row 9) runs on the register-resident chain of
-// scan_chain.cuh, as the LSTM scan's forward does.  The first design (the
-// saving form's below) took 4.1 us a step at B=8, W=256: its product from
+// Both forms run on the register-resident chain of scan_chain.cuh, as the
+// LSTM scan's forwards do: one kernel, which with res given (the saving
+// form, row 10) also stores four residuals a unit, one a lane group, off
+// the chain (stores are not waited on), so the saving form's ys equals the
+// eval form's (row 9) bit for bit and it takes every width the eval form
+// takes.  The first design (on scan_common.cuh's chain, which the saving
+// form kept longer) took 4.1 us a step at B=8, W=256: its product from
 // shared memory over all 8 rows 1.8, the peer stores and the cluster
 // barrier 0.8, the gate math 0.2, the rest (block barriers, round trips
 // through shared memory, xg's loads) 1.5 (PERF.md section 6, the step
@@ -48,33 +52,14 @@
 //    of the next step is loaded at the end of a step, its rows prefetched
 //    into L2 four steps ahead.  W=768, 7 MiB of f32 weights, reads its
 //    depth past registers and shared memory through L2 (or in rounds).
-//
-// The saving form (row 10) keeps the first design, on scan_common.cuh:
-//  * The chain runs on a cluster of NC blocks: block r owns units [r*U,
-//    r*U + U) and the three gate columns of each, so the gate math and the
-//    carry update stay in the block; its [W, 3U] slice of wh sits in
-//    shared memory as far as the budget goes (at W=512 in f32 the rows past
-//    it are read through L2 every step).
-//  * A step: the block's product of the carried rows' rounded h (all W,
-//    from its own shared memory) with its slice; each (row, unit) thread
-//    adds bh and its three slice sums, forms r, z, n and h' from xg and its
-//    f32 carry, and writes rnd(h') into every block of the cluster
-//    (distributed shared memory); one cluster barrier.  h is
-//    double-buffered, so that barrier is the step's only wait across
-//    blocks.
-//  * The cluster barrier is split: the new h goes to every block, the
-//    arrive, then the step's stores of ys and res and the loads of the next
-//    step's xg into registers, then the wait.
-//  * Up to 8 batch rows share a cluster and each weight read; more rows
-//    take more clusters.
 
 #include "scan_chain.cuh"
-#include "scan_common.cuh"
 
 namespace {
 namespace rc {
 
-// The eval form (row 9) on the chain of scan_chain.cuh.  Block rank q owns
+// Both forms on the chain of scan_chain.cuh (res given: the saving form,
+// row 10, which also writes the residuals).  Block rank q owns
 // units [q*U, q*U + ucnt); thread tid is depth slice s = tid % S of lane
 // group g = (tid / S) % 4 of local unit tid / (4S) + i*UT in round i (one
 // round unless WIDE): groups 0, 1, 2 hold the r, z and n columns of wh,
@@ -84,9 +69,9 @@ namespace rc {
 // 16-byte chunks or, with WIDE, each thread's h carry [R][RM][nthr] f32.
 template <typename T, int RM, bool WIDE>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_scan_eval_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
+gru_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
                      const T* __restrict__ bh, T* __restrict__ ys,
-                     ChainArgs a) {
+                     T* __restrict__ res, ChainArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* h_s = reinterpret_cast<float*>(smem_raw);
   const int hfloats = 2 * RM * a.ldh;
@@ -189,7 +174,7 @@ gru_scan_eval_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
       // in their lanes, hg_n kept apart in n's (it enters n through r);
       // each lane gathers r, z, hg_n and xg_n of its unit and updates h
       T hq[RM];
-      float hv[RM];
+      float hv[RM], gates[RM];
 #pragma unroll
       for (int r = 0; r < RM; ++r) {
         float sum = pre[r];
@@ -206,6 +191,7 @@ gru_scan_eval_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
         hc[r] = (1.0f - zg) * n + zg * hc[r];
         hq[r] = from_f<T>(hc[r]);
         hv[r] = to_f(hq[r]);
+        gates[r] = g == 0 ? rg : g == 1 ? zg : g == 2 ? n : hn;  // res
       }
       if constexpr (WIDE) {
 #pragma unroll
@@ -235,6 +221,13 @@ gru_scan_eval_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
         for (int r = 0; r < RM; ++r)
           if (r < nb) ys[((size_t)t * a.B + b0 + r) * a.W + unit] = hq[r];
       }
+      if (res != nullptr && on && s == 0) {  // lane group g's residual
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          if (r < nb)
+            res[((size_t)t * a.B + b0 + r) * 4 * a.W + g * a.W + unit] =
+                from_f<T>(gates[r]);
+      }
       if (t + 1 < a.Tn) {
         if constexpr (!WIDE) {
 #pragma unroll
@@ -254,222 +247,64 @@ gru_scan_eval_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
 }
 
 template <typename T, int RM, bool WIDE>
-cudaError_t launch_eval(const ChainArgs& a, cudaStream_t stream,
-                        const void* xg, const void* wh, const void* bh,
-                        void* ys) {
-  return launch_chain(gru_scan_eval_kernel<T, RM, WIDE>, a,
+cudaError_t launch_fwd(const ChainArgs& a, cudaStream_t stream,
+                       const void* xg, const void* wh, const void* bh,
+                       void* ys, void* res) {
+  return launch_chain(gru_scan_fwd_kernel<T, RM, WIDE>, a,
                       chain_smem<T>(a, RM), stream, static_cast<const T*>(xg),
                       static_cast<const T*>(wh), static_cast<const T*>(bh),
-                      static_cast<T*>(ys), a);
+                      static_cast<T*>(ys), static_cast<T*>(res), a);
 }
 
 template <typename T, int RM>
-cudaError_t eval_rows(const ChainArgs& a, cudaStream_t stream, const void* xg,
-                      const void* wh, const void* bh, void* ys) {
+cudaError_t fwd_rows(const ChainArgs& a, cudaStream_t stream, const void* xg,
+                     const void* wh, const void* bh, void* ys, void* res) {
   if (a.R > 1) {  // rounds: 1, 2 or 4 rows a chain
     if constexpr (RM == 1 || RM == 2 || RM == 4)
-      return launch_eval<T, RM, true>(a, stream, xg, wh, bh, ys);
+      return launch_fwd<T, RM, true>(a, stream, xg, wh, bh, ys, res);
     return cudaErrorInvalidValue;
   }
-  return launch_eval<T, RM, false>(a, stream, xg, wh, bh, ys);
+  return launch_fwd<T, RM, false>(a, stream, xg, wh, bh, ys, res);
 }
 
+// The saving form when res is given, else the eval form.
 template <typename T>
-cudaError_t run_eval(const ChainArgs& a, cudaStream_t stream, const void* xg,
-                     const void* wh, const void* bh, void* ys) {
+cudaError_t run_fwd(const ChainArgs& a, cudaStream_t stream, const void* xg,
+                    const void* wh, const void* bh, void* ys, void* res) {
   switch (a.rows) {
-    case 1: return eval_rows<T, 1>(a, stream, xg, wh, bh, ys);
-    case 2: return eval_rows<T, 2>(a, stream, xg, wh, bh, ys);
-    case 3: return eval_rows<T, 3>(a, stream, xg, wh, bh, ys);
-    case 4: return eval_rows<T, 4>(a, stream, xg, wh, bh, ys);
-    case 6: return eval_rows<T, 6>(a, stream, xg, wh, bh, ys);
-    case 8: return eval_rows<T, 8>(a, stream, xg, wh, bh, ys);
+    case 1: return fwd_rows<T, 1>(a, stream, xg, wh, bh, ys, res);
+    case 2: return fwd_rows<T, 2>(a, stream, xg, wh, bh, ys, res);
+    case 3: return fwd_rows<T, 3>(a, stream, xg, wh, bh, ys, res);
+    case 4: return fwd_rows<T, 4>(a, stream, xg, wh, bh, ys, res);
+    case 6: return fwd_rows<T, 6>(a, stream, xg, wh, bh, ys, res);
+    case 8: return fwd_rows<T, 8>(a, stream, xg, wh, bh, ys, res);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace rc
-
-template <typename T, bool SAVE>
-__global__ void __launch_bounds__(kScanThreads, 1)
-gru_scan_fwd_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
-                    const T* __restrict__ bh, T* __restrict__ ys,
-                    T* __restrict__ res, ScanArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const Chain ch = chain(cluster, a);
-  const int W = a.W;
-  const int G = 3 * W;
-  const int ld = row_ld(W);
-  const int C = 3 * ch.ucnt;
-  // the layout, the same in every block
-  float* h_s = reinterpret_cast<float*>(smem_raw);  // [2][kMaxRows][ld]
-  float* part_s = h_s + 2 * kMaxRows * ld;
-  float* hc_s = part_s + part_floats(3 * a.U);  // [kMaxRows][U], f32 carry
-  T* w_s = reinterpret_cast<T*>(hc_s + kMaxRows * a.U);  // [rs][C]
-
-  const int uc = ch.ucnt > 0 ? ch.ucnt : 1;
-  const ColMap cm{uc, W, ch.u0, G};
-  load_weights(w_s, wh, cm, a.rs, C);
-  for (int i = threadIdx.x; i < 2 * kMaxRows * ld; i += kScanThreads)
-    h_s[i] = 0.0f;
-  for (int i = threadIdx.x; i < kMaxRows * a.U; i += kScanThreads)
-    hc_s[i] = 0.0f;
-  float* peer[kMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    if (q < a.NC) peer[q] = cluster.map_shared_rank(h_s, q);
-
-  // this thread's (row, unit) pairs: their bh and xg of the first step
-  const int n_pairs = ch.nb * ch.ucnt;
-  float bv[kMaxPairs][3], xv[kMaxPairs][3];
-#pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
-    const int e = threadIdx.x + k * kScanThreads;
-    if (e < n_pairs) {
-      const int unit = ch.u0 + e % uc;
-      const T* x = xg + (size_t)(ch.b0 + e / uc) * G + unit;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        bv[k][q] = to_f(bh[q * W + unit]);
-        xv[k][q] = to_f(x[q * W]);
-      }
-    }
-  }
-  cluster.sync();  // every block has started and zeroed its h
-
-  for (int t = 0; t < a.Tn; ++t) {
-    const int cur = t & 1;
-    if (C > 0)
-      product(h_s + cur * kMaxRows * ld, ld, w_s, a.rs, wh, cm, C, W,
-              part_s);
-    __syncthreads();
-
-    // the gates and the carry update of (row b, unit u), the new h to
-    // every block, and the barrier's arrive; then the step's stores and
-    // the next step's xg
-    T hq[kMaxPairs];
-    float gv[kMaxPairs][4];
-#pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
-      const int e = threadIdx.x + k * kScanThreads;
-      if (e < n_pairs) {
-        const int b = e / uc;
-        const int u = e % uc;
-        const float hr = reduce_slices(part_s, b, u, C, W) + bv[k][0];
-        const float hz = reduce_slices(part_s, b, uc + u, C, W) + bv[k][1];
-        const float hn = reduce_slices(part_s, b, 2 * uc + u, C, W) +
-                         bv[k][2];
-        const float r = sigmoid_f(xv[k][0] + hr);
-        const float z = sigmoid_f(xv[k][1] + hz);
-        const float n = tanhf(xv[k][2] + r * hn);
-        float* hc = hc_s + b * a.U + u;
-        const float h = (1.0f - z) * n + z * *hc;
-        *hc = h;
-        hq[k] = from_f<T>(h);
-        gv[k][0] = r;
-        gv[k][1] = z;
-        gv[k][2] = n;
-        gv[k][3] = hn;
-        const float hv = to_f(hq[k]);
-        const int slot = ((cur ^ 1) * kMaxRows + b) * ld + ch.u0 + u;
-#pragma unroll
-        for (int q = 0; q < kMaxCluster; ++q)
-          if (q < a.NC) peer[q][slot] = hv;
-      }
-    }
-    cluster_arrive();
-#pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
-      const int e = threadIdx.x + k * kScanThreads;
-      if (e < n_pairs) {
-        const size_t row = (size_t)t * a.B + ch.b0 + e / uc;
-        const int unit = ch.u0 + e % uc;
-        ys[row * W + unit] = hq[k];
-        if (SAVE) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            res[row * 4 * W + q * W + unit] = from_f<T>(gv[k][q]);
-        }
-      }
-    }
-    if (t + 1 < a.Tn) {
-#pragma unroll
-      for (int k = 0; k < kMaxPairs; ++k) {
-        const int e = threadIdx.x + k * kScanThreads;
-        if (e < n_pairs) {
-          const T* x = xg + ((size_t)(t + 1) * a.B + ch.b0 + e / uc) * G +
-                       ch.u0 + e % uc;
-#pragma unroll
-          for (int q = 0; q < 3; ++q) xv[k][q] = to_f(x[q * W]);
-        }
-      }
-    }
-    cluster_wait();
-  }
-}
-
-// Bytes of the shared-memory buffers other than the resident weights.
-size_t fwd_fixed_bytes(const ScanArgs& a) {
-  return align16(sizeof(float) * (2 * kMaxRows * row_ld(a.W) +
-                                  part_floats(3 * a.U) + kMaxRows * a.U));
-}
-
-template <typename T>
-cudaError_t run_fwd(const void* xg, const void* wh, const void* bh, void* ys,
-                    void* res, ScanArgs a, cudaStream_t stream) {
-  const size_t fixed = fwd_fixed_bytes(a);
-  if (fixed > kScanSmem) return cudaErrorInvalidValue;
-  const size_t row_bytes = sizeof(T) * 3 * a.U;
-  a.rs = resident_rows(fixed, row_bytes, a.W);
-  const size_t smem = fixed + row_bytes * a.rs;
-  const T* x = static_cast<const T*>(xg);
-  const T* w = static_cast<const T*>(wh);
-  const T* bb = static_cast<const T*>(bh);
-  T* y = static_cast<T*>(ys);
-  T* r = static_cast<T*>(res);
-  return launch_chain(gru_scan_fwd_kernel<T, true>, a, smem, stream, x, w,
-                      bb, y, r, a);
-}
-
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, the dtype of every tensor.  Device
 // pointers of contiguous tensors: xg [T, B, 3W], wh [W, 3W], bh [3W], ys
-// [T, B, W] and res [T, B, 4W].  The saving form (row 10) on
-// scan_common.cuh's chain; cluster: blocks a chain spreads W over, 1..16
-// and at most W.  Launches on `stream` and returns the launch's error (0
-// on success).
+// [T, B, W] and, the saving form (row 10), res [T, B, 4W]; res = 0 runs the
+// eval form (row 9).  The chain's geometry (ops/rnn_scan.py::
+// chain_geometry) as lstm_scan_fwd's: nc blocks a chain, s depth slices a
+// column, rows a chain, ls of shared-memory depth, rounds.  Launches on
+// `stream` and returns the launch's error (0 on success).
 int gru_scan_fwd(int dtype, const void* xg, const void* wh, const void* bh,
-                 void* ys, void* res, int Tn, int B, int W, int cluster,
-                 void* stream) {
-  ScanArgs a;
-  if (!scan_geometry(Tn, B, W, cluster, &a) || res == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)run_fwd<float>(xg, wh, bh, ys, res, a, s);
-  if (dtype == 1)
-    return (int)run_fwd<__nv_bfloat16>(xg, wh, bh, ys, res, a, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The eval form (row 9) on scan_chain.cuh's chain: xg, wh, bh and ys as
-// above; the geometry (ops/rnn_scan.py::chain_geometry) as
-// lstm_scan_fwd's: nc blocks a chain, s depth slices a column, rows a
-// chain, ls of shared-memory depth, rounds.
-int gru_scan_eval(int dtype, const void* xg, const void* wh, const void* bh,
-                  void* ys, int Tn, int B, int W, int nc, int s, int rows,
-                  int ls, int rounds, void* stream) {
+                 void* ys, void* res, int Tn, int B, int W, int nc, int s,
+                 int rows, int ls, int rounds, void* stream) {
   rc::ChainArgs a;
   const int chunk = dtype == 0 ? 4 : 8;
   if (!rc::chain_args(Tn, B, W, 3, 1, nc, s, rows, ls, rounds, chunk, &a))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)rc::run_eval<float>(a, st, xg, wh, bh, ys);
+  if (dtype == 0) return (int)rc::run_fwd<float>(a, st, xg, wh, bh, ys, res);
   if (dtype == 1)
-    return (int)rc::run_eval<__nv_bfloat16>(a, st, xg, wh, bh, ys);
+    return (int)rc::run_fwd<__nv_bfloat16>(a, st, xg, wh, bh, ys, res);
   return (int)cudaErrorInvalidValue;
 }
 

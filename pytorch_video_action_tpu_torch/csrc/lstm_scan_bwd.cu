@@ -72,7 +72,9 @@
 // block forms dh_c of its own units from all 4W gradients with its [4W, U]
 // slice of whT; first it forms its units' gates from hp[t], a product with
 // its [W, 4U] slice of wh.  Its buffers hold RM rows: 8, or 1 where 8 would
-// pass the shared memory (W past about 850).
+// pass the shared memory (W past about 850); past about 5984, where one
+// row's [2][4W] f32 gradients pass it too, they cross the cluster in
+// device memory (scan_common.cuh's GX form, read back through L2).
 
 #include "rnn_wgmma.cuh"
 #include "scan_chain.cuh"
@@ -119,18 +121,26 @@ __device__ __forceinline__ void prefetch_in(const T* res, const T* cp,
 // 4W rounded gradients (column g*W + d of a row at (g*S + d / L)*LP +
 // d % L), then two mbarriers (one a buffer), then the shared-memory
 // weights [ls*sizeof(T)/16][nthr] 16-byte chunks or, with WIDE, each
-// thread's dc carry [R][RM][nthr] f32.
-template <typename T, int RM, bool WIDE>
+// thread's dc carry [R][RM][nthr] f32.  With GX (only with WIDE, one row a
+// chain: where even one row's two buffers pass the shared memory, W past
+// 6968) the two buffers of dg_s are in device memory instead, xbuf
+// [chains][2][RM][ldh]: a unit's lane group writes its gradient there once,
+// a fence and a cluster barrier end the step, and the product reads them
+// through L2.
+template <typename T, int RM, bool WIDE, bool GX>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
                            const T* __restrict__ cp,
                            const T* __restrict__ dy,
                            const T* __restrict__ wh, T* __restrict__ dxg,
-                           ChainArgs a) {
+                           float* __restrict__ xbuf, ChainArgs a) {
+  static_assert(WIDE || !GX, "the device-memory exchange is a rounds form");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* dg_s = reinterpret_cast<float*>(smem_raw);
   const int dfloats = 2 * RM * a.ldh;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(dg_s + dfloats);
+  float* dg_s = GX ? xbuf + (size_t)(blockIdx.x / a.NC) * dfloats
+                   : reinterpret_cast<float*>(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      GX ? reinterpret_cast<float*>(smem_raw) : dg_s + dfloats);
   uint4* w_s = reinterpret_cast<uint4*>(bars + 2);
   float* c_s = reinterpret_cast<float*>(bars + 2);
 
@@ -164,10 +174,13 @@ lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
   } else {
     for (int i = 0; i < a.R * RM; ++i) c_s[(size_t)i * a.nthr + tid] = 0.0f;
   }
-  for (int i = tid; i < dfloats; i += blockDim.x) dg_s[i] = 0.0f;
-  const uint32_t bar0 = smem_u32(bars), d0s = smem_u32(dg_s);
+  if (!GX)  // (GX: the caller's buffers start at 0)
+    for (int i = tid; i < dfloats; i += blockDim.x) dg_s[i] = 0.0f;
+  const uint32_t bar0 = smem_u32(bars), d0s = GX ? 0u : smem_u32(dg_s);
   const uint32_t bytes = 16u * (uint32_t)a.W * (uint32_t)nb;
-  if (a.NC > 1) {
+  if (GX) {
+    cg::this_cluster().sync();  // every thread takes the steps' barriers
+  } else if (a.NC > 1) {
     if (tid == 0) {
       bar_init(bar0);
       bar_init(bar0 + 8);
@@ -204,7 +217,7 @@ lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
     const int cur = st & 1;
     const int nxt = cur ^ 1;
     const size_t row0 = (size_t)t * a.B + b0;
-    if (a.NC > 1 && st > 0) {
+    if (!GX && a.NC > 1 && st > 0) {
       bar_wait(bar0 + 8 * cur, ((st - 1) >> 1) & 1);
       if (tid == 0 && st + 2 < a.Tn) bar_expect(bar0 + 8 * cur, bytes);
     }
@@ -222,9 +235,10 @@ lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
         }
       }
       float pre[RM];
-      product<T, RM, WIDE>(wr, w_s + tid, wh + (size_t)unit * a.G + g * a.W,
-                           1, dg_s + cur * RM * a.ldh + goff + s * a.LP, a,
-                           d0, pre);
+      product<T, RM, WIDE, GX>(wr, w_s + tid,
+                               wh + (size_t)unit * a.G + g * a.W, 1,
+                               dg_s + cur * RM * a.ldh + goff + s * a.LP, a,
+                               d0, pre);
       // dh_c of the unit (the sum of its 4S lanes, the same in each), the
       // cell in every lane, and gate g's gradient in lane group g
       float dv[RM];
@@ -253,10 +267,16 @@ lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
       // the rounded gradient to every block (or to this one), then dxg
       // and the next step's inputs
       if (st + 1 < a.Tn && on) {
-        const uint32_t slot =
-            d0s + 4u * (uint32_t)(nxt * RM * a.ldh + goff +
-                                  (unit / a.L) * a.LP + unit % a.L);
-        if (a.NC > 1) {
+        const int off =
+            nxt * RM * a.ldh + goff + (unit / a.L) * a.LP + unit % a.L;
+        const uint32_t slot = d0s + 4u * (uint32_t)off;
+        if (GX) {
+          if (s == 0) {
+#pragma unroll
+            for (int r = 0; r < RM; ++r)
+              if (r < nb) dg_s[off + r * a.ldh] = dv[r];
+          }
+        } else if (a.NC > 1) {
           for (int q = s; q < a.NC; q += a.S) {
             const uint32_t dst = peer_u32(slot, q);
             const uint32_t bar = peer_u32(bar0 + 8 * nxt, q);
@@ -288,44 +308,57 @@ lstm_scan_bwd_saved_kernel(const T* __restrict__ res,
                         unit, k, lanes);
       }
     }
-    if (a.NC == 1) __syncthreads();
+    if (GX) {  // the step's gradients published in device memory
+      __threadfence();
+      cluster_arrive();
+      cluster_wait();
+    } else if (a.NC == 1) {
+      __syncthreads();
+    }
   }
 }
 
-template <typename T, int RM, bool WIDE>
+template <typename T, int RM, bool WIDE, bool GX = false>
 cudaError_t launch_saved(const ChainArgs& a, cudaStream_t stream,
                          const void* res, const void* cp, const void* dy,
-                         const void* wh, void* dxg) {
-  return launch_chain(lstm_scan_bwd_saved_kernel<T, RM, WIDE>, a,
-                      chain_smem<T>(a, RM), stream,
+                         const void* wh, void* dxg, float* xbuf) {
+  return launch_chain(lstm_scan_bwd_saved_kernel<T, RM, WIDE, GX>, a,
+                      chain_smem<T>(a, RM, GX), stream,
                       static_cast<const T*>(res), static_cast<const T*>(cp),
                       static_cast<const T*>(dy), static_cast<const T*>(wh),
-                      static_cast<T*>(dxg), a);
+                      static_cast<T*>(dxg), xbuf, a);
 }
 
 template <typename T, int RM>
 cudaError_t saved_rows(const ChainArgs& a, cudaStream_t stream,
                        const void* res, const void* cp, const void* dy,
-                       const void* wh, void* dxg) {
-  if (a.R > 1) {  // rounds: 1, 2 or 4 rows a chain
-    if constexpr (RM == 1 || RM == 2 || RM == 4)
-      return launch_saved<T, RM, true>(a, stream, res, cp, dy, wh, dxg);
+                       const void* wh, void* dxg, float* xbuf, bool gx) {
+  if (gx) {  // one row, in rounds, the gradients in device memory
+    if constexpr (RM == 1)
+      return launch_saved<T, 1, true, true>(a, stream, res, cp, dy, wh, dxg,
+                                            xbuf);
     return cudaErrorInvalidValue;
   }
-  return launch_saved<T, RM, false>(a, stream, res, cp, dy, wh, dxg);
+  if (a.R > 1) {  // rounds: 1, 2 or 4 rows a chain
+    if constexpr (RM == 1 || RM == 2 || RM == 4)
+      return launch_saved<T, RM, true>(a, stream, res, cp, dy, wh, dxg,
+                                       xbuf);
+    return cudaErrorInvalidValue;
+  }
+  return launch_saved<T, RM, false>(a, stream, res, cp, dy, wh, dxg, xbuf);
 }
 
 template <typename T>
 cudaError_t run_saved(const ChainArgs& a, cudaStream_t stream,
                       const void* res, const void* cp, const void* dy,
-                      const void* wh, void* dxg) {
+                      const void* wh, void* dxg, float* xbuf, bool gx) {
   switch (a.rows) {
-    case 1: return saved_rows<T, 1>(a, stream, res, cp, dy, wh, dxg);
-    case 2: return saved_rows<T, 2>(a, stream, res, cp, dy, wh, dxg);
-    case 3: return saved_rows<T, 3>(a, stream, res, cp, dy, wh, dxg);
-    case 4: return saved_rows<T, 4>(a, stream, res, cp, dy, wh, dxg);
-    case 6: return saved_rows<T, 6>(a, stream, res, cp, dy, wh, dxg);
-    case 8: return saved_rows<T, 8>(a, stream, res, cp, dy, wh, dxg);
+    case 1: return saved_rows<T, 1>(a, stream, res, cp, dy, wh, dxg, xbuf, gx);
+    case 2: return saved_rows<T, 2>(a, stream, res, cp, dy, wh, dxg, xbuf, gx);
+    case 3: return saved_rows<T, 3>(a, stream, res, cp, dy, wh, dxg, xbuf, gx);
+    case 4: return saved_rows<T, 4>(a, stream, res, cp, dy, wh, dxg, xbuf, gx);
+    case 6: return saved_rows<T, 6>(a, stream, res, cp, dy, wh, dxg, xbuf, gx);
+    case 8: return saved_rows<T, 8>(a, stream, res, cp, dy, wh, dxg, xbuf, gx);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -344,14 +377,16 @@ __device__ __forceinline__ void load_cell(float& c, float& cpv, float& dyv,
   dyv = to_f(dy[row * W + unit]);
 }
 
-// The recompute form (row 16) on scan_common.cuh's chain, RM rows a chain.
-template <typename T, int RM>
+// The recompute form (row 16) on scan_common.cuh's chain, RM rows a chain,
+// P (row, unit) pairs a thread, and with GX the gate gradients crossing the
+// cluster in device memory (xbuf [chains][2][RM][4W] f32).
+template <typename T, int RM, int P, bool GX>
 __global__ void __launch_bounds__(kScanThreads, 1)
 lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
                      const T* __restrict__ cp, const T* __restrict__ cs,
                      const T* __restrict__ dy, const T* __restrict__ wh,
                      const T* __restrict__ whT, T* __restrict__ dxg,
-                     ScanArgs a) {
+                     float* __restrict__ xbuf, ScanArgs a) {
   // (rnn_wgmma.cuh's kernels name theirs smem_raw, as char)
   extern __shared__ __align__(16) unsigned char smem_scan[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -363,13 +398,14 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
   const int C4 = 4 * a.U;
   // the layout, the same in every block
   float* dg_s = reinterpret_cast<float*>(smem_scan);  // [2][RM][G]
-  float* part_s = dg_s + 2 * RM * G;
+  float* part_s = dg_s + (GX ? 0 : 2 * RM * G);
   float* dh_s = part_s + part_floats(C4, RM);  // [RM][U]
   float* dc_s = dh_s + RM * a.U;               // [RM][U]
   float* hp_s = dc_s + RM * a.U;               // [RM][ldh]
   float* act_s = hp_s + RM * ldh;              // [RM][C]
   T* wT_s = reinterpret_cast<T*>(act_s + RM * C4);
   T* w_s = wT_s + (size_t)a.rs * a.U;  // [rs2][C]
+  float* dg = GX ? xbuf + (size_t)(blockIdx.x / a.NC) * 2 * RM * G : dg_s;
 
   // whT rows are gate columns, its columns units: slice [4W, ucnt]
   const int uc = ch.ucnt > 0 ? ch.ucnt : 1;
@@ -381,21 +417,25 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
     dh_s[i] = 0.0f;
     dc_s[i] = 0.0f;
   }
-  // the rows past the chain's stay 0: the carry product sums them
-  for (int i = threadIdx.x; i < 2 * RM * G; i += kScanThreads)
-    dg_s[i] = 0.0f;
+  // the rows past the chain's stay 0: the carry product sums them (GX:
+  // one row, the chain's)
+  if (!GX)
+    for (int i = threadIdx.x; i < 2 * RM * G; i += kScanThreads)
+      dg_s[i] = 0.0f;
   for (int i = threadIdx.x; i < RM * ldh; i += kScanThreads) hp_s[i] = 0.0f;
   float* peer[kMaxCluster];
+  if (!GX) {
 #pragma unroll
-  for (int q = 0; q < kMaxCluster; ++q)
-    if (q < a.NC) peer[q] = cluster.map_shared_rank(dg_s, q);
+    for (int q = 0; q < kMaxCluster; ++q)
+      if (q < a.NC) peer[q] = cluster.map_shared_rank(dg_s, q);
+  }
 
   // one (row, unit) step's inputs: c (its tanh is taken when used),
   // c_prev, dy
   const int n_pairs = ch.nb * ch.ucnt;
-  float cv[kMaxPairs], cpv[kMaxPairs], dyv[kMaxPairs];
+  float cv[P], cpv[P], dyv[P];
 #pragma unroll
-  for (int k = 0; k < kMaxPairs; ++k) {
+  for (int k = 0; k < P; ++k) {
     const int e = threadIdx.x + k * kScanThreads;
     if (e < n_pairs)
       load_cell(cv[k], cpv[k], dyv[k], cs, cp, dy,
@@ -425,9 +465,9 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
 
     // the cell threads' gate gradients to every block, the barrier's
     // arrive; then their stores to dxg and the next step's inputs
-    float d[kMaxPairs][4];
+    float d[P][4];
 #pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
+    for (int k = 0; k < P; ++k) {
       const int e = threadIdx.x + k * kScanThreads;
       if (e < n_pairs) {
         const int b = e / ch.ucnt;
@@ -447,15 +487,20 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           d[k][q] = rnd<T>(d[k][q]);
+          if (GX) {
+            dg[slot + q * W] = d[k][q];
+          } else {
 #pragma unroll
-          for (int r = 0; r < kMaxCluster; ++r)
-            if (r < a.NC) peer[r][slot + q * W] = d[k][q];
+            for (int r = 0; r < kMaxCluster; ++r)
+              if (r < a.NC) peer[r][slot + q * W] = d[k][q];
+          }
         }
       }
     }
+    if (GX) __threadfence();
     cluster_arrive();
 #pragma unroll
-    for (int k = 0; k < kMaxPairs; ++k) {
+    for (int k = 0; k < P; ++k) {
       const int e = threadIdx.x + k * kScanThreads;
       if (e < n_pairs) {
         T* out = dxg + (row0 + e / ch.ucnt) * G + ch.u0 + e % ch.ucnt;
@@ -465,7 +510,7 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
     }
     if (t > 0) {
 #pragma unroll
-      for (int k = 0; k < kMaxPairs; ++k) {
+      for (int k = 0; k < P; ++k) {
         const int e = threadIdx.x + k * kScanThreads;
         if (e < n_pairs)
           load_cell(cv[k], cpv[k], dyv[k], cs, cp, dy,
@@ -476,8 +521,8 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
 
     // dh_c of this block's units
     if (ch.ucnt > 0)
-      product<T, RM>(dg_s + cur * RM * G, G, wT_s, a.rs, whT, cmT, ch.ucnt,
-                     G, part_s);
+      product<T, RM, GX>(dg + cur * RM * G, G, wT_s, a.rs, whT, cmT,
+                         ch.ucnt, G, part_s);
     __syncthreads();
     for (int e = threadIdx.x; e < n_pairs; e += kScanThreads) {
       const int b = e / ch.ucnt;
@@ -488,21 +533,23 @@ lstm_scan_bwd_kernel(const T* __restrict__ xg, const T* __restrict__ hp,
   }
 }
 
-size_t bwd_fixed_bytes(const ScanArgs& a, int rm) {
+// Bytes of a form's shared-memory buffers other than the resident
+// weights: rm rows, the gradients' two buffers unless gx.
+size_t bwd_fixed_bytes(const ScanArgs& a, int rm, bool gx) {
   const int C4 = 4 * a.U;
-  const size_t floats = 2 * rm * 4 * (size_t)a.W + part_floats(C4, rm) +
-                        2 * rm * a.U + rm * row_ld(a.W) + rm * C4;
+  const size_t floats = (gx ? 0 : 2 * rm * 4 * (size_t)a.W) +
+                        part_floats(C4, rm) + 2 * rm * a.U +
+                        rm * row_ld(a.W) + rm * C4;
   return align16(sizeof(float) * floats);
 }
 
-template <typename T, int RM>
+template <typename T, int RM, int P, bool GX>
 cudaError_t launch_recompute(const void* xg, const void* hp, const void* cp,
                              const void* cs, const void* dy, const void* wh,
-                             const void* whT, void* dxg, ScanArgs a,
-                             cudaStream_t stream) {
-  a.rows = a.rows < RM ? a.rows : RM;
-  const size_t fixed = bwd_fixed_bytes(a, RM);
-  if (fixed > kScanSmem) return cudaErrorInvalidValue;
+                             const void* whT, void* dxg, float* xbuf,
+                             ScanArgs a, cudaStream_t stream) {
+  const size_t fixed = bwd_fixed_bytes(a, RM, GX);
+  if (!form_fits<RM, P>(a, fixed)) return cudaErrorInvalidValue;
   // the carry product's slice [4W, U] first, then [W, 4U]
   const size_t rowT = sizeof(T) * a.U;
   a.rs = resident_rows(fixed, rowT, 4 * a.W);
@@ -510,11 +557,35 @@ cudaError_t launch_recompute(const void* xg, const void* hp, const void* cp,
   const size_t row = sizeof(T) * 4 * a.U;
   a.rs2 = resident_rows(smem, row, a.W);
   smem += row * a.rs2;
-  return launch_chain(lstm_scan_bwd_kernel<T, RM>, a, smem, stream,
+  return launch_chain(lstm_scan_bwd_kernel<T, RM, P, GX>, a, smem, stream,
                       static_cast<const T*>(xg), static_cast<const T*>(hp),
                       static_cast<const T*>(cp), static_cast<const T*>(cs),
                       static_cast<const T*>(dy), static_cast<const T*>(wh),
-                      static_cast<const T*>(whT), static_cast<T*>(dxg), a);
+                      static_cast<const T*>(whT), static_cast<T*>(dxg), xbuf,
+                      a);
+}
+
+// The recompute form in the caller's form (scan_common.cuh's Form).
+template <typename T>
+cudaError_t run_recompute(int form, const void* xg, const void* hp,
+                          const void* cp, const void* cs, const void* dy,
+                          const void* wh, const void* whT, void* dxg,
+                          float* xbuf, const ScanArgs& a,
+                          cudaStream_t stream) {
+  switch (form) {
+    case kFull:
+      return launch_recompute<T, kMaxRows, kMaxPairs, false>(
+          xg, hp, cp, cs, dy, wh, whT, dxg, xbuf, a, stream);
+    case kOne:
+      return launch_recompute<T, 1, kWidePairs, false>(
+          xg, hp, cp, cs, dy, wh, whT, dxg, xbuf, a, stream);
+    case kGx:
+      if (xbuf == nullptr) return cudaErrorInvalidValue;
+      return launch_recompute<T, 1, kWidePairs, true>(
+          xg, hp, cp, cs, dy, wh, whT, dxg, xbuf, a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // dwh's K-slice partials: block (x, y) is the 64 x 128 tile x (row tile
@@ -596,26 +667,31 @@ extern "C" {
 // partials, ceil(ceil(T*B / 64) / slice_chunks) slices of W * 4W.  The
 // chain's geometry (ops/rnn_scan.py::chain_geometry) as lstm_scan_fwd's:
 // nc blocks a chain, s depth slices a column chunk, rows a chain, ls of
-// shared-memory depth, rounds.  Launches on `stream` (the chain, dwh's
-// partials, their sum) and returns the launches' error (0 on success).
+// shared-memory depth, rounds, and gx: the gradients' exchange in xbuf
+// (f32, zeros, [B][2][4 (L + 4)], L = W rounded up to 8; one row a chain,
+// in rounds) instead of shared memory.  Launches on `stream` (the chain,
+// dwh's partials, their sum) and returns the launches' error (0 on
+// success).
 int lstm_scan_bwd_saved(int dtype, const void* res, const void* hp,
                         const void* cp, const void* dy, const void* wh,
-                        void* dxg, void* dwh, void* part, int Tn, int B,
-                        int W, int nc, int s, int rows, int ls, int rounds,
-                        int slice_chunks, void* stream) {
+                        void* dxg, void* dwh, void* part, float* xbuf,
+                        int Tn, int B, int W, int nc, int s, int rows, int ls,
+                        int rounds, int gx, int slice_chunks, void* stream) {
   rc::ChainArgs a;
   const int chunk = dtype == 0 ? 4 : 8;
-  if (!rc::chain_args(Tn, B, W, 4, 4, nc, s, rows, ls, rounds, chunk, &a))
+  if (!rc::chain_args(Tn, B, W, 4, 4, nc, s, rows, ls, rounds, chunk, &a) ||
+      (gx && (rounds < 2 || rows != 1 || xbuf == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = rc::run_saved<float>(a, st, res, cp, dy, wh, dxg);
+    err = rc::run_saved<float>(a, st, res, cp, dy, wh, dxg, xbuf, gx != 0);
     if (err == cudaSuccess)
       err = launch_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B, W, st);
   } else if (dtype == 1) {
-    err = rc::run_saved<__nv_bfloat16>(a, st, res, cp, dy, wh, dxg);
+    err = rc::run_saved<__nv_bfloat16>(a, st, res, cp, dy, wh, dxg, xbuf,
+                                       gx != 0);
     if (err == cudaSuccess)
       err = launch_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn, B, W,
                                       st);
@@ -624,31 +700,29 @@ int lstm_scan_bwd_saved(int dtype, const void* res, const void* hp,
 }
 
 // The recompute form: xg [T, B, 4W]; hp, cp, cs, dy [T, B, W]; wh [W, 4W]
-// and whT = wh^T [4W, W]; dxg, dwh and part as above.  cluster: blocks a
-// chain spreads W over (ops/rnn_scan.py::cluster_size), 1..16.
+// and whT = wh^T [4W, W]; dxg, dwh and part as above; the Gx form's f32
+// scratch xbuf [B][2][4W] (the gradients' exchange in device memory).  The
+// launch (ops/rnn_scan.py::scan_form): cluster, the blocks a chain spreads
+// W over, 1..16; rows a chain; form (scan_common.cuh's Form).
 int lstm_scan_bwd(int dtype, const void* xg, const void* hp, const void* cp,
                   const void* cs, const void* dy, const void* wh,
-                  const void* whT, void* dxg, void* dwh, void* part, int Tn,
-                  int B, int W, int cluster, int slice_chunks, void* stream) {
+                  const void* whT, void* dxg, void* dwh, void* part,
+                  float* xbuf, int Tn, int B, int W, int cluster, int rows,
+                  int form, int slice_chunks, void* stream) {
   ScanArgs a;
-  if (!scan_geometry(Tn, B, W, cluster, &a)) return (int)cudaErrorInvalidValue;
+  if (!scan_geometry(Tn, B, W, cluster, rows, &a))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(part);
-  // 8 rows a chain where their buffers fit, else 1
-  const bool wide = bwd_fixed_bytes(a, kMaxRows) > kScanSmem;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
-    err = wide ? launch_recompute<float, 1>(xg, hp, cp, cs, dy, wh, whT, dxg,
-                                            a, st)
-               : launch_recompute<float, kMaxRows>(xg, hp, cp, cs, dy, wh,
-                                                   whT, dxg, a, st);
+    err = run_recompute<float>(form, xg, hp, cp, cs, dy, wh, whT, dxg, xbuf,
+                               a, st);
     if (err == cudaSuccess)
       err = launch_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B, W, st);
   } else if (dtype == 1) {
-    err = wide ? launch_recompute<__nv_bfloat16, 1>(xg, hp, cp, cs, dy, wh,
-                                                    whT, dxg, a, st)
-               : launch_recompute<__nv_bfloat16, kMaxRows>(
-                     xg, hp, cp, cs, dy, wh, whT, dxg, a, st);
+    err = run_recompute<__nv_bfloat16>(form, xg, hp, cp, cs, dy, wh, whT, dxg,
+                                       xbuf, a, st);
     if (err == cudaSuccess)
       err = launch_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn, B, W,
                                       st);

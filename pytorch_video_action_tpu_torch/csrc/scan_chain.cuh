@@ -158,6 +158,14 @@ __device__ __forceinline__ float bf_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
+// An f32 input value: a plain load, or with CG one that skips L1 (the
+// input in device memory, written there by other blocks of the cluster).
+template <bool CG>
+__device__ __forceinline__ float ld_h(const float* p) {
+  if constexpr (CG) return __ldcg(p);
+  return *p;
+}
+
 // acc += dot(h[0..3], w[0..3]), in that order.
 __device__ __forceinline__ float dot4(float acc, float4 h, float w0,
                                       float w1, float w2, float w3) {
@@ -198,8 +206,9 @@ __device__ __forceinline__ void load_resident(uint32_t (&wr)[kRegWords],
 // slice's L are 0, so the loop needs no bound and its loads of the input
 // go out ahead of the FMAs), shared memory for [kRegWords, kRegWords + ls),
 // L2 for the rest; with WIDE (rounds) all of it through L2.  NA sums a
-// row, added in a fixed order.
-template <typename T, int RM, bool WIDE>
+// row, added in a fixed order.  With CG (only with WIDE) the input is in
+// device memory and read past L1.
+template <typename T, int RM, bool WIDE, bool CG = false>
 __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
                                         const uint4* __restrict__ ws,
                                         const T* __restrict__ wg, int stride,
@@ -269,7 +278,8 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
       for (int r = 0; r < RM; ++r)
 #pragma unroll
         for (int k = 0; k < 32; ++k)
-          acc[r][k % NA] = fmaf(hs[r * a.ldh + j + k], w[k], acc[r][k % NA]);
+          acc[r][k % NA] =
+              fmaf(ld_h<CG>(hs + r * a.ldh + j + k), w[k], acc[r][k % NA]);
     }
   }
   for (; j + 8 <= j1; j += 8) {
@@ -281,13 +291,13 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
     for (int r = 0; r < RM; ++r)
 #pragma unroll
       for (int k = 0; k < 8; ++k)
-        acc[r][0] = fmaf(hs[r * a.ldh + j + k], w[k], acc[r][0]);
+        acc[r][0] = fmaf(ld_h<CG>(hs + r * a.ldh + j + k), w[k], acc[r][0]);
   }
   for (; j < j1; ++j) {
     const float w0 = to_f(wg[(size_t)(d0 + j) * stride]);
 #pragma unroll
     for (int r = 0; r < RM; ++r)
-      acc[r][0] = fmaf(hs[r * a.ldh + j], w0, acc[r][0]);
+      acc[r][0] = fmaf(ld_h<CG>(hs + r * a.ldh + j), w0, acc[r][0]);
   }
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
@@ -298,12 +308,12 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
   }
 }
 
-// Shared-memory bytes of a launch: the input's two buffers, the mbarriers
-// and the weights read from shared memory or, with rounds, each thread's
-// carry (R values a row).
+// Shared-memory bytes of a launch: the input's two buffers (unless gx:
+// they are in device memory), the mbarriers and the weights read from
+// shared memory or, with rounds, each thread's carry (R values a row).
 template <typename T>
-size_t chain_smem(const ChainArgs& a, int rm) {
-  return sizeof(float) * 2 * rm * a.ldh + 16 +
+size_t chain_smem(const ChainArgs& a, int rm, bool gx = false) {
+  return (gx ? 0 : sizeof(float) * 2 * rm * a.ldh) + 16 +
          (a.R > 1 ? sizeof(float) * a.R * rm * a.nthr
                   : (size_t)a.nthr * a.ls * sizeof(T));
 }

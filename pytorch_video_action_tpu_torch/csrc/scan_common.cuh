@@ -1,9 +1,9 @@
 // Device code shared by the LSTM scan's recompute backward and the GRU
-// scan's saving forward and backwards (lstm_scan_bwd.cu, gru_scan_fwd.cu,
-// gru_scan_bwd.cu) for Hopper (sm_90a):
-// the chain's geometry on a thread block cluster, its shared-memory
-// budget, the per-step product of a few batch rows with a weight slice,
-// and the cluster launch.
+// scan's backwards (lstm_scan_bwd.cu, gru_scan_bwd.cu) for Hopper
+// (sm_90a): the chain's geometry on a thread block cluster, its
+// shared-memory budget, the per-step product of a few batch rows with a
+// weight slice, and the cluster launch.  The host picks a launch's
+// cluster, rows and form (ops/rnn_scan.py::scan_form).
 //
 // A chain carries up to kMaxRows batch rows (a kernel may take fewer, RM,
 // to fit a wide W) through T steps on a cluster
@@ -14,6 +14,13 @@
 // cluster barrier a step publishes them.  Every block has the same shared
 // memory layout (sized by U, not ucnt), so a peer's buffer sits at the
 // same offset.
+//
+// Where the per-unit values cross the cluster past the shared memory (W
+// wide enough that even one row's double-buffered values do not fit), a
+// kernel may keep them in device memory instead (GX): each block writes its
+// units' values there once, a fence and the cluster barrier publish them,
+// and the product reads them back through L2 (ld.global.cg, which skips the
+// SM's own L1, where an earlier step's line could stand).
 //
 // The per-step product out[b][c] = sum_j in[b][j] * Wt(j, c) over a block's
 // C columns is SIMT f32: thread (s, c) takes column c over depth slice s,
@@ -39,8 +46,8 @@ namespace {
 constexpr int kScanThreads = 256;
 constexpr int kMaxRows = 8;       // batch rows a cluster carries
 constexpr int kMaxCluster = 16;   // blocks of a cluster (16: non-portable)
-constexpr int kMaxItems = 8;      // (row, column) items a thread prefetches
-constexpr int kMaxPairs = kMaxItems / 4;  // (row, unit) pairs a thread owns
+constexpr int kMaxPairs = 2;      // (row, unit) pairs a thread owns
+constexpr int kWidePairs = 8;     // the same, in the one-row forms
 constexpr size_t kScanSmem = 225 * 1024;  // dynamic shared memory budget
 
 struct ScanArgs {
@@ -104,11 +111,25 @@ __device__ __forceinline__ void load_weights(T* w_s,
   }
 }
 
+// An f32 input value or four: a plain load, or with CG one that skips L1
+// (the input in device memory, written by other blocks of the cluster).
+template <bool CG>
+__device__ __forceinline__ float ld_in(const float* p) {
+  if constexpr (CG) return __ldcg(p);
+  return *p;
+}
+template <bool CG>
+__device__ __forceinline__ float4 ld_in4(const float* p) {
+  if constexpr (CG) return __ldcg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
+}
+
 // part_s[(s * RM + b) * C + c] = sum over j in slice s of
 // in_s[b * ld + j] * Wt(j, c) for all RM rows b (rows past the chain's
 // are 0 in in_s: summing them costs less than branching on them); Wt from
-// w_s [rs][C] for j < rs, else from w_g through the column map.
-template <typename T, int RM = kMaxRows>
+// w_s [rs][C] for j < rs, else from w_g through the column map.  With CG
+// the input is in device memory (GX).
+template <typename T, int RM = kMaxRows, bool CG = false>
 __device__ __forceinline__ void product(const float* in_s, int ld,
                                         const T* w_s, int rs,
                                         const T* __restrict__ w_g,
@@ -133,7 +154,7 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
       const float w3 = to_f(wp[3 * C]);
 #pragma unroll
       for (int b = 0; b < RM; ++b) {
-        const float4 h = *reinterpret_cast<const float4*>(&in_s[b * ld + j]);
+        const float4 h = ld_in4<CG>(&in_s[b * ld + j]);
         acc[b] = fmaf(h.x, w0, acc[b]);
         acc[b] = fmaf(h.y, w1, acc[b]);
         acc[b] = fmaf(h.z, w2, acc[b]);
@@ -144,7 +165,7 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
       const float w0 = to_f(w_s[j * C + c]);
 #pragma unroll
       for (int b = 0; b < RM; ++b)
-        acc[b] = fmaf(in_s[b * ld + j], w0, acc[b]);
+        acc[b] = fmaf(ld_in<CG>(&in_s[b * ld + j]), w0, acc[b]);
     }
     // rows past the resident ones, through L2: eight loads in flight
     // before their products, so their latency overlaps
@@ -157,13 +178,13 @@ __device__ __forceinline__ void product(const float* in_s, int ld,
       for (int b = 0; b < RM; ++b)
 #pragma unroll
         for (int q = 0; q < 8; ++q)
-          acc[b] = fmaf(in_s[b * ld + j + q], w[q], acc[b]);
+          acc[b] = fmaf(ld_in<CG>(&in_s[b * ld + j + q]), w[q], acc[b]);
     }
     for (; j < j1; ++j) {
       const float w0 = to_f(wg[(size_t)j * cm.ldg]);
 #pragma unroll
       for (int b = 0; b < RM; ++b)
-        acc[b] = fmaf(in_s[b * ld + j], w0, acc[b]);
+        acc[b] = fmaf(ld_in<CG>(&in_s[b * ld + j]), w0, acc[b]);
     }
 #pragma unroll
     for (int b = 0; b < RM; ++b)
@@ -211,21 +232,27 @@ __device__ __forceinline__ Chain chain(const cg::cluster_group& cluster,
   return ch;
 }
 
-// The host's picks: rows per cluster and, given the bytes of the
-// buffers other than the resident weights, how many weight rows of
-// `row_bytes` each fit in the budget (a multiple of 4, or all `depth`).
-inline int pick_rows(int B, int U) {
-  int rows = B < kMaxRows ? B : kMaxRows;
-  const int by_items = (kMaxItems * kScanThreads) / (4 * U);
-  if (rows > by_items) rows = by_items;
-  return rows;
-}
-
+// How many weight rows of `row_bytes` each fit in the budget after the
+// `fixed` bytes of the other buffers (a multiple of 4, or all `depth`).
 inline int resident_rows(size_t fixed, size_t row_bytes, int depth) {
   if (fixed >= kScanSmem || row_bytes == 0) return 0;
   size_t n = (kScanSmem - fixed) / row_bytes;
   if (n >= (size_t)depth) return depth;
   return (int)(n & ~(size_t)3);
+}
+
+// Where a kernel's per-unit values cross the cluster (the caller's pick,
+// ops/rnn_scan.py::scan_form): up to kMaxRows rows a chain with the values
+// in shared memory (Full), one row in shared memory (One) or one row in
+// device memory (Gx), the first whose buffers fit.
+enum Form { kFull = 0, kOne = 1, kGx = 2 };
+
+// Whether a launch of RM rows and P (row, unit) pairs a thread takes the
+// chain's rows and units, and its fixed buffers the budget.
+template <int RM, int P>
+bool form_fits(const ScanArgs& a, size_t fixed) {
+  return a.rows <= RM && a.rows * a.U <= P * kScanThreads &&
+         fixed <= kScanSmem;
 }
 
 // Launch `kernel` on clusters of a.NC blocks, one cluster per group of
@@ -259,19 +286,21 @@ cudaError_t launch_chain(void (*kernel)(KArgs...), const ScanArgs& a,
   return cudaGetLastError();
 }
 
-// Shared checks and geometry of an entry point; false on a bad argument.
-inline bool scan_geometry(int Tn, int B, int W, int cluster, ScanArgs* a) {
+// Shared checks and geometry of an entry point from the caller's cluster
+// and rows a chain; false on a bad argument.
+inline bool scan_geometry(int Tn, int B, int W, int cluster, int rows,
+                          ScanArgs* a) {
   if (Tn <= 0 || B <= 0 || W <= 0 || cluster < 1 || cluster > kMaxCluster ||
-      cluster > W)
+      cluster > W || rows < 1 || rows > kMaxRows)
     return false;
   a->Tn = Tn;
   a->B = B;
   a->W = W;
   a->NC = cluster;
   a->U = (W + cluster - 1) / cluster;
-  a->rows = pick_rows(B, a->U);
+  a->rows = rows;
   a->rs = a->rs2 = 0;
-  return a->rows >= 1;
+  return true;
 }
 
 }  // namespace

@@ -82,7 +82,10 @@ class FwdGeometry(NamedTuple):
     memory after the registers' (the rest, if any, from L2), ``threads`` and
     ``smem`` bytes a block, and ``rounds``, the units a thread takes in turn
     each step (past 1, every weight is read through L2 and the carry is
-    kept in shared memory)."""
+    kept in shared memory), and ``gx``: the input's two buffers in device
+    memory instead of shared memory (one row a chain, in rounds; the
+    saved-gates backward's where even one row's 4W gradients pass the
+    shared memory)."""
     nc: int
     s: int
     rows: int
@@ -91,6 +94,62 @@ class FwdGeometry(NamedTuple):
     threads: int
     smem: int
     rounds: int = 1
+    gx: int = 0
+
+
+# scan_common.cuh's chains (rows 11, 12 and 16): threads a block, rows a
+# chain at most, (row, unit) pairs a thread (and in the one-row forms),
+# the dynamic shared memory; the forms, where the gate gradients cross
+# the cluster
+SCAN_THREADS = 256
+SCAN_MAX_ROWS = 8
+SCAN_PAIRS, SCAN_WIDE_PAIRS = 2, 8
+SCAN_FORMS = ("full", "one", "gx")
+
+
+class ScanForm(NamedTuple):
+    """A launch of a scan_common.cuh kernel: ``cluster`` blocks a chain,
+    ``rows`` batch rows a chain and its ``form``: up to 8 rows with the
+    gradients crossing the cluster in shared memory ("full"), one row so
+    ("one"), or one row with them in device memory ("gx"), the first
+    whose buffers fit."""
+    cluster: int
+    rows: int
+    form: str
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def scan_form(entry, b, w) -> ScanForm:
+    """The launch of ``entry`` (``gru_scan_bwd_saved``, ``gru_scan_bwd`` or
+    ``lstm_scan_bwd``) for ``b`` rows of width ``w``: its buffers other
+    than the resident weights, as the kernel lays them out (f32: the
+    gradients' two buffers unless "gx", the product's partial sums, the
+    carries, recomputing also hp's row and the LSTM's gates), within the
+    shared memory.  Raises ValueError where none fits."""
+    nc = cluster_size(w)
+    u = -(-w // nc)
+    gates = _GATES if entry == "lstm_scan_bwd" else 3
+    g = _round4(gates * w)
+    recompute = entry != "gru_scan_bwd_saved"
+
+    def fixed(rm, gx):
+        floats = ((0 if gx else 2 * rm * g) + rm * max(gates * u, 256)
+                  + 2 * rm * u + (rm * _round4(w) if recompute else 0)
+                  + (rm * gates * u if entry == "lstm_scan_bwd" else 0))
+        return 4 * _round4(floats)  # bytes, to 16
+
+    rows = max(1, min(b, SCAN_MAX_ROWS, SCAN_PAIRS * SCAN_THREADS // u))
+    if rows * u <= SCAN_PAIRS * SCAN_THREADS and \
+            fixed(SCAN_MAX_ROWS, False) <= FWD_SMEM:
+        return ScanForm(nc, rows, "full")
+    if u <= SCAN_WIDE_PAIRS * SCAN_THREADS:
+        for form in ("one", "gx"):
+            if fixed(1, form == "gx") <= FWD_SMEM:
+                return ScanForm(nc, 1, form)
+    raise ValueError(f"{entry}: no launch takes W={w}")
 
 
 def _fwd_layout(w, nc, rounds=1):
@@ -108,16 +167,23 @@ def _fwd_layout(w, nc, rounds=1):
     return s, depth, (4 * ut * s + 31) // 32 * 32
 
 
-def _fwd_smem(rows, s, depth, threads, ls, rounds, size, inputs=1):
+def chain_row_floats(s, depth, inputs=1):
+    """f32 values of one row of a chain kernel's input buffer (``ldh``):
+    ``inputs`` vectors of W a row in ``s`` slices of ``depth``."""
+    return inputs * s * (max(depth, FWD_REG_VALS) + 4)
+
+
+def _fwd_smem(rows, s, depth, threads, ls, rounds, size, inputs=1, gx=False):
     """The kernel's shared memory (``chain_smem``): the input's two buffers
-    (``inputs`` vectors of W a row) and the mbarriers, then the weights'
-    ``ls`` or, in rounds, each thread's carry."""
-    fixed = 4 * 2 * rows * inputs * s * (max(depth, FWD_REG_VALS) + 4) + 16
-    return fixed + (threads * ls * size if rounds == 1
-                    else 4 * rounds * rows * threads)
+    (``inputs`` vectors of W a row; none with ``gx``) and the mbarriers,
+    then the weights' ``ls`` or, in rounds, each thread's carry."""
+    fixed = (0 if gx else 4 * 2 * rows * chain_row_floats(s, depth, inputs))
+    return fixed + 16 + (threads * ls * size if rounds == 1
+                         else 4 * rounds * rows * threads)
 
 
-def chain_geometry(b, w, dtype, sms, fits, inputs=1) -> FwdGeometry:
+def chain_geometry(b, w, dtype, sms, fits, inputs=1, gx=False
+                   ) -> FwdGeometry:
     """A chain kernel's launch (the LSTM scan forward's, whose numbers
     follow; with ``inputs`` 4 the saved-gates backward's, whose input a row
     is 4W gate gradients) for ``b`` rows of width ``w`` in
@@ -132,7 +198,10 @@ def chain_geometry(b, w, dtype, sms, fits, inputs=1) -> FwdGeometry:
     past both read through L2 (W <= 1024); else the most, each thread
     taking its units in rounds, every weight through L2.  Rows a chain: the
     fewest whose chains all run at once (at most 8; 4 in rounds, and fewer
-    where the input's buffers would pass the shared memory)."""
+    where the input's buffers would pass the shared memory).  Where even
+    one row's buffers pass it, a kernel that can (``gx``, the saved-gates
+    backward) takes them in device memory, one row a chain; else no launch
+    takes the width (the widest is :func:`widest_chain`)."""
     size = torch.tensor([], dtype=dtype).element_size()
     chunk = 16 // size  # the shared-memory weights' 16-byte chunks
     counts = {}
@@ -191,7 +260,37 @@ def chain_geometry(b, w, dtype, sms, fits, inputs=1) -> FwdGeometry:
             if smem <= FWD_SMEM:
                 return FwdGeometry(nc, s, rows, depth, 0, threads, smem,
                                    rounds)
+        if gx and (smem := _fwd_smem(1, s, depth, threads, 0, rounds, size,
+                                     inputs, gx=True)) <= FWD_SMEM:
+            return FwdGeometry(nc, s, 1, depth, 0, threads, smem, rounds, 1)
     raise ValueError(f"chain kernel: no launch takes W={w} on this card")
+
+
+_WIDEST: dict = {}
+
+
+def widest_chain(dtype, sms, fits, key=None) -> int:
+    """The widest W a chain kernel's forward launch takes (the LSTM scan's
+    eval forward, row 13, and the GRU scan's, row 9, share it): every
+    narrower W has one too, and each scan wrapper refuses a wider one.
+    ``key`` caches the answer (a card's index)."""
+    if key is not None and (dtype, key) in _WIDEST:
+        return _WIDEST[(dtype, key)]
+
+    def takes(w):
+        try:
+            chain_geometry(1, w, dtype, sms, fits)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 0, 1 << 16  # takes(lo), not takes(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if takes(mid) else (lo, mid)
+    if key is not None:
+        _WIDEST[(dtype, key)] = lo
+    return lo
 
 
 # ------------------------------------------------------------ plain versions
@@ -291,30 +390,28 @@ _ARGTYPES = {
     # stream
     "lstm_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                       + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
-    # dtype; res, hp, cp, dy, wh, dxg, dwh, dwh's partials; T, B, W, nc,
-    # s, rows, ls, rounds, slice_chunks; stream
-    "lstm_scan_bwd_saved": ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                            + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
-    # dtype; xg, hp, cp, cs, dy, wh, wh^T, dxg, dwh, dwh's partials; T, B,
-    # W, cluster, slice_chunks; stream
-    "lstm_scan_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                      + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-    # dtype; xg, wh, bh, ys, res; T, B, W, cluster; stream
+    # dtype; res, hp, cp, dy, wh, dxg, dwh, dwh's partials, the exchange
+    # buffer; T, B, W, nc, s, rows, ls, rounds, gx, slice_chunks; stream
+    "lstm_scan_bwd_saved": ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                            + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+    # dtype; xg, hp, cp, cs, dy, wh, wh^T, dxg, dwh, dwh's partials, the
+    # exchange buffer; T, B, W, cluster, rows, form, slice_chunks; stream
+    "lstm_scan_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    # dtype; xg, wh, bh, ys, res (0: the eval form); T, B, W, nc, s, rows,
+    # ls, rounds; stream
     "gru_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
-    # dtype; xg, wh, bh, ys; T, B, W, nc, s, rows, ls, rounds; stream
-    "gru_scan_eval": ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                      + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+                     + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     # dtype, recompute; xg or res, hp, dy, wh, wh^T, bh, dxg, dhg,
-    # bias_part, dwh, dbh; T, B, W, cluster; stream
-    "gru_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    # bias_part, the exchange buffer, dwh, dbh; T, B, W, cluster, rows,
+    # form; stream
+    "gru_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                     + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
 
 
 # entry points whose library (csrc/<library>.cu) has another name
-_LIBRARY = {"lstm_scan_bwd_saved": "lstm_scan_bwd",
-            "gru_scan_eval": "gru_scan_fwd"}
+_LIBRARY = {"lstm_scan_bwd_saved": "lstm_scan_bwd"}
 
 
 def _launch(name, x, *args):
@@ -386,8 +483,27 @@ def _cluster_fits(device):
     return fits
 
 
+def check_width(where, w, dtype, sms, fits, key=None):
+    """Refuse a W wider than the scans' forward launches take on a card of
+    ``sms`` SMs and cluster occupancy ``fits`` (:func:`widest_chain`),
+    naming the wrapper ``where``: every scan kernel, forward or backward,
+    takes every narrower one."""
+    widest = widest_chain(dtype, sms, fits, key)
+    if w > widest:
+        raise ValueError(f"{where}: W={w} is wider than the scan kernels "
+                         f"take on this card (at most {widest}, the "
+                         f"forward's widest launch)")
+
+
+def _check_width(where, w, dtype, device):
+    check_width(where, w, dtype, _sms(device), _cluster_fits(device),
+                device.index)
+
+
 def _fwd(xg, wh, save):
     t_len, b, w = _check("lstm_scan_fwd", xg, wh, (), _GATES)
+    _check_width("lstm_scan_fwd_save" if save else "lstm_scan_fwd", w,
+                 xg.dtype, xg.device)
     ys = torch.empty((t_len, b, w), dtype=xg.dtype, device=xg.device)
     cs = torch.empty_like(ys)
     res = (torch.empty((t_len, b, _RES * w), dtype=xg.dtype, device=xg.device)
@@ -447,21 +563,37 @@ def dwh_slices(t_len, b, w, sms):
 
 # the chain kernels' entry points (csrc/scan_chain.cuh), each with its
 # input vectors of W a row: the saved-gates backward's are the 4W gate
-# gradients; the GRU's eval forward takes the LSTM forward's launch, its
-# r, z and n columns on three of a unit's four lane groups (the fourth
-# idle, so that a unit's lanes divide a warp), bh beside
+# gradients (and it may keep them in device memory, gx); the GRU's
+# forwards take the LSTM forward's launch, its r, z and n columns on three
+# of a unit's four lane groups (the fourth idle, so that a unit's lanes
+# divide a warp), bh beside
 _CHAIN_INPUTS = {"lstm_scan_fwd": 1, "lstm_scan_fwd_save": 1,
-                 "gru_scan_fwd": 1, "lstm_scan_bwd_saved": 4}
+                 "gru_scan_fwd": 1, "gru_scan_fwd_save": 1,
+                 "lstm_scan_bwd_saved": 4}
 
 
 def scan_launch(entry, b, w, dtype, device):
     """The launch of a scan kernel's wrapper ``entry`` on ``device``: the
-    chain's :class:`FwdGeometry` (rows 9, 13, 14, 15), else the cluster
-    scan_common.cuh's chain takes."""
+    chain's :class:`FwdGeometry` (rows 9, 10, 13, 14, 15), else the
+    :class:`ScanForm` of scan_common.cuh's chain (rows 11, 12, 16)."""
     if entry not in _CHAIN_INPUTS:
-        return {"cluster": cluster_size(w)}
+        return scan_form(entry, b, w)
     return chain_geometry(b, w, dtype, _sms(device), _cluster_fits(device),
-                          _CHAIN_INPUTS[entry])
+                          _CHAIN_INPUTS[entry],
+                          gx=entry == "lstm_scan_bwd_saved")
+
+
+def _exchange(form, b, g, device):
+    """A "gx" form's exchange buffer, f32 [B, 2, round4(g)] for g gradients
+    a row (each step writes its buffer before it reads it), else None."""
+    if form.form != "gx":
+        return None
+    return torch.empty((b, 2, _round4(g)), dtype=torch.float32,
+                       device=device)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
 
 
 def _bwd(where, first, width, hp, cp, cs, dy, wh):
@@ -469,6 +601,7 @@ def _bwd(where, first, width, hp, cp, cs, dy, wh):
     if cs is not None:
         named.append(("cs", cs))
     t_len, b, w = _check(where, first, wh, named, width)
+    _check_width(where, w, first.dtype, first.device)
     dxg = torch.empty((t_len, b, _GATES * w), dtype=first.dtype,
                       device=first.device)
     dwh = torch.empty_like(wh)
@@ -476,18 +609,28 @@ def _bwd(where, first, width, hp, cp, cs, dy, wh):
     part = torch.empty((slices, w * _GATES * w), dtype=torch.float32,
                        device=first.device)  # dwh's K-slice partials
     code = _DTYPE_CODE[first.dtype]
+    f32 = dict(dtype=torch.float32, device=first.device)
     if cs is None:  # the saved gates, on their chain
         geo = scan_launch(where, b, w, first.dtype, first.device)
+        # the gradients' two buffers a row, in device memory (gx): dh_c = 0
+        # at the first step, so they start at 0
+        xbuf = (torch.zeros((b, 2, chain_row_floats(geo.s, geo.depth,
+                                                    _GATES)), **f32)
+                if geo.gx else None)
         _launch("lstm_scan_bwd_saved", first, code, first.data_ptr(),
                 hp.data_ptr(), cp.data_ptr(), dy.data_ptr(), wh.data_ptr(),
-                dxg.data_ptr(), dwh.data_ptr(), part.data_ptr(), t_len, b, w,
-                geo.nc, geo.s, geo.rows, geo.ls, geo.rounds, depth)
+                dxg.data_ptr(), dwh.data_ptr(), part.data_ptr(), _ptr(xbuf),
+                t_len, b, w, geo.nc,
+                geo.s, geo.rows, geo.ls, geo.rounds, geo.gx, depth)
         return dxg, dwh
     wh_t = wh.t().contiguous()  # [4W, W]: the carry product's operand
+    form = scan_form(where, b, w)
+    xbuf = _exchange(form, b, _GATES * w, first.device)
     _launch("lstm_scan_bwd", first, code, first.data_ptr(), hp.data_ptr(),
             cp.data_ptr(), cs.data_ptr(), dy.data_ptr(), wh.data_ptr(),
             wh_t.data_ptr(), dxg.data_ptr(), dwh.data_ptr(), part.data_ptr(),
-            t_len, b, w, cluster_size(w), depth)
+            _ptr(xbuf), t_len, b, w, form.cluster, form.rows,
+            SCAN_FORMS.index(form.form), depth)
     return dxg, dwh
 
 
@@ -594,9 +737,6 @@ def lstm_scan(xg_tm, wh, mask_tm):
 
 _GRU_GATES = 3
 _GRU_RES = 4
-# the widest W the GRU kernels' shared-memory layout takes (the recompute
-# backward's double-buffered gate gradients, [2, 8, 3W] f32, bind)
-GRU_W_MAX = 768
 
 
 def gru_scan_ref(xg, wh, bh, save=False):
@@ -687,9 +827,7 @@ def gru_scan_bwd_ref(xg, hp, dy, wh, bh):
 
 def _gru_check(where, first, width, wh, bh, named):
     t_len, b, w = _check(where, first, wh, named, width, _GRU_GATES, bh)
-    if w > GRU_W_MAX:
-        raise ValueError(f"{where}: W={w} is wider than the GRU scan kernels "
-                         f"take (at most {GRU_W_MAX})")
+    _check_width(where, w, first.dtype, first.device)
     return t_len, b, w
 
 
@@ -697,18 +835,13 @@ def _gru_fwd(xg, wh, bh, save):
     where = "gru_scan_fwd_save" if save else "gru_scan_fwd"
     t_len, b, w = _gru_check(where, xg, _GRU_GATES, wh, bh, ())
     ys = torch.empty((t_len, b, w), dtype=xg.dtype, device=xg.device)
-    if not save:  # the eval form, on its chain
-        geo = scan_launch(where, b, w, xg.dtype, xg.device)
-        _launch("gru_scan_eval", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
-                wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), t_len, b, w,
-                geo.nc, geo.s, geo.rows, geo.ls, geo.rounds)
-        return ys
-    res = torch.empty((t_len, b, _GRU_RES * w), dtype=xg.dtype,
-                      device=xg.device)
+    res = (torch.empty((t_len, b, _GRU_RES * w), dtype=xg.dtype,
+                       device=xg.device) if save else None)
+    geo = scan_launch(where, b, w, xg.dtype, xg.device)
     _launch("gru_scan_fwd", xg, _DTYPE_CODE[xg.dtype], xg.data_ptr(),
-            wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), res.data_ptr(),
-            t_len, b, w, cluster_size(w))
-    return ys, res
+            wh.data_ptr(), bh.data_ptr(), ys.data_ptr(), _ptr(res), t_len, b,
+            w, geo.nc, geo.s, geo.rows, geo.ls, geo.rounds)
+    return (ys, res) if save else ys
 
 
 def gru_scan_fwd(xg, wh, bh):
@@ -752,12 +885,15 @@ def _gru_bwd(where, first, width, hp, dy, wh, bh, recompute):
     f32 = dict(dtype=torch.float32, device=first.device)
     dhg = torch.empty((t_len, b, g), **f32)  # rnd(dhg), dwh's operand
     bias_part = torch.empty((b, g), **f32)  # each row's dbh
+    form = scan_form(where, b, w)
+    xbuf = _exchange(form, b, g, first.device)
     wh_t = wh.t().contiguous()  # [3W, W]: the carry product's operand
     _launch("gru_scan_bwd", first, _DTYPE_CODE[first.dtype], int(recompute),
             first.data_ptr(), hp.data_ptr(), dy.data_ptr(), wh.data_ptr(),
-            wh_t.data_ptr(), 0 if bh is None else bh.data_ptr(),
-            dxg.data_ptr(), dhg.data_ptr(), bias_part.data_ptr(),
-            dwh.data_ptr(), dbh.data_ptr(), t_len, b, w, cluster_size(w))
+            wh_t.data_ptr(), _ptr(bh), dxg.data_ptr(), dhg.data_ptr(),
+            bias_part.data_ptr(), _ptr(xbuf), dwh.data_ptr(), dbh.data_ptr(),
+            t_len, b, w, form.cluster, form.rows,
+            SCAN_FORMS.index(form.form))
     return dxg, dwh, dbh
 
 

@@ -93,6 +93,38 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device, case):
     assert P.gru_bidir_fwd.launches == before
 
 
+# Row 1's eval and train forms at every H the kernel takes, at the serving
+# batch (3), the training batch (8) and past one wave of blocks (67: 134
+# blocks of 3H threads, more than an H100's 132 SMs hold at H=128), ragged
+# lengths: each against its plain version and a rerun (bit for bit), the
+# backward chain's ys 0 on padding, the train form's ys the eval form's.
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("b", [3, 8, 67])
+@pytest.mark.parametrize("h", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_forms_match_plain_and_rerun(cuda_device, dtype, h, b, train):
+    x, ws, lengths = _inputs(h + b, t=48, b=b, w=400, h=h)
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (x, *ws)]
+    args.append(torch.from_numpy(lengths).to(cuda_device))
+    counter = "train_launches" if train else "launches"
+    before = getattr(P.gru_bidir_fwd, counter)
+    got = P.gru_bidir_fwd(*args, train=train)
+    again = P.gru_bidir_fwd(*args, train=train)
+    torch.cuda.synchronize()
+    assert getattr(P.gru_bidir_fwd, counter) == before + 2
+    want = P.gru_bidir_layer_ref(*args, train=train)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+        assert torch.equal(g, a)
+    pad = torch.arange(48, device=cuda_device)[:, None] >= args[-1][None, :]
+    assert (got[1][pad] == 0).all()
+    if train:
+        eval_ys = P.gru_bidir_fwd(*args)
+        assert torch.equal(got[0], eval_ys[0])
+        assert torch.equal(got[1], eval_ys[1])
+
+
 def test_bigru_on_card_matches_cpu(cuda_device):
     model = BiGRU(BiGRUConfig(n_class=48),
                   generator=torch.Generator().manual_seed(0))
@@ -1097,8 +1129,10 @@ def test_lstm_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
 
 # Fault 8: both backwards at widths the forward takes and vanilla_lstm
 # trains at (--lstm_hidden1 past 870), where a chain's double-buffered gate
-# gradients once passed a block's shared memory ([2][8][4W] f32).
-@pytest.mark.parametrize("w", [1024, 2048, 4096])
+# gradients once passed a block's shared memory ([2][8][4W] f32); past
+# 6968 (row 15) and 5984 (row 16) even one row's pass it, and the
+# gradients cross the cluster in device memory.
+@pytest.mark.parametrize("w", [1024, 2048, 4096, 6969, 8192])
 @pytest.mark.parametrize("recompute", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_scan_bwd_at_wide_widths(cuda_device, dtype, recompute, w):
@@ -1195,16 +1229,13 @@ def test_bilstm_at_lstm_hidden1_512_trains_on_card(cuda_device):
 # the LSTM scan's tolerances.  The widths: the bidirectional GRU stack's
 # scan route at BiGRU hidden_dim_1 192 and 512 (H=96 and 256) and attn at
 # hidden_dim 192 (H=96), an odd width (100), one whose weight slices pass
-# a block's shared memory (512) and the widest the kernels take (768).
+# a block's shared memory (512), 768 (the widest the kernels once took)
+# and, fault 9, past it: 772, 1024 and 2048 (the forwards in rounds past
+# 1024; the backwards' chains of fewer rows).
 
 GRU_SCAN_CASES = [(96, 3, 40), (100, 5, 33), (256, 8, 40), (512, 8, 24),
-                  (768, 3, 12), (20, 11, 20)]
-# how far the GRU scan's eval and saving forms may lie apart, in eps of
-# the dtype: their hidden products' sums differ in order only.  The test
-# prints the distance (on an H100 at most 1.5 eps in f32 and 0.03 eps in
-# bf16 at these cases); f32 may take about twice that, bf16 two flips of
-# an output's last bit (0.5 eps each where |h| >= 0.5)
-GRU_EVAL_SAVE_EPS = {torch.float32: 4, torch.bfloat16: 1}
+                  (768, 3, 12), (20, 11, 20), (772, 3, 64), (1024, 3, 64),
+                  (2048, 3, 64)]
 
 
 def _gru_scan_case(cuda_device, dtype, w, b, t, seed=0):
@@ -1229,19 +1260,14 @@ def test_gru_scan_fwd_matches_plain(cuda_device, dtype, w, b, t):
     ys2, res = RS.gru_scan_fwd_save(xg, wh, bh)
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 1)
-    # the eval form (row 9) runs its own chain, so the two forms sum the
-    # hidden product in other orders: each is held against the plain
-    # version, and the two against each other at GRU_EVAL_SAVE_EPS of the
-    # dtype's eps (|ys| < 1), well inside TOL
+    # both forms run one kernel (the saving form adds the residuals'
+    # stores): each is held against the plain version, and their ys
+    # against each other bit for bit
     wys, wres = RS.gru_scan_ref(xg, wh, bh, save=True)
     for got, want in ((ys, wys), (ys2, wys), (res, wres)):
         assert got.dtype == dtype and got.shape == want.shape
         assert _rel_err(got, want) <= TOL[dtype]
-    apart = (ys.float() - ys2.float()).abs().max().item()
-    eps = torch.finfo(dtype).eps
-    print(f"gru_scan_fwd {dtype} W={w} B={b} T={t}: eval and saving forms "
-          f"{apart / eps:.3g} eps apart")
-    assert apart <= GRU_EVAL_SAVE_EPS[dtype] * eps, apart
+    assert torch.equal(ys, ys2)
 
 
 @pytest.mark.parametrize("w,b,t", GRU_SCAN_CASES)
@@ -1268,6 +1294,18 @@ def test_gru_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
         assert g.dtype == dtype and g.shape == want.shape, name
         assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
         assert torch.equal(g, a), name
+
+
+# Rows 11 and 12 where even one row's double-buffered gradients pass the
+# shared memory (the "gx" form: they cross the cluster in device memory).
+@pytest.mark.parametrize("w", [8192, 12000])
+@pytest.mark.parametrize("recompute", [False, True])
+def test_gru_scan_bwd_gradients_in_device_memory(cuda_device, recompute, w):
+    form = RS.scan_form("gru_scan_bwd" if recompute else "gru_scan_bwd_saved",
+                        2, w)
+    assert form.form == ("gx" if recompute or w > 8192 else "one")
+    test_gru_scan_bwd_matches_plain_and_reruns(cuda_device, torch.float32,
+                                               recompute, w, 2, 8)
 
 
 # Rows 9 and 15 on the register-resident chain (csrc/scan_chain.cuh)
@@ -1314,8 +1352,15 @@ def test_chain_kernels_match_plain_and_rerun(cuda_device, dtype, row, w, b,
 @pytest.mark.parametrize("case", ["float64", "noncontiguous", "bh_bf16",
                                   "too_wide"])
 def test_gru_scan_kernels_refuse_what_they_do_not_take(cuda_device, case):
-    w = RS.GRU_W_MAX + 4 if case == "too_wide" else 64
-    xg, wh, bh, _ = _gru_scan_case(cuda_device, torch.float32, w, 3, 8)
+    widest = RS.widest_chain(torch.float32, RS._sms(cuda_device),
+                             RS._cluster_fits(cuda_device))
+    if case == "too_wide":  # one past the forward's widest launch
+        w = widest + 1
+        f32 = dict(dtype=torch.float32, device=cuda_device)
+        xg = torch.empty((8, 3, 3 * w), **f32)
+        wh, bh = torch.empty((w, 3 * w), **f32), torch.empty((3 * w,), **f32)
+    else:
+        xg, wh, bh, _ = _gru_scan_case(cuda_device, torch.float32, 64, 3, 8)
     if case == "float64":
         xg, wh, bh = xg.double(), wh.double(), bh.double()
     elif case == "noncontiguous":
@@ -1324,7 +1369,8 @@ def test_gru_scan_kernels_refuse_what_they_do_not_take(cuda_device, case):
         bh = bh.to(torch.bfloat16)
     before = RS.gru_scan_fwd.launches
     with pytest.raises((TypeError, ValueError),
-                       match=str(RS.GRU_W_MAX) if case == "too_wide" else None):
+                       match=(f"gru_scan_fwd: W={widest + 1} .*at most "
+                              f"{widest}" if case == "too_wide" else None)):
         RS.gru_scan_fwd(xg, wh, bh)
     assert RS.gru_scan_fwd.launches == before
 

@@ -160,6 +160,13 @@ def test_gru_scan_fn_gradcheck(monkeypatch, recompute):
     assert torch.autograd.gradcheck(S.GRUScanFn.apply, args)
 
 
+# the scans' eight wrappers: each refuses a W past the forwards' widest
+# launch, naming itself and the width
+SCAN_WRAPPERS = ("gru_scan_fwd", "gru_scan_fwd_save", "gru_scan_bwd_saved",
+                 "gru_scan_bwd", "lstm_scan_fwd", "lstm_scan_fwd_save",
+                 "lstm_scan_bwd_saved", "lstm_scan_bwd")
+
+
 def test_wrappers_refuse_other_devices_and_widths():
     xg = torch.zeros(2, 1, 12, device="meta")
     wh = torch.zeros(4, 12, device="meta")
@@ -167,10 +174,14 @@ def test_wrappers_refuse_other_devices_and_widths():
     for fn in (S.gru_scan_fwd, S.gru_scan_fwd_save):
         with pytest.raises(ValueError, match="no kernel"):
             fn(xg, wh, bh)
-    w = S.GRU_W_MAX + 4
-    with pytest.raises(ValueError, match=f"at most {S.GRU_W_MAX}"):
-        S._gru_check("gru_scan_fwd", torch.zeros(1, 1, 3 * w), 3,
-                     torch.zeros(w, 3 * w), torch.zeros(3 * w), ())
+    for dtype in (torch.float32, torch.bfloat16):
+        widest = S.widest_chain(dtype, 132, _gpcs)
+        assert widest == 25592  # one row's h buffers and carries: 225 KiB
+        for where in SCAN_WRAPPERS:
+            S.check_width(where, widest, dtype, 132, _gpcs)
+            with pytest.raises(ValueError, match=f"{where}: W={widest + 1} "
+                                                 f".*at most {widest}"):
+                S.check_width(where, widest + 1, dtype, 132, _gpcs)
 
 
 # The eval form's chain geometry (row 9, csrc/gru_scan_fwd.cu on
@@ -202,18 +213,34 @@ def _check_chain(geo, w, size):
     assert geo.rounds == 1 or geo.ls == 0
 
 
+def _widths(widest):
+    """Every W up to 2048 (where the geometry's tiers change), then every
+    97th up to the widest and the last few below it."""
+    return sorted({*range(1, 2049), *range(2049, widest, 97),
+                   *range(widest - 8, widest + 1)})
+
+
 @pytest.mark.parametrize("fits", [_gpcs, _no16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gru_fwd_geometry_covers_every_width(dtype, fits):
-    """Every W the GRU scan takes (1..GRU_W_MAX) has a launch within the
-    register and shared-memory budgets, at serving, training and bench
-    batches; two blocks at W=96 (attn's and BiGRU 192's scan), eight at
-    W=256 (BiGRU 512's) whose registers hold wh; W=768 through L2 or in
-    rounds."""
+    """Every W the GRU scan takes (up to the forwards' widest launch) has a
+    launch within the register and shared-memory budgets, at serving,
+    training and bench batches, for both forwards (row 10 runs row 9's
+    chain); the backwards (rows 11 and 12) take every such W too (their
+    buffers fit in one of their forms); two blocks at W=96 (attn's and
+    BiGRU 192's scan), eight at W=256 (BiGRU 512's) whose registers hold
+    wh; W=768 through L2 or in rounds."""
     size = 4 if dtype == torch.float32 else 2
-    for w in range(1, S.GRU_W_MAX + 1):
+    widest = S.widest_chain(dtype, 132, fits)
+    for w in _widths(widest):
         for b in (1, 3, 8, 64):
-            _check_chain(S.chain_geometry(b, w, dtype, 132, fits), w, size)
+            geo = S.chain_geometry(b, w, dtype, 132, fits)
+            _check_chain(geo, w, size)
+            for entry in ("gru_scan_bwd_saved", "gru_scan_bwd"):
+                form = S.scan_form(entry, b, w)
+                assert form.rows == 1 or form.form == "full"
+    with pytest.raises(ValueError, match="no launch"):
+        S.chain_geometry(1, widest + 1, dtype, 132, fits)
     geo = S.chain_geometry(3, 96, dtype, 132, fits)
     assert geo.nc == 2 and geo.depth <= S.FWD_REG_VALS
     geo = S.chain_geometry(8, 256, dtype, 132, fits)

@@ -168,8 +168,8 @@ def _check_fwd_geometry(geo, b, w, size, inputs=1):
     each owning a unit, and its rounds a block's units; a unit's 4s
     threads fit one warp and a block's the kernel's 256; the slices cover
     W, registers before shared memory (none with rounds); the shared memory
-    (the input's buffers, ``inputs`` vectors of W a row) fits the
-    budget."""
+    (the input's buffers, ``inputs`` vectors of W a row, unless in
+    device memory: gx, one row in rounds) fits the budget."""
     reg = S.FWD_REG_VALS
     u = -(-w // geo.nc)
     ut = -(-u // geo.rounds)
@@ -183,8 +183,10 @@ def _check_fwd_geometry(geo, b, w, size, inputs=1):
     assert min(geo.depth, reg) + geo.ls <= geo.depth
     own = (geo.threads * geo.ls * size if geo.rounds == 1
            else 4 * geo.rounds * geo.rows * geo.threads)
-    assert geo.smem == (8 * geo.rows * inputs * geo.s
-                        * (max(geo.depth, reg) + 4) + 16 + own)
+    buffers = 0 if geo.gx else (8 * geo.rows * inputs * geo.s
+                                * (max(geo.depth, reg) + 4))
+    assert geo.smem == buffers + 16 + own
+    assert not geo.gx or (geo.rounds > 1 and geo.rows == 1)
     assert geo.smem <= S.FWD_SMEM
     if geo.rounds > 1:
         assert geo.ls == 0 and geo.rows in (1, 2, 4)
@@ -311,23 +313,47 @@ def test_lstm_bwd_geometry_covers_w_and_fits_the_card(dtype, fits):
     assert S.chain_geometry(64, 256, dtype, 132, _gpcs, inputs=4).rows == 6
 
 
-@pytest.mark.parametrize("w", [1025, 2048, 4096, 6000])
+@pytest.mark.parametrize("w", [1025, 2048, 4096, 6000, 6969, 8192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lstm_bwd_geometry_takes_wide_widths_in_rounds(dtype, w):
     """Past 64 units a block each thread of the backward takes its units in
     rounds on 16-block chains, every weight through L2, rows cut where the
-    4W gradients' buffers would pass the shared memory (at 6000 one); one
-    row's buffers pass it past W = 6968, which is refused."""
+    4W gradients' buffers would pass the shared memory (at 6000 one); past
+    W = 6968, where one row's buffers pass it, the gradients cross the
+    cluster in device memory (gx, one row), which only the kernel that
+    has that form is offered."""
     for b in (1, 3, 8, 64):
-        geo = S.chain_geometry(b, w, dtype, 132, _gpcs, inputs=4)
+        geo = S.chain_geometry(b, w, dtype, 132, _gpcs, inputs=4, gx=True)
         _check_fwd_geometry(geo, b, w, 4 if dtype == torch.float32 else 2,
                             inputs=4)
         assert geo.nc == 16 and geo.rounds == -(-(-(-w // 16)) // 64)
-        assert geo.ls == 0
+        assert geo.ls == 0 and geo.gx == (w > 6968)
+        assert geo.gx == 0 or (geo.rows == 1 and geo.smem < 32 * 1024)
     assert S.chain_geometry(64, 6000, dtype, 132, _gpcs, inputs=4).rows == 1
     assert S.chain_geometry(3, 6968, dtype, 132, _gpcs, inputs=4).rows == 1
-    with pytest.raises(ValueError, match="no launch takes W=6969"):
-        S.chain_geometry(3, 6969, dtype, 132, _gpcs, inputs=4)
+    if w > 6968:
+        with pytest.raises(ValueError, match=f"no launch takes W={w}"):
+            S.chain_geometry(3, w, dtype, 132, _gpcs, inputs=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lstm_bwds_take_every_width_the_forward_takes(dtype):
+    """Every W the forwards' widest launch (row 13's, 25592 on a 132-SM
+    card) allows, the saved-gates backward (row 15, with its gx form) and
+    the recompute backward (row 16, scan_common.cuh's forms) take too, at
+    serving, training and bench batches; the recompute form's gradients
+    move to device memory where one row's pass the shared memory."""
+    widest = S.widest_chain(dtype, 132, _gpcs)
+    widths = sorted({*range(1, 1025, 7), *range(1025, widest, 97),
+                     *range(widest - 4, widest + 1), 5984, 5985, 6968, 6969})
+    for w in widths:
+        for b in (1, 8, 64):
+            S.chain_geometry(b, w, dtype, 132, _gpcs, inputs=4, gx=True)
+            form = S.scan_form("lstm_scan_bwd", b, w)
+            assert form.rows == 1 or form.form == "full"
+    assert S.scan_form("lstm_scan_bwd", 8, 5984).form == "one"
+    assert S.scan_form("lstm_scan_bwd", 8, 6000).form == "gx"
+    assert S.scan_form("lstm_scan_bwd", 8, 256) == (16, 8, "full")
 
 
 def _steps_tool():
@@ -343,17 +369,21 @@ def _steps_tool():
     return mod
 
 
-@pytest.mark.parametrize("kernel", ["13", "9", "15"])
+@pytest.mark.parametrize("kernel", ["13", "9", "15", "1"])
 def test_step_tool_edits_hold_their_sources_lines(kernel):
-    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15)
-    finds its lines once in its kernel's source, so a changed kernel fails
-    here rather than on the card; each build changes the source."""
+    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15
+    and 1) finds its lines once in its kernel's source, so a changed kernel
+    fails here rather than on the card; each build changes the source."""
+    import importlib
+
     from pytorch_video_action_tpu_torch.ops import cuda_lib
 
     tool = _steps_tool()
     kern = tool.KERNELS[kernel]
     text = (cuda_lib.CSRC / f"{kern.source}.cu").read_text()
-    assert hasattr(S, kern.wrapper)
+    module = importlib.import_module(
+        f"pytorch_video_action_tpu_torch.ops.{kern.module}")
+    assert hasattr(module, kern.wrapper)
     assert {"no product", "no gates", "no exchange", "skeleton"} <= set(
         kern.edits)
     for name, edits in kern.edits.items():

@@ -4,7 +4,7 @@ one card, in turns (other, this, this, other), and print their frames/s
 lines side by side: the way to compare two commits end to end within one
 call.
 
-    python3 tools/torch_ab_phases.py --other DIR [PHASE ...]
+    python3 tools/torch_ab_phases.py --other DIR [--kernels] [PHASE ...]
 
 ``DIR`` is the root of the other checkout (for example the parent commit
 unpacked with ``git archive`` into a directory ``.gitignore`` lists).  A
@@ -13,9 +13,19 @@ or attn; ``slice:vanilla_lstm`` is ``phase_vanilla_serving``, its training
 at the inference CLIs' widths and then its serving) or ``train:<model>``
 (phase 5's training of ``model``, vanilla_lstm among them) or
 ``wide:gru`` (phase 5's bidirectional GRU on the GRU scan: BiGRU at
-``hidden_dim_1`` 512 and 192 and attn at ``hidden_dim`` 192 a Trainer
-step each, the BiGRU 512 serving forward); the default is ``slice:attn
-train:attn``.  Each turn is a process of its own
+``hidden_dim_1`` 512, 192 and, where the checkout has it, 2048 and attn at
+``hidden_dim`` 192 a Trainer step each, the BiGRU 512 serving forward) or,
+lighter, ``fps:<model>`` (the serving forward's and one train epoch's
+frames/s of ``model``, f32 and bf16, from a seeded checkpoint, without the
+CLIs) or ``rows:gru`` (rows 1, 1 alt, 2 and 2 alt held and timed at the
+main path's shapes, f32 and bf16: ``check_layer``, ``check_train_layer``,
+``check_bnd_eval``, ``check_bnd_train`` at keep 0.5) or ``scan:<cell>``
+(the GRU's or the LSTM's scan, its four kernels held and timed at the
+largest train batch, W=256, f32 and bf16: ``check_scan``); the default
+is ``slice:attn train:attn``.  A turn whose phases are all light builds only the kernels
+they launch.  With ``--kernels`` the phases' ``[kernel]``
+and ``[flags]`` lines (each kernel's time beside its plain version's and
+its bound) are printed too.  Each turn is a process of its own
 that builds that checkout's kernels, writes the seeded dataset into a
 temporary directory and runs the phases as ``chip_smoke.main`` does, so
 each phase's own checks hold in both.  Exits non-zero without a card or
@@ -34,20 +44,52 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # one turn: the checkout's chip_smoke, its kernels built, the phases run
 TURN = """
-import contextlib, sys, tempfile
+import contextlib, os, sys, tempfile
 sys.path.insert(0, ".")
 import chip_smoke as c
 import torch
+from pytorch_video_action_tpu_torch.data.dataset import VideoDataset
+from pytorch_video_action_tpu_torch.infer.predict import forward_batches
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 c.GRU, c.LSTM = c.Cell("gru"), c.Cell("lstm")
 card = c.card_line()
-c.phase_build()
+if any(p.split(":")[0] not in ("fps", "rows", "scan")
+       for p in sys.argv[1:]):
+    c.phase_build()
 with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
     c.write_dataset(root)
+    test = VideoDataset(data_dir="data", annot_path=root, part="test",
+                        split=1, mode=None, verbose=False).features
     for phase in sys.argv[1:]:
         kind, name = phase.split(":")
-        if kind == "wide":
+        if kind == "fps":
+            os.makedirs(os.path.join(root, "models"), exist_ok=True)
+            ckpt = c.save_checkpoint(root, name)
+            c.forward_frames_per_sec(card, name, ckpt, test)
+            feed, _ = c.train_feeds(root)
+            for dt in c.DTYPES:
+                c.train_frames_per_sec(card, name, feed, dt)
+        elif kind == "rows":
+            gen = torch.Generator().manual_seed(0)
+            t_pad, chunk = max(forward_batches(test),
+                               key=lambda tb: tb[0] * len(tb[1]))
+            lens = [len(test[i]) for i in chunk]
+            batch = c.largest_batch(c.train_feeds(root)[0])
+            tlens, t_train = batch[1].tolist(), batch[0].shape[1]
+            for dt in c.DTYPES:
+                c.check_layer(c.GRU, "main path", lens, t_pad, 400, dt, gen)
+                c.check_bnd_eval("main path", lens, t_pad, dt, gen)
+                c.check_train_layer(c.GRU, "main path", tlens, t_train, 400,
+                                    dt, gen)
+                c.check_bnd_train("main path", tlens, t_train, dt, 0.5, gen)
+        elif kind == "scan":
+            gen = torch.Generator().manual_seed(0)
+            batch = c.largest_batch(c.train_feeds(root)[0])
+            for dt in c.DTYPES:
+                c.check_scan("main path", batch[1].tolist(),
+                             batch[0].shape[1], 256, dt, gen, cell=name)
+        elif kind == "wide":
             c.phase_gru_wide(card, root)
         elif kind == "slice" and name == "vanilla_lstm":
             c.phase_vanilla_serving(card, root)
@@ -62,6 +104,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
+    ap.add_argument("--kernels", action="store_true",
+                    help="also print the phases' [kernel] lines")
     ap.add_argument("phases", nargs="*",
                     default=["slice:attn", "train:attn"])
     args = ap.parse_args(argv)
@@ -78,8 +122,10 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 1
         lines = [line for line in proc.stdout.splitlines()
-                 if "frames/s" in line and ("train step" in line
-                                            or "forward" in line)]
+                 if ("frames/s" in line and ("train step" in line
+                                             or "forward" in line))
+                 or (args.kernels and line.startswith(("[kernel]", "[flags]"))
+                     and " ms" in line)]
         out.setdefault(label, []).append(lines)
     for label, turns in out.items():
         for i, lines in enumerate(turns):

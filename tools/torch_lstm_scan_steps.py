@@ -1,30 +1,36 @@
 #!/usr/bin/env python3
-"""Where a step of a scan kernel goes: µs a step of the kernel as built and
-of copies with one part of the step taken out.  On one NVIDIA GPU:
+"""Where a step of a recurrent kernel goes: µs a step of the kernel as
+built and of copies with one part of the step taken out.  On one NVIDIA
+GPU:
 
-    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15] [--root DIR]
-                                           [--shapes B,T,W ...]
+    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1] [--root DIR]
+                                           [--shapes B,T,W[,train] ...]
                                            [--builds NAME ...]
 
-``--kernel`` picks the scan kernel by its row in ``PERF.md``: 13, the LSTM
+``--kernel`` picks the kernel by its row in ``PERF.md``: 13, the LSTM
 scan's eval forward (``csrc/lstm_scan_fwd.cu``, the default); 9, the GRU
 scan's eval forward (``csrc/gru_scan_fwd.cu``); 15, the LSTM scan's
-saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh).
+saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh); 1, the
+bidirectional GRU layer's forward (``csrc/gru_bidir_fwd.cu``, its
+recurrence; W is H, the layer's input 400 wide, ``train`` in a shape picks
+the train form, else the eval form).
 Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
 csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
 design, for example an earlier commit unpacked with ``git archive``, may be
 given) in a temporary directory: as it is, and once for each of the
 kernel's edited builds in ``KERNELS`` (the product taken out, the gate
-math taken out, the exchange between blocks taken out, all of them; row 15
-also dwh's launch taken out).  Each build runs ``DIR``'s wrapper of the kernel
-(``ops/rnn_scan.py``) on the same seeded inputs at each shape (defaults in
-``KERNELS``), f32 and bf16, and prints its device time (CUDA events,
-``chip_smoke.cuda_ms``) as µs a step, with the card's name and power limit
-and each shape's launch.  The edited builds compute wrong values and are
-timed only.  Exits non-zero without a card, or when the source no longer
-holds an edit's lines.  ``chip_smoke.py`` takes rows 9, 13, 14 and 15
-apart with ``start_builds``, ``finish_builds`` and ``step_us``.  Imports
-nothing of JAX.
+math taken out, the exchange between blocks or threads taken out, all of
+them; row 15 also dwh's launch taken out).  Each build runs ``DIR``'s
+wrapper of the kernel (``ops/rnn_scan.py``; row 1 ``ops/rnn_fused.py``) on
+the same seeded inputs at each shape (defaults in ``KERNELS``), f32 and
+bf16, and prints its device time (CUDA events, ``chip_smoke.cuda_ms``) as
+µs a step, with the card's name and power limit and each shape's launch;
+row 1 also the device time of the build as it is by kernel (its input
+projection and its recurrence, ``chip_smoke.part_ms``).  The edited builds
+compute wrong values and are timed only.  Exits non-zero without a card,
+or when the source no longer holds an edit's lines.  ``chip_smoke.py``
+takes rows 1, 9, 13, 14 and 15 apart with ``start_builds``,
+``finish_builds`` and ``step_us``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -74,11 +80,12 @@ _G9_GATES = [("        const float act = g < 2 ? sigmoid_f(xv[r] + hg) : hg;\n",
 
 # Row 15 (row 13's chain, a row of wh a thread; dwh on the tensor cores
 # after the chain)
-_L15_PRODUCT = [("      product<T, RM, WIDE>(wr, w_s + tid, wh + (size_t)unit * "
-                 "a.G + g * a.W,\n"
-                 "                           1, dg_s + cur * RM * a.ldh + goff "
-                 "+ s * a.LP, a,\n"
-                 "                           d0, pre);\n",
+_L15_PRODUCT = [("      product<T, RM, WIDE, GX>(wr, w_s + tid,\n"
+                 "                               wh + (size_t)unit * a.G + "
+                 "g * a.W, 1,\n"
+                 "                               dg_s + cur * RM * a.ldh + "
+                 "goff + s * a.LP, a,\n"
+                 "                               d0, pre);\n",
                  "#pragma unroll\n      for (int r = 0; r < RM; ++r) pre[r] "
                  "= dg_s[r];\n")]
 _L15_GATES = [("        const float dc = dh * x.o * (1.0f - x.tc * x.tc) + "
@@ -100,22 +107,55 @@ _L15_EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((st - 1) >> 1) & 1);\n"
                   "cur, bytes);\n", ""),
                  ("              if (r < nb) send_h(dst + 4u * r * a.ldh, "
                   "dv[r], bar);\n", "              (void)dst, (void)bar;\n"),
-                 ("    if (a.NC == 1) __syncthreads();\n", "")]
+                 ("    } else if (a.NC == 1) {\n      __syncthreads();\n"
+                  "    }\n", "    }\n")]
 _L15_DWH = [("                       cudaStream_t stream) {\n"
              "  const int K = Tn * B;\n",
              "                       cudaStream_t stream) {\n"
              "  if (Tn > 0) return cudaSuccess;\n"
              "  const int K = Tn * B;\n")]
 
+# Row 1 (a block of 3H threads a (batch row, direction), each lane two
+# columns of wh over half the depth in registers, the halves added by a
+# shuffle, xg by cp.async steps ahead, r and z formed by their own lanes
+# before the first of two block barriers a step)
+_G1_PRODUCT = [("""#pragma unroll
+    for (int k = 0; k < D; k += 4) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(&hq_s[half * (D + 4) + k]);
+      a0 = fmaf(hv.x, w[0][k], a0);
+      a0 = fmaf(hv.y, w[0][k + 1], a0);
+      a0 = fmaf(hv.z, w[0][k + 2], a0);
+      a0 = fmaf(hv.w, w[0][k + 3], a0);
+      a1 = fmaf(hv.x, w[1][k], a1);
+      a1 = fmaf(hv.y, w[1][k + 1], a1);
+      a1 = fmaf(hv.z, w[1][k + 2], a1);
+      a1 = fmaf(hv.w, w[1][k + 3], a1);
+    }
+    a0 += __shfl_xor_sync(lanes, a0, 1);
+    a1 += __shfl_xor_sync(lanes, a1, 1);
+""", "    a0 = hq_s[half * (D + 4)] * w[0][0];\n")]
+_G1_GATES = [("      act = sigmoid_f(xv + hg);\n", "      act = xv + hg;\n"),
+             ("""      const float n = tanhf(xv + r * hg);
+      float hn = (1.0f - z) * n + z * hc;
+""", """      const float n = xv + r + hg;
+      float hn = z + n + hc;
+""")]
+# no block barrier: the threads run unpaced
+_G1_EXCHANGE = [("    __syncthreads();  // r and z in act_s; every product has read "
+                 "hq_s\n", ""),
+                ("    __syncthreads();  // the new carry in hq_s\n", "")]
+
 
 class Kernel(NamedTuple):
-    """A scan kernel the tool takes apart: its source (and library) name
-    under ``csrc/``, its wrapper in ``ops/rnn_scan.py``, the edited builds
-    and the default shapes (``B,T,W``)."""
+    """A kernel the tool takes apart: its source (and library) name under
+    ``csrc/``, its wrapper in ``ops/<module>.py``, the edited builds and
+    the default shapes (``B,T,W``, row 1 ``B,T,H[,train]``)."""
     source: str
     wrapper: str
     edits: dict
     shapes: list
+    module: str = "rnn_scan"
 
 
 KERNELS = {
@@ -135,7 +175,15 @@ KERNELS = {
                   "skeleton": [*_L15_PRODUCT, *_L15_GATES, *_L15_EXCHANGE,
                                *_L15_DWH]},
                  ["8,1920,256", "64,1024,256"]),
+    "1": Kernel("gru_bidir_fwd", "gru_bidir_fwd",
+                {"no product": _G1_PRODUCT, "no gates": _G1_GATES,
+                 "no exchange": _G1_EXCHANGE,
+                 "skeleton": [*_G1_PRODUCT, *_G1_GATES, *_G1_EXCHANGE]},
+                ["3,1280,128", "8,1920,128,train"], "rnn_fused"),
 }
+# row 1's input width (layer 0's) and its device time by kernel
+LAYER_W_IN = 400
+LAYER_PARTS = {"proj_kernel": "projection", "recur_kernel": "recurrence"}
 
 
 def edited_source(text: str, kernel: str, name: str) -> str:
@@ -201,13 +249,29 @@ def step_us(libs: dict, fn, args, t_len: int, timer, iters: int = 3,
     return out
 
 
-def kernel_args(kernel, chip_smoke, b, t_len, w, dt):
-    """The wrapper's seeded arguments on the card at one shape."""
+def kernel_call(kernel, chip_smoke, b, t_len, w, dt, train=False):
+    """``(wrapper, its seeded arguments on the card)`` at one shape."""
+    import functools
+    import importlib
+
     import torch
 
+    mod = importlib.import_module(
+        f"pytorch_video_action_tpu_torch.ops.{KERNELS[kernel].module}")
+    fn = getattr(mod, KERNELS[kernel].wrapper)
+    gen = torch.Generator().manual_seed(0)
+    if kernel == "1":
+        cell = chip_smoke.Cell("gru")
+        x, ws, lengths = chip_smoke.layer_inputs(cell, t_len, b, LAYER_W_IN,
+                                                 dt, [t_len] * b, gen)
+        return functools.partial(fn, train=train), (x, *ws, lengths)
+    return fn, kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen)
+
+
+def kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen):
+    """A scan wrapper's seeded arguments on the card at one shape."""
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
-    gen = torch.Generator().manual_seed(0)
     cell = "gru" if kernel == "9" else "lstm"
     xg, wh, bh, dy, _ = chip_smoke.scan_inputs([t_len] * b, t_len, w, dt,
                                                gen, cell)
@@ -222,7 +286,7 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
-                    help="the kernel's row: 13, 9 or 15")
+                    help="the kernel's row: 13, 9, 15 or 1")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
     ap.add_argument("--shapes", nargs="*",
@@ -247,15 +311,18 @@ def main(argv=None) -> int:
     print(f"row {args.kernel} ({kern.source}.cu): kernel and wrapper of "
           f"{root}", flush=True)
     csrc = root / "pytorch_video_action_tpu_torch" / "csrc"
-    shapes = [tuple(int(v) for v in s.split(","))
+    shapes = [(*(int(v) for v in s.split(",")[:3]), s.endswith(",train"))
               for s in (args.shapes or kern.shapes)]
     inputs = {}
-    for b, t_len, w in shapes:
+    for b, t_len, w, train in shapes:
         for dt in (torch.float32, torch.bfloat16):
-            inputs[(b, t_len, w, dt)] = kernel_args(args.kernel, chip_smoke,
-                                                    b, t_len, w, dt)
-            device = inputs[(b, t_len, w, dt)][0].device
-            if hasattr(RS, "scan_launch"):
+            inputs[(b, t_len, w, train, dt)] = kernel_call(
+                args.kernel, chip_smoke, b, t_len, w, dt, train)
+            device = inputs[(b, t_len, w, train, dt)][1][0].device
+            if args.kernel == "1":
+                geo = ("train form" if train else "eval form") + (
+                    f", W_in={LAYER_W_IN}")
+            elif hasattr(RS, "scan_launch"):
                 geo = RS.scan_launch(kern.wrapper, b, w, dt, device)
             elif kern.wrapper.startswith("lstm_scan_fwd"):  # an older tree
                 geo = RS.lstm_fwd_geometry(b, w, dt, RS._sms(device),
@@ -264,16 +331,25 @@ def main(argv=None) -> int:
                 geo = f"cluster of {RS.cluster_size(w)}"
             print(f"{str(dt)[6:]} B={b} W={w}: {geo}", flush=True)
 
-    fn = getattr(RS, kern.wrapper)
+    from pytorch_video_action_tpu_torch.ops import cuda_lib
+
     with tempfile.TemporaryDirectory() as tmp:
         libs = finish_builds(start_builds(csrc, Path(tmp), args.builds,
                                           args.kernel))
-        for (b, t_len, w, dt), call_args in inputs.items():
+        for (b, t_len, w, train, dt), (fn, call_args) in inputs.items():
+            form = " train" if train else ""
             got = step_us(libs, fn, call_args, t_len, chip_smoke.cuda_ms,
                           args.iters, args.kernel)
             for name, us in got.items():
-                print(f"{name}: {str(dt)[6:]} B={b} T={t_len} W={w}: "
+                print(f"{name}: {str(dt)[6:]} B={b} T={t_len} W={w}{form}: "
                       f"{us * t_len / 1e3:.4f} ms, {us:.4f} us a step",
+                      flush=True)
+            if args.kernel == "1" and "as is" in libs:
+                with cuda_lib.replaced(kern.source, libs["as is"]):
+                    parts = chip_smoke.part_ms(lambda: fn(*call_args),
+                                               parts=LAYER_PARTS)
+                print(f"as is by kernel: {str(dt)[6:]} B={b} T={t_len} "
+                      f"W={w}{form}: {chip_smoke.parts_text(parts)}",
                       flush=True)
     return 0
 
