@@ -12,10 +12,11 @@ Phases, in order; any failure exits non-zero:
    the step-split builds of ``tools/torch_lstm_scan_steps.py`` for rows 13,
    9, 15 and 1) and prints the build time and
    ``-Xptxas -v`` (and, for each flash kernel
-   and each of the GRU layer backward's product kernels, its registers,
+   and each of the layer backwards' product kernels, its registers,
    spills and any wgmma serialization); checks with ``cuobjdump -sass``
    that the flash forward, the fused backward, the split backward's two
-   kernels, the GRU backward's two product kernels and the LSTM scan
+   kernels, the two product kernels of the GRU layer's, the LSTM layer's
+   and the merged GRU's backwards (rows 2, 4, 6) and the LSTM scan
    backward's dwh issue wgmma (HGMMA) in every instantiation, f32 and
    bf16.
 3. kernels: holds each kernel against its plain PyTorch version on the card
@@ -25,10 +26,13 @@ Phases, in order; any failure exits non-zero:
    and its backward.  Times kernel, plain version and a one-call PyTorch
    yardstick (nn.GRU or nn.LSTM on a packed sequence: its forward, its
    forward with autograd on, and ``torch.autograd.grad`` through it) with
-   CUDA events, beside each kernel's bound; the GRU backward (row 2) also
-   by part (its products, the slices' sum, the chain and the bias sums,
-   from ``torch.profiler``) and beside its bound counted as before its
-   products moved to the tensor cores.  Then the flash kernels at
+   CUDA events, beside each kernel's bound; the backwards (rows 2 and 4)
+   also by part (their products, the slices' sum, the chain and the bias
+   sums, from ``torch.profiler``) and beside their bounds counted as
+   before their products moved to the tensor cores.  Rows 4 and 6 (the
+   merged GRU's backward, with its train form) also at the bench shape
+   with every frame valid, their K slices at their deepest.  Then the
+   flash kernels at
    attn's bench shape (B=4, H=4, T=4096, d=100, bench.py): the forward in
    f32 and bf16 with dropout off and on, the fused and the split backward
    likewise, each against the plain version, the two backwards
@@ -132,7 +136,8 @@ Phases, in order; any failure exits non-zero:
    the phase, restored after it): the merged-body layer kernels (rows
    5-8) held at the main path's shapes, the eval forms at the largest
    test forward batch (W_in=400), the train forms and backwards at the
-   largest train batch (W_in 400 and 256), f32 and bf16, each against its
+   largest train batch (W_in 400 and 256), f32 and bf16 (row 6 also by
+   part), each against its
    plain version, against rows 1-4 on the same weights (ys; dx, dwi and
    the diagonal blocks of dwh2, dbi2, dbh2 against the per-direction
    gradients) and, the backwards, against a rerun (bit for bit), timed
@@ -296,12 +301,12 @@ class Cell:
         """Least time (ms) for one layer's backward: x, the weights, ys, the
         residuals (and the LSTM's f32 cell states) and dy read once, dx and
         the gradients written once; FLOPs 4*T*B*gH*(2*W_in + 2H) (dwi, dx,
-        dwh and the carry product, both directions).  The GRU's products
-        off the chain (dwi, dx, dwh: 4*T*B*gH*(2*W_in + H)) run on the
-        tensor cores (``tc_bound``), its chain's carry product (4*T*B*gH*H)
-        at the f32 SIMT peak; ``simt=True`` (and the LSTM) counts every
-        operation at the dtype's ``PEAK_FLOPS``, as before the GRU's
-        products moved to the tensor cores."""
+        dwh and the carry product, both directions).  The products off the
+        chain (dwi, dx, dwh: 4*T*B*gH*(2*W_in + H)) run on the tensor cores
+        (``tc_bound``), the chain's carry product (4*T*B*gH*H) at the f32
+        SIMT peak; ``simt=True`` counts every operation at the dtype's
+        ``PEAK_FLOPS``, as before the products moved to the tensor cores
+        (the GRU's, row 2; the LSTM's, row 4)."""
         size = 4 if dt_name == "float32" else 2
         weights = self.weight_count(w_in)
         reads = (t_len * b * w_in + weights
@@ -312,7 +317,7 @@ class Cell:
             n_bytes += 2 * t_len * b * H * 4
         g = self.n_gates * H
         flops = 4 * t_len * b * g * (2 * w_in + 2 * H)
-        if self.lstm or simt:
+        if simt:
             return _bound(n_bytes, flops, dt_name)
         chain = 4 * t_len * b * g * H
         return tc_bound(n_bytes, flops - chain, chain, dt_name)
@@ -363,11 +368,15 @@ class Cell:
         flops = 2 * t_len * b * (w_in + H) * g * 2
         return _bound(n_bytes, flops, dt_name)
 
-    def merged_bound_bwd(self, t_len, b, w_in, dt_name):
+    def merged_bound_bwd(self, t_len, b, w_in, dt_name, simt=False):
         """Least time (ms) for one merged backward: rows 2/4's FLOPs, 4*T*B*
         gH*(2*W_in + 2H), plus dwh2's off-diagonal half, 4*T*B*gH*H; bytes
         of x, the packed weights, the residuals, hp2 (and cp2), dy read
-        once, dx_f, dx_b and the gradients written once."""
+        once, dx_f, dx_b and the gradients written once.  The GRU's (row
+        6) products off the chain (4*T*B*gH*(2*W_in + 2H), dwh2 whole) on
+        the tensor cores and its chain's carry product (4*T*B*gH*H) at the
+        f32 SIMT peak (``tc_bound``); the LSTM's (row 8, SIMT products) and
+        ``simt=True`` every operation at the dtype's ``PEAK_FLOPS``."""
         size = 4 if dt_name == "float32" else 2
         g = self.n_gates * H
         weights = 2 * w_in * g + 4 * H * g + 2 * g * (1 if self.lstm else 2)
@@ -378,7 +387,10 @@ class Cell:
         writes = 2 * rows * w_in + weights
         n_bytes = (reads + writes) * size + 4 * b
         flops = 4 * rows * g * (2 * w_in + 3 * H)
-        return _bound(n_bytes, flops, dt_name)
+        if self.lstm or simt:
+            return _bound(n_bytes, flops, dt_name)
+        chain = 4 * rows * g * H
+        return tc_bound(n_bytes, flops - chain, chain, dt_name)
 
     def module(self, x, ws):
         """torch.nn.GRU / LSTM(bidirectional=True) with the same weights, on
@@ -458,11 +470,12 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the scan kernels' step splits: {row of tools/torch_lstm_scan_steps.py
-# (13, 9, 15): {build: library}}, each build the kernel as it is or with
+# the recurrent kernels' step splits: {row of tools/torch_lstm_scan_steps.py
+# in SPLIT_ROWS: {build: library}}, each build the kernel as it is or with
 # one part of its step taken out, built in phase 2 into a directory that
-# lives as long as the process; STEP_ROWS maps a wrapper to its row (row 14
-# is row 13's template)
+# lives as long as the process; STEP_ROWS maps a scan wrapper to its row
+# (row 14 is row 13's template).  Row 4's split is the tool's alone.
+SPLIT_ROWS = ("13", "9", "15", "1")
 SCAN_STEPS: dict = {}
 STEP_ROWS = {"lstm_scan_fwd": "13", "lstm_scan_fwd_save": "13",
              "gru_scan_fwd": "9", "lstm_scan_bwd_saved": "15"}
@@ -493,8 +506,9 @@ def phase_build():
     tool = steps_tool()
     # the edited copies; each kernel as it is is the build below
     jobs = {row: tool.start_builds(cuda_lib.CSRC, Path(_STEPS_DIR.name),
-                                   names=list(kern.edits), kernel=row)
-            for row, kern in tool.KERNELS.items()}
+                                   names=list(tool.KERNELS[row].edits),
+                                   kernel=row)
+            for row in SPLIT_ROWS}
     logs = cuda_lib.build_all(ptxas_verbose=True)
     for row, got in jobs.items():
         SCAN_STEPS[row] = {"as is": cuda_lib.load(tool.KERNELS[row].source),
@@ -519,6 +533,10 @@ WGMMA_KERNELS = [("flash_fwd", "flash_fwd_kernel"),
                  ("flash_bwd", "flash_bwd_dq_kernel"),
                  ("gru_bidir_bwd", "wgrad_wgmma_kernel"),
                  ("gru_bidir_bwd", "dx_wgmma_kernel"),
+                 ("lstm_bidir_bwd", "wgrad_wgmma_kernel"),
+                 ("lstm_bidir_bwd", "dx_wgmma_kernel"),
+                 ("gru_merged_bwd", "wgrad_wgmma_kernel"),
+                 ("gru_merged_bwd", "dx_wgmma_kernel"),
                  ("lstm_scan_bwd", "dwh_wgmma_kernel")]
 
 
@@ -644,8 +662,9 @@ def tc_bound(n_bytes, tc_flops, simt_flops, dt_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-# the GRU layer backward's kernels (rows 2, 2 alt), each launched once a
-# call, by part of the call
+# the layer backwards' kernels on the tensor cores (rows 2, 2 alt, 4 and 6;
+# "bwd_recur_kernel" also names lstm_bwd_recur_kernel and
+# merged_bwd_recur_kernel), each launched once a call, by part of the call
 BWD_PARTS = {"wgrad_wgmma_kernel": "products", "dx_wgmma_kernel": "products",
              "wgrad_reduce_kernel": "reduction", "bwd_recur_kernel": "chain",
              "bias_reduce_kernel": "bias"}
@@ -657,19 +676,21 @@ def part_ms(fn, iters: int = 5, parts=None) -> dict:
     kernel), from ``torch.profiler``'s
     kernel events over ``iters`` calls: each kernel's mean over the events
     recorded, summed by part.  The tracing may start after the first
-    launches, so the calls begin after a short pause inside the profiler
-    and only complete events count; a session that misses a kernel of the
-    parts is run again, twice at most, and then raises."""
+    launches, so the calls begin after a pause inside the profiler and only
+    complete events count.  Late in a run the profiler's first session
+    often records no kernel at all, for a cause not found (PERF.md section
+    7), so a session that misses a kernel of the parts is run again, four
+    times at most, its pause doubled each time, and then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     parts = BWD_PARTS if parts is None else parts
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.2)
+            time.sleep(0.2 * 2 ** attempt)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -684,7 +705,8 @@ def part_ms(fn, iters: int = 5, parts=None) -> dict:
         if not missing:
             break
         log(f"[kernel] the profiler saw no event of {missing} "
-            f"(session {attempt + 1})")
+            f"(session {attempt + 1}, {sum(map(len, us.values()))} kernel "
+            f"events)")
     if missing:
         raise AssertionError(f"the profiler saw no event of {missing}")
     out = dict.fromkeys([*dict.fromkeys(parts.values()), "other"], 0.0)
@@ -790,9 +812,9 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
     """Hold the train-form forward and the backward against their plain
     versions on one input, and time each beside its plain version, the
     library yardstick and its bound (the GRU's train form also by kernel
-    and, with ``steps``, by step part: ``layer_split``).  Raises when they
-    disagree.  Returns the rows ``(train_form, backward)`` for the
-    ``kernels`` line."""
+    and, with ``steps``, by step part: ``layer_split``; the backward also
+    by part, ``part_ms``).  Raises when they disagree.  Returns the rows
+    ``(train_form, backward)`` for the ``kernels`` line."""
     import functools
 
     import torch
@@ -850,13 +872,12 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
                "tol": tol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bit_identical_rerun": identical}
-    extra = ""
-    if not cell.lstm:  # the GRU's products on the tensor cores
-        bwd_row["bound_simt_ms"] = cell.bound_bwd(t_len, b, w_in, dt_name,
-                                                  simt=True)[0]
-        bwd_row["parts_ms"] = part_ms(lambda: cell.bwd(*bargs))
-        extra = (f" (SIMT count {bwd_row['bound_simt_ms']:.4f} ms); by "
-                 f"part {parts_text(bwd_row['parts_ms'])}")
+    # the products on the tensor cores: the old count beside the bound
+    bwd_row["bound_simt_ms"] = cell.bound_bwd(t_len, b, w_in, dt_name,
+                                              simt=True)[0]
+    bwd_row["parts_ms"] = part_ms(lambda: cell.bwd(*bargs))
+    extra = (f" (SIMT count {bwd_row['bound_simt_ms']:.4f} ms); by part "
+             f"{parts_text(bwd_row['parts_ms'])}")
     log(f"[kernel] {cell.bwd_name} {head}: max abs err {abs_err:.3g}, max "
         f"err / max(1, max|plain|) {err_bwd:.3g} (tol {tol}), rerun "
         f"bit-identical {identical}, kernel {ms:.4f} ms, plain "
@@ -1002,12 +1023,19 @@ def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bit_identical_rerun": identical}
+    extra = ""
+    if not cell.lstm:  # row 6's products on the tensor cores
+        bwd_row["bound_simt_ms"] = cell.merged_bound_bwd(
+            t_len, b, w_in, dt_name, simt=True)[0]
+        bwd_row["parts_ms"] = part_ms(lambda: cell.mbwd(*bargs))
+        extra = (f" (SIMT count {bwd_row['bound_simt_ms']:.4f} ms); by part "
+                 f"{parts_text(bwd_row['parts_ms'])}")
     log(f"[kernel] {cell.mbwd_name} {head}: max abs err {abs_err:.3g}, max "
         f"err / max(1, max|plain|) {err_bwd:.3g}, against {cell.bwd_name} "
         f"{split_bwd:.3g} (tol {tol}), rerun bit-identical {identical}, "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd.grad "
         f"through {cell.library} packed {lib_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+        f"{bound_ms:.4f} ms ({bound_by}){extra}")
     if not (err_bwd <= tol and split_bwd <= tol):
         raise AssertionError(f"merged backward disagrees: {bwd_row}")
     if not identical:
@@ -1033,6 +1061,21 @@ def phase_kernels():
                                                    T_BENCH, gen)
         log(f"[kernel] {cell.name} bench-shape checks in "
             f"{time.time() - t0:.1f} s")
+    # rows 4 and 6 also at bench.py's shape with every frame valid, their
+    # weight gradients' K slices at their deepest (94 and 512 chunks)
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(7)
+    full = [T_BENCH] * B_BENCH
+    for dt_name in DTYPES:
+        rows[LSTM.bwd_name].append(check_train_layer(
+            LSTM, "bench, every frame valid", full, T_BENCH, 400, dt_name,
+            gen)[1])
+        fwd, bwd = check_merged_train_layer(
+            GRU, "bench, every frame valid", full, T_BENCH, 400, dt_name, gen)
+        rows.setdefault(GRU.mfwd_name + "_train", []).append(fwd)
+        rows.setdefault(GRU.mbwd_name, []).append(bwd)
+    log(f"[kernel] rows 4 and 6 every frame valid in "
+        f"{time.time() - t0:.1f} s")
     t0 = time.time()
     gen = torch.Generator().manual_seed(5)
     for name, got in check_flash(

@@ -56,7 +56,7 @@
 //    the previous layer's halves as the forward did, and dx's store
 //    applies the boundary's VJP (mask, and dropout's keep bit and scale)
 //    and writes the two halves' gradients dxa and dxb directly
-//    (rnn_common.cuh's BoundaryOrRows and BoundaryStore).
+//    (rnn_common.cuh's Boundary and BoundaryStore).
 
 #include "rnn_wgmma.cuh"
 
@@ -268,7 +268,7 @@ cudaError_t run_bwd(const void* x, const void* wif, const void* wib,
   if (err != cudaSuccess) return err;
   return launch_wgmma_dense<T>(x, wif, wib, ysf, ysb, dxg, dhg, dx, dwif,
                                dwib, dwhf, dwhb, wgrad_part, slice_chunks,
-                               Tn, B, W, H, stream);
+                               false, Tn, B, W, H, 3 * H, stream);
 }
 
 // The fused-boundary form: the same chain, then the products with dwi read

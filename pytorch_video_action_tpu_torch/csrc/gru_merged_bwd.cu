@@ -40,15 +40,19 @@
 // dense per direction in original time order (row 2's layout, for dwi and
 // dx), and dhg2 [T*B, 6H] f32 in kernel order, gate-grouped (the rows of
 // hp2, for dwh2), plus per-row bias sums.  The products then run off the
-// chain as rnn_common.cuh's tiled SIMT GEMMs: dwif, dwib and dwh2's two
-// column halves in one launch, one wave of long-K tiles (a first design
-// read one gate-grouped copy through index maps, in two launches, and
-// took 2.5x row 2's time).  No atomics: two runs give bit-identical
-// gradients.  What bounds it is row 2's: the chain of T dependent steps
-// and the SIMT throughput of the products (dwh2 is twice row 2's two dwh
+// chain on the tensor cores (rnn_wgmma.cuh's launch_wgmma_merged, row 2's
+// producer ring and wgmma products): dwif, dwib and dwh2's two column
+// halves as the four problems of one launch over K = T*B, in slices whose
+// f32 partials a second pass adds in order (the depth from
+// ops/rnn_fused.py::wgrad_slice_chunks), the accumulators restarted every
+// 8 chunks; then dx_f and dx_b apart, one launch.  Before, the products
+// ran on rnn_common.cuh's SIMT GEMMs, about 2.6 of 3.92 ms at B=8,
+// T=1920, W=400 (PERF.md section 6).  No atomics: two runs give
+// bit-identical gradients.  What bounds it is row 2's: the chain of T
+// dependent steps, then the products (dwh2 is twice row 2's two dwh
 // products: the off-diagonal half is computed too).
 
-#include "rnn_common.cuh"
+#include "rnn_wgmma.cuh"
 
 namespace {
 
@@ -201,8 +205,8 @@ cudaError_t run_bwd(const void* x, const void* res, const void* hp2,
                     const void* wib2, const void* wh2, const int* lengths,
                     void* dxf, void* dxb, void* dwif, void* dwib, void* dbi2,
                     void* dwh2, void* dbh2, float* dxg, float* dhg2,
-                    float* bias_part, int Tn, int B, int W, int H,
-                    cudaStream_t stream) {
+                    float* bias_part, float* wgrad_part, int slice_chunks,
+                    int Tn, int B, int W, int H, cudaStream_t stream) {
   cudaError_t err;
   switch (H) {
     case 16:
@@ -230,9 +234,9 @@ cudaError_t run_bwd(const void* x, const void* res, const void* hp2,
                              nullptr, nullptr}};
   err = launch_bias_reduce<T>(bias_part, bias, 2, B, 6 * H, stream);
   if (err != cudaSuccess) return err;
-  return launch_merged_products<T>(x, wif2, wib2, hp2, dxg, dhg2, dxf, dxb,
-                                   dwif, dwib, dwh2, Tn, B, W, H, 3 * H,
-                                   stream);
+  return launch_wgmma_merged<T>(x, wif2, wib2, hp2, dxg, dhg2, dxf, dxb,
+                                dwif, dwib, dwh2, wgrad_part, slice_chunks,
+                                true, Tn, B, W, H, stream);
 }
 
 }  // namespace
@@ -243,26 +247,31 @@ extern "C" {
 // are device pointers of contiguous tensors: the inputs x, res, hp2, dyf,
 // dyb, wif2, wib2, wh2, lengths; the outputs dxf, dxb [T, B, W], dwif,
 // dwib [W, 3H], dbi2 [6H], dwh2 [2H, 6H], dbh2 [6H], all in the dtype; f32
-// scratch dxg [2, T*B, 3H] and dhg2 [T*B, 6H] and bias_part of 2*B*6H.
-// Launches on `stream` and returns the first non-zero cudaGetLastError()
-// (0 on success).
+// scratch dxg [2, T*B, 3H] and dhg2 [T*B, 6H], bias_part of 2*B*6H and
+// wgrad_part of ceil(ceil(T*B / 64) / slice_chunks) * 2*(W + 2H)*3H (the
+// weight gradients' K slices of slice_chunks 64-row chunks).  Launches on
+// `stream` and returns the first non-zero cudaGetLastError() (0 on
+// success).
 int gru_merged_bwd(int dtype, const void* x, const void* res,
                    const void* hp2, const void* dyf, const void* dyb,
                    const void* wif2, const void* wib2, const void* wh2,
                    const int* lengths, void* dxf, void* dxb, void* dwif,
                    void* dwib, void* dbi2, void* dwh2, void* dbh2,
-                   float* dxg, float* dhg2, float* bias_part, int Tn, int B,
-                   int W, int H, void* stream) {
+                   float* dxg, float* dhg2, float* bias_part,
+                   float* wgrad_part, int slice_chunks, int Tn, int B, int W,
+                   int H, void* stream) {
   if (Tn <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)run_bwd<float>(x, res, hp2, dyf, dyb, wif2, wib2, wh2,
                                lengths, dxf, dxb, dwif, dwib, dbi2, dwh2,
-                               dbh2, dxg, dhg2, bias_part, Tn, B, W, H, s);
+                               dbh2, dxg, dhg2, bias_part, wgrad_part,
+                               slice_chunks, Tn, B, W, H, s);
   if (dtype == 1)
     return (int)run_bwd<__nv_bfloat16>(
         x, res, hp2, dyf, dyb, wif2, wib2, wh2, lengths, dxf, dxb, dwif,
-        dwib, dbi2, dwh2, dbh2, dxg, dhg2, bias_part, Tn, B, W, H, s);
+        dwib, dbi2, dwh2, dbh2, dxg, dhg2, bias_part, wgrad_part,
+        slice_chunks, Tn, B, W, H, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,11 @@
 // Device code shared by the bidirectional GRU and LSTM layer kernels, split
 // (gru_bidir_fwd.cu, gru_bidir_bwd.cu, lstm_bidir_fwd.cu, lstm_bidir_bwd.cu)
 // and merged-body ({gru,lstm}_merged_{fwd,bwd}.cu), for Hopper (sm_90a):
-// the input projection, and the backward's deterministic tiled SIMT GEMMs
-// and bias reduction; and the GRU stack's layer boundary, built on load as
-// an operand of those products (the fused-boundary form).  Each .cu
+// the input projection; the backward's bias reduction, the operands and
+// stores of its products (rnn_wgmma.cuh's tensor-core products read them)
+// and the merged LSTM backward's deterministic tiled SIMT GEMMs; and the
+// GRU stack's layer boundary, built on load as an operand of the
+// projection and of the products (the fused-boundary form).  Each .cu
 // includes it and builds into its own library.
 
 #pragma once
@@ -355,20 +357,6 @@ struct Store {
   }
 };
 
-// The wgrad A operand of the fused-boundary backward: problems 0-1 (dwi)
-// read the layer input as the forward built it (the maskdropped boundary,
-// row k, column m), problems 2-3 (dwh) the shifted ys rows.
-template <typename T>
-struct BoundaryOrRows {
-  static constexpr bool kContigK = false;
-  ShiftedRowsT<T> rows;
-  Boundary<T> bnd;
-  int use_bnd;
-  __device__ float operator()(int m, int k) const {
-    return use_bnd ? bnd(k, m) : rows(m, k);
-  }
-};
-
 // dx of the fused-boundary backward, through the boundary's VJP: the sum
 // over both directions rounded to T (the glue's dx), then as the glue's
 // autograd carries it back, kept(t, b, c) ? rnd(v * scale) : 0 with
@@ -393,124 +381,49 @@ struct BoundaryStore {
   }
 };
 
-template <typename T, typename A = ShiftedRowsT<T>>
+template <typename T>
 struct WgradProblem {
-  A a;
+  ShiftedRowsT<T> a;
   RoundedRows<T> b;
   Store<T> c;
   int M;
 };
 
-// dwi and dwh of both directions in one launch: blockIdx.z picks the
-// problem, [W or H, G] = A^T B over K = T*B rows.
-template <typename T, typename A = ShiftedRowsT<T>>
+// four weight gradients in one launch: blockIdx.z picks the problem, [rows,
+// G] = A^T B over K = T*B rows.
+template <typename T>
 struct WgradProblems {
-  WgradProblem<T, A> p[4];
+  WgradProblem<T> p[4];
 };
 
 constexpr int kWT = 64;   // weight-gradient tile
 constexpr int kDxT = 128; // dx tile
 
-template <typename T, typename A = ShiftedRowsT<T>>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const WgradProblems<T, A> probs, int N, int K) {
-  const WgradProblem<T, A>& p = probs.p[blockIdx.z];
+wgrad_kernel(const WgradProblems<T> probs, int N, int K) {
+  const WgradProblem<T>& p = probs.p[blockIdx.z];
   const int m0 = blockIdx.x * kWT;
   if (m0 >= p.M) return;  // the smaller (dwh) problems use fewer row tiles
   gemm_tile<kWT, kWT>(p.a, p.b, p.c, p.M, N, K, m0, blockIdx.y * kWT);
 }
 
-template <typename T, typename ST = Store<T>>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dx_kernel(const DxgRows<T> a, const WiT<T> b, const ST c, int M, int N,
+dx_kernel(const DxgRows<T> a, const WiT<T> b, const Store<T> c, int M, int N,
           int K) {
   gemm_tile<kDxT, kDxT>(a, b, c, M, N, K, blockIdx.x * kDxT,
                         blockIdx.y * kDxT);
 }
 
-// The backward's products off the chain, for gate width G = gH:
-//   dwi_d = x^T rnd(dxg_d), dwh_d = hp_d^T rnd(dhg_d)  (one launch)
-//   dx = rnd(dxg_f) wi_f^T + rnd(dxg_b) wi_b^T
-// with hp_f = ys_f one step earlier (B rows up), hp_b = ys_b one step later
-// (B rows down), 0 past the ends.  dxg and dhg are [2, T*B, G] f32.  The
-// A operands x_a (x transposed), hpf_a and hpb_a and dx's store dx_st are
-// given: a dense layer input (launch_products) or the GRU stack's boundary
-// (launch_boundary_products).
-template <typename T, typename A, typename ST>
-cudaError_t launch_products_of(const A& x_a, const A& hpf_a, const A& hpb_a,
-                               const ST& dx_st, const void* wif,
-                               const void* wib, const float* dxg,
-                               const float* dhg, void* dwif, void* dwib,
-                               void* dwhf, void* dwhb, int Tn, int B, int W,
-                               int H, int G, cudaStream_t stream) {
-  const int M = Tn * B;
-  const size_t dstride = (size_t)M * G;
-  WgradProblems<T, A> probs;
-  probs.p[0] = {x_a, {dxg, G}, {static_cast<T*>(dwif), G}, W};
-  probs.p[1] = {x_a, {dxg + dstride, G}, {static_cast<T*>(dwib), G}, W};
-  probs.p[2] = {hpf_a, {dhg, G}, {static_cast<T*>(dwhf), G}, H};
-  probs.p[3] = {hpb_a, {dhg + dstride, G}, {static_cast<T*>(dwhb), G}, H};
-  const int rows = W > H ? W : H;
-  const dim3 wgrid((rows + kWT - 1) / kWT, (G + kWT - 1) / kWT, 4);
-  wgrad_kernel<T, A><<<wgrid, kThreads, 0, stream>>>(probs, G, M);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const dim3 xgrid((M + kDxT - 1) / kDxT, (W + kDxT - 1) / kDxT);
-  const DxgRows<T> xa = {dxg, dstride, G};
-  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
-                     G};
-  dx_kernel<T, ST><<<xgrid, kThreads, 0, stream>>>(xa, xb, dx_st, M, W,
-                                                   2 * G);
-  return cudaGetLastError();
-}
-
-// launch_products_of for a dense layer input x [T*B, W] and dx [T*B, W].
-template <typename T>
-cudaError_t launch_products(const void* x, const void* wif, const void* wib,
-                            const void* ysf, const void* ysb,
-                            const float* dxg, const float* dhg, void* dx,
-                            void* dwif, void* dwib, void* dwhf, void* dwhb,
-                            int Tn, int B, int W, int H, int G,
-                            cudaStream_t stream) {
-  const int M = Tn * B;
-  return launch_products_of<T>(
-      ShiftedRowsT<T>{static_cast<const T*>(x), W, 0, M},
-      ShiftedRowsT<T>{static_cast<const T*>(ysf), H, -B, M},
-      ShiftedRowsT<T>{static_cast<const T*>(ysb), H, B, M},
-      Store<T>{static_cast<T*>(dx), W}, wif, wib, dxg, dhg, dwif, dwib, dwhf,
-      dwhb, Tn, B, W, H, G, stream);
-}
-
-// launch_products_of for the GRU stack's boundary bnd (W = 2 bnd.H): dwi
-// reads the maskdropped layer input, dx goes through the boundary's VJP
-// into dxa and dxb [T*B, bnd.H].
-template <typename T>
-cudaError_t launch_boundary_products(const Boundary<T>& bnd, const void* wif,
-                                     const void* wib, const void* ysf,
-                                     const void* ysb, const float* dxg,
-                                     const float* dhg, void* dxa, void* dxb,
-                                     void* dwif, void* dwib, void* dwhf,
-                                     void* dwhb, int Tn, int B, int H, int G,
-                                     cudaStream_t stream) {
-  const int M = Tn * B;
-  const ShiftedRowsT<T> none = {nullptr, 0, 0, 0};
-  return launch_products_of<T>(
-      BoundaryOrRows<T>{none, bnd, 1},
-      BoundaryOrRows<T>{{static_cast<const T*>(ysf), H, -B, M}, bnd, 0},
-      BoundaryOrRows<T>{{static_cast<const T*>(ysb), H, B, M}, bnd, 0},
-      BoundaryStore<T>{static_cast<T*>(dxa), static_cast<T*>(dxb), bnd},
-      wif, wib, dxg, dhg, dwif, dwib, dwhf, dwhb, Tn, B, 2 * bnd.H, H, G,
-      stream);
-}
-
-// The merged-body backward's products, for G = gH a direction and G2 = 2G:
+// The merged-body LSTM backward's products (lstm_merged_bwd.cu, row 8), for
+// G = gH a direction and G2 = 2G, on the CUDA cores:
 //   dwi_d = x^T rnd(dxg_d)                      [W, G]
 //   dwh2  = hp2^T rnd(dhg2)                     [2H, G2], off-diagonal
 //                                               blocks included
 //   dx_d  = rnd(dxg_d) wi_d^T, apart            [T*B, W] each
 // dxg is the chain's [2, T*B, G] f32, each direction dense and in original
-// time order (launch_products' layout); dhg2 its [T*B, G2] f32 in kernel
+// time order (the split layers' layout); dhg2 its [T*B, G2] f32 in kernel
 // order, gate-grouped, the rows of hp2 [T*B, 2H] (in T).  dwif, dwib and
 // dwh2's two column halves are the four problems of one wgrad_kernel
 // launch, so their long-K tiles run as one wave.

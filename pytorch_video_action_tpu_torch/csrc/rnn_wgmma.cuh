@@ -1,12 +1,19 @@
-// The bidirectional GRU layer backward's products off the chain
-// (gru_bidir_bwd.cu, rows 2 and 2 alt) on Hopper's tensor cores (sm_90a):
+// The bidirectional layer backwards' products off the chain on Hopper's
+// tensor cores (sm_90a), for gate width G: the GRU layer's (gru_bidir_bwd.cu,
+// rows 2 and 2 alt, G = 3H) and the LSTM layer's (lstm_bidir_bwd.cu, row 4,
+// G = 4H)
 //   dwi_d = x^T rnd(dxg_d), dwh_d = hp_d^T rnd(dhg_d)   [W or H, G]
 //   dx    = rnd(dxg_f) wi_f^T + rnd(dxg_b) wi_b^T       [T*B, W]
+// and the merged-body GRU's (gru_merged_bwd.cu, row 6)
+//   dwi_d = x^T rnd(dxg_d)                    [W, G]
+//   dwh2  = hp2^T rnd(dhg2)                   [2H, 2G]
+//   dx_d  = rnd(dxg_d) wi_d^T, apart          [T*B, W] each
 // with the operands, rounding points and store functors of rnn_common.cuh
 // (ShiftedRowsT, RoundedRows, DxgRows, WiT, Store; for the fused-boundary
 // form Boundary and BoundaryStore), read only, and the wgmma machinery of
 // flash_wgmma.cuh (chunks, descriptors, put4, mma_ss, the Ring of
-// mbarriers, the tf32 split), included unedited.
+// mbarriers, the tf32 split), included unedited.  The LSTM scan's dwh
+// (lstm_scan_bwd.cu, row 15) runs on run_products too.
 //
 // What bounds it on an H100: at bigru's layer 0 in training (B=8, T=1920,
 // W=400, H=128) the products are 4*T*B*G*(2W + H) = 21.9 GFLOP: about
@@ -43,10 +50,18 @@
 //    the depth, ops/rnn_fused.py::wgrad_slice_chunks); each (tile, slice)
 //    block writes its f32 partial to scratch, and wgrad_reduce_kernel adds
 //    the slices in order and writes the gradients in the weight dtype: no
-//    atomics, so two runs give bit-identical gradients.
+//    atomics, so two runs give bit-identical gradients.  Each of the four
+//    problems has its own A operand, rows, gate-gradient operand and
+//    partial stride, so the merged body's dwh2 is two problems (its column
+//    halves) over hp2 unshifted, their partials one [2H, 2G] block.  Row 6
+//    restarts the accumulators every kRestartChunks chunks (run_products'
+//    sums), as row 15 does: its 512-chunk slices at the bench shape stand
+//    2.69e-4 of the largest element from the plain version's without it;
+//    rows 2, 2 alt and 4 do not.
 //  * dx: K = 2G, both directions in one sum; a block is two 64-row tiles
 //    of T*B sharing the chunk of wi, its epilogue the store functor (the
-//    dense store, or the boundary's VJP).
+//    dense store, or the boundary's VJP).  The merged body's dx_f and dx_b
+//    are apart: one launch, blockIdx.z the direction, K = G each.
 
 #pragma once
 
@@ -494,12 +509,15 @@ __device__ __forceinline__ char* prod_smem_init(char* smem_raw,
   return aligned_smem(smem_raw);
 }
 
-// The weight gradients' four problems: dwif, dwib (rows W, A = x read
-// transposed through XL: ShiftedRowsT, or the boundary) and dwhf, dwhb
-// (rows H, A = hp_f, hp_b), each [rows, G] = A^T rnd(dxg or dhg) over K =
-// T*B rows.  Problem p's tiles are blocks [tile0[p], tile0[p + 1]): row
-// tile t / pairs, column pair t % pairs (columns 128 (t % pairs) ..); its
-// partials, [rows, G] f32 at part + slice * per_slice + off[p].
+// The weight gradients' four problems, each [rows[p], G] = A_p^T rnd(g[p])
+// over K = T*B rows: dwif, dwib (A = x read transposed through XL:
+// ShiftedRowsT, or the boundary) and the hidden problems 2 and 3 (A =
+// hp[0], hp[1]: dwhf, dwhb over ys shifted by one step, or the merged
+// body's dwh2 column halves over hp2).  Problem p's tiles are blocks
+// [tile0[p], tile0[p + 1]): row tile t / pairs, column pair t % pairs
+// (columns 128 (t % pairs) ..); its partials, rows of ldo[p] f32 at part +
+// slice * per_slice + off[p].  With `restart` the accumulators restart
+// every kRestartChunks chunks into sums behind the ring.
 template <typename T, typename XL>
 struct WgmmaWgrad {
   XL x;
@@ -508,7 +526,8 @@ struct WgmmaWgrad {
   int rows[4];
   int tile0[5];
   int off[4];
-  int pairs, G, K, slice_chunks;
+  int ldo[4];
+  int pairs, G, K, slice_chunks, restart;
   size_t per_slice;
   float* part;
 };
@@ -530,7 +549,7 @@ wgrad_wgmma_kernel(const WgmmaWgrad<T, XL> w) {
   const int c0 = blockIdx.y * w.slice_chunks;
   const int c1 = min(c0 + w.slice_chunks, chunks);
   const RoundedRows<T> g = w.g[p];
-  const int rows = w.rows[p], G = w.G;
+  const int rows = w.rows[p], G = w.G, ldo = w.ldo[p];
   float* part = w.part + blockIdx.y * w.per_slice + w.off[p];
   const auto epi = [&](int cw, const float* acc) {
     const int n = n0 + cw * kTile + acc_col();
@@ -541,16 +560,19 @@ wgrad_wgmma_kernel(const WgmmaWgrad<T, XL> w) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         if (n + 8 * j < G)
-          *reinterpret_cast<float2*>(part + (size_t)m * G + n + 8 * j) =
+          *reinterpret_cast<float2*>(part + (size_t)m * ldo + n + 8 * j) =
               make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     }
   };
+  float* sums = w.restart ? reinterpret_cast<float*>(
+                                smem + prod_stages<T>() * slot_bytes<T>())
+                          : nullptr;
   if (p < 2)
     run_products<T, true, true>(smem, full, empty, w.x, m0, rows, g, n0, G,
-                                c0, c1, w.K, epi);
+                                c0, c1, w.K, epi, sums);
   else
     run_products<T, true, true>(smem, full, empty, w.hp[p - 2], m0, rows, g,
-                                n0, G, c0, c1, w.K, epi);
+                                n0, G, c0, c1, w.K, epi, sums);
 }
 
 template <typename T>
@@ -574,18 +596,25 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part,
 }
 
 // grid (ceil(W / 64), ceil(T*B / 128)): dx rows [128 y, 128 y + 128),
-// columns [64 x, 64 x + 64) over K = 2G, stored by st.  The column tiles
-// of a row pair are neighbours in the launch order, so their reads of the
-// same dxg rows meet in L2.
-template <typename T, typename ST>
+// columns [64 x, 64 x + 64) over K = 2G, stored by st; with kDirs, grid z
+// 2: direction z alone over K = G (a and b at direction z), stored by st
+// (z = 0) or st_b.  The column tiles of a row pair are neighbours in the
+// launch order, so their reads of the same dxg rows meet in L2.
+template <typename T, typename ST, bool kDirs = false>
 __global__ void __launch_bounds__(kProdThreads, 1)
-dx_wgmma_kernel(const DxgRows<T> a, const WiT<T> b, const ST st, int M,
+dx_wgmma_kernel(DxgRows<T> a, WiT<T> b, const ST st, const ST st_b, int M,
                 int W, int K) {
   extern __shared__ char smem_raw[];
   __shared__ uint64_t full[kProdStagesMax], empty[kProdStagesMax];
   char* smem = prod_smem_init<T>(smem_raw, full, empty);
   const int m0 = blockIdx.y * 2 * kTile;
   const int n0 = blockIdx.x * kTile;
+  if constexpr (kDirs) {
+    if (blockIdx.z) {
+      a.p += a.dir_stride;
+      b.wf = b.wb;
+    }
+  }
   run_products<T, false, false>(
       smem, full, empty, b, n0, W, a, m0, M, 0, (K + kTile - 1) / kTile, K,
       [&](int cw, const float* acc) {
@@ -598,8 +627,12 @@ dx_wgmma_kernel(const DxgRows<T> a, const WiT<T> b, const ST st, int M,
           for (int j = 0; j < 8; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              if (n + 8 * j + e < W)
-                st(m, n + 8 * j + e, acc[4 * j + 2 * i + e]);
+              if (n + 8 * j + e < W) {
+                if (kDirs && blockIdx.z)
+                  st_b(m, n + 8 * j + e, acc[4 * j + 2 * i + e]);
+                else
+                  st(m, n + 8 * j + e, acc[4 * j + 2 * i + e]);
+              }
         }
       });
 }
@@ -611,12 +644,90 @@ cudaError_t set_smem(K kernel, int bytes) {
                               bytes);
 }
 
-// The products of launch_products_of (rnn_common.cuh) on the tensor cores:
-// the same operands (x_a, hpf_a, hpb_a) and dx store, with the weight
-// gradients summed over K slices of `slice_chunks` chunks through the f32
-// scratch `part` (ceil(ceil(T*B / 64) / slice_chunks) slices of 2 (W + H)
-// G elements).  Four launches: the weight gradients' partials, their sum,
-// dx.
+static_assert(prod_smem<float>() + kRestartBytes + 2 * 8 * kProdStagesMax <=
+                  kSmemMax,
+              "the ring and the restart sums pass a block's shared memory");
+
+// The problems' shared fields: K = M rows in slices of slice_chunks
+// chunks, G columns, partials into part; no problem yet.
+template <typename T, typename XL>
+void wgrad_init(WgmmaWgrad<T, XL>& w, const XL& x, int M, int G,
+                int slice_chunks, bool restart, float* part) {
+  w.x = x;
+  w.pairs = ((G + kTile - 1) / kTile + 1) / 2;
+  w.G = G;
+  w.K = M;
+  w.slice_chunks = slice_chunks;
+  w.restart = restart;
+  w.part = part;
+  w.tile0[0] = 0;
+}
+
+// Problem p: `rows` rows of A^T rnd(g) into partial rows of stride ldo at
+// offset off (of a slice); its tiles follow problem p - 1's.
+template <typename T, typename XL>
+void wgrad_problem(WgmmaWgrad<T, XL>& w, int p, const RoundedRows<T>& g,
+                   int rows, int ldo, size_t off) {
+  w.g[p] = g;
+  w.rows[p] = rows;
+  w.ldo[p] = ldo;
+  w.off[p] = (int)off;
+  w.tile0[p + 1] = w.tile0[p] + (rows + kTile - 1) / kTile * w.pairs;
+}
+
+// The weight gradients' partials (a block a (tile, K slice); slices of
+// outs.off[4] f32 each, laid out as the outputs) and their ordered sum
+// into outs: two launches.
+template <typename T, typename XL>
+cudaError_t launch_wgrad(WgmmaWgrad<T, XL>& w, const WgradOuts<T>& outs,
+                         cudaStream_t stream) {
+  const int chunks = (w.K + kTile - 1) / kTile;
+  if (w.slice_chunks <= 0) return cudaErrorInvalidValue;
+  const int slices = (chunks + w.slice_chunks - 1) / w.slice_chunks;
+  const size_t n = outs.off[4];
+  w.per_slice = n;
+  const int smem = prod_smem<T>() + (w.restart ? kRestartBytes : 0);
+  cudaError_t err = set_smem(wgrad_wgmma_kernel<T, XL>, smem);
+  if (err != cudaSuccess) return err;
+  wgrad_wgmma_kernel<T, XL><<<dim3(w.tile0[4], slices), kProdThreads, smem,
+                              stream>>>(w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  wgrad_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      w.part, outs, slices);
+  return cudaGetLastError();
+}
+
+// dx over M rows and W columns (one launch): the sum of both directions
+// (K = 2G) into st, or with kDirs each direction apart (K = G) into st and
+// st_b.
+template <typename T, typename ST, bool kDirs = false>
+cudaError_t launch_dx(const float* dxg, const void* wif, const void* wib,
+                      const ST& st, const ST& st_b, int M, int W, int G,
+                      cudaStream_t stream) {
+  const DxgRows<T> xa = {dxg, (size_t)M * G, G};
+  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
+                     G};
+  const int smem = prod_smem<T>();
+  const cudaError_t err = set_smem(dx_wgmma_kernel<T, ST, kDirs>, smem);
+  if (err != cudaSuccess) return err;
+  dx_wgmma_kernel<T, ST, kDirs><<<dim3((W + kTile - 1) / kTile,
+                                       (M + 2 * kTile - 1) / (2 * kTile),
+                                       kDirs ? 2 : 1),
+                                  kProdThreads, smem, stream>>>(
+      xa, xb, st, st_b, M, W, kDirs ? G : 2 * G);
+  return cudaGetLastError();
+}
+
+// The products of a bidirectional layer backward of gate width G, x read
+// through XL and dx stored by dx_st: dwi_d, dwh_d [W or H, G] with hp_f =
+// ys_f one step earlier (B rows up), hp_b = ys_b one step later (B rows
+// down), 0 past the ends, from dxg and dhg [2, T*B, G] f32 (the LSTM
+// passes its gate gradients as both); dx over K = 2G.  The weight
+// gradients over K slices of `slice_chunks` chunks through the f32 scratch
+// `part` (ceil(ceil(T*B / 64) / slice_chunks) slices of 2 (W + H) G
+// elements); with `restart` their accumulators restart every
+// kRestartChunks chunks.  Three launches: the partials, their sum, dx.
 template <typename T, typename XL, typename ST>
 cudaError_t launch_wgmma_products(const XL& x, const void* ysf,
                                   const void* ysb, const ST& dx_st,
@@ -624,84 +735,50 @@ cudaError_t launch_wgmma_products(const XL& x, const void* ysf,
                                   const float* dxg, const float* dhg,
                                   void* dwif, void* dwib, void* dwhf,
                                   void* dwhb, float* part, int slice_chunks,
-                                  int Tn, int B, int W, int H,
-                                  cudaStream_t stream) {
+                                  bool restart, int Tn, int B, int W, int H,
+                                  int G, cudaStream_t stream) {
   const int M = Tn * B;
-  const int G = 3 * H;
   const size_t dstride = (size_t)M * G;
-  const int chunks = (M + kTile - 1) / kTile;
-  if (slice_chunks <= 0) return cudaErrorInvalidValue;
-  const int slices = (chunks + slice_chunks - 1) / slice_chunks;
-
   WgmmaWgrad<T, XL> w;
-  w.x = x;
+  wgrad_init(w, x, M, G, slice_chunks, restart, part);
   w.hp[0] = {static_cast<const T*>(ysf), H, -B, M};
   w.hp[1] = {static_cast<const T*>(ysb), H, B, M};
-  const int rows[4] = {W, W, H, H};
-  w.pairs = ((G + kTile - 1) / kTile + 1) / 2;
-  w.G = G;
-  w.K = M;
-  w.slice_chunks = slice_chunks;
-  w.part = part;
-  w.tile0[0] = 0;
-  size_t off = 0;
   WgradOuts<T> outs = {{static_cast<T*>(dwif), static_cast<T*>(dwib),
                         static_cast<T*>(dwhf), static_cast<T*>(dwhb)},
                        {0, 0, 0, 0, 0}};
+  const int rows[4] = {W, W, H, H};
+  size_t off = 0;
   for (int p = 0; p < 4; ++p) {
-    w.g[p] = {(p < 2 ? dxg : dhg) + (p & 1) * dstride, G};
-    w.rows[p] = rows[p];
-    w.tile0[p + 1] = w.tile0[p] + (rows[p] + kTile - 1) / kTile * w.pairs;
-    w.off[p] = (int)off;
+    const RoundedRows<T> g = {(p < 2 ? dxg : dhg) + (p & 1) * dstride, G};
+    wgrad_problem(w, p, g, rows[p], G, off);
     outs.off[p] = off;
     off += (size_t)rows[p] * G;
   }
   outs.off[4] = off;
-  w.per_slice = off;
-
-  const int smem = prod_smem<T>();
-  cudaError_t err = set_smem(wgrad_wgmma_kernel<T, XL>, smem);
+  const cudaError_t err = launch_wgrad(w, outs, stream);
   if (err != cudaSuccess) return err;
-  wgrad_wgmma_kernel<T, XL><<<dim3(w.tile0[4], slices), kProdThreads, smem,
-                              stream>>>(w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wgrad_reduce_kernel<T><<<(unsigned)((off + 255) / 256), 256, 0, stream>>>(
-      part, outs, slices);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  const DxgRows<T> xa = {dxg, dstride, G};
-  const WiT<T> xb = {static_cast<const T*>(wif), static_cast<const T*>(wib),
-                     G};
-  err = set_smem(dx_wgmma_kernel<T, ST>, smem);
-  if (err != cudaSuccess) return err;
-  dx_wgmma_kernel<T, ST><<<dim3((W + kTile - 1) / kTile,
-                                (M + 2 * kTile - 1) / (2 * kTile)),
-                           kProdThreads, smem, stream>>>(xa, xb, dx_st, M, W,
-                                                         2 * G);
-  return cudaGetLastError();
+  return launch_dx<T>(dxg, wif, wib, dx_st, dx_st, M, W, G, stream);
 }
 
-// launch_wgmma_products for a dense layer input x [T*B, W] and dx [T*B, W]
-// (launch_products' operands).
+// launch_wgmma_products for a dense layer input x [T*B, W] and dx [T*B, W].
 template <typename T>
 cudaError_t launch_wgmma_dense(const void* x, const void* wif,
                                const void* wib, const void* ysf,
                                const void* ysb, const float* dxg,
                                const float* dhg, void* dx, void* dwif,
                                void* dwib, void* dwhf, void* dwhb,
-                               float* part, int slice_chunks, int Tn, int B,
-                               int W, int H, cudaStream_t stream) {
+                               float* part, int slice_chunks, bool restart,
+                               int Tn, int B, int W, int H, int G,
+                               cudaStream_t stream) {
   return launch_wgmma_products<T>(
       ShiftedRowsT<T>{static_cast<const T*>(x), W, 0, Tn * B}, ysf, ysb,
       Store<T>{static_cast<T*>(dx), W}, wif, wib, dxg, dhg, dwif, dwib, dwhf,
-      dwhb, part, slice_chunks, Tn, B, W, H, stream);
+      dwhb, part, slice_chunks, restart, Tn, B, W, H, G, stream);
 }
 
-// launch_wgmma_products for the GRU stack's boundary bnd (W = 2 bnd.H): dwi
-// reads the maskdropped layer input, dx goes through the boundary's VJP
-// into dxa and dxb [T*B, bnd.H].
+// launch_wgmma_products for the GRU stack's boundary bnd (W = 2 bnd.H, G =
+// 3H): dwi reads the maskdropped layer input, dx goes through the
+// boundary's VJP into dxa and dxb [T*B, bnd.H].
 template <typename T>
 cudaError_t launch_wgmma_boundary(const Boundary<T>& bnd, const void* wif,
                                   const void* wib, const void* ysf,
@@ -714,8 +791,50 @@ cudaError_t launch_wgmma_boundary(const Boundary<T>& bnd, const void* wif,
   return launch_wgmma_products<T>(
       bnd, ysf, ysb,
       BoundaryStore<T>{static_cast<T*>(dxa), static_cast<T*>(dxb), bnd},
-      wif, wib, dxg, dhg, dwif, dwib, dwhf, dwhb, part, slice_chunks, Tn, B,
-      2 * bnd.H, H, stream);
+      wif, wib, dxg, dhg, dwif, dwib, dwhf, dwhb, part, slice_chunks, false,
+      Tn, B, 2 * bnd.H, H, 3 * H, stream);
+}
+
+// The merged-body GRU backward's products (row 6), G = 3H a direction:
+// dwi_d = x^T rnd(dxg_d) [W, G]; dwh2 = hp2^T rnd(dhg2) [2H, 2G], the
+// off-diagonal blocks included, as its column halves (problems 2 and 3:
+// hp2 unshifted against dhg2's columns [0, G) and [G, 2G), their partials
+// one [2H, 2G] block at stride 2G, summed into dwh2 as it lies); dx_d =
+// rnd(dxg_d) wi_d^T apart (dxf, dxb [T*B, W]).  dxg [2, T*B, G] f32, each
+// direction dense in original time order; dhg2 [T*B, 2G] f32 in kernel
+// order, gate-grouped, the rows of hp2 [T*B, 2H] (in T).  The partials as
+// launch_wgmma_products' (slices of 2 (W + 2H) G elements).
+template <typename T>
+cudaError_t launch_wgmma_merged(const void* x, const void* wif,
+                                const void* wib, const void* hp2,
+                                const float* dxg, const float* dhg2,
+                                void* dxf, void* dxb, void* dwif, void* dwib,
+                                void* dwh2, float* part, int slice_chunks,
+                                bool restart, int Tn, int B, int W, int H,
+                                cudaStream_t stream) {
+  const int M = Tn * B;
+  const int G = 3 * H;
+  const size_t dstride = (size_t)M * G;
+  WgmmaWgrad<T, ShiftedRowsT<T>> w;
+  wgrad_init(w, ShiftedRowsT<T>{static_cast<const T*>(x), W, 0, M}, M, G,
+             slice_chunks, restart, part);
+  w.hp[0] = w.hp[1] = {static_cast<const T*>(hp2), 2 * H, 0, M};
+  const size_t wi = (size_t)W * G;
+  wgrad_problem(w, 0, RoundedRows<T>{dxg, G}, W, G, 0);
+  wgrad_problem(w, 1, RoundedRows<T>{dxg + dstride, G}, W, G, wi);
+  wgrad_problem(w, 2, RoundedRows<T>{dhg2, 2 * G}, 2 * H, 2 * G, 2 * wi);
+  wgrad_problem(w, 3, RoundedRows<T>{dhg2 + G, 2 * G}, 2 * H, 2 * G,
+                2 * wi + G);
+  const size_t n = 2 * wi + (size_t)2 * H * 2 * G;
+  const WgradOuts<T> outs = {{static_cast<T*>(dwif), static_cast<T*>(dwib),
+                              static_cast<T*>(dwh2), nullptr},
+                             {0, wi, 2 * wi, n, n}};
+  const cudaError_t err = launch_wgrad(w, outs, stream);
+  if (err != cudaSuccess) return err;
+  return launch_dx<T, Store<T>, true>(dxg, wif, wib,
+                                      Store<T>{static_cast<T*>(dxf), W},
+                                      Store<T>{static_cast<T*>(dxb), W}, M,
+                                      W, G, stream);
 }
 
 }  // namespace

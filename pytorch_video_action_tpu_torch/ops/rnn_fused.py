@@ -244,12 +244,12 @@ _ARGTYPES = {
                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_bidir_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 15
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-    "lstm_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 23
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "lstm_bidir_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 24
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "gru_merged_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 11
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
-    "gru_merged_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 19
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "gru_merged_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 20
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_merged_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 11
                         + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     "lstm_merged_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 19
@@ -339,8 +339,9 @@ gru_bidir_fwd.launches = 0
 gru_bidir_fwd.train_launches = 0
 
 
-# The GRU backward's weight-gradient products (csrc/rnn_wgmma.cuh) split K =
-# T*B into slices of whole 64-row chunks, one block a (64 x 128 tile,
+# The layer backwards' weight-gradient products (csrc/rnn_wgmma.cuh: rows 2
+# and 2 alt, the GRU's; row 4, the LSTM's; row 6, the merged GRU's) split K
+# = T*B into slices of whole 64-row chunks, one block a (64 x 128 tile,
 # slice), and add the slices' f32 partials in order afterwards.
 _CHUNK = 64
 _MAX_SLICES = 16
@@ -351,17 +352,26 @@ def _ceil(a, b):
     return -(-a // b)
 
 
-def wgrad_tiles(w_in, h):
-    """Blocks of one K slice of the weight gradients: 64 x 128 tiles of
-    dwif, dwib ``[W, 3H]`` and dwhf, dwhb ``[H, 3H]``."""
-    pairs = _ceil(_ceil(3 * h, _CHUNK), 2)
-    return 2 * (_ceil(w_in, _CHUNK) + _ceil(h, _CHUNK)) * pairs
+def _wgrad_rows(w_in, h, merged):
+    """Rows of the weight gradients' four problems, each ``[rows, G]``:
+    dwif, dwib ``[W, G]`` and dwhf, dwhb ``[H, G]``, or for the merged body
+    dwh2's two column halves ``[2H, G]``."""
+    hidden = 2 * h if merged else h
+    return (w_in, w_in, hidden, hidden)
 
 
-def wgrad_slice_chunks(rows, w_in, h, sms):
+def wgrad_tiles(w_in, h, n_gates=3, merged=False):
+    """Blocks of one K slice of the weight gradients: 64 x 128 tiles of the
+    four problems of gate width G = ``n_gates`` * H (3, the GRU's; 4, the
+    LSTM's), their rows as :func:`_wgrad_rows` gives them."""
+    pairs = _ceil(_ceil(n_gates * h, _CHUNK), 2)
+    return sum(_ceil(r, _CHUNK) for r in _wgrad_rows(w_in, h, merged)) * pairs
+
+
+def wgrad_slice_chunks(rows, w_in, h, sms, n_gates=3, merged=False):
     """Chunks of each K slice of the weight gradients, for K = ``rows`` (T*B)
     on a card of ``sms`` SMs: :func:`slice_chunks` of their tiles."""
-    return slice_chunks(rows, wgrad_tiles(w_in, h), sms)
+    return slice_chunks(rows, wgrad_tiles(w_in, h, n_gates, merged), sms)
 
 
 def slice_chunks(rows, tiles, sms):
@@ -385,14 +395,22 @@ def slice_chunks(rows, tiles, sms):
     return best[1]
 
 
-def _wgrad_scratch(t_len, b, w_in, h, device):
-    """``(slice_chunks, f32 partials)`` of the weight gradients' K slices."""
+def wgrad_scratch_shape(t_len, b, w_in, h, sms, n_gates=3, merged=False):
+    """``(slice_chunks, (slices, elements a slice))`` of the weight
+    gradients' K slices and their f32 partials: a slice holds the four
+    problems' ``[rows, G]`` partials (the merged body's dwh2 halves as one
+    ``[2H, 2G]`` block)."""
     rows = t_len * b
-    depth = wgrad_slice_chunks(rows, w_in, h, _sms(device))
-    slices = _ceil(_ceil(rows, _CHUNK), depth)
-    part = torch.empty((slices, 2 * (w_in + h) * 3 * h), dtype=torch.float32,
-                       device=device)
-    return depth, part
+    depth = wgrad_slice_chunks(rows, w_in, h, sms, n_gates, merged)
+    per_slice = sum(_wgrad_rows(w_in, h, merged)) * n_gates * h
+    return depth, (_ceil(_ceil(rows, _CHUNK), depth), per_slice)
+
+
+def _wgrad_scratch(t_len, b, w_in, h, device, n_gates=3, merged=False):
+    """``(slice_chunks, f32 partials)`` of the weight gradients' K slices."""
+    depth, shape = wgrad_scratch_shape(t_len, b, w_in, h, _sms(device),
+                                       n_gates, merged)
+    return depth, torch.empty(shape, dtype=torch.float32, device=device)
 
 
 def _sms(device) -> int:
@@ -903,15 +921,16 @@ def lstm_bidir_bwd(x, wif, wib, whf, whb, lengths, ysf, ysb, csf, csb, resf,
                 for _ in range(2))
     dwhf, dwhb = (torch.empty((h, g), dtype=dt, device=x.device)
                   for _ in range(2))
-    # f32 scratch: the per-step gate gradients of both directions, and the
-    # per-row bias sums
+    # f32 scratch: the per-step gate gradients of both directions, the
+    # per-row bias sums and the weight gradients' K-slice partials
     dg = torch.empty((2, t_len * b, g), dtype=torch.float32, device=x.device)
     bias_part = torch.empty((2, b, g), dtype=torch.float32, device=x.device)
+    depth, part = _wgrad_scratch(t_len, b, w_in, h, x.device, n_gates=4)
     _launch("lstm_bidir_bwd", x, _DTYPE_CODE[dt],
             *(t.data_ptr() for t in args),
             dx.data_ptr(), dwif.data_ptr(), dwib.data_ptr(), dbf.data_ptr(),
             dbb.data_ptr(), dwhf.data_ptr(), dwhb.data_ptr(), dg.data_ptr(),
-            bias_part.data_ptr(), t_len, b, w_in, h)
+            bias_part.data_ptr(), part.data_ptr(), depth, t_len, b, w_in, h)
     lstm_bidir_bwd.launches += 1
     return dx, dwif, dwib, dbf, dbb, dwhf, dwhb
 
@@ -1279,18 +1298,20 @@ def gru_merged_bwd(x, res, hp2, dyf, dyb, wif2, wib2, wh2, lengths):
                   for _ in range(2))
     dwh2 = torch.empty_like(wh2)
     # f32 scratch: the chain's gate gradients, dxg per direction in time
-    # order and dhg2 in kernel order, gate-grouped; the per-row bias sums
+    # order and dhg2 in kernel order, gate-grouped; the per-row bias sums;
+    # the weight gradients' K-slice partials
     dxg = torch.empty((2, t_len * b, 3 * h), dtype=torch.float32,
                       device=x.device)
     dhg = torch.empty((t_len * b, 6 * h), dtype=torch.float32,
                       device=x.device)
     bias_part = torch.empty((2, b, 6 * h), dtype=torch.float32,
                             device=x.device)
+    depth, part = _wgrad_scratch(t_len, b, w_in, h, x.device, merged=True)
     _launch("gru_merged_bwd", x, _DTYPE_CODE[dt],
             *(t.data_ptr() for t in args), dxf.data_ptr(), dxb.data_ptr(),
             dwif.data_ptr(), dwib.data_ptr(), dbi2.data_ptr(),
             dwh2.data_ptr(), dbh2.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
-            bias_part.data_ptr(), t_len, b, w_in, h)
+            bias_part.data_ptr(), part.data_ptr(), depth, t_len, b, w_in, h)
     gru_merged_bwd.launches += 1
     return dxf, dxb, dwif, dwib, dbi2, dwh2, dbh2
 

@@ -47,29 +47,33 @@ B8, T8, W0, H0 = 8, 1920, 400, 128
 @pytest.mark.parametrize("dt_name,rate", [("float32", 495e12 / 3),
                                           ("bfloat16", 989e12)])
 def test_gru_bwd_bound_reads_the_tensor_cores_and_the_chain(dt_name, rate):
-    """Row 2's bound: its products off the chain (dwi, dx, dwh: 4*T*B*3H*
-    (2W + H)) at the tensor cores' rate for the dtype, plus the chain's
-    carry product (4*T*B*3H*H) at the f32 SIMT peak; the count with every
-    operation at the dtype's old peak stays beside it (``simt=True``), and
-    the LSTM's (row 4) is that one."""
-    gru, lstm = CS.Cell("gru"), CS.Cell("lstm")
-    g = 3 * H0
-    products = 4 * T8 * B8 * g * (2 * W0 + H0)
-    chain = 4 * T8 * B8 * g * H0
-    ms, by = gru.bound_bwd(T8, B8, W0, dt_name)
-    assert by == "operations"
-    assert ms == pytest.approx((products / rate + chain / 67e12) * 1e3,
-                               rel=1e-12)
-    old = (products + chain) / CS.PEAK_FLOPS[dt_name] * 1e3
-    simt, _ = gru.bound_bwd(T8, B8, W0, dt_name, simt=True)
-    assert simt >= old * (1 - 1e-12)  # the bytes may bound it in bf16
-    if dt_name == "float32":
-        assert simt == pytest.approx(old, rel=1e-12) and simt > ms
-    lflops = 4 * T8 * B8 * 4 * H0 * (2 * W0 + 2 * H0)
-    assert lstm.bound_bwd(T8, B8, W0, dt_name) == lstm.bound_bwd(
-        T8, B8, W0, dt_name, simt=True)
-    assert lstm.bound_bwd(T8, B8, W0, "float32")[0] == pytest.approx(
-        lflops / 67e12 * 1e3, rel=1e-12)
+    """The bound of row 2 (the GRU layer's backward), row 4 (the LSTM's)
+    and row 6 (the merged GRU's): the products off the chain (dwi, dx,
+    dwh: 4*T*B*gH*(2W + H); row 6's dwh2 twice row 2's dwh, its
+    off-diagonal half too) at the tensor cores' rate for the dtype, plus
+    the chain's carry product (4*T*B*gH*H) at the f32 SIMT peak; the count
+    with every operation at the dtype's old peak stays beside it
+    (``simt=True``).  Row 8 (the merged LSTM's, SIMT products) keeps that
+    count."""
+    for row in ("2", "4", "6"):
+        cell = CS.Cell("lstm" if row == "4" else "gru")
+        g = cell.n_gates * H0
+        hidden = 2 * H0 if row == "6" else H0
+        products = 4 * T8 * B8 * g * (2 * W0 + hidden)
+        chain = 4 * T8 * B8 * g * H0
+        bound = cell.merged_bound_bwd if row == "6" else cell.bound_bwd
+        ms, by = bound(T8, B8, W0, dt_name)
+        assert by == "operations", row
+        assert ms == pytest.approx((products / rate + chain / 67e12) * 1e3,
+                                   rel=1e-12), row
+        old = (products + chain) / CS.PEAK_FLOPS[dt_name] * 1e3
+        simt, _ = bound(T8, B8, W0, dt_name, simt=True)
+        assert simt >= old * (1 - 1e-12), row  # bytes may bound it in bf16
+        if dt_name == "float32":
+            assert simt == pytest.approx(old, rel=1e-12) and simt > ms, row
+    lstm = CS.Cell("lstm")
+    assert lstm.merged_bound_bwd(T8, B8, W0, dt_name) == \
+        lstm.merged_bound_bwd(T8, B8, W0, dt_name, simt=True)
 
 
 @pytest.mark.parametrize("dt_name,rate,carry", [

@@ -243,25 +243,64 @@ def _wgmma_case(cuda_device, dtype, b, t, w, h, seed):
     return x, ws, torch.from_numpy(lengths).to(cuda_device), dys
 
 
-@pytest.mark.parametrize("case", WGMMA_CASES,
-                         ids=[f"B{c[0]}-T{c[1]}-W{c[2]}-H{c[3]}"
-                              for c in WGMMA_CASES])
+# Rows 4 (the LSTM layer's backward, G = 4H) and 6 (the merged GRU's: dwh2
+# over hp2 unshifted, dx_f and dx_b apart) on the same products, row 6's
+# accumulators restarted every 8 chunks: H 16-128 at B=3 and B=8, and
+# bench.py's shape with every frame valid, where their K slices are
+# deepest (94 and 512 chunks).
+LAYER_WGMMA_CASES = [(3, 300, 400, 128), (8, 301, 400, 128),
+                     (3, 150, 256, 64), (8, 77, 100, 32), (3, 200, 256, 16),
+                     (64, 1024, 400, 128)]
+PRODUCT_CASES = ([("gru", *c) for c in WGMMA_CASES]
+                 + [(layer, *c) for layer in ("lstm", "merged")
+                    for c in LAYER_WGMMA_CASES])
+MERGED_GRADS = ["dxf", "dxb", "dwif", "dwib", "dbi2", "dwh2", "dbh2"]
+
+
+def _product_case(cuda_device, dtype, layer, b, t, w, h):
+    """``(backward, its plain version, gradient names, arguments)`` of row
+    2, 4 or 6 from the train form's outputs; at T=1024 every frame valid."""
+    if layer == "gru":
+        x, ws, lengths, dys = _wgmma_case(cuda_device, dtype, b, t, w, h,
+                                          seed=t)
+        fwd = P.gru_bidir_fwd(x, *ws, lengths, train=True)
+        return (P.gru_bidir_bwd, P.gru_bidir_layer_bwd_ref,
+                ["dx", "dwif", "dwib", "dbif", "dbib", "dwhf", "dwhb",
+                 "dbhf", "dbhb"],
+                (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys))
+    full = torch.full((b,), t, dtype=torch.int32, device=cuda_device)
+    if layer == "lstm":
+        args, dys = _lstm_case(cuda_device, dtype, b, h, seed=t, t=t, w=w)
+        if t == 1024:
+            args[-1] = full
+        fwd = P.lstm_bidir_fwd(*args, train=True)
+        return (P.lstm_bidir_bwd, P.lstm_bidir_layer_bwd_ref, LSTM_GRADS,
+                _lstm_bwd_args(args, fwd, dys))
+    _, merged, dys = _merged_case(cuda_device, dtype, "gru", b, h, seed=t,
+                                  t=t, w=w)
+    if t == 1024:
+        merged = (*merged[:-1], full)
+    fwd = P.gru_merged_fwd(*merged, train=True)
+    return (P.gru_merged_bwd, P.gru_merged_layer_bwd_ref, MERGED_GRADS,
+            _merged_bwd_args("gru", merged, fwd, dys))
+
+
+@pytest.mark.parametrize("case", PRODUCT_CASES,
+                         ids=[f"{c[0]}-B{c[1]}-T{c[2]}-W{c[3]}-H{c[4]}"
+                              for c in PRODUCT_CASES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_products_on_tensor_cores_match_plain(cuda_device, dtype, case):
-    """Row 2 against its plain version and a rerun bit for bit."""
-    b, t, w, h = case
-    x, ws, lengths, dys = _wgmma_case(cuda_device, dtype, *case, seed=t)
-    fwd = P.gru_bidir_fwd(x, *ws, lengths, train=True)
-    bargs = (x, ws[0], ws[1], ws[4], ws[5], lengths, *fwd, *dys)
-    got = P.gru_bidir_bwd(*bargs)
-    again = P.gru_bidir_bwd(*bargs)
+    """Rows 2, 4 and 6 against their plain versions and a rerun bit for
+    bit."""
+    bwd, ref, names, bargs = _product_case(cuda_device, dtype, *case)
+    got = bwd(*bargs)
+    again = bwd(*bargs)
     torch.cuda.synchronize()
-    names = ["dx", "dwif", "dwib", "dbif", "dbib", "dwhf", "dwhb", "dbhf",
-             "dbhb"]
-    for name, g, want, a in zip(names, got, P.gru_bidir_layer_bwd_ref(*bargs),
-                                again):
-        assert g.dtype == dtype and g.shape == want.shape, name
-        assert _rel_err(g, want) <= TOL[dtype], (name, _rel_err(g, want))
+    want = ref(*bargs)
+    assert len(got) == len(want) == len(names)
+    for name, g, w, a in zip(names, got, want, again):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert _rel_err(g, w) <= TOL[dtype], (name, _rel_err(g, w))
         assert torch.equal(g, a), name
 
 

@@ -304,3 +304,36 @@ def test_wgrad_slices_fill_the_card_and_cover_k(rows, w, h):
         if n > 1 and d < 4:
             break
         assert cost <= -(-tiles * -(-chunks // d) // sms) * d
+
+
+# Rows 2 (the GRU layer's, G = 3H), 4 (the LSTM layer's, G = 4H) and 6 (the
+# merged GRU's: dwif, dwib [W, 3H] and dwh2's column halves [2H, 3H]) at
+# W=400, H=128 on 132 SMs: (row, T, B) -> (tiles, slice depth, slices,
+# f32 partials a slice).  Row 2's are what they were before rows 4 and 6
+# joined it.
+SLICE_PLANS = {
+    ("2", 1920, 8): (54, 20, 12, 2 * (400 + 128) * 384),
+    ("2", 1024, 64): (54, 86, 12, 2 * (400 + 128) * 384),
+    ("4", 1920, 8): (72, 22, 11, 2 * (400 + 128) * 512),
+    ("4", 1024, 64): (72, 94, 11, 2 * (400 + 128) * 512),
+    ("6", 1920, 8): (66, 120, 2, 2 * 400 * 384 + 256 * 768),
+    ("6", 1024, 64): (66, 512, 2, 2 * 400 * 384 + 256 * 768),
+}
+ROW_LAYOUT = {"2": {}, "4": {"n_gates": 4}, "6": {"merged": True}}
+
+
+@pytest.mark.parametrize("row,t,b", sorted(SLICE_PLANS))
+def test_wgrad_slices_for_every_gate_layout(row, t, b):
+    """The tile count, K-slice depth, slice count and scratch size of each
+    layout's weight gradients at the main path's shape (B=8, T=1920) and
+    the bench shape (B=64, T=1024): the scratch holds each slice's four
+    problems' partials, as the kernels lay them out."""
+    kw = ROW_LAYOUT[row]
+    tiles, depth, slices, per_slice = SLICE_PLANS[(row, t, b)]
+    assert P.wgrad_tiles(400, 128, **kw) == tiles
+    assert P.wgrad_slice_chunks(t * b, 400, 128, 132, **kw) == depth
+    assert P.wgrad_scratch_shape(t, b, 400, 128, 132, **kw) == (
+        depth, (slices, per_slice))
+    chunks = -(-(t * b) // 64)
+    assert (slices - 1) * depth < chunks <= slices * depth
+    assert P.slice_chunks(t * b, tiles, 132) == depth

@@ -369,10 +369,10 @@ def _steps_tool():
     return mod
 
 
-@pytest.mark.parametrize("kernel", ["13", "9", "15", "1"])
+@pytest.mark.parametrize("kernel", ["13", "9", "15", "1", "4"])
 def test_step_tool_edits_hold_their_sources_lines(kernel):
-    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15
-    and 1) finds its lines once in its kernel's source, so a changed kernel
+    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15, 1
+    and 4) finds its lines once in its kernel's source, so a changed kernel
     fails here rather than on the card; each build changes the source."""
     import importlib
 

@@ -19,6 +19,9 @@ MODULES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts)
 FILES = MODULES + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile_inference.py",
     ROOT / "tools" / "torch_profile_train.py",
+    ROOT / "tools" / "torch_lstm_scan_steps.py",
+    ROOT / "tools" / "torch_ab_phases.py",
+    ROOT / "tools" / "torch_bwd_bits.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py"]
 
 

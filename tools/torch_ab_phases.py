@@ -4,7 +4,8 @@ one card, in turns (other, this, this, other), and print their frames/s
 lines side by side: the way to compare two commits end to end within one
 call.
 
-    python3 tools/torch_ab_phases.py --other DIR [--kernels] [PHASE ...]
+    python3 tools/torch_ab_phases.py --other DIR | --once [--kernels]
+                                     [PHASE ...]
 
 ``DIR`` is the root of the other checkout (for example the parent commit
 unpacked with ``git archive`` into a directory ``.gitignore`` lists).  A
@@ -21,8 +22,14 @@ CLIs) or ``rows:gru`` (rows 1, 1 alt, 2 and 2 alt held and timed at the
 main path's shapes, f32 and bf16: ``check_layer``, ``check_train_layer``,
 ``check_bnd_eval``, ``check_bnd_train`` at keep 0.5) or ``scan:<cell>``
 (the GRU's or the LSTM's scan, its four kernels held and timed at the
-largest train batch, W=256, f32 and bf16: ``check_scan``); the default
-is ``slice:attn train:attn``.  A turn whose phases are all light builds only the kernels
+largest train batch, W=256, f32 and bf16: ``check_scan``) or
+``lstm:main``, ``lstm:bench`` (row 4, the LSTM layer's backward, with its
+train form, ``check_train_layer``) and ``merged:main``, ``merged:bench``
+(rows 5-6, the merged GRU's train form and backward,
+``check_merged_train_layer``), W_in=400, f32 and bf16, at the largest train
+batch or the bench shape (B=64, T=1024, every frame valid); the default
+is ``slice:attn train:attn``.  With ``--once`` only this checkout runs,
+one turn.  A turn whose phases are all light builds only the kernels
 they launch.  With ``--kernels`` the phases' ``[kernel]``
 and ``[flags]`` lines (each kernel's time beside its plain version's and
 its bound) are printed too.  Each turn is a process of its own
@@ -54,7 +61,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 c.GRU, c.LSTM = c.Cell("gru"), c.Cell("lstm")
 card = c.card_line()
-if any(p.split(":")[0] not in ("fps", "rows", "scan")
+if any(p.split(":")[0] not in ("fps", "rows", "scan", "lstm", "merged")
        for p in sys.argv[1:]):
     c.phase_build()
 with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
@@ -83,6 +90,21 @@ with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
                 c.check_train_layer(c.GRU, "main path", tlens, t_train, 400,
                                     dt, gen)
                 c.check_bnd_train("main path", tlens, t_train, dt, 0.5, gen)
+        elif kind in ("lstm", "merged"):
+            # rows 4 (the LSTM layer's) or 5-6 (the merged GRU's) train form
+            # and backward, W_in=400: at the main path's largest train
+            # batch (name "main") or the bench shape, every frame valid
+            gen = torch.Generator().manual_seed(0)
+            if name == "main":
+                batch = c.largest_batch(c.train_feeds(root)[0])
+                tlens, t_len = batch[1].tolist(), batch[0].shape[1]
+            else:
+                tlens, t_len = [c.T_BENCH] * c.B_BENCH, c.T_BENCH
+            check = (c.check_train_layer if kind == "lstm" else
+                     c.check_merged_train_layer)
+            for dt in c.DTYPES:
+                check(c.LSTM if kind == "lstm" else c.GRU, name, tlens, t_len,
+                      400, dt, gen)
         elif kind == "scan":
             gen = torch.Generator().manual_seed(0)
             batch = c.largest_batch(c.train_feeds(root)[0])
@@ -102,16 +124,22 @@ with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--other", required=True,
-                    help="root of the other checkout")
+    ap.add_argument("--other", help="root of the other checkout")
+    ap.add_argument("--once", action="store_true",
+                    help="one turn of this checkout alone")
     ap.add_argument("--kernels", action="store_true",
                     help="also print the phases' [kernel] lines")
     ap.add_argument("phases", nargs="*",
                     default=["slice:attn", "train:attn"])
     args = ap.parse_args(argv)
-    trees = {"other": Path(args.other).resolve(), "this": ROOT}
+    if not args.once and args.other is None:
+        ap.error("--other is required unless --once is given")
+    trees = {"this": ROOT}
+    if not args.once:
+        trees["other"] = Path(args.other).resolve()
     out = {}
-    for label in ("other", "this", "this", "other"):
+    for label in ("this",) if args.once else ("other", "this", "this",
+                                               "other"):
         proc = subprocess.run([sys.executable, "-c", TURN, *args.phases],
                               cwd=trees[label], capture_output=True,
                               text=True, env={**os.environ,

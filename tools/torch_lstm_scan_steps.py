@@ -3,7 +3,7 @@
 built and of copies with one part of the step taken out.  On one NVIDIA
 GPU:
 
-    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1] [--root DIR]
+    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1|4] [--root DIR]
                                            [--shapes B,T,W[,train] ...]
                                            [--builds NAME ...]
 
@@ -13,7 +13,9 @@ scan's eval forward (``csrc/gru_scan_fwd.cu``); 15, the LSTM scan's
 saved-gates backward (``csrc/lstm_scan_bwd.cu``, the chain and dwh); 1, the
 bidirectional GRU layer's forward (``csrc/gru_bidir_fwd.cu``, its
 recurrence; W is H, the layer's input 400 wide, ``train`` in a shape picks
-the train form, else the eval form).
+the train form, else the eval form); 4, the bidirectional LSTM layer's
+backward (``csrc/lstm_bidir_bwd.cu``, its chain; W is H, the layer's input
+400 wide, the whole call timed, its products off the chain included).
 Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
 csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
 design, for example an earlier commit unpacked with ``git archive``, may be
@@ -21,7 +23,8 @@ given) in a temporary directory: as it is, and once for each of the
 kernel's edited builds in ``KERNELS`` (the product taken out, the gate
 math taken out, the exchange between blocks or threads taken out, all of
 them; row 15 also dwh's launch taken out).  Each build runs ``DIR``'s
-wrapper of the kernel (``ops/rnn_scan.py``; row 1 ``ops/rnn_fused.py``) on
+wrapper of the kernel (``ops/rnn_scan.py``; rows 1 and 4
+``ops/rnn_fused.py``) on
 the same seeded inputs at each shape (defaults in ``KERNELS``), f32 and
 bf16, and prints its device time (CUDA events, ``chip_smoke.cuda_ms``) as
 µs a step, with the card's name and power limit and each shape's launch;
@@ -146,11 +149,47 @@ _G1_EXCHANGE = [("    __syncthreads();  // r and z in act_s; every product has r
                  "hq_s\n", ""),
                 ("    __syncthreads();  // the new carry in hq_s\n", "")]
 
+# Row 4 (a cluster of two blocks a (row, direction), a unit's four lanes of
+# one warp, a quarter warp apart, its gate blocks, each holding wh[k, gH ..)
+# in registers, the parts added by shuffles; each lane's gate factors
+# formed before the step's wait; the rounded gradients sent by st.async
+# onto each block's mbarrier, no cluster or block barrier a step)
+_L4_PRODUCT = [("""#pragma unroll
+    for (int j = 0; j < H; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(&dg_s[cb][g][j]);
+      a0 = fmaf(v.x, w[j], a0);
+      a1 = fmaf(v.y, w[j + 1], a1);
+      a2 = fmaf(v.z, w[j + 2], a2);
+      a3 = fmaf(v.w, w[j + 3], a3);
+    }
+""", "    a0 = dg_s[cb][g][0] * w[0];\n")]
+_L4_GATES = [("""    const float fo = cur.o * (1.0f - cur.tc * cur.tc);
+    const float fg = g == 0   ? cur.g * cur.i * (1.0f - cur.i)
+                     : g == 1 ? cur.cp * cur.f * (1.0f - cur.f)
+                     : g == 2 ? cur.i * (1.0f - cur.g * cur.g)
+                              : cur.tc * cur.o * (1.0f - cur.o);
+""", """    const float fo = cur.o + cur.tc;
+    const float fg = cur.g + cur.i + cur.cp + cur.f;
+"""),
+             ("    const float dc = fmaf(dh, fo, carry_c);\n",
+              "    const float dc = dh + fo + carry_c;\n"),
+             ("    const float d = valid ? (g == 3 ? dh : dc) * fg : 0.0f;\n",
+              "    const float d = valid ? dc + fg : 0.0f;\n")]
+# no wait and no store into a block's buffer: the blocks run unpaced
+_L4_EXCHANGE = [("""    if (s > 0) {
+      rc::bar_wait(bar0 + 8 * cb, ((s - 1) >> 1) & 1);
+      if (tid == 0 && s + 2 < Tn) rc::bar_expect(bar0 + 8 * cb, kBytes);
+    }
+""", ""),
+                ("        rc::send_h(rc::peer_u32(slot, q), v, "
+                 "rc::peer_u32(bar0 + 8 * nb, q));\n",
+                 "        (void)slot, (void)v;\n")]
+
 
 class Kernel(NamedTuple):
     """A kernel the tool takes apart: its source (and library) name under
     ``csrc/``, its wrapper in ``ops/<module>.py``, the edited builds and
-    the default shapes (``B,T,W``, row 1 ``B,T,H[,train]``)."""
+    the default shapes (``B,T,W``, rows 1 and 4 ``B,T,H[,train]``)."""
     source: str
     wrapper: str
     edits: dict
@@ -180,8 +219,13 @@ KERNELS = {
                  "no exchange": _G1_EXCHANGE,
                  "skeleton": [*_G1_PRODUCT, *_G1_GATES, *_G1_EXCHANGE]},
                 ["3,1280,128", "8,1920,128,train"], "rnn_fused"),
+    "4": Kernel("lstm_bidir_bwd", "lstm_bidir_bwd",
+                {"no product": _L4_PRODUCT, "no gates": _L4_GATES,
+                 "no exchange": _L4_EXCHANGE,
+                 "skeleton": [*_L4_PRODUCT, *_L4_GATES, *_L4_EXCHANGE]},
+                ["8,1920,128", "64,1024,128"], "rnn_fused"),
 }
-# row 1's input width (layer 0's) and its device time by kernel
+# rows 1 and 4's input width (layer 0's); row 1's device time by kernel
 LAYER_W_IN = 400
 LAYER_PARTS = {"proj_kernel": "projection", "recur_kernel": "recurrence"}
 
@@ -265,6 +309,14 @@ def kernel_call(kernel, chip_smoke, b, t_len, w, dt, train=False):
         x, ws, lengths = chip_smoke.layer_inputs(cell, t_len, b, LAYER_W_IN,
                                                  dt, [t_len] * b, gen)
         return functools.partial(fn, train=train), (x, *ws, lengths)
+    if kernel == "4":  # the backward of the train form's outputs
+        cell = chip_smoke.Cell("lstm")
+        x, ws, lengths = chip_smoke.layer_inputs(cell, t_len, b, LAYER_W_IN,
+                                                 dt, [t_len] * b, gen)
+        dys = [torch.randn(t_len, b, w, generator=gen).to("cuda", dt)
+               for _ in range(2)]
+        fwd = cell.fwd(x, *ws, lengths, train=True)
+        return fn, cell.bwd_args(x, ws, lengths, fwd, dys)
     return fn, kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen)
 
 
@@ -286,7 +338,7 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
-                    help="the kernel's row: 13, 9, 15 or 1")
+                    help="the kernel's row: 13, 9, 15, 1 or 4")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
     ap.add_argument("--shapes", nargs="*",
@@ -322,6 +374,8 @@ def main(argv=None) -> int:
             if args.kernel == "1":
                 geo = ("train form" if train else "eval form") + (
                     f", W_in={LAYER_W_IN}")
+            elif args.kernel == "4":
+                geo = f"backward, W_in={LAYER_W_IN}"
             elif hasattr(RS, "scan_launch"):
                 geo = RS.scan_launch(kern.wrapper, b, w, dt, device)
             elif kern.wrapper.startswith("lstm_scan_fwd"):  # an older tree
