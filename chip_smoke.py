@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles every kernel under ``pytorch_video_action_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together, beside
    the step-split builds of ``tools/torch_lstm_scan_steps.py`` for rows 13,
-   9, 15 and 1) and prints the build time and
+   9, 15, 1 and 3; row 5 times row 1's) and prints the build time and
    ``-Xptxas -v`` (and, for each flash kernel
    and each of the layer backwards' product kernels, its registers,
    spills and any wgmma serialization); checks with ``cuobjdump -sass``
@@ -69,11 +69,12 @@ Phases, in order; any failure exits non-zero:
    same way (beside nn.GRU) at an odd width (W=96) and W=512, B=8, T=1920,
    at the serving shape B=3, T=1280, W=256, at W=2048 (B=3, T=128: the
    backwards' one-row chains), in f32 and bf16, and at W=12000 (B=2,
-   T=16, f32: their gradients in device memory).  The GRU layer forward
-   (row 1, eval
-   and train forms) is also timed by kernel (its input projection and its
-   recurrence, ``part_ms``) wherever it is held, and at bigru's serving
-   and training shapes in phases 4-5 also by step part (``step_us``).
+   T=16, f32: their gradients in device memory).  The GRU and LSTM layer
+   forwards (rows 1 and 3, eval and train forms) are also timed by kernel
+   (their input projection and their recurrence, ``part_ms``) wherever
+   they are held; row 1 at bigru's serving and training shapes in phases
+   4-5 also by step part (``step_us``), row 3 at bilstm's training shape
+   in f32.
 4. serving: writes a seeded Breakfast-shaped dataset (48 train, 24 dev, 24
    test videos) and full-width bigru, bilstm and attn checkpoints into a
    temporary directory.  For each model: repeats phase 3's forward checks
@@ -136,9 +137,11 @@ Phases, in order; any failure exits non-zero:
    the phase, restored after it): the merged-body layer kernels (rows
    5-8) held at the main path's shapes, the eval forms at the largest
    test forward batch (W_in=400), the train forms and backwards at the
-   largest train batch (W_in 400 and 256), f32 and bf16 (row 6 also by
-   part), each against its
-   plain version, against rows 1-4 on the same weights (ys; dx, dwi and
+   largest train batch (W_in 400 and 256), f32 and bf16 (row 6 by part,
+   rows 5 and 7 by kernel, row 5's train form at W_in=400 in f32 also by
+   step part), each against its
+   plain version, against rows 1-4 on the same weights (ys, row 5's bit
+   for bit, as it runs row 1's recurrence; dx, dwi and
    the diagonal blocks of dwh2, dbi2, dbh2 against the per-direction
    gradients) and, the backwards, against a rerun (bit for bit), timed
    beside its plain version, its bound and nn.GRU / nn.LSTM packed; then
@@ -257,6 +260,8 @@ class Cell:
                                       (self.fwd_name, self.bwd_name))
         self.fwd_replaces, self.bwd_replaces = (
             ("1632", "1780") if self.lstm else ("1008", "1190"))
+        # the forwards' rows in tools/torch_lstm_scan_steps.py
+        self.fwd_row, self.mfwd_row = ("3", "7") if self.lstm else ("1", "5")
         # the merged body (rows 5-8, PVA_RNN_SPLIT=0)
         self.mfwd_name = f"{name}_merged_fwd"
         self.mbwd_name = f"{name}_merged_bwd"
@@ -264,8 +269,10 @@ class Cell:
         self.mbwd = getattr(rnn_fused, self.mbwd_name)
         self.mfwd_ref = getattr(rnn_fused, f"{name}_merged_layer_ref")
         self.mbwd_ref = getattr(rnn_fused, f"{name}_merged_layer_bwd_ref")
-        self.mfwd_src, self.mbwd_src = (f"{CSRC}{n}.cu" for n in
-                                        (self.mfwd_name, self.mbwd_name))
+        # row 5 is row 1's recurrence with the merged addressing, in row
+        # 1's source
+        self.mfwd_src, self.mbwd_src = (f"{CSRC}{n}.cu" for n in (
+            self.mfwd_name if self.lstm else self.fwd_name, self.mbwd_name))
         self.mfwd_replaces, self.mbwd_replaces = (
             ("500", "630") if self.lstm else ("111", "241"))
         if not self.lstm:  # the GRU's fused-boundary form (rows 1-2 alt)
@@ -474,8 +481,11 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 # in SPLIT_ROWS: {build: library}}, each build the kernel as it is or with
 # one part of its step taken out, built in phase 2 into a directory that
 # lives as long as the process; STEP_ROWS maps a scan wrapper to its row
-# (row 14 is row 13's template).  Row 4's split is the tool's alone.
-SPLIT_ROWS = ("13", "9", "15", "1")
+# (row 14 is row 13's template).  Row 5 is row 1's source with row 1's
+# edits, so it times row 1's builds (SHARED_STEPS).  Row 4's split is the
+# tool's alone.
+SPLIT_ROWS = ("13", "9", "15", "1", "3")
+SHARED_STEPS = {"5": "1"}
 SCAN_STEPS: dict = {}
 STEP_ROWS = {"lstm_scan_fwd": "13", "lstm_scan_fwd_save": "13",
              "gru_scan_fwd": "9", "lstm_scan_bwd_saved": "15"}
@@ -513,6 +523,8 @@ def phase_build():
     for row, got in jobs.items():
         SCAN_STEPS[row] = {"as is": cuda_lib.load(tool.KERNELS[row].source),
                            **tool.finish_builds(got)}
+    for row, built in SHARED_STEPS.items():
+        SCAN_STEPS[row] = SCAN_STEPS[built]
     log(f"[build] {len(logs)} source(s) and the step-split builds of rows "
         f"{', '.join(SCAN_STEPS)} ("
         f"{sum(len(v) - 1 for v in SCAN_STEPS.values())}) compiled in "
@@ -719,18 +731,16 @@ def parts_text(parts: dict) -> str:
     return ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + " ms"
 
 
-def layer_split(cell, fn, args, t_len, steps):
-    """The GRU layer forward's (row 1's) device time by kernel, its input
-    projection and its recurrence (``part_ms``), and with ``steps`` its
-    recurrence by step part (µs a step of each build of ``SCAN_STEPS["1"]``,
-    ``step_us``): the keys to add to its row; none for the LSTM's."""
-    if cell.lstm:
-        return {}
+def layer_split(row, fn, args, t_len, steps):
+    """A layer forward's (row 1's, 3's or 5's) device time by kernel, its
+    input projection and its recurrence (``part_ms``), and with ``steps``
+    its recurrence by step part (µs a step of each build of
+    ``SCAN_STEPS[row]``, ``step_us``): the keys to add to its row."""
     tool = steps_tool()
     out = {"parts_ms": part_ms(lambda: fn(*args), parts=tool.LAYER_PARTS)}
     if steps:
-        out["step_us"] = tool.step_us(SCAN_STEPS["1"], fn, args, t_len,
-                                      cuda_ms, kernel="1")
+        out["step_us"] = tool.step_us(SCAN_STEPS[row], fn, args, t_len,
+                                      cuda_ms, kernel=row)
     return out
 
 
@@ -748,8 +758,8 @@ def split_text(row) -> str:
 def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
                 steps=False):
     """Hold the eval-form kernel against its plain version on one input and
-    time the kernel, the plain version and the library yardstick (the GRU's
-    also by kernel and, with ``steps``, by step part: ``layer_split``).
+    time the kernel, the plain version and the library yardstick (also by
+    kernel and, with ``steps``, by step part: ``layer_split``).
     Raises when they disagree.  Returns the row for the ``kernels`` line."""
     import torch
 
@@ -774,7 +784,8 @@ def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
            "T": t_len, "max_abs_err": max(err_f, err_b), "tol": TOL[dt_name],
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           **layer_split(cell, cell.fwd, (x, *ws, lengths), t_len, steps)}
+           **layer_split(cell.fwd_row, cell.fwd, (x, *ws, lengths), t_len,
+                         steps)}
     log(f"[kernel] {cell.fwd_name} {where} B={b} T={t_len} W_in={w_in} "
         f"{dt_name}: max|ysf-ref|={err_f:.3g} max|ysb-ref|={err_b:.3g} "
         f"(tol {TOL[dt_name]}), max|ysb| on padding={pad_b:.3g}, "
@@ -788,11 +799,12 @@ def check_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
     return row
 
 
-def check_layers(cell, where, lengths, t_len, gen, steps=False):
+def check_layers(cell, where, lengths, t_len, gen, steps=()):
     """``check_layer`` for layer 0 (W_in=400) and the later layers (256), in
-    f32 and bf16; with ``steps`` layer 0's also by step part."""
+    f32 and bf16; layer 0's in the dtypes ``steps`` names also by step
+    part."""
     return [check_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
-                        steps and w_in == 400)
+                        dt_name in steps and w_in == 400)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
 
 
@@ -811,9 +823,9 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
                       steps=False):
     """Hold the train-form forward and the backward against their plain
     versions on one input, and time each beside its plain version, the
-    library yardstick and its bound (the GRU's train form also by kernel
-    and, with ``steps``, by step part: ``layer_split``; the backward also
-    by part, ``part_ms``).  Raises when they disagree.  Returns the rows
+    library yardstick and its bound (the train form also by kernel and,
+    with ``steps``, by step part: ``layer_split``; the backward also by
+    part, ``part_ms``).  Raises when they disagree.  Returns the rows
     ``(train_form, backward)`` for the ``kernels`` line."""
     import functools
 
@@ -845,7 +857,8 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
                "T": t_len, "max_abs_err": err_fwd, "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               **layer_split(cell, functools.partial(cell.fwd, train=True),
+               **layer_split(cell.fwd_row,
+                             functools.partial(cell.fwd, train=True),
                              (x, *ws, lengths), t_len, steps)}
     log(f"[kernel] {cell.fwd_name} train form {head}: max|out-ref|="
         f"{abs_fwd:.3g}, error {err_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, "
@@ -891,12 +904,12 @@ def check_train_layer(cell, where, lengths, t_len, w_in, dt_name, gen,
     return fwd_row, bwd_row
 
 
-def check_train_layers(cell, where, lengths, t_len, gen, steps=False):
-    """``check_train_layer`` for W_in 400 and 256, f32 and bf16 (with
-    ``steps`` W_in 400's train form also by step part): lists of train-form
-    rows and of backward rows."""
+def check_train_layers(cell, where, lengths, t_len, gen, steps=()):
+    """``check_train_layer`` for W_in 400 and 256, f32 and bf16 (W_in 400's
+    train form in the dtypes ``steps`` names also by step part): lists of
+    train-form rows and of backward rows."""
     rows = [check_train_layer(cell, where, lengths, t_len, w_in, dt_name,
-                              gen, steps and w_in == 400)
+                              gen, dt_name in steps and w_in == 400)
             for w_in in (400, 256) for dt_name in ("float32", "bfloat16")]
     return [r[0] for r in rows], [r[1] for r in rows]
 
@@ -924,9 +937,11 @@ def merged_vs_split(cell, merged, split):
 
 def check_merged_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     """Row 5 or 7's eval form against its plain version and against row 1
-    or 3 on the same weights, timed beside its plain version, the library
-    yardstick (nn.GRU / nn.LSTM packed) and its bound.  Raises when they
-    disagree.  Returns the row for the ``kernels`` line."""
+    or 3 on the same weights (row 5's ys row 1's bit for bit: the same
+    recurrence on the same sums), timed beside its plain version, the
+    library yardstick (nn.GRU / nn.LSTM packed) and its bound, and by
+    kernel (``layer_split``).  Raises when they disagree.  Returns the row
+    for the ``kernels`` line."""
     import torch
 
     dt = getattr(torch, dt_name)
@@ -936,7 +951,9 @@ def check_merged_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     got = cell.mfwd(x, *mws, lengths)
     torch.cuda.synchronize()
     err = rel_err(got, cell.mfwd_ref(x, *mws, lengths))[0]
-    split = rel_err(got, cell.fwd(x, *ws, lengths))[0]
+    sgot = cell.fwd(x, *ws, lengths)
+    split = rel_err(got, sgot)[0]
+    same = all(torch.equal(a, c) for a, c in zip(got, sgot))
     ms = cuda_ms(lambda: cell.mfwd(x, *mws, lengths), 10, 2)
     plain_ms = cuda_ms(lambda: cell.mfwd_ref(x, *mws, lengths), 2)
     lib_run = library_fwd(cell, x, ws, lengths)
@@ -947,25 +964,32 @@ def check_merged_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     row = {"where": where, "w_in": w_in, "dtype": dt_name, "B": b,
            "T": t_len, "max_abs_err": err, "tol": tol,
            "split_max_abs_err": split, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           **layer_split(cell.mfwd_row, cell.mfwd, (x, *mws, lengths), t_len,
+                         False)}
     log(f"[kernel] {cell.mfwd_name} {where} B={b} T={t_len} W_in={w_in} "
         f"{dt_name}: max|ys-ref|={err:.3g}, against {cell.fwd_name} "
-        f"{split:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, {cell.library} packed {lib_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+        f"{split:.3g} (bit for bit {same}; tol {tol}), kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {cell.library} packed {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}){split_text(row)}")
     if not (err <= tol and split <= tol):
         raise AssertionError(f"merged forward disagrees: {row}")
+    if not (cell.lstm or same):
+        raise AssertionError("row 5's ys are not row 1's bit for bit")
     return row
 
 
 def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
-                             gen):
+                             gen, steps=False):
     """Row 5 or 7's train form and row 6 or 8 against their plain versions
-    and against rows 1-4 on the same weights (ys, and the gradients as
-    ``merged_vs_split`` takes them), the backward rerun bit for bit; each
-    timed beside its plain version, the library yardstick and its bound.
-    Raises when they disagree.  Returns the rows ``(train_form,
-    backward)``."""
+    and against rows 1-4 on the same weights (ys, row 5's bit for bit, and
+    the gradients as ``merged_vs_split`` takes them), the backward rerun
+    bit for bit; each timed beside its plain version, the library yardstick
+    and its bound, the train form also by kernel and, with ``steps``, by
+    step part (``layer_split``).  Raises when they disagree.  Returns the
+    rows ``(train_form, backward)``."""
+    import functools
+
     import torch
 
     dt = getattr(torch, dt_name)
@@ -985,6 +1009,7 @@ def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
     err_fwd = rel_fwd if cell.lstm else abs_fwd
     sfwd = cell.fwd(x, *ws, lengths, train=True)
     split_fwd = rel_err(fwd[:2], sfwd[:2])[0]
+    same = all(torch.equal(a, c) for a, c in zip(fwd[:2], sfwd[:2]))
     ms = cuda_ms(lambda: cell.mfwd(x, *mws, lengths, train=True), 10, 2)
     plain_ms = cuda_ms(
         lambda: cell.mfwd_ref(x, *mws, lengths, train=True), 1, 0)
@@ -996,14 +1021,20 @@ def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
                "T": t_len, "max_abs_err": err_fwd, "tol": tol,
                "split_max_abs_err": split_fwd, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **layer_split(cell.mfwd_row,
+                             functools.partial(cell.mfwd, train=True),
+                             (x, *mws, lengths), t_len, steps)}
     log(f"[kernel] {cell.mfwd_name} train form {head}: max|out-ref|="
         f"{abs_fwd:.3g}, error {err_fwd:.3g}, ys against {cell.fwd_name} "
-        f"{split_fwd:.3g} (tol {tol}), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, {cell.library} packed with autograd "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        f"{split_fwd:.3g} (bit for bit {same}; tol {tol}), kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, {cell.library} packed with "
+        f"autograd {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+        f"{split_text(fwd_row)}")
     if not (err_fwd <= tol and split_fwd <= tol):
         raise AssertionError(f"merged train form disagrees: {fwd_row}")
+    if not (cell.lstm or same):
+        raise AssertionError("row 5's ys are not row 1's bit for bit")
 
     bargs = cell.merged_bwd_args(x, mws, lengths, fwd, dys)
     got = cell.mbwd(*bargs)
@@ -2129,8 +2160,9 @@ def phase_slice(card: str, root: str, name: str, ckpt: str | None = None):
     elif MODELS[name][0] == "conv":
         rows = check_conv("main path", lens, t_pad, gen, kinds=("stage",))
     elif cell is not None:
-        rows = {cell.fwd_name: check_layers(cell, "main path", lens, t_pad,
-                                            gen, steps=name == "bigru")}
+        rows = {cell.fwd_name: check_layers(
+            cell, "main path", lens, t_pad, gen,
+            steps=DTYPES if name == "bigru" else ())}
     else:  # simple_fc: no kernel
         rows = {}
 
@@ -2498,9 +2530,10 @@ def phase_train(card: str, root: str, name: str):
         rows = merge_rows(check_scan("main path", lens, t_pad, 256, dt, gen,
                                      steps=True) for dt in DTYPES)
     elif cell is not None and name != "ctcloss":
-        train_rows, bwd_rows = check_train_layers(cell, "main path", lens,
-                                                  t_pad, gen,
-                                                  steps=name == "bigru")
+        # row 1 by step part in both dtypes, row 3 in f32
+        train_rows, bwd_rows = check_train_layers(
+            cell, "main path", lens, t_pad, gen,
+            steps={"bigru": DTYPES, "bilstm": ("float32",)}.get(name, ()))
         rows = {cell.fwd_name + "_train": train_rows,
                 cell.bwd_name: bwd_rows}
     elif MODELS[name][0] == "conv":
@@ -3054,9 +3087,11 @@ def _merged_route(card, root, lm_root):
                 cell, "main path", serve_lens, t_serve, 400, dt_name, gen))
         for w_in in (400, 256):
             for dt_name in DTYPES:
-                f, b = check_merged_train_layer(cell, "main path",
-                                                train_lens, t_train, w_in,
-                                                dt_name, gen)
+                # row 5 by step part at one shape, in f32
+                f, b = check_merged_train_layer(
+                    cell, "main path", train_lens, t_train, w_in, dt_name,
+                    gen, steps=(not cell.lstm and w_in == 400
+                                and dt_name == "float32"))
                 rows.setdefault(cell.mfwd_name + "_train", []).append(f)
                 rows.setdefault(cell.mbwd_name, []).append(b)
     log(f"[merged] kernel checks in {time.time() - t0:.1f} s")

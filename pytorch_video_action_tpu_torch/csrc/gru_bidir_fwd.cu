@@ -4,8 +4,10 @@
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
 //   _fwd_kernel_split, reached through gru_bidir_fused_split: train=False
 //   (eval form) and train=True (train form, from its custom_vjp forward);
-//   and its halves=/boundary form, reached through
-//   gru_bidir_fused_split_bnd (eval form and its custom_vjp forward).
+//   its halves=/boundary form, reached through gru_bidir_fused_split_bnd
+//   (eval form and its custom_vjp forward); and _fwd_kernel, the merged
+//   body's forward, reached through gru_bidir_fused (PVA_RNN_SPLIT=0; eval
+//   and train forms): gru_merged_fwd, below.
 //
 // Computes, for x [T, B, W] time-major and per direction d in {fwd, bwd}
 // wi_d [W, 3H], wh_d [H, 3H], bi_d [3H], bh_d [3H], lengths [B]:
@@ -76,6 +78,32 @@
 //    the stack writes no [T, B, 2H] boundary tensor.  Each element is
 //    hashed once a product; the TPU form hashed it once a direction.  The
 //    recurrence does not read x and is the same kernel.
+//  * The merged body (gru_merged_fwd) is the TPU kernel's one [B, 2H] chain
+//    over kernel steps s with dense per-direction input weights wif2, wib2
+//    [W, 3H], the gate-grouped bi2, bh2 [6H] and the block-diagonal wh2
+//    [2H, 6H] (columns [r_f r_b | z_f z_b | n_f n_b]): gx = [x_s @ wif2 |
+//    x_{T-1-s} @ wib2] + bi2, hg = h2 @ wh2 + bh2, the backward half frozen
+//    on its flipped-prefix padding.  wh2 is block-diagonal
+//    (ops/rnn.py:_pack_gate_grouped), so the product is the two direction
+//    chains above, each against its diagonal block; the recurrence reads
+//    only those blocks (it relies on the zeros, which the TPU kernel
+//    multiplies).  It is the same recurrence with another addressing
+//    (MergedAddr): wh2's column q*2H + dir*H + u, bi2 added on the chain
+//    (the projection runs without bias, as on the TPU), and the residuals
+//    res [T, B, 8H] = [r z n hg_n], each 2H wide and gate-grouped, in
+//    kernel order (row s: forward time s, backward time T-1-s), for
+//    csrc/gru_merged_bwd.cu.  xg + bi2 is the sum the projection forms
+//    with bi, so on the same weights its ys equal the split layer's bit for
+//    bit.  The split form (SplitAddr) keeps the recurrence's own offsets
+//    and compiles to the instructions it had before (cuobjdump -sass, each
+//    instantiation); two other spellings of its residual stores cost its
+//    train form 4 % on an H100.  The merged body's step, taken apart
+//    (tools/torch_lstm_scan_steps.py --kernel 5, us a step, f32, B=3,
+//    T=1280, as is / without the product / the gate math / the barriers /
+//    all three): 0.63 / 0.33 / 0.53 / 0.57 / 0.18, row 1's.  Its first
+//    design, one column of wh2 a thread, xg loaded at the step's start and
+//    the gates formed after the barrier, took 0.87 (1.1249 and 2.2767 ms
+//    a call at the serving and training shapes; PERF.md section 6).
 
 #include "rnn_common.cuh"
 
@@ -105,6 +133,37 @@ __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Where the recurrence finds a direction's weights and biases, as
+// offsets: gate column col = q*H + u of direction dir (q: 0 r, 1 z, 2 n),
+// depth d.  The split layer (rows 1 and 1 alt): per-direction wh_d [H, 3H]
+// and bh_d [3H], the input bias already in xg, residuals res_d [T, B, 4H]
+// at time t (the recurrence's own offsets, so that this form compiles to
+// the instructions it had before it took an addressing).
+template <int H>
+struct SplitAddr {
+  static constexpr bool kMerged = false;
+  __device__ static int wh(int dir, int d, int col) { return d * 3 * H + col; }
+  __device__ static int vec(int dir, int col) { return col; }
+};
+
+// The merged body (row 5, PVA_RNN_SPLIT=0): the gate-grouped wh2 [2H, 6H],
+// of which the recurrence reads direction dir's diagonal block (rows dir*H
+// + d, columns q*2H + dir*H + u), bi2 and bh2 [6H]; the projection ran
+// without bias, so bi2 is added on the chain, as on the TPU; residuals res
+// [T, B, 8H] = [r z n hg_n], each 2H wide and gate-grouped, in kernel
+// order (row s: forward time s, backward time T-1-s); a lane's column col
+// of the split layout (q = 3: hg_n) is at vec(dir, col) in a row.
+template <int H>
+struct MergedAddr {
+  static constexpr bool kMerged = true;
+  __device__ static int vec(int dir, int col) {
+    return (col / H) * 2 * H + dir * H + col % H;
+  }
+  __device__ static int wh(int dir, int d, int col) {
+    return (dir * H + d) * 6 * H + vec(dir, col);
+  }
+};
+
 // One block per (batch row, direction); blockDim.x == 3H.  Threads [0, 2H)
 // take the r and z columns, threads [2H, 3H) the n columns, in pairs of
 // neighbouring lanes: pair p of r and z holds the r and z columns of unit
@@ -119,14 +178,17 @@ __device__ __forceinline__ void wait_async() {
 // of xg_s.  A step: the product; r's and z's lanes form sigmoid(xg + hg)
 // into act_s; a barrier; n's lane of each unit forms n and the new carry
 // (kept in its registers, rounded into hq_s), stores ys and, TRAIN, n and
-// hg_n, while r's and z's lanes store their gates; a barrier.
-template <typename T, int H, bool TRAIN>
+// hg_n, while r's and z's lanes store their gates; a barrier.  A
+// (SplitAddr or MergedAddr) places the weights, the biases (bi only with
+// the merged body's) and the residuals; the arithmetic is the same.
+template <typename T, int H, bool TRAIN, typename A>
 __global__ void __launch_bounds__(3 * H, 1)
 recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
              const T* __restrict__ wh_b, const T* __restrict__ bh_f,
-             const T* __restrict__ bh_b, const int* __restrict__ lengths,
-             T* __restrict__ ys_f, T* __restrict__ ys_b,
-             T* __restrict__ res_f, T* __restrict__ res_b, int Tn, int B) {
+             const T* __restrict__ bh_b, const T* __restrict__ bi,
+             const int* __restrict__ lengths, T* __restrict__ ys_f,
+             T* __restrict__ ys_b, T* __restrict__ res_f,
+             T* __restrict__ res_b, int Tn, int B) {
   constexpr int G = 3 * H;
   constexpr int D = H / 2;  // depth of a lane's half
   // the carry rounded to T, its second half at D + 4: the four floats
@@ -155,8 +217,14 @@ recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int k = 0; k < D; ++k)
-      w[j][k] = to_f(wh[(half * D + k) * G + column(j)]);
-  const float bh_c = to_f((dir ? bh_b : bh_f)[col]);
+      w[j][k] = to_f(wh[A::wh(dir, half * D + k, column(j))]);
+  const float bh_c = to_f((dir ? bh_b : bh_f)[A::vec(dir, col)]);
+  const float bi_c = A::kMerged ? to_f(bi[A::vec(dir, col)]) : 0.0f;
+  // the merged body's residuals: this lane's column of row b at step 0
+  // (n's lane's hg_n 2H further on), a step B rows on
+  T* const mres =
+      A::kMerged && TRAIN ? res + (size_t)b * 8 * H + A::vec(dir, col)
+                          : nullptr;
   float hc = 0.0f;  // the f32 carry, in n's lane of the unit
   const int hslot = (u / D) * (D + 4) + u % D;  // the unit's place in hq_s
   for (int i = tid; i < 2 * (D + 4); i += 3 * H) hq_s[i] = 0.0f;
@@ -207,7 +275,8 @@ recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
     a1 += __shfl_xor_sync(lanes, a1, 1);
     const float hg = (half ? a1 : a0) + bh_c;
     wait_async<kXgAhead - 1>();  // this step's xg has landed
-    const float xv = xg_s[s % kXgAhead][tid];
+    float xv = xg_s[s % kXgAhead][tid];
+    if constexpr (A::kMerged) xv += bi_c;
     float act = 0.0f;
     if (gate < 2) {
       act = sigmoid_f(xv + hg);
@@ -227,57 +296,76 @@ recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
       hq_s[hslot] = to_f(hq);
       ys[row * H + u] = hq;
       if (TRAIN) {
-        res[row * 4 * H + 2 * H + u] = from_f<T>(n);
-        res[row * 4 * H + 3 * H + u] = from_f<T>(hg);
+        if constexpr (A::kMerged) {
+          T* const rs = mres + (size_t)s * B * 8 * H;
+          rs[0] = from_f<T>(n);
+          rs[2 * H] = from_f<T>(hg);
+        } else {
+          res[row * 4 * H + 2 * H + u] = from_f<T>(n);
+          res[row * 4 * H + 3 * H + u] = from_f<T>(hg);
+        }
       }
-    } else if (TRAIN) {
-      res[row * 4 * H + col] = from_f<T>(act);  // r or z
+    } else if (TRAIN) {  // r or z
+      if constexpr (A::kMerged)
+        mres[(size_t)s * B * 8 * H] = from_f<T>(act);
+      else
+        res[row * 4 * H + col] = from_f<T>(act);
     }
     __syncthreads();  // the new carry in hq_s
   }
 }
 
-template <typename T, int H>
+// The recurrence on the projected gates xg with the addressing A; the
+// merged body passes wh2, bh2 and res for both directions' pointers.
+template <typename T, int H, typename A>
 cudaError_t launch_recur(const float* xg, const void* whf, const void* whb,
-                         const void* bhf, const void* bhb, const int* lengths,
-                         void* ysf, void* ysb, void* resf, void* resb,
-                         bool train, int Tn, int B, cudaStream_t stream) {
+                         const void* bhf, const void* bhb, const void* bi,
+                         const int* lengths, void* ysf, void* ysb, void* resf,
+                         void* resb, bool train, int Tn, int B,
+                         cudaStream_t stream) {
   const dim3 grid(B, 2);
   const T* wf = static_cast<const T*>(whf);
   const T* wb = static_cast<const T*>(whb);
   const T* bf = static_cast<const T*>(bhf);
   const T* bb = static_cast<const T*>(bhb);
+  const T* bx = static_cast<const T*>(bi);
   T* yf = static_cast<T*>(ysf);
   T* yb = static_cast<T*>(ysb);
   if (train)
-    recur_kernel<T, H, true><<<grid, 3 * H, 0, stream>>>(
-        xg, wf, wb, bf, bb, lengths, yf, yb, static_cast<T*>(resf),
+    recur_kernel<T, H, true, A><<<grid, 3 * H, 0, stream>>>(
+        xg, wf, wb, bf, bb, bx, lengths, yf, yb, static_cast<T*>(resf),
         static_cast<T*>(resb), Tn, B);
   else
-    recur_kernel<T, H, false><<<grid, 3 * H, 0, stream>>>(
-        xg, wf, wb, bf, bb, lengths, yf, yb, nullptr, nullptr, Tn, B);
+    recur_kernel<T, H, false, A><<<grid, 3 * H, 0, stream>>>(
+        xg, wf, wb, bf, bb, bx, lengths, yf, yb, nullptr, nullptr, Tn, B);
   return cudaGetLastError();
 }
 
-// The recurrence on the projected gates xg, for the H of the layer.
-template <typename T>
+// The recurrence for the H of the layer, with the addressing A: the split
+// layer's (bi null, as the projection added it) or the merged body's.
+template <typename T, template <int> class A>
 cudaError_t run_recur(const float* xg, const void* whf, const void* whb,
-                      const void* bhf, const void* bhb, const int* lengths,
-                      void* ysf, void* ysb, void* resf, void* resb,
-                      bool train, int Tn, int B, int H, cudaStream_t stream) {
+                      const void* bhf, const void* bhb, const void* bi,
+                      const int* lengths, void* ysf, void* ysb, void* resf,
+                      void* resb, bool train, int Tn, int B, int H,
+                      cudaStream_t stream) {
   switch (H) {
     case 16:
-      return launch_recur<T, 16>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                 resf, resb, train, Tn, B, stream);
+      return launch_recur<T, 16, A<16>>(xg, whf, whb, bhf, bhb, bi, lengths,
+                                        ysf, ysb, resf, resb, train, Tn, B,
+                                        stream);
     case 32:
-      return launch_recur<T, 32>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                 resf, resb, train, Tn, B, stream);
+      return launch_recur<T, 32, A<32>>(xg, whf, whb, bhf, bhb, bi, lengths,
+                                        ysf, ysb, resf, resb, train, Tn, B,
+                                        stream);
     case 64:
-      return launch_recur<T, 64>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                 resf, resb, train, Tn, B, stream);
+      return launch_recur<T, 64, A<64>>(xg, whf, whb, bhf, bhb, bi, lengths,
+                                        ysf, ysb, resf, resb, train, Tn, B,
+                                        stream);
     case 128:
-      return launch_recur<T, 128>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb,
-                                  resf, resb, train, Tn, B, stream);
+      return launch_recur<T, 128, A<128>>(xg, whf, whb, bhf, bhb, bi, lengths,
+                                          ysf, ysb, resf, resb, train, Tn, B,
+                                          stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -295,8 +383,9 @@ cudaError_t run_layer(const XA& x, const void* wif, const void* wib,
   const cudaError_t err =
       launch_proj_of<T>(x, wif, wib, bif, bib, xg, Tn * B, W, 3 * H, stream);
   if (err != cudaSuccess) return err;
-  return run_recur<T>(xg, whf, whb, bhf, bhb, lengths, ysf, ysb, resf, resb,
-                      train, Tn, B, H, stream);
+  return run_recur<T, SplitAddr>(xg, whf, whb, bhf, bhb, nullptr, lengths,
+                                 ysf, ysb, resf, resb, train, Tn, B, H,
+                                 stream);
 }
 
 template <typename T>
@@ -333,6 +422,21 @@ cudaError_t run_boundary(const void* xa, const void* xb, const void* wif,
   return run_layer<T>(bnd, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths,
                       ysf, ysb, resf, resb, xg, Tn, B, 2 * Hx, H, train,
                       stream);
+}
+
+// The merged body's layer (row 5): the projection without bias, then the
+// recurrence with the merged addressing.
+template <typename T>
+cudaError_t run_merged(const void* x, const void* wif2, const void* wib2,
+                       const void* bi2, const void* wh2, const void* bh2,
+                       const int* lengths, void* ysf, void* ysb, void* res,
+                       float* xg, int Tn, int B, int W, int H, bool train,
+                       cudaStream_t stream) {
+  const cudaError_t err = launch_proj<T>(x, wif2, wib2, nullptr, nullptr, xg,
+                                         Tn * B, W, 3 * H, stream);
+  if (err != cudaSuccess) return err;
+  return run_recur<T, MergedAddr>(xg, wh2, wh2, bh2, bh2, bi2, lengths, ysf,
+                                  ysb, res, res, train, Tn, B, H, stream);
 }
 
 }  // namespace
@@ -392,6 +496,31 @@ int gru_bidir_bnd_fwd(int dtype, const void* xa, const void* xb,
         xa, xb, wif, wib, bif, bib, whf, whb, bhf, bhb, lengths, ysf, ysb,
         resf, resb, xg, Tn, B, Hx, H, train != 0, seed, thresh, scale,
         drop != 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Row 5, the merged body's layer (rnn_fused_pallas.py gru_bidir_fused,
+// PVA_RNN_SPLIT=0): x [T, B, W], wif2, wib2 [W, 3H], the gate-grouped bi2
+// [6H], the block-diagonal wh2 [2H, 6H] (only its diagonal blocks are
+// read) and bh2 [6H], lengths [B] int32; the outputs ysf, ysb [T, B, H]
+// and, for train != 0, res [T, B, 8H] (ignored by the eval form); xg is f32
+// scratch of 2*T*B*3H elements.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int gru_merged_fwd(int dtype, const void* x, const void* wif2,
+                   const void* wib2, const void* bi2, const void* wh2,
+                   const void* bh2, const int* lengths, void* ysf, void* ysb,
+                   void* res, float* xg, int Tn, int B, int W, int H,
+                   int train, void* stream) {
+  if (Tn <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (train && res == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_merged<float>(x, wif2, wib2, bi2, wh2, bh2, lengths, ysf,
+                                  ysb, res, xg, Tn, B, W, H, train != 0, s);
+  if (dtype == 1)
+    return (int)run_merged<__nv_bfloat16>(x, wif2, wib2, bi2, wh2, bh2,
+                                          lengths, ysf, ysb, res, xg, Tn, B,
+                                          W, H, train != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 // One bidirectional GRU layer backward on the merged body (the VJP of the
-// train-form forward in csrc/gru_merged_fwd.cu) for Hopper (sm_90a).
+// train-form forward gru_merged_fwd in csrc/gru_bidir_fwd.cu) for Hopper
+// (sm_90a).
 //
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
 //   _bwd_kernel, reached through gru_bidir_fused's custom_vjp

@@ -34,46 +34,71 @@
 //  * The input projection is off the chain: one tiled SIMT GEMM
 //    (rnn_common.cuh) computes xg [2, T*B, 4H] f32, bias included, for both
 //    directions before the recurrence.
-//  * The chain is where the GRU kernel's design does not carry over: the
-//    GRU gives each of 3H threads one column of wh in registers, but one
-//    direction's wh here is H x 4H = 128 x 512 f32 = 256 KiB at H=128, the
+//  * One direction's wh is H x 4H = 128 x 512 f32 = 256 KiB at H=128, the
 //    whole register file of an SM and more than the 227 KiB of shared
 //    memory a block may have.  So each (batch row, direction) chain runs on
-//    a thread-block cluster of two blocks on two SMs.  Block r owns hidden
-//    units [r*H/2, (r+1)*H/2) and their four gate columns; each of its 2H
-//    threads keeps one column of wh, all H rows, in registers (128 floats a
-//    thread at H=128, as in the GRU kernel).  A step reads the full h from
-//    shared memory as a broadcast; the H/2 threads that update c write their
-//    new h into their own block's and, through distributed shared memory,
-//    the peer block's buffer, and one cluster barrier a step publishes it.
-//    h is double-buffered, so that barrier is the step's only cross-block
-//    wait.  Splitting each column between registers and shared memory in
-//    one block instead would make each step 64 shared-memory loads a
-//    thread, the kind of load that set the step time of the GRU kernel's
-//    first design.
-//  * A step's input gates are loaded one step ahead, so their global-memory
-//    latency hides behind the current step.  The cluster barrier's arrive
-//    has release semantics and so also waits for the step's stores and
-//    that load; splitting it into arrive and wait with the stores between
-//    gained nothing measurable on the H100, and moving the load there too
-//    exposed its latency at the next step (PERF.md).
+//    a thread-block cluster of two blocks on two SMs, as the layer's
+//    backward (csrc/lstm_bidir_bwd.cu) does.  Block r owns hidden units
+//    [r*H/2, (r+1)*H/2); a unit's four gate lanes sit in one warp, a
+//    quarter warp apart, in two pairs (i and f, g and o).  A lane keeps
+//    half the depth of its pair's two columns of wh in registers (128
+//    floats at H=128), so each broadcast load of h from shared memory
+//    feeds eight FMAs, as in the GRU layer's forward (csrc/gru_bidir_fwd.cu);
+//    one shuffle adds the halves, and lane g then holds gate g's
+//    pre-activation and forms its activation (sigmoid, or tanh for g).
+//    The four activations meet by shuffles, and every lane of the unit
+//    forms the cell, c' = f c + i g and h' = o tanh c', the same in its
+//    four lanes.
+//  * The exchange, as the backward's (scan_chain.cuh): lane 0 of a unit
+//    sends its rounded h' by st.async into block 0's buffer of the next
+//    step, lane 1 into block 1's, each store completing its bytes on that
+//    block's mbarrier, one a buffer; a block waits on its own mbarrier (H
+//    floats a step) and nothing else: no cluster barrier and no block
+//    barrier a step.  The buffers are double, so a block writes one a step
+//    ahead: at step s into the buffer step s - 1 read.  Before that it has
+//    waited, at step s, for the h' that every warp of both blocks sent at
+//    step s - 1 (every warp holds sending lanes), and a warp sends only
+//    after the shuffles that need all its lanes' products of step s - 1:
+//    no lane still reads the buffer it overwrites.  The first cluster
+//    barrier starts the exchange after both blocks set up their
+//    mbarriers; the last keeps a block from exiting while its peer still
+//    sends into it.
+//  * Each lane loads its column's xg one step ahead into a register.  On
+//    an H100 that was faster than cp.async into shared memory three steps
+//    ahead (0.72 against 0.75 us a step at B=3, T=1280; 0.92 against 0.96
+//    at B=8, T=1920, where xg, 63 MB, is more than the L2 holds); a load
+//    two steps ahead gained 1-2 %, within the spread between runs.
+//  * The step, taken apart (tools/torch_lstm_scan_steps.py --kernel 3, us
+//    a step in f32, as is / without the product / the gate math / the
+//    exchange / all three): 0.72 / 0.50 / 0.55 / 0.59 / 0.30 at B=3,
+//    T=1280 and 0.92 / 0.71 / 0.77 / 0.83 / 0.63 at B=8, T=1920.  The
+//    design before, one column of wh a lane, the four gates meeting in
+//    shared memory after a block barrier and h published through
+//    distributed shared memory with a cluster barrier a step, took 1.19 and
+//    1.35, of which the barriers 0.65 and 0.64 (PERF.md section 6).
 //  * The backward direction reads xg at T-1-s; no flipped copy of x exists.
-//  * The train form is a template flag: each thread stores its gate's
-//    activation, the H/2 cell threads tanh(c') and c', off the chain.
+//  * The train form is a template flag: each lane stores its gate's
+//    activation, lane 2 of a unit ys, lane 3 tanh(c') and c', off the chain;
+//    the eval form compiles without them.
 // wgmma, TMA and more than two blocks per chain are later work.
 
-#include <cooperative_groups.h>
-
 #include "rnn_common.cuh"
+#include "scan_chain.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 // One cluster of two blocks per (batch row, direction): grid (2B, 2),
-// blockDim.x == 2H.  Thread tid of block r owns gate q = tid / (H/2) of
-// hidden unit k = r*H/2 + tid % (H/2), i.e. gate column q*H + k, and keeps
-// that column of wh in registers.  TRAIN also stores cs and the residuals.
+// blockDim.x == 2H.  Lane l of warp v of block r is gate g = l / 8 of unit
+// k = r*H/2 + 8v + l % 8, gate column g*H + k.  The unit's lanes g and g ^ 1
+// are a pair: gates i and f, or g and o.  Lane g keeps half hf = g % 2 of
+// the depth, H/2 deep, of both of its pair's columns in registers, so a
+// broadcast load of h feeds eight FMAs; one shuffle adds the halves, and
+// lane g then owns column g.  h_s [2][2 (H/2 + 4)]: a step's rounded h,
+// double-buffered, its second half 16 bytes further on in banks than the
+// first, so a warp's two halves' loads do not conflict.  TRAIN also stores
+// cs and the residuals.
 template <typename T, int H, bool TRAIN>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(2 * H, 1)
 lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
@@ -83,83 +108,123 @@ lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
                   T* __restrict__ res_f, T* __restrict__ res_b, int Tn,
                   int B) {
   constexpr int G = 4 * H;
-  constexpr int HH = H / 2;
-  __shared__ __align__(16) float h_s[2][H];  // carry rounded to T, 2 buffers
-  __shared__ float act_s[4 * HH];            // this block's gate activations
-  cg::cluster_group cluster = cg::this_cluster();
-  const int r = (int)cluster.block_rank();
+  constexpr int HH = H / 2;  // units a block
+  constexpr int D = H / 2;   // depth of a lane's half
+  constexpr uint32_t kBytes = 4u * H;  // a buffer's stores a step
+  __shared__ __align__(16) float h_s[2][2 * (D + 4)];
+  __shared__ __align__(8) uint64_t bars[2];
+  const int r = (int)cg::this_cluster().block_rank();
   const int b = blockIdx.x / 2;
   const int dir = blockIdx.y;
   const int tid = threadIdx.x;
-  const int q = tid / HH;
-  const int u = tid % HH;
-  const int k = r * HH + u;
-  const int col = q * H + k;
+  const int lane = tid % 32;
+  const int g = lane / 8;
+  const int k = r * HH + (tid / 32) * 8 + lane % 8;
+  const int col = g * H + k;
   const T* __restrict__ wh = dir ? wh_b : wh_f;
   T* __restrict__ ys = dir ? ys_b : ys_f;
   float* __restrict__ cs = dir ? cs_b : cs_f;
   T* __restrict__ res = dir ? res_b : res_f;
-  float* peer_h = cluster.map_shared_rank(&h_s[0][0], r ^ 1);
 
-  float w[H];
+  const int hf = g % 2;
+  const int pcol = (g - hf) * H + k;  // the pair's first column
+  float w[2][D];
 #pragma unroll
-  for (int j = 0; j < H; ++j) w[j] = to_f(wh[(size_t)j * G + col]);
-  (&h_s[0][0])[tid] = 0.0f;  // 2H threads, 2H floats
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      w[j][d] = to_f(wh[(size_t)(hf * D + d) * G + pcol + j * H]);
+  const int hslot = (k / D) * (D + 4) + k % D;  // the unit's place in h_s
   const int len = lengths[b];
-  const float* __restrict__ xg_d = xg + (size_t)dir * Tn * B * G;
-  float xv_next = xg_d[((size_t)(dir ? Tn - 1 : 0) * B + b) * G + col];
-  float c = 0.0f, hc = 0.0f;  // f32 carry of unit k (cell threads)
-  cluster.sync();  // both blocks have started and zeroed h
+
+  // buffer 0 holds h before step 0: 0
+  if (tid < 2 * (D + 4)) h_s[0][tid] = 0.0f;
+  const uint32_t bar0 = rc::smem_u32(bars);
+  const uint32_t slot0 = rc::smem_u32(&h_s[0][0]);
+  if (tid == 0) {
+    rc::bar_init(bar0);
+    rc::bar_init(bar0 + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // buffer 1 receives the h of step 0, buffer 0 that of step 1
+    if (Tn > 1) rc::bar_expect(bar0 + 8, kBytes);
+    if (Tn > 2) rc::bar_expect(bar0, kBytes);
+  }
+
+  // this lane's column of xg, loaded one step ahead (the backward chain
+  // walks t = T-1 .. 0)
+  const ptrdiff_t step = dir ? -(ptrdiff_t)B * G : (ptrdiff_t)B * G;
+  const float* xnext = xg + (size_t)dir * Tn * B * G + (size_t)b * G + col +
+                       (dir ? (size_t)(Tn - 1) * B * G : 0);
+  float xv_next = *xnext;
+  xnext += step;
+  float c = 0.0f, hc = 0.0f;  // the unit's f32 carry, in its four lanes
+  cg::this_cluster().sync();  // both blocks set up before any store
 
   for (int s = 0; s < Tn; ++s) {
     const int t = dir ? Tn - 1 - s : s;
     const int cur = s & 1;
     const float xv = xv_next;
-    if (s + 1 < Tn)
-      xv_next = xg_d[((size_t)(dir ? Tn - 2 - s : s + 1) * B + b) * G + col];
-
-    // hidden product, column col: four independent FMA chains
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < H; j += 4) {
-      const float4 hv = *reinterpret_cast<const float4*>(&h_s[cur][j]);
-      a0 = fmaf(hv.x, w[j], a0);
-      a1 = fmaf(hv.y, w[j + 1], a1);
-      a2 = fmaf(hv.z, w[j + 2], a2);
-      a3 = fmaf(hv.w, w[j + 3], a3);
+    if (s + 1 < Tn) xv_next = *xnext;
+    xnext += step;
+    if (s > 0) {
+      rc::bar_wait(bar0 + 8 * cur, ((s - 1) >> 1) & 1);
+      if (tid == 0 && s + 2 < Tn) rc::bar_expect(bar0 + 8 * cur, kBytes);
     }
-    const float pre = xv + ((a0 + a1) + (a2 + a3));
-    const float act = q == 2 ? tanhf(pre) : sigmoid_f(pre);
-    act_s[tid] = act;
+
+    // the pair's two columns over this lane's half, then the halves' sum
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < D; j += 4) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(&h_s[cur][hf * (D + 4) + j]);
+      a0 = fmaf(hv.x, w[0][j], a0);
+      a0 = fmaf(hv.y, w[0][j + 1], a0);
+      a0 = fmaf(hv.z, w[0][j + 2], a0);
+      a0 = fmaf(hv.w, w[0][j + 3], a0);
+      a1 = fmaf(hv.x, w[1][j], a1);
+      a1 = fmaf(hv.y, w[1][j + 1], a1);
+      a1 = fmaf(hv.z, w[1][j + 2], a1);
+      a1 = fmaf(hv.w, w[1][j + 3], a1);
+    }
+    a0 += __shfl_xor_sync(0xffffffffu, a0, 8);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, 8);
+    const float pre = xv + (hf ? a1 : a0);
+    const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);
+
+    // the unit's four gates by shuffles; its cell in each of its lanes
+    const int u0 = lane % 8;
+    const float ig = __shfl_sync(0xffffffffu, act, u0);
+    const float fg = __shfl_sync(0xffffffffu, act, u0 + 8);
+    const float gg = __shfl_sync(0xffffffffu, act, u0 + 16);
+    const float og = __shfl_sync(0xffffffffu, act, u0 + 24);
+    float cn = fg * c + ig * gg;
+    const float tc = tanhf(cn);
+    float hn = og * tc;
+    if (dir && t >= len) {  // backward chain: frozen on padding
+      cn = c;
+      hn = hc;
+    }
+    c = cn;
+    hc = hn;
+    const T hq = from_f<T>(hn);
+
+    // the rounded h into block g's next buffer (lanes 0 and 1 of the unit)
+    if (g < 2 && s + 1 < Tn) {
+      const int nb = cur ^ 1;
+      const uint32_t slot =
+          slot0 + 4u * (uint32_t)(nb * 2 * (D + 4) + hslot);
+      rc::send_h(rc::peer_u32(slot, g), to_f(hq),
+                 rc::peer_u32(bar0 + 8 * nb, g));
+    }
     const size_t row = (size_t)t * B + b;
     if (TRAIN) res[row * 5 * H + col] = from_f<T>(act);
-    __syncthreads();
-
-    // cell update of unit k, and the new h to both blocks
-    if (tid < HH) {
-      const float ig = act_s[u], fg = act_s[HH + u];
-      const float gg = act_s[2 * HH + u], og = act_s[3 * HH + u];
-      float cn = fg * c + ig * gg;
-      const float tc = tanhf(cn);
-      float hn = og * tc;
-      if (dir && t >= len) {  // backward chain: frozen on padding
-        cn = c;
-        hn = hc;
-      }
-      c = cn;
-      hc = hn;
-      const T hq = from_f<T>(hn);
-      ys[row * H + k] = hq;
-      if (TRAIN) {
-        res[row * 5 * H + 4 * H + k] = from_f<T>(tc);
-        cs[row * H + k] = cn;
-      }
-      const float hv = to_f(hq);
-      h_s[cur ^ 1][k] = hv;
-      peer_h[(cur ^ 1) * H + k] = hv;
+    if (g == 2) ys[row * H + k] = hq;
+    if (TRAIN && g == 3) {
+      res[row * 5 * H + 4 * H + k] = from_f<T>(tc);
+      cs[row * H + k] = cn;
     }
-    cluster.sync();
   }
+  cg::this_cluster().sync();  // no block exits while its peer sends to it
 }
 
 template <typename T, int H>

@@ -1,6 +1,7 @@
 // Device code shared by the bidirectional GRU and LSTM layer kernels, split
 // (gru_bidir_fwd.cu, gru_bidir_bwd.cu, lstm_bidir_fwd.cu, lstm_bidir_bwd.cu)
-// and merged-body ({gru,lstm}_merged_{fwd,bwd}.cu), for Hopper (sm_90a):
+// and merged-body (gru_merged_bwd.cu, lstm_merged_{fwd,bwd}.cu; the merged
+// GRU forward is in gru_bidir_fwd.cu), for Hopper (sm_90a):
 // the input projection; the backward's bias reduction, the operands and
 // stores of its products (rnn_wgmma.cuh's tensor-core products read them)
 // and the merged LSTM backward's deterministic tiled SIMT GEMMs; and the

@@ -265,7 +265,8 @@ _ARGTYPES = {
 }
 # the entry points that live in another entry point's csrc/<name>.cu
 _LIBRARY = {"gru_bidir_bnd_fwd": "gru_bidir_fwd",
-            "gru_bidir_bnd_bwd": "gru_bidir_bwd"}
+            "gru_bidir_bnd_bwd": "gru_bidir_bwd",
+            "gru_merged_fwd": "gru_bidir_fwd"}
 
 
 def _kernel(name):
@@ -1240,7 +1241,8 @@ def _merged_expect(t_len, b, w_in, h, n_gates, *names):
 
 def gru_merged_fwd(x, wif2, wib2, bi2, wh2, bh2, lengths, train=False):
     """Row 5's wrapper.  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/gru_merged_fwd.cu`` or raises.  The kernel reads only
+    launches row 1's recurrence with the merged addressing
+    (``csrc/gru_bidir_fwd.cu``, ``gru_merged_fwd``) or raises.  It reads only
     the two diagonal blocks of ``wh2`` (and of ``bi2``/``bh2`` the
     direction's own columns): it relies on ``wh2`` being block-diagonal, as
     ``ops/rnn.py:_pack_gate_grouped`` makes it.  ``launches`` counts

@@ -369,11 +369,12 @@ def _steps_tool():
     return mod
 
 
-@pytest.mark.parametrize("kernel", ["13", "9", "15", "1", "4"])
+@pytest.mark.parametrize("kernel", ["13", "9", "15", "1", "4", "3", "5"])
 def test_step_tool_edits_hold_their_sources_lines(kernel):
-    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15, 1
-    and 4) finds its lines once in its kernel's source, so a changed kernel
-    fails here rather than on the card; each build changes the source."""
+    """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15, 1,
+    4, 3 and 5) finds its lines once in its kernel's source, so a changed
+    kernel fails here rather than on the card; each build changes the
+    source."""
     import importlib
 
     from pytorch_video_action_tpu_torch.ops import cuda_lib

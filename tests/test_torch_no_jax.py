@@ -22,6 +22,7 @@ FILES = MODULES + [
     ROOT / "tools" / "torch_lstm_scan_steps.py",
     ROOT / "tools" / "torch_ab_phases.py",
     ROOT / "tools" / "torch_bwd_bits.py",
+    ROOT / "tools" / "torch_sass.py",
     ROOT / "tests" / "test_torch_cuda_kernels.py"]
 
 

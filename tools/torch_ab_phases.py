@@ -27,8 +27,13 @@ largest train batch, W=256, f32 and bf16: ``check_scan``) or
 train form, ``check_train_layer``) and ``merged:main``, ``merged:bench``
 (rows 5-6, the merged GRU's train form and backward,
 ``check_merged_train_layer``), W_in=400, f32 and bf16, at the largest train
-batch or the bench shape (B=64, T=1024, every frame valid); the default
-is ``slice:attn train:attn``.  With ``--once`` only this checkout runs,
+batch or the bench shape (B=64, T=1024, every frame valid) or ``fwd:main``
+(rows 3 and 5, the LSTM layer's and the merged GRU's forwards, W_in=400,
+f32 and bf16: the eval forms at the largest test forward batch,
+``check_layer`` and ``check_merged_layer``, the train forms at the largest
+train batch, ``check_train_layer`` and ``check_merged_train_layer``, which
+also hold and time rows 4 and 6); the default is ``slice:attn
+train:attn``.  With ``--once`` only this checkout runs,
 one turn.  A turn whose phases are all light builds only the kernels
 they launch.  With ``--kernels`` the phases' ``[kernel]``
 and ``[flags]`` lines (each kernel's time beside its plain version's and
@@ -61,8 +66,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 c.GRU, c.LSTM = c.Cell("gru"), c.Cell("lstm")
 card = c.card_line()
-if any(p.split(":")[0] not in ("fps", "rows", "scan", "lstm", "merged")
-       for p in sys.argv[1:]):
+if any(p.split(":")[0] not in ("fps", "rows", "scan", "lstm", "merged",
+                               "fwd") for p in sys.argv[1:]):
     c.phase_build()
 with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
     c.write_dataset(root)
@@ -105,6 +110,22 @@ with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
             for dt in c.DTYPES:
                 check(c.LSTM if kind == "lstm" else c.GRU, name, tlens, t_len,
                       400, dt, gen)
+        elif kind == "fwd":
+            # rows 3 and 5 at the main path's shapes, W_in=400
+            gen = torch.Generator().manual_seed(0)
+            t_pad, chunk = max(forward_batches(test),
+                               key=lambda tb: tb[0] * len(tb[1]))
+            lens = [len(test[i]) for i in chunk]
+            batch = c.largest_batch(c.train_feeds(root)[0])
+            tlens, t_train = batch[1].tolist(), batch[0].shape[1]
+            for dt in c.DTYPES:
+                c.check_layer(c.LSTM, "main path", lens, t_pad, 400, dt, gen)
+                c.check_merged_layer(c.GRU, "main path", lens, t_pad, 400,
+                                     dt, gen)
+                c.check_train_layer(c.LSTM, "main path", tlens, t_train, 400,
+                                    dt, gen)
+                c.check_merged_train_layer(c.GRU, "main path", tlens,
+                                           t_train, 400, dt, gen)
         elif kind == "scan":
             gen = torch.Generator().manual_seed(0)
             batch = c.largest_batch(c.train_feeds(root)[0])

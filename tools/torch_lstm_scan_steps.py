@@ -3,7 +3,8 @@
 built and of copies with one part of the step taken out.  On one NVIDIA
 GPU:
 
-    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1|4] [--root DIR]
+    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1|4|3|5]
+                                           [--root DIR]
                                            [--shapes B,T,W[,train] ...]
                                            [--builds NAME ...]
 
@@ -15,7 +16,10 @@ bidirectional GRU layer's forward (``csrc/gru_bidir_fwd.cu``, its
 recurrence; W is H, the layer's input 400 wide, ``train`` in a shape picks
 the train form, else the eval form); 4, the bidirectional LSTM layer's
 backward (``csrc/lstm_bidir_bwd.cu``, its chain; W is H, the layer's input
-400 wide, the whole call timed, its products off the chain included).
+400 wide, the whole call timed, its products off the chain included); 3,
+the bidirectional LSTM layer's forward (``csrc/lstm_bidir_fwd.cu``, as row
+1); 5, the merged GRU layer's forward (``PVA_RNN_SPLIT=0``: row 1's source
+and edits through the ``gru_merged_fwd`` wrapper, as row 1).
 Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
 csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
 design, for example an earlier commit unpacked with ``git archive``, may be
@@ -23,16 +27,16 @@ given) in a temporary directory: as it is, and once for each of the
 kernel's edited builds in ``KERNELS`` (the product taken out, the gate
 math taken out, the exchange between blocks or threads taken out, all of
 them; row 15 also dwh's launch taken out).  Each build runs ``DIR``'s
-wrapper of the kernel (``ops/rnn_scan.py``; rows 1 and 4
+wrapper of the kernel (``ops/rnn_scan.py``; rows 1, 3, 4 and 5
 ``ops/rnn_fused.py``) on
 the same seeded inputs at each shape (defaults in ``KERNELS``), f32 and
 bf16, and prints its device time (CUDA events, ``chip_smoke.cuda_ms``) as
 µs a step, with the card's name and power limit and each shape's launch;
-row 1 also the device time of the build as it is by kernel (its input
-projection and its recurrence, ``chip_smoke.part_ms``).  The edited builds
+rows 1, 3 and 5 also the device time of the build as it is by kernel (its
+input projection and its recurrence, ``chip_smoke.part_ms``).  The edited builds
 compute wrong values and are timed only.  Exits non-zero without a card,
 or when the source no longer holds an edit's lines.  ``chip_smoke.py``
-takes rows 1, 9, 13, 14 and 15 apart with ``start_builds``,
+takes rows 1, 3, 5, 9, 13, 14 and 15 apart with ``start_builds``,
 ``finish_builds`` and ``step_us``.  Imports nothing of JAX.
 """
 
@@ -186,6 +190,46 @@ _L4_EXCHANGE = [("""    if (s > 0) {
                  "        (void)slot, (void)v;\n")]
 
 
+# Row 3 (row 4's chain run forward: a cluster of two blocks a (row,
+# direction), a unit's four gate lanes of one warp, in pairs that keep two
+# columns of wh over half the depth in registers; the gates meet by
+# shuffles, h sent by st.async onto each block's mbarrier, xg loaded one
+# step ahead)
+_L3_PRODUCT = [("""#pragma unroll
+    for (int j = 0; j < D; j += 4) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(&h_s[cur][hf * (D + 4) + j]);
+      a0 = fmaf(hv.x, w[0][j], a0);
+      a0 = fmaf(hv.y, w[0][j + 1], a0);
+      a0 = fmaf(hv.z, w[0][j + 2], a0);
+      a0 = fmaf(hv.w, w[0][j + 3], a0);
+      a1 = fmaf(hv.x, w[1][j], a1);
+      a1 = fmaf(hv.y, w[1][j + 1], a1);
+      a1 = fmaf(hv.z, w[1][j + 2], a1);
+      a1 = fmaf(hv.w, w[1][j + 3], a1);
+    }
+    a0 += __shfl_xor_sync(0xffffffffu, a0, 8);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, 8);
+""", "    a0 = h_s[cur][hf * (D + 4)] * w[0][0];\n")]
+_L3_GATES = [("    const float act = g == 2 ? tanhf(pre) : sigmoid_f(pre);\n",
+              "    const float act = pre;\n"),
+             ("""    float cn = fg * c + ig * gg;
+    const float tc = tanhf(cn);
+    float hn = og * tc;
+""", """    float cn = ig + fg + gg + og + c;
+    const float tc = cn;
+    float hn = cn;
+""")]
+# no wait and no store into a block's buffer: the blocks run unpaced
+_L3_EXCHANGE = [("""    if (s > 0) {
+      rc::bar_wait(bar0 + 8 * cur, ((s - 1) >> 1) & 1);
+      if (tid == 0 && s + 2 < Tn) rc::bar_expect(bar0 + 8 * cur, kBytes);
+    }
+""", ""),
+                ("""      rc::send_h(rc::peer_u32(slot, g), to_f(hq),
+                 rc::peer_u32(bar0 + 8 * nb, g));
+""", "      (void)slot, (void)hq;\n")]
+
 class Kernel(NamedTuple):
     """A kernel the tool takes apart: its source (and library) name under
     ``csrc/``, its wrapper in ``ops/<module>.py``, the edited builds and
@@ -224,9 +268,22 @@ KERNELS = {
                  "no exchange": _L4_EXCHANGE,
                  "skeleton": [*_L4_PRODUCT, *_L4_GATES, *_L4_EXCHANGE]},
                 ["8,1920,128", "64,1024,128"], "rnn_fused"),
+    "3": Kernel("lstm_bidir_fwd", "lstm_bidir_fwd",
+                {"no product": _L3_PRODUCT, "no gates": _L3_GATES,
+                 "no exchange": _L3_EXCHANGE,
+                 "skeleton": [*_L3_PRODUCT, *_L3_GATES, *_L3_EXCHANGE]},
+                ["3,1280,128", "8,1920,128,train"], "rnn_fused"),
+    # row 5: row 1's recurrence with the merged body's addressing
+    "5": Kernel("gru_bidir_fwd", "gru_merged_fwd",
+                {"no product": _G1_PRODUCT, "no gates": _G1_GATES,
+                 "no exchange": _G1_EXCHANGE,
+                 "skeleton": [*_G1_PRODUCT, *_G1_GATES, *_G1_EXCHANGE]},
+                ["3,1280,128", "8,1920,128,train"], "rnn_fused"),
 }
-# rows 1 and 4's input width (layer 0's); row 1's device time by kernel
+# the layer kernels' input width (layer 0's); the layer forwards' (rows 1,
+# 3 and 5) device time by kernel
 LAYER_W_IN = 400
+LAYER_FWDS = ("1", "3", "5")
 LAYER_PARTS = {"proj_kernel": "projection", "recur_kernel": "recurrence"}
 
 
@@ -304,10 +361,12 @@ def kernel_call(kernel, chip_smoke, b, t_len, w, dt, train=False):
         f"pytorch_video_action_tpu_torch.ops.{KERNELS[kernel].module}")
     fn = getattr(mod, KERNELS[kernel].wrapper)
     gen = torch.Generator().manual_seed(0)
-    if kernel == "1":
-        cell = chip_smoke.Cell("gru")
+    if kernel in LAYER_FWDS:  # a layer forward, row 5 on the merged body
+        cell = chip_smoke.Cell("lstm" if kernel == "3" else "gru")
         x, ws, lengths = chip_smoke.layer_inputs(cell, t_len, b, LAYER_W_IN,
                                                  dt, [t_len] * b, gen)
+        if kernel == "5":
+            ws = cell.merged_weights(ws)
         return functools.partial(fn, train=train), (x, *ws, lengths)
     if kernel == "4":  # the backward of the train form's outputs
         cell = chip_smoke.Cell("lstm")
@@ -338,7 +397,7 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
-                    help="the kernel's row: 13, 9, 15, 1 or 4")
+                    help="the kernel's row: 13, 9, 15, 1, 4, 3 or 5")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
     ap.add_argument("--shapes", nargs="*",
@@ -371,7 +430,7 @@ def main(argv=None) -> int:
             inputs[(b, t_len, w, train, dt)] = kernel_call(
                 args.kernel, chip_smoke, b, t_len, w, dt, train)
             device = inputs[(b, t_len, w, train, dt)][1][0].device
-            if args.kernel == "1":
+            if args.kernel in LAYER_FWDS:
                 geo = ("train form" if train else "eval form") + (
                     f", W_in={LAYER_W_IN}")
             elif args.kernel == "4":
@@ -398,7 +457,7 @@ def main(argv=None) -> int:
                 print(f"{name}: {str(dt)[6:]} B={b} T={t_len} W={w}{form}: "
                       f"{us * t_len / 1e3:.4f} ms, {us:.4f} us a step",
                       flush=True)
-            if args.kernel == "1" and "as is" in libs:
+            if args.kernel in LAYER_FWDS and "as is" in libs:
                 with cuda_lib.replaced(kern.source, libs["as is"]):
                     parts = chip_smoke.part_ms(lambda: fn(*call_args),
                                                parts=LAYER_PARTS)

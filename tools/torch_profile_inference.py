@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's bigru inference forward goes, on
-one NVIDIA GPU.
+"""Where the time of the PyTorch port's inference forward goes, on one
+NVIDIA GPU.
 
-    python3 tools/torch_profile_inference.py [--dtype float32|bfloat16]
+    python3 tools/torch_profile_inference.py [--model bigru|bilstm]
+                                             [--dtype float32|bfloat16]
                                              [--trace trace.json]
 
 Writes the seeded Breakfast-shaped test set of ``chip_smoke.py`` (24 videos
-of 500-2500 frames) and a full-width bigru with seeded weights into a
-temporary directory, runs the port's ``frame_predictions`` once to warm up
-and once under ``torch.profiler``, and prints:
+of 500-2500 frames) into a temporary directory, builds the model (bigru by
+default) at full width with seeded weights, runs the port's
+``frame_predictions`` once to warm up and once under ``torch.profiler``,
+and prints:
 
 * the host wall time of the profiled forward (synchronised) and its frames/s;
 * device time by kernel name, largest first;
@@ -92,6 +94,7 @@ def device_report(prof, wall_s: float, tool: str) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="bigru", choices=["bigru", "bilstm"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--trace", default=None,
@@ -116,7 +119,7 @@ def main(argv=None) -> int:
         chip_smoke.write_dataset(root, train=False)
         feats = VideoDataset(data_dir="data", annot_path=root, part="test",
                              split=1, mode=None, verbose=False).features
-    model = build_model("bigru", chip_smoke.N_CLASS,
+    model = build_model(args.model, chip_smoke.N_CLASS,
                         generator=torch.Generator().manual_seed(0))
     model = model.to("cuda").eval()
     n_frames = sum(len(f) for f in feats)
@@ -129,7 +132,8 @@ def main(argv=None) -> int:
         frame_predictions(model, feats, dtype=args.dtype)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    print(f"forward {args.dtype}: {n_frames} frames in {wall_s:.6f} s = "
+    print(f"{args.model} forward {args.dtype}: {n_frames} frames in "
+          f"{wall_s:.6f} s = "
           f"{n_frames / wall_s:.1f} frames/s (profiler on)")
 
     if device_report(prof, wall_s, "torch_profile_inference") != 0:
