@@ -16,9 +16,9 @@ Phases, in order; any failure exits non-zero:
    spills and any wgmma serialization); checks with ``cuobjdump -sass``
    that the flash forward, the fused backward, the split backward's two
    kernels, the two product kernels of the GRU layer's, the LSTM layer's
-   and the merged GRU's backwards (rows 2, 4, 6) and the LSTM scan
-   backward's dwh issue wgmma (HGMMA) in every instantiation, f32 and
-   bf16.
+   and the merged GRU's backwards (rows 2, 4, 6) and both scans'
+   backwards' dwh (rows 15-16, 11) issue wgmma (HGMMA) in every
+   instantiation, f32 and bf16.
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at the bench shape (B=64, T=1024, where bench.py times bigru and
    bilstm), for layer 0 (W_in=400) and the later layers (256) in f32 and
@@ -60,7 +60,7 @@ Phases, in order; any failure exits non-zero:
    row's pass the shared memory): each against its plain
    version and a rerun, the eval form's ys and cs against the saving
    form's (bit for bit), timed beside nn.LSTM (one direction, packed) and
-   its bound (the saved-gates backward's with dwh on the tensor cores,
+   its bound (the saved-gates backwards' with dwh on the tensor cores,
    ``tc_bound``, its SIMT count beside), each chain kernel's geometry
    logged; the two forwards and the saved-gates backward at the bench
    shape, and at the training and serving shapes in phases 4-5, also by
@@ -140,8 +140,8 @@ Phases, in order; any failure exits non-zero:
    largest train batch (W_in 400 and 256), f32 and bf16 (row 6 by part,
    rows 5 and 7 by kernel, row 5's train form at W_in=400 in f32 also by
    step part), each against its
-   plain version, against rows 1-4 on the same weights (ys, row 5's bit
-   for bit, as it runs row 1's recurrence; dx, dwi and
+   plain version, against rows 1-4 on the same weights (ys bit for bit,
+   as rows 5 and 7 run rows 1's and 3's recurrences; dx, dwi and
    the diagonal blocks of dwh2, dbi2, dbh2 against the per-direction
    gradients) and, the backwards, against a rerun (bit for bit), timed
    beside its plain version, its bound and nn.GRU / nn.LSTM packed; then
@@ -269,10 +269,10 @@ class Cell:
         self.mbwd = getattr(rnn_fused, self.mbwd_name)
         self.mfwd_ref = getattr(rnn_fused, f"{name}_merged_layer_ref")
         self.mbwd_ref = getattr(rnn_fused, f"{name}_merged_layer_bwd_ref")
-        # row 5 is row 1's recurrence with the merged addressing, in row
-        # 1's source
+        # rows 5 and 7 are rows 1's and 3's recurrences with the merged
+        # addressing, in their sources
         self.mfwd_src, self.mbwd_src = (f"{CSRC}{n}.cu" for n in (
-            self.mfwd_name if self.lstm else self.fwd_name, self.mbwd_name))
+            self.fwd_name, self.mbwd_name))
         self.mfwd_replaces, self.mbwd_replaces = (
             ("500", "630") if self.lstm else ("111", "241"))
         if not self.lstm:  # the GRU's fused-boundary form (rows 1-2 alt)
@@ -549,7 +549,8 @@ WGMMA_KERNELS = [("flash_fwd", "flash_fwd_kernel"),
                  ("lstm_bidir_bwd", "dx_wgmma_kernel"),
                  ("gru_merged_bwd", "wgrad_wgmma_kernel"),
                  ("gru_merged_bwd", "dx_wgmma_kernel"),
-                 ("lstm_scan_bwd", "dwh_wgmma_kernel")]
+                 ("lstm_scan_bwd", "dwh_wgmma_kernel"),
+                 ("gru_scan_bwd", "dwh_wgmma_kernel")]
 
 
 def ptxas_summary(logs) -> list[str]:
@@ -937,7 +938,7 @@ def merged_vs_split(cell, merged, split):
 
 def check_merged_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
     """Row 5 or 7's eval form against its plain version and against row 1
-    or 3 on the same weights (row 5's ys row 1's bit for bit: the same
+    or 3 on the same weights (its ys row 1's or 3's bit for bit: the same
     recurrence on the same sums), timed beside its plain version, the
     library yardstick (nn.GRU / nn.LSTM packed) and its bound, and by
     kernel (``layer_split``).  Raises when they disagree.  Returns the row
@@ -974,15 +975,16 @@ def check_merged_layer(cell, where, lengths, t_len, w_in, dt_name, gen):
         f"bound {bound_ms:.4f} ms ({bound_by}){split_text(row)}")
     if not (err <= tol and split <= tol):
         raise AssertionError(f"merged forward disagrees: {row}")
-    if not (cell.lstm or same):
-        raise AssertionError("row 5's ys are not row 1's bit for bit")
+    if not same:
+        raise AssertionError(f"row {cell.mfwd_row}'s ys are not row "
+                             f"{cell.fwd_row}'s bit for bit")
     return row
 
 
 def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
                              gen, steps=False):
     """Row 5 or 7's train form and row 6 or 8 against their plain versions
-    and against rows 1-4 on the same weights (ys, row 5's bit for bit, and
+    and against rows 1-4 on the same weights (ys bit for bit, and
     the gradients as ``merged_vs_split`` takes them), the backward rerun
     bit for bit; each timed beside its plain version, the library yardstick
     and its bound, the train form also by kernel and, with ``steps``, by
@@ -1033,8 +1035,9 @@ def check_merged_train_layer(cell, where, lengths, t_len, w_in, dt_name,
         f"{split_text(fwd_row)}")
     if not (err_fwd <= tol and split_fwd <= tol):
         raise AssertionError(f"merged train form disagrees: {fwd_row}")
-    if not (cell.lstm or same):
-        raise AssertionError("row 5's ys are not row 1's bit for bit")
+    if not same:
+        raise AssertionError(f"row {cell.mfwd_row}'s ys are not row "
+                             f"{cell.fwd_row}'s bit for bit")
 
     bargs = cell.merged_bwd_args(x, mws, lengths, fwd, dys)
     got = cell.mbwd(*bargs)
@@ -1431,11 +1434,11 @@ def scan_bound(name, t_len, b, w, dt_name, simt=False):
     read once, dwh (and dbh) written once.  Operations: 2*T*B*W*gW a
     product -- the hidden product forward, the carry product and dwh
     backward, and the recomputed gates -- at the dtype's peak; in f32 the
-    saved-gates LSTM backward (row 15) with dwh on the tensor cores (3xTF32)
-    and its carry product at the f32 SIMT peak (``tc_bound``), unless
-    ``simt`` (in bf16 both products are at bf16's tensor-core peak either
-    way: the kernel's f32 carry product is its design, not the card's
-    limit)."""
+    saved-gates backwards (rows 15 and 11) with dwh on the tensor cores
+    (3xTF32) and their carry product at the f32 SIMT peak (``tc_bound``),
+    unless ``simt`` (in bf16 both products are at bf16's tensor-core peak
+    either way: the kernel's f32 carry product is its design, not the
+    card's limit)."""
     size = 4 if dt_name == "float32" else 2
     per_row = {"lstm_scan_fwd": 6, "lstm_scan_fwd_save": 11,
                "lstm_scan_bwd_saved": 12, "lstm_scan_bwd": 12,
@@ -1448,7 +1451,7 @@ def scan_bound(name, t_len, b, w, dt_name, simt=False):
     products = {"fwd": 1, "fwd_save": 1, "bwd_saved": 2, "bwd": 3}[kind]
     n_bytes = (t_len * b * w * per_row + weights) * size
     flops = products * 2 * t_len * b * w * g * w
-    if name == "lstm_scan_bwd_saved" and dt_name == "float32" and not simt:
+    if kind == "bwd_saved" and dt_name == "float32" and not simt:
         return tc_bound(n_bytes, flops / 2, flops / 2, dt_name)
     return _bound(n_bytes, flops, dt_name)
 
@@ -1575,7 +1578,7 @@ def check_scan(where, lengths, t_len, w, dt_name, gen, cell="lstm",
                        "tol": tol, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms[name], "bound_ms": bound_ms,
                        "bound_by": bound_by, "bit_identical_rerun": identical}]
-        if name == "lstm_scan_bwd_saved":
+        if name.endswith("_bwd_saved"):
             rows[name][0]["bound_simt_ms"] = scan_bound(
                 name, t_len, b, w, dt_name, simt=True)[0]
             shown += (f"; bound counted SIMT "

@@ -4,7 +4,9 @@
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
 //   _lstm_fwd_kernel_split, reached through lstm_bidir_fused_split:
 //   train=False (eval form) and train=True (train form, from its custom_vjp
-//   forward).
+//   forward); and _lstm_fwd_kernel, the merged body's forward, reached
+//   through lstm_bidir_fused (PVA_RNN_SPLIT=0; eval and train forms):
+//   lstm_merged_fwd, below.
 //
 // Computes, for x [T, B, W] time-major and per direction d in {fwd, bwd}
 // wi_d [W, 4H], wh_d [H, 4H], one folded bias b_d = bi_d + bh_d [4H] and
@@ -80,7 +82,40 @@
 //  * The train form is a template flag: each lane stores its gate's
 //    activation, lane 2 of a unit ys, lane 3 tanh(c') and c', off the chain;
 //    the eval form compiles without them.
+//  * The merged body (lstm_merged_fwd, row 7) is the TPU kernel's one
+//    [B, 2H] chain over kernel steps s with dense per-direction input
+//    weights wif2, wib2 [W, 4H], the gate-grouped bi2 [8H] (both biases
+//    folded) and the block-diagonal wh2 [2H, 8H] (columns [i_f i_b | f_f
+//    f_b | g_f g_b | o_f o_b]): a = ([x_s @ wif2 | x_{T-1-s} @ wib2] + bi2)
+//    + h2 @ wh2, the backward half frozen on its flipped-prefix padding (s
+//    < T - lengths[b], t >= lengths[b] above).  wh2 is block-diagonal
+//    (ops/rnn.py:_pack_gate_grouped), so the product is the two direction
+//    chains above, each against its diagonal block; the recurrence reads
+//    only those blocks (it relies on the zeros, which the TPU kernel
+//    multiplies).  It is the same recurrence with another addressing
+//    (MergedAddr, as row 5 runs row 1's in gru_bidir_fwd.cu): wh2's column
+//    q*2H + dir*H + k, bi2 added on the chain (the projection runs without
+//    bias, as on the TPU), and, in the train form, in kernel order (row s:
+//    forward time s, backward time T-1-s) and in the input dtype, res
+//    [T, B, 10H] = [i f g o tanh c'], each 2H wide and gate-grouped, and
+//    cs [T, B, 2H], for csrc/lstm_merged_bwd.cu.  xg + bi2 is the sum the
+//    projection forms with the folded bias, so on the same weights its ys
+//    equal the split layer's bit for bit.  The split form (SplitAddr) keeps
+//    the recurrence's own offsets under if constexpr and compiles to the
+//    instructions it had before (tools/torch_sass.py --other).  The merged
+//    body's first design, one column of wh2's diagonal block a thread, the
+//    gates meeting in shared memory after a block barrier and h published
+//    through distributed shared memory with a cluster barrier a step, took
+//    1.20 and 1.34 us a step at the serving and training shapes in f32
+//    (1.5377 and 2.5636 ms a call), of which the exchange and barriers
+//    0.66 and 0.62 (tools/torch_lstm_scan_steps.py --kernel 7, PERF.md
+//    section 6).  On this recurrence it takes 0.71 / 0.49 / 0.55 / 0.60 /
+//    0.30 us a step (as is / without the product / the gate math / the
+//    exchange / all three) at the serving shape and 0.97 / 0.71 / 0.77 /
+//    0.85 / 0.63 at the training shape, f32: 0.9086 and 1.8545 ms a call.
 // wgmma, TMA and more than two blocks per chain are later work.
+
+#include <type_traits>
 
 #include "rnn_common.cuh"
 #include "scan_chain.cuh"
@@ -88,6 +123,39 @@
 namespace cg = cooperative_groups;
 
 namespace {
+
+// Where the recurrence finds a direction's weights, bias and outputs.  The
+// split layer (row 3): per-direction wh_d [H, 4H], the folded bias already
+// in xg, cs_d [T, B, H] f32 and res_d [T, B, 5H] at time t (the
+// recurrence's own offsets, so that this form compiles to the instructions
+// it had before it took an addressing).
+template <int H>
+struct SplitAddr {
+  static constexpr bool kMerged = false;
+  __device__ static int vec(int dir, int col) { return col; }
+};
+
+// The merged body (row 7, PVA_RNN_SPLIT=0): the gate-grouped wh2 [2H, 8H],
+// of which the recurrence reads direction dir's diagonal block (rows dir*H
+// + d, columns q*2H + dir*H + k), bi2 [8H] added on the chain, and res
+// [T, B, 10H] and cs [T, B, 2H] in the input dtype in kernel order (row s:
+// forward time s, backward time T-1-s); a column col of the split layout
+// (q = 4: tanh c') is at vec(dir, col) in a row of res.
+template <int H>
+struct MergedAddr {
+  static constexpr bool kMerged = true;
+  __device__ static int vec(int dir, int col) {
+    return (col / H) * 2 * H + dir * H + col % H;
+  }
+  __device__ static int wh(int dir, int d, int col) {
+    return (dir * H + d) * 8 * H + vec(dir, col);
+  }
+};
+
+// The cell states' dtype: f32 for the split layer's backward, the input
+// dtype for the merged body's.
+template <typename T, typename A>
+using CsT = std::conditional_t<A::kMerged, T, float>;
 
 // One cluster of two blocks per (batch row, direction): grid (2B, 2),
 // blockDim.x == 2H.  Lane l of warp v of block r is gate g = l / 8 of unit
@@ -98,15 +166,17 @@ namespace {
 // lane g then owns column g.  h_s [2][2 (H/2 + 4)]: a step's rounded h,
 // double-buffered, its second half 16 bytes further on in banks than the
 // first, so a warp's two halves' loads do not conflict.  TRAIN also stores
-// cs and the residuals.
-template <typename T, int H, bool TRAIN>
+// cs and the residuals.  A (SplitAddr or MergedAddr) places the weights,
+// the bias (bi only with the merged body's) and the train form's outputs;
+// the arithmetic is the same.
+template <typename T, int H, bool TRAIN, typename A>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(2 * H, 1)
 lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
-                  const T* __restrict__ wh_b, const int* __restrict__ lengths,
-                  T* __restrict__ ys_f, T* __restrict__ ys_b,
-                  float* __restrict__ cs_f, float* __restrict__ cs_b,
-                  T* __restrict__ res_f, T* __restrict__ res_b, int Tn,
-                  int B) {
+                  const T* __restrict__ wh_b, const T* __restrict__ bi,
+                  const int* __restrict__ lengths, T* __restrict__ ys_f,
+                  T* __restrict__ ys_b, CsT<T, A>* __restrict__ cs_f,
+                  CsT<T, A>* __restrict__ cs_b, T* __restrict__ res_f,
+                  T* __restrict__ res_b, int Tn, int B) {
   constexpr int G = 4 * H;
   constexpr int HH = H / 2;  // units a block
   constexpr int D = H / 2;   // depth of a lane's half
@@ -123,7 +193,7 @@ lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
   const int col = g * H + k;
   const T* __restrict__ wh = dir ? wh_b : wh_f;
   T* __restrict__ ys = dir ? ys_b : ys_f;
-  float* __restrict__ cs = dir ? cs_b : cs_f;
+  CsT<T, A>* __restrict__ cs = dir ? cs_b : cs_f;
   T* __restrict__ res = dir ? res_b : res_f;
 
   const int hf = g % 2;
@@ -132,8 +202,24 @@ lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int d = 0; d < D; ++d)
-      w[j][d] = to_f(wh[(size_t)(hf * D + d) * G + pcol + j * H]);
+    for (int d = 0; d < D; ++d) {
+      if constexpr (A::kMerged)
+        w[j][d] = to_f(wh[A::wh(dir, hf * D + d, pcol + j * H)]);
+      else
+        w[j][d] = to_f(wh[(size_t)(hf * D + d) * G + pcol + j * H]);
+    }
+  // the merged body's bias, and its train form's outputs of row b at step
+  // 0 (this lane's column of res; lane 3's tanh c' and c'), a step B rows
+  // on
+  const float bias = A::kMerged ? to_f(bi[A::vec(dir, col)]) : 0.0f;
+  T* const mres =
+      A::kMerged && TRAIN ? res + (size_t)b * 10 * H + A::vec(dir, col)
+                          : nullptr;
+  T* const mtc = A::kMerged && TRAIN
+                     ? res + (size_t)b * 10 * H + 8 * H + dir * H + k
+                     : nullptr;
+  CsT<T, A>* const mcs =
+      A::kMerged && TRAIN ? cs + (size_t)b * 2 * H + dir * H + k : nullptr;
   const int hslot = (k / D) * (D + 4) + k % D;  // the unit's place in h_s
   const int len = lengths[b];
 
@@ -163,7 +249,8 @@ lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
   for (int s = 0; s < Tn; ++s) {
     const int t = dir ? Tn - 1 - s : s;
     const int cur = s & 1;
-    const float xv = xv_next;
+    float xv = xv_next;
+    if constexpr (A::kMerged) xv += bias;
     if (s + 1 < Tn) xv_next = *xnext;
     xnext += step;
     if (s > 0) {
@@ -217,35 +304,80 @@ lstm_recur_kernel(const float* __restrict__ xg, const T* __restrict__ wh_f,
                  rc::peer_u32(bar0 + 8 * nb, g));
     }
     const size_t row = (size_t)t * B + b;
-    if (TRAIN) res[row * 5 * H + col] = from_f<T>(act);
-    if (g == 2) ys[row * H + k] = hq;
-    if (TRAIN && g == 3) {
-      res[row * 5 * H + 4 * H + k] = from_f<T>(tc);
-      cs[row * H + k] = cn;
+    if constexpr (A::kMerged) {
+      const size_t step_off = (size_t)s * B * 10 * H;
+      if (TRAIN) mres[step_off] = from_f<T>(act);
+      if (g == 2) ys[row * H + k] = hq;
+      if (TRAIN && g == 3) {
+        mtc[step_off] = from_f<T>(tc);
+        mcs[(size_t)s * B * 2 * H] = from_f<T>(cn);
+      }
+    } else {
+      if (TRAIN) res[row * 5 * H + col] = from_f<T>(act);
+      if (g == 2) ys[row * H + k] = hq;
+      if (TRAIN && g == 3) {
+        res[row * 5 * H + 4 * H + k] = from_f<T>(tc);
+        cs[row * H + k] = cn;
+      }
     }
   }
   cg::this_cluster().sync();  // no block exits while its peer sends to it
 }
 
-template <typename T, int H>
+// The recurrence on the projected gates xg with the addressing A; the
+// merged body passes wh2, cs and res for both directions' pointers.
+template <typename T, int H, typename A>
 cudaError_t launch_recur(const float* xg, const void* whf, const void* whb,
-                         const int* lengths, void* ysf, void* ysb, float* csf,
-                         float* csb, void* resf, void* resb, bool train,
-                         int Tn, int B, cudaStream_t stream) {
+                         const void* bi, const int* lengths, void* ysf,
+                         void* ysb, void* csf, void* csb, void* resf,
+                         void* resb, bool train, int Tn, int B,
+                         cudaStream_t stream) {
   const dim3 grid(2 * B, 2);
   const T* wf = static_cast<const T*>(whf);
   const T* wb = static_cast<const T*>(whb);
+  const T* bx = static_cast<const T*>(bi);
   T* yf = static_cast<T*>(ysf);
   T* yb = static_cast<T*>(ysb);
   if (train)
-    lstm_recur_kernel<T, H, true><<<grid, 2 * H, 0, stream>>>(
-        xg, wf, wb, lengths, yf, yb, csf, csb, static_cast<T*>(resf),
+    lstm_recur_kernel<T, H, true, A><<<grid, 2 * H, 0, stream>>>(
+        xg, wf, wb, bx, lengths, yf, yb, static_cast<CsT<T, A>*>(csf),
+        static_cast<CsT<T, A>*>(csb), static_cast<T*>(resf),
         static_cast<T*>(resb), Tn, B);
   else
-    lstm_recur_kernel<T, H, false><<<grid, 2 * H, 0, stream>>>(
-        xg, wf, wb, lengths, yf, yb, nullptr, nullptr, nullptr, nullptr, Tn,
-        B);
+    lstm_recur_kernel<T, H, false, A><<<grid, 2 * H, 0, stream>>>(
+        xg, wf, wb, bx, lengths, yf, yb, nullptr, nullptr, nullptr, nullptr,
+        Tn, B);
   return cudaGetLastError();
+}
+
+// The recurrence for the H of the layer, with the addressing A: the split
+// layer's (bi null, as the projection added the bias) or the merged
+// body's.
+template <typename T, template <int> class A>
+cudaError_t run_recur(const float* xg, const void* whf, const void* whb,
+                      const void* bi, const int* lengths, void* ysf,
+                      void* ysb, void* csf, void* csb, void* resf, void* resb,
+                      bool train, int Tn, int B, int H, cudaStream_t stream) {
+  switch (H) {
+    case 16:
+      return launch_recur<T, 16, A<16>>(xg, whf, whb, bi, lengths, ysf, ysb,
+                                        csf, csb, resf, resb, train, Tn, B,
+                                        stream);
+    case 32:
+      return launch_recur<T, 32, A<32>>(xg, whf, whb, bi, lengths, ysf, ysb,
+                                        csf, csb, resf, resb, train, Tn, B,
+                                        stream);
+    case 64:
+      return launch_recur<T, 64, A<64>>(xg, whf, whb, bi, lengths, ysf, ysb,
+                                        csf, csb, resf, resb, train, Tn, B,
+                                        stream);
+    case 128:
+      return launch_recur<T, 128, A<128>>(xg, whf, whb, bi, lengths, ysf,
+                                          ysb, csf, csb, resf, resb, train,
+                                          Tn, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -258,22 +390,24 @@ cudaError_t run_layer(const void* x, const void* wif, const void* wib,
   const cudaError_t err =
       launch_proj<T>(x, wif, wib, bf, bb, xg, Tn * B, W, 4 * H, stream);
   if (err != cudaSuccess) return err;
-  switch (H) {
-    case 16:
-      return launch_recur<T, 16>(xg, whf, whb, lengths, ysf, ysb, csf, csb,
-                                 resf, resb, train, Tn, B, stream);
-    case 32:
-      return launch_recur<T, 32>(xg, whf, whb, lengths, ysf, ysb, csf, csb,
-                                 resf, resb, train, Tn, B, stream);
-    case 64:
-      return launch_recur<T, 64>(xg, whf, whb, lengths, ysf, ysb, csf, csb,
-                                 resf, resb, train, Tn, B, stream);
-    case 128:
-      return launch_recur<T, 128>(xg, whf, whb, lengths, ysf, ysb, csf, csb,
-                                  resf, resb, train, Tn, B, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return run_recur<T, SplitAddr>(xg, whf, whb, nullptr, lengths, ysf, ysb,
+                                 csf, csb, resf, resb, train, Tn, B, H,
+                                 stream);
+}
+
+// The merged body's layer (row 7): the projection without bias, then the
+// recurrence with the merged addressing.
+template <typename T>
+cudaError_t run_merged(const void* x, const void* wif2, const void* wib2,
+                       const void* bi2, const void* wh2, const int* lengths,
+                       void* ysf, void* ysb, void* cs, void* res, float* xg,
+                       int Tn, int B, int W, int H, bool train,
+                       cudaStream_t stream) {
+  const cudaError_t err = launch_proj<T>(x, wif2, wib2, nullptr, nullptr, xg,
+                                         Tn * B, W, 4 * H, stream);
+  if (err != cudaSuccess) return err;
+  return run_recur<T, MergedAddr>(xg, wh2, wh2, bi2, lengths, ysf, ysb, cs,
+                                  cs, res, res, train, Tn, B, H, stream);
 }
 
 }  // namespace
@@ -304,6 +438,33 @@ int lstm_bidir_fwd(int dtype, const void* x, const void* wif, const void* wib,
     return (int)run_layer<__nv_bfloat16>(x, wif, wib, bf, bb, whf, whb,
                                          lengths, ysf, ysb, csf, csb, resf,
                                          resb, xg, Tn, B, W, H, train != 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Row 7, the merged body's layer (rnn_fused_pallas.py lstm_bidir_fused,
+// PVA_RNN_SPLIT=0): x [T, B, W], wif2, wib2 [W, 4H], the gate-grouped bi2
+// [8H] (both biases folded), the block-diagonal wh2 [2H, 8H] (only its
+// diagonal blocks are read), lengths [B] int32; the outputs ysf, ysb
+// [T, B, H] and, for train != 0, cs [T, B, 2H] and res [T, B, 10H] in the
+// dtype (ignored by the eval form); xg is f32 scratch of 2*T*B*4H
+// elements.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success).
+int lstm_merged_fwd(int dtype, const void* x, const void* wif2,
+                    const void* wib2, const void* bi2, const void* wh2,
+                    const int* lengths, void* ysf, void* ysb, void* cs,
+                    void* res, float* xg, int Tn, int B, int W, int H,
+                    int train, void* stream) {
+  if (Tn <= 0 || B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  if (train && (cs == nullptr || res == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)run_merged<float>(x, wif2, wib2, bi2, wh2, lengths, ysf, ysb,
+                                  cs, res, xg, Tn, B, W, H, train != 0, s);
+  if (dtype == 1)
+    return (int)run_merged<__nv_bfloat16>(x, wif2, wib2, bi2, wh2, lengths,
+                                          ysf, ysb, cs, res, xg, Tn, B, W, H,
+                                          train != 0, s);
   return (int)cudaErrorInvalidValue;
 }
 

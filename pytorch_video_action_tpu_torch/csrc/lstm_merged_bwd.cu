@@ -1,5 +1,6 @@
 // One bidirectional LSTM layer backward on the merged body (the VJP of the
-// train-form forward in csrc/lstm_merged_fwd.cu) for Hopper (sm_90a).
+// train-form forward, lstm_merged_fwd in csrc/lstm_bidir_fwd.cu) for
+// Hopper (sm_90a).
 //
 // Replaces: pytorch_video_action_tpu/ops/rnn_fused_pallas.py
 //   _lstm_bwd_kernel, reached through lstm_bidir_fused's custom_vjp

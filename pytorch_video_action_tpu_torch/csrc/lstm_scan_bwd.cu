@@ -56,8 +56,8 @@
 //    loads the next step's res, cp and dy, whose rows are prefetched into
 //    L2 four steps ahead.
 //  * dwh is off the chain: hp^T dxg (dxg is rnd(dg) as stored) on the
-//    tensor cores, rnn_wgmma.cuh's producer ring and wgmma products (row
-//    2's dwh_d, ShiftedRowsT operands), K = T*B split into slices of whole
+//    tensor cores, rnn_wgmma.cuh's dwh_wgmma_kernel on its producer ring
+//    and wgmma products (row 2's dwh_d, ShiftedRowsT operands), K = T*B split into slices of whole
 //    64-row chunks (ops/rnn_scan.py::dwh_slices), the slices' f32 partials
 //    added in order after: no atomics, reruns are bit-identical.  Inside a
 //    slice the accumulators restart every 8 chunks (run_products' sums):
@@ -588,75 +588,6 @@ cudaError_t run_recompute(int form, const void* xg, const void* hp,
   }
 }
 
-// dwh's K-slice partials: block (x, y) is the 64 x 128 tile x (row tile
-// x / pairs, column pair x % pairs) of hp^T dxg [W, G] over the K chunks
-// of slice y, into part + y * W * G; each block's accumulators restart
-// every kRestartChunks chunks into its sums, behind the ring.
-template <typename T>
-__global__ void __launch_bounds__(kProdThreads, 1)
-dwh_wgmma_kernel(const ShiftedRowsT<T> hp, const ShiftedRowsT<T> dg,
-                 float* __restrict__ part, int W, int G, int K, int pairs,
-                 int slice_chunks) {
-  extern __shared__ char smem_raw[];
-  __shared__ uint64_t full[kProdStagesMax], empty[kProdStagesMax];
-  char* smem = prod_smem_init<T>(smem_raw, full, empty);
-  const int m0 = (blockIdx.x / pairs) * kTile;
-  const int n0 = (blockIdx.x % pairs) * 2 * kTile;
-  const int chunks = (K + kTile - 1) / kTile;
-  const int c0 = blockIdx.y * slice_chunks;
-  const int c1 = min(c0 + slice_chunks, chunks);
-  float* out = part + (size_t)blockIdx.y * W * G;
-  const auto epi = [&](int cw, const float* acc) {
-    const int n = n0 + cw * kTile + acc_col();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int m = m0 + acc_row() + 8 * i;
-      if (m >= W) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (n + 8 * j < G)
-          *reinterpret_cast<float2*>(out + (size_t)m * G + n + 8 * j) =
-              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
-    }
-  };
-  float* sums = reinterpret_cast<float*>(smem + prod_stages<T>() *
-                                                   slot_bytes<T>());
-  run_products<T, true, true>(smem, full, empty, hp, m0, W, dg, n0, G, c0,
-                              c1, K, epi, sums);
-}
-
-// dwh [W, 4W] = hp^T dxg over K = T*B rows, f32 partials of `slice_chunks`
-// chunks a slice in `part`, added in order into dwh.
-template <typename T>
-cudaError_t launch_dwh(const void* hp, const void* dxg, void* dwh,
-                       float* part, int slice_chunks, int Tn, int B, int W,
-                       cudaStream_t stream) {
-  const int K = Tn * B;
-  const int G = 4 * W;
-  const int chunks = (K + kTile - 1) / kTile;
-  if (slice_chunks <= 0) return cudaErrorInvalidValue;
-  const int slices = (chunks + slice_chunks - 1) / slice_chunks;
-  const int pairs = ((G + kTile - 1) / kTile + 1) / 2;
-  const int tiles = (W + kTile - 1) / kTile * pairs;
-  constexpr int smem = prod_smem<T>() + kRestartBytes;
-  static_assert(smem + 2 * 8 * kProdStagesMax <= kSmemMax,
-                "dwh's ring and sums pass a block's shared memory");
-  cudaError_t err = set_smem(dwh_wgmma_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  dwh_wgmma_kernel<T><<<dim3(tiles, slices), kProdThreads, smem, stream>>>(
-      ShiftedRowsT<T>{static_cast<const T*>(hp), W, 0, K},
-      ShiftedRowsT<T>{static_cast<const T*>(dxg), G, 0, K}, part, W, G, K,
-      pairs, slice_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n = (size_t)W * G;
-  const WgradOuts<T> outs = {{static_cast<T*>(dwh), nullptr, nullptr, nullptr},
-                             {0, n, n, n, n}};
-  wgrad_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part, outs, slices);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -688,13 +619,14 @@ int lstm_scan_bwd_saved(int dtype, const void* res, const void* hp,
   if (dtype == 0) {
     err = rc::run_saved<float>(a, st, res, cp, dy, wh, dxg, xbuf, gx != 0);
     if (err == cudaSuccess)
-      err = launch_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B, W, st);
+      err = launch_scan_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B,
+                                   W, 4 * W, st);
   } else if (dtype == 1) {
     err = rc::run_saved<__nv_bfloat16>(a, st, res, cp, dy, wh, dxg, xbuf,
                                        gx != 0);
     if (err == cudaSuccess)
-      err = launch_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn, B, W,
-                                      st);
+      err = launch_scan_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn,
+                                           B, W, 4 * W, st);
   }
   return (int)err;
 }
@@ -719,13 +651,14 @@ int lstm_scan_bwd(int dtype, const void* xg, const void* hp, const void* cp,
     err = run_recompute<float>(form, xg, hp, cp, cs, dy, wh, whT, dxg, xbuf,
                                a, st);
     if (err == cudaSuccess)
-      err = launch_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B, W, st);
+      err = launch_scan_dwh<float>(hp, dxg, dwh, p, slice_chunks, Tn, B,
+                                   W, 4 * W, st);
   } else if (dtype == 1) {
     err = run_recompute<__nv_bfloat16>(form, xg, hp, cp, cs, dy, wh, whT, dxg,
                                        xbuf, a, st);
     if (err == cudaSuccess)
-      err = launch_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn, B, W,
-                                      st);
+      err = launch_scan_dwh<__nv_bfloat16>(hp, dxg, dwh, p, slice_chunks, Tn,
+                                           B, W, 4 * W, st);
   }
   return (int)err;
 }

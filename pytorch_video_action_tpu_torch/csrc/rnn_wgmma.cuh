@@ -13,7 +13,8 @@
 // form Boundary and BoundaryStore), read only, and the wgmma machinery of
 // flash_wgmma.cuh (chunks, descriptors, put4, mma_ss, the Ring of
 // mbarriers, the tf32 split), included unedited.  The LSTM scan's dwh
-// (lstm_scan_bwd.cu, row 15) runs on run_products too.
+// and the GRU scan's (rows 15 and 11: dwh_wgmma_kernel, below) run on
+// run_products too.
 //
 // What bounds it on an H100: at bigru's layer 0 in training (B=8, T=1920,
 // W=400, H=128) the products are 4*T*B*G*(2W + H) = 21.9 GFLOP: about
@@ -835,6 +836,78 @@ cudaError_t launch_wgmma_merged(const void* x, const void* wif,
                                       Store<T>{static_cast<T*>(dxf), W},
                                       Store<T>{static_cast<T*>(dxb), W}, M,
                                       W, G, stream);
+}
+
+
+// The scans' saved-gates backwards' dwh (lstm_scan_bwd.cu, row 15, G = 4W;
+// gru_scan_bwd.cu, row 11, G = 3W), its K-slice partials: block (x, y) is
+// the 64 x 128 tile x (row tile x / pairs, column pair x % pairs) of hp^T g
+// [W, G] over the K chunks of slice y, into part + y * W * G; each block's
+// accumulators restart every kRestartChunks chunks into its sums, behind
+// the ring.
+template <typename T>
+__global__ void __launch_bounds__(kProdThreads, 1)
+dwh_wgmma_kernel(const ShiftedRowsT<T> hp, const ShiftedRowsT<T> dg,
+                 float* __restrict__ part, int W, int G, int K, int pairs,
+                 int slice_chunks) {
+  extern __shared__ char smem_raw[];
+  __shared__ uint64_t full[kProdStagesMax], empty[kProdStagesMax];
+  char* smem = prod_smem_init<T>(smem_raw, full, empty);
+  const int m0 = (blockIdx.x / pairs) * kTile;
+  const int n0 = (blockIdx.x % pairs) * 2 * kTile;
+  const int chunks = (K + kTile - 1) / kTile;
+  const int c0 = blockIdx.y * slice_chunks;
+  const int c1 = min(c0 + slice_chunks, chunks);
+  float* out = part + (size_t)blockIdx.y * W * G;
+  const auto epi = [&](int cw, const float* acc) {
+    const int n = n0 + cw * kTile + acc_col();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + acc_row() + 8 * i;
+      if (m >= W) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (n + 8 * j < G)
+          *reinterpret_cast<float2*>(out + (size_t)m * G + n + 8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  };
+  float* sums = reinterpret_cast<float*>(smem + prod_stages<T>() *
+                                                   slot_bytes<T>());
+  run_products<T, true, true>(smem, full, empty, hp, m0, W, dg, n0, G, c0,
+                              c1, K, epi, sums);
+}
+
+// dwh [W, G] = hp^T g over K = T*B rows (hp [T*B, W] and g [T*B, G] in T,
+// g the rounded gate gradients), f32 partials of `slice_chunks` chunks a
+// slice in `part`, added in order into dwh.
+template <typename T>
+cudaError_t launch_scan_dwh(const void* hp, const void* g, void* dwh,
+                            float* part, int slice_chunks, int Tn, int B,
+                            int W, int G, cudaStream_t stream) {
+  const int K = Tn * B;
+  const int chunks = (K + kTile - 1) / kTile;
+  if (slice_chunks <= 0) return cudaErrorInvalidValue;
+  const int slices = (chunks + slice_chunks - 1) / slice_chunks;
+  const int pairs = ((G + kTile - 1) / kTile + 1) / 2;
+  const int tiles = (W + kTile - 1) / kTile * pairs;
+  constexpr int smem = prod_smem<T>() + kRestartBytes;
+  static_assert(smem + 2 * 8 * kProdStagesMax <= kSmemMax,
+                "dwh's ring and sums pass a block's shared memory");
+  cudaError_t err = set_smem(dwh_wgmma_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  dwh_wgmma_kernel<T><<<dim3(tiles, slices), kProdThreads, smem, stream>>>(
+      ShiftedRowsT<T>{static_cast<const T*>(hp), W, 0, K},
+      ShiftedRowsT<T>{static_cast<const T*>(g), G, 0, K}, part, W, G, K,
+      pairs, slice_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n = (size_t)W * G;
+  const WgradOuts<T> outs = {{static_cast<T*>(dwh), nullptr, nullptr, nullptr},
+                             {0, n, n, n, n}};
+  wgrad_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, outs, slices);
+  return cudaGetLastError();
 }
 
 }  // namespace

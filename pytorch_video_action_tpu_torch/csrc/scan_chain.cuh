@@ -1,13 +1,14 @@
 // The register-resident chain shared by the scan kernels that carry a
 // recurrence through T dependent steps on a thread block cluster (sm_90a):
-// the LSTM scan's forwards (lstm_scan_fwd.cu), the GRU scan's eval forward
-// (gru_scan_fwd.cu) and the LSTM scan's saved-gates backward
-// (lstm_scan_bwd.cu).  Each kernel writes its own step; this header holds
+// the LSTM scan's forwards (lstm_scan_fwd.cu), the GRU scan's forwards
+// (gru_scan_fwd.cu) and both scans' saved-gates backwards (lstm_scan_bwd.cu,
+// row 15; gru_scan_bwd.cu, row 11).  Each kernel writes its own step; this header holds
 // what they share, from lstm_scan_fwd.cu's design (its source note has the
 // measurements behind it):
 //  * the geometry: NC blocks a chain, U = ceil(W / NC) units a block, a
-//    unit's four lane groups (gates, or the backward's four column chunks
-//    of wh's row) of S depth slices each, neighbouring lanes of one warp;
+//    unit's four lane groups (gates, or the backward's column chunks of
+//    wh's row; the GRU's three and an idle fourth) of S depth slices each,
+//    neighbouring lanes of one warp;
 //    past 64 units a block each thread takes R units in turn (rounds);
 //  * the weights: a thread's slice of L values of one weight vector (a
 //    column of wh forward, a row chunk backward) in registers as f32, then
@@ -166,6 +167,13 @@ __device__ __forceinline__ float ld_h(const float* p) {
   return *p;
 }
 
+// Four f32 input values: as ld_h.
+template <bool CG>
+__device__ __forceinline__ float4 ld_h4(const float* p) {
+  if constexpr (CG) return __ldcg(reinterpret_cast<const float4*>(p));
+  return *reinterpret_cast<const float4*>(p);
+}
+
 // acc += dot(h[0..3], w[0..3]), in that order.
 __device__ __forceinline__ float dot4(float acc, float4 h, float w0,
                                       float w1, float w2, float w3) {
@@ -207,8 +215,13 @@ __device__ __forceinline__ void load_resident(uint32_t (&wr)[kRegWords],
 // go out ahead of the FMAs), shared memory for [kRegWords, kRegWords + ls),
 // L2 for the rest; with WIDE (rounds) all of it through L2.  NA sums a
 // row, added in a fixed order.  With CG (only with WIDE) the input is in
-// device memory and read past L1.
-template <typename T, int RM, bool WIDE, bool CG = false>
+// device memory and read past L1.  VEC > 0 (a weight vector contiguous in
+// depth, stride 1, as the GRU scan's saved-gates backward's rows of wh
+// are) reads the L2 tier 16 bytes a load, VEC loads in flight, where the
+// thread's weights are 16-byte aligned: a warp's lanes read 32 different
+// rows, so each load costs the SM's L1 a pass for every lane, and four
+// or eight weights a load take that many times fewer.
+template <typename T, int RM, bool WIDE, bool CG = false, int VEC = 0>
 __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
                                         const uint4* __restrict__ ws,
                                         const T* __restrict__ wg, int stride,
@@ -268,6 +281,41 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
   // (with WIDE all of it, 32 in flight and NA sums a row)
   int j = WIDE ? 0 : kRegWords + a.ls;
   const int j1 = min(a.L, a.W - d0);
+  if constexpr (VEC > 0) {
+    constexpr int E = 16 / (int)sizeof(T);  // weights a load
+    const T* __restrict__ wv = wg + d0;
+    if ((reinterpret_cast<uintptr_t>(wv + j) & 15) == 0) {
+      for (; j + VEC * E <= j1; j += VEC * E) {
+        uint4 v[VEC];
+#pragma unroll
+        for (int q = 0; q < VEC; ++q)
+          v[q] = *reinterpret_cast<const uint4*>(wv + j + q * E);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) {
+          const uint32_t u[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+          float w[E];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (sizeof(T) == 4) {
+              w[e] = __uint_as_float(u[e]);
+            } else {
+              w[2 * e] = bf_lo(u[e]);
+              w[2 * e + 1] = bf_hi(u[e]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+#pragma unroll
+            for (int i = 0; i < E; i += 4) {
+              const int n = (q * E + i) / 4 % NA;
+              acc[r][n] = dot4(acc[r][n],
+                               ld_h4<CG>(hs + r * a.ldh + j + q * E + i),
+                               w[i], w[i + 1], w[i + 2], w[i + 3]);
+            }
+        }
+      }
+    }
+  }
   if constexpr (WIDE) {
     for (; j + 32 <= j1; j += 32) {
       float w[32];
@@ -310,11 +358,13 @@ __device__ __forceinline__ void product(const uint32_t (&wr)[kRegWords],
 
 // Shared-memory bytes of a launch: the input's two buffers (unless gx:
 // they are in device memory), the mbarriers and the weights read from
-// shared memory or, with rounds, each thread's carry (R values a row).
+// shared memory or, with rounds, each thread's `carries` carries (R values
+// a row each).
 template <typename T>
-size_t chain_smem(const ChainArgs& a, int rm, bool gx = false) {
+size_t chain_smem(const ChainArgs& a, int rm, bool gx = false,
+                  int carries = 1) {
   return (gx ? 0 : sizeof(float) * 2 * rm * a.ldh) + 16 +
-         (a.R > 1 ? sizeof(float) * a.R * rm * a.nthr
+         (a.R > 1 ? sizeof(float) * carries * a.R * rm * a.nthr
                   : (size_t)a.nthr * a.ls * sizeof(T));
 }
 

@@ -1,5 +1,5 @@
-// Device code shared by the LSTM scan's recompute backward and the GRU
-// scan's backwards (lstm_scan_bwd.cu, gru_scan_bwd.cu) for Hopper
+// Device code shared by the LSTM and GRU scans' recompute backwards
+// (lstm_scan_bwd.cu, gru_scan_bwd.cu; rows 16 and 12) for Hopper
 // (sm_90a): the chain's geometry on a thread block cluster, its
 // shared-memory budget, the per-step product of a few batch rows with a
 // weight slice, and the cluster launch.  The host picks a launch's

@@ -266,7 +266,8 @@ _ARGTYPES = {
 # the entry points that live in another entry point's csrc/<name>.cu
 _LIBRARY = {"gru_bidir_bnd_fwd": "gru_bidir_fwd",
             "gru_bidir_bnd_bwd": "gru_bidir_bwd",
-            "gru_merged_fwd": "gru_bidir_fwd"}
+            "gru_merged_fwd": "gru_bidir_fwd",
+            "lstm_merged_fwd": "lstm_bidir_fwd"}
 
 
 def _kernel(name):
@@ -1368,8 +1369,9 @@ def gru_merged_layer(x, wif2, wib2, bi2, wh2, bh2, lengths):
 
 def lstm_merged_fwd(x, wif2, wib2, bi2, wh2, lengths, train=False):
     """Row 7's wrapper.  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``csrc/lstm_merged_fwd.cu`` or raises.  Like row 5's kernel it
-    reads only the diagonal blocks of ``wh2``.  ``launches`` counts
+    launches ``csrc/lstm_bidir_fwd.cu``'s merged form (row 3's recurrence
+    with the merged addressing) or raises.  Like row 5's kernel it reads
+    only the diagonal blocks of ``wh2``.  ``launches`` counts
     eval-form launches, ``train_launches`` train-form ones."""
     if x.device.type == "cpu":
         return lstm_merged_layer_ref(x, wif2, wib2, bi2, wh2, lengths,

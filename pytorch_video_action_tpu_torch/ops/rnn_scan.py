@@ -59,11 +59,10 @@ def cluster_size(w: int) -> int:
 
 # The register-resident chain's geometry (csrc/scan_chain.cuh, which checks
 # what it is given against its own kThreads, kRegWords and kSmem), shared by
-# the LSTM scan's forwards, the GRU scan's eval forward and the LSTM scan's
-# saved-gates backward: threads a block at most, weights a thread keeps in
-# registers (as f32 in either dtype), the dynamic shared memory a block may
-# take, the chains' block counts and rows, and the rows a chain whose
-# threads take units in rounds
+# both scans' forwards and saved-gates backwards: threads a block at most,
+# weights a thread keeps in registers (as f32 in either dtype), the dynamic
+# shared memory a block may take, the chains' block counts and rows, and
+# the rows a chain whose threads take units in rounds
 FWD_THREADS = 256
 FWD_REG_VALS = 128
 FWD_SMEM = 225 * 1024
@@ -84,7 +83,7 @@ class FwdGeometry(NamedTuple):
     each step (past 1, every weight is read through L2 and the carry is
     kept in shared memory), and ``gx``: the input's two buffers in device
     memory instead of shared memory (one row a chain, in rounds; the
-    saved-gates backward's where even one row's 4W gradients pass the
+    saved-gates backwards' where even one row's 4W or 3W gradients pass the
     shared memory)."""
     nc: int
     s: int
@@ -97,7 +96,7 @@ class FwdGeometry(NamedTuple):
     gx: int = 0
 
 
-# scan_common.cuh's chains (rows 11, 12 and 16): threads a block, rows a
+# scan_common.cuh's chains (rows 12 and 16): threads a block, rows a
 # chain at most, (row, unit) pairs a thread (and in the one-row forms),
 # the dynamic shared memory; the forms, where the gate gradients cross
 # the cluster
@@ -123,21 +122,20 @@ def _round4(n):
 
 
 def scan_form(entry, b, w) -> ScanForm:
-    """The launch of ``entry`` (``gru_scan_bwd_saved``, ``gru_scan_bwd`` or
-    ``lstm_scan_bwd``) for ``b`` rows of width ``w``: its buffers other
+    """The launch of ``entry`` (``gru_scan_bwd`` or ``lstm_scan_bwd``, the
+    recompute backwards) for ``b`` rows of width ``w``: its buffers other
     than the resident weights, as the kernel lays them out (f32: the
     gradients' two buffers unless "gx", the product's partial sums, the
-    carries, recomputing also hp's row and the LSTM's gates), within the
-    shared memory.  Raises ValueError where none fits."""
+    carries, hp's row and the LSTM's gates), within the shared memory.
+    Raises ValueError where none fits."""
     nc = cluster_size(w)
     u = -(-w // nc)
     gates = _GATES if entry == "lstm_scan_bwd" else 3
     g = _round4(gates * w)
-    recompute = entry != "gru_scan_bwd_saved"
 
     def fixed(rm, gx):
         floats = ((0 if gx else 2 * rm * g) + rm * max(gates * u, 256)
-                  + 2 * rm * u + (rm * _round4(w) if recompute else 0)
+                  + 2 * rm * u + rm * _round4(w)
                   + (rm * gates * u if entry == "lstm_scan_bwd" else 0))
         return 4 * _round4(floats)  # bytes, to 16
 
@@ -173,20 +171,23 @@ def chain_row_floats(s, depth, inputs=1):
     return inputs * s * (max(depth, FWD_REG_VALS) + 4)
 
 
-def _fwd_smem(rows, s, depth, threads, ls, rounds, size, inputs=1, gx=False):
+def _fwd_smem(rows, s, depth, threads, ls, rounds, size, inputs=1, gx=False,
+              carries=1):
     """The kernel's shared memory (``chain_smem``): the input's two buffers
     (``inputs`` vectors of W a row; none with ``gx``) and the mbarriers,
-    then the weights' ``ls`` or, in rounds, each thread's carry."""
+    then the weights' ``ls`` or, in rounds, each thread's ``carries``
+    carries."""
     fixed = (0 if gx else 4 * 2 * rows * chain_row_floats(s, depth, inputs))
     return fixed + 16 + (threads * ls * size if rounds == 1
-                         else 4 * rounds * rows * threads)
+                         else 4 * carries * rounds * rows * threads)
 
 
-def chain_geometry(b, w, dtype, sms, fits, inputs=1, gx=False
+def chain_geometry(b, w, dtype, sms, fits, inputs=1, gx=False, carries=1
                    ) -> FwdGeometry:
     """A chain kernel's launch (the LSTM scan forward's, whose numbers
-    follow; with ``inputs`` 4 the saved-gates backward's, whose input a row
-    is 4W gate gradients) for ``b`` rows of width ``w`` in
+    follow; with ``inputs`` 4 or 3 the saved-gates backwards', whose input a
+    row is 4W or 3W gate gradients, the GRU's with ``carries`` 2 a unit in
+    rounds) for ``b`` rows of width ``w`` in
     ``dtype`` on a card of ``sms`` SMs, of which ``fits(nc)`` clusters of
     ``nc`` blocks run at once (below 1: not at all; a cluster lies in one
     GPC, so fewer than ``sms // nc``); ``fits`` is asked only of the block
@@ -256,12 +257,12 @@ def chain_geometry(b, w, dtype, sms, fits, inputs=1, gx=False
         most = _FWD_ROWS_ROUNDS.index(rows_for(nc, _FWD_ROWS_ROUNDS))
         for rows in reversed(_FWD_ROWS_ROUNDS[:most + 1]):
             smem = _fwd_smem(rows, s, depth, threads, 0, rounds, size,
-                             inputs)
+                             inputs, carries=carries)
             if smem <= FWD_SMEM:
                 return FwdGeometry(nc, s, rows, depth, 0, threads, smem,
                                    rounds)
         if gx and (smem := _fwd_smem(1, s, depth, threads, 0, rounds, size,
-                                     inputs, gx=True)) <= FWD_SMEM:
+                                     inputs, True, carries)) <= FWD_SMEM:
             return FwdGeometry(nc, s, 1, depth, 0, threads, smem, rounds, 1)
     raise ValueError(f"chain kernel: no launch takes W={w} on this card")
 
@@ -402,16 +403,21 @@ _ARGTYPES = {
     # ls, rounds; stream
     "gru_scan_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 5
                      + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
-    # dtype, recompute; xg or res, hp, dy, wh, wh^T, bh, dxg, dhg,
-    # bias_part, the exchange buffer, dwh, dbh; T, B, W, cluster, rows,
-    # form; stream
+    # dtype; res, hp, dy, wh, dxg, rnd(dhg), bias_part, the exchange
+    # buffer, dwh, dbh, dwh's partials; T, B, W, nc, s, rows, ls, rounds,
+    # gx, slice_chunks; stream
+    "gru_scan_bwd_saved": ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                           + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+    # dtype, recompute (1); xg, hp, dy, wh, wh^T, bh, dxg, dhg, bias_part,
+    # the exchange buffer, dwh, dbh; T, B, W, cluster, rows, form; stream
     "gru_scan_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                      + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
 }
 
 
 # entry points whose library (csrc/<library>.cu) has another name
-_LIBRARY = {"lstm_scan_bwd_saved": "lstm_scan_bwd"}
+_LIBRARY = {"lstm_scan_bwd_saved": "lstm_scan_bwd",
+            "gru_scan_bwd_saved": "gru_scan_bwd"}
 
 
 def _launch(name, x, *args):
@@ -547,40 +553,43 @@ def lstm_scan_fwd_save(xg, wh):
 lstm_scan_fwd_save.launches = 0
 
 
-def dwh_slices(t_len, b, w, sms):
-    """``(chunks a K slice, slices)`` of the LSTM scan's dwh ``[W, 4W]``
-    over K = T*B on the tensor cores (csrc/lstm_scan_bwd.cu, whose blocks
-    restart their accumulators every 8 chunks of a slice): one slice where
-    its 64 x 128 tiles alone fill the card's ``sms`` (more would only trim
-    the last wave, at W*4W f32 of partials a slice: 4 GiB for 16 slices at
-    W=4096), else the tiles' :func:`~.rnn_fused.slice_chunks`."""
+def dwh_slices(t_len, b, w, sms, gates=_GATES):
+    """``(chunks a K slice, slices)`` of a saved-gates backward's dwh ``[W,
+    gates*W]`` over K = T*B on the tensor cores (csrc/rnn_wgmma.cuh's
+    dwh_wgmma_kernel, the LSTM scan's with 4 gates, the GRU scan's with 3,
+    whose blocks restart their accumulators every 8 chunks of a slice): one
+    slice where its 64 x 128 tiles alone fill the card's ``sms`` (more would
+    only trim the last wave, at W*4W f32 of partials a slice: 4 GiB for 16
+    slices at W=4096), else the tiles' :func:`~.rnn_fused.slice_chunks`."""
     rows = t_len * b
     chunks = _ceil(rows, _CHUNK)
-    tiles = _ceil(w, _CHUNK) * _ceil(_ceil(_GATES * w, _CHUNK), 2)
+    tiles = _ceil(w, _CHUNK) * _ceil(_ceil(gates * w, _CHUNK), 2)
     depth = chunks if tiles >= sms else slice_chunks(rows, tiles, sms)
     return depth, _ceil(chunks, depth)
 
 
 # the chain kernels' entry points (csrc/scan_chain.cuh), each with its
-# input vectors of W a row: the saved-gates backward's are the 4W gate
-# gradients (and it may keep them in device memory, gx); the GRU's
-# forwards take the LSTM forward's launch, its r, z and n columns on three
-# of a unit's four lane groups (the fourth idle, so that a unit's lanes
-# divide a warp), bh beside
+# input vectors of W a row: the saved-gates backwards' are the 4W or 3W
+# gate gradients (and they may keep them in device memory, gx); the GRU's
+# take the LSTM's launch, its three gates' columns (or column chunks of
+# wh's row) on three of a unit's four lane groups (the fourth holds no
+# weights, so that a unit's lanes divide a warp), and its backward keeps
+# two carries a unit in rounds (dh z and dbh's sum)
 _CHAIN_INPUTS = {"lstm_scan_fwd": 1, "lstm_scan_fwd_save": 1,
                  "gru_scan_fwd": 1, "gru_scan_fwd_save": 1,
-                 "lstm_scan_bwd_saved": 4}
+                 "lstm_scan_bwd_saved": 4, "gru_scan_bwd_saved": 3}
 
 
 def scan_launch(entry, b, w, dtype, device):
     """The launch of a scan kernel's wrapper ``entry`` on ``device``: the
-    chain's :class:`FwdGeometry` (rows 9, 10, 13, 14, 15), else the
-    :class:`ScanForm` of scan_common.cuh's chain (rows 11, 12, 16)."""
+    chain's :class:`FwdGeometry` (rows 9, 10, 11, 13, 14, 15), else the
+    :class:`ScanForm` of scan_common.cuh's chain (rows 12, 16)."""
     if entry not in _CHAIN_INPUTS:
         return scan_form(entry, b, w)
     return chain_geometry(b, w, dtype, _sms(device), _cluster_fits(device),
                           _CHAIN_INPUTS[entry],
-                          gx=entry == "lstm_scan_bwd_saved")
+                          gx=entry.endswith("_bwd_saved"),
+                          carries=2 if entry == "gru_scan_bwd_saved" else 1)
 
 
 def _exchange(form, b, g, device):
@@ -875,7 +884,7 @@ def gru_scan_fwd_save(xg, wh, bh):
 gru_scan_fwd_save.launches = 0
 
 
-def _gru_bwd(where, first, width, hp, dy, wh, bh, recompute):
+def _gru_bwd(where, first, width, hp, dy, wh, bh):
     t_len, b, w = _gru_check(where, first, width, wh, bh,
                              [("hp", hp), ("dy", dy)])
     g = _GRU_GATES * w
@@ -883,17 +892,34 @@ def _gru_bwd(where, first, width, hp, dy, wh, bh, recompute):
     dwh = torch.empty_like(wh)
     dbh = torch.empty((g,), dtype=wh.dtype, device=wh.device)
     f32 = dict(dtype=torch.float32, device=first.device)
-    dhg = torch.empty((t_len, b, g), **f32)  # rnd(dhg), dwh's operand
     bias_part = torch.empty((b, g), **f32)  # each row's dbh
+    code = _DTYPE_CODE[first.dtype]
+    if bh is None:  # the saved gates, on their chain
+        geo = scan_launch(where, b, w, first.dtype, first.device)
+        depth, slices = dwh_slices(t_len, b, w, _sms(first.device),
+                                   _GRU_GATES)
+        part = torch.empty((slices, w * g), **f32)  # dwh's K-slice partials
+        dhg = torch.empty_like(dxg)  # rnd(dhg), dwh's operand
+        # the gradients' two buffers a row, in device memory (gx): dh_c = 0
+        # at the first step, so they start at 0
+        xbuf = (torch.zeros((b, 2, chain_row_floats(geo.s, geo.depth,
+                                                    _GRU_GATES)), **f32)
+                if geo.gx else None)
+        _launch("gru_scan_bwd_saved", first, code, first.data_ptr(),
+                hp.data_ptr(), dy.data_ptr(), wh.data_ptr(), dxg.data_ptr(),
+                dhg.data_ptr(), bias_part.data_ptr(), _ptr(xbuf),
+                dwh.data_ptr(), dbh.data_ptr(), part.data_ptr(), t_len, b, w,
+                geo.nc, geo.s, geo.rows, geo.ls, geo.rounds, geo.gx, depth)
+        return dxg, dwh, dbh
+    dhg = torch.empty((t_len, b, g), **f32)  # rnd(dhg), dwh's operand
     form = scan_form(where, b, w)
     xbuf = _exchange(form, b, g, first.device)
     wh_t = wh.t().contiguous()  # [3W, W]: the carry product's operand
-    _launch("gru_scan_bwd", first, _DTYPE_CODE[first.dtype], int(recompute),
-            first.data_ptr(), hp.data_ptr(), dy.data_ptr(), wh.data_ptr(),
-            wh_t.data_ptr(), _ptr(bh), dxg.data_ptr(), dhg.data_ptr(),
-            bias_part.data_ptr(), _ptr(xbuf), dwh.data_ptr(), dbh.data_ptr(),
-            t_len, b, w, form.cluster, form.rows,
-            SCAN_FORMS.index(form.form))
+    _launch("gru_scan_bwd", first, code, 1, first.data_ptr(), hp.data_ptr(),
+            dy.data_ptr(), wh.data_ptr(), wh_t.data_ptr(), bh.data_ptr(),
+            dxg.data_ptr(), dhg.data_ptr(), bias_part.data_ptr(), _ptr(xbuf),
+            dwh.data_ptr(), dbh.data_ptr(), t_len, b, w, form.cluster,
+            form.rows, SCAN_FORMS.index(form.form))
     return dxg, dwh, dbh
 
 
@@ -906,8 +932,7 @@ def gru_scan_bwd_saved(res, hp, dy, wh):
         return gru_scan_bwd_saved_ref(res, hp, dy, wh)
     if res.device.type != "cuda":
         raise _no_kernel("gru_scan_bwd_saved", res)
-    out = _gru_bwd("gru_scan_bwd_saved", res, _GRU_RES, hp, dy, wh, None,
-                   False)
+    out = _gru_bwd("gru_scan_bwd_saved", res, _GRU_RES, hp, dy, wh, None)
     gru_scan_bwd_saved.launches += 1
     return out
 
@@ -922,7 +947,7 @@ def gru_scan_bwd(xg, hp, dy, wh, bh):
         return gru_scan_bwd_ref(xg, hp, dy, wh, bh)
     if xg.device.type != "cuda":
         raise _no_kernel("gru_scan_bwd", xg)
-    out = _gru_bwd("gru_scan_bwd", xg, _GRU_GATES, hp, dy, wh, bh, True)
+    out = _gru_bwd("gru_scan_bwd", xg, _GRU_GATES, hp, dy, wh, bh)
     gru_scan_bwd.launches += 1
     return out
 

@@ -110,6 +110,41 @@ def test_lstm_scan_bwd_saved_bound_reads_dwh_on_the_tensor_cores(
                 name, t, b, w, dt_name, simt=True)
 
 
+@pytest.mark.parametrize("dt_name,rate,carry", [
+    ("float32", 495e12 / 3, 67e12), ("bfloat16", 989e12, 989e12)])
+def test_gru_scan_bwd_saved_bound_reads_dwh_on_the_tensor_cores(
+        dt_name, rate, carry):
+    """Row 11's bound (``scan_bound``), as row 15's: dwh (2*T*B*W*3W) at the
+    tensor cores' rate for the dtype, the chain's carry product (as many)
+    at the f32 SIMT peak in f32 and at bf16's peak in bf16, against its
+    bytes (res, hp, dy in, dxg out, wh and bh in, dwh and dbh out); the SIMT
+    count beside it (``simt=True``) is the old one, both products at the
+    dtype's peak; no other row's bound moves (row 12, the recompute form,
+    keeps its SIMT dwh and count)."""
+    for t, b, w in ((1920, 8, 256), (1920, 8, 1024), (1024, 64, 256)):
+        size = 4 if dt_name == "float32" else 2
+        product = 2 * t * b * w * 3 * w
+        n_bytes = (t * b * w * 9 + 2 * (3 * w * w + 3 * w)) * size
+        ms, by = CS.scan_bound("gru_scan_bwd_saved", t, b, w, dt_name)
+        want = max(n_bytes / 3.35e12, product / rate + product / carry) * 1e3
+        assert ms == pytest.approx(want, rel=1e-12)
+        assert by == ("operations" if n_bytes / 3.35e12 * 1e3 < ms
+                      else "bytes")
+        simt, _ = CS.scan_bound("gru_scan_bwd_saved", t, b, w, dt_name,
+                                simt=True)
+        old = max(n_bytes / 3.35e12,
+                  2 * product / CS.PEAK_FLOPS[dt_name]) * 1e3
+        assert simt == pytest.approx(old, rel=1e-12)
+        if dt_name == "float32":
+            assert ms < simt
+        else:
+            assert ms == pytest.approx(simt, rel=1e-12)
+        for name in ("gru_scan_bwd", "gru_scan_fwd", "gru_scan_fwd_save",
+                     "lstm_scan_bwd"):
+            assert CS.scan_bound(name, t, b, w, dt_name) == CS.scan_bound(
+                name, t, b, w, dt_name, simt=True)
+
+
 # the shape of nvcc's -Xptxas -v output for two of the split's kernels
 _DQ = ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelIfLi2ELi2EEEvNS_7BwdArgsENS_9"
        "SplitPlanE")

@@ -1287,11 +1287,13 @@ def test_bilstm_at_lstm_hidden1_512_trains_on_card(cuda_device):
 # hidden_dim 192 (H=96), an odd width (100), one whose weight slices pass
 # a block's shared memory (512), 768 (the widest the kernels once took)
 # and, fault 9, past it: 772, 1024 and 2048 (the forwards in rounds past
-# 1024; the backwards' chains of fewer rows).
+# 1024; the backwards' chains of fewer rows); and W=256 at B=67, more
+# chains than one wave of scan_common.cuh's 16-block clusters takes (row
+# 12), six rows a chain on row 11's.
 
 GRU_SCAN_CASES = [(96, 3, 40), (100, 5, 33), (256, 8, 40), (512, 8, 24),
                   (768, 3, 12), (20, 11, 20), (772, 3, 64), (1024, 3, 64),
-                  (2048, 3, 64)]
+                  (2048, 3, 64), (256, 67, 24)]
 
 
 def _gru_scan_case(cuda_device, dtype, w, b, t, seed=0):
@@ -1353,13 +1355,17 @@ def test_gru_scan_bwd_matches_plain_and_reruns(cuda_device, dtype, recompute,
 
 
 # Rows 11 and 12 where even one row's double-buffered gradients pass the
-# shared memory (the "gx" form: they cross the cluster in device memory).
+# shared memory (the "gx" forms: they cross the cluster in device memory;
+# row 11's chain past W = 8824, in rounds below it).
 @pytest.mark.parametrize("w", [8192, 12000])
 @pytest.mark.parametrize("recompute", [False, True])
 def test_gru_scan_bwd_gradients_in_device_memory(cuda_device, recompute, w):
-    form = RS.scan_form("gru_scan_bwd" if recompute else "gru_scan_bwd_saved",
-                        2, w)
-    assert form.form == ("gx" if recompute or w > 8192 else "one")
+    if recompute:
+        assert RS.scan_form("gru_scan_bwd", 2, w).form == "gx"
+    else:
+        geo = RS.scan_launch("gru_scan_bwd_saved", 2, w, torch.float32,
+                             cuda_device)
+        assert geo.rounds > 1 and geo.gx == (w > 8824)
     test_gru_scan_bwd_matches_plain_and_reruns(cuda_device, torch.float32,
                                                recompute, w, 2, 8)
 
@@ -1585,10 +1591,10 @@ def test_merged_kernels_equal_split_kernels(cuda_device, cell):
     """Rows 5-8 against rows 1-4 on the same weights, f32: ys, dx (the sum
     of the merged dx_f and dx_b), dwif, dwib and the diagonal blocks of
     dwh2, dbi2 (and the GRU's dbh2) against the per-direction gradients.
-    Row 5 runs row 1's recurrence, and xg + bi2 on its chain is the sum
-    row 1's projection forms, so the GRU's ys are row 1's bit for bit; row
-    7 is a kernel of its own (its products in another order), so the
-    LSTM's ys are held within 1e-4."""
+    Rows 5 and 7 run rows 1's and 3's recurrences, and xg + bi2 on their
+    chains is the sum rows 1's and 3's projections form (both fold bi + bh
+    the same way for the LSTM), so both cells' ys are the split layer's
+    bit for bit."""
     h = 128
     split, merged, dys = _merged_case(cuda_device, torch.float32, cell, 8, h,
                                       seed=11)
@@ -1599,10 +1605,7 @@ def test_merged_kernels_equal_split_kernels(cuda_device, cell):
     mf = fwd(*merged, train=True)
     sf = sfwd(*split, train=True)
     for a, c in zip(mf[:2], sf[:2]):
-        if cell == "gru":
-            assert torch.equal(a, c)
-        else:
-            assert (a - c).abs().max().item() <= 1e-4
+        assert torch.equal(a, c)
     mg = bwd(*_merged_bwd_args(cell, merged, mf, dys))
     x, wif, wib = split[:3]
     whf, whb = split[5:7]

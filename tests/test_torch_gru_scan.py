@@ -226,19 +226,21 @@ def test_gru_fwd_geometry_covers_every_width(dtype, fits):
     """Every W the GRU scan takes (up to the forwards' widest launch) has a
     launch within the register and shared-memory budgets, at serving,
     training and bench batches, for both forwards (row 10 runs row 9's
-    chain); the backwards (rows 11 and 12) take every such W too (their
-    buffers fit in one of their forms); two blocks at W=96 (attn's and
-    BiGRU 192's scan), eight at W=256 (BiGRU 512's) whose registers hold
-    wh; W=768 through L2 or in rounds."""
+    chain); the backwards (rows 11 and 12) take every such W too (row 11's
+    chain with its 3W gradients a row, row 12's buffers in one of their
+    forms); two blocks at W=96 (attn's and BiGRU 192's scan), eight at
+    W=256 (BiGRU 512's) whose registers hold wh; W=768 through L2 or in
+    rounds."""
     size = 4 if dtype == torch.float32 else 2
     widest = S.widest_chain(dtype, 132, fits)
     for w in _widths(widest):
         for b in (1, 3, 8, 64):
             geo = S.chain_geometry(b, w, dtype, 132, fits)
             _check_chain(geo, w, size)
-            for entry in ("gru_scan_bwd_saved", "gru_scan_bwd"):
-                form = S.scan_form(entry, b, w)
-                assert form.rows == 1 or form.form == "full"
+            _check_chain(S.chain_geometry(b, w, dtype, 132, fits, inputs=3,
+                                          gx=True, carries=2), w, size)
+            form = S.scan_form("gru_scan_bwd", b, w)
+            assert form.rows == 1 or form.form == "full"
     with pytest.raises(ValueError, match="no launch"):
         S.chain_geometry(1, widest + 1, dtype, 132, fits)
     geo = S.chain_geometry(3, 96, dtype, 132, fits)
@@ -247,6 +249,48 @@ def test_gru_fwd_geometry_covers_every_width(dtype, fits):
     assert (geo.nc, geo.rows) == (8, 1) and geo.depth <= S.FWD_REG_VALS
     geo = S.chain_geometry(8, 768, dtype, 132, fits)
     assert geo.depth > S.FWD_REG_VALS + geo.ls or geo.rounds > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_bwd_saved_takes_every_width_the_forward_takes(dtype):
+    """Row 11's chain (``scan_launch("gru_scan_bwd_saved")``: 3W rounded
+    gradients a row, two carries a unit in rounds) at every W the forwards'
+    widest launch allows (25592 on a 132-SM card), at serving, training and
+    bench batches: the forward's blocks and slices where registers alone
+    hold wh (W=256: eight blocks, one row a chain at B=8), rounds past
+    W=1024 with one, two or four rows a chain, and past W=8824, where even
+    one row's two buffers of 3W gradients pass the shared memory, the
+    gradients in device memory (gx), one row a chain; each launch's shared
+    memory is its buffers, the mbarriers and its weights or carries."""
+    widest = S.widest_chain(dtype, 132, _gpcs)
+    widths = sorted({*range(1, 1025, 7), *range(1025, widest, 97),
+                     *range(widest - 4, widest + 1), 8824, 8825, 12000})
+    size = 4 if dtype == torch.float32 else 2
+    reg = S.FWD_REG_VALS
+    for w in widths:
+        for b in (1, 8, 64):
+            geo = S.chain_geometry(b, w, dtype, 132, _gpcs, inputs=3,
+                                   gx=True, carries=2)
+            _check_chain(geo, w, size)
+            fwd = S.chain_geometry(b, w, dtype, 132, _gpcs)
+            assert geo.nc >= fwd.nc
+            if fwd.depth <= reg:
+                assert (geo.nc, geo.s) == (fwd.nc, fwd.s)
+            assert (geo.rounds > 1) == (w > 1024)
+            buffers = 0 if geo.gx else 8 * geo.rows * 3 * geo.s * (
+                max(geo.depth, reg) + 4)
+            own = (geo.threads * geo.ls * size if geo.rounds == 1
+                   else 4 * 2 * geo.rounds * geo.rows * geo.threads)
+            assert geo.smem == buffers + 16 + own
+            assert geo.gx == (w > 8824)
+            assert not geo.gx or (geo.rows == 1 and geo.rounds > 1)
+            if geo.rounds > 1:
+                assert geo.rows in (1, 2, 4)
+    geo = S.chain_geometry(8, 256, dtype, 132, _gpcs, inputs=3, gx=True,
+                           carries=2)
+    assert geo[:3] == (8, 2, 1) and geo.depth <= reg
+    with pytest.raises(ValueError, match="no launch takes W=8825"):
+        S.chain_geometry(3, 8825, dtype, 132, _gpcs, inputs=3, carries=2)
 
 
 def test_gru_fwd_geometry_takes_wide_widths_in_rounds():

@@ -369,12 +369,13 @@ def _steps_tool():
     return mod
 
 
-@pytest.mark.parametrize("kernel", ["13", "9", "15", "1", "4", "3", "5"])
+@pytest.mark.parametrize("kernel", ["13", "9", "15", "1", "4", "3", "5",
+                                    "11", "7"])
 def test_step_tool_edits_hold_their_sources_lines(kernel):
     """Every edit of ``tools/torch_lstm_scan_steps.py`` (rows 13, 9, 15, 1,
-    4, 3 and 5) finds its lines once in its kernel's source, so a changed
-    kernel fails here rather than on the card; each build changes the
-    source."""
+    4, 3, 5, 11 and 7) finds its lines once in its kernel's source, so a
+    changed kernel fails here rather than on the card; each build changes
+    the source."""
     import importlib
 
     from pytorch_video_action_tpu_torch.ops import cuda_lib
@@ -393,24 +394,26 @@ def test_step_tool_edits_hold_their_sources_lines(kernel):
         assert tool.edited_source(text, kernel, name) != text
 
 
+@pytest.mark.parametrize("gates", [4, 3])
 @pytest.mark.parametrize("t,b,w", [(1920, 8, 256), (1920, 8, 512),
                                    (1024, 64, 256), (1920, 8, 1024),
                                    (1920, 8, 4096), (64, 3, 4096), (40, 8, 64)])
-def test_dwh_slices_cover_k_in_the_tiles_slices(t, b, w):
-    """dwh's K slices (``dwh_slices``) cover T*B in whole 64-row chunks:
-    one slice where its 64 x 128 tiles fill the card's 132 SMs, else the
-    depth ``rnn_fused.slice_chunks`` gives the tiles.  The kernel, not the
-    slice depth, bounds the chunks its tensor cores sum (it restarts them
-    every 8 chunks), so a slice may be the whole of K."""
+def test_dwh_slices_cover_k_in_the_tiles_slices(t, b, w, gates):
+    """dwh's K slices (``dwh_slices``: the LSTM scan's with 4 gates, row
+    15, the GRU scan's with 3, row 11) cover T*B in whole 64-row chunks:
+    one slice where its 64 x 128 tiles of [W, gates*W] fill the card's 132
+    SMs, else the depth ``rnn_fused.slice_chunks`` gives the tiles.  The
+    kernel, not the slice depth, bounds the chunks its tensor cores sum (it
+    restarts them every 8 chunks), so a slice may be the whole of K."""
     from pytorch_video_action_tpu_torch.ops.rnn_fused import slice_chunks
 
-    depth, slices = S.dwh_slices(t, b, w, 132)
+    depth, slices = S.dwh_slices(t, b, w, 132, gates)
     chunks = -(-(t * b) // 64)
     assert slices == -(-chunks // depth) and (slices - 1) * depth < chunks
-    tiles = -(-w // 64) * -(-(4 * w) // 128)
+    tiles = -(-w // 64) * -(-(gates * w) // 128)
     if tiles >= 132:
         assert slices == 1 and w >= 512
     else:
         assert depth == slice_chunks(t * b, tiles, 132)
     if (t, b, w) == (1920, 8, 256):
-        assert (depth, slices) == (60, 4)
+        assert (depth, slices) == ((60, 4) if gates == 4 else (22, 11))

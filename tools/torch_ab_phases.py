@@ -32,9 +32,15 @@ batch or the bench shape (B=64, T=1024, every frame valid) or ``fwd:main``
 f32 and bf16: the eval forms at the largest test forward batch,
 ``check_layer`` and ``check_merged_layer``, the train forms at the largest
 train batch, ``check_train_layer`` and ``check_merged_train_layer``, which
-also hold and time rows 4 and 6); the default is ``slice:attn
-train:attn``.  With ``--once`` only this checkout runs,
-one turn.  A turn whose phases are all light builds only the kernels
+also hold and time rows 4 and 6) or ``chains:main`` (rows 11 and 12, the
+GRU scan's backwards, held against their plain versions and timed at the
+largest train batch at W = 96, 256 and 1024, and rows 3 and 7, the LSTM
+layer's and the merged LSTM's forwards, W_in=400: the eval forms at the
+largest test forward batch, ``check_layer`` and ``check_merged_layer``,
+the train forms at the largest train batch, ``check_train_layer`` and
+``check_merged_train_layer``, which also hold and time rows 4 and 8; f32
+and bf16); the default is ``slice:attn train:attn``.  With ``--once``
+only this checkout runs, one turn.  A turn whose phases are all light builds only the kernels
 they launch.  With ``--kernels`` the phases' ``[kernel]``
 and ``[flags]`` lines (each kernel's time beside its plain version's and
 its bound) are printed too.  Each turn is a process of its own
@@ -67,7 +73,7 @@ torch.backends.cudnn.allow_tf32 = False
 c.GRU, c.LSTM = c.Cell("gru"), c.Cell("lstm")
 card = c.card_line()
 if any(p.split(":")[0] not in ("fps", "rows", "scan", "lstm", "merged",
-                               "fwd") for p in sys.argv[1:]):
+                               "fwd", "chains") for p in sys.argv[1:]):
     c.phase_build()
 with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
     c.write_dataset(root)
@@ -125,6 +131,40 @@ with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
                 c.check_train_layer(c.LSTM, "main path", tlens, t_train, 400,
                                     dt, gen)
                 c.check_merged_train_layer(c.GRU, "main path", tlens,
+                                           t_train, 400, dt, gen)
+        elif kind == "chains":
+            # rows 11 and 12 at the largest train batch, W = 96, 256, 1024;
+            # rows 3 and 7 at the main path's shapes, W_in=400
+            gen = torch.Generator().manual_seed(0)
+            batch = c.largest_batch(c.train_feeds(root)[0])
+            tlens, t_train = batch[1].tolist(), batch[0].shape[1]
+            t_pad, chunk = max(forward_batches(test),
+                               key=lambda tb: tb[0] * len(tb[1]))
+            lens = [len(test[i]) for i in chunk]
+            for dt in c.DTYPES:
+                for w in (96, 256, 1024):
+                    xg, wh, bh, dy, _ = c.scan_inputs(
+                        tlens, t_train, w, getattr(torch, dt), gen, "gru")
+                    calls = c.scan_calls("gru", xg, wh, bh, dy)
+                    for entry in ("gru_scan_bwd_saved", "gru_scan_bwd"):
+                        fn, ref, args = calls[entry]
+                        got, again = fn(*args), fn(*args)
+                        err = c.rel_err(got, ref(*args))[1]
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, again))
+                        ms = c.cuda_ms(lambda: fn(*args), 5, 1)
+                        print(f"[kernel] {entry} main path B={len(tlens)} "
+                              f"T={t_train} W={w} {dt}: error {err:.3g} "
+                              f"(tol {c.TOL[dt]}), rerun bit-identical "
+                              f"{same}, kernel {ms:.4f} ms", flush=True)
+                        if not (err <= c.TOL[dt] and same):
+                            raise AssertionError(f"{entry} W={w} {dt}")
+                c.check_layer(c.LSTM, "main path", lens, t_pad, 400, dt, gen)
+                c.check_merged_layer(c.LSTM, "main path", lens, t_pad, 400,
+                                     dt, gen)
+                c.check_train_layer(c.LSTM, "main path", tlens, t_train, 400,
+                                    dt, gen)
+                c.check_merged_train_layer(c.LSTM, "main path", tlens,
                                            t_train, 400, dt, gen)
         elif kind == "scan":
             gen = torch.Generator().manual_seed(0)

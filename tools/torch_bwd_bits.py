@@ -2,13 +2,13 @@
 """Whether layer kernels of this checkout give the same bits as another
 checkout's, on one NVIDIA GPU.
 
-    python3 tools/torch_bwd_bits.py --other DIR [--rows 2 1 4 6]
+    python3 tools/torch_bwd_bits.py --other DIR [--rows 2 1 4 6 3 12]
 
 For each row named (default 2), builds ``DIR/pytorch_video_action_tpu_torch/
 csrc/<library>.cu`` into a temporary directory and runs this checkout's
 wrappers (``ops/rnn_fused.py``) with this checkout's library and with
 ``DIR``'s in its place (``cuda_lib.replaced``) on the same seeded inputs,
-f32 and bf16:
+f32 and bf16 (row 12 through ``ops/rnn_scan.py``):
 
 * row 2 and 2 alt, the GRU layer backward (``gru_bidir_bwd``): row 2 at
   the main path's shape (B=8, T=1920) and the bench shape (B=64, T=1024),
@@ -18,7 +18,10 @@ f32 and bf16:
   training shape (B=8, T=1920), row 1 at W_in 400, row 1 alt at 256 with
   keep 0.5 in its train form;
 * row 4, the LSTM layer backward (``lstm_bidir_bwd``), and row 6, the
-  merged GRU's (``gru_merged_bwd``): at the training shape, W_in 400.
+  merged GRU's (``gru_merged_bwd``): at the training shape, W_in 400;
+* row 3, the LSTM layer forward (``lstm_bidir_fwd``): as row 1, W_in 400;
+* row 12, the GRU scan's recompute backward (``gru_scan_bwd``): at the
+  training shape (B=8, T=1920), W 256 and 1024.
 
 Prints, for each, the outputs that differ (none when every output is equal
 bit for bit) and the card's name and power limit.  Exits non-zero when an
@@ -37,7 +40,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 # each row's library (csrc/<library>.cu)
 LIBRARY = {"2": "gru_bidir_bwd", "1": "gru_bidir_fwd",
-           "4": "lstm_bidir_bwd", "6": "gru_merged_bwd"}
+           "4": "lstm_bidir_bwd", "6": "gru_merged_bwd",
+           "3": "lstm_bidir_fwd", "12": "gru_scan_bwd"}
 
 
 def cases(row, chip_smoke, torch):
@@ -77,6 +81,23 @@ def cases(row, chip_smoke, torch):
                         fwd = P.gru_bidir_fwd(x, *ws, lengths, train=True)
                         yield label, P.gru_bidir_bwd, gru.bwd_args(
                             x, ws, lengths, fwd, dys)
+        elif row == "3":
+            for b, t_len, train in ((3, 1280, False), (8, 1920, True)):
+                form = "train" if train else "eval"
+                x, ws, lengths, _ = inputs(lstm, b, t_len, 400, dt)
+                yield (f"row 3 {form} {name} B={b} T={t_len} W_in=400",
+                       lambda *a, t=train: P.lstm_bidir_fwd(*a, train=t),
+                       (x, *ws, lengths))
+        elif row == "12":
+            from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
+
+            for w in (256, 1024):
+                gen = torch.Generator().manual_seed(w)
+                xg, wh, bh, dy, _ = chip_smoke.scan_inputs(
+                    [1920] * 8, 1920, w, dt, gen, "gru")
+                hp = RS._shift(RS.gru_scan_fwd(xg, wh, bh))
+                yield (f"row 12 {name} B=8 T=1920 W={w}", RS.gru_scan_bwd,
+                       (xg, hp, dy, wh, bh))
         elif row == "1":
             for b, t_len, train in ((3, 1280, False), (8, 1920, True)):
                 form = "train" if train else "eval"
@@ -113,7 +134,7 @@ def main(argv=None) -> int:
                     help="root of the other checkout")
     ap.add_argument("--rows", nargs="*", default=["2"], choices=list(LIBRARY),
                     help="the rows to hold: 2 (and 2 alt), 1 (and 1 alt), "
-                         "4, 6")
+                         "4, 6, 3, 12")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 

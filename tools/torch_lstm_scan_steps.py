@@ -3,7 +3,7 @@
 built and of copies with one part of the step taken out.  On one NVIDIA
 GPU:
 
-    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1|4|3|5]
+    python3 tools/torch_lstm_scan_steps.py [--kernel 13|9|15|1|4|3|5|11|7]
                                            [--root DIR]
                                            [--shapes B,T,W[,train] ...]
                                            [--builds NAME ...]
@@ -19,20 +19,23 @@ backward (``csrc/lstm_bidir_bwd.cu``, its chain; W is H, the layer's input
 400 wide, the whole call timed, its products off the chain included); 3,
 the bidirectional LSTM layer's forward (``csrc/lstm_bidir_fwd.cu``, as row
 1); 5, the merged GRU layer's forward (``PVA_RNN_SPLIT=0``: row 1's source
-and edits through the ``gru_merged_fwd`` wrapper, as row 1).
+and edits through the ``gru_merged_fwd`` wrapper, as row 1); 11, the GRU
+scan's saved-gates backward (``csrc/gru_scan_bwd.cu``, the chain, dwh and
+dbh's sum, as row 15); 7, the merged LSTM layer's forward (row 3's source
+and edits through the ``lstm_merged_fwd`` wrapper, as row 3).
 Builds that source from copies of ``DIR/pytorch_video_action_tpu_torch/
 csrc/`` (``DIR`` defaults to this checkout; another checkout of the same
 design, for example an earlier commit unpacked with ``git archive``, may be
 given) in a temporary directory: as it is, and once for each of the
 kernel's edited builds in ``KERNELS`` (the product taken out, the gate
 math taken out, the exchange between blocks or threads taken out, all of
-them; row 15 also dwh's launch taken out).  Each build runs ``DIR``'s
-wrapper of the kernel (``ops/rnn_scan.py``; rows 1, 3, 4 and 5
+them; rows 15 and 11 also dwh's launch taken out).  Each build runs ``DIR``'s
+wrapper of the kernel (``ops/rnn_scan.py``; rows 1, 3, 4, 5 and 7
 ``ops/rnn_fused.py``) on
 the same seeded inputs at each shape (defaults in ``KERNELS``), f32 and
 bf16, and prints its device time (CUDA events, ``chip_smoke.cuda_ms``) as
 µs a step, with the card's name and power limit and each shape's launch;
-rows 1, 3 and 5 also the device time of the build as it is by kernel (its
+rows 1, 3, 5 and 7 also the device time of the build as it is by kernel (its
 input projection and its recurrence, ``chip_smoke.part_ms``).  The edited builds
 compute wrong values and are timed only.  Exits non-zero without a card,
 or when the source no longer holds an edit's lines.  ``chip_smoke.py``
@@ -116,11 +119,15 @@ _L15_EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((st - 1) >> 1) & 1);\n"
                   "dv[r], bar);\n", "              (void)dst, (void)bar;\n"),
                  ("    } else if (a.NC == 1) {\n      __syncthreads();\n"
                   "    }\n", "    }\n")]
-_L15_DWH = [("                       cudaStream_t stream) {\n"
-             "  const int K = Tn * B;\n",
-             "                       cudaStream_t stream) {\n"
-             "  if (Tn > 0) return cudaSuccess;\n"
-             "  const int K = Tn * B;\n")]
+# (both dtypes' launches of dwh in the saved-gates entry)
+_L15_DWH = [("    err = rc::run_saved<float>(a, st, res, cp, dy, wh, dxg, "
+             "xbuf, gx != 0);\n    if (err == cudaSuccess)\n",
+             "    err = rc::run_saved<float>(a, st, res, cp, dy, wh, dxg, "
+             "xbuf, gx != 0);\n    if (err == cudaSuccess && Tn < 0)\n"),
+            ("                                       gx != 0);\n"
+             "    if (err == cudaSuccess)\n",
+             "                                       gx != 0);\n"
+             "    if (err == cudaSuccess && Tn < 0)\n")]
 
 # Row 1 (a block of 3H threads a (batch row, direction), each lane two
 # columns of wh over half the depth in registers, the halves added by a
@@ -230,6 +237,39 @@ _L3_EXCHANGE = [("""    if (s > 0) {
                  rc::peer_u32(bar0 + 8 * nb, g));
 """, "      (void)slot, (void)hq;\n")]
 
+# Row 11 (row 15's chain with 3W gradients a row and an idle fourth lane
+# group; dhg's sums for dbh; dwh on the tensor cores after the chain)
+_G11_PRODUCT = [("      product<T, RM, WIDE, GX, kVec>(\n"
+                 "          wr, w_s + tid, wh + (size_t)unit * G + c * a.W, 1,"
+                 "\n"
+                 "          dg_s + cur * RM * a.ldh + goff + s * a.LP, a, d0, "
+                 "pre);\n",
+                 "#pragma unroll\n      for (int r = 0; r < RM; ++r) pre[r] "
+                 "= dg_s[r];\n")]
+_G11_GATES = [("        const float dz = dh * (x.hp - x.n);\n"
+               "        const float dn = dh * (1.0f - x.z) * (1.0f - x.n * "
+               "x.n);\n"
+               "        dzc[r] = dh * x.z;\n"
+               "        const float d = g == 0   ? dn * x.hn * x.r * (1.0f - "
+               "x.r)\n"
+               "                        : g == 1 ? dz * x.z * (1.0f - x.z)\n"
+               "                        : g == 2 ? dn\n"
+               "                                 : dn * x.r;\n",
+               "        const float dz = dh + x.hp + x.n;\n"
+               "        dzc[r] = dh + x.z;\n"
+               "        const float d = dz + x.hn + x.r;\n")]
+# no wait and no remote store: the blocks run unpaced
+_G11_EXCHANGE = [("      bar_wait(bar0 + 8 * cur, ((st - 1) >> 1) & 1);\n"
+                  "      if (tid == 0 && st + 2 < a.Tn) bar_expect(bar0 + 8 * "
+                  "cur, bytes);\n", ""),
+                 ("              if (r < nb) send_h(dst + 4u * r * a.ldh, "
+                  "to_f(dq[r]), bar);\n",
+                  "              (void)dst, (void)bar;\n")]
+_G11_DWH = [("  if (err != cudaSuccess) return err;\n"
+             "  err = launch_scan_dwh<T>(",
+             "  if (err != cudaSuccess || a.Tn > 0) return err;\n"
+             "  err = launch_scan_dwh<T>(")]
+
 class Kernel(NamedTuple):
     """A kernel the tool takes apart: its source (and library) name under
     ``csrc/``, its wrapper in ``ops/<module>.py``, the edited builds and
@@ -279,11 +319,23 @@ KERNELS = {
                  "no exchange": _G1_EXCHANGE,
                  "skeleton": [*_G1_PRODUCT, *_G1_GATES, *_G1_EXCHANGE]},
                 ["3,1280,128", "8,1920,128,train"], "rnn_fused"),
+    "11": Kernel("gru_scan_bwd", "gru_scan_bwd_saved",
+                 {"no product": _G11_PRODUCT, "no gates": _G11_GATES,
+                  "no exchange": _G11_EXCHANGE, "no dwh": _G11_DWH,
+                  "skeleton": [*_G11_PRODUCT, *_G11_GATES, *_G11_EXCHANGE,
+                               *_G11_DWH]},
+                 ["8,1920,256", "8,1920,1024"]),
+    # row 7: row 3's recurrence with the merged body's addressing
+    "7": Kernel("lstm_bidir_fwd", "lstm_merged_fwd",
+                {"no product": _L3_PRODUCT, "no gates": _L3_GATES,
+                 "no exchange": _L3_EXCHANGE,
+                 "skeleton": [*_L3_PRODUCT, *_L3_GATES, *_L3_EXCHANGE]},
+                ["3,1280,128", "8,1920,128,train"], "rnn_fused"),
 }
 # the layer kernels' input width (layer 0's); the layer forwards' (rows 1,
 # 3 and 5) device time by kernel
 LAYER_W_IN = 400
-LAYER_FWDS = ("1", "3", "5")
+LAYER_FWDS = ("1", "3", "5", "7")
 LAYER_PARTS = {"proj_kernel": "projection", "recur_kernel": "recurrence"}
 
 
@@ -362,10 +414,10 @@ def kernel_call(kernel, chip_smoke, b, t_len, w, dt, train=False):
     fn = getattr(mod, KERNELS[kernel].wrapper)
     gen = torch.Generator().manual_seed(0)
     if kernel in LAYER_FWDS:  # a layer forward, row 5 on the merged body
-        cell = chip_smoke.Cell("lstm" if kernel == "3" else "gru")
+        cell = chip_smoke.Cell("lstm" if kernel in ("3", "7") else "gru")
         x, ws, lengths = chip_smoke.layer_inputs(cell, t_len, b, LAYER_W_IN,
                                                  dt, [t_len] * b, gen)
-        if kernel == "5":
+        if kernel in ("5", "7"):
             ws = cell.merged_weights(ws)
         return functools.partial(fn, train=train), (x, *ws, lengths)
     if kernel == "4":  # the backward of the train form's outputs
@@ -383,11 +435,14 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen):
     """A scan wrapper's seeded arguments on the card at one shape."""
     from pytorch_video_action_tpu_torch.ops import rnn_scan as RS
 
-    cell = "gru" if kernel == "9" else "lstm"
+    cell = "gru" if kernel in ("9", "11") else "lstm"
     xg, wh, bh, dy, _ = chip_smoke.scan_inputs([t_len] * b, t_len, w, dt,
                                                gen, cell)
     if kernel == "9":
         return xg, wh, bh
+    if kernel == "11":
+        ys, res = RS.gru_scan_fwd_save(xg, wh, bh)
+        return res, RS._shift(ys), dy, wh
     if kernel == "13":
         return xg, wh
     ys, cs, res = RS.lstm_scan_fwd_save(xg, wh)
@@ -397,7 +452,7 @@ def kernel_args(kernel, chip_smoke, b, t_len, w, dt, gen):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="13", choices=sorted(KERNELS),
-                    help="the kernel's row: 13, 9, 15, 1, 4, 3 or 5")
+                    help="the kernel's row: 13, 9, 15, 1, 4, 3, 5, 11 or 7")
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose kernel and wrapper are timed")
     ap.add_argument("--shapes", nargs="*",

@@ -5,13 +5,17 @@ NVIDIA GPU.
     python3 tools/torch_profile_train.py [--model bigru|bilstm|attn|ms_tcn|
                                                   vanilla_lstm]
                                          [--dtype float32|bfloat16]
+                                         [--cfg KEY=INT ...] [--root DIR]
                                          [--trace trace.json]
 
 Writes the seeded Breakfast-shaped dataset of ``chip_smoke.py`` (48 train
 videos of 500-2500 frames) into a temporary directory, builds the train
 CLI's feed (batch 8, bucket 128, the frozen-composition sampler with seed
 0) and a full-width model (bigru by default; vanilla_lstm at the train
-CLI's defaults, H=256, 2 layers) with seeded weights, runs one
+CLI's defaults, H=256, 2 layers; ``--cfg`` overrides fields of the
+model's config, ``build_model(..., cfg_overrides=...)``: ``--model bigru
+--cfg hidden_dim_1=512`` runs the bidirectional GRU on the GRU scan, H=256
+a direction) with seeded weights, runs one
 epoch of train steps to warm up and one more under ``torch.profiler``, and
 prints:
 
@@ -27,8 +31,10 @@ prints:
   path's int64-emulated dropout mask over ``[B, 4, T, T]``
   (``hashmask.keep_mask``) takes at those steps' shapes.
 
-Exits non-zero without a card or when the profiler records no device time.
-Imports nothing of JAX.
+``--root`` profiles another checkout's package (its ``chip_smoke.py``
+and ``pytorch_video_action_tpu_torch``, for example the parent commit
+unpacked with ``git archive``) with this tool.  Exits non-zero without a
+card or when the profiler records no device time.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import tempfile
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
 
 
 def main(argv=None) -> int:
@@ -51,9 +57,15 @@ def main(argv=None) -> int:
                              "vanilla_lstm"])
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
+    ap.add_argument("--cfg", nargs="*", default=[], metavar="KEY=INT",
+                    help="integer fields of the model's config to override")
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose package is profiled")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled epoch here")
     args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    overrides = {k: int(v) for k, v in (c.split("=") for c in args.cfg)}
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -74,7 +86,8 @@ def main(argv=None) -> int:
         feed, _ = chip_smoke.train_feeds(root)
         host_batches = list(feed)
     model = build_model(args.model, chip_smoke.N_CLASS,
-                        generator=torch.Generator().manual_seed(0))
+                        generator=torch.Generator().manual_seed(0),
+                        **({"cfg_overrides": overrides} if overrides else {}))
     trainer = Trainer(model, chip_smoke.N_CLASS, seed=0,
                       compute_dtype=args.dtype)
     ts = trainer.init_state()
@@ -91,7 +104,8 @@ def main(argv=None) -> int:
             trainer.train_step(ts, b)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    print(f"{args.model} train {args.dtype}: {len(batches)} steps, "
+    print(f"{args.model}{''.join(f' {c}' for c in args.cfg)} train "
+          f"{args.dtype} ({args.root}): {len(batches)} steps, "
           f"{n_frames} frames in "
           f"{wall_s:.6f} s = {n_frames / wall_s:.1f} frames/s (profiler on)")
 
